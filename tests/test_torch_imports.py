@@ -1,0 +1,57 @@
+"""The PyTorch port stands alone: importing it and every submodule loads
+neither JAX nor any module of the JAX package, and its entry points refuse
+to run on the CPU when they are asked for CUDA on a machine without a card."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import rsvldm_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(rsvldm_tpu_torch.__path__,
+                                               "rsvldm_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flax", "rsvldm_tpu") or m.startswith(
+                 ("jax.", "jaxlib", "flax.", "rsvldm_tpu.")))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "rsvldm_tpu_torch.pipeline" in out["modules"]
+    assert "rsvldm_tpu_torch.ops.flash_attention" in out["modules"]
+    assert out["bad"] == []
+
+
+def test_cuda_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the refusal cannot be shown")
+    from rsvldm_tpu_torch.config import PipelineConfig
+    from rsvldm_tpu_torch.device import resolve_device
+    from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SuperResolutionPipeline(PipelineConfig(no_llava=True), device="cuda")
+
+
+def test_caption_stage_is_refused_not_skipped():
+    from rsvldm_tpu_torch.config import PipelineConfig
+    from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
+    with pytest.raises(NotImplementedError, match="caption"):
+        SuperResolutionPipeline(PipelineConfig(), device="cpu")
