@@ -4,21 +4,29 @@
     python3 chip_smoke.py            # every phase, one NVIDIA GPU (sm_90a)
 
 Phases, each printed on its own line:
-  1. device   the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build    K1 (rsvldm_tpu_torch/csrc/flash_fwd.cu) with nvcc for sm_90a
-  3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and a few edge cases; kernel, plain and
-              library times, and the least time the card could take
+  1. device    the card's name and power limit (nvidia-smi), torch and CUDA
+  2. build     K1 (csrc/flash_fwd.cu) and K2 (csrc/int4_decode.cu) with nvcc
+               for sm_90a, one nvcc per source, started together
+  3. kernels   each kernel against its plain PyTorch version on the card, at
+               the main path's shapes and a few edge cases; kernel, plain and
+               library times, and the least time the card could take
   4. reference process() at a small width on the card (bf16, K1 in use)
-              against the same run in fp32 on the CPU: same weights, same
-              noise, PNGs within a stated uint8 tolerance
-  5. path     SuperResolutionPipeline.process() with no_llava at full width
-              (SR3 64-ch, SDXL XL-base + GLVControl, SDXL VAE, CLIP-L, bigG),
-              seeded random bf16 weights, a seeded 28x28 input: 224^2 Stage 1,
-              1024^2 (128^2 latent) Stage 2b. Kernel launch counts are reset
-              just before and read just after.
-  6. profile  (--profile) one cache-miss and one cache-hit denoising step
-              under torch.profiler: device time by kernel, idle share
+               against the same run in fp32 on the CPU: same weights, same
+               noise, PNGs within a stated uint8 tolerance; then a
+               small-width caption, int4 and int8, card against CPU: same
+               quantized weights and prompt, prefill + 8 decode steps
+               teacher-forced with the CPU's tokens, logit cosine and top-1
+               agreement per step (K1 and K2 in use)
+  5. path      SuperResolutionPipeline.process() with the caption stage at
+               full width (SR3 64-ch, LLaVA-NeXT-8B geometry: CLIP-L/336 +
+               mlp2x_gelu + Llama-3-8B with an int4 decoder, 256 new tokens
+               sampled at T=0.2; SDXL XL-base + GLVControl, SDXL VAE, CLIP-L,
+               bigG), seeded random weights, a stand-in tokenizer, a seeded
+               28x28 input: 224^2 Stage 1, 1024^2 (128^2 latent) Stage 2b.
+               Kernel launch counts are reset just before and read just
+               after.
+  6. profile   (--profile) one cache-miss and one cache-hit denoising step
+               under torch.profiler: device time by kernel, idle share
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}, printed only when every phase passed.
 Exits non-zero, with no result, when there is no CUDA card or the port's
@@ -29,14 +37,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12  # HBM3 bandwidth, H100 SXM data sheet
+H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak, H100 SXM data sheet
 
 REPO = Path(__file__).resolve().parent
 SEED = 0  # weights, input image and noise are all made from it
@@ -53,12 +65,73 @@ K1_ATOL, K1_RTOL, K1_RMS_TOL = 4e-3, 2e-2, 1e-2
 K1_LSE_TOL = 1e-4  # lse is fp32 on both sides
 # K1 sites per denoising step of the full-width XL-base UNet + GLVControl:
 # 34 in GLVControl, 24 in the UNet input blocks, 48 in `rest`. A cache hit
-# runs GLVControl and the input blocks only.
-K1_PER_MISS, K1_PER_HIT = 106, 58
+# runs GLVControl and the input blocks only. The Llama-3-8B prefill (about
+# 1280 tokens) adds one per layer.
+K1_PER_MISS, K1_PER_HIT, K1_PER_CAPTION = 106, 58, 32
+# K2 launches per decode step: 7 projections in each of 32 layers + lm_head
+K2_PER_STEP = 32 * 7 + 1
+# K2 against its plain version, both fp32 sums of exact int32 group sums
+# that differ only in order: per element |err| <= K2_RTOL * sum_g |term_g|
+# + K2_ATOL, where term_g = xs*ws*acc of group g (the fp32 rounding bound of
+# up to 112 terms summed in two orders is about 1.3e-5 of that sum). An
+# H100 gave |err| <= 1.5e-6, at most 0.03 of this limit, at the decode
+# shapes; a K2 that drops one contraction split exceeds it 7000-93000 times.
+K2_RTOL, K2_ATOL = 1e-5, 1e-6
+# Caption reference, bf16 on the card against fp32 on the CPU, teacher-
+# forced: per step, the cosine of the two logit vectors and whether their
+# argmaxes agree. With the same quantized bytes on both sides an H100 gave
+# cosines 0.99974-0.99981 (int4) and 0.99965-0.99971 (int8), argmaxes equal
+# at 9/9 and 7/9 positions (random weights leave near-ties among 128256
+# logits); a K2 that drops one contraction split gives 0.35. The limits
+# leave about 6x margin on 1 - cos and allow four flips in nine.
+CAP_COS_MIN, CAP_TOP1_MIN = 0.998, 0.5
+LLAMA3_SPECIAL = {"<|begin_of_text|>": 128000, "<|start_header_id|>": 128006,
+                  "<|end_header_id|>": 128007, "<|eot_id|>": 128009}
+
+
+class StandInTokenizer:
+    """Llama-3 special-token strings to their ids, every other
+    whitespace-separated word to a crc32 bucket below them, so a prompt has
+    about its BPE length. decode writes bucket ids as words."""
+
+    _split = re.compile("(" + "|".join(map(re.escape, LLAMA3_SPECIAL)) + ")")
+
+    def encode(self, text, add_special_tokens=False):
+        ids = []
+        for part in self._split.split(text):
+            if part in LLAMA3_SPECIAL:
+                ids.append(LLAMA3_SPECIAL[part])
+            else:
+                ids += [zlib.crc32(w.encode()) % 128000 for w in part.split()]
+        return ids
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"w{i}" for i in ids if i < 128000)
 
 
 def _say(phase: str, **kw):
     print(f"[{phase}] " + json.dumps(kw, sort_keys=True), flush=True)
+
+
+def _graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of `fn`: `iters` calls captured in a CUDA
+    graph and replayed, so host-side launch costs drop out."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -95,14 +168,22 @@ def phase_device():
 
 # --------------------------------------------------------------- phase 2
 def phase_build():
-    from rsvldm_tpu_torch.ops.flash_attention import SOURCE
+    from rsvldm_tpu_torch.ops import flash_attention, quant
     from rsvldm_tpu_torch.utils import cuda_build
+
+    def build(source):
+        t0 = time.perf_counter()
+        log = cuda_build.build(source)
+        return source, log, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    log = cuda_build.build(SOURCE)
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    _say("build", source=SOURCE, ptxas=ptxas,
-         seconds=round(time.perf_counter() - t0, 3))
+    with ThreadPoolExecutor(2) as pool:
+        done = list(pool.map(build, (flash_attention.SOURCE, quant.SOURCE)))
+    for source, log, seconds in done:
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        _say("build", source=source, ptxas=ptxas, seconds=round(seconds, 3))
+    _say("build", all_seconds=round(time.perf_counter() - t0, 3))
 
 
 # --------------------------------------------------------------- phase 3
@@ -190,8 +271,92 @@ def _flash_case(name, b, sq, sk, h, d, *, causal=False, kv_len=None,
     return rec
 
 
+def _k2_case(name, r, inf, out, *, main_path=False):
+    """K2 (through int4_matmul, the wrapper that launches it) against
+    int4_matmul_ref on the same bf16 input and int4 weights."""
+    import torch
+    from rsvldm_tpu_torch.ops import quant
+    gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
+    w = torch.randn((inf, out), generator=gen, device="cuda") * inf ** -0.5
+    ql = quant.quantize_weight_int4(w)
+    del w
+    x = torch.randn((r, inf), generator=gen, device="cuda").to(torch.bfloat16)
+    n_launch = quant.int4_matmul.launches
+    y = quant.int4_matmul(x, ql, torch.float32)
+    torch.cuda.synchronize()
+    launched = quant.int4_matmul.launches == n_launch + 1
+    ref = quant.int4_matmul_ref(x, ql)
+    # sum over groups of |xs * ws * acc|: the scale of the fp32 sums
+    xq, xs = quant.quantize_acts_grouped(x, quant.K2_GROUP)
+    q = quant.unpack_int4(ql.packed).reshape(inf // quant.K2_GROUP,
+                                             quant.K2_GROUP, out)
+    mag = torch.zeros_like(ref)
+    for g in range(q.shape[0]):
+        mag += (xq[:, g].float() @ q[g].float()).abs() * xs[:, g] * ql.scale[g]
+    err = (y - ref).abs()
+    tol = K2_RTOL * mag + K2_ATOL
+    ok = bool(launched and (err <= tol).all() and torch.isfinite(y).all())
+    rec = dict(case=name, shape=[r, inf, out], max_abs_err=float(err.max()),
+               max_err_over_tol=float((err / tol).max()),
+               max_abs_ref=float(ref.abs().max()),
+               tol=f"|err| <= {K2_RTOL}*sum|terms| + {K2_ATOL}")
+    nbytes = (r * inf * 2 + ql.packed.numel() + ql.scale.numel() * 4
+              + r * out * 4)
+    ops = 2.0 * r * inf * out
+    rec["bound_ms"] = max(nbytes / H100_HBM_BYTES, ops / H100_INT8_OPS) * 1e3
+    rec["bound_by"] = ("bytes" if nbytes / H100_HBM_BYTES
+                       >= ops / H100_INT8_OPS else "operations")
+    # the kernel alone on fixed quantized activations, device time
+    xq2, xs2 = xq.reshape(r, inf), xs.reshape(r, -1)
+    rec["ms"] = _graph_ms(lambda: quant._k2(xq2, xs2, ql))
+    rec["wrapper_ms"] = _time_ms(lambda: quant.int4_matmul(x, ql, torch.float32),
+                                 20)
+    quant.int4_matmul.launches = n_launch  # comparison launches not counted
+    rec["plain_ms"] = _time_ms(lambda: quant.int4_matmul_ref(x, ql), 3,
+                               warmup=1)
+    rec["gbps"] = nbytes / (rec["ms"] * 1e-3) / 1e9
+    rec.update(_k2_library(x, ql, ref))
+    rec["ok"] = ok
+    rec["main_path"] = main_path
+    _say("kernels", **rec)
+    return rec
+
+
+def _k2_library(x, ql, ref):
+    """Yardstick, never called by the port: PyTorch's int4 weight-only
+    product (tinygemm) on the same int4 weights repacked, bf16 activations
+    (no activation quantization, so its error vs ref is reported, not
+    held); torch.matmul against the bf16-dequantized weight where that op
+    is missing or refuses the shape."""
+    import torch
+    from rsvldm_tpu_torch.ops import quant
+    inf, out = 2 * ql.packed.shape[0], ql.packed.shape[1]
+    gb = ql.scale.shape[0]
+    q = quant.unpack_int4(ql.packed)                       # [in, out]
+    try:
+        u = (q.t().to(torch.int32) + 8)                    # [out, in] 1..15
+        packed = (u[:, 0::2] << 4 | u[:, 1::2]).to(torch.uint8).contiguous()
+        w4 = torch._convert_weight_to_int4pack(packed, 8)
+        sz = torch.stack([ql.scale, torch.zeros_like(ql.scale)], -1)
+        sz = sz.to(torch.bfloat16).contiguous()            # [Gb, out, 2]
+        call = lambda: torch._weight_int4pack_mm(x, w4, inf // gb, sz)
+        which = "torch._weight_int4pack_mm"
+        y = call()
+    except (RuntimeError, AttributeError, TypeError) as e:
+        wd = (q.float() * ql.scale.repeat_interleave(inf // gb, 0)).to(x.dtype)
+        call = lambda: torch.matmul(x, wd)
+        which = f"torch.matmul on the bf16-dequantized weight ({e!r:.80})"
+        y = call()
+    torch.cuda.synchronize()
+    return dict(library=which, library_ms=_time_ms(call, 20),
+                library_max_abs_err_vs_ref=float((y.float() - ref).abs().max()))
+
+
 def phase_kernels():
+    from rsvldm_tpu_torch.device import resolve_device
     from rsvldm_tpu_torch.ops.flash_attention import flash_attention
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+    resolve_device("cuda")  # full-fp32 matmuls: the plain versions are exact
     flash_attention.launches = 0
     cases = [
         # the slice's shapes: SDXL self-attention at 64^2 and 32^2 latents
@@ -199,9 +364,10 @@ def phase_kernels():
                     main_path=True),
         _flash_case("sdxl_s1024", 2, 1024, 1024, 20, 64, timed=True,
                     main_path=True),
-        # Llama prefill shape of the caption slice
-        _flash_case("causal_d128", 1, 2048, 2048, 32, 128, causal=True,
-                    timed=True),
+        # the Llama-3-8B prefill of a 224^2 caption (1176 image tokens + the
+        # chat prompt, padded to 1280), causal, GQA repeated to 32 heads
+        _flash_case("llama_prefill_s1280", 1, 1280, 1280, 32, 128,
+                    causal=True, timed=True, main_path=True),
         _flash_case("causal_sq_lt_sk", 1, 300, 700, 4, 64, causal=True),
         _flash_case("causal_sq_gt_sk", 1, 700, 300, 4, 64, causal=True,
                     lse=True),
@@ -210,8 +376,24 @@ def phase_kernels():
         _flash_case("ragged_causal_lse", 1, 513, 1100, 2, 64, causal=True,
                     kv_len=1000, lse=True),
     ]
+    int4_matmul.launches = 0
+    k2 = [
+        # one Llama-3-8B decode step (R = 1): q/o, k/v, gate/up, down, lm_head
+        _k2_case("q_o_proj", 1, 4096, 4096, main_path=True),
+        _k2_case("k_v_proj", 1, 4096, 1024, main_path=True),
+        _k2_case("gate_up_proj", 1, 4096, 14336, main_path=True),
+        _k2_case("down_proj", 1, 14336, 4096, main_path=True),
+        _k2_case("lm_head", 1, 4096, 128256, main_path=True),
+        _k2_case("rows_8", 8, 4096, 4096),
+        _k2_case("rows_32", 32, 4096, 4096),
+        # out not a multiple of the 512-column tile; out % 16 != 0 takes the
+        # byte loads
+        _k2_case("ragged_out_4144", 1, 4096, 4144),
+        _k2_case("ragged_out_1000", 3, 512, 1000),
+    ]
     flash_attention.launches = 0
-    return cases
+    int4_matmul.launches = 0
+    return cases, k2
 
 
 # --------------------------------------------------------------- phase 4
@@ -295,13 +477,108 @@ def phase_reference(seed: int):
     return rec
 
 
+def phase_caption_reference(seed: int, quant: str, steps: int = 8):
+    """A small-width caption on the card (bf16) against the same captioner
+    on the CPU (fp32): dense weights rounded to bf16 so that both sides
+    quantize the same values to the same bytes, the same 224^2 image and
+    prompt; the prefill (1280 tokens: K1) then `steps` decode steps (R = 1:
+    K2 for int4) fed the CPU's greedy tokens on both sides."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.config import REFERENCE_IMG_PROMPT
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.models.vlm.captioner import (NEWLINE_KEY,
+                                                       PROJECTOR_PREFIX,
+                                                       VISION_PREFIX,
+                                                       LlavaCaptioner)
+    from rsvldm_tpu_torch.models.vlm.llama import KVCache, LlamaConfig
+    from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig
+    from rsvldm_tpu_torch.ops.flash_attention import flash_attention
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+
+    # K2's conditions (dim and ffn multiples of 256, group 128) and D = 128
+    lcfg = LlamaConfig(vocab_size=128256, dim=512, layers=2, heads=4,
+                       kv_heads=2, ffn_dim=1024)
+    vcfg = CLIPVisionConfig(width=64, layers=2, heads=1)
+    tok = StandInTokenizer()
+    dense = LlavaCaptioner.seeded(lcfg, vcfg, tok)
+    sd = {**dense.llama.state_dict(),
+          **{VISION_PREFIX + k: v for k, v in dense.vision.state_dict().items()},
+          **{PROJECTOR_PREFIX + k: v
+             for k, v in dense.projector.state_dict().items()},
+          NEWLINE_KEY: dense.image_newline}
+    sd = {k: v.to(torch.bfloat16).float() for k, v in sd.items()}
+    caps = {dev: LlavaCaptioner.from_state_dict(
+        sd, lcfg, vcfg, tok, quant=quant, device=dev,
+        dtype=torch.float32 if dev == "cpu" else torch.bfloat16)
+        for dev in ("cpu", "cuda")}
+    same_bytes = all(
+        torch.equal(v.cpu(), caps["cpu"].llama.state_dict()[k])
+        for k, v in caps["cuda"].llama.state_dict().items()
+        if v.dtype == torch.int8)
+    rng = np.random.default_rng(seed + 2)
+    img = Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
+    prompt = gen.llama3_chat_prompt(
+        REFERENCE_IMG_PROMPT.format(DEFAULT_IMAGE_TOKEN="<image>"))
+    encode = lambda t: tok.encode(t)
+    toks = None
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        cap = caps[dev]
+        flash_attention.launches = int4_matmul.launches = 0
+        with torch.inference_mode():
+            emb = gen.embed_multimodal_prompt(
+                cap.llama, cap.vision, cap.projector, prompt, [img], encode,
+                cap.image_newline, vcfg.image_size)
+            s = emb.shape[0]
+            s_pad = -(-s // 128) * 128
+            cache = KVCache.init(lcfg, 1, s_pad + steps + 1,
+                                 dtype=cap.llama.dtype, device=dev)
+            lg, cache = cap.llama(
+                torch.nn.functional.pad(emb, (0, 0, 0, s_pad - s))[None],
+                cache, 0)
+            rows = [lg[0, s - 1]]
+            if toks is None:
+                toks = [int(rows[0].argmax())]
+            for i in range(steps):
+                e = cap.llama.embed(torch.tensor([[toks[i]]], device=dev))
+                lg, cache = cap.llama(e, cache, s + i)
+                rows.append(lg[0, -1])
+                if dev == "cpu":
+                    toks.append(int(lg[0, -1].argmax()))
+        torch.cuda.synchronize()
+        logits[dev] = torch.stack(rows).float().cpu()
+        launches = dict(k1=flash_attention.launches, k2=int4_matmul.launches)
+    a, b = logits["cpu"], logits["cuda"]
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+    top1 = (a.argmax(-1) == b.argmax(-1)).float()
+    rec = dict(quant=quant, prompt_len=s, padded_len=s_pad, steps=steps,
+               cos=[round(float(c), 6) for c in cos],
+               top1=[int(t) for t in top1], same_quantized_bytes=same_bytes,
+               card_launches=launches,
+               tol=f"cos >= {CAP_COS_MIN} every step, top-1 agreement >= "
+                   f"{CAP_TOP1_MIN}")
+    rec["ok"] = bool(same_bytes and s_pad >= 1024
+                     and launches["k1"] == lcfg.layers
+                     and (quant != "int4"
+                          or launches["k2"] == steps * (7 * lcfg.layers + 1))
+                     and float(cos.min()) >= CAP_COS_MIN
+                     and float(top1.mean()) >= CAP_TOP1_MIN)
+    flash_attention.launches = int4_matmul.launches = 0
+    _say("reference", **rec)
+    return rec
+
+
 # --------------------------------------------------------------- phase 5
 def phase_path(seed: int):
     import numpy as np
     import torch
     from PIL import Image
-    from rsvldm_tpu_torch.config import PipelineConfig
+    from rsvldm_tpu_torch.config import LlavaConfig, PipelineConfig
+    from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
     from rsvldm_tpu_torch.ops.flash_attention import flash_attention
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
     from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -310,23 +587,37 @@ def phase_path(seed: int):
     Image.fromarray(lr).save(work / "lr.png")
     cfg = PipelineConfig(input_img=str(work / "lr.png"),
                          output_dir=str(work / "out"), upscale=8, seed=seed,
-                         no_llava=True)
+                         llava=LlavaConfig(quant="int4"))
     t0 = time.perf_counter()
-    pipe = SuperResolutionPipeline(cfg, device="cuda")
+    # LLaVA-NeXT-8B geometry (the config defaults), seeded bf16 weights
+    # quantized to int4 on the card module by module
+    captioner = LlavaCaptioner.seeded(tokenizer=StandInTokenizer(),
+                                      quant=cfg.llava.quant, device="cuda",
+                                      dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    caption_init_s = time.perf_counter() - t0
+    pipe = SuperResolutionPipeline(cfg, device="cuda", captioner=captioner)
     pipe.ensure_stage2()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for m in (pipe.sr3, pipe.unet, pipe.control,
                                        pipe.vae, pipe.clip_l, pipe.big_g)
                    for p in m.parameters())
+    caption_bytes = sum(t.numel() * t.element_size()
+                        for m in (captioner.llama, captioner.vision,
+                                  captioner.projector)
+                        for t in [*m.parameters(), *m.buffers()])
     torch.cuda.reset_peak_memory_stats()
 
     flash_attention.launches = 0
+    int4_matmul.launches = 0
     t0 = time.perf_counter()
     pipe.process()
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = flash_attention.launches
+    k2_launches = int4_matmul.launches
+    cs = pipe.caption_stats
 
     sr = np.asarray(Image.open(work / "out" / "sr3_lr.png"))
     fin = np.asarray(Image.open(work / "out" / "lr_final_0.png"))
@@ -337,14 +628,28 @@ def phase_path(seed: int):
                edm_steps=cfg.refine.edm_steps, dfb_hits=dfb["hits"],
                dfb_steps=dfb["steps"],
                dfb_trace="".join("H" if x else "." for x in dfb["trace"]),
-               flash_fwd_launches=launches,
+               flash_fwd_launches=launches, int4_decode_launches=k2_launches,
+               caption_init_s=round(caption_init_s, 3),
+               caption_weights_gib=round(caption_bytes / 2**30, 3),
+               caption_s=round(pipe.timings.get("caption", 0.0), 3),
+               prompt_len=cs.get("prompt_len"), padded_len=cs.get("padded_len"),
+               prefill_s=round(cs.get("prefill_s", 0.0), 3),
+               decode_s=round(cs.get("decode_s", 0.0), 3),
+               decode_steps=cs.get("decode_steps"),
+               decode_tok_s=round(cs["decode_steps"] / cs["decode_s"], 2)
+               if cs.get("decode_s") else None,
+               caption_words=len(pipe.last_caption.split()),
                peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
                sr3_png=list(sr.shape), final_png=list(fin.shape),
                outputs_finite=pipe.outputs_finite,
                sr3_std=float(sr.std()), final_std=float(fin.std()))
     misses = dfb["steps"] - dfb["hits"]
-    rec["expected_launches"] = misses * K1_PER_MISS + dfb["hits"] * K1_PER_HIT
+    rec["expected_launches"] = (misses * K1_PER_MISS + dfb["hits"] * K1_PER_HIT
+                                + K1_PER_CAPTION)
+    rec["expected_k2_launches"] = K2_PER_STEP * (cs.get("decode_steps") or 0)
     ok = bool(launches == rec["expected_launches"] > 0
+              and k2_launches == rec["expected_k2_launches"] > 0
+              and cs.get("padded_len", 0) >= 1024
               and sr.shape == (224, 224, 3)
               and fin.shape == (224, 224, 3)
               and all(pipe.outputs_finite.values())
@@ -358,13 +663,16 @@ def phase_path(seed: int):
 def phase_profile(pipe, iters: int = 3):
     """One cache-miss step (GLVControl + UNet input blocks + rest + CFG) and
     one cache-hit step (GLVControl + input blocks) of the 128^2-latent
-    RestoreEDM loop, CFG batch 2: wall time per step, device time by kernel
-    under torch.profiler, K1's share, and the device's idle share."""
+    RestoreEDM loop, CFG batch 2, and one int4 decode step of the caption
+    (position 1300 of a 1536-slot cache): wall time per step, device time by
+    kernel under torch.profiler, K1's or K2's share, and the device's idle
+    share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from rsvldm_tpu_torch.diffusion.guidance import apply_cfg
     from rsvldm_tpu_torch.models.sdxl.denoiser import ControlDenoiser
+    from rsvldm_tpu_torch.models.vlm.llama import KVCache
 
     dev, cfg = pipe.device, pipe.sdxl_cfg
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -374,9 +682,13 @@ def phase_profile(pipe, iters: int = 3):
                 vector=rnd(2, cfg.adm_in_channels), control=rnd(2, 4, 128, 128))
     x, sigma = rnd(2, 4, 128, 128), torch.full((2,), 5.0, device=dev)
     den = ControlDenoiser(unet=pipe.unet, control_net=pipe.control)
+    llama = pipe.llava.llama
+    kv = KVCache.init(llama.cfg, 1, 1536, dtype=llama.dtype, device=dev)
+    tok = torch.tensor([[1000]], device=dev)
     steps = {"miss": lambda: apply_cfg(den.rest(den.first(x, sigma, cond), cond,
                                                 1.0), 7.5),
-             "hit": lambda: den.first(x, sigma, cond).h}
+             "hit": lambda: den.first(x, sigma, cond).h,
+             "decode": lambda: llama(llama.embed(tok), kv, 1300)[0]}
     out = {}
     with torch.inference_mode():
         for name, fn in steps.items():
@@ -399,16 +711,17 @@ def phase_profile(pipe, iters: int = 3):
             kernels = [(k, t, c) for k, t, c, on_dev in avgs if on_dev]
             ops = [(k, t, c) for k, t, c, on_dev in avgs if not on_dev]
             dev_ms = sum(t for _, t, _ in kernels)
-            k1 = [(t, c) for k, t, c in kernels if "flash_fwd_kernel" in k]
-            k1_ms = sum(t for t, _ in k1)
+            mine = "int4_decode_kernel" if name == "decode" else "flash_fwd_kernel"
+            hand = [(t, c) for k, t, c in kernels if mine in k]
+            hand_ms = sum(t for t, _ in hand)
             top = lambda rows: [[k[:80], round(t, 3), c] for k, t, c in
                                 sorted(rows, key=lambda r: -r[1])[:10]]
             out[name] = dict(wall_ms=round(wall_ms, 3),
                              device_ms=round(dev_ms, 3),
                              device_idle_share=round(1 - dev_ms / wall_ms, 4),
-                             k1_ms=round(k1_ms, 3),
-                             k1_launches=sum(c for _, c in k1),
-                             k1_share_of_device=round(k1_ms / dev_ms, 4)
+                             hand_kernel=mine, hand_ms=round(hand_ms, 3),
+                             hand_launches=sum(c for _, c in hand),
+                             hand_share_of_device=round(hand_ms / dev_ms, 4)
                              if dev_ms else None,
                              kernel_launches=sum(c for _, _, c in kernels),
                              top_kernels=top(kernels), top_ops=top(ops))
@@ -438,9 +751,11 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     phase_build()
-    cases = phase_kernels()
-    ok = all(c["ok"] for c in cases)
+    cases, k2 = phase_kernels()
+    ok = all(c["ok"] for c in cases + k2)
     ok = phase_reference(SEED)["ok"] and ok
+    for quant in ("int4", "int8"):
+        ok = phase_caption_reference(SEED, quant)["ok"] and ok
     path = None
     if not args.skip_path:
         path, pipe = phase_path(SEED)
@@ -449,22 +764,30 @@ def main(argv=None) -> int:
             phase_profile(pipe)
         del pipe
 
-    head = cases[0]
-    report = {"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "rsvldm_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "rsvldm_tpu/ops/flash_attention.py:67",
-        "launches": path["flash_fwd_launches"] if path else 0,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shapes": [{k: c.get(k) for k in ("case", "shape", "causal", "ms",
-                                          "plain_ms", "bound_ms",
-                                          "library_ms", "tflops",
-                                          "max_abs_err")}
-                   for c in cases if "ms" in c],
-        "card": smi}]}
+    def entry(name, source, replaces, launches, rows, keys):
+        head = rows[0]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in rows),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"],
+                "shapes": [{k: c.get(k) for k in keys} for c in rows
+                           if "ms" in c],
+                "card": smi}
+
+    report = {"kernels": [
+        entry("flash_fwd", "rsvldm_tpu_torch/csrc/flash_fwd.cu",
+              "rsvldm_tpu/ops/flash_attention.py:67",
+              path["flash_fwd_launches"] if path else 0, cases,
+              ("case", "shape", "causal", "ms", "plain_ms", "bound_ms",
+               "library_ms", "tflops", "max_abs_err")),
+        entry("int4_decode", "rsvldm_tpu_torch/csrc/int4_decode.cu",
+              "rsvldm_tpu/ops/quant.py:185",
+              path["int4_decode_launches"] if path else 0, k2,
+              ("case", "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+               "library", "library_ms", "gbps", "max_abs_err",
+               "max_err_over_tol"))]}
     print(json.dumps(report), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -1,9 +1,10 @@
 """Pipeline configuration: the port's own copy of rsvldm_tpu/config.py.
 
 Same dataclasses and defaults as the JAX package's Stage1Config,
-RefinementConfig and PipelineConfig. LlavaConfig only carries what this
-slice needs: the caption stage is not ported yet, so process() requires
-no_llava.
+LlavaConfig, RefinementConfig and PipelineConfig, the reference image
+prompt and the prompt-file reader. LlavaConfig's fields for speculative
+decoding, LoRA archives and projector archives are not ported yet and are
+refused when set away from their defaults.
 """
 
 from __future__ import annotations
@@ -30,10 +31,73 @@ class Stage1Config:
     ddim_eta: float = 0.0
 
 
+# prompts/prompt_config.yaml img_prompt, verbatim (YAML folded scalar: the
+# source's line breaks fold to spaces and a single trailing newline remains;
+# the hyphen in "aerial‐image" is U+2010 exactly as in the reference file)
+REFERENCE_IMG_PROMPT = (
+    "{DEFAULT_IMAGE_TOKEN} As an expert aerial‐image analyst, describe "
+    "every visible detail: terrain and land use, vegetation patterns, water "
+    "bodies, roads and buildings, textures, colors, shadows, spatial "
+    "relationships, and any human activity. Be precise yet concise.\n")
+
+
+def load_prompt_yaml(path) -> str:
+    """img_prompt of a prompt_config.yaml: pyyaml when installed, else a
+    minimal folded-scalar parser."""
+    text = Path(path).read_text()
+    try:
+        import yaml
+        return yaml.safe_load(text)["img_prompt"]
+    except ImportError:
+        out, folding, seen = [], False, False
+        for ln in text.splitlines():
+            if ln.startswith("img_prompt:"):
+                seen = True
+                rest = ln.split(":", 1)[1].strip()
+                if rest == ">":
+                    folding = True
+                else:
+                    return rest
+            elif folding:
+                if ln.startswith((" ", "\t")):
+                    out.append(ln.strip())
+                elif ln.strip():
+                    break
+        if not seen:  # as the pyyaml path: a KeyError, never ""
+            raise KeyError("img_prompt")
+        return " ".join(out) + "\n"
+
+
 @dataclasses.dataclass
 class LlavaConfig:
-    """Stage-2a captioning: a stub until the caption slice is ported; the
-    pipeline requires PipelineConfig.no_llava."""
+    """Stage-2a captioning (infer.py:145-166, prompts/prompt_config.yaml)."""
+    max_new_tokens: int = 256
+    temperature: float = 0.2
+    do_sample: bool = True
+    img_prompt: str = REFERENCE_IMG_PROMPT
+    prompt_yaml: str = ""          # optional external prompt file override
+    quant: str = "int8"            # "int8" | "int4" | "" (dense)
+    # not ported yet: set away from their defaults they raise
+    draft_dir: str = ""
+    spec_k: int = 4
+    self_draft_layers: int = 0
+    lora_npz: str = ""
+    projector_npz: str = ""
+
+    def __post_init__(self):
+        if self.quant not in ("int8", "int4", ""):
+            raise ValueError(f"LlavaConfig.quant={self.quant!r}: expected "
+                             "'int8', 'int4' or ''")
+        for name, default in (("draft_dir", ""), ("spec_k", 4),
+                              ("self_draft_layers", 0), ("lora_npz", ""),
+                              ("projector_npz", "")):
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"LlavaConfig.{name}: this caption option is not ported "
+                    "yet (speculative decoding, LoRA and projector archives "
+                    "are queued)")
+        if self.prompt_yaml:
+            self.img_prompt = load_prompt_yaml(self.prompt_yaml)
 
 
 @dataclasses.dataclass

@@ -1,0 +1,227 @@
+"""Weight-only int8 / int4 products (rsvldm_tpu/ops/quant.py) and the K2
+kernel.
+
+int8: weights [in, out] with per-output-channel fp32 scales, activations
+quantized per token, an exact s8 x s8 -> s32 product (`torch._int_mm`) and
+both scales on the int32 accumulator.
+
+int4: two nibbles per byte in the JAX package's plane layout, byte for
+byte, so quantized weights interchange: packed int8 [in/2, out], row j holds
+weight row j in the low nibble stored +8 and row j + in/2 in the high nibble,
+signed. Scales are fp32 [in/group, out]. Activations are quantized per (row,
+group), every group sum is an exact integer, both scales apply to it, and
+the groups are summed in fp32. `int4_matmul` takes K2
+(`csrc/int4_decode.cu`, built with nvcc at first use and bound with ctypes)
+for CUDA calls with at most 32 rows, group 128 and in % 256 == 0, the decode
+steps; everything else, the prefill and every CPU call, takes
+`int4_matmul_grouped`. `int4_matmul_ref` is K2's plain version.
+
+Exactness: a group sum reaches 127 * 8 * 128 = 130048 < 2**24, so a float32
+product of the integer-valued operands gives it exactly (TF32 is off, see
+device.py); an int8 row sum over 4096 inputs does not fit 24 bits, so the
+int8 path takes the int32 product.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..utils import cuda_build
+
+SOURCE = "int4_decode.cu"
+K2_GROUP = 128
+K2_MAX_ROWS = 32
+
+
+class QuantizedLinear(NamedTuple):
+    """Per-output-channel symmetric int8: q int8 [in, out], scale fp32
+    [out], w ~= q * scale."""
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+class Int4Linear(NamedTuple):
+    """Plane-packed int4: packed int8 [in/2, out], scale fp32
+    [in/group, out]; group = in // scale.shape[0]."""
+    packed: torch.Tensor
+    scale: torch.Tensor
+
+
+def _div(t: torch.Tensor, d: float) -> torch.Tensor:
+    """t / d, correctly rounded on every device: CUDA divides by a Python
+    number as a multiply by its reciprocal, which can differ in the last
+    bit, and then the quantized bytes would depend on the device."""
+    return t / torch.full((), d, dtype=t.dtype, device=t.device)
+
+
+def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
+    """Symmetric absmax int8 per output channel; w [in, out] (any strides:
+    the result is contiguous)."""
+    wf = w.float().contiguous()
+    scale = _div(wf.abs().amax(dim=0, keepdim=True), 127.0).clamp_min(1e-12)
+    q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
+    return QuantizedLinear(q, scale.reshape(-1))
+
+
+def quantize_acts(x: torch.Tensor):
+    """Per-token (last axis) symmetric absmax int8 -> (xq int8, xs fp32
+    with a trailing 1)."""
+    xf = x.float()
+    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
+
+
+def int8_matmul(x: torch.Tensor, w: QuantizedLinear,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = x @ dequant(w): exact int32 product, scales on the accumulator.
+    CUDA's int8 GEMM wants more than 16 rows, so short inputs are padded."""
+    xq, xs = quantize_acts(x)
+    lead, inf = xq.shape[:-1], xq.shape[-1]
+    a = xq.reshape(-1, inf)
+    r = a.shape[0]
+    if a.is_cuda and r <= 16:
+        a = F.pad(a, (0, 0, 0, 17 - r))
+    acc = torch._int_mm(a, w.q)[:r]
+    y = acc.float() * xs.reshape(r, 1) * w.scale
+    return y.reshape(*lead, -1).to(out_dtype)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 [in, out] with values in [-8, 7] -> int8 [in/2, out], plane
+    layout."""
+    half = q.shape[0] // 2
+    lo = (q[:half].to(torch.int8) + 8) & 0xF
+    hi = q[half:].to(torch.int8)
+    return ((hi << 4) | lo).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """int8 [in/2, out] -> int8 [in, out] (the signed nibble planes)."""
+    lo = (packed & 0xF) - 8
+    hi = packed >> 4  # arithmetic shift: sign-extends
+    return torch.cat([lo, hi], dim=0).to(torch.int8)
+
+
+def quantize_weight_int4(w: torch.Tensor, group: int = 128) -> Int4Linear:
+    """Symmetric absmax RTN int4 per (group of `group` input rows, output
+    channel); w [in, out], in divisible by 2 and by the group (any
+    strides: the result is contiguous)."""
+    wf = w.float().contiguous()
+    inf, out = wf.shape
+    group = min(group, inf)
+    if inf % group or inf % 2:
+        raise ValueError(f"quantize_weight_int4: in={inf} does not split "
+                         f"into groups of {group}")
+    g = wf.reshape(inf // group, group, out)
+    scale = _div(g.abs().amax(dim=1, keepdim=True), 7.0).clamp_min(1e-12)
+    q = torch.round(g / scale).clamp(-7, 7).to(torch.int8)
+    return Int4Linear(pack_int4(q.reshape(inf, out)),
+                      scale.reshape(inf // group, out))
+
+
+def quantize_acts_grouped(x: torch.Tensor, group: int):
+    """Per-(token, group of `group` features) symmetric absmax int8:
+    x [..., in] -> (xq int8 [..., Gb, group], xs fp32 [..., Gb, 1])."""
+    xf = x.float().reshape(*x.shape[:-1], x.shape[-1] // group, group)
+    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
+
+
+def int4_matmul_grouped(x: torch.Tensor, w: Int4Linear,
+                        out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The plain grouped path (`_int4_matmul_xla`): unpack, an exact
+    integer sum per group, both scales on it, sum over groups."""
+    inf = 2 * w.packed.shape[0]
+    gb = w.scale.shape[0]
+    group = inf // gb
+    lead = x.shape[:-1]
+    xq, xs = quantize_acts_grouped(x.reshape(-1, inf), group)
+    q = unpack_int4(w.packed).reshape(gb, group, -1)
+    y = torch.zeros((xq.shape[0], q.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    for g in range(gb):
+        acc = xq[:, g].float() @ q[g].float()  # integer-valued, exact
+        y += acc * xs[:, g] * w.scale[g]
+    return y.reshape(*lead, -1).to(out_dtype)
+
+
+def int4_matmul_ref(x: torch.Tensor, w: Int4Linear,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """K2's plain version: the function K2 computes, for the weights K2
+    takes (group 128, in % 256 == 0), in plain PyTorch."""
+    inf = 2 * w.packed.shape[0]
+    if inf // w.scale.shape[0] != K2_GROUP or inf % (2 * K2_GROUP):
+        raise ValueError(f"int4_matmul_ref: K2 takes group {K2_GROUP} and "
+                         f"in % 256 == 0, got in={inf}, "
+                         f"{w.scale.shape[0]} groups")
+    return int4_matmul_grouped(x, w, out_dtype)
+
+
+def _bind():
+    lib = cuda_build.load(SOURCE)
+    fn = lib.rsv_int4_decode
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _k2(xq: torch.Tensor, xs: torch.Tensor, w: Int4Linear) -> torch.Tensor:
+    """Launch K2: xq int8 [R, in], xs fp32 [R, in/128] -> fp32 [R, out]."""
+    packed, scale = w.packed, w.scale
+    r, inf = xq.shape
+    out = packed.shape[1]
+    for name, t, dt in (("xq", xq, torch.int8), ("xs", xs, torch.float32),
+                        ("packed", packed, torch.int8),
+                        ("scale", scale, torch.float32)):
+        if t.device != xq.device or t.device.type != "cuda":
+            raise ValueError(f"int4_matmul: {name} is on {t.device}, K2 "
+                             "takes CUDA tensors on one device")
+        if t.dtype != dt or not t.is_contiguous():
+            raise TypeError(f"int4_matmul: K2 takes a contiguous {dt} {name}, "
+                            f"got {t.dtype}")
+    if (not 0 < r <= K2_MAX_ROWS or inf % (2 * K2_GROUP)
+            or packed.shape[0] * 2 != inf or xs.shape != (r, inf // K2_GROUP)
+            or scale.shape != (inf // K2_GROUP, out)):
+        raise ValueError(f"int4_matmul: K2 shapes xq {tuple(xq.shape)}, xs "
+                         f"{tuple(xs.shape)}, packed {tuple(packed.shape)}, "
+                         f"scale {tuple(scale.shape)} do not fit")
+    vec = int(out % 16 == 0 and packed.data_ptr() % 16 == 0)
+    partial = torch.empty((inf // (2 * K2_GROUP), r, out), dtype=torch.float32,
+                          device=xq.device)
+    y = torch.empty((r, out), dtype=torch.float32, device=xq.device)
+    fn = _bind()
+    with torch.cuda.device(xq.device):
+        stream = torch.cuda.current_stream(xq.device).cuda_stream
+        rc = fn(xq.data_ptr(), xs.data_ptr(), packed.data_ptr(),
+                scale.data_ptr(), partial.data_ptr(), y.data_ptr(), r, inf,
+                out, vec, stream)
+    if rc != 0:
+        raise RuntimeError(f"int4_matmul: K2 launch failed, cudaError {rc}")
+    return y
+
+
+def int4_matmul(x: torch.Tensor, w: Int4Linear,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = x @ dequant(w). CUDA calls with at most 32 rows, group 128 and
+    in % 256 == 0 launch K2; the rest take `int4_matmul_grouped`.
+    `int4_matmul.launches` counts K2 launches."""
+    inf = 2 * w.packed.shape[0]
+    gb = w.scale.shape[0]
+    lead = x.shape[:-1]
+    r = x.numel() // inf
+    if (x.device.type == "cuda" and r <= K2_MAX_ROWS
+            and inf // gb == K2_GROUP and inf % (2 * K2_GROUP) == 0):
+        xq, xs = quantize_acts_grouped(x.reshape(r, inf), K2_GROUP)
+        y = _k2(xq.reshape(r, inf), xs.reshape(r, gb), w)
+        int4_matmul.launches += 1
+        return y.reshape(*lead, -1).to(out_dtype)
+    return int4_matmul_grouped(x, w, out_dtype)
+
+
+int4_matmul.launches = 0

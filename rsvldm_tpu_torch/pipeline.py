@@ -1,9 +1,11 @@
-"""Super-resolution pipeline without the caption stage
-(rsvldm_tpu/pipeline.py: SuperResolutionPipeline.process with no_llava).
+"""Super-resolution pipeline (rsvldm_tpu/pipeline.py:
+SuperResolutionPipeline.process).
 
   Stage 1  - SR3 ancestral diffusion on the bicubic-upsampled LR image
+  Stage 2a - LLaVA caption of the Stage-1 output (models/vlm/captioner.py),
+             skipped with a warning when no captioner is available
   Stage 2b - SDXL + GLVControl RestoreEDM refinement with the first-block
-             cache, VAE decode, wavelet colour fix
+             cache, conditioned on the caption, VAE decode, wavelet colour fix
 
 The uint8 PNG round trip after Stage 1 is kept: the refinement reads the
 saved image, as in the JAX pipeline. Weights come from `state_dicts` (one
@@ -15,10 +17,15 @@ seeded with cfg.seed on the device, or from `noise`, a callable
 the JAX layout: "stage1" [T+1, 1, H, W, 3], "vae_sample" [N, h, w, 4],
 "edm_init" [N, h, w, 4], "churn" [steps, N, h, w, 4].
 
-Not ported yet: the caption stage (process requires cfg.no_llava), folder
-mode and size_bucket, the tiled VAE, the SR3 DDIM sampler, the CLIP BPE
-tokenizer (the crc32 hash-bucket tokens below are what the JAX pipeline
-uses when ckpt_dir/clip_vocab is missing).
+The captioner comes from `captioner` (an LlavaCaptioner built by the
+caller, e.g. LlavaCaptioner.from_state_dict or .seeded) or from
+LlavaCaptioner.load(cfg.ckpt_dir), which finds nothing to read yet; without
+one the caption is empty, as in the JAX pipeline without LLaVA assets.
+
+Not ported yet: reading checkpoints (every family), folder mode and
+size_bucket, the tiled VAE, the SR3 DDIM sampler, the CLIP BPE tokenizer
+(the crc32 hash-bucket tokens below are what the JAX pipeline uses when
+ckpt_dir/clip_vocab is missing).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from .models.sr3.unet import SR3UNet, SR3UNetConfig
 from .models.text.clip import (CLIP_L_CONFIG, OPENCLIP_BIGG_CONFIG,
                                CLIPTextTransformer)
 from .models.text.conditioner import SDXLConditioner
+from .models.vlm.captioner import LlavaCaptioner
 from .models.vae.model import SDXL_VAE_CONFIG, AutoencoderKL
 from .ops import colorfix
 from .ops.image import array_to_pil, load_lr_conditioning, pil_to_array, to_uint8
@@ -105,11 +113,8 @@ class SuperResolutionPipeline:
     def __init__(self, cfg: PipelineConfig, device: str | torch.device | None = None,
                  model_cfgs: Optional[Dict] = None,
                  state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                 noise: Optional[NoiseSource] = None):
-        if not cfg.no_llava and not cfg.stage1_only:
-            raise NotImplementedError(
-                "the caption stage is not ported yet: use "
-                "PipelineConfig(no_llava=True)")
+                 noise: Optional[NoiseSource] = None,
+                 captioner: Optional[LlavaCaptioner] = None):
         if cfg.stage1.sampler != "ddpm":
             raise NotImplementedError("only the ddpm Stage-1 sampler is ported")
         if cfg.refine.use_tile_vae:
@@ -136,6 +141,17 @@ class SuperResolutionPipeline:
         self.timings: Dict[str, float] = {}
         self.last_dfb: Optional[dict] = None
         self.outputs_finite: Dict[str, bool] = {}
+        self.caption_stats: dict = {}
+        self.last_caption = ""
+        self.llava = None
+        if not cfg.no_llava:
+            self.llava = captioner
+            if captioner is None:
+                try:
+                    self.llava = LlavaCaptioner.load(
+                        cfg.ckpt_dir, quant=cfg.llava.quant or None)
+                except Exception as e:  # assets missing or unreadable
+                    log.warning("LLaVA load failed (%s): captioning disabled", e)
 
     # ------------------------------------------------------------ weights
     def _build(self, family: str, cls, mcfg):
@@ -186,9 +202,24 @@ class SuperResolutionPipeline:
         self.outputs_finite["stage1"] = bool(torch.isfinite(x).all())
         return to_uint8(x[0].cpu().numpy())
 
+    # ----------------------------------------------------------- stage 2a
     def run_caption(self, sr_image) -> str:
-        """The caption stage is not ported: empty caption (no_llava)."""
-        return ""
+        """LLaVA caption of the Stage-1 image (PIL); empty with no_llava or
+        without a captioner. caption_stats: prompt length, prefill and
+        decode seconds, decode steps."""
+        if self.cfg.no_llava:
+            return ""
+        if self.llava is None:
+            log.warning("LLaVA assets not loaded: skipping captioning "
+                        "(equivalent of no_llava)")
+            return ""
+        with self._timed("caption"):
+            caption = self.llava.caption(sr_image, self.cfg.llava)
+        self.caption_stats = dict(self.llava.last_stats)
+        self.last_caption = caption
+        log.info("stage2a caption (%.2fs): %s", self.timings["caption"],
+                 caption[:120])
+        return caption
 
     # ----------------------------------------------------------- stage 2b
     def _make_sampler_cfg(self) -> RestoreEDMConfig:
@@ -267,7 +298,8 @@ class SuperResolutionPipeline:
 
     # -------------------------------------------------------- entry point
     def process(self, image_path: str | None = None):
-        """Stage 1 -> sr3_<stem>.png -> Stage 2b -> <stem>_final_<i>.png."""
+        """Stage 1 -> sr3_<stem>.png -> Stage 2a caption -> Stage 2b ->
+        <stem>_final_<i>.png."""
         path = Path(image_path or self.cfg.input_img)
         out_dir = Path(self.cfg.output_dir)
         out_dir.mkdir(parents=True, exist_ok=True)

@@ -4,7 +4,8 @@ init for missing checkpoints.
 The port's parameter names are the reference torch checkpoints' names, the
 ones rsvldm_tpu/utils/convert.py (SR3, VAE, GLVControl, SDXL UNet) and
 rsvldm_tpu/utils/convert_hf.py (CLIP-L in HF layout, bigG in open_clip
-layout) read. `params_from_jax` is the inverse of those converters: a Flax
+layout, the Llama decoder, the CLIP-336 vision tower, the mm projector)
+read. `params_from_jax` is the inverse of those converters: a Flax
 tree (numpy leaves) becomes a state dict that the port's module loads with
 strict=True. Layouts: Flax conv [kh, kw, in, out] -> torch [out, in, kh, kw];
 dense [in, out] -> [out, in]; norm scale -> weight.
@@ -21,10 +22,12 @@ import torch
 from torch import nn
 
 from ..models.sdxl.unet import _build_specs
+from ..models.vlm.llama import RMSNorm
 from ..ops.norm import GroupNorm32
 
 log = logging.getLogger("rsvldm_torch")
-FAMILIES = ("sr3", "vae", "control", "unet", "clip_l", "big_g")
+FAMILIES = ("sr3", "vae", "control", "unet", "clip_l", "big_g", "llama",
+            "clip_vision", "projector")
 
 
 def _arr(x) -> torch.Tensor:
@@ -275,8 +278,53 @@ def _big_g(p, cfg) -> _SD:
     return sd
 
 
+# ------------------------------------------------------------ LLaVA
+def _llama(p, cfg) -> _SD:
+    """HF LlamaForCausalLM names (convert_llama)."""
+    sd = _SD()
+    sd["model.embed_tokens.weight"] = _arr(p["embed_tokens"]["embedding"])
+    sd["model.norm.weight"] = _arr(p["norm"]["weight"])
+    sd.dense("lm_head", p["lm_head"])
+    for i in range(cfg.layers):
+        lp, b = f"model.layers.{i}", p[f"layer_{i}"]
+        sd[f"{lp}.input_layernorm.weight"] = _arr(b["attn_norm"]["weight"])
+        sd[f"{lp}.post_attention_layernorm.weight"] = _arr(b["mlp_norm"]["weight"])
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd.dense(f"{lp}.self_attn.{n}", b[n])
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            sd.dense(f"{lp}.mlp.{n}", b[n])
+    return sd
+
+
+def _clip_vision(p, cfg) -> _SD:
+    """HF CLIPVisionModel names (convert_hf_clip_vision)."""
+    sd, pre = _SD(), "vision_model"
+    sd[f"{pre}.embeddings.class_embedding"] = _arr(p["class_embedding"])
+    sd[f"{pre}.embeddings.position_embedding.weight"] = _arr(p["positional_embedding"])
+    sd.conv(f"{pre}.embeddings.patch_embedding", p["patch_embed"])
+    sd.norm(f"{pre}.pre_layrnorm", p["ln_pre"])
+    for i in range(cfg.layers):
+        lp, b = f"{pre}.encoder.layers.{i}", p[f"block_{i}"]
+        sd.norm(f"{lp}.layer_norm1", b["ln_1"])
+        sd.norm(f"{lp}.layer_norm2", b["ln_2"])
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd.dense(f"{lp}.self_attn.{n}", b[n])
+        sd.dense(f"{lp}.mlp.fc1", b["mlp_fc"])
+        sd.dense(f"{lp}.mlp.fc2", b["mlp_proj"])
+    return sd
+
+
+def _projector(p, cfg) -> _SD:
+    """mlp2x_gelu as nn.Sequential (convert_mm_projector): fc0 -> 0, fc1 -> 2."""
+    sd = _SD()
+    sd.dense("0", p["fc0"])
+    sd.dense("2", p["fc1"])
+    return sd
+
+
 _FROM_JAX = {"sr3": _sr3, "vae": _vae, "control": _control, "unet": _unet,
-             "clip_l": _clip_l, "big_g": _big_g}
+             "clip_l": _clip_l, "big_g": _big_g, "llama": _llama,
+             "clip_vision": _clip_vision, "projector": _projector}
 
 
 def params_from_jax(family: str, tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
@@ -288,12 +336,26 @@ def params_from_jax(family: str, tree: Dict[str, Any], cfg) -> Dict[str, torch.T
     return dict(_FROM_JAX[family](p, cfg))
 
 
+def llava_from_jax(llama_tree, vision_tree, projector_tree, image_newline,
+                   llama_cfg, vision_cfg) -> Dict[str, torch.Tensor]:
+    """The JAX captioner's trees -> one state dict with the reference LLaVA
+    checkpoint's names (what LlavaCaptioner.from_state_dict reads)."""
+    sd = params_from_jax("llama", llama_tree, llama_cfg)
+    for k, v in params_from_jax("clip_vision", vision_tree, vision_cfg).items():
+        sd[f"model.vision_tower.vision_tower.{k}"] = v
+    for k, v in params_from_jax("projector", projector_tree, None).items():
+        sd[f"model.mm_projector.{k}"] = v
+    sd["model.image_newline"] = _arr(image_newline)
+    return sd
+
+
 # ---------------------------------------------------------- random init
 @torch.no_grad()
 def seeded_init_(module: nn.Module, family: str, device: torch.device) -> nn.Module:
     """Seeded random init for a missing checkpoint, in place, on `device`,
     with the magnitudes of the JAX pipeline's smoke init: biases 0, norm
-    weights 1, conv/linear weights N(0, 1/fan_in), embeddings N(0, 0.02^2).
+    weights (GroupNorm, LayerNorm, RMSNorm) 1, conv/linear weights
+    N(0, 1/fan_in), embeddings N(0, 0.02^2).
     The seed is crc32 of the family name."""
     log.warning("checkpoint for %s not found: using seeded random init "
                 "(smoke mode, outputs are not meaningful)", family)
@@ -304,7 +366,7 @@ def seeded_init_(module: nn.Module, family: str, device: torch.device) -> nn.Mod
         owner = module.get_submodule(owner_name) if owner_name else module
         if leaf == "bias" or prm.dim() == 0:
             prm.zero_()
-        elif isinstance(owner, (GroupNorm32, nn.LayerNorm)):
+        elif isinstance(owner, (GroupNorm32, nn.LayerNorm, RMSNorm)):
             prm.fill_(1.0)
         elif (isinstance(owner, (nn.Conv2d, nn.Linear)) and leaf == "weight"
               or leaf == "in_proj_weight"):

@@ -35,6 +35,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert "rsvldm_tpu_torch.pipeline" in out["modules"]
     assert "rsvldm_tpu_torch.ops.flash_attention" in out["modules"]
+    assert "rsvldm_tpu_torch.ops.quant" in out["modules"]
+    assert "rsvldm_tpu_torch.models.vlm.captioner" in out["modules"]
     assert out["bad"] == []
 
 
@@ -51,7 +53,10 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 def test_caption_stage_is_refused_not_skipped():
-    from rsvldm_tpu_torch.config import PipelineConfig
-    from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
-    with pytest.raises(NotImplementedError, match="caption"):
-        SuperResolutionPipeline(PipelineConfig(), device="cpu")
+    """Caption options the port does not have yet raise; they are never
+    silently ignored."""
+    from rsvldm_tpu_torch.config import LlavaConfig
+    for kw in (dict(draft_dir="d"), dict(spec_k=2), dict(self_draft_layers=8),
+               dict(lora_npz="a.npz"), dict(projector_npz="p.npz")):
+        with pytest.raises(NotImplementedError, match="caption"):
+            LlavaConfig(**kw)
