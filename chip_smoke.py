@@ -5,10 +5,11 @@
 
 Phases, each printed on its own line:
   1. device    the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build     K1 (csrc/flash_fwd.cu) and K2 (csrc/int4_decode.cu) with nvcc
-               for sm_90a, one nvcc per source, started together
+  2. build     K1 (csrc/flash_fwd.cu), K3 + K4 (csrc/flash_bwd.cu) and K2
+               (csrc/int4_decode.cu) with nvcc for sm_90a, one nvcc per
+               source, started together
   3. kernels   each kernel against its plain PyTorch version on the card, at
-               the main path's shapes and a few edge cases; kernel, plain and
+               the main paths' shapes and a few edge cases; kernel, plain and
                library times, and the least time the card could take
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
@@ -16,17 +17,24 @@ Phases, each printed on its own line:
                small-width caption, int4 and int8, card against CPU: same
                quantized weights and prompt, prefill + 8 decode steps
                teacher-forced with the CPU's tokens, logit cosine and top-1
-               agreement per step (K1 and K2 in use)
+               agreement per step (K1 and K2 in use); then one QLoRA loss
+               and its adapter gradients at a small width with 128-wide
+               heads and 1024 tokens, int8 and int4, card (bf16, remat: K1,
+               K3, K4) against CPU (fp32): loss and per-leaf gradient cosine
   5. path      SuperResolutionPipeline.process() with the caption stage at
                full width (SR3 64-ch, LLaVA-NeXT-8B geometry: CLIP-L/336 +
                mlp2x_gelu + Llama-3-8B with an int4 decoder, 256 new tokens
                sampled at T=0.2; SDXL XL-base + GLVControl, SDXL VAE, CLIP-L,
                bigG), seeded random weights, a stand-in tokenizer, a seeded
-               28x28 input: 224^2 Stage 1, 1024^2 (128^2 latent) Stage 2b.
-               Kernel launch counts are reset just before and read just
-               after.
-  6. profile   (--profile) one cache-miss and one cache-hit denoising step
-               under torch.profiler: device time by kernel, idle share
+               28x28 input: 224^2 Stage 1, 1024^2 (128^2 latent) Stage 2b;
+               then the train_vlm loop at full width: the same geometry
+               with an int8 decoder, LoRA r=16 on the seven projections,
+               AdamW, gradient checkpointing, 16 anyres 224^2 records,
+               4 steps of batch 4 padded to 1536 tokens. Each path's kernel
+               launch counts are reset just before it and read just after.
+  6. profile   (--profile) one cache-miss and one cache-hit denoising step,
+               and the last training step, under torch.profiler: device
+               time by kernel, idle share
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}, printed only when every phase passed.
 Exits non-zero, with no result, when there is no CUDA card or the port's
@@ -36,7 +44,9 @@ package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -63,6 +73,13 @@ REF_MEAN_TOL, REF_MAX_TOL = 1.5, 12
 # skipped one of the 64 K/V tiles there would be off by about 0.1*rms(ref).
 K1_ATOL, K1_RTOL, K1_RMS_TOL = 4e-3, 2e-2, 1e-2
 K1_LSE_TOL = 1e-4  # lse is fp32 on both sides
+# K3/K4 (bf16 inputs, p and ds rounded to bf16 before their products, fp32
+# sums) against their plain version in fp32 on the same inputs, per
+# gradient: per element |err| <= K34_ATOL*rms(ref) + K34_RTOL*|ref|, and
+# rms(err) <= K34_RMS_TOL*rms(ref). An H100 gave rms(err)/rms(ref)
+# 0.0023-0.0024 for dq, dk and dv at every shape, and per element at most
+# 0.57 of the limit; RMS_TOL leaves 2.5x margin.
+K34_ATOL, K34_RTOL, K34_RMS_TOL = 0.1, 0.05, 0.006
 # K1 sites per denoising step of the full-width XL-base UNet + GLVControl:
 # 34 in GLVControl, 24 in the UNet input blocks, 48 in `rest`. A cache hit
 # runs GLVControl and the input blocks only. The Llama-3-8B prefill (about
@@ -85,6 +102,12 @@ K2_RTOL, K2_ATOL = 1e-5, 1e-6
 # logits); a K2 that drops one contraction split gives 0.35. The limits
 # leave about 6x margin on 1 - cos and allow four flips in nine.
 CAP_COS_MIN, CAP_TOP1_MIN = 0.998, 0.5
+# Train reference, bf16 on the card (remat, K1/K3/K4) against fp32 on the
+# CPU: the loss's relative error and the cosine of each adapter leaf's
+# gradient. An H100 gave 1.4e-4 / 1.0e-4 (int8 / int4) and a smallest
+# cosine of 0.99925 / 0.99938 over the 28 leaves; the limits leave about
+# 14x and 6x margin (on 1 - cos).
+TRAIN_LOSS_RTOL, TRAIN_COS_MIN = 2e-3, 0.995
 LLAMA3_SPECIAL = {"<|begin_of_text|>": 128000, "<|start_header_id|>": 128006,
                   "<|end_header_id|>": 128007, "<|eot_id|>": 128009}
 
@@ -177,8 +200,9 @@ def phase_build():
         return source, log, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        done = list(pool.map(build, (flash_attention.SOURCE, quant.SOURCE)))
+    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, quant.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        done = list(pool.map(build, sources))
     for source, log, seconds in done:
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -266,6 +290,105 @@ def _flash_case(name, b, sq, sk, h, d, *, causal=False, kv_len=None,
         else:
             rec["library_ms"] = None
     rec["ok"] = ok
+    rec["main_path"] = main_path
+    _say("kernels", **rec)
+    return rec
+
+
+def _sdpa_args(q, k, v, causal):
+    """[B, H, S, D] copies and the suffix-aligned causal mask for SDPA
+    (its is_causal is top-left aligned, the same only when Sq == Sk)."""
+    import torch
+    sq, sk = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = None
+    if causal and sq != sk:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+    return qt, kt, vt, dict(attn_mask=mask, is_causal=causal and mask is None)
+
+
+def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
+                    main_path=False):
+    """K3 and K4 (through flash_attention_bwd) against
+    flash_attention_bwd_ref in fp32 on the same bf16 inputs, with a real
+    K1 forward's out and lse."""
+    import torch
+    import torch.nn.functional as F
+    from rsvldm_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
+    mk = lambda s: torch.randn((b, s, h, d), generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+    q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    n3, n4 = fa.flash_attention_bwd.k3_launches, fa.flash_attention_bwd.k4_launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    launched = (fa.flash_attention_bwd.k3_launches == n3 + 1
+                and fa.flash_attention_bwd.k4_launches == n4 + 1)
+    ref = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                     out.float(), lse, do.float(),
+                                     causal=causal)
+    rms = lambda x: float(x.square().mean().sqrt())
+    rec = dict(case=name, shape=[b, sq, sk, h, d], causal=causal,
+               tol=f"|err| <= {K34_ATOL}*rms(ref) + {K34_RTOL}*|ref|, "
+                   f"rms(err) <= {K34_RMS_TOL}*rms(ref)")
+    ok = launched
+    for gname, x, r in zip(("dq", "dk", "dv"), got, ref):
+        err = (x.float() - r).abs()
+        tol = K34_ATOL * rms(r) + K34_RTOL * r.abs()
+        rel_rms = rms(err) / max(rms(r), 1e-30)
+        rec[gname] = dict(max_abs_err=float(err.max()), rms_ref=rms(r),
+                          max_err_over_tol=float((err / tol).max()),
+                          rel_rms_err=rel_rms)
+        ok = (ok and bool((err <= tol).all()) and rel_rms <= K34_RMS_TOL
+              and bool(torch.isfinite(x).all()))
+    if causal and sq > sk:
+        rec["zero_rows_exact"] = bool((got[0][:, :sq - sk] == 0).all())
+        ok = ok and rec["zero_rows_exact"]
+    rec["max_abs_err_k3"] = max(rec["dk"]["max_abs_err"], rec["dv"]["max_abs_err"])
+    rec["max_abs_err_k4"] = rec["dq"]["max_abs_err"]
+    pairs = _valid_pairs(sq, sk, sk, causal)
+    row_bytes = b * h * d * 2
+    side = 2 * b * h * sq * 4  # lse and delta, fp32
+    for kname, products, nbytes in (
+            ("k3", 4, row_bytes * (2 * sq + 4 * sk) + side),  # q,do,k,v,dk,dv
+            ("k4", 3, row_bytes * (3 * sq + 2 * sk) + side)):  # q,do,dq,k,v
+        flops = products * 2.0 * b * h * d * pairs
+        rec[f"bound_ms_{kname}"] = max(flops / H100_BF16_FLOPS,
+                                       nbytes / H100_HBM_BYTES) * 1e3
+        rec[f"bound_by_{kname}"] = ("operations" if flops / H100_BF16_FLOPS
+                                    >= nbytes / H100_HBM_BYTES else "bytes")
+        rec[f"gflop_{kname}"] = flops / 1e9
+    if timed:
+        scale = 1.0 / d ** 0.5
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        rec["ms_k3"] = _time_ms(lambda: fa._launch_bwd(
+            "K3", q, k, v, do, lse, delta, (dk, dv), causal, scale), 20)
+        rec["ms_k4"] = _time_ms(lambda: fa._launch_bwd(
+            "K4", q, k, v, do, lse, delta, (dq,), causal, scale), 20)
+        rec["wrapper_ms"] = _time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=causal), 10)
+        fa.flash_attention_bwd.k3_launches = n3  # comparison launches not counted
+        fa.flash_attention_bwd.k4_launches = n4
+        rec["plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, causal=causal), 3, warmup=1)
+        for kname in ("k3", "k4"):
+            rec[f"tflops_{kname}"] = (rec[f"gflop_{kname}"] * 1e9
+                                      / (rec[f"ms_{kname}"] * 1e-3) / 1e12)
+        # the yardstick: SDPA's backward under autograd (dq, dk and dv in
+        # one call), timed only
+        if not (causal and sq > sk):
+            qt, kt, vt, kw = _sdpa_args(q, k, v, causal)
+            qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
+            o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+            dot = do.transpose(1, 2).contiguous()
+            rec["library_ms"] = _time_ms(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), dot, retain_graph=True), 10)
+        else:
+            rec["library_ms"] = None
+    rec["ok"] = bool(ok)
     rec["main_path"] = main_path
     _say("kernels", **rec)
     return rec
@@ -368,6 +491,9 @@ def phase_kernels():
         # chat prompt, padded to 1280), causal, GQA repeated to 32 heads
         _flash_case("llama_prefill_s1280", 1, 1280, 1280, 32, 128,
                     causal=True, timed=True, main_path=True),
+        # the training step: 4 records padded to 1536 tokens, with lse
+        _flash_case("llama_train_s1536", 4, 1536, 1536, 32, 128, causal=True,
+                    lse=True, timed=True, main_path=True),
         _flash_case("causal_sq_lt_sk", 1, 300, 700, 4, 64, causal=True),
         _flash_case("causal_sq_gt_sk", 1, 700, 300, 4, 64, causal=True,
                     lse=True),
@@ -391,9 +517,37 @@ def phase_kernels():
         _k2_case("ragged_out_4144", 1, 4096, 4144),
         _k2_case("ragged_out_1000", 3, 512, 1000),
     ]
-    flash_attention.launches = 0
-    int4_matmul.launches = 0
-    return cases, k2
+    # K3/K4: the training step's attention (B=4 records of 1536 padded
+    # tokens, 32 heads of 128 after the GQA repeat, causal), D=64 non-causal,
+    # causal Sq < Sk and Sq > Sk (zero rows), lengths off the 64-row tile
+    bwd = [
+        _flash_bwd_case("train_s1536", 4, 1536, 1536, 32, 128, causal=True,
+                        timed=True, main_path=True),
+        _flash_bwd_case("d64_noncausal", 2, 1024, 1024, 8, 64, timed=True),
+        _flash_bwd_case("causal_sq_lt_sk", 1, 300, 700, 4, 128, causal=True),
+        _flash_bwd_case("causal_sq_gt_sk", 1, 700, 300, 4, 64, causal=True),
+        _flash_bwd_case("ragged_causal", 2, 1000, 1000, 4, 128, causal=True),
+        _flash_bwd_case("ragged_noncausal", 1, 517, 1100, 4, 64),
+    ]
+    _reset_counts()
+    return cases, k2, bwd
+
+
+def _reset_counts():
+    from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_bwd)
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+    flash_attention.launches = int4_matmul.launches = 0
+    flash_attention_bwd.k3_launches = flash_attention_bwd.k4_launches = 0
+
+
+def _counts():
+    from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_bwd)
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+    return dict(k1=flash_attention.launches, k2=int4_matmul.launches,
+                k3=flash_attention_bwd.k3_launches,
+                k4=flash_attention_bwd.k4_launches)
 
 
 # --------------------------------------------------------------- phase 4
@@ -577,8 +731,6 @@ def phase_path(seed: int):
     from PIL import Image
     from rsvldm_tpu_torch.config import LlavaConfig, PipelineConfig
     from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
-    from rsvldm_tpu_torch.ops.flash_attention import flash_attention
-    from rsvldm_tpu_torch.ops.quant import int4_matmul
     from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -609,14 +761,13 @@ def phase_path(seed: int):
                         for t in [*m.parameters(), *m.buffers()])
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention.launches = 0
-    int4_matmul.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     pipe.process()
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = flash_attention.launches
-    k2_launches = int4_matmul.launches
+    counts = _counts()
+    launches, k2_launches = counts["k1"], counts["k2"]
     cs = pipe.caption_stats
 
     sr = np.asarray(Image.open(work / "out" / "sr3_lr.png"))
@@ -629,6 +780,7 @@ def phase_path(seed: int):
                dfb_steps=dfb["steps"],
                dfb_trace="".join("H" if x else "." for x in dfb["trace"]),
                flash_fwd_launches=launches, int4_decode_launches=k2_launches,
+               launches=counts,
                caption_init_s=round(caption_init_s, 3),
                caption_weights_gib=round(caption_bytes / 2**30, 3),
                caption_s=round(pipe.timings.get("caption", 0.0), 3),
@@ -657,6 +809,237 @@ def phase_path(seed: int):
     rec["ok"] = ok
     _say("path", **rec)
     return rec, pipe
+
+
+# --------------------------------------------------------- phase 4b, 5b
+def _base_digest(module) -> str:
+    """A digest of every parameter and buffer byte, computed on the card:
+    per tensor, the position-weighted sum of its bytes in chunks."""
+    import hashlib
+    import torch
+    h = hashlib.sha1()
+    for name, t in sorted(module.state_dict().items()):
+        flat = t.detach().contiguous().view(-1).view(torch.uint8)
+        total = 0
+        for i, chunk in enumerate(flat.split(1 << 26)):
+            pos = torch.arange(1, chunk.numel() + 1, device=chunk.device,
+                               dtype=torch.int64)
+            total += int((chunk.to(torch.int64) * pos).sum()) * (i + 1)
+        h.update(f"{name}:{t.dtype}:{tuple(t.shape)}:{total};".encode())
+    return h.hexdigest()
+
+
+def phase_train_reference(seed: int, quant: str, seq: int = 1024):
+    """One loss and its adapter gradients at a small width with 128-wide
+    heads and {seq} tokens (so K1, K3 and K4 run), on the card in bf16
+    with remat against the CPU in fp32 without: the same weights (rounded
+    to bf16 so both quantize the same values to the same bytes), adapters
+    (nonzero B) and batch. Passes on the loss's relative error and every
+    adapter leaf's gradient cosine."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import (LlamaConfig, LlamaModel,
+                                                   quantize_llama_)
+    from rsvldm_tpu_torch.training import vlm_trainer as vt
+    from rsvldm_tpu_torch.utils.weights import seeded_init_
+
+    lcfg = LlamaConfig(vocab_size=1024, dim=256, layers=2, heads=2,
+                       kv_heads=1, ffn_dim=512)
+    dense = seeded_init_(LlamaModel(lcfg), "llama", torch.device("cpu"))
+    sd = {k: v.to(torch.bfloat16).float() for k, v in dense.state_dict().items()}
+    gen = torch.Generator().manual_seed(seed + 5)
+    b = 2
+    emb = (torch.randn((b, seq, lcfg.dim), generator=gen) * 0.5).to(
+        torch.bfloat16).float()
+    labels = torch.randint(0, lcfg.vocab_size, (b, seq), generator=gen)
+    labels[:, : seq // 2] = vt.IGNORE_INDEX
+    cfg = vt.LoraConfig(r=16, alpha=16)
+    grads, losses, models = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        m = LlamaModel(dataclasses.replace(lcfg, remat=dev == "cuda"))
+        m.load_state_dict(sd)
+        m = m.to(dev, torch.float32 if dev == "cpu" else torch.bfloat16)
+        models[dev] = quantize_llama_(m.requires_grad_(False), quant)
+    lora0 = vt.init_lora(models["cpu"], cfg, torch.Generator().manual_seed(seed))
+    for ab in lora0.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.01
+    same_bytes = all(torch.equal(v.cpu(), models["cpu"].state_dict()[k])
+                     for k, v in models["cuda"].state_dict().items()
+                     if v.dtype == torch.int8)
+    for dev in ("cpu", "cuda"):
+        lora = {p: {n: t.to(dev).requires_grad_() for n, t in ab.items()}
+                for p, ab in lora0.items()}
+        _reset_counts()
+        loss = vt.vlm_loss(models[dev], lora, cfg,
+                           emb.to(dev, models[dev].dtype), labels.to(dev))
+        leaves = [(f"{p}.{n}", t) for p, ab in lora.items()
+                  for n, t in ab.items()]
+        g = torch.autograd.grad(loss, [t for _, t in leaves])
+        torch.cuda.synchronize()
+        grads[dev] = {name: x.float().cpu() for (name, _), x in zip(leaves, g)}
+        losses[dev] = float(loss.detach())
+        launches = _counts()
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        grads["cpu"][k].flatten(), grads["cuda"][k].flatten(), dim=0))
+        for k in grads["cpu"]}
+    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    rec = dict(quant=quant, seq=seq, batch=b, layers=lcfg.layers,
+               head_dim=lcfg.head_dim, loss_cpu=losses["cpu"],
+               loss_card=losses["cuda"], loss_rel_err=loss_rel,
+               grad_cos_min=min(cos.values()),
+               grad_cos_min_leaf=min(cos, key=cos.get),
+               same_quantized_bytes=same_bytes, card_launches=launches,
+               tol=f"loss rel err <= {TRAIN_LOSS_RTOL}, every leaf's "
+                   f"gradient cosine >= {TRAIN_COS_MIN}")
+    rec["ok"] = bool(same_bytes and loss_rel <= TRAIN_LOSS_RTOL
+                     and min(cos.values()) >= TRAIN_COS_MIN
+                     and launches["k1"] == 2 * lcfg.layers
+                     and launches["k3"] == launches["k4"] == lcfg.layers)
+    _reset_counts()
+    _say("train_reference", **rec)
+    return rec
+
+
+def _train_data(work: Path, cap, tok, seed: int, n: int, width: int):
+    """n anyres image records (seeded 224^2 PNGs) whose answers make the
+    spliced sequences width-60 .. width-1 tokens long, so every batch pads
+    to `width`. Returns (image tokens per record, the record lengths)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.models.vlm.generate import anyres_image_features
+    from rsvldm_tpu_torch.training.vlm_data import (normalize_multimodal,
+                                                    preprocess_llama3)
+    rng = np.random.default_rng(seed + 3)
+    (work / "imgs").mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        img = Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
+        img.save(work / "imgs" / f"tile_{i}.png")
+    with torch.no_grad():
+        n_img = anyres_image_features(cap.vision, cap.projector, img,
+                                      cap.image_newline,
+                                      cap.vision.cfg.image_size).shape[0]
+    question = "<image>\nDescribe the remote sensing image in detail."
+    conv = lambda ans: [{"from": "human", "value": question},
+                        {"from": "gpt", "value": ans}]
+    # spliced length with a one-word answer: the <image> id becomes n_img rows
+    base = len(preprocess_llama3(normalize_multimodal(conv("w")),
+                                 tok.encode)[0]) - 1 + n_img
+    recs, lengths = [], []
+    for i in range(n):
+        lengths.append(width - 60 + (i * 7) % 60)
+        words = lengths[-1] - base + 1
+        recs.append({"id": i, "image": f"tile_{i}.png",
+                     "conversations": conv(" ".join(
+                         f"a{(i * 31 + j) % 977}" for j in range(words)))})
+    (work / "train.json").write_text(json.dumps(recs))
+    return n_img, lengths
+
+
+def _device_kernels(prof):
+    """(device ms by kernel name, total device ms) from a torch.profiler
+    run: device-side kernel events only (a CPU op's self device time
+    repeats its kernels')."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type == DeviceType.CUDA]
+    return rows, sum(t for _, t, _ in rows)
+
+
+def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
+                profile: bool = False):
+    """The port's train_vlm loop at full width: a seeded LLaVA-NeXT-8B
+    captioner (CLIP-L/336, mlp2x_gelu, Llama-3-8B) with an int8 decoder,
+    LoRA r=16 alpha=16 on the seven projections, AdamW lr 2e-4, gradient
+    checkpointing, anyres image records, batch 4 padded to `width` tokens.
+    Launch counts are reset just before the loop and read just after."""
+    import torch
+    from rsvldm_tpu_torch import train_vlm
+    from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    t0 = time.perf_counter()
+    tok = StandInTokenizer()
+    cap = LlavaCaptioner.seeded(tokenizer=tok, quant="int8", device="cuda",
+                                dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_img, lengths = _train_data(work, cap, tok, seed, steps * batch, width)
+    args = train_vlm.parse_args([
+        "--data_path", str(work / "train.json"),
+        "--image_folder", str(work / "imgs"), "--output_dir", str(work / "out"),
+        "--image_aspect_ratio", "anyres", "--bits", "8", "--lora_r", "16",
+        "--lora_alpha", "16", "--lr", "2e-4", "--batch_size", str(batch),
+        "--steps", str(steps), "--seed", str(seed), "--num_workers", "2"])
+    digest = _base_digest(cap.llama)
+    per_step = []
+    last = dict(_counts())
+    prof = []
+
+    def on_step(r):
+        now = _counts()
+        r = dict(r, tokens_per_s=r["batch"] * r["width"] / r["seconds"],
+                 launches={k: now[k] - last[k] for k in now})
+        last.update(now)
+        per_step.append(r)
+        _say("train", **r)
+        if profile and r["step"] == steps - 1:
+            # the last step (its batch's preparation included) is traced
+            from torch.profiler import ProfilerActivity
+            prof.append(torch.profiler.profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            prof[0].__enter__()
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    last.update(_counts())
+    t0 = time.perf_counter()
+    res, trainer = train_vlm.train(args, cap, encode=tok.encode,
+                                   on_step=on_step)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = _counts()
+    if prof:
+        prof[0].__exit__(None, None, None)
+        rows, dev_ms = _device_kernels(prof[0])
+        share = lambda name: sum(t for k, t, _ in rows if name in k)
+        hand = {k: share(n) for k, n in (("k1", "flash_fwd_kernel"),
+                                          ("k3", "flash_bwd_kv_kernel"),
+                                          ("k4", "flash_bwd_q_kernel"))}
+        _say("profile", step="train", device_ms=dev_ms,
+             unprofiled_step_ms=per_step[-2]["seconds"] * 1e3,
+             hand_ms=hand,
+             hand_share_of_device={k: v / dev_ms for k, v in hand.items()},
+             kernel_launches=sum(c for _, _, c in rows),
+             top_kernels=[[k[:80], round(t, 3), c] for k, t, c in
+                          sorted(rows, key=lambda r: -r[1])[:12]])
+    moved = all(float(ab["b"].detach().abs().max()) > 0
+                for ab in trainer.lora.values())
+    unchanged = _base_digest(cap.llama) == digest
+    rec = dict(init_s=init_s, loop_s=loop_s, steps=res["steps"],
+               batch=batch, width=width, image_tokens=n_img,
+               record_tokens=[min(lengths), max(lengths)],
+               losses=[r["loss"] for r in per_step],
+               step_s=[r["seconds"] for r in per_step],
+               tokens_per_s=[r["tokens_per_s"] for r in per_step],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, adapters=len(trainer.lora),
+               adapters_moved=moved, base_unchanged=unchanged,
+               base_digest=digest)
+    rec["ok"] = bool(
+        res["steps"] == steps
+        and all(r["width"] == width for r in per_step)
+        and all(r["launches"]["k1"] == 2 * 32 and r["launches"]["k3"] == 32
+                and r["launches"]["k4"] == 32 for r in per_step)
+        and launches["k1"] == 64 * steps
+        and launches["k3"] == launches["k4"] == 32 * steps
+        and all(math.isfinite(x) for x in rec["losses"])
+        and moved and unchanged)
+    _say("train", **{k: v for k, v in rec.items() if k != "losses"},
+         losses=rec["losses"])
+    del trainer, cap
+    torch.cuda.empty_cache()
+    return rec
 
 
 # --------------------------------------------------------------- phase 6
@@ -735,7 +1118,8 @@ def main(argv=None) -> int:
                     help="stop after the kernel checks (no pipeline run)")
     ap.add_argument("--profile", action="store_true",
                     help="after the path, profile one cache-miss and one "
-                         "cache-hit denoising step")
+                         "cache-hit denoising step, and the last training "
+                         "step")
     args = ap.parse_args(argv)
 
     import torch
@@ -751,43 +1135,62 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     phase_build()
-    cases, k2 = phase_kernels()
-    ok = all(c["ok"] for c in cases + k2)
+    cases, k2, bwd = phase_kernels()
+    ok = all(c["ok"] for c in cases + k2 + bwd)
     ok = phase_reference(SEED)["ok"] and ok
     for quant in ("int4", "int8"):
         ok = phase_caption_reference(SEED, quant)["ok"] and ok
-    path = None
+    for quant in ("int8", "int4"):
+        ok = phase_train_reference(SEED, quant)["ok"] and ok
+    path = train = None
     if not args.skip_path:
         path, pipe = phase_path(SEED)
         ok = ok and path["ok"]
         if args.profile:
             phase_profile(pipe)
         del pipe
+        train = phase_train(SEED, profile=args.profile)
+        ok = ok and train["ok"]
+    by_path = {"process": path["launches"] if path else {},
+               "train": train["launches"] if train else {}}
 
-    def entry(name, source, replaces, launches, rows, keys):
+    def launches(k):
+        return {p: c.get(k, 0) for p, c in by_path.items()}
+
+    def entry(name, source, replaces, k, rows, keys, suffix=""):
         head = rows[0]
+        n = launches(k)
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(c["max_abs_err"] for c in rows),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
-                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "replaces": replaces, "launches": sum(n.values()),
+                "launches_by_path": n,
+                "max_abs_err": max(c[f"max_abs_err{suffix}"] for c in rows),
+                "ms": head[f"ms{suffix}"], "plain_ms": head["plain_ms"],
+                "bound_ms": head[f"bound_ms{suffix}"],
+                "bound_by": head[f"bound_by{suffix}"],
                 "library_ms": head["library_ms"],
                 "shapes": [{k: c.get(k) for k in keys} for c in rows
-                           if "ms" in c],
+                           if "plain_ms" in c],
                 "card": smi}
 
+    bwd_keys = ("case", "shape", "causal", "ms_k3", "ms_k4", "wrapper_ms",
+                "plain_ms", "bound_ms_k3", "bound_ms_k4", "library_ms",
+                "tflops_k3", "tflops_k4", "max_abs_err_k3", "max_abs_err_k4")
     report = {"kernels": [
         entry("flash_fwd", "rsvldm_tpu_torch/csrc/flash_fwd.cu",
-              "rsvldm_tpu/ops/flash_attention.py:67",
-              path["flash_fwd_launches"] if path else 0, cases,
+              "rsvldm_tpu/ops/flash_attention.py:67", "k1", cases,
               ("case", "shape", "causal", "ms", "plain_ms", "bound_ms",
                "library_ms", "tflops", "max_abs_err")),
         entry("int4_decode", "rsvldm_tpu_torch/csrc/int4_decode.cu",
-              "rsvldm_tpu/ops/quant.py:185",
-              path["int4_decode_launches"] if path else 0, k2,
+              "rsvldm_tpu/ops/quant.py:185", "k2", k2,
               ("case", "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
                "library", "library_ms", "gbps", "max_abs_err",
-               "max_err_over_tol"))]}
+               "max_err_over_tol")),
+        entry("flash_bwd_kv", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
+              "rsvldm_tpu/ops/flash_attention.py:326", "k3", bwd, bwd_keys,
+              suffix="_k3"),
+        entry("flash_bwd_q", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
+              "rsvldm_tpu/ops/flash_attention.py:376", "k4", bwd, bwd_keys,
+              suffix="_k4")]}
     print(json.dumps(report), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

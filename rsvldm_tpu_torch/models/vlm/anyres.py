@@ -116,3 +116,15 @@ def assemble_spatial_unpad(features: np.ndarray, image_size,
     newline = np.broadcast_to(image_newline, (grid.shape[0], 1, c))
     grid = np.concatenate([grid, newline], axis=1)
     return np.concatenate([features[0], grid.reshape(-1, c)], axis=0)
+
+
+def expand2square(pil_img, background_color):
+    """Pad a PIL image to a centred square with the given fill: the "pad"
+    image_aspect_ratio mode (rsvldm_tpu/models/vlm/anyres.py:162)."""
+    width, height = pil_img.size
+    if width == height:
+        return pil_img
+    side = max(width, height)
+    result = Image.new(pil_img.mode, (side, side), background_color)
+    result.paste(pil_img, ((side - width) // 2, (side - height) // 2))
+    return result

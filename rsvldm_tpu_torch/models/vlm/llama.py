@@ -8,18 +8,29 @@ RoPE, GQA, SwiGLU, an untied lm_head.
 
 One forward serves prefill and decode: new tokens' K/V are written in place
 into a preallocated [L, B, T, kv_heads, head_dim] cache (the JAX package
-returns a new cache; here the caller's is updated and returned). A prefill
-from position 0 attends through ops/attention.py after the GQA repeat, so
-it reaches K1 on CUDA at 1024 tokens and more; every other call (decode) is
-a grouped einsum against the unrepeated cache masked by absolute position.
+returns a new cache; here the caller's is updated and returned). The cache
+holds detached values, so it never keeps an autograd graph alive; training
+passes no cache at all and nothing is written. A prefill from position 0
+attends through ops/attention.py after the GQA repeat, so it reaches K1 on
+CUDA at 1024 tokens and more (K3 and K4 in its backward); every other call
+(decode) is a grouped einsum against the unrepeated cache masked by
+absolute position, and refuses to be differentiated.
 
 Weight-only quantization (`quantize_llama_`) swaps each projection and the
 lm_head for QDense (int8) or Q4Dense (int4) module by module, freeing each
 dense weight as it goes, and narrows the embedding table to bf16 as the JAX
-captioner does.
+captioner does. Their products have a straight-through backward (QLoRA).
 
-Not ported yet: the other families' knobs, MoE, sliding windows, the int8
-KV cache and remat; their config fields raise when set.
+LoRA (training/vlm_trainer.py): `forward(..., lora=...)` takes adapters by
+module path, {"model.layers.{i}.self_attn.q_proj": {"a": [in, r],
+"b": [r, out]}, ...}, with the scale already folded into b. QDense and
+Q4Dense add the runtime branch y += (x @ a) @ b in fp32 (JAX `_maybe_lora`);
+a dense nn.Linear folds the adapter into its weight, W + (a @ b)^T (JAX
+`apply_lora`). `cfg.remat` recomputes each block in the backward
+(non-reentrant torch.utils.checkpoint, JAX `nn.remat`).
+
+Not ported yet: the other families' knobs, MoE, sliding windows and the
+int8 KV cache; their config fields raise when set.
 """
 
 from __future__ import annotations
@@ -29,10 +40,11 @@ import dataclasses
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
-from ...ops.quant import (Int4Linear, QuantizedLinear, int4_matmul,
-                          int8_matmul, quantize_weight, quantize_weight_int4)
+from ...ops.quant import (Int4Linear, QuantizedLinear, int4_matmul_ste,
+                          int8_matmul_ste, quantize_weight, quantize_weight_int4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,17 +57,17 @@ class LlamaConfig:
     ffn_dim: int = 14336
     rope_theta: float = 500000.0
     rms_eps: float = 1e-5
+    # recompute each block in the backward (gradient checkpointing)
+    remat: bool = False
     # not ported yet: set away from their defaults they raise
     sliding_window: int | None = None
     kv_quant: bool = False
-    remat: bool = False
     num_experts: int = 0
     head_dim_cfg: int = 0
 
     def __post_init__(self):
         for name, default in (("sliding_window", None), ("kv_quant", False),
-                              ("remat", False), ("num_experts", 0),
-                              ("head_dim_cfg", 0)):
+                              ("num_experts", 0), ("head_dim_cfg", 0)):
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"LlamaConfig.{name} is not ported yet (queued with the "
@@ -109,6 +121,14 @@ class RMSNorm(nn.Module):
         return (n * self.weight.float()).to(x.dtype)
 
 
+def _maybe_lora(x, y, lora):
+    """The runtime low-rank branch: y + ((x @ a) @ b) in fp32, b carrying
+    the adapter scale."""
+    if lora is None:
+        return y
+    return y + ((x.float() @ lora["a"]) @ lora["b"]).to(y.dtype)
+
+
 class QDense(nn.Module):
     """int8 weight storage (JAX QDense): buffers kernel_q int8 [in, out],
     scale fp32 [out]; returns the input's dtype."""
@@ -118,8 +138,9 @@ class QDense(nn.Module):
         self.register_buffer("kernel_q", ql.q)
         self.register_buffer("scale", ql.scale)
 
-    def forward(self, x):
-        return int8_matmul(x, QuantizedLinear(self.kernel_q, self.scale), x.dtype)
+    def forward(self, x, lora=None):
+        y = int8_matmul_ste(x, QuantizedLinear(self.kernel_q, self.scale), x.dtype)
+        return _maybe_lora(x, y, lora)
 
 
 class Q4Dense(nn.Module):
@@ -131,8 +152,20 @@ class Q4Dense(nn.Module):
         self.register_buffer("kernel_q4", ql.packed)
         self.register_buffer("scale", ql.scale)
 
-    def forward(self, x):
-        return int4_matmul(x, Int4Linear(self.kernel_q4, self.scale), x.dtype)
+    def forward(self, x, lora=None):
+        y = int4_matmul_ste(x, Int4Linear(self.kernel_q4, self.scale), x.dtype)
+        return _maybe_lora(x, y, lora)
+
+
+def project(mod: nn.Module, x, lora=None):
+    """One projection with an optional adapter: the runtime branch for
+    QDense / Q4Dense, the fold-in W + (a @ b)^T for a dense nn.Linear."""
+    if lora is None:
+        return mod(x)
+    if isinstance(mod, nn.Linear):
+        w = mod.weight + (lora["a"] @ lora["b"]).t().to(mod.weight.dtype)
+        return F.linear(x, w, mod.bias)
+    return mod(x, lora)
 
 
 class _Attention(nn.Module):
@@ -152,8 +185,11 @@ class _MLP(nn.Module):
         self.up_proj = nn.Linear(cfg.dim, cfg.ffn_dim, bias=False)
         self.down_proj = nn.Linear(cfg.ffn_dim, cfg.dim, bias=False)
 
-    def forward(self, h):
-        return self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
+    def forward(self, h, lora=None):
+        lora = lora or {}
+        gate = project(self.gate_proj, h, lora.get("gate_proj"))
+        up = project(self.up_proj, h, lora.get("up_proj"))
+        return project(self.down_proj, F.silu(gate) * up, lora.get("down_proj"))
 
 
 class LlamaBlock(nn.Module):
@@ -165,29 +201,41 @@ class LlamaBlock(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.dim, cfg.rms_eps)
         self.mlp = _MLP(cfg)
 
-    def forward(self, x, cache_k, cache_v, start_pos: int):
+    def forward(self, x, cache_k, cache_v, start_pos: int, lora=None):
         """x [B, S, D], new tokens at positions start_pos..start_pos+S-1;
-        cache_k/v [B, T, kvh, hd], written in place."""
+        cache_k/v [B, T, kvh, hd], written in place (detached), or None for
+        a prefill from 0 that keeps no cache; lora: this block's adapters
+        by projection name."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd, kvh = cfg.head_dim, cfg.kv_heads
         rep = cfg.heads // kvh
         a = self.self_attn
+        lora = lora or {}
+        prefill = s > 1 and start_pos == 0
+        if cache_k is None and not prefill:
+            raise ValueError("LlamaBlock: decode needs a KV cache")
         h = self.input_layernorm(x)
-        q = a.q_proj(h).reshape(b, s, cfg.heads, hd)
-        k = a.k_proj(h).reshape(b, s, kvh, hd)
-        v = a.v_proj(h).reshape(b, s, kvh, hd)
+        q = project(a.q_proj, h, lora.get("q_proj")).reshape(b, s, cfg.heads, hd)
+        k = project(a.k_proj, h, lora.get("k_proj")).reshape(b, s, kvh, hd)
+        v = project(a.v_proj, h, lora.get("v_proj")).reshape(b, s, kvh, hd)
         positions = torch.arange(start_pos, start_pos + s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        cache_k[:, start_pos:start_pos + s] = k.to(cache_k.dtype)
-        cache_v[:, start_pos:start_pos + s] = v.to(cache_v.dtype)
-        if s > 1 and start_pos == 0:
+        if cache_k is not None:
+            with torch.no_grad():
+                cache_k[:, start_pos:start_pos + s] = k.to(cache_k.dtype)
+                cache_v[:, start_pos:start_pos + s] = v.to(cache_v.dtype)
+        if prefill:
             # prefill: no history; the GQA repeat is paid once here
             kk = k.repeat_interleave(rep, dim=2).to(q.dtype)
             vv = v.repeat_interleave(rep, dim=2).to(q.dtype)
             o = attention(q, kk, vv, causal=True).to(x.dtype)
         else:
+            if torch.is_grad_enabled() and x.requires_grad:
+                raise NotImplementedError(
+                    "LlamaBlock: gradients through the KV-cache decode path "
+                    "are not ported (training runs a prefill from 0)")
             t = cache_k.shape[1]
             qg = q.reshape(b, s, kvh, rep, hd)
             logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
@@ -199,8 +247,9 @@ class LlamaBlock(nn.Module):
             probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
             o = torch.einsum("bgrqk,bkgd->bqgrd", probs.float(), cache_v.float())
             o = o.reshape(b, s, cfg.heads, hd).to(x.dtype)
-        x = x + a.o_proj(o.reshape(b, s, cfg.heads * hd))
-        return x + self.mlp(self.post_attention_layernorm(x))
+        x = x + project(a.o_proj, o.reshape(b, s, cfg.heads * hd),
+                        lora.get("o_proj"))
+        return x + self.mlp(self.post_attention_layernorm(x), lora)
 
 
 class _Decoder(nn.Module):
@@ -226,13 +275,35 @@ class LlamaModel(nn.Module):
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.model.embed_tokens(tokens).to(self.dtype)
 
-    def forward(self, embeds: torch.Tensor, cache: KVCache, start_pos: int):
-        """embeds [B, S, D] -> (fp32 logits [B, S, vocab], the cache)."""
+    def forward(self, embeds: torch.Tensor, cache: KVCache | None = None,
+                start_pos: int = 0, lora: dict | None = None):
+        """embeds [B, S, D] -> (fp32 logits [B, S, vocab], the cache).
+        cache None: a prefill from 0 that writes no cache (training).
+        lora: adapters by module path (module docstring)."""
         x = embeds.to(self.dtype)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.model.layers):
-            x = block(x, cache.k[i], cache.v[i], int(start_pos))
+            ck, cv = (None, None) if cache is None else (cache.k[i], cache.v[i])
+            layer_lora = _layer_lora(lora, i)
+            if remat:
+                x = checkpoint(block, x, ck, cv, int(start_pos), layer_lora,
+                               use_reentrant=False)
+            else:
+                x = block(x, ck, cv, int(start_pos), layer_lora)
         x = self.model.norm(x)
         return self.lm_head(x).float(), cache
+
+
+def _layer_lora(lora: dict | None, i: int) -> dict | None:
+    """Block i's adapters by projection name."""
+    if not lora:
+        return None
+    out = {}
+    for sub in ("self_attn", "mlp"):
+        prefix = f"model.layers.{i}.{sub}."
+        out.update({path[len(prefix):]: ab for path, ab in lora.items()
+                    if path.startswith(prefix)})
+    return out or None
 
 
 _QUANT_MODULES = ("q_proj", "k_proj", "v_proj", "o_proj",

@@ -4,15 +4,39 @@ CUDA tensors with both sequence lengths >= 1024 go to the K1 kernel
 (ops/flash_attention.py); everything else takes the plain path, a port of
 `_xla_attention`: fp32 logits and softmax, probabilities cast to v's dtype,
 and zero rows for causal sq > sk. Layout [B, S, H, D].
+
+`FlashAttention` is the counterpart of `_flash_diff`'s custom_vjp: K1 with
+lse in the forward, K3 and K4 (`flash_attention_bwd`) in the backward. On
+CPU tensors it takes the two plain versions. The plain path stays ordinary
+autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 
 FLASH_MIN_SEQ = 1024
+
+
+class FlashAttention(torch.autograd.Function):
+    """q, k, v [B, S, H, D] -> out; saves q, k, v, out and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float | None):
+        out, lse = flash_attention(q, k, v, causal=causal, scale=scale,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def plain_attention(q, k, v, *, causal: bool = False,
@@ -36,7 +60,8 @@ def plain_attention(q, k, v, *, causal: bool = False,
 
 
 def attention(q, k, v, *, causal: bool = False, scale: float | None = None):
-    """K1 for CUDA tensors when both sequences are long, else plain."""
+    """K1 for CUDA tensors when both sequences are long (`flash_attention`
+    goes through `FlashAttention` when a gradient is needed), else plain."""
     if (q.device.type == "cuda" and q.shape[1] >= FLASH_MIN_SEQ
             and k.shape[1] >= FLASH_MIN_SEQ):
         return flash_attention(q, k, v, causal=causal, scale=scale)

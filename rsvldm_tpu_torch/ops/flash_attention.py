@@ -1,11 +1,18 @@
-"""Flash-attention forward: the K1 CUDA kernel and its plain version.
+"""Flash attention: the K1 (forward), K3 and K4 (backward) CUDA kernels and
+their plain versions.
 
 Counterpart of rsvldm_tpu/ops/flash_attention.py (`flash_attention`, the
-Pallas kernel `_flash_kernel`). The kernel is `csrc/flash_fwd.cu`, built with
-nvcc at first use and bound with ctypes; its source note gives the design
-and the bound on an H100. `flash_attention_ref` is plain PyTorch computing
-the same function. CPU tensors take it; CUDA tensors launch the kernel or
-raise. Layout [B, S, H, D] throughout.
+Pallas kernel `_flash_kernel`; `flash_attention_bwd`, the Pallas kernels
+`_flash_bwd_kv_kernel` and `_flash_bwd_q_kernel`). The kernels are
+`csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, built with nvcc at first use
+and bound with ctypes; their source notes give the design and the bound on
+an H100. `flash_attention_ref` and `flash_attention_bwd_ref` are plain
+PyTorch computing the same functions. CPU tensors take them; CUDA tensors
+launch the kernels or raise. Layout [B, S, H, D] throughout.
+
+A gradient through K1 goes through `ops/attention.py::FlashAttention`, whose
+backward is K3 and K4: `flash_attention` sends CUDA calls that need a
+gradient there, and raises for the calls it cannot differentiate.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 from ..utils import cuda_build
 
 SOURCE = "flash_fwd.cu"
+BWD_SOURCE = "flash_bwd.cu"
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
@@ -93,10 +101,20 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     scale: float | None = None, kv_len: int | None = None,
                     return_lse: bool = False):
     """K1 on CUDA tensors, `flash_attention_ref` on CPU tensors (see there
-    for the semantics). `flash_attention.launches` counts kernel launches."""
+    for the semantics). `flash_attention.launches` counts kernel launches.
+
+    A CUDA call that needs a gradient goes through the autograd Function
+    whose backward is K3 and K4; one that asks for lse or masks keys by
+    kv_len has no backward and raises."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    kv_len=kv_len, return_lse=return_lse)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if return_lse or kv_len not in (None, k.shape[1]):
+            raise ValueError("flash_attention: return_lse and kv_len have no "
+                             "backward; call with neither to differentiate")
+        from .attention import FlashAttention
+        return FlashAttention.apply(q, k, v, causal, scale)
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     _check(q, k, v, kv_len)
     b, sq, h, d = q.shape
@@ -117,3 +135,94 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------- backward
+def _valid_mask(sq, sk, causal, device):
+    """[Sq, Sk] bool: key <= row + Sk - Sq when causal, else all."""
+    if not causal:
+        return torch.ones((sq, sk), dtype=torch.bool, device=device)
+    return torch.ones((sq, sk), dtype=torch.bool, device=device).tril(sk - sq)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = False,
+                            scale: float | None = None):
+    """(q, k, v, out, lse [B, H, Sq], dO) -> (dq, dk, dv), in plain
+    PyTorch, fp32 sums: p rebuilt from lse in base 2 and masked to exact
+    zeros (so rows with no valid key give zero gradients),
+    ds = p * (dP - delta) * scale with delta = rowsum(dO * O); p and ds are
+    cast to the inputs' dtype before their products, as K3 and K4 do."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (scale * LOG2E)
+    p = torch.exp2(s - lse.float()[..., None] * LOG2E)
+    p = torch.where(_valid_mask(sq, sk, causal, q.device), p, 0.0)
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)  # [B, H, Sq]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qf)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bind_bwd():
+    lib = cuda_build.load(BWD_SOURCE)
+    kv, q = lib.rsv_flash_bwd_kv, lib.rsv_flash_bwd_q
+    if kv.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        kv.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
+        q.argtypes = [p] * 7 + [i] * 6 + [ctypes.c_float, p]
+        kv.restype = q.restype = ctypes.c_int
+    return kv, q
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
+                        scale: float | None = None):
+    """K3 (dK, dV) then K4 (dQ) on CUDA tensors, `flash_attention_bwd_ref`
+    on CPU tensors. out and lse [B, H, Sq] come from K1 on the same inputs.
+    `flash_attention_bwd.k3_launches` / `.k4_launches` count launches."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                       scale=scale)
+    _check(q, k, v, k.shape[1])
+    b, sq, h, d = q.shape
+    for name, x in (("out", out), ("do", do)):
+        if (x.shape != q.shape or x.dtype != torch.bfloat16
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous bf16 {tuple(q.shape)} on {q.device}")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous fp32 "
+                         f"{(b, h, sq)} on {q.device}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("K3", q, k, v, do, lse, delta, (dk, dv), causal, scale)
+    flash_attention_bwd.k3_launches += 1
+    _launch_bwd("K4", q, k, v, do, lse, delta, (dq,), causal, scale)
+    flash_attention_bwd.k4_launches += 1
+    return dq, dk, dv
+
+
+def _launch_bwd(which, q, k, v, do, lse, delta, outs, causal, scale):
+    """One launch of K3 (outs = (dk, dv)) or K4 (outs = (dq,)) on inputs
+    `flash_attention_bwd` has checked; delta [B, H, Sq] fp32."""
+    kv_fn, q_fn = _bind_bwd()
+    b, sq, h, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = (kv_fn if which == "K3" else q_fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            b, h, sq, k.shape[1], d, int(causal), float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd: {which} launch failed, "
+                           f"cudaError {rc}")
+
+
+flash_attention_bwd.k3_launches = 0
+flash_attention_bwd.k4_launches = 0

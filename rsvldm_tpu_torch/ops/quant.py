@@ -20,6 +20,13 @@ Exactness: a group sum reaches 127 * 8 * 128 = 130048 < 2**24, so a float32
 product of the integer-valued operands gives it exactly (TF32 is off, see
 device.py); an int8 row sum over 4096 inputs does not fit 24 bits, so the
 int8 path takes the int32 product.
+
+Training (QLoRA): `int8_matmul_ste` / `int4_matmul_ste` are the products
+above in the forward and a straight-through backward, dx = g @ W_deq^T,
+with the weight dequantized only inside the backward
+(rsvldm_tpu/ops/quant.py:348-395). The integer product itself has no
+gradient, so without them autograd would reach x only through the
+activation scale.
 """
 
 from __future__ import annotations
@@ -225,3 +232,52 @@ def int4_matmul(x: torch.Tensor, w: Int4Linear,
 
 
 int4_matmul.launches = 0
+
+
+def dequantize_int8(w: QuantizedLinear) -> torch.Tensor:
+    """fp32 [in, out] = q * scale."""
+    return w.q.float() * w.scale
+
+
+def dequantize_int4(w: Int4Linear) -> torch.Tensor:
+    """fp32 [in, out] = nibble * its group's scale."""
+    group = 2 * w.packed.shape[0] // w.scale.shape[0]
+    return (unpack_int4(w.packed).float()
+            * w.scale.repeat_interleave(group, dim=0))
+
+
+class _QuantSTE(torch.autograd.Function):
+    """Forward: the int8 or int4 product. Backward: dx = g @ dequant(w)^T;
+    the weights and scales get no gradient. On the CPU the product is fp32,
+    as JAX's einsum; on the card its operands are x's dtype (bf16) with
+    fp32 accumulation in torch.matmul."""
+
+    @staticmethod
+    def forward(ctx, x, planes, scale, mode, out_dtype):
+        ctx.save_for_backward(planes, scale)
+        ctx.mode, ctx.x_dtype = mode, x.dtype
+        if mode == "int8":
+            return int8_matmul(x, QuantizedLinear(planes, scale), out_dtype)
+        return int4_matmul(x, Int4Linear(planes, scale), out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        planes, scale = ctx.saved_tensors
+        w = (dequantize_int8(QuantizedLinear(planes, scale)) if ctx.mode == "int8"
+             else dequantize_int4(Int4Linear(planes, scale)))
+        cd = torch.float32 if g.device.type == "cpu" else ctx.x_dtype
+        dx = torch.matmul(g.to(cd), w.to(cd).t())
+        return dx.to(ctx.x_dtype), None, None, None, None
+
+
+def int8_matmul_ste(x: torch.Tensor, w: QuantizedLinear,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """`int8_matmul` with the straight-through backward dx = g @ W_deq^T."""
+    return _QuantSTE.apply(x, w.q, w.scale, "int8", out_dtype)
+
+
+def int4_matmul_ste(x: torch.Tensor, w: Int4Linear,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """`int4_matmul` (K2 for decode shapes) with the straight-through
+    backward dx = g @ W_deq^T."""
+    return _QuantSTE.apply(x, w.packed, w.scale, "int4", out_dtype)

@@ -375,3 +375,35 @@ def seeded_init_(module: nn.Module, family: str, device: torch.device) -> nn.Mod
         else:
             prm.normal_(0.0, 0.02, generator=gen)
     return module
+
+
+# ---------------------------------------------------------- LoRA adapters
+_ATTN_PROJ = ("q_proj", "k_proj", "v_proj", "o_proj")
+
+
+def lora_module_path(layer: int, proj: str) -> str:
+    """The port's module path of decoder layer `layer`'s projection."""
+    sub = "self_attn" if proj in _ATTN_PROJ else "mlp"
+    return f"model.layers.{layer}.{sub}.{proj}"
+
+
+def lora_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX adapter tree {"layer_i": {proj: {"a", "b"}}} -> the port's
+    {"model.layers.i.<self_attn|mlp>.proj": {"a", "b"}} (fp32)."""
+    out = {}
+    for layer_key, projs in tree.items():
+        layer = int(layer_key.split("_")[1])
+        for proj, ab in projs.items():
+            out[lora_module_path(layer, proj)] = {
+                n: _arr(ab[n]).to(device) for n in ("a", "b")}
+    return out
+
+
+def lora_to_jax(lora: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, Any]:
+    """Inverse of lora_from_jax, numpy fp32 leaves."""
+    tree: Dict[str, Any] = {}
+    for path, ab in lora.items():
+        parts = path.split(".")  # model.layers.{i}.{sub}.{proj}
+        tree.setdefault(f"layer_{int(parts[2])}", {})[parts[4]] = {
+            n: ab[n].detach().float().cpu().numpy() for n in ("a", "b")}
+    return tree

@@ -37,6 +37,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "rsvldm_tpu_torch.ops.flash_attention" in out["modules"]
     assert "rsvldm_tpu_torch.ops.quant" in out["modules"]
     assert "rsvldm_tpu_torch.models.vlm.captioner" in out["modules"]
+    for name in ("training", "training.vlm_trainer", "training.vlm_data",
+                 "data", "data.prefetch", "train_vlm"):
+        assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
 
@@ -50,6 +53,9 @@ def test_cuda_entry_points_raise_without_a_card():
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SuperResolutionPipeline(PipelineConfig(no_llava=True), device="cuda")
+    from rsvldm_tpu_torch import train_vlm
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_vlm.main(["--smoke", "--data_path", "d.json", "--output_dir", "o"])
 
 
 def test_caption_stage_is_refused_not_skipped():
