@@ -10,7 +10,8 @@ Phases, each printed on its own line:
                source, started together
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and a few edge cases; kernel, plain and
-               library times, and the least time the card could take
+               library times (K1, its SDPA yardstick and K2 by CUDA-graph
+               replay: device time), and the least time the card could take
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
                noise, PNGs within a stated uint8 tolerance; then a
@@ -266,8 +267,12 @@ def _flash_case(name, b, sq, sk, h, d, *, causal=False, kv_len=None,
     rec["bound_by"] = ("operations" if flops / H100_BF16_FLOPS
                        >= nbytes / H100_HBM_BYTES else "bytes")
     if timed:
+        # device time by graph replay, without the wrapper's host cost
+        # (checks, allocation, stream lookup); the wrapper with it by events
         n_launch = flash_attention.launches
-        rec["ms"] = _time_ms(lambda: flash_attention(q, k, v, **kw), 20)
+        call = lambda: flash_attention(q, k, v, **kw)
+        rec["ms"] = _graph_ms(call)
+        rec["wrapper_ms"] = _time_ms(call, 20)
         flash_attention.launches = n_launch  # comparison launches not counted
         rec["plain_ms"] = _time_ms(lambda: flash_attention_ref(q, k, v, **kw),
                                    3, warmup=1)
@@ -286,7 +291,7 @@ def _flash_case(name, b, sq, sk, h, d, *, causal=False, kv_len=None,
             sdpa = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask,
                 is_causal=causal and mask is None)
-            rec["library_ms"] = _time_ms(sdpa, 20)
+            rec["library_ms"] = _graph_ms(sdpa)
         else:
             rec["library_ms"] = None
     rec["ok"] = ok
@@ -501,6 +506,11 @@ def phase_kernels():
                     kv_len=777, lse=True),
         _flash_case("ragged_causal_lse", 1, 513, 1100, 2, 64, causal=True,
                     kv_len=1000, lse=True),
+        # the edges of K1's 128-row q and 128-key K/V tiles
+        _flash_case("d128_ragged_tiles", 1, 1153, 1217, 3, 128, lse=True),
+        _flash_case("d128_causal_sq_gt_sk", 1, 700, 300, 4, 128, causal=True,
+                    lse=True),
+        _flash_case("d64_sq_lt_tile", 2, 77, 1024, 4, 64, lse=True),
     ]
     int4_matmul.launches = 0
     k2 = [
@@ -1178,8 +1188,8 @@ def main(argv=None) -> int:
     report = {"kernels": [
         entry("flash_fwd", "rsvldm_tpu_torch/csrc/flash_fwd.cu",
               "rsvldm_tpu/ops/flash_attention.py:67", "k1", cases,
-              ("case", "shape", "causal", "ms", "plain_ms", "bound_ms",
-               "library_ms", "tflops", "max_abs_err")),
+              ("case", "shape", "causal", "ms", "wrapper_ms", "plain_ms",
+               "bound_ms", "library_ms", "tflops", "max_abs_err")),
         entry("int4_decode", "rsvldm_tpu_torch/csrc/int4_decode.cu",
               "rsvldm_tpu/ops/quant.py:185", "k2", k2,
               ("case", "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",

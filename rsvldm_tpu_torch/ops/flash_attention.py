@@ -4,9 +4,10 @@ their plain versions.
 Counterpart of rsvldm_tpu/ops/flash_attention.py (`flash_attention`, the
 Pallas kernel `_flash_kernel`; `flash_attention_bwd`, the Pallas kernels
 `_flash_bwd_kv_kernel` and `_flash_bwd_q_kernel`). The kernels are
-`csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`, built with nvcc at first use
-and bound with ctypes; their source notes give the design and the bound on
-an H100. `flash_attention_ref` and `flash_attention_bwd_ref` are plain
+`csrc/flash_fwd.cu` (a persistent, warp-specialised TMA + wgmma kernel
+built on `csrc/hopper.cuh`) and `csrc/flash_bwd.cu`, built with nvcc at
+first use and bound with ctypes; their source notes give the design and
+the bound on an H100. `flash_attention_ref` and `flash_attention_bwd_ref` are plain
 PyTorch computing the same functions. CPU tensors take them; CUDA tensors
 launch the kernels or raise. Layout [B, S, H, D] throughout.
 

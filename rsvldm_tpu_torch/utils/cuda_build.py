@@ -3,8 +3,8 @@
 Each kernel source under `rsvldm_tpu_torch/csrc/` exposes a plain C entry
 point. It is compiled at first use for Hopper (`sm_90a`) into
 `rsvldm_tpu_torch/build/`, one shared library per source, named by the hash
-of the source so that a stale library is never loaded. Nothing is built when
-a module is imported.
+of the source and of the package's headers it includes, so that a stale
+library is never loaded. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,10 +40,34 @@ def _nvcc() -> str:
                        "the card")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str) -> list[Path]:
+    """`csrc/<source>` and every file it reaches through `#include "..."`,
+    transitively, each resolved beside the file that includes it; includes
+    that resolve to nothing there are the toolkit's and are skipped."""
+    seen: list[Path] = []
+    todo = [(CSRC_DIR / source).resolve()]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / name.decode()).resolve()
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
 def library_path(source: str) -> Path:
-    src = CSRC_DIR / source
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    """The library of `csrc/<source>`, named by the hash of the source and
+    of every header of the package it includes."""
+    h = hashlib.sha1()
+    for path in _sources(source):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build(source: str) -> str:
