@@ -5,13 +5,14 @@
 
 Phases, each printed on its own line:
   1. device    the card's name and power limit (nvidia-smi), torch and CUDA
-  2. build     K1 (csrc/flash_fwd.cu), K3 + K4 (csrc/flash_bwd.cu) and K2
-               (csrc/int4_decode.cu) with nvcc for sm_90a, one nvcc per
-               source, started together
+  2. build     K1 (csrc/flash_fwd.cu), the fused backward and its prologue
+               (csrc/flash_bwd.cu) and K2 (csrc/int4_decode.cu) with nvcc
+               for sm_90a, one nvcc per source, started together
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and a few edge cases; kernel, plain and
-               library times (K1, its SDPA yardstick and K2 by CUDA-graph
-               replay: device time), and the least time the card could take
+               library times (K1, the backward, their SDPA yardsticks and K2
+               by CUDA-graph replay: device time), and the least time the
+               card could take
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
                noise, PNGs within a stated uint8 tolerance; then a
@@ -20,8 +21,9 @@ Phases, each printed on its own line:
                teacher-forced with the CPU's tokens, logit cosine and top-1
                agreement per step (K1 and K2 in use); then one QLoRA loss
                and its adapter gradients at a small width with 128-wide
-               heads and 1024 tokens, int8 and int4, card (bf16, remat: K1,
-               K3, K4) against CPU (fp32): loss and per-leaf gradient cosine
+               heads and 1024 tokens, int8 and int4, card (bf16, remat: K1
+               and the backward) against CPU (fp32): loss and per-leaf
+               gradient cosine
   5. path      SuperResolutionPipeline.process() with the caption stage at
                full width (SR3 64-ch, LLaVA-NeXT-8B geometry: CLIP-L/336 +
                mlp2x_gelu + Llama-3-8B with an int4 decoder, 256 new tokens
@@ -74,12 +76,13 @@ REF_MEAN_TOL, REF_MAX_TOL = 1.5, 12
 # skipped one of the 64 K/V tiles there would be off by about 0.1*rms(ref).
 K1_ATOL, K1_RTOL, K1_RMS_TOL = 4e-3, 2e-2, 1e-2
 K1_LSE_TOL = 1e-4  # lse is fp32 on both sides
-# K3/K4 (bf16 inputs, p and ds rounded to bf16 before their products, fp32
-# sums) against their plain version in fp32 on the same inputs, per
-# gradient: per element |err| <= K34_ATOL*rms(ref) + K34_RTOL*|ref|, and
-# rms(err) <= K34_RMS_TOL*rms(ref). An H100 gave rms(err)/rms(ref)
-# 0.0023-0.0024 for dq, dk and dv at every shape, and per element at most
-# 0.57 of the limit; RMS_TOL leaves 2.5x margin.
+# The backward (bf16 inputs, p and ds rounded to bf16 before their
+# products, fp32 sums; dq summed by reduce-adds in a changing order) against
+# its plain version in fp32 on the same inputs, per gradient: per element
+# |err| <= K34_ATOL*rms(ref) + K34_RTOL*|ref|, and rms(err) <=
+# K34_RMS_TOL*rms(ref). An H100 gave rms(err)/rms(ref) 0.0023-0.0024 for
+# dq, dk and dv at every shape with the two-kernel version (K3, K4), and
+# per element at most 0.57 of the limit; RMS_TOL leaves 2.5x margin.
 K34_ATOL, K34_RTOL, K34_RMS_TOL = 0.1, 0.05, 0.006
 # K1 sites per denoising step of the full-width XL-base UNet + GLVControl:
 # 34 in GLVControl, 24 in the UNet input blocks, 48 in `rest`. A cache hit
@@ -103,9 +106,9 @@ K2_RTOL, K2_ATOL = 1e-5, 1e-6
 # logits); a K2 that drops one contraction split gives 0.35. The limits
 # leave about 6x margin on 1 - cos and allow four flips in nine.
 CAP_COS_MIN, CAP_TOP1_MIN = 0.998, 0.5
-# Train reference, bf16 on the card (remat, K1/K3/K4) against fp32 on the
-# CPU: the loss's relative error and the cosine of each adapter leaf's
-# gradient. An H100 gave 1.4e-4 / 1.0e-4 (int8 / int4) and a smallest
+# Train reference, bf16 on the card (remat, K1 and the backward) against
+# fp32 on the CPU: the loss's relative error and the cosine of each adapter
+# leaf's gradient. An H100 gave 1.4e-4 / 1.0e-4 (int8 / int4) and a smallest
 # cosine of 0.99925 / 0.99938 over the 28 leaves; the limits leave about
 # 14x and 6x margin (on 1 - cos).
 TRAIN_LOSS_RTOL, TRAIN_COS_MIN = 2e-3, 0.995
@@ -137,14 +140,16 @@ def _say(phase: str, **kw):
     print(f"[{phase}] " + json.dumps(kw, sort_keys=True), flush=True)
 
 
-def _graph_ms(fn, iters: int = 20) -> float:
+def _graph_ms(fn, iters: int = 20, stream=None) -> float:
     """Device time of one call of `fn`: `iters` calls captured in a CUDA
-    graph and replayed, so host-side launch costs drop out."""
+    graph (on `stream`, when given) and replayed, so host-side launch costs
+    drop out."""
     import torch
-    fn()
+    with torch.cuda.stream(stream):  # a None stream leaves the current one
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -315,22 +320,20 @@ def _sdpa_args(q, k, v, causal):
 
 def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
                     main_path=False):
-    """K3 and K4 (through flash_attention_bwd) against
+    """The fused backward (through flash_attention_bwd) against
     flash_attention_bwd_ref in fp32 on the same bf16 inputs, with a real
     K1 forward's out and lse."""
     import torch
-    import torch.nn.functional as F
     from rsvldm_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
     mk = lambda s: torch.randn((b, s, h, d), generator=gen, device="cuda",
                                dtype=torch.bfloat16)
     q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
     out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
-    n3, n4 = fa.flash_attention_bwd.k3_launches, fa.flash_attention_bwd.k4_launches
+    n_launch = fa.flash_attention_bwd.launches
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
-    launched = (fa.flash_attention_bwd.k3_launches == n3 + 1
-                and fa.flash_attention_bwd.k4_launches == n4 + 1)
+    launched = fa.flash_attention_bwd.launches == n_launch + 1
     ref = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                      out.float(), lse, do.float(),
                                      causal=causal)
@@ -351,51 +354,74 @@ def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
     if causal and sq > sk:
         rec["zero_rows_exact"] = bool((got[0][:, :sq - sk] == 0).all())
         ok = ok and rec["zero_rows_exact"]
-    rec["max_abs_err_k3"] = max(rec["dk"]["max_abs_err"], rec["dv"]["max_abs_err"])
-    rec["max_abs_err_k4"] = rec["dq"]["max_abs_err"]
-    pairs = _valid_pairs(sq, sk, sk, causal)
-    row_bytes = b * h * d * 2
-    side = 2 * b * h * sq * 4  # lse and delta, fp32
-    for kname, products, nbytes in (
-            ("k3", 4, row_bytes * (2 * sq + 4 * sk) + side),  # q,do,k,v,dk,dv
-            ("k4", 3, row_bytes * (3 * sq + 2 * sk) + side)):  # q,do,dq,k,v
-        flops = products * 2.0 * b * h * d * pairs
-        rec[f"bound_ms_{kname}"] = max(flops / H100_BF16_FLOPS,
-                                       nbytes / H100_HBM_BYTES) * 1e3
-        rec[f"bound_by_{kname}"] = ("operations" if flops / H100_BF16_FLOPS
-                                    >= nbytes / H100_HBM_BYTES else "bytes")
-        rec[f"gflop_{kname}"] = flops / 1e9
+    rec["max_abs_err"] = max(rec[g]["max_abs_err"] for g in ("dq", "dk", "dv"))
+    # the kernel's work: five products (S, dP, dV, dK, dQ) over the valid
+    # pairs; q, do, k, v read and dk, dv written once in bf16, lse*log2e
+    # and delta read, dq added once in fp32
+    flops = 5 * 2.0 * b * h * d * _valid_pairs(sq, sk, sk, causal)
+    nbytes = (2 * b * h * d * (2 * sq + 4 * sk) + 4 * b * h * d * sq
+              + 2 * 4 * b * h * sq)
+    rec["bound_ms"] = max(flops / H100_BF16_FLOPS,
+                          nbytes / H100_HBM_BYTES) * 1e3
+    rec["bound_by"] = ("operations" if flops / H100_BF16_FLOPS
+                       >= nbytes / H100_HBM_BYTES else "bytes")
+    rec["gflop"] = flops / 1e9
     if timed:
+        # device time by graph replay: the kernel alone on the prologue's
+        # outputs (its dq adds pile up across replays, which costs the same),
+        # and the whole backward (prologue, kernel, cast to bf16); the
+        # wrapper with its host cost by events
         scale = 1.0 / d ** 0.5
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        rec["ms_k3"] = _time_ms(lambda: fa._launch_bwd(
-            "K3", q, k, v, do, lse, delta, (dk, dv), causal, scale), 20)
-        rec["ms_k4"] = _time_ms(lambda: fa._launch_bwd(
-            "K4", q, k, v, do, lse, delta, (dq,), causal, scale), 20)
-        rec["wrapper_ms"] = _time_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, out, lse, do, causal=causal), 10)
-        fa.flash_attention_bwd.k3_launches = n3  # comparison launches not counted
-        fa.flash_attention_bwd.k4_launches = n4
+        aux, dq_acc = fa._bwd_prep(out, do, lse)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        rec["ms"] = _graph_ms(lambda: fa._bwd_kernel(
+            q, k, v, do, aux, dq_acc, dk, dv, causal, scale))
+        call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                              causal=causal)
+        rec["whole_ms"] = _graph_ms(call)
+        rec["wrapper_ms"] = _time_ms(call, 10)
+        # comparison launches not counted
+        fa.flash_attention_bwd.launches = n_launch
         rec["plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_ref(
             q, k, v, out, lse, do, causal=causal), 3, warmup=1)
-        for kname in ("k3", "k4"):
-            rec[f"tflops_{kname}"] = (rec[f"gflop_{kname}"] * 1e9
-                                      / (rec[f"ms_{kname}"] * 1e-3) / 1e12)
-        # the yardstick: SDPA's backward under autograd (dq, dk and dv in
-        # one call), timed only
+        rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
+        # the yardstick: SDPA's backward (dq, dk and dv in one call), timed
+        # only; SDPA gives NaN, not zeros, for rows with no valid key
         if not (causal and sq > sk):
-            qt, kt, vt, kw = _sdpa_args(q, k, v, causal)
-            qt, kt, vt = (x.requires_grad_() for x in (qt, kt, vt))
-            o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
-            dot = do.transpose(1, 2).contiguous()
-            rec["library_ms"] = _time_ms(lambda: torch.autograd.grad(
-                o, (qt, kt, vt), dot, retain_graph=True), 10)
+            rec.update(_sdpa_bwd_times(q, k, v, do, causal))
         else:
             rec["library_ms"] = None
     rec["ok"] = bool(ok)
     rec["main_path"] = main_path
     _say("kernels", **rec)
+    return rec
+
+
+def _sdpa_bwd_times(q, k, v, do, causal):
+    """SDPA's backward: `library_ms` by graph replay of autograd.grad alone
+    (the forward runs once on a side stream before the capture; autograd
+    runs each backward op on its forward's stream, which is the capturing
+    one), `library_wrapper_ms` by events over host launches after a forward
+    on the current stream, and the backward op autograd recorded. Each run
+    takes fresh leaves, so that no autograd node is bound to the other's
+    stream."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt, kw = _sdpa_args(q, k, v, causal)
+    dot = do.transpose(1, 2).contiguous()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    rec = {}
+    for stream in (side, None):
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        with torch.cuda.stream(stream):
+            o = F.scaled_dot_product_attention(*leaves, **kw)
+        grad = lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True)
+        if stream is None:
+            rec["library_wrapper_ms"] = _time_ms(grad, 10)
+        else:
+            rec["library_ms"] = _graph_ms(grad, stream=stream)
+        rec["library_op"] = o.grad_fn.name()
     return rec
 
 
@@ -527,9 +553,9 @@ def phase_kernels():
         _k2_case("ragged_out_4144", 1, 4096, 4144),
         _k2_case("ragged_out_1000", 3, 512, 1000),
     ]
-    # K3/K4: the training step's attention (B=4 records of 1536 padded
-    # tokens, 32 heads of 128 after the GQA repeat, causal), D=64 non-causal,
-    # causal Sq < Sk and Sq > Sk (zero rows), lengths off the 64-row tile
+    # the backward: the training step's attention (B=4 records of 1536
+    # padded tokens, 32 heads of 128 after the GQA repeat, causal), D=64
+    # non-causal, causal Sq < Sk and Sq > Sk (zero rows), ragged lengths
     bwd = [
         _flash_bwd_case("train_s1536", 4, 1536, 1536, 32, 128, causal=True,
                         timed=True, main_path=True),
@@ -538,6 +564,13 @@ def phase_kernels():
         _flash_bwd_case("causal_sq_gt_sk", 1, 700, 300, 4, 64, causal=True),
         _flash_bwd_case("ragged_causal", 2, 1000, 1000, 4, 128, causal=True),
         _flash_bwd_case("ragged_noncausal", 1, 517, 1100, 4, 64),
+        # the edges of the kernel's 128-key and 64-query tiles
+        _flash_bwd_case("d128_causal_s1153", 1, 1153, 1153, 3, 128,
+                        causal=True),
+        _flash_bwd_case("d128_sq130_sk1100", 1, 130, 1100, 3, 128),
+        _flash_bwd_case("d64_causal_s77", 2, 77, 77, 4, 64, causal=True),
+        _flash_bwd_case("d128_causal_sq_gt_sk", 1, 700, 300, 4, 128,
+                        causal=True),
     ]
     _reset_counts()
     return cases, k2, bwd
@@ -548,7 +581,7 @@ def _reset_counts():
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
     flash_attention.launches = int4_matmul.launches = 0
-    flash_attention_bwd.k3_launches = flash_attention_bwd.k4_launches = 0
+    flash_attention_bwd.launches = 0
 
 
 def _counts():
@@ -556,8 +589,7 @@ def _counts():
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
     return dict(k1=flash_attention.launches, k2=int4_matmul.launches,
-                k3=flash_attention_bwd.k3_launches,
-                k4=flash_attention_bwd.k4_launches)
+                bwd=flash_attention_bwd.launches)
 
 
 # --------------------------------------------------------------- phase 4
@@ -841,7 +873,7 @@ def _base_digest(module) -> str:
 
 def phase_train_reference(seed: int, quant: str, seq: int = 1024):
     """One loss and its adapter gradients at a small width with 128-wide
-    heads and {seq} tokens (so K1, K3 and K4 run), on the card in bf16
+    heads and {seq} tokens (so K1 and the backward run), on the card in bf16
     with remat against the CPU in fp32 without: the same weights (rounded
     to bf16 so both quantize the same values to the same bytes), adapters
     (nonzero B) and batch. Passes on the loss's relative error and every
@@ -903,7 +935,7 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024):
     rec["ok"] = bool(same_bytes and loss_rel <= TRAIN_LOSS_RTOL
                      and min(cos.values()) >= TRAIN_COS_MIN
                      and launches["k1"] == 2 * lcfg.layers
-                     and launches["k3"] == launches["k4"] == lcfg.layers)
+                     and launches["bwd"] == lcfg.layers)
     _reset_counts()
     _say("train_reference", **rec)
     return rec
@@ -1013,9 +1045,9 @@ def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
         prof[0].__exit__(None, None, None)
         rows, dev_ms = _device_kernels(prof[0])
         share = lambda name: sum(t for k, t, _ in rows if name in k)
-        hand = {k: share(n) for k, n in (("k1", "flash_fwd_kernel"),
-                                          ("k3", "flash_bwd_kv_kernel"),
-                                          ("k4", "flash_bwd_q_kernel"))}
+        hand = {k: share(n) for k, n in (
+            ("k1", "flash_fwd_kernel"), ("bwd", "flash_bwd_kernel"),
+            ("bwd_prep", "flash_bwd_prep_kernel"))}
         _say("profile", step="train", device_ms=dev_ms,
              unprofiled_step_ms=per_step[-2]["seconds"] * 1e3,
              hand_ms=hand,
@@ -1039,10 +1071,10 @@ def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
     rec["ok"] = bool(
         res["steps"] == steps
         and all(r["width"] == width for r in per_step)
-        and all(r["launches"]["k1"] == 2 * 32 and r["launches"]["k3"] == 32
-                and r["launches"]["k4"] == 32 for r in per_step)
+        and all(r["launches"]["k1"] == 2 * 32 and r["launches"]["bwd"] == 32
+                for r in per_step)
         and launches["k1"] == 64 * steps
-        and launches["k3"] == launches["k4"] == 32 * steps
+        and launches["bwd"] == 32 * steps
         and all(math.isfinite(x) for x in rec["losses"])
         and moved and unchanged)
     _say("train", **{k: v for k, v in rec.items() if k != "losses"},
@@ -1167,24 +1199,20 @@ def main(argv=None) -> int:
     def launches(k):
         return {p: c.get(k, 0) for p, c in by_path.items()}
 
-    def entry(name, source, replaces, k, rows, keys, suffix=""):
+    def entry(name, source, replaces, k, rows, keys):
         head = rows[0]
         n = launches(k)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(n.values()),
                 "launches_by_path": n,
-                "max_abs_err": max(c[f"max_abs_err{suffix}"] for c in rows),
-                "ms": head[f"ms{suffix}"], "plain_ms": head["plain_ms"],
-                "bound_ms": head[f"bound_ms{suffix}"],
-                "bound_by": head[f"bound_by{suffix}"],
+                "max_abs_err": max(c["max_abs_err"] for c in rows),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"],
                 "shapes": [{k: c.get(k) for k in keys} for c in rows
                            if "plain_ms" in c],
                 "card": smi}
 
-    bwd_keys = ("case", "shape", "causal", "ms_k3", "ms_k4", "wrapper_ms",
-                "plain_ms", "bound_ms_k3", "bound_ms_k4", "library_ms",
-                "tflops_k3", "tflops_k4", "max_abs_err_k3", "max_abs_err_k4")
     report = {"kernels": [
         entry("flash_fwd", "rsvldm_tpu_torch/csrc/flash_fwd.cu",
               "rsvldm_tpu/ops/flash_attention.py:67", "k1", cases,
@@ -1195,12 +1223,13 @@ def main(argv=None) -> int:
               ("case", "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
                "library", "library_ms", "gbps", "max_abs_err",
                "max_err_over_tol")),
-        entry("flash_bwd_kv", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
-              "rsvldm_tpu/ops/flash_attention.py:326", "k3", bwd, bwd_keys,
-              suffix="_k3"),
-        entry("flash_bwd_q", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
-              "rsvldm_tpu/ops/flash_attention.py:376", "k4", bwd, bwd_keys,
-              suffix="_k4")]}
+        # one fused kernel for the TPU's dK/dV and dQ kernels
+        entry("flash_bwd", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
+              "rsvldm_tpu/ops/flash_attention.py:326 + "
+              "rsvldm_tpu/ops/flash_attention.py:376", "bwd", bwd,
+              ("case", "shape", "causal", "ms", "whole_ms", "wrapper_ms",
+               "plain_ms", "bound_ms", "library_ms", "library_wrapper_ms",
+               "library_op", "tflops", "max_abs_err"))]}
     print(json.dumps(report), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

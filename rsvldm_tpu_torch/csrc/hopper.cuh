@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers with phase parity, TMA tile loads through tensor maps, the
-// host-side tensor-map encoding, wgmma shared-memory descriptors for
-// 128-byte-swizzled tiles, the wgmma products the attention kernels use,
-// wgmma fence / commit / wait, named barriers and setmaxnreg.
+// host-side tensor-map encoding, bulk copies, TMA reduce-adds and their
+// bulk groups, the async-proxy fence, wgmma
+// shared-memory descriptors for 128-byte-swizzled tiles, the wgmma products
+// the attention kernels use, wgmma fence / commit / wait, named barriers
+// and setmaxnreg.
 //
 // Conventions. A tile in shared memory is what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 64 bf16 (128 bytes), row r at
@@ -72,6 +74,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// The same wait for code whose registers are tight: a deadlock ends in a
+// store to address 0, which faults and fails the launch as __trap() does.
+// With __trap() in its loop, ptxas keeps registers back from what
+// setmaxnreg grants: flash_bwd.cu's consumers spilled 756-928 bytes and every
+// wgmma was serialised; with the store, neither.
+__device__ __forceinline__ void mbar_wait_tight(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > kWaitTrapCycles)
+      asm volatile("st.global.u32 [%0], %1;\n" :: "l"(0ull), "r"(0u)
+                   : "memory");
+  }
+}
+
 // ------------------------------------------------------------------ TMA
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n"
@@ -91,6 +108,53 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Adds a box of a 4-D fp32 map, held in shared memory at `src` in the
+// map's layout, into global memory element by element (in L2); elements
+// past the tensor's edge are dropped. Tracked by this thread's bulk groups.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  uint32_t src, int c0, int c1,
+                                                  int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from global memory into shared memory at `dst`; completion goes
+// to the barrier at `bar`, as for a tile.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Orders this thread's ordinary shared-memory stores before later reads by
+// the async proxy (wgmma operands, TMA); a barrier then hands them over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -------------------------------------------- named barriers, registers
@@ -188,6 +252,55 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64x64] (+)= A[64x16] · B[16x64], both in shared memory; TA / TB = 1
+// reads A / B MN-major (transpose bit: rows of the contraction dim, e.g.
+// dS^T as the A of dS·K), 0 K-major. Accumulator layout as above.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The same with D overwritten (scale_d = 0): its old values are dead to the
+// compiler, so an accumulator that restarts every tile holds no registers
+// between tiles.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss_init(float (&d)[32],
+                                                        uint64_t a,
+                                                        uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0), "n"(TA), "n"(TB));
 }
 
 // D[64x128] += A[64x16] · B[16x128], A from registers (a[0..3] in
@@ -291,6 +404,28 @@ inline cudaError_t encode_bshd_map(CUtensorMap* map, const void* base, int B,
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                          const_cast<void*>(base), dims, strides, box,
+                          elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same over a contiguous fp32 [B, S, H, D] tensor: a box is 32 columns
+// (128 bytes) by `rows` rows, 128-byte swizzled.
+inline cudaError_t encode_bshd_map_f32(CUtensorMap* map, const void* base,
+                                       int B, int S, int H, int D, int rows) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t row_bytes = (cuuint64_t)H * D * 4;
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, row_bytes,
+                                 row_bytes * (cuuint64_t)S};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                           const_cast<void*>(base), dims, strides, box,
                           elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B,

@@ -12,8 +12,8 @@ returns a new cache; here the caller's is updated and returned). The cache
 holds detached values, so it never keeps an autograd graph alive; training
 passes no cache at all and nothing is written. A prefill from position 0
 attends through ops/attention.py after the GQA repeat, so it reaches K1 on
-CUDA at 1024 tokens and more (K3 and K4 in its backward); every other call
-(decode) is a grouped einsum against the unrepeated cache masked by
+CUDA at 1024 tokens and more (the fused kernel in its backward); every
+other call (decode) is a grouped einsum against the unrepeated cache masked by
 absolute position, and refuses to be differentiated.
 
 Weight-only quantization (`quantize_llama_`) swaps each projection and the

@@ -6,9 +6,9 @@ CUDA tensors with both sequence lengths >= 1024 go to the K1 kernel
 and zero rows for causal sq > sk. Layout [B, S, H, D].
 
 `FlashAttention` is the counterpart of `_flash_diff`'s custom_vjp: K1 with
-lse in the forward, K3 and K4 (`flash_attention_bwd`) in the backward. On
-CPU tensors it takes the two plain versions. The plain path stays ordinary
-autograd.
+lse in the forward, the fused kernel (`flash_attention_bwd`) in the
+backward. On CPU tensors it takes the two plain versions. The plain path
+stays ordinary autograd.
 """
 
 from __future__ import annotations

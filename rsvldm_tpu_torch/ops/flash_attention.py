@@ -1,19 +1,20 @@
-"""Flash attention: the K1 (forward), K3 and K4 (backward) CUDA kernels and
+"""Flash attention: the K1 (forward) and fused backward CUDA kernels and
 their plain versions.
 
 Counterpart of rsvldm_tpu/ops/flash_attention.py (`flash_attention`, the
 Pallas kernel `_flash_kernel`; `flash_attention_bwd`, the Pallas kernels
-`_flash_bwd_kv_kernel` and `_flash_bwd_q_kernel`). The kernels are
-`csrc/flash_fwd.cu` (a persistent, warp-specialised TMA + wgmma kernel
-built on `csrc/hopper.cuh`) and `csrc/flash_bwd.cu`, built with nvcc at
-first use and bound with ctypes; their source notes give the design and
-the bound on an H100. `flash_attention_ref` and `flash_attention_bwd_ref` are plain
-PyTorch computing the same functions. CPU tensors take them; CUDA tensors
-launch the kernels or raise. Layout [B, S, H, D] throughout.
+`_flash_bwd_kv_kernel` and `_flash_bwd_q_kernel`, which one fused kernel
+replaces). The kernels are `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`,
+warp-specialised TMA + wgmma kernels built on `csrc/hopper.cuh`, built
+with nvcc at first use and bound with ctypes; their source notes give the
+design and the bound on an H100. `flash_attention_ref` and
+`flash_attention_bwd_ref` are plain PyTorch computing the same functions.
+CPU tensors take them; CUDA tensors launch the kernels or raise. Layout
+[B, S, H, D] throughout.
 
 A gradient through K1 goes through `ops/attention.py::FlashAttention`, whose
-backward is K3 and K4: `flash_attention` sends CUDA calls that need a
-gradient there, and raises for the calls it cannot differentiate.
+backward is the fused kernel: `flash_attention` sends CUDA calls that need
+a gradient there, and raises for the calls it cannot differentiate.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 HEAD_DIMS = (64, 128)
+BWD_Q_TILE = 64  # queries per tile of the backward kernel (csrc Q_TILE)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = False,
@@ -105,8 +107,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     for the semantics). `flash_attention.launches` counts kernel launches.
 
     A CUDA call that needs a gradient goes through the autograd Function
-    whose backward is K3 and K4; one that asks for lse or masks keys by
-    kv_len has no backward and raises."""
+    whose backward is the fused backward kernel; one that asks for lse or
+    masks keys by kv_len has no backward and raises."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, scale=scale,
                                    kv_len=kv_len, return_lse=return_lse)
@@ -171,20 +173,23 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = False,
 
 def _bind_bwd():
     lib = cuda_build.load(BWD_SOURCE)
-    kv, q = lib.rsv_flash_bwd_kv, lib.rsv_flash_bwd_q
-    if kv.argtypes is None:
+    prep, main = lib.rsv_flash_bwd_prep, lib.rsv_flash_bwd
+    if main.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        kv.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
-        q.argtypes = [p] * 7 + [i] * 6 + [ctypes.c_float, p]
-        kv.restype = q.restype = ctypes.c_int
-    return kv, q
+        prep.argtypes = [p] * 5 + [i] * 4 + [p]
+        main.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float, p]
+        prep.restype = main.restype = ctypes.c_int
+    return prep, main
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
                         scale: float | None = None):
-    """K3 (dK, dV) then K4 (dQ) on CUDA tensors, `flash_attention_bwd_ref`
-    on CPU tensors. out and lse [B, H, Sq] come from K1 on the same inputs.
-    `flash_attention_bwd.k3_launches` / `.k4_launches` count launches."""
+    """The fused backward kernel (dq, dk and dv in one launch, after its
+    delta prologue) on CUDA tensors, `flash_attention_bwd_ref` on CPU
+    tensors. out and lse [B, H, Sq] come from K1 on the same inputs.
+    dq is summed in an fp32 workspace by reduce-adds whose order changes
+    from run to run, and so may its last bits.
+    `flash_attention_bwd.launches` counts launches."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        scale=scale)
@@ -200,30 +205,46 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous fp32 "
                          f"{(b, h, sq)} on {q.device}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("K3", q, k, v, do, lse, delta, (dk, dv), causal, scale)
-    flash_attention_bwd.k3_launches += 1
-    _launch_bwd("K4", q, k, v, do, lse, delta, (dq,), causal, scale)
-    flash_attention_bwd.k4_launches += 1
-    return dq, dk, dv
+    aux, dq_acc = _bwd_prep(out, do, lse)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_kernel(q, k, v, do, aux, dq_acc, dk, dv, causal, scale)
+    flash_attention_bwd.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
 
 
-def _launch_bwd(which, q, k, v, do, lse, delta, outs, causal, scale):
-    """One launch of K3 (outs = (dk, dv)) or K4 (outs = (dq,)) on inputs
-    `flash_attention_bwd` has checked; delta [B, H, Sq] fp32."""
-    kv_fn, q_fn = _bind_bwd()
+def _bwd_prep(out, do, lse):
+    """The prologue on checked inputs: (aux, dq_acc), aux [2, B*H, Sq
+    rounded up to BWD_Q_TILE] fp32 holding lse*log2(e) and
+    delta = rowsum(dO * O), dq_acc the zeroed fp32 dQ workspace."""
+    b, sq, h, d = out.shape
+    sq_pad = -(-sq // BWD_Q_TILE) * BWD_Q_TILE
+    aux = torch.empty((2, b * h, sq_pad), dtype=torch.float32,
+                      device=out.device)
+    dq_acc = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    _launch_bwd(_bind_bwd()[0], "prologue", out.device, out.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), aux.data_ptr(),
+                dq_acc.data_ptr(), b, h, sq, d)
+    return aux, dq_acc
+
+
+def _bwd_kernel(q, k, v, do, aux, dq_acc, dk, dv, causal, scale):
+    """One launch of the fused kernel on checked inputs and the prologue's
+    aux and dq_acc: adds dQ into dq_acc, writes dk and dv."""
     b, sq, h, d = q.shape
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = (kv_fn if which == "K3" else q_fn)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-            b, h, sq, k.shape[1], d, int(causal), float(scale), stream)
+    _launch_bwd(_bind_bwd()[1], "kernel", q.device, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), do.data_ptr(), aux.data_ptr(),
+                dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq,
+                k.shape[1], d, int(causal), float(scale))
+
+
+def _launch_bwd(fn, name, device, *args):
+    """fn(*args, stream) on `device`'s current stream; raises on a refused
+    launch."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd: {which} launch failed, "
+        raise RuntimeError(f"flash_attention_bwd: {name} launch failed, "
                            f"cudaError {rc}")
 
 
-flash_attention_bwd.k3_launches = 0
-flash_attention_bwd.k4_launches = 0
+flash_attention_bwd.launches = 0

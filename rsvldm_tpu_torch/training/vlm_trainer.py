@@ -10,7 +10,8 @@ On an fp base each adapter folds into its weight inside the forward
 (W + s * (a @ b)^T); on an int8 / int4 base it rides the runtime branch of
 QDense / Q4Dense (y += (x @ a) @ (s * b)), and the quantized products have
 a straight-through backward. Gradients reach the adapters through K1's
-autograd Function (backward K3 + K4) on CUDA at 1024 tokens and more.
+autograd Function (the fused backward kernel) on CUDA at 1024 tokens and
+more.
 
 Archives (`save_lora_npz` / `load_lora_npz`) keep the JAX package's keys
 (`layer_i/q_proj/a`, `__meta__`), so either package reads the other's.

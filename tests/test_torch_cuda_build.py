@@ -74,4 +74,5 @@ def test_a_built_library_is_not_rebuilt(csrc, monkeypatch):
 def test_the_port_sources_hash_their_headers():
     names = lambda src: {p.name for p in cuda_build._sources(src)}
     assert names("flash_fwd.cu") == {"flash_fwd.cu", "hopper.cuh"}
+    assert names("flash_bwd.cu") == {"flash_bwd.cu", "hopper.cuh"}
     assert names("int4_decode.cu") == {"int4_decode.cu"}

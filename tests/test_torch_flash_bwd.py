@@ -36,12 +36,15 @@ def _port_bwd(q, k, v, g, causal):
 
 
 # tests/test_attention.py:151-157 and :197-201: causal and not, sq != sk,
-# lengths off the block; D=16 as there and D=128 as the Llama heads
+# lengths off the block; D=16 as there and D=128 as the Llama heads; then
+# the card's tile-edge cases scaled down (lengths off the kernel's 64-query
+# and 128-key tiles, causal Sq < Sk, D=64)
 @pytest.mark.parametrize("sq,sk,causal,d", [
     (96, 96, False, 16), (96, 96, True, 16), (64, 160, True, 16),
     (90, 150, False, 16), (90, 150, True, 16),
     (192, 192, False, 16), (192, 192, True, 16), (200, 264, True, 16),
     (96, 96, True, 128), (90, 150, False, 128),
+    (130, 130, True, 128), (70, 200, True, 128), (77, 77, False, 64),
 ])
 def test_bwd_ref_matches_pallas_and_xla_vjp(sq, sk, causal, d):
     q, k, v, g = _inputs(2, sq, sk, 2, d, sq * 7 + sk + d)
@@ -97,8 +100,10 @@ def test_cuda_wrappers_raise_off_cpu():
     or kv_len raises instead of dropping the gradient."""
     q = torch.empty((1, 8, 1, 64), device="meta")
     lse = torch.empty((1, 1, 8), device="meta")
+    launches = flash_attention_bwd.launches
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(q, q, q, q, lse, q)
+    assert flash_attention_bwd.launches == launches
     r = torch.empty((1, 8, 1, 64), device="meta", requires_grad=True)
     with pytest.raises(ValueError, match="no backward"):
         flash_attention(r, r, r, return_lse=True)
