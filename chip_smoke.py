@@ -9,17 +9,21 @@ Phases, each printed on its own line:
                (csrc/flash_bwd.cu) and K2 (csrc/int4_decode.cu) with nvcc
                for sm_90a, one nvcc per source, started together
   3. kernels   each kernel against its plain PyTorch version on the card, at
-               the main paths' shapes and a few edge cases; kernel, plain and
-               library times (K1, the backward, their SDPA yardsticks and K2
-               by CUDA-graph replay: device time), and the least time the
-               card could take
+               the main paths' shapes and a few edge cases (K2 also on
+               rounding ties, zero rows, and one device kernel per call
+               under torch.profiler); kernel, plain and library times (K1,
+               the backward, K2 and their yardsticks by CUDA-graph replay:
+               device time), the least time the card could take, and K2's
+               sum per decode step
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
                noise, PNGs within a stated uint8 tolerance; then a
                small-width caption, int4 and int8, card against CPU: same
                quantized weights and prompt, prefill + 8 decode steps
                teacher-forced with the CPU's tokens, logit cosine and top-1
-               agreement per step (K1 and K2 in use); then one QLoRA loss
+               agreement per step (K1 and K2 in use), and the activation
+               quantizers' codes and scales card against CPU, bit for bit;
+               then one QLoRA loss
                and its adapter gradients at a small width with 128-wide
                heads and 1024 tokens, int8 and int4, card (bf16, remat: K1
                and the backward) against CPU (fp32): loss and per-leaf
@@ -89,14 +93,19 @@ K34_ATOL, K34_RTOL, K34_RMS_TOL = 0.1, 0.05, 0.006
 # runs GLVControl and the input blocks only. The Llama-3-8B prefill (about
 # 1280 tokens) adds one per layer.
 K1_PER_MISS, K1_PER_HIT, K1_PER_CAPTION = 106, 58, 32
-# K2 launches per decode step: 7 projections in each of 32 layers + lm_head
-K2_PER_STEP = 32 * 7 + 1
+# K2's decode-step shapes (R = 1: name, in, out) and launches a step: q, o;
+# k, v; gate, up; down in each of 32 layers; the lm_head once (225 in all)
+K2_STEP = (("q_o_proj", 4096, 4096, 64), ("k_v_proj", 4096, 1024, 64),
+           ("gate_up_proj", 4096, 14336, 64), ("down_proj", 14336, 4096, 32),
+           ("lm_head", 4096, 128256, 1))
+K2_PER_STEP = sum(n for *_, n in K2_STEP)
 # K2 against its plain version, both fp32 sums of exact int32 group sums
 # that differ only in order: per element |err| <= K2_RTOL * sum_g |term_g|
 # + K2_ATOL, where term_g = xs*ws*acc of group g (the fp32 rounding bound of
 # up to 112 terms summed in two orders is about 1.3e-5 of that sum). An
-# H100 gave |err| <= 1.5e-6, at most 0.03 of this limit, at the decode
-# shapes; a K2 that drops one contraction split exceeds it 7000-93000 times.
+# H100 gave |err| <= 1.6e-6, at most 0.03 of this limit, at the decode
+# shapes; a K2 that drops one contraction split exceeds it 11000-93000
+# times, one that rounds half away from zero 850 times on the ties case.
 K2_RTOL, K2_ATOL = 1e-5, 1e-6
 # Caption reference, bf16 on the card against fp32 on the CPU, teacher-
 # forced: per step, the cosine of the two logit vectors and whether their
@@ -425,9 +434,8 @@ def _sdpa_bwd_times(q, k, v, do, causal):
     return rec
 
 
-def _k2_case(name, r, inf, out, *, main_path=False):
-    """K2 (through int4_matmul, the wrapper that launches it) against
-    int4_matmul_ref on the same bf16 input and int4 weights."""
+def _k2_inputs(name, r, inf, out):
+    """Seeded int4 weights [inf, out] and a bf16 x [r, inf] on the card."""
     import torch
     from rsvldm_tpu_torch.ops import quant
     gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
@@ -435,10 +443,28 @@ def _k2_case(name, r, inf, out, *, main_path=False):
     ql = quant.quantize_weight_int4(w)
     del w
     x = torch.randn((r, inf), generator=gen, device="cuda").to(torch.bfloat16)
+    return x, ql
+
+
+def _k2_bytes(r, inf, out):
+    """What K2 must move: bf16 x in, packed weights and fp32 scales, bf16
+    y out."""
+    return r * inf * 2 + inf // 2 * out + inf // 128 * out * 4 + r * out * 2
+
+
+def _k2_case(name, r, inf, out, *, main_path=False, x=None):
+    """K2 (through int4_matmul, the wrapper that launches it) against
+    int4_matmul_ref on the same bf16 input and int4 weights: y in fp32
+    within the tolerance, y in bf16 equal to the fp32 y rounded."""
+    import torch
+    from rsvldm_tpu_torch.ops import quant
+    x0, ql = _k2_inputs(name, r, inf, out)
+    x = x0 if x is None else x
     n_launch = quant.int4_matmul.launches
     y = quant.int4_matmul(x, ql, torch.float32)
+    y16 = quant.int4_matmul(x, ql, torch.bfloat16)
     torch.cuda.synchronize()
-    launched = quant.int4_matmul.launches == n_launch + 1
+    launched = quant.int4_matmul.launches == n_launch + 2
     ref = quant.int4_matmul_ref(x, ql)
     # sum over groups of |xs * ws * acc|: the scale of the fp32 sums
     xq, xs = quant.quantize_acts_grouped(x, quant.K2_GROUP)
@@ -449,22 +475,26 @@ def _k2_case(name, r, inf, out, *, main_path=False):
         mag += (xq[:, g].float() @ q[g].float()).abs() * xs[:, g] * ql.scale[g]
     err = (y - ref).abs()
     tol = K2_RTOL * mag + K2_ATOL
-    ok = bool(launched and (err <= tol).all() and torch.isfinite(y).all())
-    rec = dict(case=name, shape=[r, inf, out], max_abs_err=float(err.max()),
+    cast_exact = bool(torch.equal(y16, y.to(torch.bfloat16)))
+    ok = bool(launched and (err <= tol).all() and torch.isfinite(y).all()
+              and cast_exact)
+    plan = quant.k2_plan(r, inf, out,
+                         quant._sm_count(torch.cuda.current_device()))
+    rec = dict(case=name, shape=[r, inf, out], plan=list(plan),
+               max_abs_err=float(err.max()),
                max_err_over_tol=float((err / tol).max()),
-               max_abs_ref=float(ref.abs().max()),
+               max_abs_ref=float(ref.abs().max()), bf16_out_is_cast=cast_exact,
                tol=f"|err| <= {K2_RTOL}*sum|terms| + {K2_ATOL}")
-    nbytes = (r * inf * 2 + ql.packed.numel() + ql.scale.numel() * 4
-              + r * out * 4)
+    nbytes = _k2_bytes(r, inf, out)
     ops = 2.0 * r * inf * out
     rec["bound_ms"] = max(nbytes / H100_HBM_BYTES, ops / H100_INT8_OPS) * 1e3
     rec["bound_by"] = ("bytes" if nbytes / H100_HBM_BYTES
                        >= ops / H100_INT8_OPS else "operations")
-    # the kernel alone on fixed quantized activations, device time
-    xq2, xs2 = xq.reshape(r, inf), xs.reshape(r, -1)
-    rec["ms"] = _graph_ms(lambda: quant._k2(xq2, xs2, ql))
-    rec["wrapper_ms"] = _time_ms(lambda: quant.int4_matmul(x, ql, torch.float32),
-                                 20)
+    # the whole projection is the one launch, bf16 in and out as in decode:
+    # device time by graph replay, the wrapper with its host cost by events
+    call = lambda: quant.int4_matmul(x, ql)
+    rec["ms"] = _graph_ms(call)
+    rec["wrapper_ms"] = _time_ms(call, 20)
     quant.int4_matmul.launches = n_launch  # comparison launches not counted
     rec["plain_ms"] = _time_ms(lambda: quant.int4_matmul_ref(x, ql), 3,
                                warmup=1)
@@ -476,12 +506,75 @@ def _k2_case(name, r, inf, out, *, main_path=False):
     return rec
 
 
+def _k2_ties():
+    """bf16 x of half-integers with every group's amax 127, so the scale is
+    exactly 1 and every x / s is a tie: K2's codes must round half to even
+    as the plain version's do (half away from zero moves half the codes)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    r, inf = 4, 4096
+    x = torch.randint(-127, 127, (r, inf), generator=gen, device="cuda") + 0.5
+    x[:, ::128] = 127.0  # one 127 in each group
+    x[:, 1::256] = -127.0
+    return _k2_case("ties_half_even", r, inf, 4096,
+                    x=x.to(torch.bfloat16))
+
+
+def _k2_zero_rows():
+    """A row of zeros (scale clamped to 1e-12, codes 0: y exactly 0), a row
+    with one zero group, and a call with no rows (no launch)."""
+    import torch
+    from rsvldm_tpu_torch.ops import quant
+    x, ql = _k2_inputs("zero_rows", 4, 4096, 4096)
+    x[1] = 0
+    x[3, 256:384] = 0
+    rec = _k2_case("zero_rows", 4, 4096, 4096, x=x)
+    n_launch = quant.int4_matmul.launches
+    y = quant.int4_matmul(x, ql, torch.float32)
+    empty = quant.int4_matmul(x[:0], ql)
+    torch.cuda.synchronize()
+    rec["zero_row_exact"] = bool((y[1] == 0).all())
+    rec["no_rows"] = dict(shape=list(empty.shape),
+                          launched=quant.int4_matmul.launches - n_launch - 1)
+    quant.int4_matmul.launches = n_launch
+    rec["ok"] = bool(rec["ok"] and rec["zero_row_exact"]
+                     and rec["no_rows"] == dict(shape=[0, 4096], launched=0))
+    _say("kernels", case="zero_rows", zero_row_exact=rec["zero_row_exact"],
+         no_rows=rec["no_rows"], ok=rec["ok"])
+    return rec
+
+
+def _k2_one_launch():
+    """Under torch.profiler, one int4_matmul call on the card runs exactly
+    one device kernel, K2's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from rsvldm_tpu_torch.ops import quant
+    x, ql = _k2_inputs("one_launch", 1, 4096, 14336)
+    n_launch = quant.int4_matmul.launches
+    quant.int4_matmul(x, ql)  # first use: library, counters
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        quant.int4_matmul(x, ql)
+        torch.cuda.synchronize()
+    quant.int4_matmul.launches = n_launch
+    rows, _ = _device_kernels(prof)
+    rec = dict(case="one_launch_per_call", shape=[1, 4096, 14336],
+               device_kernels=[[k[:60], c] for k, _, c in rows])
+    rec["ok"] = bool(sum(c for _, _, c in rows) == 1
+                     and "int4_decode_kernel" in rows[0][0])
+    _say("kernels", **rec)
+    return rec
+
+
 def _k2_library(x, ql, ref):
     """Yardstick, never called by the port: PyTorch's int4 weight-only
     product (tinygemm) on the same int4 weights repacked, bf16 activations
     (no activation quantization, so its error vs ref is reported, not
     held); torch.matmul against the bf16-dequantized weight where that op
-    is missing or refuses the shape."""
+    is missing or refuses the shape. Device time by graph replay
+    (`library_ms`), and by events over host launches beside it."""
     import torch
     from rsvldm_tpu_torch.ops import quant
     inf, out = 2 * ql.packed.shape[0], ql.packed.shape[1]
@@ -502,8 +595,21 @@ def _k2_library(x, ql, ref):
         which = f"torch.matmul on the bf16-dequantized weight ({e!r:.80})"
         y = call()
     torch.cuda.synchronize()
-    return dict(library=which, library_ms=_time_ms(call, 20),
+    return dict(library=which, library_ms=_graph_ms(call),
+                library_wrapper_ms=_time_ms(call, 20),
                 library_max_abs_err_vs_ref=float((y.float() - ref).abs().max()))
+
+
+def _k2_step(k2):
+    """K2's device time per decode step: sum of launches x time at the five
+    shapes, beside its bound."""
+    by = {c["case"]: c for c in k2}
+    rec = dict(step="decode", launches=K2_PER_STEP,
+               ms=sum(n * by[c]["ms"] for c, *_, n in K2_STEP),
+               bound_ms=sum(n * by[c]["bound_ms"] for c, *_, n in K2_STEP),
+               library_ms=sum(n * by[c]["library_ms"] for c, *_, n in K2_STEP))
+    _say("kernels", k2_per_decode_step=rec)
+    return rec
 
 
 def phase_kernels():
@@ -539,20 +645,7 @@ def phase_kernels():
         _flash_case("d64_sq_lt_tile", 2, 77, 1024, 4, 64, lse=True),
     ]
     int4_matmul.launches = 0
-    k2 = [
-        # one Llama-3-8B decode step (R = 1): q/o, k/v, gate/up, down, lm_head
-        _k2_case("q_o_proj", 1, 4096, 4096, main_path=True),
-        _k2_case("k_v_proj", 1, 4096, 1024, main_path=True),
-        _k2_case("gate_up_proj", 1, 4096, 14336, main_path=True),
-        _k2_case("down_proj", 1, 14336, 4096, main_path=True),
-        _k2_case("lm_head", 1, 4096, 128256, main_path=True),
-        _k2_case("rows_8", 8, 4096, 4096),
-        _k2_case("rows_32", 32, 4096, 4096),
-        # out not a multiple of the 512-column tile; out % 16 != 0 takes the
-        # byte loads
-        _k2_case("ragged_out_4144", 1, 4096, 4144),
-        _k2_case("ragged_out_1000", 3, 512, 1000),
-    ]
+    k2 = phase_k2()
     # the backward: the training step's attention (B=4 records of 1536
     # padded tokens, 32 heads of 128 after the GQA repeat, causal), D=64
     # non-causal, causal Sq < Sk and Sq > Sk (zero rows), ragged lengths
@@ -574,6 +667,23 @@ def phase_kernels():
     ]
     _reset_counts()
     return cases, k2, bwd
+
+
+def phase_k2():
+    """K2's cases: one Llama-3-8B decode step's shapes (R = 1), rows 8 and
+    32, ragged outs (out % 16 != 0 takes byte loads), ties, zero rows; the
+    one-launch check and the sum per decode step."""
+    k2 = [_k2_case(name, 1, inf, out, main_path=True)
+          for name, inf, out, _ in K2_STEP]
+    k2 += [_k2_case("rows_8", 8, 4096, 4096),
+           _k2_case("rows_32", 32, 4096, 4096),
+           _k2_case("ragged_out_4144", 1, 4096, 4144),
+           _k2_case("ragged_out_1000", 3, 512, 1000),
+           # 19 pairs: no split count divides them, so the ranges are uneven
+           _k2_case("uneven_splits_4864", 1, 4864, 4096),
+           _k2_ties(), _k2_zero_rows(), _k2_one_launch()]
+    _k2_step(k2)
+    return k2
 
 
 def _reset_counts():
@@ -673,6 +783,31 @@ def phase_reference(seed: int):
     return rec
 
 
+def _acts_quantized_alike(x):
+    """Whether `quantize_acts` and `quantize_acts_grouped` give the card the
+    CPU's int8 codes and fp32 scales, bit for bit, for x (CPU, bf16 values)
+    and for rows whose amax is where a multiply by 1/127 differs from the
+    division by 127 in fp32 (the quantizers divide exactly on both)."""
+    import numpy as np
+    import torch
+    from rsvldm_tpu_torch.ops import quant
+    a = (np.arange(1, 1 << 15, dtype=np.uint32) << 16).view(np.float32)
+    a = a[np.isfinite(a) & (a > 1e-3) & (a < 1e3)]
+    bad = a[(a * np.float32(1 / 127)) != (a / np.float32(127))][:128]
+    rows = torch.rand((len(bad), x.shape[-1]), generator=torch.Generator()
+                      .manual_seed(len(bad))) * 2 - 1
+    rows = rows * torch.from_numpy(bad)[:, None]
+    rows[:, 5] = torch.from_numpy(bad)
+    x = torch.cat([x.float(), rows]).to(torch.bfloat16)
+    same = {}
+    for name, fn in (("quantize_acts", quant.quantize_acts),
+                     ("quantize_acts_grouped",
+                      lambda t: quant.quantize_acts_grouped(t, 128))):
+        (qc, sc), (qg, sg) = fn(x), fn(x.cuda())
+        same[name] = bool(torch.equal(qc, qg.cpu()) and torch.equal(sc, sg.cpu()))
+    return dict(rows=x.shape[0], reciprocal_rows=len(bad), **same)
+
+
 def phase_caption_reference(seed: int, quant: str, steps: int = 8):
     """A small-width caption on the card (bf16) against the same captioner
     on the CPU (fp32): dense weights rounded to bf16 so that both sides
@@ -745,6 +880,8 @@ def phase_caption_reference(seed: int, quant: str, steps: int = 8):
                     toks.append(int(lg[0, -1].argmax()))
         torch.cuda.synchronize()
         logits[dev] = torch.stack(rows).float().cpu()
+        if dev == "cpu":
+            acts = _acts_quantized_alike(emb)
         launches = dict(k1=flash_attention.launches, k2=int4_matmul.launches)
     a, b = logits["cpu"], logits["cuda"]
     cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
@@ -752,10 +889,12 @@ def phase_caption_reference(seed: int, quant: str, steps: int = 8):
     rec = dict(quant=quant, prompt_len=s, padded_len=s_pad, steps=steps,
                cos=[round(float(c), 6) for c in cos],
                top1=[int(t) for t in top1], same_quantized_bytes=same_bytes,
+               same_activation_codes=acts,
                card_launches=launches,
                tol=f"cos >= {CAP_COS_MIN} every step, top-1 agreement >= "
                    f"{CAP_TOP1_MIN}")
     rec["ok"] = bool(same_bytes and s_pad >= 1024
+                     and acts["quantize_acts"] and acts["quantize_acts_grouped"]
                      and launches["k1"] == lcfg.layers
                      and (quant != "int4"
                           or launches["k2"] == steps * (7 * lcfg.layers + 1))
@@ -1205,7 +1344,8 @@ def main(argv=None) -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(n.values()),
                 "launches_by_path": n,
-                "max_abs_err": max(c["max_abs_err"] for c in rows),
+                "max_abs_err": max(c["max_abs_err"] for c in rows
+                                   if "max_abs_err" in c),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"],

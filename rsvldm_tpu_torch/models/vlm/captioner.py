@@ -139,9 +139,11 @@ class LlavaCaptioner:
 
     @torch.inference_mode()
     def caption(self, image, llava_cfg,
-                generator: torch.Generator | None = None) -> str:
-        """Stage 2a on one PIL image; sampling draws from `generator`
-        (default: seeded with 0 on the captioner's device)."""
+                generator: torch.Generator | None = None,
+                noise=None) -> str:
+        """Stage 2a on one PIL image; sampling adds `noise(i)` to token i's
+        logits, or Gumbel draws from `generator` (default: seeded with 0 on
+        the captioner's device); see `generate.generate`."""
         prompt = llava_cfg.img_prompt.format(DEFAULT_IMAGE_TOKEN="<image>")
         cfg = GenerateConfig(max_new_tokens=llava_cfg.max_new_tokens,
                              temperature=llava_cfg.temperature,
@@ -152,4 +154,4 @@ class LlavaCaptioner:
         return caption_image(self.llama, self.vision, self.projector, image,
                              prompt, encode, decode, self.image_newline, cfg,
                              generator, patch_size=self.vision.cfg.image_size,
-                             stats=self.last_stats)
+                             stats=self.last_stats, noise=noise)

@@ -4,10 +4,14 @@ image-feature splice, prefill and a decode loop.
 `generate` right-pads the spliced prompt to a multiple of `pad_to`, runs
 one prefill from position 0, then one decode step per new token, writing
 position s + i. Greedy when do_sample is false or the temperature is 0,
-else sampling from softmax(logits / T) with the given torch.Generator (its
-numbers are not JAX's). The JAX loop runs all max_new_tokens - 1 steps and
-forces eot after the first one; this loop stops there, which returns the
-same ids. Not ported yet: batched decode (generate_batch, caption_images).
+else token i is argmax(logits / T + g_i), the Gumbel-max draw that
+`jax.random.categorical` makes, with g_i from `noise(i)`: by default
+Gumbel noise from a torch.Generator (its numbers are not JAX's), or any
+caller's stream, such as JAX's (`rng` for token 0, `fold_in(rng, i)` after
+it), which then gives JAX's ids. The JAX loop runs all max_new_tokens - 1
+steps and forces eot after the first one; this loop stops there, which
+returns the same ids. Not ported yet: batched decode (generate_batch,
+caption_images).
 """
 
 from __future__ import annotations
@@ -122,13 +126,30 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+Noise = Callable[[int], torch.Tensor]
+
+
+def gumbel_noise(vocab: int, generator: torch.Generator) -> Noise:
+    """Gumbel draws [vocab] from `generator` on its device, as
+    `jax.random.gumbel` makes them: -log(-log(u)), u uniform in [tiny, 1)."""
+    tiny = torch.finfo(torch.float32).tiny
+
+    def draw(step: int) -> torch.Tensor:
+        u = torch.rand(vocab, generator=generator, device=generator.device)
+        return -torch.log(-torch.log(u.clamp_min(tiny)))
+    return draw
+
+
 @torch.inference_mode()
 def generate(model: LlamaModel, input_embeds: torch.Tensor,
              cfg: GenerateConfig, generator: torch.Generator | None = None,
-             stats: dict | None = None) -> np.ndarray:
+             stats: dict | None = None, noise: Noise | None = None
+             ) -> np.ndarray:
     """input_embeds [S, D] -> np.int32 ids, trimmed at the first eot.
-    `stats`, when given, receives prompt_len, padded_len, prefill_s,
-    decode_s and decode_steps."""
+    Sampling adds `noise(i)` [vocab] to the logits of token i; without it,
+    Gumbel draws from `generator` (default: seeded with 0 on the
+    device). `stats`, when given, receives prompt_len, padded_len,
+    prefill_s, decode_s and decode_steps."""
     device = input_embeds.device
     s = input_embeds.shape[0]
     s_pad = -(-s // cfg.pad_to) * cfg.pad_to
@@ -139,17 +160,24 @@ def generate(model: LlamaModel, input_embeds: torch.Tensor,
     cache = KVCache.init(model.cfg, 1, s_pad + cfg.max_new_tokens,
                          dtype=model.dtype, device=device)
     sampled = cfg.do_sample and cfg.temperature > 0
+    if sampled and noise is None:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        noise = gumbel_noise(model.cfg.vocab_size, generator)
+    # a 0-d divisor: CUDA divides by a Python number as a multiply by its
+    # reciprocal, which can differ from JAX's quotient in the last bit
+    temp = torch.tensor(cfg.temperature, dtype=torch.float32, device=device)
 
-    def sample(lg):
+    def sample(lg, i):
         if sampled:
-            probs = torch.softmax(lg.float() / cfg.temperature, dim=-1)
-            return int(torch.multinomial(probs, 1, generator=generator))
+            g = noise(i).to(device=device, dtype=torch.float32)
+            return int(torch.argmax(lg.float() / temp + g))
         return int(torch.argmax(lg))
 
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = model(embeds, cache, 0)
-    tok = sample(logits[0, s - 1])  # last real prompt position
+    tok = sample(logits[0, s - 1], 0)  # last real prompt position
     _sync(device)
     t1 = time.perf_counter()
     eot = set(int(e) for e in cfg.eot_ids)
@@ -159,7 +187,7 @@ def generate(model: LlamaModel, input_embeds: torch.Tensor,
         emb = model.embed(torch.tensor([[tok]], device=device))
         logits, cache = model(emb, cache, s + steps)
         steps += 1
-        tok = sample(logits[0, -1])
+        tok = sample(logits[0, -1], steps)
         out.append(tok)
     _sync(device)
     if stats is not None:
@@ -175,13 +203,12 @@ def caption_image(model: LlamaModel, vision_apply, projector_apply, image,
                   image_newline: torch.Tensor,
                   cfg: GenerateConfig = GenerateConfig(),
                   generator: torch.Generator | None = None,
-                  patch_size: int = 336, stats: dict | None = None) -> str:
+                  patch_size: int = 336, stats: dict | None = None,
+                  noise: Noise | None = None) -> str:
     """Stage 2a: anyres -> tower -> projector -> spatial-unpad assembly ->
-    splice -> generate -> decode. The default generator is seeded with 0."""
-    if generator is None:
-        generator = torch.Generator(device=image_newline.device).manual_seed(0)
+    splice -> generate -> decode. Sampling noise as in `generate`."""
     spliced = embed_multimodal_prompt(
         model, vision_apply, projector_apply, llama3_chat_prompt(prompt_text),
         [image], encode_fn, image_newline, patch_size)
-    ids = generate(model, spliced, cfg, generator, stats=stats)
+    ids = generate(model, spliced, cfg, generator, stats=stats, noise=noise)
     return decode_fn(ids.tolist()).lstrip()

@@ -12,8 +12,11 @@ signed. Scales are fp32 [in/group, out]. Activations are quantized per (row,
 group), every group sum is an exact integer, both scales apply to it, and
 the groups are summed in fp32. `int4_matmul` takes K2
 (`csrc/int4_decode.cu`, built with nvcc at first use and bound with ctypes)
-for CUDA calls with at most 32 rows, group 128 and in % 256 == 0, the decode
-steps; everything else, the prefill and every CPU call, takes
+for CUDA calls with at most 32 rows, group 128 and in % 256 == 0 (up to
+65536 at one row, 32768 at more), the decode steps, in one launch that
+quantizes the activations, sums the contraction splits and writes y in its
+final type (`k2_plan` picks its grid); everything else, the prefill and
+every CPU call, takes
 `int4_matmul_grouped`. `int4_matmul_ref` is K2's plain version.
 
 Exactness: a group sum reaches 127 * 8 * 128 = 130048 < 2**24, so a float32
@@ -32,6 +35,7 @@ activation scale.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -78,7 +82,7 @@ def quantize_acts(x: torch.Tensor):
     """Per-token (last axis) symmetric absmax int8 -> (xq int8, xs fp32
     with a trailing 1)."""
     xf = x.float()
-    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    s = _div(xf.abs().amax(dim=-1, keepdim=True), 127.0).clamp_min(1e-12)
     return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
 
 
@@ -134,7 +138,7 @@ def quantize_acts_grouped(x: torch.Tensor, group: int):
     """Per-(token, group of `group` features) symmetric absmax int8:
     x [..., in] -> (xq int8 [..., Gb, group], xs fp32 [..., Gb, 1])."""
     xf = x.float().reshape(*x.shape[:-1], x.shape[-1] // group, group)
-    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-12)
+    s = _div(xf.abs().amax(dim=-1, keepdim=True), 127.0).clamp_min(1e-12)
     return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
 
 
@@ -168,46 +172,113 @@ def int4_matmul_ref(x: torch.Tensor, w: Int4Linear,
     return int4_matmul_grouped(x, w, out_dtype)
 
 
+K2_MAX_PAIRS = 16      # contraction pairs of one block (its prologue's codes)
+K2_MAX_SPLITS = 16     # blocks of one cluster
+K2_TILES = (256, 128, 64)  # column tiles, widest first
+K2_MIN_BLOCKS = 132    # one block per SM of an H100, where no card is asked
+
+
+class K2Plan(NamedTuple):
+    """K2's grid: `tn` output columns per block, `rb` rows per chunk (one
+    grid layer each) and `splits` contraction ranges of whole pairs (128
+    packed rows: one low and one high scale group)."""
+    tn: int
+    rb: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=None)
+def k2_plan(r: int, inf: int, out: int,
+            min_blocks: int = K2_MIN_BLOCKS) -> K2Plan | None:
+    """The widest column tile, then the fewest splits, that give at least
+    `min_blocks` blocks (one per SM) for x [r, inf] @ W [inf, out]; None
+    where no split leaves at most 16 pairs a block (K2 does not take it).
+    The splits of a tile are one cluster, of at most 8 blocks where that
+    reaches `min_blocks`, else 16 (one row only: a block of more rows may
+    fill an SM). Splits that divide the pair count come first, for even
+    ranges; where none fits, any count does. Where nothing reaches
+    `min_blocks`: 64 columns and the most splits. (On an H100, clusters of
+    16 made q/o and down slower than clusters of 8 over narrower tiles.)"""
+    rb = 1 if r == 1 else 2 if r == 2 else 4
+    chunks = -(-r // rb)
+    npairs = inf // (2 * K2_GROUP)
+    limit = K2_MAX_SPLITS if rb == 1 else 8
+    fits = [s for s in range(1, min(npairs, limit) + 1)
+            if -(-npairs // s) <= K2_MAX_PAIRS]
+    splits = [s for s in fits if npairs % s == 0] or fits
+    if not splits:
+        return None
+    for most in (8, limit) if limit > 8 else (8,):
+        for tn in K2_TILES:
+            for s in splits:
+                if s <= most and -(-out // tn) * chunks * s >= min_blocks:
+                    return K2Plan(tn, rb, s)
+    return K2Plan(K2_TILES[-1], rb, splits[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _bind():
     lib = cuda_build.load(SOURCE)
     fn = lib.rsv_int4_decode
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _k2(xq: torch.Tensor, xs: torch.Tensor, w: Int4Linear) -> torch.Tensor:
-    """Launch K2: xq int8 [R, in], xs fp32 [R, in/128] -> fp32 [R, out]."""
+_K2_X = (torch.bfloat16, torch.float32)
+
+
+def _k2(x: torch.Tensor, w: Int4Linear,
+        out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Launch K2 once: x bf16 or fp32 [R, in] (1 <= R <= 32) -> y
+    `out_dtype` (bf16 or fp32) [R, out]; the activation quantization, the
+    split sum and the cast happen inside the kernel, which allocates
+    nothing."""
     packed, scale = w.packed, w.scale
-    r, inf = xq.shape
-    out = packed.shape[1]
-    for name, t, dt in (("xq", xq, torch.int8), ("xs", xs, torch.float32),
-                        ("packed", packed, torch.int8),
-                        ("scale", scale, torch.float32)):
-        if t.device != xq.device or t.device.type != "cuda":
+    for name, t in (("x", x), ("packed", packed), ("scale", scale)):
+        if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"int4_matmul: {name} is on {t.device}, K2 "
                              "takes CUDA tensors on one device")
-        if t.dtype != dt or not t.is_contiguous():
-            raise TypeError(f"int4_matmul: K2 takes a contiguous {dt} {name}, "
-                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise TypeError(f"int4_matmul: K2 takes a contiguous {name}")
+    if (x.dtype not in _K2_X or out_dtype not in _K2_X
+            or packed.dtype != torch.int8 or scale.dtype != torch.float32):
+        raise TypeError(f"int4_matmul: K2 takes x and y in bf16 or fp32, "
+                        f"int8 packed and fp32 scales, got x {x.dtype}, y "
+                        f"{out_dtype}, packed {packed.dtype}, scale "
+                        f"{scale.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"int4_matmul: K2 takes x [R, in], got "
+                         f"{tuple(x.shape)}")
+    r, inf = x.shape
+    out = packed.shape[1]
     if (not 0 < r <= K2_MAX_ROWS or inf % (2 * K2_GROUP)
-            or packed.shape[0] * 2 != inf or xs.shape != (r, inf // K2_GROUP)
+            or packed.shape[0] * 2 != inf
             or scale.shape != (inf // K2_GROUP, out)):
-        raise ValueError(f"int4_matmul: K2 shapes xq {tuple(xq.shape)}, xs "
-                         f"{tuple(xs.shape)}, packed {tuple(packed.shape)}, "
-                         f"scale {tuple(scale.shape)} do not fit")
+        raise ValueError(f"int4_matmul: K2 shapes x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)}, scale {tuple(scale.shape)} "
+                         "do not fit")
+    plan = k2_plan(r, inf, out, _sm_count(x.device.index))
+    if plan is None:
+        raise ValueError(f"int4_matmul: K2 takes at most "
+                         f"{K2_MAX_PAIRS * K2_MAX_SPLITS} group pairs at one "
+                         f"row and {K2_MAX_PAIRS * 8} at more, got in={inf} "
+                         f"at {r} rows")
+    y = torch.empty((r, out), dtype=out_dtype, device=x.device)
     vec = int(out % 16 == 0 and packed.data_ptr() % 16 == 0)
-    partial = torch.empty((inf // (2 * K2_GROUP), r, out), dtype=torch.float32,
-                          device=xq.device)
-    y = torch.empty((r, out), dtype=torch.float32, device=xq.device)
     fn = _bind()
-    with torch.cuda.device(xq.device):
-        stream = torch.cuda.current_stream(xq.device).cuda_stream
-        rc = fn(xq.data_ptr(), xs.data_ptr(), packed.data_ptr(),
-                scale.data_ptr(), partial.data_ptr(), y.data_ptr(), r, inf,
-                out, vec, stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                packed.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                int(out_dtype == torch.bfloat16), r, inf, out, plan.tn,
+                plan.rb, plan.splits, vec, stream)
     if rc != 0:
         raise RuntimeError(f"int4_matmul: K2 launch failed, cudaError {rc}")
     return y
@@ -215,19 +286,23 @@ def _k2(xq: torch.Tensor, xs: torch.Tensor, w: Int4Linear) -> torch.Tensor:
 
 def int4_matmul(x: torch.Tensor, w: Int4Linear,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
-    """y = x @ dequant(w). CUDA calls with at most 32 rows, group 128 and
-    in % 256 == 0 launch K2; the rest take `int4_matmul_grouped`.
+    """y = x @ dequant(w). CUDA calls with at most 32 rows, group 128,
+    in % 256 == 0 and a K2 plan (`k2_plan`: in <= 65536 at one row, 32768
+    at more) launch K2, one kernel and no other device op (no rows: no
+    launch); the rest take `int4_matmul_grouped`.
     `int4_matmul.launches` counts K2 launches."""
     inf = 2 * w.packed.shape[0]
     gb = w.scale.shape[0]
     lead = x.shape[:-1]
     r = x.numel() // inf
     if (x.device.type == "cuda" and r <= K2_MAX_ROWS
-            and inf // gb == K2_GROUP and inf % (2 * K2_GROUP) == 0):
-        xq, xs = quantize_acts_grouped(x.reshape(r, inf), K2_GROUP)
-        y = _k2(xq.reshape(r, inf), xs.reshape(r, gb), w)
+            and inf // gb == K2_GROUP and inf % (2 * K2_GROUP) == 0
+            and k2_plan(max(r, 1), inf, w.packed.shape[1]) is not None):
+        if r == 0:
+            return x.new_empty((*lead, w.packed.shape[1]), dtype=out_dtype)
+        y = _k2(x.reshape(r, inf), w, out_dtype)
         int4_matmul.launches += 1
-        return y.reshape(*lead, -1).to(out_dtype)
+        return y.reshape(*lead, -1)
     return int4_matmul_grouped(x, w, out_dtype)
 
 

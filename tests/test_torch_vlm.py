@@ -1,7 +1,7 @@
 """The port's caption stage held against the JAX package at tiny geometry,
 fp32 on the CPU: CLIP vision tower, projector, anyres assembly, the Llama
 decoder (dense, int8, int4: prefill and decode logits, KV caches, greedy
-ids), the whole captioner from one HF-named state dict, and the JAX tree ->
+ids, sampled ids with JAX's Gumbel noise), the whole captioner from one HF-named state dict, and the JAX tree ->
 port -> JAX converter round trips."""
 
 import dataclasses
@@ -181,6 +181,46 @@ def test_greedy_generate_ids_equal(llama_tree, mode):
     np.testing.assert_array_equal(got, want)
     assert stats["prompt_len"] == 7 and stats["padded_len"] == 8
     assert stats["decode_steps"] == len(got) - 1
+
+
+def _jax_gumbel(rng, vocab):
+    """JAX's draw for token i: `rng` for the first, fold_in(rng, i) after."""
+    def draw(i):
+        key = rng if i == 0 else jax.random.fold_in(rng, i)
+        return torch.tensor(np.asarray(
+            jax.random.gumbel(key, (vocab,), jnp.float32)))
+    return draw
+
+
+@pytest.mark.parametrize("mode", [None, "int4"])
+def test_sampled_generate_replays_jax_noise(llama_tree, mode):
+    """do_sample at T = 0.2 (the config's default): fed JAX's Gumbel stream,
+    the port draws JAX's ids, which are not the greedy ones."""
+    jm, jp, tm = _models(llama_tree, mode)
+    embeds = (RNG.standard_normal((7, 32)) * 0.5).astype(np.float32)
+    rng = jax.random.PRNGKey(3)
+    kw = dict(max_new_tokens=12, temperature=0.2, do_sample=True, pad_to=8)
+    want = jgen.generate(jm, jp, jnp.asarray(embeds), jgen.GenerateConfig(**kw),
+                         rng)
+    got = tgen.generate(tm, torch.from_numpy(embeds), tgen.GenerateConfig(**kw),
+                        noise=_jax_gumbel(rng, TL.vocab_size))
+    np.testing.assert_array_equal(got, want)
+    greedy = tgen.generate(tm, torch.from_numpy(embeds), tgen.GenerateConfig(
+        **dict(kw, do_sample=False)))
+    assert len(got) == 12 and not np.array_equal(got, greedy)
+
+
+def test_sampled_generate_default_noise_is_seeded(llama_tree):
+    """Without a noise stream the draws come from a torch.Generator: the
+    same seed gives the same ids."""
+    _, _, tm = _models(llama_tree, None)
+    embeds = torch.from_numpy((RNG.standard_normal((5, 32)) * 0.5).astype(np.float32))
+    cfg = tgen.GenerateConfig(max_new_tokens=6, pad_to=8)
+    runs = [tgen.generate(tm, embeds, cfg, torch.Generator().manual_seed(9))
+            for _ in range(2)]
+    np.testing.assert_array_equal(*runs)
+    np.testing.assert_array_equal(tgen.generate(tm, embeds, cfg),
+                                  tgen.generate(tm, embeds, cfg))
 
 
 def test_generate_stops_at_eot(llama_tree):
