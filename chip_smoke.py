@@ -28,12 +28,24 @@ Phases, each printed on its own line:
                heads and 1024 tokens, int8 and int4, card (bf16, remat: K1
                and the backward) against CPU (fp32): loss and per-leaf
                gradient cosine
-  5. path      SuperResolutionPipeline.process() with the caption stage at
-               full width (SR3 64-ch, LLaVA-NeXT-8B geometry: CLIP-L/336 +
-               mlp2x_gelu + Llama-3-8B with an int4 decoder, 256 new tokens
-               sampled at T=0.2; SDXL XL-base + GLVControl, SDXL VAE, CLIP-L,
-               bigG), seeded random weights, a stand-in tokenizer, a seeded
-               28x28 input: 224^2 Stage 1, 1024^2 (128^2 latent) Stage 2b;
+  5. path      the full-width modules (SR3 64-ch; SDXL XL-base + GLVControl,
+               the SDXL VAE with its twin encoder, CLIP-L, bigG; LLaVA-NeXT-8B:
+               CLIP-L/336 + mlp2x_gelu + Llama-3-8B, dense) with seeded bf16
+               weights, written as the reference checkpoint directory (SR3's
+               .pth, the juggernaut safetensors, SR-v0Q.ckpt, four LLaVA
+               safetensors shards with a Llama-3-style tokenizer.json, a
+               Llava-next PEFT adapter, clip_vocab) in a temporary directory
+               with room for it; the pipeline built from that directory
+               alone by the CLI's construction (infer.build_pipeline,
+               --quant int4), every family's weights checked against the
+               written bytes and the adapted projections against the fp32
+               merge, the prompt's token ids against the assets' own; then
+               SuperResolutionPipeline.process() (256 new tokens sampled at
+               T=0.2, a seeded 28x28 input: 224^2 Stage 1, 1024^2 (128^2
+               latent) Stage 2b), the kernel launches of one decode step
+               without and with a train_vlm LoRA archive attached; write,
+               load (per family, the LLaVA's split into read, PEFT merge and
+               quantize) and read-rate figures; the directory is deleted;
                then the train_vlm loop at full width: the same geometry
                with an int8 decoder, LoRA r=16 on the seven projections,
                AdamW, gradient checkpointing, 16 anyres 224^2 records,
@@ -143,6 +155,267 @@ class StandInTokenizer:
 
     def decode(self, ids, skip_special_tokens=True):
         return " ".join(f"w{i}" for i in ids if i < 128000)
+
+
+# ------------------------------------------------- the checkpoint directory
+# The tokenizer assets and the safetensors writer below make the reference
+# checkpoint layout that phase `path` reads; the tests use the same helpers
+# with the `tokenizers` and `transformers` packages as oracles.
+
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
+                r"\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+# the same split in the stdlib `re` for text without "_" and without letters
+# or digits outside \w (the texts the assets are learnt from)
+_HELPER_SPLIT = re.compile(r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\w]?[^\W\d_]+|"
+                           r"\d{1,3}| ?[^\s\w]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+_CLIP_SPLIT = re.compile(r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|"
+                         r"'ll|'d|[^\W\d_]+|\d|[^\s\w]+", re.IGNORECASE)
+
+
+def _byte_chars():
+    """GPT-2's byte -> printable char map."""
+    bs = (list(range(33, 127)) + list(range(161, 173)) + list(range(174, 256)))
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return {b: chr(c) for b, c in zip(bs, cs)}
+
+
+def _learn_bpe(words: dict, n_merges: int):
+    """Byte-pair merges learnt from {symbol tuple: count}: the most frequent
+    adjacent pair first (ties: the smallest pair), never a pair whose join is
+    already a token. Returns (merges, {word: its final symbols})."""
+    import heapq
+    seqs = [list(w) for w in words]
+    freq = list(words.values())
+    count, where = {}, {}
+    for i, sq in enumerate(seqs):
+        for p in zip(sq, sq[1:]):
+            count[p] = count.get(p, 0) + freq[i]
+            where.setdefault(p, set()).add(i)
+    tokens = {c for sq in seqs for c in sq}
+    heap = [(-c, p) for p, c in count.items()]
+    heapq.heapify(heap)
+    merges = []
+    while heap and len(merges) < n_merges:
+        c, p = heapq.heappop(heap)
+        if count.get(p, 0) != -c or c == 0:
+            continue
+        joined = p[0] + p[1]
+        if joined in tokens:
+            count[p] = 0
+            continue
+        merges.append(p)
+        tokens.add(joined)
+        changed = set()
+        for i in where.pop(p, ()):
+            sq = seqs[i]
+            for q in zip(sq, sq[1:]):
+                count[q] -= freq[i]
+                changed.add(q)
+            out, j = [], 0
+            while j < len(sq):
+                if j + 1 < len(sq) and (sq[j], sq[j + 1]) == p:
+                    out.append(joined)
+                    j += 2
+                else:
+                    out.append(sq[j])
+                    j += 1
+            seqs[i] = out
+            for q in zip(out, out[1:]):
+                count[q] = count.get(q, 0) + freq[i]
+                where.setdefault(q, set()).add(i)
+                changed.add(q)
+        for q in changed:
+            if count[q] > 0:
+                heapq.heappush(heap, (-count[q], q))
+    return merges, {w: tuple(sq) for w, sq in zip(words, seqs)}
+
+
+def _seeded_words(seed: int, n: int):
+    """n seeded lower-case words, letters drawn by English frequency."""
+    import random
+    rnd = random.Random(seed)
+    letters = "etaoinshrdlcumwfgypbvkjxqz"
+    weights = [12.7, 9.1, 8.2, 7.5, 7.0, 6.7, 6.3, 6.1, 6.0, 4.3, 4.0, 2.8,
+               2.8, 2.4, 2.4, 2.2, 2.0, 2.0, 1.9, 1.5, 1.0, 0.8, 0.15, 0.15,
+               0.1, 0.07]
+    return ["".join(rnd.choices(letters, weights, k=rnd.randint(2, 9)))
+            for _ in range(n)]
+
+
+class Llama3Assets:
+    """A Llama-3-style tokenizer.json (tokenizers' format): the Split
+    pre-tokenizer with Llama-3's pattern, ByteLevel, a BPE of the 256 byte
+    tokens and merges learnt from a seeded word list and `texts`, with
+    ignore_merges, filler tokens up to `special_start`, `n_special` special
+    tokens from there (<|begin_of_text|>, <|start_header_id|>,
+    <|end_header_id|> and <|eot_id|> at Llama-3's offsets 0, 6, 7, 9), and
+    the BOS template. `encode` is the assets' own encoding of the texts
+    they were learnt from (the whole piece when it is a token, else its
+    learnt segmentation); it refuses other text."""
+
+    NAMED = {0: "<|begin_of_text|>", 1: "<|end_of_text|>",
+             6: "<|start_header_id|>", 7: "<|end_header_id|>", 9: "<|eot_id|>"}
+
+    def __init__(self, texts, n_merges: int = 3000, seed: int = SEED,
+                 special_start: int = 128000, n_special: int = 256):
+        bc = _byte_chars()
+        self.specials, k = {}, 0
+        for i in range(n_special):
+            name = self.NAMED.get(i)
+            if name is None:
+                name, k = f"<|reserved_special_token_{k}|>", k + 1
+            self.specials[name] = special_start + i
+        self._special_re = re.compile("|".join(map(re.escape, self.specials)))
+        corpus = " ".join(_seeded_words(seed, 4000))
+        words: dict = {}
+        for text in [corpus, *texts]:
+            for chunk in self._special_re.split(text):
+                for piece in _HELPER_SPLIT.findall(chunk):
+                    w = tuple(bc[b] for b in piece.encode())
+                    words[w] = words.get(w, 0) + 1
+        merges, self._learnt = _learn_bpe(words, n_merges)
+        vocab = {bc[b]: i for i, b in enumerate(sorted(bc))}
+        for a, b in merges:
+            vocab[a + b] = len(vocab)
+        if len(vocab) > special_start:
+            raise ValueError(f"{len(vocab)} tokens do not fit below {special_start}")
+        i = 0
+        while len(vocab) < special_start:  # never a whole piece: " w" + digits
+            vocab[f"Ġw{i}"] = len(vocab)
+            i += 1
+        self.vocab, self.merges = vocab, merges
+        self._bc = bc
+        bos = self.NAMED[0]
+        self.spec = {
+            "version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": i, "content": t, "single_word": False,
+                              "lstrip": False, "rstrip": False,
+                              "normalized": False, "special": True}
+                             for t, i in self.specials.items()],
+            "normalizer": None,
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+                 "behavior": "Isolated", "invert": False},
+                {"type": "ByteLevel", "add_prefix_space": False,
+                 "trim_offsets": True, "use_regex": False}]},
+            "post_processor": {"type": "Sequence", "processors": [
+                {"type": "ByteLevel", "add_prefix_space": True,
+                 "trim_offsets": False, "use_regex": True},
+                {"type": "TemplateProcessing",
+                 "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                            {"Sequence": {"id": "A", "type_id": 0}}],
+                 "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                          {"Sequence": {"id": "A", "type_id": 0}},
+                          {"SpecialToken": {"id": bos, "type_id": 1}},
+                          {"Sequence": {"id": "B", "type_id": 1}}],
+                 "special_tokens": {bos: {"id": bos, "ids": [self.specials[bos]],
+                                          "tokens": [bos]}}}]},
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                        "trim_offsets": True, "use_regex": True},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": False,
+                      "byte_fallback": False, "ignore_merges": True,
+                      "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]}}
+
+    def write(self, d: Path):
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "tokenizer.json").write_text(json.dumps(self.spec, ensure_ascii=False))
+        (d / "tokenizer_config.json").write_text(json.dumps({
+            "tokenizer_class": "PreTrainedTokenizerFast",
+            "bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+            "clean_up_tokenization_spaces": True,
+            "model_max_length": 1000000}))
+
+    def encode(self, text: str):
+        ids, pos = [], 0
+        for m in [*self._special_re.finditer(text), None]:
+            chunk = text[pos:m.start() if m else len(text)]
+            for piece in _HELPER_SPLIT.findall(chunk):
+                w = tuple(self._bc[b] for b in piece.encode())
+                if "".join(w) in self.vocab:
+                    ids.append(self.vocab["".join(w)])
+                else:
+                    ids += [self.vocab[t] for t in self._learnt[w]]
+            if m:
+                ids.append(self.specials[m.group()])
+                pos = m.end()
+        return ids
+
+
+class ClipAssets:
+    """CLIP BPE assets in HF's format (vocab.json, merges.txt): the 256 byte
+    tokens and their word-final forms, merges learnt from a seeded word
+    list and `texts` (lower-cased, split as CLIP splits), and
+    <|startoftext|> / <|endoftext|> at `sot` / `sot + 1`. `encode` is the
+    assets' own encoding of the texts they were learnt from."""
+
+    def __init__(self, texts, n_merges: int = 3000, seed: int = SEED,
+                 sot: int = 49406):
+        bc = _byte_chars()
+        words: dict = {}
+        for text in [" ".join(_seeded_words(seed + 1, 4000)), *texts]:
+            for w in self._words(text, bc):
+                words[w] = words.get(w, 0) + 1
+        base = [bc[b] for b in sorted(bc)]
+        vocab = {t: i for i, t in enumerate(base + [t + "</w>" for t in base])}
+        merges, self._learnt = _learn_bpe(words, min(n_merges, sot - len(vocab)))
+        for a, b in merges:
+            vocab[a + b] = len(vocab)
+        vocab["<|startoftext|>"], vocab["<|endoftext|>"] = sot, sot + 1
+        self.vocab, self.merges, self._bc = vocab, merges, bc
+
+    @staticmethod
+    def _words(text, bc):
+        text = re.sub(r"\s+", " ", text).strip().lower()
+        for piece in _CLIP_SPLIT.findall(text):
+            w = [bc[b] for b in piece.encode()]
+            yield tuple(w[:-1]) + (w[-1] + "</w>",)
+
+    def write(self, d: Path):
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "vocab.json").write_text(json.dumps(self.vocab, ensure_ascii=False))
+        (d / "merges.txt").write_text(
+            "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in self.merges))
+
+    def encode(self, text: str):
+        """[SOT] + the text's ids + [EOT]."""
+        ids = [self.vocab[t] for w in self._words(text, self._bc)
+               for t in self._learnt[w]]
+        return [self.vocab["<|startoftext|>"], *ids, self.vocab["<|endoftext|>"]]
+
+
+SAFETENSORS_DTYPES = {"float64": "F64", "float32": "F32", "float16": "F16",
+                      "bfloat16": "BF16", "int64": "I64", "int32": "I32",
+                      "int16": "I16", "int8": "I8", "uint8": "U8", "bool": "BOOL"}
+
+
+def write_safetensors(path: Path, tensors, metadata=None) -> int:
+    """Writes {name: tensor} (on any device) in the safetensors format, one
+    tensor at a time through the host; returns the bytes written."""
+    import torch
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[str(t.dtype).split(".")[1]],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    if metadata:
+        header["__metadata__"] = metadata
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for t in tensors.values():
+            if t.numel():
+                f.write(t.detach().cpu().contiguous().reshape(-1)
+                        .view(torch.uint8).numpy().tobytes())
+    return 8 + len(head) + offset
 
 
 def _say(phase: str, **kw):
@@ -906,81 +1179,327 @@ def phase_caption_reference(seed: int, quant: str, steps: int = 8):
 
 
 # --------------------------------------------------------------- phase 5
+CKPT_MARGIN = 1.1  # free space needed, as a multiple of the bytes written
+
+
+def _split_even(sd, n: int):
+    """sd's names in n consecutive groups of about equal bytes."""
+    total = sum(t.numel() * t.element_size() for t in sd.values())
+    groups, acc = [[] for _ in range(n)], 0
+    for k, t in sd.items():
+        groups[min(n - 1, acc * n // total)].append(k)
+        acc += t.numel() * t.element_size()
+    return groups
+
+
+def _pick_dir(need: int):
+    """(a new directory on the first of TMPDIR and the checkout with `need`
+    bytes free, the free bytes of each)."""
+    import shutil
+    free = {}
+    for base in (Path(tempfile.gettempdir()), REPO):
+        free[str(base)] = shutil.disk_usage(base).free
+        if free[str(base)] >= need:
+            return Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)), free
+    return None, free
+
+
+def _write_ckpt_dir(cd: Path, pipe0, cap0, seed: int, prompt: str, texts):
+    """The reference layout (tests/test_e2e_ckpt_roundtrip.py:182-217) from
+    seeded full-width modules on the card, in bf16: SR3's .pth, the
+    juggernaut safetensors (UNet, VAE without its twin encoder, both text
+    towers), SR-v0Q.ckpt (GLVControl and the denoise_encoder), the LLaVA
+    state dict in four safetensors shards with a tokenizer.json, a
+    Llava-next PEFT adapter (r=8, alpha=16 on q_proj and v_proj of every
+    layer) and clip_vocab. Returns (bytes written, the adapter's sampled
+    expectations, tokenizer assets)."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.captioner import (NEWLINE_KEY,
+                                                       PROJECTOR_PREFIX,
+                                                       VISION_PREFIX)
+    from rsvldm_tpu_torch.pipeline import CHECKPOINTS
+    nbytes = 0
+    cpu = lambda sd: {k: v.cpu() for k, v in sd.items()}
+    name, _ = CHECKPOINTS["sr3"]
+    torch.save(cpu(pipe0.sr3.state_dict()), cd / name[0])
+    jug_name, srq_name = CHECKPOINTS["unet"][0]
+    jug, srq = {}, {}
+    for fam in ("unet", "vae", "clip_l", "big_g", "control"):
+        prefix = CHECKPOINTS[fam][1]
+        for k, v in getattr(pipe0, fam).state_dict().items():
+            dst = srq if fam == "control" or k.startswith("denoise_encoder.") else jug
+            dst[f"{prefix}.{k}"] = v
+    nbytes += write_safetensors(cd / jug_name, jug, {"format": "pt"})
+    torch.save({"state_dict": cpu(srq)}, cd / srq_name)
+    del jug, srq
+    sd = dict(cap0.llama.state_dict())
+    sd.update({VISION_PREFIX + k: v for k, v in cap0.vision.state_dict().items()})
+    sd.update({PROJECTOR_PREFIX + k: v for k, v in cap0.projector.state_dict().items()})
+    sd[NEWLINE_KEY] = cap0.image_newline
+    (cd / "llava").mkdir()
+    for i, keys in enumerate(_split_even(sd, 4)):
+        nbytes += write_safetensors(cd / "llava" / f"model-{i + 1:05d}-of-00004.safetensors",
+                                    {k: sd[k] for k in keys}, {"format": "pt"})
+    llama_assets = Llama3Assets([prompt], seed=seed)
+    llama_assets.write(cd / "llava")
+    # the PEFT adapter; the expected merge of a few layers in fp32 on the CPU
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    adapter, expect, r, alpha = {}, {}, 8, 16
+    n_layers = cap0.llama.cfg.layers
+    for i in range(n_layers):
+        for proj in ("q_proj", "v_proj"):
+            w = sd[f"model.layers.{i}.self_attn.{proj}.weight"]
+            a = (torch.randn(r, w.shape[1], generator=gen, device="cuda")
+                 / w.shape[1] ** 0.5).to(torch.bfloat16)
+            b = (torch.randn(w.shape[0], r, generator=gen, device="cuda")
+                 * 0.02).to(torch.bfloat16)
+            key = f"base_model.model.model.layers.{i}.self_attn.{proj}"
+            adapter[f"{key}.lora_A.weight"], adapter[f"{key}.lora_B.weight"] = a, b
+            if i in (0, n_layers // 2, n_layers - 1):
+                f32 = lambda t: t.float().cpu().numpy()
+                merged = f32(w) + (alpha / r) * (f32(b) @ f32(a))
+                expect[(i, proj)] = (torch.from_numpy(merged).to(torch.bfloat16),
+                                     w.cpu())
+    (cd / "Llava-next").mkdir()
+    nbytes += write_safetensors(cd / "Llava-next" / "adapter_model.safetensors",
+                                adapter, {"format": "pt"})
+    (cd / "Llava-next" / "adapter_config.json").write_text(json.dumps(
+        {"peft_type": "LORA", "r": r, "lora_alpha": alpha,
+         "target_modules": ["q_proj", "v_proj"]}))
+    clip_assets = ClipAssets(texts, seed=seed)
+    clip_assets.write(cd / "clip_vocab")
+    total = sum(f.stat().st_size for f in cd.rglob("*") if f.is_file())
+    return total, expect, llama_assets, clip_assets
+
+
+def _sd_digest(sd) -> str:
+    """A digest of every byte of a state dict, computed on the card: per
+    tensor, the position-weighted sum of its bytes in chunks."""
+    import hashlib
+    import torch
+    h = hashlib.sha1()
+    for name, t in sorted(sd.items()):
+        flat = t.detach().contiguous().view(-1).view(torch.uint8)
+        total = 0
+        for i, chunk in enumerate(flat.split(1 << 26)):
+            pos = torch.arange(1, chunk.numel() + 1, device=chunk.device,
+                               dtype=torch.int64)
+            total += int((chunk.to(torch.int64) * pos).sum()) * (i + 1)
+        h.update(f"{name}:{t.dtype}:{tuple(t.shape)}:{total};".encode())
+    return h.hexdigest()
+
+
+def _family_digests(pipe, cap) -> dict:
+    """Per family, a digest of what the checkpoint holds unchanged after the
+    load: every parameter of the six pipeline families, and of the
+    captioner the tower, projector, image_newline, embedding and norms (its
+    projections are int4 after the load)."""
+    out = {fam: _sd_digest(getattr(pipe, fam).state_dict())
+           for fam in ("sr3", "unet", "control", "vae", "clip_l", "big_g")}
+    out["llava_vision"] = _sd_digest(cap.vision.state_dict())
+    out["llava_projector"] = _sd_digest(cap.projector.state_dict())
+    out["llava_newline"] = _sd_digest({"n": cap.image_newline})
+    out["llava_embed_norms"] = _sd_digest(
+        {k: v for k, v in cap.llama.state_dict().items()
+         if "norm" in k or "embed_tokens" in k})
+    return out
+
+
+def _decode_launches(llama, lora=None, pos: int = 1300):
+    """Device kernels launched by one int4 decode step (position `pos` of a
+    1536-slot cache), with and without a runtime LoRA, under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rsvldm_tpu_torch.models.vlm.llama import KVCache
+    kv = KVCache.init(llama.cfg, 1, 1536, dtype=llama.dtype, device="cuda")
+    tok = torch.tensor([[1000]], device="cuda")
+    with torch.inference_mode():
+        step = lambda: llama(llama.embed(tok), kv, pos, lora=lora)[0]
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.self_device_time_total > 0 and e.device_type == DeviceType.CUDA)
+
+
 def phase_path(seed: int):
+    """Full-width seeded modules written as the reference checkpoint
+    directory, then the pipeline built from that directory alone through
+    the CLI's own construction (infer.build_pipeline --quant int4), its
+    weights and tokens checked against what was written, then process()."""
+    import shutil
     import numpy as np
     import torch
     from PIL import Image
-    from rsvldm_tpu_torch.config import LlavaConfig, PipelineConfig
+    from rsvldm_tpu_torch import infer
+    from rsvldm_tpu_torch.config import (LlavaConfig, PipelineConfig,
+                                         RefinementConfig)
     from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
+    from rsvldm_tpu_torch.models.vlm.generate import llama3_chat_prompt
+    from rsvldm_tpu_torch.ops.quant import quantize_weight_int4
     from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
+    from rsvldm_tpu_torch.training.vlm_trainer import (LoraConfig, init_lora,
+                                                       save_lora_npz)
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     rng = np.random.default_rng(seed)
     lr = (rng.random((28, 28, 3)) * 255).astype(np.uint8)
     Image.fromarray(lr).save(work / "lr.png")
-    cfg = PipelineConfig(input_img=str(work / "lr.png"),
-                         output_dir=str(work / "out"), upscale=8, seed=seed,
-                         llava=LlavaConfig(quant="int4"))
+    refine = RefinementConfig()
+    prompt = llama3_chat_prompt(LlavaConfig().img_prompt.format(
+        DEFAULT_IMAGE_TOKEN="<image>"))
+    # the modules to write: the full-width geometries with seeded bf16
+    # weights (a directory with no files), LLaVA-NeXT-8B dense
     t0 = time.perf_counter()
-    # LLaVA-NeXT-8B geometry (the config defaults), seeded bf16 weights
-    # quantized to int4 on the card module by module
-    captioner = LlavaCaptioner.seeded(tokenizer=StandInTokenizer(),
-                                      quant=cfg.llava.quant, device="cuda",
-                                      dtype=torch.bfloat16)
+    pipe0 = SuperResolutionPipeline(PipelineConfig(ckpt_dir=str(work / "none"),
+                                                   no_llava=True), device="cuda")
+    pipe0.ensure_stage2()
+    cap0 = LlavaCaptioner.seeded(tokenizer=StandInTokenizer(), device="cuda",
+                                 dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    caption_init_s = time.perf_counter() - t0
-    pipe = SuperResolutionPipeline(cfg, device="cuda", captioner=captioner)
-    pipe.ensure_stage2()
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for m in (pipe.sr3, pipe.unet, pipe.control,
-                                       pipe.vae, pipe.clip_l, pipe.big_g)
-                   for p in m.parameters())
-    caption_bytes = sum(t.numel() * t.element_size()
-                        for m in (captioner.llama, captioner.vision,
-                                  captioner.projector)
-                        for t in [*m.parameters(), *m.buffers()])
-    torch.cuda.reset_peak_memory_stats()
+    seed_s = time.perf_counter() - t0
+    mods = [getattr(pipe0, f) for f in ("sr3", "unet", "control", "vae", "clip_l",
+                                        "big_g")] + [cap0.llama, cap0.vision, cap0.projector]
+    need = sum(t.numel() * t.element_size() for m in mods
+               for t in m.state_dict().values())
+    # the adapter: r=8 on q_proj and v_proj of each layer, bf16
+    lc = cap0.llama.cfg
+    need += lc.layers * 8 * (3 * lc.dim + lc.kv_heads * lc.head_dim) * 2
+    cd, free = _pick_dir(int(need * CKPT_MARGIN))
+    rec = dict(ckpt_bytes_reckoned=need, free_bytes=free, seed_s=seed_s)
+    if cd is None:
+        rec.update(ok=False, error=f"no directory with {need * CKPT_MARGIN / 1e9:.1f} "
+                   "GB free for the checkpoint directory")
+        _say("path", **rec)
+        return rec, None
+    try:
+        digests_written = _family_digests(pipe0, cap0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt_bytes, expect, llama_assets, clip_assets = _write_ckpt_dir(
+            cd, pipe0, cap0, seed, prompt, [refine.a_prompt, refine.n_prompt])
+        write_s = time.perf_counter() - t0
+        del pipe0, cap0, mods
+        torch.cuda.empty_cache()
 
-    _reset_counts()
-    t0 = time.perf_counter()
-    pipe.process()
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    counts = _counts()
-    launches, k2_launches = counts["k1"], counts["k2"]
-    cs = pipe.caption_stats
+        # the pipeline as a user builds it: the CLI's construction, the
+        # directory alone (no state dicts, no captioner)
+        args = infer.parse_args([
+            "--input_img", str(work / "lr.png"), "--output_dir", str(work / "out"),
+            "--seed", str(seed), "--ckpt_dir", str(cd), "--quant", "int4"])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pipe = infer.build_pipeline(args)
+        pipe.ensure_stage2()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cap = pipe.llava
+        load_peak = torch.cuda.max_memory_allocated() / 2**30
+        sources = pipe.weight_sources
+        from_files = all(isinstance(sources.get(f), list) and sources[f]
+                         for f in ("sr3", "unet", "control", "vae", "clip_l", "big_g"))
+        digests = _family_digests(pipe, cap) if cap is not None else {}
+        digests_equal = {k: digests.get(k) == v for k, v in digests_written.items()}
+        peft = {}
+        for (i, proj), (merged, plain) in expect.items():
+            mod = getattr(cap.llama.model.layers[i].self_attn, proj)
+            q = quantize_weight_int4(merged.cuda().t(), 128)
+            q0 = quantize_weight_int4(plain.cuda().t(), 128)
+            peft[f"{i}.{proj}"] = bool(torch.equal(q.packed, mod.kernel_q4)
+                                       and torch.equal(q.scale, mod.scale)
+                                       and not torch.equal(q0.packed, mod.kernel_q4))
+        chunks = prompt.split("<image>")
+        llama_ids_equal = all(cap.tokenizer.encode(c) == llama_assets.encode(c)
+                              for c in chunks)
+        clip_ids_equal = all(
+            [pipe.tokenizer.sot, *pipe.tokenizer.encode(t), pipe.tokenizer.eot]
+            == clip_assets.encode(t) for t in (refine.a_prompt, refine.n_prompt))
+        ls = cap.load_stats
+        load_s = dict(pipe.load_s, llava_split={k: ls[k] for k in (
+            "open_s", "merge_s", "read_s", "quantize_s")})
+        read_s = sum(v for k, v in pipe.load_s.items())
+        torch.cuda.reset_peak_memory_stats()
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        pipe.process()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counts = _counts()
+        launches, k2_launches = counts["k1"], counts["k2"]
+        cs = pipe.caption_stats
+
+        # one decode step's kernel launches, then with a train_vlm LoRA
+        # archive (r=16 on the seven projections of every layer) attached
+        # as the int4 decoder's runtime branch
+        lora = init_lora(cap.llama, LoraConfig())
+        for ab in lora.values():
+            ab["b"].normal_(0.0, 0.01)
+        save_lora_npz(lora, LoraConfig(), work / "lora.npz")
+        decode_launches = _decode_launches(cap.llama)
+        cap.attach_archives(lora_npz=work / "lora.npz")
+        decode_launches_lora = _decode_launches(cap.llama, cap.lora)
+        cap.lora = None
+    finally:
+        shutil.rmtree(cd, ignore_errors=True)
 
     sr = np.asarray(Image.open(work / "out" / "sr3_lr.png"))
     fin = np.asarray(Image.open(work / "out" / "lr_final_0.png"))
     dfb = pipe.last_dfb
-    rec = dict(init_s=round(init_s, 3), process_s=round(total_s, 3),
-               stage_s={k: round(v, 3) for k, v in pipe.timings.items()},
-               params=n_params, stage1_steps=cfg.stage1.steps,
-               edm_steps=cfg.refine.edm_steps, dfb_hits=dfb["hits"],
-               dfb_steps=dfb["steps"],
-               dfb_trace="".join("H" if x else "." for x in dfb["trace"]),
-               flash_fwd_launches=launches, int4_decode_launches=k2_launches,
-               launches=counts,
-               caption_init_s=round(caption_init_s, 3),
-               caption_weights_gib=round(caption_bytes / 2**30, 3),
-               caption_s=round(pipe.timings.get("caption", 0.0), 3),
-               prompt_len=cs.get("prompt_len"), padded_len=cs.get("padded_len"),
-               prefill_s=round(cs.get("prefill_s", 0.0), 3),
-               decode_s=round(cs.get("decode_s", 0.0), 3),
-               decode_steps=cs.get("decode_steps"),
-               decode_tok_s=round(cs["decode_steps"] / cs["decode_s"], 2)
-               if cs.get("decode_s") else None,
-               caption_words=len(pipe.last_caption.split()),
-               peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
-               sr3_png=list(sr.shape), final_png=list(fin.shape),
-               outputs_finite=pipe.outputs_finite,
-               sr3_std=float(sr.std()), final_std=float(fin.std()))
+    n_params = sum(p.numel() for m in (pipe.sr3, pipe.unet, pipe.control,
+                                       pipe.vae, pipe.clip_l, pipe.big_g)
+                   for p in m.parameters())
+    caption_bytes = sum(t.numel() * t.element_size()
+                        for m in (cap.llama, cap.vision, cap.projector)
+                        for t in [*m.parameters(), *m.buffers()])
+    rec.update(
+        ckpt_dir=str(cd), ckpt_bytes=ckpt_bytes, write_s=write_s,
+        write_gbps=ckpt_bytes / write_s / 1e9,
+        load_s=load_s, init_s=init_s,
+        read_gbps=ckpt_bytes / read_s / 1e9,
+        read_note="page cache warm: the files were written just before",
+        load_peak_mem_gib=load_peak,
+        weight_sources={k: [Path(p).name for p in v] if isinstance(v, list) else v
+                        for k, v in sources.items()},
+        digests_equal=digests_equal, peft_projections_equal=peft,
+        peft_merged=ls.get("peft_merged"),
+        llama_ids_equal=llama_ids_equal, clip_ids_equal=clip_ids_equal,
+        process_s=total_s,
+        stage_s=dict(pipe.timings), params=n_params,
+        stage1_steps=pipe.cfg.stage1.steps,
+        edm_steps=pipe.cfg.refine.edm_steps, dfb_hits=dfb["hits"],
+        dfb_steps=dfb["steps"],
+        dfb_trace="".join("H" if x else "." for x in dfb["trace"]),
+        flash_fwd_launches=launches, int4_decode_launches=k2_launches,
+        launches=counts,
+        caption_weights_gib=caption_bytes / 2**30,
+        caption_s=pipe.timings.get("caption", 0.0),
+        prompt_len=cs.get("prompt_len"), padded_len=cs.get("padded_len"),
+        prefill_s=cs.get("prefill_s", 0.0), decode_s=cs.get("decode_s", 0.0),
+        decode_steps=cs.get("decode_steps"),
+        decode_tok_s=cs["decode_steps"] / cs["decode_s"]
+        if cs.get("decode_s") else None,
+        decode_launches_per_step=decode_launches,
+        decode_launches_per_step_lora=decode_launches_lora,
+        caption_words=len(pipe.last_caption.split()),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        sr3_png=list(sr.shape), final_png=list(fin.shape),
+        outputs_finite=pipe.outputs_finite,
+        sr3_std=float(sr.std()), final_std=float(fin.std()))
     misses = dfb["steps"] - dfb["hits"]
     rec["expected_launches"] = (misses * K1_PER_MISS + dfb["hits"] * K1_PER_HIT
                                 + K1_PER_CAPTION)
     rec["expected_k2_launches"] = K2_PER_STEP * (cs.get("decode_steps") or 0)
-    ok = bool(launches == rec["expected_launches"] > 0
+    ok = bool(from_files and cap is not None
+              and isinstance(sources.get("llava"), list)
+              and all(digests_equal.values()) and len(peft) == 6
+              and all(peft.values()) and ls.get("peft_merged") == 64
+              and llama_ids_equal and clip_ids_equal
+              and launches == rec["expected_launches"] > 0
               and k2_launches == rec["expected_k2_launches"] > 0
               and cs.get("padded_len", 0) >= 1024
               and sr.shape == (224, 224, 3)
@@ -993,23 +1512,6 @@ def phase_path(seed: int):
 
 
 # --------------------------------------------------------- phase 4b, 5b
-def _base_digest(module) -> str:
-    """A digest of every parameter and buffer byte, computed on the card:
-    per tensor, the position-weighted sum of its bytes in chunks."""
-    import hashlib
-    import torch
-    h = hashlib.sha1()
-    for name, t in sorted(module.state_dict().items()):
-        flat = t.detach().contiguous().view(-1).view(torch.uint8)
-        total = 0
-        for i, chunk in enumerate(flat.split(1 << 26)):
-            pos = torch.arange(1, chunk.numel() + 1, device=chunk.device,
-                               dtype=torch.int64)
-            total += int((chunk.to(torch.int64) * pos).sum()) * (i + 1)
-        h.update(f"{name}:{t.dtype}:{tuple(t.shape)}:{total};".encode())
-    return h.hexdigest()
-
-
 def phase_train_reference(seed: int, quant: str, seq: int = 1024):
     """One loss and its adapter gradients at a small width with 128-wide
     heads and {seq} tokens (so K1 and the backward run), on the card in bf16
@@ -1152,7 +1654,7 @@ def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
         "--image_aspect_ratio", "anyres", "--bits", "8", "--lora_r", "16",
         "--lora_alpha", "16", "--lr", "2e-4", "--batch_size", str(batch),
         "--steps", str(steps), "--seed", str(seed), "--num_workers", "2"])
-    digest = _base_digest(cap.llama)
+    digest = _sd_digest(cap.llama.state_dict())
     per_step = []
     last = dict(_counts())
     prof = []
@@ -1196,7 +1698,7 @@ def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
                           sorted(rows, key=lambda r: -r[1])[:12]])
     moved = all(float(ab["b"].detach().abs().max()) > 0
                 for ab in trainer.lora.values())
-    unchanged = _base_digest(cap.llama) == digest
+    unchanged = _sd_digest(cap.llama.state_dict()) == digest
     rec = dict(init_s=init_s, loop_s=loop_s, steps=res["steps"],
                batch=batch, width=width, image_tokens=n_img,
                record_tokens=[min(lengths), max(lengths)],
@@ -1327,12 +1829,12 @@ def main(argv=None) -> int:
     if not args.skip_path:
         path, pipe = phase_path(SEED)
         ok = ok and path["ok"]
-        if args.profile:
+        if args.profile and pipe is not None:
             phase_profile(pipe)
         del pipe
         train = phase_train(SEED, profile=args.profile)
         ok = ok and train["ok"]
-    by_path = {"process": path["launches"] if path else {},
+    by_path = {"process": path.get("launches", {}) if path else {},
                "train": train["launches"] if train else {}}
 
     def launches(k):

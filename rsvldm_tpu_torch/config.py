@@ -3,8 +3,8 @@
 Same dataclasses and defaults as the JAX package's Stage1Config,
 LlavaConfig, RefinementConfig and PipelineConfig, the reference image
 prompt and the prompt-file reader. LlavaConfig's fields for speculative
-decoding, LoRA archives and projector archives are not ported yet and are
-refused when set away from their defaults.
+decoding are not ported yet and are refused when set away from their
+defaults.
 """
 
 from __future__ import annotations
@@ -81,6 +81,8 @@ class LlavaConfig:
     draft_dir: str = ""
     spec_k: int = 4
     self_draft_layers: int = 0
+    # train_vlm archives: LoRA adapters (folded into an fp decoder, the
+    # runtime branch of an int8 / int4 one) and the mm projector
     lora_npz: str = ""
     projector_npz: str = ""
 
@@ -89,13 +91,11 @@ class LlavaConfig:
             raise ValueError(f"LlavaConfig.quant={self.quant!r}: expected "
                              "'int8', 'int4' or ''")
         for name, default in (("draft_dir", ""), ("spec_k", 4),
-                              ("self_draft_layers", 0), ("lora_npz", ""),
-                              ("projector_npz", "")):
+                              ("self_draft_layers", 0)):
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"LlavaConfig.{name}: this caption option is not ported "
-                    "yet (speculative decoding, LoRA and projector archives "
-                    "are queued)")
+                    "yet (speculative decoding is queued)")
         if self.prompt_yaml:
             self.img_prompt = load_prompt_yaml(self.prompt_yaml)
 

@@ -1,32 +1,55 @@
 """LLaVA captioner (rsvldm_tpu/models/vlm/captioner.py): builds the
 decoder, vision tower, projector and image_newline from one HF-named LLaVA
-state dict, and captions one image.
+state dict, or reads them from a checkpoint directory, and captions one
+image.
 
 State-dict names are the reference checkpoint's: the language model under
 `model.embed_tokens`, `model.layers.*`, `model.norm`, `lm_head`; the tower
 under `model.vision_tower.vision_tower.vision_model.*`; the projector under
 `model.mm_projector.{0,2}`; `model.image_newline`. The tokenizer is any
 object with encode(text, add_special_tokens=False) and
-decode(ids, skip_special_tokens=True).
+decode(ids, skip_special_tokens=True); `load` reads the Llama-3 one from
+<ckpt_dir>/llava/tokenizer.json (tokenizer.py).
 
-Not ported yet: reading the checkpoint files and the Llama-3 BPE tokenizer,
-the PEFT merge, LoRA and projector archives, speculative decoding, batched
-captions.
+`load` reads <ckpt_dir>/llava (sorted *.safetensors shards, else
+pytorch_model*.bin), merges the PEFT adapter of <ckpt_dir>/Llava-next into
+the base weights in fp32 on the host (W + (lora_alpha / r) * B @ A, the
+numpy expression of rsvldm_tpu/utils/convert_hf.py::merge_lora), fills the
+modules on the device in the compute dtype tensor by tensor, then
+quantizes. Train_vlm archives attach after that: a LoRA archive folds into
+an fp decoder and rides the runtime branch of an int8 / int4 one (every
+prefill and decode step gets `lora`); a projector archive replaces the
+checkpoint's projector.
+
+Not ported yet: speculative decoding (a draft checkpoint or the
+self-draft), batched captions.
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import logging
+import re
+import time
 import zlib
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
+from ...training.vlm_trainer import (apply_lora, load_lora_npz,
+                                     load_projector_npz, quant_mode,
+                                     runtime_lora)
+from ...utils.checkpoint import load_checked, load_torch_state_dict
 from ...utils.weights import seeded_init_
 from .generate import GenerateConfig, caption_image
 from .llama import LLAMA3_8B_CONFIG, LlamaConfig, LlamaModel, quantize_llama_
 from .projector import MLPProjector
+from .tokenizer import Llama3Tokenizer
 from .vision import CLIP_VIT_L_336_CONFIG, CLIPVisionConfig, CLIPVisionTower
+
+log = logging.getLogger("rsvldm_torch")
 
 VISION_PREFIX = "model.vision_tower.vision_tower."
 PROJECTOR_PREFIX = "model.mm_projector."
@@ -60,13 +83,56 @@ def _empty_parts(llama_cfg, vision_cfg, device, dtype):
     return parts
 
 
-def _load(module: torch.nn.Module, sd: dict, what: str):
-    """Loads what the module has; checkpoint extras (e.g. the tower's unused
-    post_layernorm) are ignored, missing names raise."""
-    missing, _ = module.load_state_dict(sd, strict=False)
-    if missing:
-        raise KeyError(f"{what}: state dict lacks {missing[:5]} "
-                       f"({len(missing)} missing)")
+def load_sharded(d: Path) -> tuple[dict, List[str]]:
+    """(the merged state dict of d's sorted *.safetensors shards, else of its
+    pytorch_model*.bin shards; the files), tensors mapped from the files
+    (JAX `_load_sharded`)."""
+    files = sorted(glob.glob(str(d / "*.safetensors"))) or \
+        sorted(glob.glob(str(d / "pytorch_model*.bin")))
+    sd: dict = {}
+    for f in files:
+        sd.update(load_torch_state_dict(f))
+    return sd, files
+
+
+_LORA_A = re.compile(r"base_model\.model\.(.+)\.lora_A(?:\.default)?\.weight")
+
+
+def merge_peft(sd: dict, adapter_dir: Path) -> tuple[dict, int]:
+    """(sd with a PEFT adapter folded into its base weights, the count of
+    merged weights), JAX `_apply_lora`: scale lora_alpha / r from
+    adapter_config.json (1.0 without it), W + scale * B @ A computed in fp32
+    numpy as rsvldm_tpu/utils/convert_hf.py::merge_lora does. The merged
+    weights are fp32 host tensors; the other entries stay mapped."""
+    scale = 1.0
+    cfg_path = adapter_dir / "adapter_config.json"
+    if cfg_path.exists():
+        with open(cfg_path) as f:
+            acfg = json.load(f)
+        scale = acfg.get("lora_alpha", 16) / max(acfg.get("r", 16), 1)
+    asd, _ = load_sharded(adapter_dir)
+    if not asd:
+        for p in glob.glob(str(adapter_dir / "adapter_model*")):
+            asd.update(load_torch_state_dict(p))
+    f32 = lambda t: t.detach().float().numpy()
+    merged, n = dict(sd), 0
+    for k in asd:
+        m = _LORA_A.fullmatch(k)
+        if not m:
+            continue
+        base_key, b_key = m.group(1) + ".weight", k.replace("lora_A", "lora_B")
+        if base_key in merged and b_key in asd:
+            merged[base_key] = torch.from_numpy(
+                f32(merged[base_key]) + scale * (f32(asd[b_key]) @ f32(asd[k])))
+            n += 1
+    log.info("merged %d LoRA deltas (scale %.3f)", n, scale)
+    return merged, n
+
+
+def _now(device) -> float:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 class LlavaCaptioner:
@@ -78,7 +144,13 @@ class LlavaCaptioner:
         self.projector = projector
         self.image_newline = image_newline
         self.tokenizer = tokenizer
+        # adapters of a quantized decoder's runtime branch (scale in b),
+        # from attach_archives
+        self.lora: dict | None = None
         self.last_stats: dict = {}
+        # seconds of each load step (read_s, merge_s, quantize_s,
+        # archives_s) and the files read
+        self.load_stats: dict = {}
 
     @classmethod
     @torch.no_grad()
@@ -88,15 +160,20 @@ class LlavaCaptioner:
                         tokenizer=None, quant: str | None = None,
                         device: str | torch.device = "cpu",
                         dtype: torch.dtype = torch.float32) -> "LlavaCaptioner":
-        """Modules built on `device` in `dtype` and filled from `sd`; with
-        quant 'int8' / 'int4' the decoder is then quantized module by module
-        (its embedding table narrowed to bf16, as the JAX loader does)."""
+        """Modules built on `device` in `dtype` and filled from `sd` tensor by
+        tensor (missing names raise, extras are logged); with quant 'int8' /
+        'int4' the decoder is then quantized module by module (its
+        embedding table narrowed to bf16, as the JAX loader does)."""
+        t0 = _now(device)
         parts = _empty_parts(llama_cfg, vision_cfg, device, dtype)
         for module, part_sd, what in zip(parts, split_llava_state_dict(sd),
                                          ("llama", "vision tower", "projector")):
-            _load(module, part_sd, what)
+            load_checked(module, part_sd, what)
         newline = sd[NEWLINE_KEY].to(device=device, dtype=dtype)
-        return cls._finish(parts, newline, tokenizer, quant)
+        read_s = _now(device) - t0
+        cap = cls._finish(parts, newline, tokenizer, quant)
+        cap.load_stats["read_s"] = read_s
+        return cap
 
     @classmethod
     @torch.no_grad()
@@ -119,23 +196,83 @@ class LlavaCaptioner:
     @classmethod
     def _finish(cls, parts, newline, tokenizer, quant):
         if tokenizer is None:
-            raise ValueError("LlavaCaptioner: a tokenizer is required (the "
-                             "Llama-3 BPE tokenizer is not ported yet)")
+            raise ValueError("LlavaCaptioner: a tokenizer is required "
+                             "(LlavaCaptioner.load reads tokenizer.json)")
         llama, vision, projector = (m.eval().requires_grad_(False) for m in parts)
+        t0 = _now(newline.device)
         if quant:
             quantize_llama_(llama, quant)
-        return cls(llama, vision, projector, newline, tokenizer)
+        cap = cls(llama, vision, projector, newline, tokenizer)
+        cap.load_stats["quantize_s"] = _now(newline.device) - t0
+        return cap
+
+    @torch.no_grad()
+    def attach_archives(self, lora_npz: str | Path | None = None,
+                        projector_npz: str | Path | None = None):
+        """train_vlm's archives (JAX captioner.py:185-209): a LoRA archive
+        (save_lora_npz, either package's) folds into an fp decoder's
+        weights, or becomes the runtime branch of an int8 / int4 one; a
+        projector archive replaces the projector's weights wholesale."""
+        dev = self.image_newline.device
+        t0 = _now(dev)
+        if lora_npz:
+            lora, lcfg = load_lora_npz(lora_npz, dev)
+            quantized = quant_mode(self.llama) is not None
+            if quantized:
+                self.lora = runtime_lora(lora, lcfg.scale)
+            else:
+                self.llama.load_state_dict(apply_lora(self.llama, lora, lcfg.scale))
+            log.info("LoRA adapters attached from %s (r=%d, %s)", lora_npz,
+                     lcfg.r, "runtime branch" if quantized else "folded")
+        if projector_npz:
+            load_checked(self.projector, load_projector_npz(projector_npz),
+                         f"projector archive {projector_npz}")
+            log.info("projector weights replaced from %s", projector_npz)
+        if lora_npz or projector_npz:
+            self.load_stats["archives_s"] = _now(dev) - t0
 
     @classmethod
-    def load(cls, ckpt_dir: str | Path, **kw) -> Optional["LlavaCaptioner"]:
-        """None when <ckpt_dir>/llava is missing, as the JAX loader."""
+    def load(cls, ckpt_dir: str | Path,
+             llama_cfg: LlamaConfig = LLAMA3_8B_CONFIG,
+             vision_cfg: CLIPVisionConfig = CLIP_VIT_L_336_CONFIG,
+             tokenizer=None, quant: str | None = None,
+             device: str | torch.device = "cpu",
+             dtype: torch.dtype = torch.float32,
+             lora_npz: str | Path | None = None,
+             projector_npz: str | Path | None = None
+             ) -> Optional["LlavaCaptioner"]:
+        """The captioner of <ckpt_dir>/llava (JAX LlavaCaptioner.load,
+        captioner.py:122-239): the shards, the Llava-next PEFT adapter
+        merged in fp32, the modules on `device` in `dtype`, `quant`, the
+        archives, and the tokenizer (tokenizer.json unless one is given).
+        None when <ckpt_dir>/llava is missing or holds no weights."""
         d = Path(ckpt_dir) / "llava"
         if not d.is_dir():
             return None
-        raise NotImplementedError(
-            f"reading the LLaVA checkpoint in {d} is not ported yet (ROADMAP: "
-            "the real Llama-3 tokenizer and safetensors reading); build the "
-            "captioner with LlavaCaptioner.from_state_dict")
+        if (Path(ckpt_dir) / "llava_draft").is_dir():
+            log.warning("%s: speculative decoding is not ported yet; the "
+                        "caption decodes without the draft (the same ids)",
+                        Path(ckpt_dir) / "llava_draft")
+        t0 = time.perf_counter()
+        sd, files = load_sharded(d)
+        if not sd:
+            return None
+        open_s = time.perf_counter() - t0
+        if tokenizer is None:
+            tokenizer = Llama3Tokenizer.from_dir(d)
+        merge_s, merged = 0.0, 0
+        adapter = Path(ckpt_dir) / "Llava-next"
+        if adapter.is_dir():
+            t0 = time.perf_counter()
+            sd, merged = merge_peft(sd, adapter)
+            merge_s = time.perf_counter() - t0
+            files = files + [str(adapter)]
+        cap = cls.from_state_dict(sd, llama_cfg, vision_cfg, tokenizer, quant,
+                                  device, dtype)
+        cap.attach_archives(lora_npz, projector_npz)
+        cap.load_stats.update(files=files, open_s=open_s, merge_s=merge_s,
+                              peft_merged=merged)
+        return cap
 
     @torch.inference_mode()
     def caption(self, image, llava_cfg,
@@ -154,4 +291,4 @@ class LlavaCaptioner:
         return caption_image(self.llama, self.vision, self.projector, image,
                              prompt, encode, decode, self.image_newline, cfg,
                              generator, patch_size=self.vision.cfg.image_size,
-                             stats=self.last_stats, noise=noise)
+                             stats=self.last_stats, noise=noise, lora=self.lora)

@@ -10,8 +10,10 @@ Gumbel noise from a torch.Generator (its numbers are not JAX's), or any
 caller's stream, such as JAX's (`rng` for token 0, `fold_in(rng, i)` after
 it), which then gives JAX's ids. The JAX loop runs all max_new_tokens - 1
 steps and forces eot after the first one; this loop stops there, which
-returns the same ids. Not ported yet: batched decode (generate_batch,
-caption_images).
+returns the same ids. `lora` (adapters by module path, scale folded into
+b: training/vlm_trainer.runtime_lora) rides the runtime branch of an int8 /
+int4 decoder in the prefill and in every decode step. Not ported yet:
+batched decode (generate_batch, caption_images).
 """
 
 from __future__ import annotations
@@ -143,8 +145,8 @@ def gumbel_noise(vocab: int, generator: torch.Generator) -> Noise:
 @torch.inference_mode()
 def generate(model: LlamaModel, input_embeds: torch.Tensor,
              cfg: GenerateConfig, generator: torch.Generator | None = None,
-             stats: dict | None = None, noise: Noise | None = None
-             ) -> np.ndarray:
+             stats: dict | None = None, noise: Noise | None = None,
+             lora: dict | None = None) -> np.ndarray:
     """input_embeds [S, D] -> np.int32 ids, trimmed at the first eot.
     Sampling adds `noise(i)` [vocab] to the logits of token i; without it,
     Gumbel draws from `generator` (default: seeded with 0 on the
@@ -176,7 +178,7 @@ def generate(model: LlamaModel, input_embeds: torch.Tensor,
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model(embeds, cache, 0)
+    logits, cache = model(embeds, cache, 0, lora=lora)
     tok = sample(logits[0, s - 1], 0)  # last real prompt position
     _sync(device)
     t1 = time.perf_counter()
@@ -185,7 +187,7 @@ def generate(model: LlamaModel, input_embeds: torch.Tensor,
     steps = 0
     while tok not in eot and len(out) < cfg.max_new_tokens:
         emb = model.embed(torch.tensor([[tok]], device=device))
-        logits, cache = model(emb, cache, s + steps)
+        logits, cache = model(emb, cache, s + steps, lora=lora)
         steps += 1
         tok = sample(logits[0, -1], steps)
         out.append(tok)
@@ -204,11 +206,13 @@ def caption_image(model: LlamaModel, vision_apply, projector_apply, image,
                   cfg: GenerateConfig = GenerateConfig(),
                   generator: torch.Generator | None = None,
                   patch_size: int = 336, stats: dict | None = None,
-                  noise: Noise | None = None) -> str:
+                  noise: Noise | None = None, lora: dict | None = None) -> str:
     """Stage 2a: anyres -> tower -> projector -> spatial-unpad assembly ->
-    splice -> generate -> decode. Sampling noise as in `generate`."""
+    splice -> generate -> decode. Sampling noise and `lora` as in
+    `generate`."""
     spliced = embed_multimodal_prompt(
         model, vision_apply, projector_apply, llama3_chat_prompt(prompt_text),
         [image], encode_fn, image_newline, patch_size)
-    ids = generate(model, spliced, cfg, generator, stats=stats, noise=noise)
+    ids = generate(model, spliced, cfg, generator, stats=stats, noise=noise,
+                   lora=lora)
     return decode_fn(ids.tolist()).lstrip()

@@ -8,24 +8,33 @@ SuperResolutionPipeline.process).
              cache, conditioned on the caption, VAE decode, wavelet colour fix
 
 The uint8 PNG round trip after Stage 1 is kept: the refinement reads the
-saved image, as in the JAX pipeline. Weights come from `state_dicts` (one
-state dict per family, e.g. from utils/weights.params_from_jax); a family
-without one gets seeded random init on the device with a loud warning
-(checkpoint loading is not ported yet). Noise comes from a torch.Generator
-seeded with cfg.seed on the device, or from `noise`, a callable
-(name, shape) -> tensor that tests use to replay the JAX stream. Draws, in
-the JAX layout: "stage1" [T+1, 1, H, W, 3], "vae_sample" [N, h, w, 4],
-"edm_init" [N, h, w, 4], "churn" [steps, N, h, w, 4].
+saved image, as in the JAX pipeline.
 
-The captioner comes from `captioner` (an LlavaCaptioner built by the
-caller, e.g. LlavaCaptioner.from_state_dict or .seeded) or from
-LlavaCaptioner.load(cfg.ckpt_dir), which finds nothing to read yet; without
+Weights, family by family (rsvldm_tpu/pipeline.py:210-305): from
+`state_dicts` (one state dict per family, e.g. from
+utils/weights.params_from_jax), else from the reference files in
+cfg.ckpt_dir (`CHECKPOINTS`: later files overlaid on earlier ones, the
+family's prefix stripped; the port's parameter names are the reference
+names, so no converter runs), else seeded random init on the device with a
+loud warning. Loading fills modules built on the device in the compute
+dtype, tensor by tensor (utils/checkpoint.load_checked: missing names and
+other shapes raise, extra names are logged). `weight_sources` records each
+family's source and `load_s` its seconds. The LLaVA captioner is `captioner`
+when given, else LlavaCaptioner.load(cfg.ckpt_dir) (the llava/ shards, the
+Llava-next/ PEFT adapter, tokenizer.json, cfg.llava's archives); without
 one the caption is empty, as in the JAX pipeline without LLaVA assets.
+CLIP tokens come from the BPE tokenizer in <ckpt_dir>/clip_vocab (CLIP-L
+padded with EOT, bigG with 0), else from crc32 hash buckets with a warning,
+as JAX does.
 
-Not ported yet: reading checkpoints (every family), folder mode and
-size_bucket, the tiled VAE, the SR3 DDIM sampler, the CLIP BPE tokenizer
-(the crc32 hash-bucket tokens below are what the JAX pipeline uses when
-ckpt_dir/clip_vocab is missing).
+Noise comes from a torch.Generator seeded with cfg.seed on the device, or
+from `noise`, a callable (name, shape) -> tensor that tests use to replay
+the JAX stream. Draws, in the JAX layout: "stage1" [T+1, 1, H, W, 3],
+"vae_sample" [N, h, w, 4], "edm_init" [N, h, w, 4], "churn" [steps, N, h,
+w, 4].
+
+Not ported yet: folder mode and size_bucket, the tiled VAE, the SR3 DDIM
+sampler.
 """
 
 from __future__ import annotations
@@ -56,11 +65,25 @@ from .models.vlm.captioner import LlavaCaptioner
 from .models.vae.model import SDXL_VAE_CONFIG, AutoencoderKL
 from .ops import colorfix
 from .ops.image import array_to_pil, load_lr_conditioning, pil_to_array, to_uint8
+from .utils.checkpoint import (load_checked, load_torch_state_dict, overlay,
+                               strip_prefix)
+from .utils.tokenizer import CLIPTokenizer
 from .utils.weights import seeded_init_
 
 log = logging.getLogger("rsvldm_torch")
 
 NoiseSource = Callable[[str, tuple], torch.Tensor]
+
+_STAGE2_FILES = ("juggernautXL_v8Rundiffusion.safetensors", "SR-v0Q.ckpt")
+# family: (files under ckpt_dir, later overlaid on earlier; prefix stripped)
+CHECKPOINTS = {
+    "sr3": (("I1000000_E800_gen.pth",), None),
+    "control": (_STAGE2_FILES, "model.control_model"),
+    "unet": (_STAGE2_FILES, "model.diffusion_model"),
+    "vae": (_STAGE2_FILES, "first_stage_model"),
+    "clip_l": (_STAGE2_FILES, "conditioner.embedders.0.transformer"),
+    "big_g": (_STAGE2_FILES, "conditioner.embedders.1.model"),
+}
 
 
 class TorchNoise:
@@ -114,7 +137,8 @@ class SuperResolutionPipeline:
                  model_cfgs: Optional[Dict] = None,
                  state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                  noise: Optional[NoiseSource] = None,
-                 captioner: Optional[LlavaCaptioner] = None):
+                 captioner: Optional[LlavaCaptioner] = None,
+                 llava_load_kw: Optional[dict] = None):
         if cfg.stage1.sampler != "ddpm":
             raise NotImplementedError("only the ddpm Stage-1 sampler is ported")
         if cfg.refine.use_tile_vae:
@@ -124,6 +148,12 @@ class SuperResolutionPipeline:
         self.dtype = compute_dtype(self.device, cfg.params_dtype)
         self.noise = noise or TorchNoise(cfg.seed, self.device)
         self.state_dicts = state_dicts or {}
+        # overrides of LlavaCaptioner.load's keywords (llama_cfg,
+        # vision_cfg, tokenizer): tests run the real load at tiny width
+        self.llava_load_kw = llava_load_kw or {}
+        self.weight_sources: Dict[str, object] = {}
+        self.load_s: Dict[str, float] = {}
+        self._mapped: Dict[str, dict] = {}  # file -> its mapped state dict
         mc = model_cfgs or {}
         s1 = cfg.stage1
         self.sr3_cfg = mc.get("sr3") or SR3UNetConfig(
@@ -134,42 +164,73 @@ class SuperResolutionPipeline:
         self.vae_cfg = mc.get("vae") or SDXL_VAE_CONFIG
         self.clip_l_cfg = mc.get("clip_l") or CLIP_L_CONFIG
         self.big_g_cfg = mc.get("big_g") or OPENCLIP_BIGG_CONFIG
-        self.sr3 = self._build("sr3", SR3UNet, self.sr3_cfg)
-        self.sr3_diff = SR3Diffusion.from_schedule(
-            s1.schedule, s1.steps, s1.linear_start, s1.linear_end)
         self._stage2_loaded = False
         self.timings: Dict[str, float] = {}
         self.last_dfb: Optional[dict] = None
         self.outputs_finite: Dict[str, bool] = {}
         self.caption_stats: dict = {}
         self.last_caption = ""
-        self.llava = None
-        if not cfg.no_llava:
-            self.llava = captioner
-            if captioner is None:
-                try:
-                    self.llava = LlavaCaptioner.load(
-                        cfg.ckpt_dir, quant=cfg.llava.quant or None)
-                except Exception as e:  # assets missing or unreadable
-                    log.warning("LLaVA load failed (%s): captioning disabled", e)
+        self.llava = captioner
+        self.sr3 = self._build("sr3", SR3UNet, self.sr3_cfg)
+        self._mapped.clear()
+        self.sr3_diff = SR3Diffusion.from_schedule(
+            s1.schedule, s1.steps, s1.linear_start, s1.linear_end)
 
     # ------------------------------------------------------------ weights
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _files_state_dict(self, family: str):
+        """(the family's state dict from its files in cfg.ckpt_dir, the files
+        read) or (None, []) when none of them exists. Nothing is read yet:
+        the tensors view the mapped files."""
+        names, prefix = CHECKPOINTS[family]
+        paths = [str(Path(self.cfg.ckpt_dir) / n) for n in names]
+        paths = [p for p in paths if Path(p).is_file()]
+        if not paths:
+            return None, []
+        for p in paths:
+            if p not in self._mapped:
+                self._mapped[p] = load_torch_state_dict(p)
+        sd = overlay(*(self._mapped[p] for p in paths))
+        if prefix:
+            sd = strip_prefix(sd, prefix)
+        if family == "vae" and not any(k.startswith("denoise_encoder.") for k in sd):
+            # no twin encoder in the files: it starts as the encoder
+            # (rsvldm_tpu/utils/convert.py:182-194)
+            sd.update({"denoise_encoder." + k[len("encoder."):]: v
+                       for k, v in sd.items() if k.startswith("encoder.")})
+        return sd, paths
+
     def _build(self, family: str, cls, mcfg):
         """The family's module on the device in the compute dtype: built
-        without allocating (meta), then filled from its state dict
-        (strict) or by seeded random init."""
+        without allocating (meta), then filled from `state_dicts`, else from
+        its files, else by seeded random init."""
+        self._sync()
+        t0 = time.perf_counter()
         with torch.device("meta"):
             module = cls(mcfg)
         module = module.to(dtype=self.dtype).to_empty(device=self.device)
         sd = self.state_dicts.get(family)
         if sd is not None:
-            module.load_state_dict(sd, strict=True)
+            load_checked(module, sd, family)
+            self.weight_sources[family] = "state_dict"
         else:
-            seeded_init_(module, family, self.device)
+            sd, paths = self._files_state_dict(family)
+            if sd is not None:
+                load_checked(module, sd, f"{family} ({', '.join(paths)})")
+                self.weight_sources[family] = paths
+            else:
+                seeded_init_(module, family, self.device)
+                self.weight_sources[family] = "seeded"
+        self._sync()
+        self.load_s[family] = time.perf_counter() - t0
         return module.eval().requires_grad_(False)
 
     def ensure_stage2(self):
-        """Stage-2 weights, built on first use."""
+        """Stage-2 weights, the CLIP tokenizer and the captioner, on first
+        use."""
         if self._stage2_loaded:
             return
         self.unet = self._build("unet", ControlledUNet, self.sdxl_cfg)
@@ -177,9 +238,39 @@ class SuperResolutionPipeline:
         self.vae = self._build("vae", AutoencoderKL, self.vae_cfg)
         self.clip_l = self._build("clip_l", CLIPTextTransformer, self.clip_l_cfg)
         self.big_g = self._build("big_g", CLIPTextTransformer, self.big_g_cfg)
-        log.warning("CLIP BPE tokenizer not ported: hash-bucket tokens "
-                    "(smoke mode)")
+        self._mapped.clear()
+        tok_dir = Path(self.cfg.ckpt_dir) / "clip_vocab"
+        try:
+            self.tokenizer = CLIPTokenizer.from_dir(str(tok_dir))
+        except FileNotFoundError:
+            log.warning("CLIP tokenizer assets missing (%s): hash-bucket "
+                        "tokens (smoke mode)", tok_dir)
+            self.tokenizer = None
+        if self.cfg.no_llava:
+            self.llava = None
+        elif self.llava is not None:
+            self.weight_sources["llava"] = "captioner"
+        else:
+            self._load_llava()
         self._stage2_loaded = True
+
+    def _load_llava(self):
+        llava = self.cfg.llava
+        kw = {"quant": llava.quant or None, "device": self.device,
+              "dtype": self.dtype, "lora_npz": llava.lora_npz or None,
+              "projector_npz": llava.projector_npz or None,
+              **self.llava_load_kw}
+        try:
+            self.llava = LlavaCaptioner.load(self.cfg.ckpt_dir, **kw)
+        except (FileNotFoundError, KeyError, ValueError) as e:
+            # assets partial or malformed, as the JAX pipeline treats them
+            log.warning("LLaVA load failed (%s): captioning disabled", e)
+            self.llava = None
+        if self.llava is not None:
+            stats = self.llava.load_stats
+            self.weight_sources["llava"] = stats["files"]
+            self.load_s["llava"] = sum(v for k, v in stats.items()
+                                       if k.endswith("_s"))
 
     @contextlib.contextmanager
     def _timed(self, name: str):
@@ -209,6 +300,7 @@ class SuperResolutionPipeline:
         decode seconds, decode steps."""
         if self.cfg.no_llava:
             return ""
+        self.ensure_stage2()
         if self.llava is None:
             log.warning("LLaVA assets not loaded: skipping captioning "
                         "(equivalent of no_llava)")
@@ -233,8 +325,16 @@ class SuperResolutionPipeline:
             control_scale_start=r.spt_linear_s_stage2,
             img_threshold=r.img_threshold, dec_img=1.0)
 
-    def _tokens(self, texts) -> torch.Tensor:
-        return torch.from_numpy(hash_tokens(texts, self.clip_l_cfg.vocab_size)).to(self.device)
+    def _tokens(self, texts):
+        """(CLIP-L tokens padded with EOT, bigG tokens padded with 0), [N, 77]
+        on the device; without clip_vocab both are the hash tokens."""
+        if self.tokenizer is None:
+            tl = tg = hash_tokens(texts, self.clip_l_cfg.vocab_size)
+        else:
+            tl = self.tokenizer(texts, pad_id=None)
+            tg = self.tokenizer(texts, pad_id=0)
+        to = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+        return to(tl), to(tg)
 
     def _refine_core(self, x: torch.Tensor, texts_c):
         """x [N, H, W, 3] in [-1, 1] -> (samples, x_stage1), both [N, H, W, 3]
@@ -249,10 +349,10 @@ class SuperResolutionPipeline:
             eps = self.noise("vae_sample", tuple(_nhwc(z_lq).shape))
             z_stage1 = vae.encode(x_stage1, noise=_nchw(eps.to(self.device)))
         with self._timed("conditioning"):
-            tc = self._tokens(texts_c)
-            tu = self._tokens([r.n_prompt] * len(texts_c))
+            tl_c, tg_c = self._tokens(texts_c)
+            tl_u, tg_u = self._tokens([r.n_prompt] * len(texts_c))
             conditioner = SDXLConditioner(self.clip_l, self.big_g)
-            cond, uc = conditioner.paired(tc, tc, tu, tu, _nhwc(z_lq))
+            cond, uc = conditioner.paired(tl_c, tg_c, tl_u, tg_u, _nhwc(z_lq))
         with self._timed("sampling"):
             shape = tuple(cond["control"].shape)
             noise = self.noise("edm_init", shape).to(self.device)

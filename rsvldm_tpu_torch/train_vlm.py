@@ -14,9 +14,10 @@ image records are read as text, as the JAX CLI does):
 
 It runs on CUDA unless given --device cpu, and raises without a card. The
 loop itself is `train(args, captioner, ...)`, which takes a built
-LlavaCaptioner (LlavaCaptioner.from_state_dict / .seeded); the checkpoint
-reader is not ported yet, so without --smoke the CLI exits as the JAX one
-does without a checkpoint. Not ported yet (they raise, ROADMAP item 15):
+LlavaCaptioner (LlavaCaptioner.load / .from_state_dict / .seeded); without
+--smoke the CLI reads <ckpt_dir>/llava (LlavaCaptioner.load: the shards,
+the Llava-next PEFT merge, tokenizer.json) and exits, as the JAX one does,
+when there is none. Not ported yet (they raise, ROADMAP item 15):
 --dpo, --tune projector, --video_folder and templates other than llama_3.
 """
 
@@ -274,7 +275,8 @@ def main(argv=None):
                                     quant=quant, device=device, dtype=dtype)
         encode, pre_kw, with_images = _hash_encode, {"sp": SMOKE_SPECIAL}, False
     else:
-        cap = LlavaCaptioner.load(args.ckpt_dir, quant=quant)
+        cap = LlavaCaptioner.load(args.ckpt_dir, quant=quant, device=device,
+                                  dtype=dtype)
         if cap is None:
             sys.exit(f"no checkpoint under {args.ckpt_dir}/llava — pass "
                      "--smoke for a random tiny model")

@@ -14,7 +14,9 @@ autograd Function (the fused backward kernel) on CUDA at 1024 tokens and
 more.
 
 Archives (`save_lora_npz` / `load_lora_npz`) keep the JAX package's keys
-(`layer_i/q_proj/a`, `__meta__`), so either package reads the other's.
+(`layer_i/q_proj/a`, `__meta__`), so either package reads the other's;
+`load_projector_npz` reads the JAX package's projector archives
+(`params/fc0/kernel`, ...).
 
 Not ported yet (ROADMAP item 15): MMTrainer (projector tuning),
 DPOTrainer and dpo_loss.
@@ -33,7 +35,7 @@ from torch import nn
 
 from ..models.vlm.llama import Q4Dense, QDense
 from ..ops.quant import QuantizedLinear, dequantize_int8, quantize_weight
-from ..utils.weights import lora_from_jax, lora_to_jax
+from ..utils.weights import lora_from_jax, lora_to_jax, params_from_jax
 
 IGNORE_INDEX = -100  # llava/constants.py
 
@@ -230,3 +232,18 @@ def load_lora_npz(path, device=None) -> tuple[Lora, LoraConfig]:
         tree.setdefault(layer, {}).setdefault(proj, {})[n] = z[key]
     return lora_from_jax(tree, device), LoraConfig(
         r=meta["r"], alpha=meta["alpha"], targets=tuple(meta["targets"]))
+
+
+def load_projector_npz(path) -> Dict[str, torch.Tensor]:
+    """The mm projector's state dict ("0.weight", ..., fp32) from a JAX
+    projector archive (save_projector_npz: the Flax tree flattened to
+    `params/fc0/kernel`, ...)."""
+    z = np.load(path, allow_pickle=False)
+    tree: dict = {}
+    for key in z.files:
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = z[key]
+    return params_from_jax("projector", tree, None)

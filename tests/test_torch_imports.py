@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing it and every submodule loads
-neither JAX nor any module of the JAX package, and its entry points refuse
-to run on the CPU when they are asked for CUDA on a machine without a card."""
+neither JAX nor any module of the JAX package, nor a package the card's
+machine lacks (safetensors, transformers, tokenizers, regex, orbax), and its
+entry points refuse to run on the CPU when they are asked for CUDA on a
+machine without a card."""
 
 import json
 import subprocess
@@ -21,9 +23,11 @@ names = [m.name for m in pkgutil.walk_packages(rsvldm_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+absent = ("safetensors", "transformers", "tokenizers", "regex", "orbax")
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "rsvldm_tpu") or m.startswith(
-                 ("jax.", "jaxlib", "flax.", "rsvldm_tpu.")))
+             if m in ("jax", "flax", "rsvldm_tpu") + absent or m.startswith(
+                 ("jax.", "jaxlib", "flax.", "rsvldm_tpu.")
+                 + tuple(a + "." for a in absent)))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -38,7 +42,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "rsvldm_tpu_torch.ops.quant" in out["modules"]
     assert "rsvldm_tpu_torch.models.vlm.captioner" in out["modules"]
     for name in ("training", "training.vlm_trainer", "training.vlm_data",
-                 "data", "data.prefetch", "train_vlm"):
+                 "data", "data.prefetch", "train_vlm", "infer",
+                 "utils.safetensors", "utils.checkpoint", "utils.tokenizer",
+                 "models.vlm.tokenizer"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -59,10 +65,11 @@ def test_cuda_entry_points_raise_without_a_card():
 
 
 def test_caption_stage_is_refused_not_skipped():
-    """Caption options the port does not have yet raise; they are never
-    silently ignored."""
+    """Caption options the port does not have yet (speculative decoding)
+    raise; they are never silently ignored. The archives are taken."""
     from rsvldm_tpu_torch.config import LlavaConfig
-    for kw in (dict(draft_dir="d"), dict(spec_k=2), dict(self_draft_layers=8),
-               dict(lora_npz="a.npz"), dict(projector_npz="p.npz")):
+    for kw in (dict(draft_dir="d"), dict(spec_k=2), dict(self_draft_layers=8)):
         with pytest.raises(NotImplementedError, match="caption"):
             LlavaConfig(**kw)
+    cfg = LlavaConfig(lora_npz="a.npz", projector_npz="p.npz")
+    assert (cfg.lora_npz, cfg.projector_npz) == ("a.npz", "p.npz")

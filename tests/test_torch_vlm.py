@@ -1,10 +1,15 @@
 """The port's caption stage held against the JAX package at tiny geometry,
 fp32 on the CPU: CLIP vision tower, projector, anyres assembly, the Llama
 decoder (dense, int8, int4: prefill and decode logits, KV caches, greedy
-ids, sampled ids with JAX's Gumbel noise), the whole captioner from one HF-named state dict, and the JAX tree ->
-port -> JAX converter round trips."""
+ids, sampled ids with JAX's Gumbel noise), the whole captioner from one HF-named state dict and from a
+checkpoint directory (two shards, a PEFT adapter, tokenizer.json; LoRA and
+projector archives written by JAX), and the JAX tree -> port -> JAX
+converter round trips."""
 
 import dataclasses
+import json
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +39,9 @@ from rsvldm_tpu_torch.models.vlm.projector import MLPProjector
 from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig, CLIPVisionTower
 from rsvldm_tpu_torch.utils.weights import llava_from_jax, params_from_jax
 from torch_parity_lib import assert_close, japply, randomize, to_np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
 RNG = np.random.default_rng(0)
@@ -280,11 +288,166 @@ def test_splice_image_embeds_equal():
         == jgen.tokenize_with_image("a<image>b", lambda t: [ord(c) for c in t]).tolist()
 
 
-def test_captioner_load_without_assets(tmp_path):
+def test_captioner_load_without_assets(tmp_path, llava_dir):
+    """No llava/ or no weights in it: None, as JAX. Weights without
+    tokenizer.json: a clear error. With it: the real load."""
     assert LlavaCaptioner.load(tmp_path) is None
     (tmp_path / "llava").mkdir()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        LlavaCaptioner.load(tmp_path)
+    assert LlavaCaptioner.load(tmp_path) is None
+    for f in (llava_dir / "llava").glob("*.safetensors"):
+        (tmp_path / "llava" / f.name).symlink_to(f)
+    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
+        LlavaCaptioner.load(tmp_path, llama_cfg=TL2, vision_cfg=TV)
+    cap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV)
+    assert cap.load_stats["files"][-1].endswith("Llava-next")
+    assert cap.load_stats["peft_merged"] == 4
+    assert cap.tokenizer.encode("<|eot_id|>") == [509]
+
+
+# ------------------------------------------- captioner from a checkpoint dir
+# the tiny decoder with room for a byte-level vocabulary: 256 bytes, merges
+# and fillers below 500, 12 special tokens at 500-511
+TL2, JL2 = LlamaConfig(**dict(_L, vocab_size=512)), JLlamaConfig(**dict(_L, vocab_size=512))
+LORA_R, LORA_ALPHA = 4, 8
+
+
+def _lcfg(**kw):
+    return LlavaConfig(max_new_tokens=8, temperature=0.0, do_sample=False, **kw)
+
+
+@pytest.fixture(scope="module")
+def llava_dir(tmp_path_factory):
+    """<ckpt>/llava as two shards (fp32, fp16) of the tiny LLaVA state dict
+    (vocab 512) with a Llama-3-style tokenizer.json, and a Llava-next PEFT
+    adapter (r=4, alpha=8 on q_proj and v_proj of both layers)."""
+    from safetensors.torch import save_file
+    cd = tmp_path_factory.mktemp("llava_ckpt")
+    g = torch.Generator().manual_seed(5)
+    sd = _tiny_llava_state_dict()
+    sd["model.embed_tokens.weight"] = torch.randn(512, 32, generator=g) * 0.05
+    sd["lm_head.weight"] = torch.randn(512, 32, generator=g) * 0.05
+    keys = sorted(sd)
+    (cd / "llava").mkdir()
+    save_file({k: sd[k].contiguous() for k in keys[:len(keys) // 2]},
+              str(cd / "llava" / "model-00001-of-00002.safetensors"))
+    save_file({k: sd[k].half().contiguous() for k in keys[len(keys) // 2:]},
+              str(cd / "llava" / "model-00002-of-00002.safetensors"))
+    prompt = tgen.llama3_chat_prompt(LlavaConfig().img_prompt.format(
+        DEFAULT_IMAGE_TOKEN="<image>"))
+    chip_smoke.Llama3Assets([prompt], n_merges=200, special_start=500,
+                            n_special=12).write(cd / "llava")
+    (cd / "Llava-next").mkdir()
+    adapter = {}
+    for i in range(2):
+        for proj, out in (("q_proj", 32), ("v_proj", 16)):
+            k = f"base_model.model.model.layers.{i}.self_attn.{proj}"
+            adapter[f"{k}.lora_A.weight"] = torch.randn(LORA_R, 32, generator=g) * 0.3
+            adapter[f"{k}.lora_B.weight"] = torch.randn(out, LORA_R, generator=g) * 0.3
+    save_file(adapter, str(cd / "Llava-next" / "adapter_model.safetensors"))
+    (cd / "Llava-next" / "adapter_config.json").write_text(
+        json.dumps({"r": LORA_R, "lora_alpha": LORA_ALPHA}))
+    return cd
+
+
+@pytest.fixture(scope="module")
+def archives(tmp_path_factory):
+    """A LoRA archive and a projector archive written by the JAX package."""
+    from rsvldm_tpu.training.vlm_trainer import (LoraConfig as JLoraConfig,
+                                                 save_lora_npz, save_projector_npz)
+    d = tmp_path_factory.mktemp("archives")
+    rng = np.random.default_rng(11)
+    lora = {f"layer_{i}": {p: {"a": rng.standard_normal((din, 4), np.float32) * 0.3,
+                               "b": rng.standard_normal((4, dout), np.float32) * 0.3}
+                           for p, din, dout in (("q_proj", 32, 32), ("o_proj", 32, 32),
+                                                ("gate_proj", 32, 64),
+                                                ("down_proj", 64, 32))}
+            for i in range(2)}
+    save_lora_npz(lora, JLoraConfig(r=4, alpha=8), d / "lora.npz")
+    proj = {"params": {"fc0": {"kernel": rng.standard_normal((24, 32), np.float32) * 0.2,
+                               "bias": rng.standard_normal(32, np.float32) * 0.1},
+                       "fc1": {"kernel": rng.standard_normal((32, 32), np.float32) * 0.2,
+                               "bias": rng.standard_normal(32, np.float32) * 0.1}}}
+    save_projector_npz(proj, d / "projector.npz")
+    return d
+
+
+@pytest.mark.parametrize("quant", [None, "int4"])
+def test_load_from_dir_equal_jax(llava_dir, quant):
+    """Shards + PEFT adapter + tokenizer.json: the merged (and quantized)
+    decoder equals JAX's tree, the tower, projector and newline too, and the
+    greedy caption is JAX's."""
+    jcap = JCaptioner.load(llava_dir, llama_cfg=JL2, vision_cfg=JV, quant=quant)
+    tcap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant=quant)
+    got = tcap.llama.state_dict()
+    jp = jcap.llama_params["params"]
+    if quant is None:
+        want = params_from_jax("llama", jcap.llama_params, TL2)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
+    else:
+        for i in range(2):
+            for sub, proj in (("self_attn", "q_proj"), ("mlp", "down_proj")):
+                pre = f"model.layers.{i}.{sub}.{proj}"
+                np.testing.assert_array_equal(got[f"{pre}.kernel_q4"].numpy(),
+                                              np.asarray(jp[f"layer_{i}"][proj]["kernel_q4"]))
+                np.testing.assert_array_equal(got[f"{pre}.scale"].numpy(),
+                                              np.asarray(jp[f"layer_{i}"][proj]["scale"]))
+    vis = params_from_jax("clip_vision", jcap.vision_params, TV)
+    for k, v in tcap.vision.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), vis[k].numpy(), err_msg=k)
+    np.testing.assert_array_equal(tcap.image_newline.numpy(), np.asarray(jcap.image_newline))
+    img = Image.fromarray(RNG.integers(0, 255, (50, 70, 3), dtype=np.uint8))
+    assert tcap.caption(img, _lcfg()) == jcap.caption(img, _lcfg())
+    assert tcap.load_stats["peft_merged"] == 4
+
+
+def test_peft_merge_is_the_fp32_sum(llava_dir):
+    """q_proj of layer 1 (in the fp16 shard or the fp32 one): W + (8/4) B A
+    in fp32, before any cast."""
+    from rsvldm_tpu_torch.models.vlm.captioner import load_sharded, merge_peft
+    sd, _ = load_sharded(llava_dir / "llava")
+    merged, n = merge_peft(sd, llava_dir / "Llava-next")
+    asd, _ = load_sharded(llava_dir / "Llava-next")
+    k = "model.layers.1.self_attn.q_proj"
+    a = asd[f"base_model.model.{k}.lora_A.weight"].numpy()
+    b = asd[f"base_model.model.{k}.lora_B.weight"].numpy()
+    want = sd[f"{k}.weight"].float().numpy() + 2.0 * (b @ a)
+    assert n == 4 and merged[f"{k}.weight"].dtype == torch.float32
+    np.testing.assert_array_equal(merged[f"{k}.weight"].numpy(), want)
+
+
+@pytest.mark.parametrize("quant", [None, "int4"])
+def test_lora_archive_caption_equal_jax(llava_dir, archives, quant):
+    """A JAX-written LoRA archive: folded into the dense decoder, the runtime
+    branch of the int4 one; JAX's greedy caption either way, and not the
+    caption without it."""
+    npz = archives / "lora.npz"
+    jcap = JCaptioner.load(llava_dir, llama_cfg=JL2, vision_cfg=JV, quant=quant,
+                           lora_npz=npz)
+    tcap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant=quant,
+                               lora_npz=npz)
+    assert (tcap.lora is not None) == (quant is not None)
+    img = Image.fromarray(RNG.integers(0, 255, (50, 70, 3), dtype=np.uint8))
+    got = tcap.caption(img, _lcfg())
+    assert got == jcap.caption(img, _lcfg())
+    plain = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant=quant)
+    assert plain.caption(img, _lcfg()) != got
+
+
+def test_projector_archive_caption_equal_jax(llava_dir, archives):
+    """A JAX-written projector archive replaces the checkpoint's projector:
+    its weights, and JAX's greedy caption (int8 decoder)."""
+    npz = archives / "projector.npz"
+    jcap = JCaptioner.load(llava_dir, llama_cfg=JL2, vision_cfg=JV, quant="int8",
+                           projector_npz=npz)
+    tcap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant="int8",
+                               projector_npz=npz)
+    want = params_from_jax("projector", jcap.projector_params, None)
+    for k, v in tcap.projector.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), want[k].numpy(), err_msg=k)
+    img = Image.fromarray(RNG.integers(0, 255, (50, 70, 3), dtype=np.uint8))
+    assert tcap.caption(img, _lcfg()) == jcap.caption(img, _lcfg())
 
 
 # ------------------------------------------------------------ round trips
