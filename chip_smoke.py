@@ -27,7 +27,12 @@ Phases, each printed on its own line:
                and its adapter gradients at a small width with 128-wide
                heads and 1024 tokens, int8 and int4, card (bf16, remat: K1
                and the backward) against CPU (fp32): loss and per-leaf
-               gradient cosine
+               gradient cosine. In this phase too, the loops' step functions
+               (utils/graphs.StepRunner) replayed as CUDA graphs against
+               direct calls on the same inputs: SR3 and DDIM (8 steps),
+               RestoreEDM on a 64^2 latent (a mixed run, all misses, all
+               hits: the same DFB trace), the caption decode (40 tokens:
+               the same ids and K2 launches)
   5. path      the full-width modules (SR3 64-ch; SDXL XL-base + GLVControl,
                the SDXL VAE with its twin encoder, CLIP-L, bigG; LLaVA-NeXT-8B:
                CLIP-L/336 + mlp2x_gelu + Llama-3-8B, dense) with seeded bf16
@@ -42,7 +47,11 @@ Phases, each printed on its own line:
                merge, the prompt's token ids against the assets' own; then
                SuperResolutionPipeline.process() (256 new tokens sampled at
                T=0.2, a seeded 28x28 input: 224^2 Stage 1, 1024^2 (128^2
-               latent) Stage 2b), the kernel launches of one decode step
+               latent) Stage 2b) with every loop replaying CUDA graphs
+               (each graph's capture seconds, peak memory); graph replay
+               against direct calls at full width (16 decode steps, 10 SR3
+               steps, denoiser miss steps and hit steps); Stage 1 as DDIM
+               in 50 steps, timed; the kernel launches of one decode step
                without and with a train_vlm LoRA archive attached; write,
                load (per family, the LLaVA's split into read, PEFT merge and
                quantize) and read-rate figures; the directory is deleted;
@@ -51,9 +60,10 @@ Phases, each printed on its own line:
                AdamW, gradient checkpointing, 16 anyres 224^2 records,
                4 steps of batch 4 padded to 1536 tokens. Each path's kernel
                launch counts are reset just before it and read just after.
-  6. profile   (--profile) one cache-miss and one cache-hit denoising step,
-               and the last training step, under torch.profiler: device
-               time by kernel, idle share
+  6. profile   (--profile) one int4 decode step, one SR3 step, one
+               cache-miss and one cache-hit denoising step, each replayed
+               from a CUDA graph, and the last training step, under
+               torch.profiler: device time by kernel, idle share
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}, printed only when every phase passed.
 Exits non-zero, with no result, when there is no CUDA card or the port's
@@ -133,6 +143,12 @@ CAP_COS_MIN, CAP_TOP1_MIN = 0.998, 0.5
 # cosine of 0.99925 / 0.99938 over the 28 leaves; the limits leave about
 # 14x and 6x margin (on 1 - cos).
 TRAIN_LOSS_RTOL, TRAIN_COS_MIN = 2e-3, 0.995
+# Graph replay against direct calls of the same step functions on the card
+# (utils/graphs.StepRunner): the same kernels on the same inputs, so the
+# latents are expected bit-equal; the limit, max |graph - direct| <=
+# GRAPH_TOL * max(1, max |direct|), leaves room only for a library picking
+# another algorithm under capture. Caption ids and DFB traces must be equal.
+GRAPH_TOL = 1e-3
 LLAMA3_SPECIAL = {"<|begin_of_text|>": 128000, "<|start_header_id|>": 128006,
                   "<|end_header_id|>": 128007, "<|eot_id|>": 128009}
 
@@ -975,6 +991,109 @@ def _counts():
                 bwd=flash_attention_bwd.launches)
 
 
+def _same(graph, direct) -> dict:
+    """Graph replay's result against the direct call's."""
+    import torch
+    a, b = graph.float(), direct.float()
+    err = float((a - b).abs().max())
+    scale = max(1.0, float(b.abs().max()))
+    return dict(max_abs_diff=err, bit_equal=bool(torch.equal(a, b)),
+                finite=bool(torch.isfinite(a).all()),
+                ok=bool(err <= GRAPH_TOL * scale and torch.isfinite(a).all()))
+
+
+def _graph_vs_direct(pipe, seed: int, sr3_steps: int, sr3_size: int,
+                     latent: int, edm_cases, ddim: bool = False) -> dict:
+    """The loops' step functions on the card, once replayed as CUDA graphs
+    and once called directly, on the same inputs: SR3 (`sr3_steps` steps
+    of a schedule that long, a sr3_size^2 image), with `ddim` DDIM over
+    the same schedule, RestoreEDM for each (name, steps, img_threshold,
+    dec_img) of `edm_cases` on a latent^2 latent (CFG batch 2, churn on;
+    dec_img 0 makes every step a miss: the threshold falls to 0 after the
+    first measured change)."""
+    import torch
+    from rsvldm_tpu_torch.diffusion.samplers import (RestoreEDMConfig,
+                                                     restore_edm_sample)
+    from rsvldm_tpu_torch.models.sdxl.denoiser import ControlDenoiser
+    from rsvldm_tpu_torch.models.sr3.diffusion import (SR3Diffusion,
+                                                       sr3_sample,
+                                                       sr3_sample_ddim)
+
+    modes = (True, False)
+    gen_ = torch.Generator(device=pipe.device).manual_seed(seed)
+    rnd = lambda *s, dt=torch.float32: torch.randn(s, generator=gen_,
+                                                   device=pipe.device, dtype=dt)
+    rec = {}
+    s1 = pipe.cfg.stage1
+    diff = SR3Diffusion.from_schedule(s1.schedule, sr3_steps, s1.linear_start,
+                                      s1.linear_end)
+    cond = rnd(1, sr3_size, sr3_size, 3).clamp(-1, 1)
+    noise = rnd(sr3_steps + 1, 1, sr3_size, sr3_size, 3)
+    samplers = {"sr3": sr3_sample}
+    if ddim:
+        samplers["ddim"] = lambda *a, **k: sr3_sample_ddim(
+            *a, num_steps=sr3_steps, eta=0.5, **k)
+    for name, fn in samplers.items():
+        st = {m: {} for m in modes}
+        out = {m: fn(diff, pipe.sr3, cond, noise, graphs=m, stats=st[m])
+               for m in modes}
+        rec[name] = dict(steps=sr3_steps, size=sr3_size,
+                         capture_s=st[True]["capture_s"],
+                         **_same(out[True], out[False]))
+    den = ControlDenoiser(unet=pipe.unet, control_net=pipe.control)
+    c = pipe.sdxl_cfg
+    mk = lambda: dict(crossattn=rnd(1, 77, c.context_dim, dt=pipe.dtype),
+                      vector=rnd(1, c.adm_in_channels),
+                      control=rnd(1, latent, latent, 4))
+    cond2, uc = mk(), mk()
+    for name, steps, threshold, dec in edm_cases:
+        x0, xc = rnd(1, latent, latent, 4), rnd(1, latent, latent, 4)
+        churn = rnd(steps, 1, latent, latent, 4)
+        scfg = RestoreEDMConfig(num_steps=steps, img_threshold=threshold,
+                                dec_img=dec)
+        st = {m: {} for m in modes}
+        res = {m: restore_edm_sample(den, cond2, uc, x0, xc, scfg,
+                                     churn_noise=churn, return_aux=True,
+                                     graphs=m, stats=st[m]) for m in modes}
+        traces = {m: "".join("H" if h else "." for h in res[m][1]["hit_trace"])
+                  for m in modes}
+        same = _same(res[True][0], res[False][0])
+        rec[f"edm_{name}"] = dict(
+            steps=steps, latent=latent, img_threshold=threshold,
+            trace=traces[True], traces_equal=traces[True] == traces[False],
+            capture_s=st[True]["capture_s"], **same)
+        want = {"misses": "." * steps, "miss": "." * steps,
+                "hits": "." + "H" * (steps - 1), "hit": "." + "H" * (steps - 1)}
+        rec[f"edm_{name}"]["ok"] = (same["ok"] and traces[True] == traces[False]
+                                    and traces[True] == want.get(name,
+                                                                 traces[True]))
+    rec["ok"] = all(v["ok"] for v in rec.values())
+    return rec
+
+
+def _decode_vs_direct(llama, embeds, new_tokens: int) -> dict:
+    """The caption decode of `new_tokens` tokens after `embeds` (T = 0.2,
+    the default Gumbel stream), once replayed as a CUDA graph and once
+    called directly: the ids and the steps run must be equal. K2's
+    launches of each, counted through the replays."""
+    import numpy as np
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+    gcfg = gen.GenerateConfig(max_new_tokens=new_tokens, temperature=0.2)
+    st, ids, k2 = {}, {}, {}
+    for m in (True, False):
+        st[m] = {}
+        before = int4_matmul.launches
+        ids[m] = gen.generate(llama, embeds, gcfg, graphs=m, stats=st[m])
+        k2[m] = int4_matmul.launches - before
+    return dict(new_tokens=new_tokens, steps=st[True]["decode_steps"],
+                capture_s=st[True]["capture_s"], ids=ids[True][:8].tolist(),
+                k2_launches=k2[True],
+                ok=bool(np.array_equal(ids[True], ids[False])
+                        and st[True]["decode_steps"] == st[False]["decode_steps"]
+                        and k2[True] == k2[False]))
+
+
 # --------------------------------------------------------------- phase 4
 def phase_reference(seed: int):
     """process() at a small width on the card (bf16, K1 at 1024 tokens)
@@ -1051,7 +1170,15 @@ def phase_reference(seed: int):
         ok = ok and a.shape == b.shape and d.mean() <= REF_MEAN_TOL \
             and d.max() <= REF_MAX_TOL
     rec["tol"] = f"mean <= {REF_MEAN_TOL}, max <= {REF_MAX_TOL} uint8 levels"
-    rec["ok"] = bool(ok)
+    # the same step functions replayed as graphs and called directly, at
+    # this width: 64^2 latents put the 32^2 level's attention on K1
+    rec["graphs"] = _graph_vs_direct(
+        gpu, seed, sr3_steps=8, sr3_size=16, latent=64, ddim=True,
+        edm_cases=(("mixed", 8, 0.3, 1.0), ("misses", 4, 0.3, 0.0),
+                   ("hits", 4, 1e9, 1.0)))
+    rec["graph_tol"] = (f"max |graph - direct| <= {GRAPH_TOL} * max(1, "
+                        "max |direct|); ids and traces equal")
+    rec["ok"] = bool(ok and rec["graphs"]["ok"])
     _say("reference", **rec)
     return rec
 
@@ -1156,6 +1283,8 @@ def phase_caption_reference(seed: int, quant: str, steps: int = 8):
         if dev == "cpu":
             acts = _acts_quantized_alike(emb)
         launches = dict(k1=flash_attention.launches, k2=int4_matmul.launches)
+    # the decode replayed as a CUDA graph against direct calls, on the card
+    graphs = _decode_vs_direct(caps["cuda"].llama, emb, 40)
     a, b = logits["cpu"], logits["cuda"]
     cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
     top1 = (a.argmax(-1) == b.argmax(-1)).float()
@@ -1163,16 +1292,19 @@ def phase_caption_reference(seed: int, quant: str, steps: int = 8):
                cos=[round(float(c), 6) for c in cos],
                top1=[int(t) for t in top1], same_quantized_bytes=same_bytes,
                same_activation_codes=acts,
-               card_launches=launches,
+               card_launches=launches, graphs=graphs,
                tol=f"cos >= {CAP_COS_MIN} every step, top-1 agreement >= "
-                   f"{CAP_TOP1_MIN}")
+                   f"{CAP_TOP1_MIN}; graph ids equal to direct ids")
     rec["ok"] = bool(same_bytes and s_pad >= 1024
                      and acts["quantize_acts"] and acts["quantize_acts_grouped"]
                      and launches["k1"] == lcfg.layers
                      and (quant != "int4"
                           or launches["k2"] == steps * (7 * lcfg.layers + 1))
                      and float(cos.min()) >= CAP_COS_MIN
-                     and float(top1.mean()) >= CAP_TOP1_MIN)
+                     and float(top1.mean()) >= CAP_TOP1_MIN
+                     and graphs["ok"]
+                     and (quant != "int4" or graphs["k2_launches"]
+                          == graphs["steps"] * (7 * lcfg.layers + 1)))
     flash_attention.launches = int4_matmul.launches = 0
     _say("reference", **rec)
     return rec
@@ -1307,16 +1439,17 @@ def _family_digests(pipe, cap) -> dict:
 
 def _decode_launches(llama, lora=None, pos: int = 1300):
     """Device kernels launched by one int4 decode step (position `pos` of a
-    1536-slot cache), with and without a runtime LoRA, under
-    torch.profiler."""
+    1536-slot cache, a device tensor as in the caption's loop), with and
+    without a runtime LoRA, under torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from rsvldm_tpu_torch.models.vlm.llama import KVCache
     kv = KVCache.init(llama.cfg, 1, 1536, dtype=llama.dtype, device="cuda")
     tok = torch.tensor([[1000]], device="cuda")
+    at = torch.tensor(pos, device="cuda")
     with torch.inference_mode():
-        step = lambda: llama(llama.embed(tok), kv, pos, lora=lora)[0]
+        step = lambda: llama(llama.embed(tok), kv, at, lora=lora)[0]
         step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1338,6 +1471,7 @@ def phase_path(seed: int):
     from rsvldm_tpu_torch import infer
     from rsvldm_tpu_torch.config import (LlavaConfig, PipelineConfig,
                                          RefinementConfig)
+    from rsvldm_tpu_torch.models.vlm import generate as gen
     from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
     from rsvldm_tpu_torch.models.vlm.generate import llama3_chat_prompt
     from rsvldm_tpu_torch.ops.quant import quantize_weight_int4
@@ -1432,6 +1566,37 @@ def phase_path(seed: int):
         counts = _counts()
         launches, k2_launches = counts["k1"], counts["k2"]
         cs = pipe.caption_stats
+        capture_s = dict(pipe.capture_s)
+        process_peak = torch.cuda.max_memory_allocated() / 2**30
+
+        # the loops' steps replayed as graphs against direct calls at full
+        # width: 16 decode steps, 10 SR3 steps, a denoiser's miss steps
+        # (the rest graph) and hit steps (the update graph)
+        sr_img = Image.open(work / "out" / "sr3_lr.png").convert("RGB")
+        with torch.inference_mode():
+            emb = gen.embed_multimodal_prompt(
+                cap.llama, cap.vision, cap.projector, prompt, [sr_img],
+                lambda t: cap.tokenizer.encode(t, add_special_tokens=False),
+                cap.image_newline, cap.vision.cfg.image_size)
+        graphs = _graph_vs_direct(pipe, seed, sr3_steps=10, sr3_size=224,
+                                  latent=128,
+                                  edm_cases=(("miss", 3, 0.3, 0.0),
+                                             ("hit", 3, 1e9, 1.0)))
+        graphs["decode"] = _decode_vs_direct(cap.llama, emb, 17)
+        graphs["ok"] = graphs["ok"] and graphs["decode"]["ok"]
+        del emb
+
+        # Stage 1 as DDIM at full width (the config's 50 steps)
+        pipe.cfg.stage1.sampler = "ddim"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run_stage1(str(work / "lr.png"))
+        torch.cuda.synchronize()
+        ddim = dict(steps=pipe.cfg.stage1.ddim_steps, eta=pipe.cfg.stage1.ddim_eta,
+                    seconds=time.perf_counter() - t0,
+                    capture_s=pipe.capture_s["stage1"],
+                    finite=pipe.outputs_finite["stage1"])
+        pipe.cfg.stage1.sampler = "ddpm"
 
         # one decode step's kernel launches, then with a train_vlm LoRA
         # archive (r=16 on the seven projections of every layer) attached
@@ -1486,7 +1651,9 @@ def phase_path(seed: int):
         decode_launches_per_step=decode_launches,
         decode_launches_per_step_lora=decode_launches_lora,
         caption_words=len(pipe.last_caption.split()),
-        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        capture_s=capture_s, peak_mem_gib=process_peak,
+        peak_mem_gib_with_checks=torch.cuda.max_memory_allocated() / 2**30,
+        graphs=graphs, ddim_stage1=ddim,
         sr3_png=list(sr.shape), final_png=list(fin.shape),
         outputs_finite=pipe.outputs_finite,
         sr3_std=float(sr.std()), final_std=float(fin.std()))
@@ -1505,7 +1672,8 @@ def phase_path(seed: int):
               and sr.shape == (224, 224, 3)
               and fin.shape == (224, 224, 3)
               and all(pipe.outputs_finite.values())
-              and sr.std() > 0 and fin.std() > 0)
+              and sr.std() > 0 and fin.std() > 0
+              and graphs["ok"] and ddim["finite"])
     rec["ok"] = ok
     _say("path", **rec)
     return rec, pipe
@@ -1726,72 +1894,95 @@ def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
 
 
 # --------------------------------------------------------------- phase 6
-def phase_profile(pipe, iters: int = 3):
-    """One cache-miss step (GLVControl + UNet input blocks + rest + CFG) and
+def phase_profile(pipe, iters: int = 10):
+    """The loops' steps as process() runs them, each replayed from a CUDA
+    graph (utils/graphs.StepRunner): one int4 decode step of the caption
+    (position 1300 of a 1536-slot cache), one SR3 ancestral step (224^2),
+    one cache-miss step (GLVControl + UNet input blocks + rest + CFG) and
     one cache-hit step (GLVControl + input blocks) of the 128^2-latent
-    RestoreEDM loop, CFG batch 2, and one int4 decode step of the caption
-    (position 1300 of a 1536-slot cache): wall time per step, device time by
-    kernel under torch.profiler, K1's or K2's share, and the device's idle
-    share."""
+    RestoreEDM loop, CFG batch 2: wall time per replay and per direct call,
+    device time by kernel under torch.profiler, K1's or K2's share, and the
+    device's idle share while replaying."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from rsvldm_tpu_torch.diffusion.guidance import apply_cfg
     from rsvldm_tpu_torch.models.sdxl.denoiser import ControlDenoiser
-    from rsvldm_tpu_torch.models.vlm.llama import KVCache
+    from rsvldm_tpu_torch.models.sr3.diffusion import ancestral_step
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.utils.graphs import StepRunner
 
     dev, cfg = pipe.device, pipe.sdxl_cfg
-    gen = torch.Generator(device=dev).manual_seed(1)
-    rnd = lambda *s, dt=torch.float32: torch.randn(s, generator=gen, device=dev,
+    g = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda *s, dt=torch.float32: torch.randn(s, generator=g, device=dev,
                                                    dtype=dt)
     cond = dict(crossattn=rnd(2, 77, cfg.context_dim, dt=pipe.dtype),
                 vector=rnd(2, cfg.adm_in_channels), control=rnd(2, 4, 128, 128))
     x, sigma = rnd(2, 4, 128, 128), torch.full((2,), 5.0, device=dev)
+    cs = torch.ones((), device=dev)
+    scale = torch.full((), 7.5, device=dev)
     den = ControlDenoiser(unet=pipe.unet, control_net=pipe.control)
     llama = pipe.llava.llama
-    kv = KVCache.init(llama.cfg, 1, 1536, dtype=llama.dtype, device=dev)
-    tok = torch.tensor([[1000]], device=dev)
-    steps = {"miss": lambda: apply_cfg(den.rest(den.first(x, sigma, cond), cond,
-                                                1.0), 7.5),
-             "hit": lambda: den.first(x, sigma, cond).h,
-             "decode": lambda: llama(llama.embed(tok), kv, 1300)[0]}
+    st = gen._decode_state(llama, gen.GenerateConfig(max_new_tokens=128),
+                           1408, dev)
+    st.pos.fill_(1300)
+    sr3_step, _ = ancestral_step(pipe.sr3_diff, pipe.sr3,
+                                 rnd(1, 224, 224, 3).clamp(-1, 1),
+                                 rnd(pipe.sr3_diff.buffers.num_timesteps + 1,
+                                     1, 224, 224, 3))
+    steps = {"decode": lambda: gen.decode_step(llama, st, None),
+             "sr3": sr3_step,
+             "miss": lambda: apply_cfg(den.rest(den.first(x, sigma, cond),
+                                                cond, cs), scale),
+             "hit": lambda: den.first(x, sigma, cond).h}
+    hand_of = {"decode": "int4_decode_kernel", "sr3": None,
+               "miss": "flash_fwd_kernel", "hit": "flash_fwd_kernel"}
     out = {}
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
     with torch.inference_mode():
         for name, fn in steps.items():
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+            runner = StepRunner(fn, True)
+            runner()  # direct
+            runner()  # capture, replay
+            direct_ms = wall_ms(fn)
+            replay_ms = wall_ms(runner)
+            event_ms = _time_ms(runner, iters, warmup=0)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                fn()
+                runner()
                 torch.cuda.synchronize()
-            avgs = [(e.key, e.self_device_time_total / 1e3, e.count,
-                     e.device_type == DeviceType.CUDA)
-                    for e in prof.key_averages() if e.self_device_time_total > 0]
-            # device-side kernel events only: a CPU op's self device time
-            # repeats the time of the kernels it launched
-            kernels = [(k, t, c) for k, t, c, on_dev in avgs if on_dev]
-            ops = [(k, t, c) for k, t, c, on_dev in avgs if not on_dev]
+            kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.self_device_time_total > 0
+                       and e.device_type == DeviceType.CUDA]
             dev_ms = sum(t for _, t, _ in kernels)
-            mine = "int4_decode_kernel" if name == "decode" else "flash_fwd_kernel"
-            hand = [(t, c) for k, t, c in kernels if mine in k]
+            mine = hand_of[name]
+            hand = [(t, c) for k, t, c in kernels if mine and mine in k]
             hand_ms = sum(t for t, _ in hand)
-            top = lambda rows: [[k[:80], round(t, 3), c] for k, t, c in
-                                sorted(rows, key=lambda r: -r[1])[:10]]
-            out[name] = dict(wall_ms=round(wall_ms, 3),
-                             device_ms=round(dev_ms, 3),
-                             device_idle_share=round(1 - dev_ms / wall_ms, 4),
-                             hand_kernel=mine, hand_ms=round(hand_ms, 3),
-                             hand_launches=sum(c for _, c in hand),
-                             hand_share_of_device=round(hand_ms / dev_ms, 4)
-                             if dev_ms else None,
-                             kernel_launches=sum(c for _, _, c in kernels),
-                             top_kernels=top(kernels), top_ops=top(ops))
+            out[name] = dict(
+                replay_wall_ms=round(replay_ms, 3),
+                direct_wall_ms=round(direct_ms, 3),
+                replay_event_ms=round(event_ms, 3),
+                device_ms=round(dev_ms, 3),
+                device_idle_share=round(1 - dev_ms / replay_ms, 4),
+                capture_s=round(runner.capture_s, 3), hand_kernel=mine,
+                hand_ms=round(hand_ms, 3),
+                hand_launches=sum(c for _, c in hand),
+                hand_share_of_device=round(hand_ms / dev_ms, 4)
+                if dev_ms else None,
+                kernel_launches=sum(c for _, _, c in kernels),
+                top_kernels=[[k[:80], round(t, 3), c] for k, t, c in
+                             sorted(kernels, key=lambda r: -r[1])[:10]])
             _say("profile", step=name, **out[name])
+            del runner
     return out
 
 
@@ -1800,9 +1991,9 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-path", action="store_true",
                     help="stop after the kernel checks (no pipeline run)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the path, profile one cache-miss and one "
-                         "cache-hit denoising step, and the last training "
-                         "step")
+                    help="after the path, profile a replayed decode step, "
+                         "SR3 step, cache-miss and cache-hit denoising step, "
+                         "and the last training step")
     args = ap.parse_args(argv)
 
     import torch

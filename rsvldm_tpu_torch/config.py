@@ -25,7 +25,8 @@ class Stage1Config:
     channel_mults: tuple = (1, 2, 4, 8, 8)
     attn_res: tuple = (28,)
     res_blocks: int = 1
-    # only the 500-step ancestral loop ("ddpm") is ported; "ddim" waits
+    # "ddpm" = the reference's 500-step ancestral loop; "ddim" runs the
+    # few-step DDIM sampler on the same schedule
     sampler: str = "ddpm"
     ddim_steps: int = 50
     ddim_eta: float = 0.0

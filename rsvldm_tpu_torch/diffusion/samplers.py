@@ -2,12 +2,19 @@
 (rsvldm_tpu/diffusion/samplers.py: RestoreEDMConfig, restore_edm_sample).
 
 The JAX package runs the 50 steps as one lax.scan and decides cache hits
-inside a lax.cond. Here the loop is Python and the decision is a Python `if`
-on a boolean read from the device: one host sync per step. Every step runs
-GLVControl and the UNet input blocks on the CFG-doubled batch; on a hit the
-middle, decoder and CFG are skipped and the last denoised latent is reused.
-Scalar schedule arithmetic is float32, as in the JAX loop. The initial noise
-and the churn noise are arguments.
+inside a lax.cond. Here a step is three functions on device tensors the
+loop owns (the latent, x_center, the cached denoised latent, the last
+first-block feature, the threshold and a step counter): `first` (churn,
+GLVControl and the UNet input blocks on the CFG-doubled batch, the
+relative-L1 change and the hit flag), then on a miss `rest` (the middle,
+the decoder, CFG, then the update) and on a hit `update` alone (the
+restore-CFG drift and the Euler step on the cached latent). On the card
+each is captured once into a CUDA graph and replayed
+(utils/graphs.StepRunner); on the CPU each is called directly. The host
+reads the hit flag once a step to pick the next graph. The per-step scalars
+are computed on the host in float32, as in the JAX loop, into a [steps, 6]
+table (`step_table`) read at the step counter. The initial noise and the
+churn noise are arguments.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from .guidance import apply_cfg, linear_cfg_scale
+from ..utils.graphs import StepRunner, use_graphs
 from .schedules import legacy_ddpm_sigmas
 
 f32 = np.float32
@@ -63,80 +71,132 @@ def _rel_l1(cur, prev):
     return (prev - cur).abs().mean() / (prev.abs().mean() + 1e-6)
 
 
+# columns of the per-step scalar table
+SIGMA_HAT, DT, CFG, CONTROL, RESTORE_W, CHURN = range(6)
+
+
+def step_table(cfg: RestoreEDMConfig) -> np.ndarray:
+    """The per-step scalars [steps, 6], float32 as in the JAX loop:
+    sigma_hat, next_sigma - sigma_hat, the CFG scale at sigma_hat, the
+    control scale at the pre-churn sigma, the restore-CFG weight (0 where
+    the drift is off) and the churn factor sqrt(max(sigma_hat^2 -
+    sigma^2, 0))."""
+    sigmas = legacy_ddpm_sigmas(cfg.num_steps).numpy()
+    steps = sigmas.shape[0] - 1
+    gamma_val = (min(cfg.s_churn / steps, 2 ** 0.5 - 1)
+                 if cfg.s_churn > 0 else 0.0)
+    rows = []
+    for i in range(steps):
+        sigma, next_sigma = sigmas[i], sigmas[i + 1]
+        gamma = gamma_val if cfg.s_tmin <= sigma <= cfg.s_tmax else 0.0
+        sigma_hat = f32(sigma * f32(gamma + 1.0))
+        w = (f32(sigma / f32(cfg.sigma_max)) ** f32(cfg.restore_cfg)
+             if cfg.restore_cfg > 0 and next_sigma > cfg.restore_cfg_s_tmin
+             else 0.0)
+        rows.append((sigma_hat, f32(next_sigma - sigma_hat),
+                     cfg.cfg_at(sigma_hat), cfg.control_scale_at(sigma), w,
+                     np.sqrt(max(sigma_hat ** 2 - sigma ** 2, f32(0)))))
+    return np.asarray(rows, np.float32).reshape(steps, 6)
+
+
 @torch.no_grad()
 def restore_edm_sample(denoiser, cond: Dict, uc: Dict, noise: torch.Tensor,
                        x_center_init: torch.Tensor, cfg: RestoreEDMConfig,
                        churn_noise: torch.Tensor | None = None,
-                       return_aux: bool = False):
+                       return_aux: bool = False, graphs: bool | None = None,
+                       stats: dict | None = None):
     """RestoreEDM loop. cond/uc: dicts crossattn [N,77,C], vector [N,adm],
     control [N,h,w,4]; noise [N,h,w,4] and x_center_init [N,h,w,4] (the
     re-encoded Stage-1 latent); churn_noise [steps, N,h,w,4], needed when
-    s_churn > 0. Returns the final latent [N,h,w,4] fp32 and, with
+    s_churn > 0. graphs: replay the three step functions as CUDA graphs
+    (default: on CUDA); stats, when given, receives each one's capture
+    seconds. Returns the final latent [N,h,w,4] fp32 and, with
     return_aux, dict(cache_hits, num_steps, thresholds, hit_trace)."""
     nchw = lambda t: t.permute(0, 3, 1, 2).float()
+    dev = noise.device
     n = noise.shape[0]
     sigmas = legacy_ddpm_sigmas(cfg.num_steps).numpy()
-    num_sigmas = sigmas.shape[0]
-    x = nchw(noise) * float(np.sqrt(f32(1.0) + sigmas[0] ** 2))
-    x_center = nchw(x_center_init)
-
+    steps = sigmas.shape[0] - 1
+    churn = None
+    if cfg.s_churn > 0:
+        if churn_noise is None:
+            raise ValueError("s_churn > 0 needs churn_noise [steps, N, h, w, 4]")
+        churn = churn_noise.permute(0, 1, 4, 2, 3).to(dev, torch.float32)
+    tab = torch.from_numpy(step_table(cfg)).to(dev)
+    use_cache = cfg.img_threshold > 0
     cond2 = {k: torch.cat([uc[k], cond[k]], dim=0) for k in cond}
     cond2["control"] = nchw(cond2["control"])
-    gamma_val = (min(cfg.s_churn / (num_sigmas - 1), 2 ** 0.5 - 1)
-                 if cfg.s_churn > 0 else 0.0)
-    if gamma_val > 0 and churn_noise is None:
-        raise ValueError("s_churn > 0 needs churn_noise [steps, N, h, w, 4]")
-    use_cache = cfg.img_threshold > 0
 
+    # the loop's own tensors: replays overwrite a graph's outputs, so what
+    # must outlive a step is copied here
+    x = nchw(noise) * float(np.sqrt(f32(1.0) + sigmas[0] ** 2))
+    x_center = nchw(x_center_init).clone()
     prev_h = torch.zeros(denoiser.first_block_shape(2 * n, *x.shape[2:]),
-                         dtype=denoiser.unet.dtype, device=x.device)
+                         dtype=denoiser.unet.dtype, device=dev)
     cached = torch.zeros_like(x)
     threshold = torch.tensor(cfg.img_threshold, dtype=torch.float32,
-                             device=x.device)
-    thresholds, hits = [], []
-    for i in range(num_sigmas - 1):
-        sigma, next_sigma = sigmas[i], sigmas[i + 1]
-        gamma = gamma_val if cfg.s_tmin <= sigma <= cfg.s_tmax else 0.0
-        sigma_hat = f32(sigma * f32(gamma + 1.0))
-        if gamma_val > 0:
-            eps = churn_noise[i].permute(0, 3, 1, 2).to(x) * cfg.s_noise
-            x = x + eps * float(np.sqrt(max(sigma_hat ** 2 - sigma ** 2, f32(0))))
+                             device=dev)
+    thresholds = torch.zeros(steps, dtype=torch.float32, device=dev)
+    i = torch.zeros((), dtype=torch.long, device=dev)
+    row = lambda: tab.index_select(0, i)[0]
 
+    def first():
+        """Churn, GLVControl and the UNet input blocks, and the cache
+        decision: (part, diff, hit)."""
+        r = row()
+        if churn is not None:
+            eps = churn.index_select(0, i)[0] * cfg.s_noise
+            x.copy_(x + eps * r[CHURN])
         part = denoiser.first(torch.cat([x, x], dim=0),
-                              torch.full((2 * n,), float(sigma_hat),
-                                         device=x.device), cond2)
-        # linear control scale uses the pre-churn sigma
-        cs = cfg.control_scale_at(sigma)
-        was_hit = False
-        if use_cache:
-            diff = _rel_l1(part.h, prev_h)
-            # one host sync per step: the decision is read back to Python
-            was_hit = i > 0 and bool(diff < threshold)
-        if was_hit:
-            denoised = cached
-        else:
-            denoised = apply_cfg(denoiser.rest(part, cond2, cs),
-                                 float(cfg.cfg_at(sigma_hat)))
-            if use_cache:
-                prev_h = part.h
-                if i > 0:  # step 0 keeps the input threshold
-                    threshold = diff
-        cached = denoised
-        del part
+                              r[SIGMA_HAT].expand(2 * n), cond2)
+        if not use_cache:
+            return part, None, None
+        diff = _rel_l1(part.h, prev_h)
+        return part, diff, (i > 0) & (diff < threshold)
 
-        if cfg.restore_cfg > 0 and next_sigma > cfg.restore_cfg_s_tmin:
-            w = float(f32(sigma / f32(cfg.sigma_max)) ** f32(cfg.restore_cfg))
-            denoised = denoised - (denoised - x_center) * w
-        d = (x - denoised) / float(sigma_hat)
-        x = x + d * float(f32(next_sigma - sigma_hat))
-        x_center = x
-        thresholds.append(threshold)
-        threshold = threshold * cfg.dec_img
+    def update():
+        """Restore-CFG drift, the Euler step, the threshold's record."""
+        r = row()
+        denoised = cached
+        if cfg.restore_cfg > 0:
+            denoised = denoised - (denoised - x_center) * r[RESTORE_W]
+        d = (x - denoised) / r[SIGMA_HAT]  # a tensor divisor: JAX's to_d
+        x.copy_(x + d * r[DT])
+        x_center.copy_(x)
+        thresholds.index_copy_(0, i.reshape(1), threshold.reshape(1))
+        threshold.mul_(cfg.dec_img)
+        i.add_(1)
+
+    def rest(part, diff):
+        """The middle, the decoder and CFG (a cache miss), then update."""
+        r = row()
+        cached.copy_(apply_cfg(denoiser.rest(part, cond2, r[CONTROL]), r[CFG]))
+        if use_cache:
+            prev_h.copy_(part.h)
+            # step 0 keeps the input threshold
+            threshold.copy_(torch.where(i > 0, diff, threshold))
+        update()
+
+    on = use_graphs(dev, graphs)
+    runners = {k: StepRunner(f, on) for k, f in
+               (("first", first), ("rest", rest), ("update", update))}
+    hits = []
+    for _ in range(steps):
+        part, diff, hit = runners["first"]()
+        # one host read a step: the cache decision picks the next graph
+        was_hit = use_cache and bool(hit)
+        if was_hit:
+            runners["update"]()
+        else:
+            runners["rest"](part, diff)
         hits.append(was_hit)
+        del part, diff, hit
+    if stats is not None:
+        stats["capture_s"] = {k: r.capture_s for k, r in runners.items()}
 
     out = x.permute(0, 2, 3, 1)
     if not return_aux:
         return out
-    return out, dict(cache_hits=int(sum(hits)), num_steps=num_sigmas - 1,
-                     thresholds=torch.stack(thresholds).cpu().numpy(),
+    return out, dict(cache_hits=int(sum(hits)), num_steps=steps,
+                     thresholds=thresholds.cpu().numpy(),
                      hit_trace=np.asarray(hits, dtype=bool))

@@ -6,15 +6,16 @@ All three stages read their weights from --ckpt_dir (the layout in
 pipeline.CHECKPOINTS, <ckpt_dir>/llava, Llava-next and clip_vocab); a
 family without files is seeded with a warning. It runs on CUDA unless given
 --device cpu, and raises without a card. --quant picks the caption
-decoder's weights (int8, int4 or "" for dense). --debug_tiny runs the JAX
+decoder's weights (int8, int4 or "" for dense). --stage1_sampler ddim runs
+Stage 1 as DDIM in --stage1_steps steps (default 50, eta 0) instead of the
+500-step ancestral loop. --debug_tiny runs the JAX
 pipeline's tiny geometries (its `_tiny_overrides`) with Stage 2b at a
 64-pixel minimum size; unlike the JAX flag it still reads the files of
 --ckpt_dir that exist (a directory written at those geometries) and does
 not resize the input, and it captions nothing, as the JAX flag.
 
 `build_pipeline(args)` is the construction the CLI runs; `main(argv)` adds
-the run. Not ported yet (they raise): --stage1_sampler ddim, --draft_dir,
---self_draft.
+the run. Not ported yet (they raise): --draft_dir, --self_draft.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from .models.text.clip import CLIPTextConfig
 from .models.vae.model import VAEConfig
 from .pipeline import SuperResolutionPipeline
 
-_QUEUED = "is not ported yet (ROADMAP: SR3 DDIM, speculative decoding)"
+_QUEUED = "is not ported yet (ROADMAP: speculative decoding)"
 
 
 def tiny_model_cfgs() -> dict:
@@ -61,7 +62,11 @@ def parse_args(argv=None):
     ap.add_argument("--no_llava", action="store_true")
     ap.add_argument("--stage1_only", action="store_true")
     ap.add_argument("--stage1_sampler", type=str, default="ddpm",
-                    choices=["ddpm", "ddim"], help=f"ddim {_QUEUED}")
+                    choices=["ddpm", "ddim"],
+                    help="ddpm: the 500-step ancestral loop; ddim: DDIM in "
+                         "--stage1_steps steps")
+    ap.add_argument("--stage1_steps", type=int, default=50,
+                    help="DDIM steps of Stage 1 (with --stage1_sampler ddim)")
     ap.add_argument("--debug_tiny", action="store_true",
                     help="the tiny geometries (smoke testing)")
     ap.add_argument("--draft_dir", type=str, default="", help=_QUEUED)
@@ -84,9 +89,6 @@ def parse_args(argv=None):
 
 def build_pipeline(args) -> SuperResolutionPipeline:
     """The pipeline the CLI runs, from its parsed arguments."""
-    if args.stage1_sampler != "ddpm":
-        raise NotImplementedError(f"--stage1_sampler {args.stage1_sampler} "
-                                  f"{_QUEUED}")
     if args.draft_dir or args.self_draft:
         raise NotImplementedError(f"--draft_dir / --self_draft {_QUEUED}")
     cfg = PipelineConfig(input_img=args.input_img, output_dir=args.output_dir,
@@ -97,6 +99,8 @@ def build_pipeline(args) -> SuperResolutionPipeline:
                          llava=LlavaConfig(quant=args.quant,
                                            lora_npz=args.lora_npz,
                                            projector_npz=args.projector_npz))
+    cfg.stage1.sampler = args.stage1_sampler
+    cfg.stage1.ddim_steps = args.stage1_steps
     cfg.refine.img_threshold = args.img_threshold
     cfg.refine.edm_steps = args.edm_steps
     model_cfgs = None

@@ -7,6 +7,8 @@ half plus `input_hint_block.0`; ControlledUNet is the UNet plus
 last), with ZeroSFT `param_free_norm`, `mlp_shared.0`, `zero_mul`,
 `zero_add`, `zero_conv` and ZeroCrossAttn `norm1`, `norm2`, `attn.*`.
 `input_stage` / `rest_stage` split the model for the first-block cache.
+The control scale is a number or a 0-d tensor on the device (the
+RestoreEDM loop's, so that a captured step reads each step's scale).
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@
 D(x, sigma) = c_skip * x + c_out * F(c_in * x, idx(sigma), cond), sigma
 quantized to the nearest entry of the 1000-step LegacyDDPM table. `first`
 runs GLVControl and the UNet input blocks; `rest` the middle and the injected
-decoder (skipped on a first-block cache hit). Latents NCHW.
+decoder (skipped on a first-block cache hit). Latents NCHW. sigma [N] and
+the control scale may be device tensors, so that the RestoreEDM loop's
+captured steps read them at replay.
 """
 
 from __future__ import annotations

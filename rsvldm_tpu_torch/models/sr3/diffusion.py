@@ -1,19 +1,26 @@
-"""SR3 Gaussian diffusion: the ancestral reverse loop
-(rsvldm_tpu/models/sr3/diffusion.py: SR3Diffusion.from_schedule, sr3_sample).
+"""SR3 Gaussian diffusion: the ancestral reverse loop and DDIM
+(rsvldm_tpu/models/sr3/diffusion.py: SR3Diffusion.from_schedule,
+sr3_sample, sr3_sample_ddim).
 
-The JAX package runs the loop as one lax.scan with noise drawn in-loop; here
-it is a Python loop over the model and the noise is an argument, laid out
-as the JAX `noise_override` [T+1, N, H, W, 3]: [0] is x_T, [1+i] the
-posterior noise of loop step i (zeroed at t = 0).
+The JAX package runs each loop as one lax.scan with the schedule gathered
+by a traced index. Here each is one step function on device tensors:
+the latent, a step counter, the schedule scalars as [steps] tables read at
+that counter, and the noise, an argument laid out as the JAX
+`noise_override`: [0] is x_T, [1+i] the noise of loop step i (multiplied
+by a tabled 0 where JAX zeroes it). The step is driven by
+utils/graphs.StepRunner: called directly on the CPU, captured once and
+replayed on the card. Tables are float32, as JAX's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ...diffusion.schedules import DDPMBuffers, ddpm_buffers, make_beta_schedule
+from ...utils.graphs import StepRunner, use_graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,36 +37,147 @@ class SR3Diffusion:
         return cls(buffers=ddpm_buffers(betas))
 
 
+def ddim_timesteps(num_timesteps: int, num_steps: int) -> np.ndarray:
+    """DDIM's descending timestep subset (JAX sr3_sample_ddim): num_steps
+    (at most T) rounded points of linspace(T-1, 0), repeats removed."""
+    num_steps = min(num_steps, num_timesteps)
+    ts = np.unique(np.round(np.linspace(num_timesteps - 1, 0, num_steps)))
+    return ts[::-1].astype(np.int64)
+
+
+def _run_loop(step, steps: int, device: torch.device, graphs: bool | None,
+              stats: dict | None):
+    """`steps` calls of `step` through one StepRunner; the capture's
+    seconds into stats["capture_s"] when stats is given."""
+    runner = StepRunner(step, use_graphs(device, graphs))
+    for _ in range(steps):
+        runner()
+    if stats is not None:
+        stats["capture_s"] = runner.capture_s
+
+
+def _check_noise(noise, rows, cond):
+    if noise.shape[0] != rows or noise.shape[1:] != cond.shape:
+        raise ValueError(f"noise {tuple(noise.shape)} is not [{rows}, "
+                         f"*cond.shape] = [{rows}, {tuple(cond.shape)}]")
+
+
+def _tables(cols, device):
+    """{name: fp32 [steps] tensor on device}."""
+    return {k: v.to(device, torch.float32) for k, v in cols.items()}
+
+
+def _latent_state(cond, noise):
+    """(cond NCHW fp32, noise NCHW fp32 on cond's device, x = a copy of
+    noise[0], a 0-d step counter)."""
+    c = cond.permute(0, 3, 1, 2).float()
+    noise = noise.permute(0, 1, 4, 2, 3).to(cond.device, torch.float32)
+    return (c, noise, noise[0].clone(),
+            torch.zeros((), dtype=torch.long, device=cond.device))
+
+
+def ancestral_step(diff: SR3Diffusion, model, cond: torch.Tensor,
+                   noise: torch.Tensor):
+    """(step, x): the ancestral loop's step function and the NCHW fp32
+    latent it advances in place, one step t = T-1-i a call (shapes as in
+    `sr3_sample`)."""
+    buf = diff.buffers
+    T = buf.num_timesteps
+    _check_noise(noise, T + 1, cond)
+    ts = torch.arange(T - 1, -1, -1)  # loop step i runs t = T-1-i
+    tab = _tables({
+        "level": buf.sqrt_alphas_cumprod_prev[ts + 1],
+        "recip": buf.sqrt_recip_alphas_cumprod[ts],
+        "recipm1": buf.sqrt_recipm1_alphas_cumprod[ts],
+        "coef1": buf.posterior_mean_coef1[ts],
+        "coef2": buf.posterior_mean_coef2[ts],
+        # JAX's where(t > 0, noise, 0) as a multiply by a tabled 0 / 1
+        "std": (torch.exp(0.5 * buf.posterior_log_variance_clipped[ts])
+                * (ts > 0).float()),
+    }, cond.device)
+    c, noise, x, i = _latent_state(cond, noise)
+    n = x.shape[0]
+
+    def step():
+        at = lambda k: tab[k].index_select(0, i)
+        eps = model(torch.cat([c, x], dim=1), at("level").expand(n, 1))
+        x_recon = (at("recip") * x - at("recipm1") * eps).clamp(-1.0, 1.0)
+        mean = at("coef1") * x_recon + at("coef2") * x
+        x.copy_(mean + noise.index_select(0, i + 1)[0] * at("std"))
+        i.add_(1)
+    return step, x
+
+
+def ddim_step(diff: SR3Diffusion, model, cond: torch.Tensor,
+              noise: torch.Tensor, num_steps: int = 50, eta: float = 0.0):
+    """(step, x): DDIM's step function and the NCHW fp32 latent it
+    advances in place (shapes as in `sr3_sample_ddim`)."""
+    buf = diff.buffers
+    ts = torch.from_numpy(ddim_timesteps(buf.num_timesteps, num_steps))
+    _check_noise(noise, len(ts) + 1, cond)
+    # the per-step scalars in float32, as JAX's traced arithmetic
+    abar = 1.0 / buf.sqrt_recip_alphas_cumprod ** 2
+    a_t = abar[ts]
+    prev = torch.cat([ts[1:], torch.tensor([-1])])
+    a_prev = torch.cat([abar, torch.ones(1)])[prev]
+    one_minus = torch.clamp(1.0 - a_t, min=1e-20)
+    sigma = eta * torch.sqrt(torch.clamp(
+        (1.0 - a_prev) / one_minus * (1.0 - a_t / a_prev), min=0.0))
+    tab = _tables({
+        "level": buf.sqrt_alphas_cumprod_prev[ts + 1],
+        "recip": buf.sqrt_recip_alphas_cumprod[ts],
+        "recipm1": buf.sqrt_recipm1_alphas_cumprod[ts],
+        "sqrt_a": torch.sqrt(a_t),
+        "eps_den": torch.sqrt(one_minus),
+        "sqrt_a_prev": torch.sqrt(a_prev),
+        "dir": torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0)),
+        # JAX's where(t_prev >= 0, noise, 0) as a multiply by a tabled 0
+        "sigma": sigma * (prev >= 0).float(),
+    }, cond.device)
+    c, noise, x, j = _latent_state(cond, noise)
+    n = x.shape[0]
+
+    def step():
+        at = lambda k: tab[k].index_select(0, j)
+        eps = model(torch.cat([c, x], dim=1), at("level").expand(n, 1))
+        x_recon = (at("recip") * x - at("recipm1") * eps).clamp(-1.0, 1.0)
+        eps_eff = (x - at("sqrt_a") * x_recon) / at("eps_den")
+        x.copy_(at("sqrt_a_prev") * x_recon + at("dir") * eps_eff
+                + at("sigma") * noise.index_select(0, j + 1)[0])
+        j.add_(1)
+    return step, x
+
+
 @torch.no_grad()
 def sr3_sample(diff: SR3Diffusion, model, cond: torch.Tensor,
-               noise: torch.Tensor) -> torch.Tensor:
+               noise: torch.Tensor, graphs: bool | None = None,
+               stats: dict | None = None) -> torch.Tensor:
     """Reverse diffusion from t = T-1 to 0 conditioned on `cond`.
 
     cond: [N, H, W, 3] in [-1, 1]; noise: [T+1, N, H, W, 3] unit normals;
     model(x [N, 6, H, W], noise_level [N, 1]) -> eps [N, 3, H, W].
-    Returns x_0 [N, H, W, 3] fp32."""
-    buf = diff.buffers
-    T = buf.num_timesteps
-    if noise.shape[0] != T + 1 or noise.shape[1:] != cond.shape:
-        raise ValueError(f"noise {tuple(noise.shape)} is not [T+1, "
-                         f"*cond.shape] = [{T + 1}, {tuple(cond.shape)}]")
-    c = cond.permute(0, 3, 1, 2).float()
-    noise = noise.permute(0, 1, 4, 2, 3).to(c.device, torch.float32)
-    # schedule scalars as host floats: no device reads inside the loop
-    tab = {k: getattr(buf, k).tolist() for k in (
-        "sqrt_alphas_cumprod_prev", "sqrt_recip_alphas_cumprod",
-        "sqrt_recipm1_alphas_cumprod", "posterior_mean_coef1",
-        "posterior_mean_coef2")}
-    std = torch.exp(0.5 * buf.posterior_log_variance_clipped).tolist()  # fp32
-    x = noise[0]
-    n = x.shape[0]
-    for i, t in enumerate(range(T - 1, -1, -1)):
-        level = torch.full((n, 1), tab["sqrt_alphas_cumprod_prev"][t + 1],
-                           dtype=torch.float32, device=c.device)
-        eps = model(torch.cat([c, x], dim=1), level)
-        x_recon = (tab["sqrt_recip_alphas_cumprod"][t] * x
-                   - tab["sqrt_recipm1_alphas_cumprod"][t] * eps).clamp(-1.0, 1.0)
-        mean = (tab["posterior_mean_coef1"][t] * x_recon
-                + tab["posterior_mean_coef2"][t] * x)
-        x = mean + noise[1 + i] * std[t] if t > 0 else mean
+    graphs: replay the step as a CUDA graph (default: on CUDA). stats, when
+    given, receives capture_s. Returns x_0 [N, H, W, 3] fp32."""
+    step, x = ancestral_step(diff, model, cond, noise)
+    _run_loop(step, diff.buffers.num_timesteps, cond.device, graphs, stats)
+    return x.permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def sr3_sample_ddim(diff: SR3Diffusion, model, cond: torch.Tensor,
+                    noise: torch.Tensor, num_steps: int = 50,
+                    eta: float = 0.0, graphs: bool | None = None,
+                    stats: dict | None = None) -> torch.Tensor:
+    """DDIM (Song et al., arXiv:2010.02502) on the SR3 schedule, over the
+    timesteps of `ddim_timesteps(T, num_steps)` (JAX :101-156): the
+    conditioning of the ancestral loop, x_0 clipped, eps recomputed from
+    the clipped x_0, the step to t_prev (abar 1 past the last) with
+    sigma = eta * sqrt((1 - a_prev) / (1 - a_t) * (1 - a_t / a_prev)).
+
+    noise: [len(ts)+1, N, H, W, 3] unit normals, [0] = x_T, [1+j] the noise
+    of step j (unused where t_prev < 0). graphs and stats as in
+    `sr3_sample`. Returns x_0 [N, H, W, 3] fp32."""
+    step, x = ddim_step(diff, model, cond, noise, num_steps, eta)
+    steps = len(ddim_timesteps(diff.buffers.num_timesteps, num_steps))
+    _run_loop(step, steps, cond.device, graphs, stats)
     return x.permute(0, 2, 3, 1)

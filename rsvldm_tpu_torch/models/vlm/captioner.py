@@ -147,6 +147,10 @@ class LlavaCaptioner:
         # adapters of a quantized decoder's runtime branch (scale in b),
         # from attach_archives
         self.lora: dict | None = None
+        # the decode loop's tensors and CUDA graph per (prompt bucket,
+        # lora): a later caption of the same bucket replays, as JAX's
+        # jit cache does (generate.generate)
+        self.decode_graphs: dict = {}
         self.last_stats: dict = {}
         # seconds of each load step (read_s, merge_s, quantize_s,
         # archives_s) and the files read
@@ -218,6 +222,7 @@ class LlavaCaptioner:
         if lora_npz:
             lora, lcfg = load_lora_npz(lora_npz, dev)
             quantized = quant_mode(self.llama) is not None
+            self.decode_graphs.clear()
             if quantized:
                 self.lora = runtime_lora(lora, lcfg.scale)
             else:
@@ -280,7 +285,8 @@ class LlavaCaptioner:
                 noise=None) -> str:
         """Stage 2a on one PIL image; sampling adds `noise(i)` to token i's
         logits, or Gumbel draws from `generator` (default: seeded with 0 on
-        the captioner's device); see `generate.generate`."""
+        the captioner's device); on the card the decode replays a CUDA
+        graph kept in `decode_graphs`; see `generate.generate`."""
         prompt = llava_cfg.img_prompt.format(DEFAULT_IMAGE_TOKEN="<image>")
         cfg = GenerateConfig(max_new_tokens=llava_cfg.max_new_tokens,
                              temperature=llava_cfg.temperature,
@@ -291,4 +297,5 @@ class LlavaCaptioner:
         return caption_image(self.llama, self.vision, self.projector, image,
                              prompt, encode, decode, self.image_newline, cfg,
                              generator, patch_size=self.vision.cfg.image_size,
-                             stats=self.last_stats, noise=noise, lora=self.lora)
+                             stats=self.last_stats, noise=noise, lora=self.lora,
+                             graph_cache=self.decode_graphs)

@@ -14,7 +14,10 @@ passes no cache at all and nothing is written. A prefill from position 0
 attends through ops/attention.py after the GQA repeat, so it reaches K1 on
 CUDA at 1024 tokens and more (the fused kernel in its backward); every
 other call (decode) is a grouped einsum against the unrepeated cache masked by
-absolute position, and refuses to be differentiated.
+absolute position, and refuses to be differentiated. A decode's write
+position is a long tensor, 0-d or one per row ([B]): the K/V go in by
+`index_copy_` and RoPE and the mask read the tensor, so the host never
+reads a position and a decode step can be captured as a CUDA graph.
 
 Weight-only quantization (`quantize_llama_`) swaps each projection and the
 lm_head for QDense (int8) or Q4Dense (int4) module by module, freeing each
@@ -201,32 +204,40 @@ class LlamaBlock(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.dim, cfg.rms_eps)
         self.mlp = _MLP(cfg)
 
-    def forward(self, x, cache_k, cache_v, start_pos: int, lora=None):
+    def forward(self, x, cache_k, cache_v, start_pos, lora=None):
         """x [B, S, D], new tokens at positions start_pos..start_pos+S-1;
-        cache_k/v [B, T, kvh, hd], written in place (detached), or None for
-        a prefill from 0 that keeps no cache; lora: this block's adapters
-        by projection name."""
+        start_pos the Python int 0 for a prefill, else a long tensor, 0-d
+        or [B] (one position per row), or an int; cache_k/v [B, T, kvh,
+        hd], written in place (detached), or None for a prefill from 0
+        that keeps no cache; lora: this block's adapters by projection
+        name."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd, kvh = cfg.head_dim, cfg.kv_heads
         rep = cfg.heads // kvh
         a = self.self_attn
         lora = lora or {}
-        prefill = s > 1 and start_pos == 0
+        prefill = s > 1 and isinstance(start_pos, int) and start_pos == 0
         if cache_k is None and not prefill:
             raise ValueError("LlamaBlock: decode needs a KV cache")
         h = self.input_layernorm(x)
         q = project(a.q_proj, h, lora.get("q_proj")).reshape(b, s, cfg.heads, hd)
         k = project(a.k_proj, h, lora.get("k_proj")).reshape(b, s, kvh, hd)
         v = project(a.v_proj, h, lora.get("v_proj")).reshape(b, s, kvh, hd)
-        positions = torch.arange(start_pos, start_pos + s, device=x.device)
+        if prefill:
+            positions = torch.arange(s, device=x.device)
+        else:
+            # [B, S]: the host never reads a position, so a decode step
+            # can be captured once and replayed
+            pos = torch.as_tensor(start_pos, device=x.device).reshape(-1, 1)
+            positions = (pos + torch.arange(s, device=x.device)).expand(b, s)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        if cache_k is not None:
-            with torch.no_grad():
-                cache_k[:, start_pos:start_pos + s] = k.to(cache_k.dtype)
-                cache_v[:, start_pos:start_pos + s] = v.to(cache_v.dtype)
         if prefill:
+            if cache_k is not None:
+                with torch.no_grad():
+                    cache_k[:, :s] = k.to(cache_k.dtype)
+                    cache_v[:, :s] = v.to(cache_v.dtype)
             # prefill: no history; the GQA repeat is paid once here
             kk = k.repeat_interleave(rep, dim=2).to(q.dtype)
             vv = v.repeat_interleave(rep, dim=2).to(q.dtype)
@@ -237,13 +248,20 @@ class LlamaBlock(nn.Module):
                     "LlamaBlock: gradients through the KV-cache decode path "
                     "are not ported (training runs a prefill from 0)")
             t = cache_k.shape[1]
+            # row r's position p goes to slot r * T + p of the flat cache
+            slots = (torch.arange(b, device=x.device)[:, None] * t
+                     + positions).reshape(-1)
+            with torch.no_grad():
+                cache_k.view(b * t, kvh, hd).index_copy_(
+                    0, slots, k.reshape(b * s, kvh, hd).to(cache_k.dtype))
+                cache_v.view(b * t, kvh, hd).index_copy_(
+                    0, slots, v.reshape(b * s, kvh, hd).to(cache_v.dtype))
             qg = q.reshape(b, s, kvh, rep, hd)
             logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
                                   cache_k.float()) / (hd ** 0.5)
             k_pos = torch.arange(t, device=x.device)
-            mask = ((k_pos[None, :] <= positions[:, None])
-                    & (k_pos[None, :] < start_pos + s))
-            logits = logits.masked_fill(~mask, -1e30)
+            mask = k_pos <= positions[:, :, None]  # [B, S, T]
+            logits = logits.masked_fill(~mask[:, None, None], -1e30)
             probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
             o = torch.einsum("bgrqk,bkgd->bqgrd", probs.float(), cache_v.float())
             o = o.reshape(b, s, cfg.heads, hd).to(x.dtype)
@@ -276,8 +294,10 @@ class LlamaModel(nn.Module):
         return self.model.embed_tokens(tokens).to(self.dtype)
 
     def forward(self, embeds: torch.Tensor, cache: KVCache | None = None,
-                start_pos: int = 0, lora: dict | None = None):
+                start_pos: int | torch.Tensor = 0, lora: dict | None = None):
         """embeds [B, S, D] -> (fp32 logits [B, S, vocab], the cache).
+        start_pos: the Python int 0 for a prefill, else the write position
+        as a long tensor, 0-d or [B], or an int (LlamaBlock.forward).
         cache None: a prefill from 0 that writes no cache (training).
         lora: adapters by module path (module docstring)."""
         x = embeds.to(self.dtype)
@@ -286,10 +306,10 @@ class LlamaModel(nn.Module):
             ck, cv = (None, None) if cache is None else (cache.k[i], cache.v[i])
             layer_lora = _layer_lora(lora, i)
             if remat:
-                x = checkpoint(block, x, ck, cv, int(start_pos), layer_lora,
+                x = checkpoint(block, x, ck, cv, start_pos, layer_lora,
                                use_reentrant=False)
             else:
-                x = block(x, ck, cv, int(start_pos), layer_lora)
+                x = block(x, ck, cv, start_pos, layer_lora)
         x = self.model.norm(x)
         return self.lm_head(x).float(), cache
 

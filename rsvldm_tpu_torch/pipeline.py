@@ -27,14 +27,20 @@ CLIP tokens come from the BPE tokenizer in <ckpt_dir>/clip_vocab (CLIP-L
 padded with EOT, bigG with 0), else from crc32 hash buckets with a warning,
 as JAX does.
 
+Stage 1 runs the SR3 ancestral loop (cfg.stage1.sampler "ddpm", T steps)
+or DDIM ("ddim", cfg.stage1.ddim_steps with ddim_eta), as the JAX
+pipeline's `_stage1_sample_fn`. The loops of Stage 1, the caption decode
+and RestoreEDM replay CUDA graphs on the card (utils/graphs.py);
+`capture_s` holds each graph's capture seconds of the last run.
+
 Noise comes from a torch.Generator seeded with cfg.seed on the device, or
 from `noise`, a callable (name, shape) -> tensor that tests use to replay
-the JAX stream. Draws, in the JAX layout: "stage1" [T+1, 1, H, W, 3],
+the JAX stream. Draws, in the JAX layout: "stage1" [T+1, 1, H, W, 3]
+(DDIM: [len(ts)+1, ...], models/sr3/diffusion.ddim_timesteps),
 "vae_sample" [N, h, w, 4], "edm_init" [N, h, w, 4], "churn" [steps, N, h,
 w, 4].
 
-Not ported yet: folder mode and size_bucket, the tiled VAE, the SR3 DDIM
-sampler.
+Not ported yet: folder mode and size_bucket, the tiled VAE.
 """
 
 from __future__ import annotations
@@ -56,7 +62,8 @@ from .diffusion.samplers import RestoreEDMConfig, restore_edm_sample
 from .models.sdxl.control import ControlledUNet, GLVControl
 from .models.sdxl.denoiser import ControlDenoiser
 from .models.sdxl.unet import SDXLUNetConfig
-from .models.sr3.diffusion import SR3Diffusion, sr3_sample
+from .models.sr3.diffusion import (SR3Diffusion, ddim_timesteps, sr3_sample,
+                                   sr3_sample_ddim)
 from .models.sr3.unet import SR3UNet, SR3UNetConfig
 from .models.text.clip import (CLIP_L_CONFIG, OPENCLIP_BIGG_CONFIG,
                                CLIPTextTransformer)
@@ -139,8 +146,9 @@ class SuperResolutionPipeline:
                  noise: Optional[NoiseSource] = None,
                  captioner: Optional[LlavaCaptioner] = None,
                  llava_load_kw: Optional[dict] = None):
-        if cfg.stage1.sampler != "ddpm":
-            raise NotImplementedError("only the ddpm Stage-1 sampler is ported")
+        if cfg.stage1.sampler not in ("ddpm", "ddim"):
+            raise ValueError(f"Stage1Config.sampler={cfg.stage1.sampler!r}: "
+                             "expected 'ddpm' or 'ddim'")
         if cfg.refine.use_tile_vae:
             raise NotImplementedError("the tiled VAE is not ported yet")
         self.cfg = cfg
@@ -166,6 +174,7 @@ class SuperResolutionPipeline:
         self.big_g_cfg = mc.get("big_g") or OPENCLIP_BIGG_CONFIG
         self._stage2_loaded = False
         self.timings: Dict[str, float] = {}
+        self.capture_s: Dict[str, float] = {}
         self.last_dfb: Optional[dict] = None
         self.outputs_finite: Dict[str, bool] = {}
         self.caption_stats: dict = {}
@@ -285,11 +294,20 @@ class SuperResolutionPipeline:
     # ------------------------------------------------------------ stage 1
     @torch.inference_mode()
     def run_stage1(self, image_path: str) -> np.ndarray:
-        """Bicubic x upscale + the SR3 ancestral loop; uint8 HWC."""
+        """Bicubic x upscale + the SR3 ancestral loop or DDIM; uint8 HWC."""
         cond = torch.from_numpy(load_lr_conditioning(image_path, self.cfg.upscale)[None])
-        noise = self.noise("stage1", (self.sr3_diff.buffers.num_timesteps + 1,
-                                      *cond.shape))
-        x = sr3_sample(self.sr3_diff, self.sr3, cond.to(self.device), noise)
+        s1, T = self.cfg.stage1, self.sr3_diff.buffers.num_timesteps
+        rows = (len(ddim_timesteps(T, s1.ddim_steps)) if s1.sampler == "ddim"
+                else T) + 1
+        noise = self.noise("stage1", (rows, *cond.shape))
+        stats: dict = {}
+        if s1.sampler == "ddim":
+            x = sr3_sample_ddim(self.sr3_diff, self.sr3, cond.to(self.device),
+                                noise, s1.ddim_steps, s1.ddim_eta, stats=stats)
+        else:
+            x = sr3_sample(self.sr3_diff, self.sr3, cond.to(self.device), noise,
+                           stats=stats)
+        self.capture_s["stage1"] = stats["capture_s"]
         self.outputs_finite["stage1"] = bool(torch.isfinite(x).all())
         return to_uint8(x[0].cpu().numpy())
 
@@ -308,6 +326,7 @@ class SuperResolutionPipeline:
         with self._timed("caption"):
             caption = self.llava.caption(sr_image, self.cfg.llava)
         self.caption_stats = dict(self.llava.last_stats)
+        self.capture_s["caption"] = self.caption_stats.get("capture_s", 0.0)
         self.last_caption = caption
         log.info("stage2a caption (%.2fs): %s", self.timings["caption"],
                  caption[:120])
@@ -359,9 +378,13 @@ class SuperResolutionPipeline:
             churn = (self.noise("churn", (scfg.num_steps, *shape)).to(self.device)
                      if scfg.s_churn > 0 else None)
             denoiser = ControlDenoiser(unet=self.unet, control_net=self.control)
+            stats: dict = {}
             z, aux = restore_edm_sample(denoiser, cond, uc, noise,
                                         _nhwc(z_stage1), scfg,
-                                        churn_noise=churn, return_aux=True)
+                                        churn_noise=churn, return_aux=True,
+                                        stats=stats)
+        self.capture_s.update({f"sampling_{k}": v
+                               for k, v in stats["capture_s"].items()})
         log.info("first-block cache (batch %d): %d/%d steps skipped "
                  "middle+decoder", x.shape[0], aux["cache_hits"], aux["num_steps"])
         self.last_dfb = {"hits": aux["cache_hits"], "steps": aux["num_steps"],

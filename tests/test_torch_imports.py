@@ -44,7 +44,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("training", "training.vlm_trainer", "training.vlm_data",
                  "data", "data.prefetch", "train_vlm", "infer",
                  "utils.safetensors", "utils.checkpoint", "utils.tokenizer",
-                 "models.vlm.tokenizer"):
+                 "models.vlm.tokenizer", "utils.graphs"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

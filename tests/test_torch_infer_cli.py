@@ -1,7 +1,8 @@
 """The port's CLI, `python -m rsvldm_tpu_torch.infer`, on CPU: at the tiny
 geometries it reads a checkpoint directory written at them (every family
-from its files) and writes both PNGs; without --device cpu on a machine
-with no card it raises; what is not ported yet raises."""
+from its files) and writes both PNGs, and runs Stage 1 as DDIM; without
+--device cpu on a machine with no card it raises; what is not ported yet
+raises."""
 
 import os
 import subprocess
@@ -99,8 +100,26 @@ def test_cli_raises_without_a_card(tiny_ckpt):
                     "--ckpt_dir", str(cd)])
 
 
-@pytest.mark.parametrize("flags", [["--stage1_sampler", "ddim"],
-                                   ["--draft_dir", "d"], ["--self_draft", "4"]])
+def test_cli_stage1_ddim(tiny_ckpt, tmp_path):
+    """--stage1_sampler ddim --stage1_steps 4: Stage 1 runs DDIM, drawing
+    5 noise rows (x_T and one a step), and writes its PNG."""
+    cd, _ = tiny_ckpt
+    args = infer.parse_args(["--device", "cpu", "--debug_tiny", "--ckpt_dir",
+                             str(cd), "--input_img", str(cd / "in.png"),
+                             "--output_dir", str(tmp_path), "--stage1_only",
+                             "--stage1_sampler", "ddim", "--stage1_steps", "4"])
+    pipe = infer.build_pipeline(args)
+    assert (pipe.cfg.stage1.sampler, pipe.cfg.stage1.ddim_steps) == ("ddim", 4)
+    shapes = []
+    draw = pipe.noise
+    pipe.noise = lambda name, shape: shapes.append(shape) or draw(name, shape)
+    pipe.process()
+    assert shapes == [(5, 1, 16, 16, 3)]
+    png = np.asarray(Image.open(tmp_path / "sr3_in.png"))
+    assert png.shape == (16, 16, 3) and png.std() > 0
+
+
+@pytest.mark.parametrize("flags", [["--draft_dir", "d"], ["--self_draft", "4"]])
 def test_cli_refuses_what_is_not_ported(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         infer.build_pipeline(infer.parse_args(

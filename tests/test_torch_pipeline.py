@@ -8,7 +8,8 @@ identical. Then both read every family from the reference checkpoint layout
 (written from the same randomized trees, fp16 and fp32, with an SR-v0Q
 override and a denoise_encoder) and a tiny clip_vocab: every family's
 weights equal JAX's loaded tree exactly, the CLIP tokens (both pads) are
-JAX's and the PNGs within 1 uint8 level."""
+JAX's and the PNGs within 1 uint8 level. And both with Stage 1 as DDIM
+(eta 0.5, JAX's key chain replayed): PNGs within 1 uint8 level."""
 
 import sys
 from pathlib import Path
@@ -32,6 +33,7 @@ from rsvldm_tpu_torch.config import (LlavaConfig, PipelineConfig,
                                      RefinementConfig, Stage1Config)
 from rsvldm_tpu_torch.models.vlm.llama import LlamaConfig
 from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig
+from rsvldm_tpu_torch.models.sr3.diffusion import ddim_timesteps
 from rsvldm_tpu_torch.pipeline import ReplayNoise, SuperResolutionPipeline
 from rsvldm_tpu_torch.utils.weights import params_from_jax
 from torch_parity_lib import (JAX_TINY, TORCH_TINY, randomize,
@@ -39,28 +41,34 @@ from torch_parity_lib import (JAX_TINY, TORCH_TINY, randomize,
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
+from test_torch_samplers import ddim_noise_from_key  # noqa: E402
 
 torch.set_num_threads(1)
 SEED, STEPS1, EDM_STEPS = 7, 8, 2
 
 
-def _cfg(mod, ckpt, out, llava=None):
+def _cfg(mod, ckpt, out, llava=None, stage1=None):
     kw = dict(no_llava=True) if llava is None else dict(llava=llava)
     return mod[0](ckpt_dir=str(ckpt), output_dir=str(out), upscale=8,
                   seed=SEED, params_dtype="fp32",
-                  stage1=mod[1](steps=STEPS1),
+                  stage1=mod[1](steps=STEPS1, **(stage1 or {})),
                   refine=mod[2](min_size=64, edm_steps=EDM_STEPS, size_bucket=0),
                   **kw)
 
 
-def _jax_noise(seed, stage1_shape, latent_shape, edm_steps):
+def _jax_noise(seed, stage1_shape, latent_shape, edm_steps, ddim_steps=None):
     """The draws of JAX process(): run_stage1 splits the pipeline key once
-    (pipeline.py:335) for sr3_sample (sr3/diffusion.py:74-89); _refine_core
+    (pipeline.py:335) for sr3_sample (sr3/diffusion.py:74-89), or with
+    ddim_steps for sr3_sample_ddim (:101-156); _refine_core
     splits it into k_enc / k_noise / k_loop (pipeline.py:456) for the VAE
     posterior sample (vae/model.py:173-174), the initial EDM noise and the
     per-step churn noise (samplers.py:158)."""
     rng, sub = jax.random.split(jax.random.PRNGKey(seed))
-    stage1 = sr3_noise_from_key(sub, STEPS1, stage1_shape)
+    if ddim_steps is None:
+        stage1 = sr3_noise_from_key(sub, STEPS1, stage1_shape)
+    else:
+        stage1 = ddim_noise_from_key(sub, ddim_timesteps(STEPS1, ddim_steps),
+                                     stage1_shape)
     _, k_enc, k_noise, k_loop = jax.random.split(rng, 4)
     normal = lambda k: np.asarray(jax.random.normal(k, latent_shape, jnp.float32))
     churn = np.stack([normal(jax.random.fold_in(k_loop, i)) for i in range(edm_steps)])
@@ -90,7 +98,7 @@ def _record_tokens(pipe, method, out: list):
 
 
 def _run_both(work, ckpt, jax_kw=None, llava_kw=None, port_kw=None,
-              from_files=False):
+              from_files=False, stage1=None):
     """process() of both pipelines on work/in.png -> (jax pipe, port pipe),
     outputs in work/jax and work/torch. The port gets JAX's loaded trees as
     state dicts, or with from_files reads ckpt itself."""
@@ -108,7 +116,8 @@ def _run_both(work, ckpt, jax_kw=None, llava_kw=None, port_kw=None,
     tllava = None if llava_kw is None else LlavaConfig(**llava_kw)
     try:
         jp = JPipeline(_cfg((JPipelineConfig, JStage1Config, JRefinementConfig),
-                            ckpt, work / "jax", jllava), model_cfgs=JAX_TINY,
+                            ckpt, work / "jax", jllava, stage1),
+                       model_cfgs=JAX_TINY,
                        **(jax_kw or {}))
         jp._ensure_stage2()
         jp.trees = {fam: to_np(getattr(jp, f"{fam}_params")) for fam in families}
@@ -121,10 +130,12 @@ def _run_both(work, ckpt, jax_kw=None, llava_kw=None, port_kw=None,
     sds = None if from_files else {
         fam: params_from_jax(fam, tree, TORCH_CFGS[fam])
         for fam, tree in jp.trees.items()}
-    noise = _jax_noise(SEED, (1, 16, 16, 3), (1, 32, 32, 4), EDM_STEPS)
+    noise = _jax_noise(SEED, (1, 16, 16, 3), (1, 32, 32, 4), EDM_STEPS,
+                       (stage1 or {}).get("ddim_steps"))
     tp = SuperResolutionPipeline(
         _cfg((PipelineConfig, Stage1Config, RefinementConfig), ckpt,
-             work / "torch", tllava), device="cpu", model_cfgs=TORCH_TINY,
+             work / "torch", tllava, stage1), device="cpu",
+        model_cfgs=TORCH_TINY,
         state_dicts=sds, noise=ReplayNoise(noise), **(port_kw or {}))
     tp.captions, tp.tokens = [], []
     _record_captions(tp, tp.captions)
@@ -188,6 +199,28 @@ def test_replayed_noise_fully_used(runs):
     _, _, tp = runs
     assert all(not v for v in tp.noise.draws.values())
     assert all(tp.outputs_finite.values())
+
+
+@pytest.fixture(scope="module")
+def ddim_runs(tmp_path_factory):
+    """Both pipelines with Stage 1 as DDIM: 5 steps at eta 0.5 on the
+    8-step schedule, JAX's key chain replayed."""
+    work = tmp_path_factory.mktemp("torch_slice_ddim")
+    jp, tp = _run_both(work, work / "no_ckpt", stage1=dict(
+        sampler="ddim", ddim_steps=5, ddim_eta=0.5))
+    return work, jp, tp
+
+
+@pytest.mark.parametrize("name", ["sr3_in.png", "in_final_0.png"])
+def test_ddim_pngs_within_one_level(ddim_runs, name):
+    work, _, tp = ddim_runs
+    a = np.asarray(Image.open(work / "jax" / name), np.int16)
+    b = np.asarray(Image.open(work / "torch" / name), np.int16)
+    assert a.shape == b.shape
+    assert np.abs(a - b).max() <= 1
+    # the replayed draws have the shapes the DDIM loop asked for, all used
+    assert tp.cfg.stage1.sampler == "ddim"
+    assert all(not v for v in tp.noise.draws.values())
 
 
 @pytest.mark.parametrize("name", ["sr3_in.png", "in_final_0.png"])

@@ -1,6 +1,7 @@
 """The port's samplers held against the JAX package's at tiny geometry, fp32
 on the CPU, with the same weights and the same noise: the SR3 ancestral loop
-(injected noise, and the noise rebuilt from the JAX key chain) and
+(injected noise, and the noise rebuilt from the JAX key chain), SR3 DDIM
+(eta 0 and 0.5, JAX's key chain injected) and
 RestoreEDM with the first-block cache on and off. Latents within 1e-4;
 cache decisions identical."""
 
@@ -19,12 +20,14 @@ from rsvldm_tpu.models.sdxl.control import GLVControl as JControl
 from rsvldm_tpu.models.sdxl.denoiser import ControlDenoiser as JDenoiser
 from rsvldm_tpu.models.sr3.diffusion import SR3Diffusion as JSR3Diffusion
 from rsvldm_tpu.models.sr3.diffusion import sr3_sample as j_sr3_sample
+from rsvldm_tpu.models.sr3.diffusion import sr3_sample_ddim as j_sr3_ddim
 from rsvldm_tpu.models.sr3.unet import SR3UNet as JSR3UNet
 from rsvldm_tpu_torch.diffusion.samplers import RestoreEDMConfig
 from rsvldm_tpu_torch.diffusion.samplers import restore_edm_sample
 from rsvldm_tpu_torch.models.sdxl.control import ControlledUNet, GLVControl
 from rsvldm_tpu_torch.models.sdxl.denoiser import ControlDenoiser
-from rsvldm_tpu_torch.models.sr3.diffusion import SR3Diffusion, sr3_sample
+from rsvldm_tpu_torch.models.sr3.diffusion import (SR3Diffusion, ddim_timesteps,
+                                                   sr3_sample, sr3_sample_ddim)
 from rsvldm_tpu_torch.models.sr3.unet import SR3UNet
 from rsvldm_tpu_torch.utils.weights import params_from_jax
 from torch_parity_lib import (JAX_TINY, TORCH_TINY, assert_close, randomize,
@@ -66,6 +69,37 @@ def test_sr3_sample(sr3, noise_from):
         want = j_sr3_sample(jdiff, apply_fn, tree, jnp.asarray(cond), key)
     tdiff = SR3Diffusion.from_schedule("linear", T_SR3, 1e-6, 1e-2)
     got = sr3_sample(tdiff, tm, torch.from_numpy(cond), torch.from_numpy(noise))
+    assert_close(got.numpy(), want)
+
+
+def ddim_noise_from_key(key, ts, shape):
+    """The unit normals JAX sr3_sample_ddim draws from `key`: [0] = x_T
+    from split(key)[1], [1+j] = normal(fold_in(split(key)[0], ts[j]))."""
+    rng, init_rng = jax.random.split(key)
+    draws = [jax.random.normal(init_rng, shape, jnp.float32)]
+    draws += [jax.random.normal(jax.random.fold_in(rng, int(t)), shape,
+                                jnp.float32) for t in ts]
+    return np.stack([np.asarray(d) for d in draws])
+
+
+@pytest.mark.parametrize("steps,eta", [(4, 0.0), (4, 0.5), (T_SR3, 0.5),
+                                       (50, 0.0)])
+def test_sr3_sample_ddim(sr3, steps, eta):
+    """JAX's timestep subset (50 steps on a 6-step schedule dedupe to 6),
+    clipped x_0, recomputed eps and the eta noise, fed JAX's key chain."""
+    jm, tree, tm = sr3
+    rng = np.random.default_rng(6)
+    cond = rng.uniform(-1, 1, (1, 16, 16, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(12)
+    jdiff = JSR3Diffusion.from_schedule("linear", T_SR3, 1e-6, 1e-2)
+    want = j_sr3_ddim(jdiff, lambda p, x, nl: jm.apply(p, x, nl), tree,
+                      jnp.asarray(cond), key, num_steps=steps, eta=eta)
+    ts = ddim_timesteps(T_SR3, steps)
+    assert len(ts) == min(steps, T_SR3)
+    noise = ddim_noise_from_key(key, ts, cond.shape)
+    tdiff = SR3Diffusion.from_schedule("linear", T_SR3, 1e-6, 1e-2)
+    got = sr3_sample_ddim(tdiff, tm, torch.from_numpy(cond),
+                          torch.from_numpy(noise), num_steps=steps, eta=eta)
     assert_close(got.numpy(), want)
 
 

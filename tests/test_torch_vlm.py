@@ -248,6 +248,66 @@ def test_generate_stops_at_eot(llama_tree):
     assert got.size == want.size == 0 and stats["decode_steps"] == 0
 
 
+@pytest.mark.parametrize("mode", [None, "int4"])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_windowed_generate_ids_equal_jax(llama_tree, mode, sampled):
+    """40 new tokens, more than two windows of the done-flag read: greedy,
+    and at T = 0.2 with JAX's noise, dense and int4, JAX's ids; every step
+    the loop allows runs."""
+    jm, jp, tm = _models(llama_tree, mode)
+    embeds = (RNG.standard_normal((7, 32)) * 0.5).astype(np.float32)
+    rng = jax.random.PRNGKey(5)
+    kw = dict(max_new_tokens=40, temperature=0.2, do_sample=sampled, pad_to=8)
+    want = jgen.generate(jm, jp, jnp.asarray(embeds), jgen.GenerateConfig(**kw),
+                         rng)
+    stats = {}
+    got = tgen.generate(tm, torch.from_numpy(embeds), tgen.GenerateConfig(**kw),
+                        noise=_jax_gumbel(rng, TL.vocab_size), stats=stats)
+    np.testing.assert_array_equal(got, want)
+    assert len(got) == 40 and stats["decode_steps"] == 39
+    assert tgen.DONE_EVERY < 39
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_generate_eot_inside_a_window(llama_tree, sampled):
+    """The eot id made a token JAX draws at position j (5 where that id
+    does not occur before it): both trim there, and the port stops at the
+    end of the first window of DONE_EVERY steps, not at max_new_tokens."""
+    jm, jp, tm = _models(llama_tree, None)
+    embeds = (RNG.standard_normal((6, 32)) * 0.5).astype(np.float32)
+    rng = jax.random.PRNGKey(11)
+    kw = dict(max_new_tokens=40, temperature=0.2, do_sample=sampled, pad_to=8)
+    ids = jgen.generate(jm, jp, jnp.asarray(embeds), jgen.GenerateConfig(**kw),
+                        rng)
+    j = next(j for j in range(5, 14) if ids[j] not in ids[:j])
+    kw["eot_ids"] = (int(ids[j]),)
+    want = jgen.generate(jm, jp, jnp.asarray(embeds), jgen.GenerateConfig(**kw),
+                         rng)
+    stats = {}
+    got = tgen.generate(tm, torch.from_numpy(embeds), tgen.GenerateConfig(**kw),
+                        noise=_jax_gumbel(rng, TL.vocab_size), stats=stats)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, ids[:j])
+    assert stats["decode_steps"] == tgen.DONE_EVERY
+
+
+def test_generate_reuses_its_bucket(llama_tree):
+    """A graph cache keeps one loop state per bucket: a second prompt of
+    another length in the same bucket reuses it (over the first prompt's
+    cache contents) and gets the ids of a fresh call; another bucket gets
+    its own."""
+    _, _, tm = _models(llama_tree, "int4")
+    cfg = tgen.GenerateConfig(max_new_tokens=20, do_sample=False, pad_to=8)
+    prompts = [torch.from_numpy((RNG.standard_normal((s, 32)) * 0.5)
+                                .astype(np.float32)) for s in (7, 5, 11)]
+    cache: dict = {}
+    got = [tgen.generate(tm, p, cfg, graph_cache=cache) for p in prompts]
+    fresh = [tgen.generate(tm, p, cfg) for p in prompts]
+    for a, b in zip(got, fresh):
+        np.testing.assert_array_equal(a, b)
+    assert sorted(k[0] for k in cache) == [8, 16]
+
+
 # -------------------------------------------------------------- captioner
 def _tiny_llava_state_dict():
     import sys
