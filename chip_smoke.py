@@ -14,7 +14,11 @@ Phases, each printed on its own line:
                under torch.profiler); kernel, plain and library times (K1,
                the backward, K2 and their yardsticks by CUDA-graph replay:
                device time), the least time the card could take, and K2's
-               sum per decode step
+               sum per decode step; folder mode's shapes too: K1 at the
+               batched prefill (B=8 S=1408 H=32 D=128 causal) and the
+               batched refinement (B=8 S=4096 H=10, B=8 S=1024 H=20, D=64),
+               K2 at 8 rows on the five decode shapes and its sum per
+               decode step at 8 rows
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
                noise, PNGs within a stated uint8 tolerance; then a
@@ -32,7 +36,11 @@ Phases, each printed on its own line:
                direct calls on the same inputs: SR3 and DDIM (8 steps),
                RestoreEDM on a 64^2 latent (a mixed run, all misses, all
                hits: the same DFB trace), the caption decode (40 tokens:
-               the same ids and K2 launches)
+               the same ids and K2 launches); and the batched caption
+               (three images of different shapes, ragged prompts, one
+               batched prefill with the lm_head on each row's last
+               position, 8 decode steps of all rows teacher-forced) card
+               against CPU, per row
   5. path      the full-width modules (SR3 64-ch; SDXL XL-base + GLVControl,
                the SDXL VAE with its twin encoder, CLIP-L, bigG; LLaVA-NeXT-8B:
                CLIP-L/336 + mlp2x_gelu + Llama-3-8B, dense) with seeded bf16
@@ -60,10 +68,25 @@ Phases, each printed on its own line:
                AdamW, gradient checkpointing, 16 anyres 224^2 records,
                4 steps of batch 4 padded to 1536 tokens. Each path's kernel
                launch counts are reset just before it and read just after.
+     folder    (before the directory is deleted, and after the path's
+               pipeline is freed) folder mode as a user runs it: the
+               processor built by infer_dir.build_processor (--quant int4)
+               from that directory, ImageBatchProcessor.run() over 8 seeded
+               LR tiles (seven 28^2, one 32^2: Stage-1 groups of 7 and 1;
+               one batched int4 caption of 8, 256 tokens at T=0.2; two
+               batched 1024^2 refinements of 4, the second replaying the
+               kept graphs of the first): every status ok, no fallback, 16
+               PNGs, K1 / K2 launches as the batches ran (reported under
+               `folder`), seconds per stage and per image, prefill and
+               decode rates, DFB hits and capture seconds per chunk, peak
+               memory with the loops kept; then graph replay against direct
+               calls at this width (16 decode steps at B=8: ids and K2
+               launches; 10 SR3 steps at batch 7)
   6. profile   (--profile) one int4 decode step, one SR3 step, one
                cache-miss and one cache-hit denoising step, each replayed
-               from a CUDA graph, and the last training step, under
-               torch.profiler: device time by kernel, idle share
+               from a CUDA graph, a decode step at 8 rows (folder), and the
+               last training step, under torch.profiler: device time by
+               kernel, the bf16 -> fp32 copies' share, idle share
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}, printed only when every phase passed.
 Exits non-zero, with no result, when there is no CUDA card or the port's
@@ -889,15 +912,17 @@ def _k2_library(x, ql, ref):
                 library_max_abs_err_vs_ref=float((y.float() - ref).abs().max()))
 
 
-def _k2_step(k2):
-    """K2's device time per decode step: sum of launches x time at the five
-    shapes, beside its bound."""
+def _k2_step(k2, rows: int = 1, suffix: str = ""):
+    """K2's device time per decode step of `rows` rows: sum of launches x
+    time at the five shapes (cases named <shape><suffix>), beside its
+    bound and tinygemm's sum."""
     by = {c["case"]: c for c in k2}
-    rec = dict(step="decode", launches=K2_PER_STEP,
-               ms=sum(n * by[c]["ms"] for c, *_, n in K2_STEP),
-               bound_ms=sum(n * by[c]["bound_ms"] for c, *_, n in K2_STEP),
-               library_ms=sum(n * by[c]["library_ms"] for c, *_, n in K2_STEP))
-    _say("kernels", k2_per_decode_step=rec)
+    at = lambda c, key: by[c + suffix][key]
+    rec = dict(step="decode", rows=rows, launches=K2_PER_STEP,
+               ms=sum(n * at(c, "ms") for c, *_, n in K2_STEP),
+               bound_ms=sum(n * at(c, "bound_ms") for c, *_, n in K2_STEP),
+               library_ms=sum(n * at(c, "library_ms") for c, *_, n in K2_STEP))
+    _say("kernels", **{f"k2_per_decode_step{suffix}": rec})
     return rec
 
 
@@ -920,6 +945,14 @@ def phase_kernels():
         # the training step: 4 records padded to 1536 tokens, with lse
         _flash_case("llama_train_s1536", 4, 1536, 1536, 32, 128, causal=True,
                     lse=True, timed=True, main_path=True),
+        # folder mode: the batched prefill of 8 captions, and the batched
+        # refinement of 4 images (CFG batch 8) at the 64^2 and 32^2 levels
+        _flash_case("folder_prefill_b8_s1408", 8, 1408, 1408, 32, 128,
+                    causal=True, timed=True, main_path=True),
+        _flash_case("folder_sdxl_b8_s4096", 8, 4096, 4096, 10, 64, timed=True,
+                    main_path=True),
+        _flash_case("folder_sdxl_b8_s1024", 8, 1024, 1024, 20, 64, timed=True,
+                    main_path=True),
         _flash_case("causal_sq_lt_sk", 1, 300, 700, 4, 64, causal=True),
         _flash_case("causal_sq_gt_sk", 1, 700, 300, 4, 64, causal=True,
                     lse=True),
@@ -961,7 +994,8 @@ def phase_kernels():
 def phase_k2():
     """K2's cases: one Llama-3-8B decode step's shapes (R = 1), rows 8 and
     32, ragged outs (out % 16 != 0 takes byte loads), ties, zero rows; the
-    one-launch check and the sum per decode step."""
+    one-launch check; the decode step's shapes at 8 rows (folder mode);
+    the sums per decode step at 1 and 8 rows."""
     k2 = [_k2_case(name, 1, inf, out, main_path=True)
           for name, inf, out, _ in K2_STEP]
     k2 += [_k2_case("rows_8", 8, 4096, 4096),
@@ -971,7 +1005,11 @@ def phase_k2():
            # 19 pairs: no split count divides them, so the ranges are uneven
            _k2_case("uneven_splits_4864", 1, 4864, 4096),
            _k2_ties(), _k2_zero_rows(), _k2_one_launch()]
+    # folder mode: a decode step of the batched caption, 8 rows
+    k2 += [_k2_case(name + "_r8", 8, inf, out, main_path=True)
+           for name, inf, out, _ in K2_STEP]
     _k2_step(k2)
+    _k2_step(k2, rows=8, suffix="_r8")
     return k2
 
 
@@ -1208,26 +1246,18 @@ def _acts_quantized_alike(x):
     return dict(rows=x.shape[0], reciprocal_rows=len(bad), **same)
 
 
-def phase_caption_reference(seed: int, quant: str, steps: int = 8):
-    """A small-width caption on the card (bf16) against the same captioner
-    on the CPU (fp32): dense weights rounded to bf16 so that both sides
-    quantize the same values to the same bytes, the same 224^2 image and
-    prompt; the prefill (1280 tokens: K1) then `steps` decode steps (R = 1:
-    K2 for int4) fed the CPU's greedy tokens on both sides."""
-    import numpy as np
+def _small_captioners(quant: str):
+    """The small-width captioner on the CPU (fp32) and on the card (bf16):
+    dense weights rounded to bf16 so that both sides quantize the same
+    values to the same bytes. (captioners by device, llama config, vision
+    config, tokenizer, whether the quantized bytes are equal)."""
     import torch
-    from PIL import Image
-    from rsvldm_tpu_torch.config import REFERENCE_IMG_PROMPT
-    from rsvldm_tpu_torch.models.vlm import generate as gen
     from rsvldm_tpu_torch.models.vlm.captioner import (NEWLINE_KEY,
                                                        PROJECTOR_PREFIX,
                                                        VISION_PREFIX,
                                                        LlavaCaptioner)
-    from rsvldm_tpu_torch.models.vlm.llama import KVCache, LlamaConfig
+    from rsvldm_tpu_torch.models.vlm.llama import LlamaConfig
     from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig
-    from rsvldm_tpu_torch.ops.flash_attention import flash_attention
-    from rsvldm_tpu_torch.ops.quant import int4_matmul
-
     # K2's conditions (dim and ffn multiples of 256, group 128) and D = 128
     lcfg = LlamaConfig(vocab_size=128256, dim=512, layers=2, heads=4,
                        kv_heads=2, ffn_dim=1024)
@@ -1248,6 +1278,25 @@ def phase_caption_reference(seed: int, quant: str, steps: int = 8):
         torch.equal(v.cpu(), caps["cpu"].llama.state_dict()[k])
         for k, v in caps["cuda"].llama.state_dict().items()
         if v.dtype == torch.int8)
+    return caps, lcfg, vcfg, tok, same_bytes
+
+
+def phase_caption_reference(seed: int, quant: str, steps: int = 8):
+    """A small-width caption on the card (bf16) against the same captioner
+    on the CPU (fp32): dense weights rounded to bf16 so that both sides
+    quantize the same values to the same bytes, the same 224^2 image and
+    prompt; the prefill (1280 tokens: K1) then `steps` decode steps (R = 1:
+    K2 for int4) fed the CPU's greedy tokens on both sides."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.config import REFERENCE_IMG_PROMPT
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.models.vlm.llama import KVCache
+    from rsvldm_tpu_torch.ops.flash_attention import flash_attention
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+
+    caps, lcfg, vcfg, tok, same_bytes = _small_captioners(quant)
     rng = np.random.default_rng(seed + 2)
     img = Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
     prompt = gen.llama3_chat_prompt(
@@ -1303,10 +1352,83 @@ def phase_caption_reference(seed: int, quant: str, steps: int = 8):
                      and float(cos.min()) >= CAP_COS_MIN
                      and float(top1.mean()) >= CAP_TOP1_MIN
                      and graphs["ok"]
+                     # the decode steps and the prefill's lm_head
                      and (quant != "int4" or graphs["k2_launches"]
-                          == graphs["steps"] * (7 * lcfg.layers + 1)))
+                          == graphs["steps"] * (7 * lcfg.layers + 1) + 1))
     flash_attention.launches = int4_matmul.launches = 0
     _say("reference", **rec)
+    return rec
+
+
+def phase_batch_caption_reference(seed: int, quant: str = "int4",
+                                  steps: int = 8):
+    """The batched caption (folder mode) at the small width, card (bf16)
+    against CPU (fp32): three images of different shapes spliced into the
+    prompt (ragged lengths), one batched prefill from 0 with the lm_head
+    on each row's last real position, then `steps` decode steps of all
+    three rows at their own positions, fed the CPU's greedy tokens on both
+    sides. Per row: the logit cosine every step and the top-1 agreement,
+    held to the single caption's limits."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.config import REFERENCE_IMG_PROMPT
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.models.vlm.llama import KVCache
+    from rsvldm_tpu_torch.ops.flash_attention import flash_attention
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+
+    caps, lcfg, vcfg, tok, same_bytes = _small_captioners(quant)
+    rng = np.random.default_rng(seed + 3)
+    imgs = [Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8))
+            for h, w in ((224, 224), (168, 280), (300, 200))]
+    prompt = gen.llama3_chat_prompt(
+        REFERENCE_IMG_PROMPT.format(DEFAULT_IMAGE_TOKEN="<image>"))
+    toks, logits = None, {}
+    for dev in ("cpu", "cuda"):
+        cap = caps[dev]
+        flash_attention.launches = int4_matmul.launches = 0
+        with torch.inference_mode():
+            embs = [gen.embed_multimodal_prompt(
+                cap.llama, cap.vision, cap.projector, prompt, [img],
+                tok.encode, cap.image_newline, vcfg.image_size) for img in imgs]
+            lens = [e.shape[0] for e in embs]
+            s_pad = -(-max(lens) // 128) * 128
+            cache = KVCache.init(lcfg, len(embs), s_pad + steps + 1,
+                                 dtype=cap.llama.dtype, device=dev)
+            x = torch.stack([torch.nn.functional.pad(e, (0, 0, 0, s_pad - len(e)))
+                             for e in embs])
+            at = torch.tensor(lens, device=dev)
+            lg, cache = cap.llama(x, cache, 0, logits_at=at - 1)
+            rows = [lg[:, 0]]
+            if toks is None:
+                toks = [rows[0].argmax(-1).cpu()]
+            for i in range(steps):
+                e = cap.llama.embed(toks[i].to(dev)[:, None])
+                lg, cache = cap.llama(e, cache, at + i)
+                rows.append(lg[:, -1])
+                if dev == "cpu":
+                    toks.append(lg[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        logits[dev] = torch.stack(rows).float().cpu()  # [steps+1, B, vocab]
+        launches = dict(k1=flash_attention.launches, k2=int4_matmul.launches)
+    a, b = logits["cpu"], logits["cuda"]
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)  # [steps+1, B]
+    top1 = (a.argmax(-1) == b.argmax(-1)).float()
+    rec = dict(quant=quant, rows=len(imgs), prompt_lens=lens, padded_len=s_pad,
+               steps=steps, cos=[[round(float(c), 6) for c in r] for r in cos.T],
+               top1=[[int(t) for t in r] for r in top1.T],
+               same_quantized_bytes=same_bytes, card_launches=launches,
+               tol=f"per row: cos >= {CAP_COS_MIN} every step, top-1 "
+                   f"agreement >= {CAP_TOP1_MIN}")
+    rec["ok"] = bool(same_bytes and s_pad >= 1024 and len(set(lens)) == 3
+                     and launches["k1"] == lcfg.layers
+                     and (quant != "int4" or launches["k2"]
+                          == steps * (7 * lcfg.layers + 1) + 1)
+                     and float(cos.min()) >= CAP_COS_MIN
+                     and float(top1.mean(0).min()) >= CAP_TOP1_MIN)
+    flash_attention.launches = int4_matmul.launches = 0
+    _say("reference", batched_caption=rec)
     return rec
 
 
@@ -1463,7 +1585,9 @@ def phase_path(seed: int):
     """Full-width seeded modules written as the reference checkpoint
     directory, then the pipeline built from that directory alone through
     the CLI's own construction (infer.build_pipeline --quant int4), its
-    weights and tokens checked against what was written, then process()."""
+    weights and tokens checked against what was written, then process().
+    Returns (record, pipeline, the directory): the caller deletes the
+    directory after phase `folder` has read it."""
     import shutil
     import numpy as np
     import torch
@@ -1509,7 +1633,7 @@ def phase_path(seed: int):
         rec.update(ok=False, error=f"no directory with {need * CKPT_MARGIN / 1e9:.1f} "
                    "GB free for the checkpoint directory")
         _say("path", **rec)
-        return rec, None
+        return rec, None, None
     try:
         digests_written = _family_digests(pipe0, cap0)
         torch.cuda.synchronize()
@@ -1609,8 +1733,9 @@ def phase_path(seed: int):
         cap.attach_archives(lora_npz=work / "lora.npz")
         decode_launches_lora = _decode_launches(cap.llama, cap.lora)
         cap.lora = None
-    finally:
+    except BaseException:
         shutil.rmtree(cd, ignore_errors=True)
+        raise
 
     sr = np.asarray(Image.open(work / "out" / "sr3_lr.png"))
     fin = np.asarray(Image.open(work / "out" / "lr_final_0.png"))
@@ -1660,7 +1785,8 @@ def phase_path(seed: int):
     misses = dfb["steps"] - dfb["hits"]
     rec["expected_launches"] = (misses * K1_PER_MISS + dfb["hits"] * K1_PER_HIT
                                 + K1_PER_CAPTION)
-    rec["expected_k2_launches"] = K2_PER_STEP * (cs.get("decode_steps") or 0)
+    # the decode steps, and the prefill's lm_head on the last position
+    rec["expected_k2_launches"] = K2_PER_STEP * (cs.get("decode_steps") or 0) + 1
     ok = bool(from_files and cap is not None
               and isinstance(sources.get("llava"), list)
               and all(digests_equal.values()) and len(peft) == 6
@@ -1676,10 +1802,189 @@ def phase_path(seed: int):
               and graphs["ok"] and ddim["finite"])
     rec["ok"] = ok
     _say("path", **rec)
-    return rec, pipe
+    return rec, pipe, cd
 
 
-# --------------------------------------------------------- phase 4b, 5b
+# -------------------------------------------------------------- phase 5b
+FOLDER_TILES = (28, 28, 28, 32, 28, 28, 28, 28)  # LR tile sides: 7 + 1
+
+
+def _batched_graphs_vs_direct(pipe, llama, seed: int, rows: int = 8,
+                              steps: int = 16, sr3_steps: int = 10) -> dict:
+    """Graph replay against direct calls at folder width: `steps` decode
+    steps of a B = `rows` loop state (a seeded cache, ragged positions,
+    T = 0.2 Gumbel draws), once through a StepRunner (direct, capture,
+    replays) and once called directly from the same state: the same ids
+    and K2 launches; then `sr3_steps` steps of the batched SR3 loop at 7 x
+    224^2, replayed and direct."""
+    import copy
+    import torch
+    from rsvldm_tpu_torch.models.sr3.diffusion import (SR3Diffusion,
+                                                       sr3_sample)
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+    from rsvldm_tpu_torch.utils.graphs import StepRunner
+    dev = pipe.device
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    cfg = gen.GenerateConfig(max_new_tokens=steps + 1)
+    st0 = gen._decode_state(llama, cfg, 1408, dev, rows)
+    for t in (st0.cache.k, st0.cache.v):
+        t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    st0.pos.copy_(torch.arange(1300, 1300 + 12 * rows, 12, device=dev))
+    st0.tok.copy_(torch.randint(0, 128000, (rows, 1), generator=g, device=dev))
+    st0.noise.copy_(gen.gumbel_noise(llama.cfg.vocab_size, g, rows)(0)
+                    .expand_as(st0.noise))
+    st0.noise.add_(torch.randn(st0.noise.shape, generator=g, device=dev))
+    st0.temp.fill_(0.2)
+    ids, k2 = {}, {}
+    with torch.inference_mode():
+        for graphs in (True, False):
+            st = copy.copy(st0)
+            for f in ("tok", "pos", "idx", "done", "toks"):
+                setattr(st, f, getattr(st0, f).clone())
+            st.cache = gen.KVCache(st0.cache.k.clone(), st0.cache.v.clone())
+            runner = StepRunner(lambda: gen.decode_step(llama, st, None), graphs)
+            before = int4_matmul.launches
+            for _ in range(steps):
+                runner()
+            torch.cuda.synchronize()
+            k2[graphs] = int4_matmul.launches - before
+            ids[graphs] = st.toks.cpu()
+            del runner, st
+    rec = dict(decode=dict(rows=rows, steps=steps, ids=ids[True][1:4].tolist(),
+                           k2_launches=k2[True],
+                           ok=bool(torch.equal(ids[True], ids[False])
+                                   and k2[True] == k2[False]
+                                   == steps * K2_PER_STEP)))
+    s1 = pipe.cfg.stage1
+    diff = SR3Diffusion.from_schedule(s1.schedule, sr3_steps, s1.linear_start,
+                                      s1.linear_end)
+    cond = torch.randn((7, 224, 224, 3), generator=g, device=dev).clamp(-1, 1)
+    noise = torch.randn((sr3_steps + 1, 7, 224, 224, 3), generator=g,
+                        device=dev)
+    out = {m: sr3_sample(diff, pipe.sr3, cond, noise, graphs=m)
+           for m in (True, False)}
+    rec["sr3_batch7"] = dict(steps=sr3_steps, **_same(out[True], out[False]))
+    rec["ok"] = rec["decode"]["ok"] and rec["sr3_batch7"]["ok"]
+    return rec
+
+
+def phase_folder(seed: int, cd: Path, process_s: float | None,
+                 profile: bool = False):
+    """Folder mode at full width, as a user runs it: the processor built
+    by the folder CLI's own construction (infer_dir.build_processor,
+    --quant int4) from the checkpoint directory phase `path` wrote, then
+    ImageBatchProcessor.run() over 8 seeded LR tiles (seven 28^2 and one
+    32^2: Stage-1 groups of 7 at 224^2 and 1 at 256^2; one batched int4
+    caption of 8, 256 tokens at T = 0.2; all refine at 1024^2, two
+    batched RestoreEDM loops of 4, the second replaying the first's kept
+    graphs). Every status must be ok, no fallback taken, all 16 PNGs
+    written, finite and not flat, the K1 and K2 launches those of the
+    batches run; then graph replay against direct calls at this width."""
+    import gc
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch import infer_dir
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_folder_"))
+    (work / "lr").mkdir()
+    rng = np.random.default_rng(seed + 5)
+    for i, side in enumerate(FOLDER_TILES):
+        Image.fromarray((rng.random((side, side, 3)) * 255).astype(np.uint8)
+                        ).save(work / "lr" / f"tile_{i}.png")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated() / 2**30
+    args = infer_dir.parse_args([
+        "--image_dir", str(work / "lr"), "--save_dir", str(work / "out"),
+        "--seed", str(seed), "--ckpt_dir", str(cd), "--quant", "int4"])
+    t0 = time.perf_counter()
+    proc = infer_dir.build_processor(args)
+    proc.pipe.ensure_stage2()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pipe = proc.pipe
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    results = proc.run()
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.memory_reserved() / 2**30
+
+    n = len(FOLDER_TILES)
+    pngs, pngs_ok = {}, True
+    for sub, pat in (("sr3_output", "sr3_tile_{}.png"),
+                     ("output", "tile_{}_final_0.png")):
+        for i, side in enumerate(FOLDER_TILES):
+            f = work / "out" / sub / pat.format(i)
+            a = np.asarray(Image.open(f)) if f.exists() else None
+            pngs[f"{sub}/{f.name}"] = None if a is None else dict(
+                shape=list(a.shape), std=round(float(a.std()), 3))
+            pngs_ok = pngs_ok and a is not None and a.std() > 0 \
+                and a.shape == (8 * side, 8 * side, 3)
+    caps = proc.caption_batches
+    chunks = proc.refine_chunks
+    k1_want = K1_PER_CAPTION * len(caps) + sum(
+        (c["steps"] - c["hits"]) * K1_PER_MISS + c["hits"] * K1_PER_HIT
+        for c in chunks)
+    # the decode steps, and the prefill's lm_head on the rows' last positions
+    k2_want = sum(K2_PER_STEP * c["decode_steps"] + 1 for c in caps)
+    decode = [dict(rows=c["rows"], prompt_lens=c["prompt_lens"],
+                   padded_len=c["padded_len"], prefill_s=c["prefill_s"],
+                   decode_s=c["decode_s"], decode_steps=c["decode_steps"],
+                   tok_s_all_rows=c["rows"] * c["decode_steps"] / c["decode_s"],
+                   tok_s_per_row=c["decode_steps"] / c["decode_s"],
+                   capture_s=c["capture_s"], seconds=c["seconds"])
+              for c in caps if c.get("decode_s")]
+    kept = [k[0] if isinstance(k[0], str) else "restore_edm"
+            for k in pipe.loop_graphs]
+    cap0, cap1 = ([c["capture_s"] for c in chunks] + [{}, {}])[:2]
+    rec = dict(
+        tiles=list(FOLDER_TILES), init_s=init_s, statuses=dict(results),
+        fallbacks=proc.fallbacks, timings=proc.timings,
+        folder_s=proc.timings["folder"],
+        s_per_image=proc.timings["folder"] / n,
+        path_process_s=process_s,
+        stage1_groups=pipe.stage1_groups, captions=decode,
+        refine_chunks=chunks, launches=counts,
+        expected_launches=dict(k1=k1_want, k2=k2_want),
+        peak_mem_gib=peak, reserved_gib=reserved,
+        held_before_gib=held_before,
+        kept_loops=kept,
+        kept_decode_states=len(pipe.llava.decode_graphs) if pipe.llava else 0,
+        pngs=pngs, outputs_finite=pipe.outputs_finite)
+    ok = bool(all(s == "ok" for _, s in results) and len(results) == n
+              and not proc.fallbacks and pngs_ok
+              and all(pipe.outputs_finite.values())
+              and [g["n"] for g in pipe.stage1_groups] == [7, 1]
+              and [c["n"] for c in caps] == [8]
+              and [c["n"] for c in chunks] == [4, 4]
+              # the second chunk replays every graph the first captured
+              and cap0.get("sampling_first", 0) > 0
+              and all(cap1.get(k) == 0 for k, v in cap0.items() if v > 0)
+              and counts["k1"] == k1_want > 0 and counts["k2"] == k2_want > 0)
+    if profile and pipe.llava is not None:
+        from rsvldm_tpu_torch.models.vlm import generate as gen
+        llama = pipe.llava.llama
+        st = gen._decode_state(llama, gen.GenerateConfig(max_new_tokens=128),
+                               1408, pipe.device, rows=8)
+        st.pos.fill_(1300)
+        rec["profile"] = _profile_steps(
+            {"decode_b8": lambda: gen.decode_step(llama, st, None)},
+            {"decode_b8": "int4_decode_kernel"}, 10)
+        del st
+    rec["graphs"] = _batched_graphs_vs_direct(pipe, pipe.llava.llama, seed)
+    rec["ok"] = bool(ok and rec["graphs"]["ok"])
+    _say("folder", **rec)
+    del proc, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# --------------------------------------------------------- phase 4b, 5c
 def phase_train_reference(seed: int, quant: str, seq: int = 1024):
     """One loss and its adapter gradients at a small width with 128-wide
     heads and {seq} tokens (so K1 and the backward run), on the card in bf16
@@ -1904,13 +2209,10 @@ def phase_profile(pipe, iters: int = 10):
     device time by kernel under torch.profiler, K1's or K2's share, and the
     device's idle share while replaying."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from rsvldm_tpu_torch.diffusion.guidance import apply_cfg
     from rsvldm_tpu_torch.models.sdxl.denoiser import ControlDenoiser
     from rsvldm_tpu_torch.models.sr3.diffusion import ancestral_step
     from rsvldm_tpu_torch.models.vlm import generate as gen
-    from rsvldm_tpu_torch.utils.graphs import StepRunner
 
     dev, cfg = pipe.device, pipe.sdxl_cfg
     g = torch.Generator(device=dev).manual_seed(1)
@@ -1937,6 +2239,18 @@ def phase_profile(pipe, iters: int = 10):
              "hit": lambda: den.first(x, sigma, cond).h}
     hand_of = {"decode": "int4_decode_kernel", "sr3": None,
                "miss": "flash_fwd_kernel", "hit": "flash_fwd_kernel"}
+    return _profile_steps(steps, hand_of, iters)
+
+
+def _profile_steps(steps: dict, hand_of: dict, iters: int) -> dict:
+    """Each step function of `steps` replayed from a CUDA graph: wall time
+    per replay and per direct call, device time by kernel under
+    torch.profiler, the share of its hand kernel (`hand_of`), the share
+    of bf16 -> fp32 copies, and the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rsvldm_tpu_torch.utils.graphs import StepRunner
     out = {}
 
     def wall_ms(fn):
@@ -1964,6 +2278,7 @@ def phase_profile(pipe, iters: int = 10):
                        if e.self_device_time_total > 0
                        and e.device_type == DeviceType.CUDA]
             dev_ms = sum(t for _, t, _ in kernels)
+            copy_ms = sum(t for k, t, _ in kernels if "copy_kernel" in k)
             mine = hand_of[name]
             hand = [(t, c) for k, t, c in kernels if mine and mine in k]
             hand_ms = sum(t for t, _ in hand)
@@ -1977,6 +2292,9 @@ def phase_profile(pipe, iters: int = 10):
                 hand_ms=round(hand_ms, 3),
                 hand_launches=sum(c for _, c in hand),
                 hand_share_of_device=round(hand_ms / dev_ms, 4)
+                if dev_ms else None,
+                copy_ms=round(copy_ms, 3),
+                copy_share_of_device=round(copy_ms / dev_ms, 4)
                 if dev_ms else None,
                 kernel_launches=sum(c for _, _, c in kernels),
                 top_kernels=[[k[:80], round(t, 3), c] for k, t, c in
@@ -2014,18 +2332,30 @@ def main(argv=None) -> int:
     ok = phase_reference(SEED)["ok"] and ok
     for quant in ("int4", "int8"):
         ok = phase_caption_reference(SEED, quant)["ok"] and ok
+    ok = phase_batch_caption_reference(SEED)["ok"] and ok
     for quant in ("int8", "int4"):
         ok = phase_train_reference(SEED, quant)["ok"] and ok
-    path = train = None
+    path = folder = train = None
     if not args.skip_path:
-        path, pipe = phase_path(SEED)
+        import shutil
+        path, pipe, cd = phase_path(SEED)
         ok = ok and path["ok"]
-        if args.profile and pipe is not None:
-            phase_profile(pipe)
-        del pipe
+        if cd is not None:
+            try:
+                if args.profile and pipe is not None:
+                    phase_profile(pipe)
+                del pipe  # its weights and kept graphs, before the folder's
+                folder = phase_folder(SEED, cd, path.get("process_s"),
+                                      profile=args.profile)
+                ok = ok and folder["ok"]
+            finally:
+                shutil.rmtree(cd, ignore_errors=True)
+        else:
+            ok = False
         train = phase_train(SEED, profile=args.profile)
         ok = ok and train["ok"]
     by_path = {"process": path.get("launches", {}) if path else {},
+               "folder": folder["launches"] if folder else {},
                "train": train["launches"] if train else {}}
 
     def launches(k):

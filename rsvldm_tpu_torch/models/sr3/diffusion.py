@@ -9,7 +9,9 @@ that counter, and the noise, an argument laid out as the JAX
 `noise_override`: [0] is x_T, [1+i] the noise of loop step i (multiplied
 by a tabled 0 where JAX zeroes it). The step is driven by
 utils/graphs.StepRunner: called directly on the CPU, captured once and
-replayed on the card. Tables are float32, as JAX's.
+replayed on the card. Tables are float32, as JAX's. A caller's
+`graph_cache` keeps a loop's tensors and graph per input shape and sampler
+across calls (the counterpart of the JAX pipeline's per-shape jit cache).
 """
 
 from __future__ import annotations
@@ -45,17 +47,6 @@ def ddim_timesteps(num_timesteps: int, num_steps: int) -> np.ndarray:
     return ts[::-1].astype(np.int64)
 
 
-def _run_loop(step, steps: int, device: torch.device, graphs: bool | None,
-              stats: dict | None):
-    """`steps` calls of `step` through one StepRunner; the capture's
-    seconds into stats["capture_s"] when stats is given."""
-    runner = StepRunner(step, use_graphs(device, graphs))
-    for _ in range(steps):
-        runner()
-    if stats is not None:
-        stats["capture_s"] = runner.capture_s
-
-
 def _check_noise(noise, rows, cond):
     if noise.shape[0] != rows or noise.shape[1:] != cond.shape:
         raise ValueError(f"noise {tuple(noise.shape)} is not [{rows}, "
@@ -67,23 +58,34 @@ def _tables(cols, device):
     return {k: v.to(device, torch.float32) for k, v in cols.items()}
 
 
-def _latent_state(cond, noise):
-    """(cond NCHW fp32, noise NCHW fp32 on cond's device, x = a copy of
-    noise[0], a 0-d step counter)."""
-    c = cond.permute(0, 3, 1, 2).float()
-    noise = noise.permute(0, 1, 4, 2, 3).to(cond.device, torch.float32)
-    return (c, noise, noise[0].clone(),
-            torch.zeros((), dtype=torch.long, device=cond.device))
+class LoopTensors:
+    """What a Stage-1 loop owns on cond's device, in fp32: the
+    conditioning `c` and the noise as NCHW views of NHWC buffers, the
+    latent `x` (a copy of noise[0]) and the 0-d step counter `i`. `load`
+    copies a new call's inputs in and resets the counter, so a step
+    captured over these tensors replays on them."""
+
+    def __init__(self, cond: torch.Tensor, noise: torch.Tensor):
+        dev = cond.device
+        self.c = torch.empty(cond.shape, dtype=torch.float32,
+                             device=dev).permute(0, 3, 1, 2)
+        self.noise = torch.empty(noise.shape, dtype=torch.float32,
+                                 device=dev).permute(0, 1, 4, 2, 3)
+        self.x = self.noise[0].clone()
+        self.i = torch.zeros((), dtype=torch.long, device=dev)
+        self.load(cond, noise)
+
+    def load(self, cond: torch.Tensor, noise: torch.Tensor):
+        self.c.copy_(cond.permute(0, 3, 1, 2))
+        self.noise.copy_(noise.permute(0, 1, 4, 2, 3))
+        self.x.copy_(self.noise[0])
+        self.i.zero_()
 
 
-def ancestral_step(diff: SR3Diffusion, model, cond: torch.Tensor,
-                   noise: torch.Tensor):
-    """(step, x): the ancestral loop's step function and the NCHW fp32
-    latent it advances in place, one step t = T-1-i a call (shapes as in
-    `sr3_sample`)."""
+def _ancestral(diff: SR3Diffusion, model, lt: LoopTensors):
+    """The ancestral loop's step over `lt`, one step t = T-1-i a call."""
     buf = diff.buffers
     T = buf.num_timesteps
-    _check_noise(noise, T + 1, cond)
     ts = torch.arange(T - 1, -1, -1)  # loop step i runs t = T-1-i
     tab = _tables({
         "level": buf.sqrt_alphas_cumprod_prev[ts + 1],
@@ -94,8 +96,8 @@ def ancestral_step(diff: SR3Diffusion, model, cond: torch.Tensor,
         # JAX's where(t > 0, noise, 0) as a multiply by a tabled 0 / 1
         "std": (torch.exp(0.5 * buf.posterior_log_variance_clipped[ts])
                 * (ts > 0).float()),
-    }, cond.device)
-    c, noise, x, i = _latent_state(cond, noise)
+    }, lt.x.device)
+    c, noise, x, i = lt.c, lt.noise, lt.x, lt.i
     n = x.shape[0]
 
     def step():
@@ -105,16 +107,24 @@ def ancestral_step(diff: SR3Diffusion, model, cond: torch.Tensor,
         mean = at("coef1") * x_recon + at("coef2") * x
         x.copy_(mean + noise.index_select(0, i + 1)[0] * at("std"))
         i.add_(1)
-    return step, x
+    return step
 
 
-def ddim_step(diff: SR3Diffusion, model, cond: torch.Tensor,
-              noise: torch.Tensor, num_steps: int = 50, eta: float = 0.0):
-    """(step, x): DDIM's step function and the NCHW fp32 latent it
-    advances in place (shapes as in `sr3_sample_ddim`)."""
+def ancestral_step(diff: SR3Diffusion, model, cond: torch.Tensor,
+                   noise: torch.Tensor):
+    """(step, x): the ancestral loop's step function and the NCHW fp32
+    latent it advances in place, one step t = T-1-i a call (shapes as in
+    `sr3_sample`)."""
+    _check_noise(noise, diff.buffers.num_timesteps + 1, cond)
+    lt = LoopTensors(cond, noise)
+    return _ancestral(diff, model, lt), lt.x
+
+
+def _ddim(diff: SR3Diffusion, model, lt: LoopTensors, num_steps: int,
+          eta: float):
+    """DDIM's step over `lt`."""
     buf = diff.buffers
     ts = torch.from_numpy(ddim_timesteps(buf.num_timesteps, num_steps))
-    _check_noise(noise, len(ts) + 1, cond)
     # the per-step scalars in float32, as JAX's traced arithmetic
     abar = 1.0 / buf.sqrt_recip_alphas_cumprod ** 2
     a_t = abar[ts]
@@ -133,8 +143,8 @@ def ddim_step(diff: SR3Diffusion, model, cond: torch.Tensor,
         "dir": torch.sqrt(torch.clamp(1.0 - a_prev - sigma ** 2, min=0.0)),
         # JAX's where(t_prev >= 0, noise, 0) as a multiply by a tabled 0
         "sigma": sigma * (prev >= 0).float(),
-    }, cond.device)
-    c, noise, x, j = _latent_state(cond, noise)
+    }, lt.x.device)
+    c, noise, x, j = lt.c, lt.noise, lt.x, lt.i
     n = x.shape[0]
 
     def step():
@@ -145,29 +155,60 @@ def ddim_step(diff: SR3Diffusion, model, cond: torch.Tensor,
         x.copy_(at("sqrt_a_prev") * x_recon + at("dir") * eps_eff
                 + at("sigma") * noise.index_select(0, j + 1)[0])
         j.add_(1)
-    return step, x
+    return step
+
+
+def _run(key, make_step, steps: int, diff, model, cond, noise, graphs,
+         stats, graph_cache) -> torch.Tensor:
+    """`steps` calls of a loop's step through one StepRunner. The loop's
+    tensors and runner are kept in `graph_cache` (a dict the caller keeps)
+    under (key, cond's shape, diff, model, graphs): a later call with the
+    same key loads its inputs into them and replays the kept graph,
+    capturing nothing. stats["capture_s"]: this call's capture seconds.
+    Returns x_0 [N, H, W, 3] fp32, a tensor of its own."""
+    on = use_graphs(cond.device, graphs)
+    key = (*key, tuple(cond.shape), id(diff), id(model), on)
+    loop = (graph_cache or {}).get(key)
+    if loop is None:
+        lt = LoopTensors(cond, noise)
+        loop = (lt, StepRunner(make_step(lt), on))
+        if graph_cache is not None:
+            graph_cache[key] = loop
+    else:
+        loop[0].load(cond, noise)
+    lt, runner = loop
+    captured = runner.capture_s
+    for _ in range(steps):
+        runner()
+    if stats is not None:
+        stats["capture_s"] = runner.capture_s - captured
+    return lt.x.permute(0, 2, 3, 1).clone()
 
 
 @torch.no_grad()
 def sr3_sample(diff: SR3Diffusion, model, cond: torch.Tensor,
                noise: torch.Tensor, graphs: bool | None = None,
-               stats: dict | None = None) -> torch.Tensor:
+               stats: dict | None = None,
+               graph_cache: dict | None = None) -> torch.Tensor:
     """Reverse diffusion from t = T-1 to 0 conditioned on `cond`.
 
     cond: [N, H, W, 3] in [-1, 1]; noise: [T+1, N, H, W, 3] unit normals;
     model(x [N, 6, H, W], noise_level [N, 1]) -> eps [N, 3, H, W].
     graphs: replay the step as a CUDA graph (default: on CUDA). stats, when
-    given, receives capture_s. Returns x_0 [N, H, W, 3] fp32."""
-    step, x = ancestral_step(diff, model, cond, noise)
-    _run_loop(step, diff.buffers.num_timesteps, cond.device, graphs, stats)
-    return x.permute(0, 2, 3, 1)
+    given, receives capture_s; graph_cache keeps the loop across calls
+    (`_run`). Returns x_0 [N, H, W, 3] fp32."""
+    T = diff.buffers.num_timesteps
+    _check_noise(noise, T + 1, cond)
+    return _run(("ddpm",), lambda lt: _ancestral(diff, model, lt), T, diff,
+                model, cond, noise, graphs, stats, graph_cache)
 
 
 @torch.no_grad()
 def sr3_sample_ddim(diff: SR3Diffusion, model, cond: torch.Tensor,
                     noise: torch.Tensor, num_steps: int = 50,
                     eta: float = 0.0, graphs: bool | None = None,
-                    stats: dict | None = None) -> torch.Tensor:
+                    stats: dict | None = None,
+                    graph_cache: dict | None = None) -> torch.Tensor:
     """DDIM (Song et al., arXiv:2010.02502) on the SR3 schedule, over the
     timesteps of `ddim_timesteps(T, num_steps)` (JAX :101-156): the
     conditioning of the ancestral loop, x_0 clipped, eps recomputed from
@@ -175,9 +216,10 @@ def sr3_sample_ddim(diff: SR3Diffusion, model, cond: torch.Tensor,
     sigma = eta * sqrt((1 - a_prev) / (1 - a_t) * (1 - a_t / a_prev)).
 
     noise: [len(ts)+1, N, H, W, 3] unit normals, [0] = x_T, [1+j] the noise
-    of step j (unused where t_prev < 0). graphs and stats as in
-    `sr3_sample`. Returns x_0 [N, H, W, 3] fp32."""
-    step, x = ddim_step(diff, model, cond, noise, num_steps, eta)
+    of step j (unused where t_prev < 0). graphs, stats and graph_cache as
+    in `sr3_sample`. Returns x_0 [N, H, W, 3] fp32."""
     steps = len(ddim_timesteps(diff.buffers.num_timesteps, num_steps))
-    _run_loop(step, steps, cond.device, graphs, stats)
-    return x.permute(0, 2, 3, 1)
+    _check_noise(noise, steps + 1, cond)
+    return _run(("ddim", num_steps, eta),
+                lambda lt: _ddim(diff, model, lt, num_steps, eta), steps,
+                diff, model, cond, noise, graphs, stats, graph_cache)

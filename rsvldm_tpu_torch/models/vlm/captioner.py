@@ -21,8 +21,12 @@ an fp decoder and rides the runtime branch of an int8 / int4 one (every
 prefill and decode step gets `lora`); a projector archive replaces the
 checkpoint's projector.
 
+`caption_batch` captions several images in one batched decode
+(generate.caption_images), through the same runtime LoRA branch, kept
+decode graphs and stats as `caption`.
+
 Not ported yet: speculative decoding (a draft checkpoint or the
-self-draft), batched captions.
+self-draft).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from ...training.vlm_trainer import (apply_lora, load_lora_npz,
                                      runtime_lora)
 from ...utils.checkpoint import load_checked, load_torch_state_dict
 from ...utils.weights import seeded_init_
-from .generate import GenerateConfig, caption_image
+from .generate import GenerateConfig, caption_image, caption_images
 from .llama import LLAMA3_8B_CONFIG, LlamaConfig, LlamaModel, quantize_llama_
 from .projector import MLPProjector
 from .tokenizer import Llama3Tokenizer
@@ -279,6 +283,17 @@ class LlavaCaptioner:
                               peft_merged=merged)
         return cap
 
+    def _gen_setup(self, llava_cfg):
+        """The prompt, GenerateConfig and tokenizer closures of `caption`
+        and `caption_batch` (one definition, as JAX's `_gen_setup`)."""
+        prompt = llava_cfg.img_prompt.format(DEFAULT_IMAGE_TOKEN="<image>")
+        cfg = GenerateConfig(max_new_tokens=llava_cfg.max_new_tokens,
+                             temperature=llava_cfg.temperature,
+                             do_sample=llava_cfg.do_sample)
+        encode = lambda s: self.tokenizer.encode(s, add_special_tokens=False)
+        decode = lambda ids: self.tokenizer.decode(ids, skip_special_tokens=True)
+        return prompt, cfg, encode, decode
+
     @torch.inference_mode()
     def caption(self, image, llava_cfg,
                 generator: torch.Generator | None = None,
@@ -287,15 +302,28 @@ class LlavaCaptioner:
         logits, or Gumbel draws from `generator` (default: seeded with 0 on
         the captioner's device); on the card the decode replays a CUDA
         graph kept in `decode_graphs`; see `generate.generate`."""
-        prompt = llava_cfg.img_prompt.format(DEFAULT_IMAGE_TOKEN="<image>")
-        cfg = GenerateConfig(max_new_tokens=llava_cfg.max_new_tokens,
-                             temperature=llava_cfg.temperature,
-                             do_sample=llava_cfg.do_sample)
-        encode = lambda s: self.tokenizer.encode(s, add_special_tokens=False)
-        decode = lambda ids: self.tokenizer.decode(ids, skip_special_tokens=True)
+        prompt, cfg, encode, decode = self._gen_setup(llava_cfg)
         self.last_stats = {}
         return caption_image(self.llama, self.vision, self.projector, image,
                              prompt, encode, decode, self.image_newline, cfg,
                              generator, patch_size=self.vision.cfg.image_size,
                              stats=self.last_stats, noise=noise, lora=self.lora,
                              graph_cache=self.decode_graphs)
+
+    @torch.inference_mode()
+    def caption_batch(self, images, llava_cfg,
+                      generator: torch.Generator | None = None,
+                      noise=None) -> list:
+        """Stage 2a on several PIL images in one batched decode (JAX
+        captioner.py:361-372): one caption per image, in order. `noise(i)`
+        gives [B, vocab]; otherwise as `caption`. `last_stats` has the
+        prompt lengths, the padded length, prefill and decode seconds and
+        the steps run."""
+        prompt, cfg, encode, decode = self._gen_setup(llava_cfg)
+        self.last_stats = {}
+        return caption_images(self.llama, self.vision, self.projector,
+                              list(images), prompt, encode, decode,
+                              self.image_newline, cfg, generator,
+                              patch_size=self.vision.cfg.image_size,
+                              stats=self.last_stats, noise=noise,
+                              lora=self.lora, graph_cache=self.decode_graphs)

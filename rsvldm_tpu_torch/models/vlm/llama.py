@@ -294,12 +294,18 @@ class LlamaModel(nn.Module):
         return self.model.embed_tokens(tokens).to(self.dtype)
 
     def forward(self, embeds: torch.Tensor, cache: KVCache | None = None,
-                start_pos: int | torch.Tensor = 0, lora: dict | None = None):
+                start_pos: int | torch.Tensor = 0, lora: dict | None = None,
+                logits_at: torch.Tensor | None = None):
         """embeds [B, S, D] -> (fp32 logits [B, S, vocab], the cache).
         start_pos: the Python int 0 for a prefill, else the write position
         as a long tensor, 0-d or [B], or an int (LlamaBlock.forward).
         cache None: a prefill from 0 that writes no cache (training).
-        lora: adapters by module path (module docstring)."""
+        lora: adapters by module path (module docstring).
+        logits_at: a long tensor [B] of positions; the final norm and the
+        lm_head then run on those rows alone and the logits are
+        [B, 1, vocab]. Every op after the last block is per token (the
+        quantized products quantize each row on its own), so they equal
+        the full logits at those positions."""
         x = embeds.to(self.dtype)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.model.layers):
@@ -310,6 +316,8 @@ class LlamaModel(nn.Module):
                                use_reentrant=False)
             else:
                 x = block(x, ck, cv, start_pos, layer_lora)
+        if logits_at is not None:
+            x = x[torch.arange(x.shape[0], device=x.device), logits_at][:, None]
         x = self.model.norm(x)
         return self.lm_head(x).float(), cache
 

@@ -30,17 +30,29 @@ as JAX does.
 Stage 1 runs the SR3 ancestral loop (cfg.stage1.sampler "ddpm", T steps)
 or DDIM ("ddim", cfg.stage1.ddim_steps with ddim_eta), as the JAX
 pipeline's `_stage1_sample_fn`. The loops of Stage 1, the caption decode
-and RestoreEDM replay CUDA graphs on the card (utils/graphs.py);
-`capture_s` holds each graph's capture seconds of the last run.
+and RestoreEDM replay CUDA graphs on the card (utils/graphs.py); each
+loop's tensors and graphs are kept per input shape and sampler config
+(`loop_graphs`, and the captioner's `decode_graphs`), as the JAX pipeline
+keeps one jitted program per shape, so a later call of a kept shape
+captures nothing. `capture_s` holds each graph's capture seconds of the
+last run (0 for a kept graph).
+
+Folder mode (JAX pipeline.py:339-398, 540-605, 712-848): `run_stage1_batch`
+runs one batched Stage-1 loop per conditioning shape, `run_caption_batch`
+one batched decode, `run_refinement_batch` one batched RestoreEDM loop over
+images padded to a shared `size_bucket` multiple (`bucket_pad`), each
+cropped and colour-fixed on its own; `ImageBatchProcessor` drives them over
+a folder (python -m rsvldm_tpu_torch.infer_dir).
 
 Noise comes from a torch.Generator seeded with cfg.seed on the device, or
 from `noise`, a callable (name, shape) -> tensor that tests use to replay
 the JAX stream. Draws, in the JAX layout: "stage1" [T+1, 1, H, W, 3]
 (DDIM: [len(ts)+1, ...], models/sr3/diffusion.ddim_timesteps),
 "vae_sample" [N, h, w, 4], "edm_init" [N, h, w, 4], "churn" [steps, N, h,
-w, 4].
+w, 4]; a batched Stage 1 draws one "stage1" [rows, N, H, W, 3] per group,
+a batched refinement each of the others with N images.
 
-Not ported yet: folder mode and size_bucket, the tiled VAE.
+Not ported yet: the tiled VAE (use_tile_vae raises).
 """
 
 from __future__ import annotations
@@ -71,7 +83,8 @@ from .models.text.conditioner import SDXLConditioner
 from .models.vlm.captioner import LlavaCaptioner
 from .models.vae.model import SDXL_VAE_CONFIG, AutoencoderKL
 from .ops import colorfix
-from .ops.image import array_to_pil, load_lr_conditioning, pil_to_array, to_uint8
+from .ops.image import (array_to_pil, load_lr_conditioning, pil_to_array,
+                        round_to_multiple, to_uint8)
 from .utils.checkpoint import (load_checked, load_torch_state_dict, overlay,
                                strip_prefix)
 from .utils.tokenizer import CLIPTokenizer
@@ -131,6 +144,20 @@ def hash_tokens(texts, vocab: int) -> np.ndarray:
     return out
 
 
+def bucket_pad(x: np.ndarray, bucket: int) -> np.ndarray:
+    """Edge-pad an HWC image up to the next `bucket` multiple in H and W
+    (JAX pipeline.py:69-80), so that images of several sizes share one
+    kept sampling loop; callers crop the decode back."""
+    if not bucket:
+        return x
+    h, w = x.shape[0], x.shape[1]
+    hb = -(-h // bucket) * bucket
+    wb = -(-w // bucket) * bucket
+    if (hb, wb) == (h, w):
+        return x
+    return np.pad(x, ((0, hb - h), (0, wb - w), (0, 0)), mode="edge")
+
+
 def _nchw(t):
     return t.permute(0, 3, 1, 2)
 
@@ -179,6 +206,10 @@ class SuperResolutionPipeline:
         self.outputs_finite: Dict[str, bool] = {}
         self.caption_stats: dict = {}
         self.last_caption = ""
+        # the Stage-1 and RestoreEDM loops' tensors and graphs, per input
+        # shape and sampler config (models/sr3/diffusion._run, EDMLoop)
+        self.loop_graphs: dict = {}
+        self.stage1_groups: list = []  # run_stage1_batch's, per group
         self.llava = captioner
         self.sr3 = self._build("sr3", SR3UNet, self.sr3_cfg)
         self._mapped.clear()
@@ -248,6 +279,7 @@ class SuperResolutionPipeline:
         self.clip_l = self._build("clip_l", CLIPTextTransformer, self.clip_l_cfg)
         self.big_g = self._build("big_g", CLIPTextTransformer, self.big_g_cfg)
         self._mapped.clear()
+        self.denoiser = ControlDenoiser(unet=self.unet, control_net=self.control)
         tok_dir = Path(self.cfg.ckpt_dir) / "clip_vocab"
         try:
             self.tokenizer = CLIPTokenizer.from_dir(str(tok_dir))
@@ -292,24 +324,57 @@ class SuperResolutionPipeline:
         self.timings[name] = time.perf_counter() - t0
 
     # ------------------------------------------------------------ stage 1
-    @torch.inference_mode()
-    def run_stage1(self, image_path: str) -> np.ndarray:
-        """Bicubic x upscale + the SR3 ancestral loop or DDIM; uint8 HWC."""
-        cond = torch.from_numpy(load_lr_conditioning(image_path, self.cfg.upscale)[None])
+    def _stage1(self, conds: np.ndarray) -> list:
+        """conds [N, H, W, 3] -> N uint8 HWC images: one SR3 ancestral or
+        DDIM loop over the batch, kept per shape in `loop_graphs`."""
+        cond = torch.from_numpy(conds)
         s1, T = self.cfg.stage1, self.sr3_diff.buffers.num_timesteps
         rows = (len(ddim_timesteps(T, s1.ddim_steps)) if s1.sampler == "ddim"
                 else T) + 1
         noise = self.noise("stage1", (rows, *cond.shape))
         stats: dict = {}
+        kw = dict(stats=stats, graph_cache=self.loop_graphs)
         if s1.sampler == "ddim":
             x = sr3_sample_ddim(self.sr3_diff, self.sr3, cond.to(self.device),
-                                noise, s1.ddim_steps, s1.ddim_eta, stats=stats)
+                                noise, s1.ddim_steps, s1.ddim_eta, **kw)
         else:
             x = sr3_sample(self.sr3_diff, self.sr3, cond.to(self.device), noise,
-                           stats=stats)
+                           **kw)
         self.capture_s["stage1"] = stats["capture_s"]
         self.outputs_finite["stage1"] = bool(torch.isfinite(x).all())
-        return to_uint8(x[0].cpu().numpy())
+        x = x.cpu().numpy()
+        return [to_uint8(x[i]) for i in range(x.shape[0])]
+
+    @torch.inference_mode()
+    def run_stage1(self, image_path: str) -> np.ndarray:
+        """Bicubic x upscale + the SR3 ancestral loop or DDIM; uint8 HWC."""
+        return self._stage1(load_lr_conditioning(image_path,
+                                                 self.cfg.upscale)[None])[0]
+
+    @torch.inference_mode()
+    def run_stage1_batch(self, image_paths) -> list:
+        """Folder Stage 1 (JAX run_stage1_batch, pipeline.py:339-398, on
+        one card): the images grouped by conditioning shape, in order of
+        first appearance, each group one batched loop and one "stage1"
+        draw. `stage1_groups` records each group's size, shape, seconds
+        and capture seconds. Returns uint8 HWC images in input order."""
+        conds = [load_lr_conditioning(str(p), self.cfg.upscale)
+                 for p in image_paths]
+        groups: dict = {}
+        for i, c in enumerate(conds):
+            groups.setdefault(c.shape, []).append(i)
+        results: list = [None] * len(conds)
+        self.stage1_groups = []
+        for shape, idxs in groups.items():
+            self._sync()
+            t0 = time.perf_counter()
+            for i, out in zip(idxs, self._stage1(np.stack([conds[i]
+                                                           for i in idxs]))):
+                results[i] = out
+            self.stage1_groups.append(dict(
+                n=len(idxs), shape=list(shape), seconds=time.perf_counter() - t0,
+                capture_s=self.capture_s["stage1"]))
+        return results
 
     # ----------------------------------------------------------- stage 2a
     def run_caption(self, sr_image) -> str:
@@ -331,6 +396,26 @@ class SuperResolutionPipeline:
         log.info("stage2a caption (%.2fs): %s", self.timings["caption"],
                  caption[:120])
         return caption
+
+    def run_caption_batch(self, sr_images) -> list:
+        """Captions of several Stage-1 images (PIL) in one batched decode
+        (LlavaCaptioner.caption_batch); empty strings with no_llava or
+        without a captioner. caption_stats as `run_caption`'s, with the
+        prompt lengths and rows."""
+        if self.cfg.no_llava:
+            return [""] * len(sr_images)
+        self.ensure_stage2()
+        if self.llava is None:
+            log.warning("LLaVA assets not loaded: skipping captioning "
+                        "(equivalent of no_llava)")
+            return [""] * len(sr_images)
+        with self._timed("caption"):
+            captions = self.llava.caption_batch(sr_images, self.cfg.llava)
+        self.caption_stats = dict(self.llava.last_stats)
+        self.capture_s["caption"] = self.caption_stats.get("capture_s", 0.0)
+        log.info("stage2a captions of %d images (%.2fs)", len(captions),
+                 self.timings["caption"])
+        return captions
 
     # ----------------------------------------------------------- stage 2b
     def _make_sampler_cfg(self) -> RestoreEDMConfig:
@@ -377,12 +462,12 @@ class SuperResolutionPipeline:
             noise = self.noise("edm_init", shape).to(self.device)
             churn = (self.noise("churn", (scfg.num_steps, *shape)).to(self.device)
                      if scfg.s_churn > 0 else None)
-            denoiser = ControlDenoiser(unet=self.unet, control_net=self.control)
             stats: dict = {}
-            z, aux = restore_edm_sample(denoiser, cond, uc, noise,
+            z, aux = restore_edm_sample(self.denoiser, cond, uc, noise,
                                         _nhwc(z_stage1), scfg,
                                         churn_noise=churn, return_aux=True,
-                                        stats=stats)
+                                        stats=stats,
+                                        graph_cache=self.loop_graphs)
         self.capture_s.update({f"sampling_{k}": v
                                for k, v in stats["capture_s"].items()})
         log.info("first-block cache (batch %d): %d/%d steps skipped "
@@ -401,23 +486,66 @@ class SuperResolutionPipeline:
             return colorfix.adaptive_instance_normalization(samples, x_stage1)
         return samples
 
+    def _finish(self, samples, x_stage1, metas):
+        """Crop each image of the batch to its real extent, colour-fix it,
+        and resize it back to its size before rounding: PIL images."""
+        outs, finite = [], True
+        with self._timed("colorfix"):
+            for i, (h_real, w_real, h0, w0) in enumerate(metas):
+                s_i = self._colorfix(samples[i:i + 1, :h_real, :w_real],
+                                     x_stage1[i:i + 1, :h_real, :w_real])
+                finite = finite and bool(torch.isfinite(s_i).all())
+                outs.append(array_to_pil(s_i[0].cpu().numpy(), h0, w0))
+        self.outputs_finite["refined"] = finite
+        return outs
+
     @torch.inference_mode()
-    def run_refinement(self, sr_image, caption: str):
-        """Stage-2b on the saved Stage-1 image (PIL) -> PIL image(s)."""
+    def run_refinement(self, sr_image, caption: str, use_bucket: bool = True):
+        """Stage-2b on the saved Stage-1 image (PIL) -> PIL image(s).
+        use_bucket: edge-pad to the next cfg.refine.size_bucket multiple
+        (`bucket_pad`), so that a folder's sizes share a kept loop, and
+        crop after the decode; process() passes False, as JAX does."""
         self.ensure_stage2()
         r = self.cfg.refine
         x, h0, w0 = pil_to_array(sr_image, upscale=1, min_size=r.min_size)
-        x = torch.from_numpy(x)[None]
+        h_real, w_real = x.shape[0], x.shape[1]
+        if use_bucket:
+            x = bucket_pad(x, r.size_bucket)
+        x = torch.from_numpy(np.ascontiguousarray(x))[None]
+        n = max(r.num_samples, 1)
         if r.num_samples > 1:
             x = x.repeat(r.num_samples, 1, 1, 1)
-        texts = [" ".join([caption, r.a_prompt])] * max(r.num_samples, 1)
+        texts = [" ".join([caption, r.a_prompt])] * n
         samples, x_stage1 = self._refine_core(x, texts)
-        with self._timed("colorfix"):
-            samples = self._colorfix(samples, x_stage1)
-            self.outputs_finite["refined"] = bool(torch.isfinite(samples).all())
-            samples = samples.cpu().numpy()
-        pils = [array_to_pil(samples[i], h0, w0) for i in range(samples.shape[0])]
+        pils = self._finish(samples, x_stage1, [(h_real, w_real, h0, w0)] * n)
         return pils[0] if len(pils) == 1 else pils
+
+    @torch.inference_mode()
+    def run_refinement_batch(self, items) -> list:
+        """Batched Stage-2b (JAX run_refinement_batch, pipeline.py:540-605)
+        over (sr_pil, caption) items: each image padded by edge to the
+        batch's largest size_bucket (else 64) multiple, one _refine_core
+        with one text per row, then each cropped and colour-fixed on its
+        own. With num_samples != 1 or one item, image by image through
+        run_refinement. Returns PIL images in order."""
+        self.ensure_stage2()
+        r = self.cfg.refine
+        if r.num_samples != 1 or len(items) == 1:
+            return [self.run_refinement(p, c) for p, c in items]
+        xs, metas = [], []
+        for pil, _ in items:
+            x, h0, w0 = pil_to_array(pil, upscale=1, min_size=r.min_size)
+            xs.append(x)
+            metas.append((x.shape[0], x.shape[1], h0, w0))
+        bucket = r.size_bucket or 64
+        hb = max(-(-m[0] // bucket) * bucket for m in metas)
+        wb = max(-(-m[1] // bucket) * bucket for m in metas)
+        x = torch.from_numpy(np.stack([
+            np.pad(x, ((0, hb - x.shape[0]), (0, wb - x.shape[1]), (0, 0)),
+                   mode="edge") for x in xs]))
+        samples, x_stage1 = self._refine_core(
+            x, [" ".join([cap, r.a_prompt]) for _, cap in items])
+        return self._finish(samples, x_stage1, metas)
 
     # -------------------------------------------------------- entry point
     def process(self, image_path: str | None = None):
@@ -434,9 +562,174 @@ class SuperResolutionPipeline:
             return sr_pil
         caption = self.run_caption(sr_pil)
         t0 = time.perf_counter()
-        final = self.run_refinement(sr_pil, caption)
+        final = self.run_refinement(sr_pil, caption, use_bucket=False)
         self.timings["stage2b"] = time.perf_counter() - t0
         finals = final if isinstance(final, list) else [final]
         for i, f in enumerate(finals):
             f.save(out_dir / f"{path.stem}_final_{i}.png")
         return finals[0]
+
+
+IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".tif", ".tiff", ".bmp"}
+
+
+class ImageBatchProcessor:
+    """Folder inference (JAX ImageBatchProcessor, pipeline.py:712-848): the
+    images of cfg.image_dir, sorted, through batched Stage 1 (one loop per
+    conditioning shape), batched captions (`caption_batch` images a decode)
+    and batched refinement (`refine_batch` images a loop, grouped by
+    bucketed shape), writing <output_dir>/sr3_output/sr3_<stem>.png and
+    <output_dir>/output/<stem>_final_<i>.png.
+
+    A batched stage that raises falls back to image-by-image work, as in
+    JAX; each fallback taken is recorded in `fallbacks` as (stage, error).
+    `statuses` has each image's "ok", "stage1" (stage1_only) or "error:
+    ...". `timings` has the seconds of each stage and of the whole run;
+    `stage1_groups`, `caption_batches` and `refine_chunks` the figures of
+    each batched call (sizes, seconds, capture seconds, DFB trace)."""
+
+    def __init__(self, cfg: PipelineConfig, device: str | torch.device | None = None,
+                 caption_batch: int = 8, refine_batch: int = 4, **pipe_kw):
+        self.cfg = cfg
+        self.caption_batch = max(int(caption_batch), 1)
+        self.refine_batch = max(int(refine_batch), 1)
+        self.pipe = SuperResolutionPipeline(cfg, device=device, **pipe_kw)
+        self.fallbacks: list = []
+        self.statuses: dict = {}
+        self.timings: Dict[str, float] = {}
+        self.caption_batches: list = []
+        self.refine_chunks: list = []
+
+    def _fallback(self, stage: str, e: Exception):
+        log.exception("batched %s failed (%s); falling back to per-image",
+                      stage, e)
+        self.fallbacks.append((stage, f"{type(e).__name__}: {e}"))
+
+    def _now(self) -> float:
+        self.pipe._sync()
+        return time.perf_counter()
+
+    def run(self):
+        """[(file name, status)] for every image of the folder, in order."""
+        pipe, cfg = self.pipe, self.cfg
+        t_run = self._now()
+        out_dir = Path(cfg.output_dir)
+        final_dir, sr3_dir = out_dir / "output", out_dir / "sr3_output"
+        final_dir.mkdir(parents=True, exist_ok=True)
+        sr3_dir.mkdir(parents=True, exist_ok=True)
+        images = sorted(p for p in Path(cfg.image_dir).iterdir()
+                        if p.suffix.lower() in IMAGE_EXTS)
+        self.fallbacks, self.statuses = [], {}
+        self.caption_batches, self.refine_chunks = [], []
+
+        t0 = self._now()
+        stage1_out: dict = {}
+        if len(images) > 1:
+            try:
+                stage1_out = dict(zip(images, pipe.run_stage1_batch(images)))
+            except Exception as e:
+                self._fallback("stage1", e)
+        self.timings["stage1"] = self._now() - t0
+
+        # one batched decode serves up to caption_batch images
+        t0 = self._now()
+        captions: dict = {}
+        if (stage1_out and not cfg.stage1_only and not cfg.no_llava
+                and len(images) > 1):
+            try:
+                pipe.ensure_stage2()
+                if pipe.llava is not None:
+                    todo = [p for p in images if stage1_out.get(p) is not None]
+                    pils = [Image.fromarray(stage1_out[p]) for p in todo]
+                    for i in range(0, len(todo), self.caption_batch):
+                        caps = pipe.run_caption_batch(
+                            pils[i:i + self.caption_batch])
+                        captions.update(zip(todo[i:i + self.caption_batch], caps))
+                        self.caption_batches.append(dict(
+                            pipe.caption_stats, n=len(caps),
+                            seconds=pipe.timings["caption"]))
+            except Exception as e:
+                # the captioned prefix is kept; the loop below captions the rest
+                self._fallback("caption", e)
+        self.timings["caption"] = self._now() - t0
+
+        # Stage 1 and captions per image where the batched stages left any
+        t0 = self._now()
+        ready: list = []   # (path, sr_pil, caption)
+        for p in images:
+            try:
+                sr_np = stage1_out.get(p)
+                if sr_np is None:
+                    sr_np = pipe.run_stage1(str(p))
+                sr_pil = Image.fromarray(sr_np)
+                sr_pil.save(sr3_dir / f"sr3_{p.stem}.png")
+                if cfg.stage1_only:
+                    self.statuses[p] = "stage1"
+                    continue
+                caption = captions.get(p)
+                if caption is None:
+                    caption = pipe.run_caption(sr_pil)
+                ready.append((p, sr_pil, caption))
+            except Exception as e:  # one image's failure spares the others
+                log.exception("failed on %s: %s", p, e)
+                self.statuses[p] = f"error: {e}"
+        self.timings["per_image"] = self._now() - t0
+
+        t0 = self._now()
+        groups: dict = {}
+        for p, sr_pil, caption in ready:
+            groups.setdefault(self._refine_group_key(sr_pil), []).append(
+                (p, sr_pil, caption))
+
+        def save_finals(p, final):
+            finals = final if isinstance(final, list) else [final]
+            for i, f in enumerate(finals):
+                f.save(final_dir / f"{p.stem}_final_{i}.png")
+
+        for key, members in groups.items():
+            for i in range(0, len(members), self.refine_batch):
+                chunk = members[i:i + self.refine_batch]
+                t1 = self._now()
+                try:
+                    finals = pipe.run_refinement_batch(
+                        [(s, c) for _, s, c in chunk])
+                    for (p, _, _), final in zip(chunk, finals):
+                        save_finals(p, final)
+                        self.statuses[p] = "ok"
+                except Exception as e:
+                    self._fallback("refine", e)
+                    for p, s, c in chunk:
+                        try:
+                            save_finals(p, pipe.run_refinement(s, c))
+                            self.statuses[p] = "ok"
+                        except Exception as e2:
+                            log.exception("failed on %s: %s", p, e2)
+                            self.statuses[p] = f"error: {e2}"
+                dfb = pipe.last_dfb or {}
+                self.refine_chunks.append(dict(
+                    n=len(chunk), shape=list(key),
+                    seconds=self._now() - t1,
+                    sampling_s=pipe.timings.get("sampling"),
+                    capture_s={k: v for k, v in pipe.capture_s.items()
+                               if k.startswith("sampling_")},
+                    hits=dfb.get("hits"), steps=dfb.get("steps"),
+                    trace="".join("H" if h else "."
+                                  for h in dfb.get("trace", []))))
+        self.timings["refine"] = self._now() - t0
+        self.timings["folder"] = self._now() - t_run
+        return [(p.name, self.statuses.get(p, "error: unprocessed"))
+                for p in images]
+
+    def _refine_group_key(self, sr_pil):
+        """The bucketed post-resize shape (JAX `_refine_group_key`): the
+        min_size scale and the rounding to 64 of pil_to_array, worked out
+        from the PIL size, then the size_bucket (else 64) multiple."""
+        r = self.cfg.refine
+        w, h = (float(v) for v in sr_pil.size)
+        if min(w, h) < r.min_size:
+            s = r.min_size / min(w, h)
+            w *= s
+            h *= s
+        hh, ww = round_to_multiple(h, 64), round_to_multiple(w, 64)
+        b = r.size_bucket or 64
+        return (-(-hh // b) * b, -(-ww // b) * b)

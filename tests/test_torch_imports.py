@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "rsvldm_tpu_torch.ops.quant" in out["modules"]
     assert "rsvldm_tpu_torch.models.vlm.captioner" in out["modules"]
     for name in ("training", "training.vlm_trainer", "training.vlm_data",
-                 "data", "data.prefetch", "train_vlm", "infer",
+                 "data", "data.prefetch", "train_vlm", "infer", "infer_dir",
                  "utils.safetensors", "utils.checkpoint", "utils.tokenizer",
                  "models.vlm.tokenizer", "utils.graphs"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
