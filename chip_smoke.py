@@ -18,7 +18,9 @@ Phases, each printed on its own line:
                batched prefill (B=8 S=1408 H=32 D=128 causal) and the
                batched refinement (B=8 S=4096 H=10, B=8 S=1024 H=20, D=64),
                K2 at 8 rows on the five decode shapes and its sum per
-               decode step at 8 rows
+               decode step at 8 rows; and the speculative verify forward's:
+               K2 at 5 rows (spec_k + 1) on the five shapes, its sum per
+               verify step
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
                noise, PNGs within a stated uint8 tolerance; then a
@@ -40,7 +42,12 @@ Phases, each printed on its own line:
                (three images of different shapes, ragged prompts, one
                batched prefill with the lm_head on each row's last
                position, 8 decode steps of all rows teacher-forced) card
-               against CPU, per row
+               against CPU, per row; speculative decoding on the card
+               (int4, a one-layer self-draft, k = 4, 40 greedy tokens): the
+               ids of greedy `generate`, every round after the first
+               replayed, K2 launches as the formula; and process() with
+               the tiled VAE (three downsamples, 48-pixel encoder and
+               10-latent decoder tiles, overlapping) card against CPU
   5. path      the full-width modules (SR3 64-ch; SDXL XL-base + GLVControl,
                the SDXL VAE with its twin encoder, CLIP-L, bigG; LLaVA-NeXT-8B:
                CLIP-L/336 + mlp2x_gelu + Llama-3-8B, dense) with seeded bf16
@@ -62,7 +69,26 @@ Phases, each printed on its own line:
                in 50 steps, timed; the kernel launches of one decode step
                without and with a train_vlm LoRA archive attached; write,
                load (per family, the LLaVA's split into read, PEFT merge and
-               quantize) and read-rate figures; the directory is deleted;
+               quantize) and read-rate figures;
+     spec      on the path's int4 captioner and Stage-1 image: the
+               256-token caption at T=0.2 vanilla, with the self-draft of
+               4 layers (k = 4) and with a seeded 2-layer draft checkpoint
+               (hidden 4096, vocab 128256) written to <dir>/llava_draft and
+               read through infer.build_pipeline --draft_dir: seconds,
+               decode tok/s, rounds, accept_rate, ms a round by graph
+               replay, capture seconds, K2 launches a round (must be
+               k (7n + 1) + 7n + 225 for a draft of n layers, every round
+               after the first replayed); then the same greedy: the prefix
+               on which speculative and vanilla ids agree, and the target's
+               top-2 logit gap where they part (reported)
+     tiled     on the path's pipeline: the 1024^2 refinement with and
+               without use_tile_vae (512 / 64 tiles: 4 encoder tiles of
+               576^2, 4 decoder tiles of 86^2 latent): vae_prep and decode
+               seconds, peak memory, the VAE alone each way, the uint8
+               difference between the images (reported); the tiled VAE
+               alone at 2048^2 (16 tiles each), and the reckoned bytes of
+               the whole VAE's 65536^2 mid-attention scores there;
+               the directory is deleted after phase folder;
                then the train_vlm loop at full width: the same geometry
                with an int8 decoder, LoRA r=16 on the seven projections,
                AdamW, gradient checkpointing, 16 anyres 224^2 records,
@@ -144,6 +170,16 @@ K2_STEP = (("q_o_proj", 4096, 4096, 64), ("k_v_proj", 4096, 1024, 64),
            ("gate_up_proj", 4096, 14336, 64), ("down_proj", 14336, 4096, 32),
            ("lm_head", 4096, 128256, 1))
 K2_PER_STEP = sum(n for *_, n in K2_STEP)
+# speculative caption decoding (phase spec): proposals a round, the
+# self-draft's depth, the draft checkpoint's depth; K2 launches a round
+# with a draft of n int4 layers: k draft steps (7n projections and the
+# lm_head each), the catch-up feed (7n, no lm_head), the verify forward
+# (225 at k + 1 rows)
+SPEC_K, SELF_DRAFT_LAYERS, DRAFT_LAYERS = 4, 4, 2
+
+
+def k2_per_round(n: int, k: int = SPEC_K, layers: int = 32) -> int:
+    return k * (7 * n + 1) + 7 * n + 7 * layers + 1
 # K2 against its plain version, both fp32 sums of exact int32 group sums
 # that differ only in order: per element |err| <= K2_RTOL * sum_g |term_g|
 # + K2_ATOL, where term_g = xs*ws*acc of group g (the fp32 rounding bound of
@@ -994,8 +1030,9 @@ def phase_kernels():
 def phase_k2():
     """K2's cases: one Llama-3-8B decode step's shapes (R = 1), rows 8 and
     32, ragged outs (out % 16 != 0 takes byte loads), ties, zero rows; the
-    one-launch check; the decode step's shapes at 8 rows (folder mode);
-    the sums per decode step at 1 and 8 rows."""
+    one-launch check; the decode step's shapes at 8 rows (folder mode) and
+    at 5 rows (the speculative verify forward, spec_k + 1 tokens); the
+    sums per decode step at 1, 8 and 5 rows."""
     k2 = [_k2_case(name, 1, inf, out, main_path=True)
           for name, inf, out, _ in K2_STEP]
     k2 += [_k2_case("rows_8", 8, 4096, 4096),
@@ -1008,8 +1045,12 @@ def phase_k2():
     # folder mode: a decode step of the batched caption, 8 rows
     k2 += [_k2_case(name + "_r8", 8, inf, out, main_path=True)
            for name, inf, out, _ in K2_STEP]
+    # speculative decoding: the verify forward of spec_k + 1 = 5 tokens
+    k2 += [_k2_case(name + "_r5", SPEC_K + 1, inf, out, main_path=True)
+           for name, inf, out, _ in K2_STEP]
     _k2_step(k2)
     _k2_step(k2, rows=8, suffix="_r8")
+    _k2_step(k2, rows=SPEC_K + 1, suffix="_r5")
     return k2
 
 
@@ -1133,43 +1174,47 @@ def _decode_vs_direct(llama, embeds, new_tokens: int) -> dict:
 
 
 # --------------------------------------------------------------- phase 4
-def phase_reference(seed: int):
-    """process() at a small width on the card (bf16, K1 at 1024 tokens)
-    against the same run on the CPU in fp32, with the same weights and the
-    same noise. Cache off, so no threshold decision can flip between the two
-    precisions. Passes when the PNGs agree to REF_MEAN_TOL mean and
-    REF_MAX_TOL max uint8 levels."""
-    import numpy as np
-    import torch
-    from PIL import Image
-    from rsvldm_tpu_torch.config import (PipelineConfig, RefinementConfig,
-                                         Stage1Config)
+def _small_cfgs(vae=None):
+    """The small-width model configs of the reference phases; 64-channel
+    heads so the self-attention at the 32^2 level (1024 tokens of a 64^2
+    latent) and the ZeroCrossAttn there run on K1."""
     from rsvldm_tpu_torch.models.sdxl.unet import SDXLUNetConfig
     from rsvldm_tpu_torch.models.sr3.unet import SR3UNetConfig
     from rsvldm_tpu_torch.models.text.clip import CLIPTextConfig
     from rsvldm_tpu_torch.models.vae.model import VAEConfig
-    from rsvldm_tpu_torch.ops.flash_attention import flash_attention
-    from rsvldm_tpu_torch.pipeline import (ReplayNoise, SuperResolutionPipeline,
-                                           TorchNoise)
-
-    # 64-channel heads so the self-attention at the 32^2 level (1024 tokens
-    # of a 64^2 latent) and the ZeroCrossAttn there run on K1
-    small = dict(
+    return dict(
         sr3=SR3UNetConfig(inner_channel=32, norm_groups=8, channel_mults=(1, 2),
                           attn_res=(8,), res_blocks=1, image_size=16),
         sdxl=SDXLUNetConfig(model_channels=64, num_res_blocks=1,
                             attention_resolutions=(2,), channel_mult=(1, 2),
                             num_head_channels=64, transformer_depth=(1, 1),
                             context_dim=64, adm_in_channels=32 + 3 * 512),
-        vae=VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1),
+        vae=vae or VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1),
         clip_l=CLIPTextConfig(vocab_size=1000, width=32, layers=2, heads=2),
         big_g=CLIPTextConfig(vocab_size=1000, width=32, layers=2, heads=2,
                              quick_gelu=False, use_text_projection=True,
                              openclip=True))
+
+
+def _card_vs_cpu(seed: int, small: dict, refine: dict, names, lr_side: int = 4):
+    """process() of a seeded lr_side^2 tile (x4, 8 SR3 steps) at the `small`
+    width on the CPU in fp32, then on the card in bf16 with the CPU's
+    weights and draws. (record with the uint8 differences of each PNG of
+    `names`, whether all are within REF_MEAN_TOL / REF_MAX_TOL, the card's
+    pipeline)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.config import (PipelineConfig, RefinementConfig,
+                                         Stage1Config)
+    from rsvldm_tpu_torch.ops.flash_attention import flash_attention
+    from rsvldm_tpu_torch.pipeline import (ReplayNoise, SuperResolutionPipeline,
+                                           TorchNoise)
+
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_ref_"))
     rng = np.random.default_rng(seed + 1)
-    Image.fromarray((rng.random((4, 4, 3)) * 255).astype(np.uint8)).save(
-        work / "lr.png")
+    Image.fromarray((rng.random((lr_side, lr_side, 3)) * 255).astype(np.uint8)
+                    ).save(work / "lr.png")
 
     def cfg(out):
         return PipelineConfig(input_img=str(work / "lr.png"),
@@ -1177,8 +1222,7 @@ def phase_reference(seed: int):
                               seed=seed, no_llava=True,
                               params_dtype="fp32" if out == "cpu" else "bf16",
                               stage1=Stage1Config(steps=8),
-                              refine=RefinementConfig(min_size=128, edm_steps=4,
-                                                      img_threshold=0.0))
+                              refine=RefinementConfig(**refine))
 
     draws: dict = {}
     cpu_noise = TorchNoise(seed, torch.device("cpu"))
@@ -1196,10 +1240,9 @@ def phase_reference(seed: int):
                                   state_dicts=sds, noise=ReplayNoise(draws))
     flash_attention.launches = 0
     gpu.process()
-    launches = flash_attention.launches
-    rec = dict(k1_launches=launches)
-    ok = launches > 0
-    for name in ("sr3_lr.png", "lr_final_0.png"):
+    rec = dict(k1_launches=flash_attention.launches)
+    ok = True
+    for name in names:
         a = np.asarray(Image.open(work / "cpu" / name), np.int16)
         b = np.asarray(Image.open(work / "gpu" / name), np.int16)
         d = np.abs(a - b)
@@ -1208,6 +1251,19 @@ def phase_reference(seed: int):
         ok = ok and a.shape == b.shape and d.mean() <= REF_MEAN_TOL \
             and d.max() <= REF_MAX_TOL
     rec["tol"] = f"mean <= {REF_MEAN_TOL}, max <= {REF_MAX_TOL} uint8 levels"
+    return rec, ok, gpu
+
+
+def phase_reference(seed: int):
+    """process() at a small width on the card (bf16, K1 at 1024 tokens)
+    against the same run on the CPU in fp32, with the same weights and the
+    same noise. Cache off, so no threshold decision can flip between the two
+    precisions. Passes when the PNGs agree to REF_MEAN_TOL mean and
+    REF_MAX_TOL max uint8 levels."""
+    rec, ok, gpu = _card_vs_cpu(seed, _small_cfgs(),
+                                dict(min_size=128, edm_steps=4, img_threshold=0.0),
+                                ("sr3_lr.png", "lr_final_0.png"))
+    ok = ok and rec["k1_launches"] > 0
     # the same step functions replayed as graphs and called directly, at
     # this width: 64^2 latents put the 32^2 level's attention on K1
     rec["graphs"] = _graph_vs_direct(
@@ -1218,6 +1274,28 @@ def phase_reference(seed: int):
                         "max |direct|); ids and traces equal")
     rec["ok"] = bool(ok and rec["graphs"]["ok"])
     _say("reference", **rec)
+    return rec
+
+
+def phase_tiled_reference(seed: int):
+    """The tiled VAE at a small width, card (bf16) against CPU (fp32):
+    process() with use_tile_vae on a VAE with three downsamples (the
+    stitch's factor 8), a 32^2 tile: Stage 1 at 128^2 and a 128^2
+    refinement cut into 48-pixel encoder tiles (3 x 3, overlapping) and
+    10-latent decoder tiles (2 x 2, overlapping), GroupNorm statistics
+    pooled over the tiles; the final PNG (128^2) within the reference
+    phase's tolerance."""
+    from rsvldm_tpu_torch.models.vae.model import VAEConfig
+    vae = VAEConfig(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1)
+    rec, ok, gpu = _card_vs_cpu(
+        seed, _small_cfgs(vae),
+        dict(min_size=128, edm_steps=4, img_threshold=0.0, use_tile_vae=True,
+             encoder_tile_size=48, decoder_tile_size=10), ("lr_final_0.png",),
+        lr_side=32)
+    rec["tiles_used"] = gpu._use_tiles((128, 128))
+    rec["finite"] = all(gpu.outputs_finite.values())
+    rec["ok"] = bool(ok and rec["tiles_used"] and rec["finite"])
+    _say("reference", tiled_vae=rec)
     return rec
 
 
@@ -1429,6 +1507,160 @@ def phase_batch_caption_reference(seed: int, quant: str = "int4",
                      and float(top1.mean(0).min()) >= CAP_TOP1_MIN)
     flash_attention.launches = int4_matmul.launches = 0
     _say("reference", batched_caption=rec)
+    return rec
+
+
+def _spec_round_ms(cap, draft, prompt_len: int, rounds: int = 10) -> dict:
+    """Device time of a speculative round by replaying the kept sampled
+    loop of `draft` `rounds` times (CUDA events; before each, its position
+    and index are set back to the first round's, so every block stays
+    inside the caches and tables) and the K2 launches a round counted
+    through those replays; and the decode rate that round time would give
+    were every proposal kept (k + 1 tokens a round: reckoned, not run)."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.speculative import SpecState
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+    # the loop's key: ("spec", bucket, max_new, k, greedy, ..., id(draft))
+    st = next(v for key, v in cap.decode_graphs.items()
+              if isinstance(v, SpecState) and key[-1] == id(draft) and not key[4])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        before = int4_matmul.launches
+        start.record()
+        for _ in range(rounds):
+            st.p.fill_(prompt_len)
+            st.j0.fill_(1)
+            st.runner()
+        end.record()
+        torch.cuda.synchronize()
+    k2 = int4_matmul.launches - before
+    int4_matmul.launches = before  # timing launches are not the path's
+    ms = start.elapsed_time(end) / rounds
+    return dict(ms_per_round=ms, k2_per_round=k2 / rounds,
+                tok_s_if_all_kept=(SPEC_K + 1) * 1e3 / ms,
+                replayed=st.runner.graph is not None)
+
+
+def _accept_card_vs_cpu(seed: int, vocab: int = 64, cases: int = 12) -> dict:
+    """accept_and_correct on the card against the CPU on the same seeded
+    distributions (fp32, k = SPEC_K): in case c the draft's first c % (k+1)
+    distributions are the target's (kept whatever the uniform), so every
+    count of kept proposals 0..k occurs, the bonus token at k. The same
+    committed tokens and counts."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.speculative import accept_and_correct
+    g = torch.Generator().manual_seed(seed + 8)
+    k, same, counts = SPEC_K, True, []
+    for c in range(cases):
+        t = torch.softmax(torch.randn(k + 1, vocab, generator=g) * 2, -1)
+        d = torch.softmax(torch.randn(k, vocab, generator=g) * 2, -1)
+        m = c % (k + 1)
+        d[:m] = t[:m]
+        toks = torch.stack([torch.multinomial(d[i], 1, generator=g)[0]
+                            for i in range(k)])
+        u = torch.rand(k, generator=g)
+        res = -torch.log(-torch.log(torch.rand(k, vocab, generator=g)))
+        bonus = -torch.log(-torch.log(torch.rand(vocab, generator=g)))
+        args = (toks, d, t, u, res, bonus)
+        want = accept_and_correct(*args)
+        got = accept_and_correct(*(a.cuda() for a in args))
+        same = same and all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
+        counts.append(int(want[1]))
+    return dict(cases=cases, n_commit=counts, equal=bool(same),
+                ok=bool(same and k + 1 in counts and 1 in counts))
+
+
+def phase_spec_reference(seed: int, new_tokens: int = 40):
+    """Speculative decoding at the small width on the card (int4, k = 4):
+    with the bf16 captioner and a 1280-token prompt, greedy ids with a
+    one-layer self-draft, and with the target as its own draft (every
+    proposal kept, a bonus token each round), equal greedy `generate` ids
+    on the card; every round after the first replayed from its graph; K1
+    launches the target's layers plus the draft's (the prefills), K2
+    k (7n + 1) + 7n + 7L + 1 a round plus the prefill's lm_head. Then
+    sampled (T = 0.8) with the target as its own draft, in fp32 on a
+    96-token prompt and fed the Gumbel rows of the `generate` run: its ids,
+    and every proposal kept. And accept_and_correct on the card equals the
+    CPU's (_accept_card_vs_cpu)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.config import REFERENCE_IMG_PROMPT
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.models.vlm.speculative import (default_accept_noise,
+                                                         self_draft,
+                                                         speculative_generate)
+
+    caps, lcfg, vcfg, tok, _ = _small_captioners("int4")
+    cap = caps["cuda"]
+    rng = np.random.default_rng(seed + 4)
+    img = Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
+    prompt = gen.llama3_chat_prompt(
+        REFERENCE_IMG_PROMPT.format(DEFAULT_IMAGE_TOKEN="<image>"))
+    gcfg = gen.GenerateConfig(max_new_tokens=new_tokens, do_sample=False)
+    L = lcfg.layers
+
+    def run(draft, n, emb, cfg, **kw):
+        st: dict = {}
+        _reset_counts()
+        ids = speculative_generate(cap.llama, draft, emb, cfg, SPEC_K,
+                                   stats=st, **kw)
+        c = _counts()
+        _reset_counts()
+        rec = dict(rounds=st["rounds"], replays=st["replays"],
+                   accept_rate=st["accept_rate"], tokens=len(ids),
+                   k1_launches=c["k1"], k2_launches=c["k2"])
+        rec["replayed"] = bool(st["rounds"] >= 2
+                               and st["replays"] == st["rounds"] - 1)
+        return rec, ids
+
+    with torch.inference_mode():
+        emb = gen.embed_multimodal_prompt(
+            cap.llama, cap.vision, cap.projector, prompt, [img], tok.encode,
+            cap.image_newline, vcfg.image_size)
+        ids_v = gen.generate(cap.llama, emb, gcfg)
+        rec: dict = dict(new_tokens=new_tokens, prompt_len=int(emb.shape[0]))
+        for name, draft, n in (("self_draft", self_draft(cap.llama, 1), 1),
+                               ("draft_is_target", cap.llama, L)):
+            r, ids_s = run(draft, n, emb, gcfg)
+            r.update(ids=ids_s[:8].tolist(),
+                     ids_equal=bool(np.array_equal(ids_v, ids_s)),
+                     expected_k1=L + n,
+                     expected_k2=1 + r["rounds"] * k2_per_round(n, SPEC_K, L))
+            r["ok"] = bool(r["ids_equal"] and r["tokens"] == new_tokens
+                           and r["replayed"]
+                           and r["k1_launches"] == r["expected_k1"]
+                           and r["k2_launches"] == r["expected_k2"])
+            rec[name] = r
+        rec["draft_is_target"]["ok"] = bool(rec["draft_is_target"]["ok"]
+                                            and rec["draft_is_target"]["accept_rate"] == 1.0)
+        # sampled, fp32: the 5-row verify then sums as the 1-row step does
+        # to fp32 rounding, far below any acceptance uniform's resolution
+        cap.llama.float()
+        vocab = lcfg.vocab_size
+        g = torch.Generator(device="cuda").manual_seed(seed + 5)
+        toks = torch.randint(0, vocab, (96,), generator=g, device="cuda")
+        emb32 = cap.llama.embed(toks)
+        scfg = gen.GenerateConfig(max_new_tokens=new_tokens, temperature=0.8,
+                                  do_sample=True)
+        rows = gen.gumbel_noise(vocab, g, new_tokens + SPEC_K)(0)
+        noise = lambda j: rows[j]
+        ids_v32 = gen.generate(cap.llama, emb32, scfg, noise=noise)
+        r, ids_s32 = run(cap.llama, L, emb32, scfg, noise=noise,
+                         accept_noise=default_accept_noise(
+                             vocab, torch.Generator(device="cuda").manual_seed(seed + 6)))
+        r.update(ids=ids_s32[:8].tolist(), tokens_vanilla=len(ids_v32),
+                 ids_equal=bool(np.array_equal(ids_v32, ids_s32)))
+        r["ok"] = bool(r["ids_equal"] and r["replayed"]
+                       and r["accept_rate"] == 1.0 and r["k1_launches"] == 0)
+        rec["sampled_fp32_draft_is_target"] = r
+    rec["accept_and_correct"] = _accept_card_vs_cpu(seed)
+    rec["ok"] = bool(all(rec[k]["ok"] for k in (
+        "self_draft", "draft_is_target", "sampled_fp32_draft_is_target",
+        "accept_and_correct")))
+    _say("reference", speculative=rec)
     return rec
 
 
@@ -1780,6 +2012,7 @@ def phase_path(seed: int):
         peak_mem_gib_with_checks=torch.cuda.max_memory_allocated() / 2**30,
         graphs=graphs, ddim_stage1=ddim,
         sr3_png=list(sr.shape), final_png=list(fin.shape),
+        sr3_path=str(work / "out" / "sr3_lr.png"),
         outputs_finite=pipe.outputs_finite,
         sr3_std=float(sr.std()), final_std=float(fin.std()))
     misses = dfb["steps"] - dfb["hits"]
@@ -1803,6 +2036,349 @@ def phase_path(seed: int):
     rec["ok"] = ok
     _say("path", **rec)
     return rec, pipe, cd
+
+
+# -------------------------------------------------------------- phase 5s
+def _write_draft_dir(dd: Path, cfg, seed: int) -> int:
+    """A seeded Llama draft checkpoint (`cfg`, weights of its own seed, not
+    the target's) as a user has one: config.json and one safetensors file
+    of HF-named bf16 tensors. Returns the bytes written."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import LlamaModel
+    from rsvldm_tpu_torch.utils.weights import seeded_init_
+    with torch.device("meta"):
+        draft = LlamaModel(cfg)
+    draft = draft.to(torch.bfloat16).to_empty(device="cuda")
+    seeded_init_(draft, f"llama_draft_{seed}", torch.device("cuda"))
+    dd.mkdir()
+    (dd / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "hidden_size": cfg.dim,
+        "intermediate_size": cfg.ffn_dim, "num_hidden_layers": cfg.layers,
+        "num_attention_heads": cfg.heads, "num_key_value_heads": cfg.kv_heads,
+        "vocab_size": cfg.vocab_size, "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_eps, "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16"}))
+    n = write_safetensors(dd / "model.safetensors", draft.state_dict(),
+                          {"format": "pt"})
+    del draft
+    torch.cuda.empty_cache()
+    return n
+
+
+def _spec_run(cap, emb, gcfg, draft=None, n_layers: int = 0) -> dict:
+    """One caption decode of the spliced prompt `emb`: vanilla
+    (generate) without a draft, else speculative rounds with it (k =
+    SPEC_K). Seconds, tokens/s, rounds, acceptance, capture seconds,
+    replays and K1 / K2 launches (counts reset just before, read just
+    after: K1 is the target's prefill and the draft's, K2 the decode's),
+    and the ids."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.models.vlm.speculative import speculative_generate
+    layers = cap.llama.cfg.layers
+    st: dict = {}
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    if draft is None:
+        ids = gen.generate(cap.llama, emb, gcfg, stats=st,
+                           graph_cache=cap.decode_graphs)
+    else:
+        ids = speculative_generate(cap.llama, draft, emb, gcfg, SPEC_K,
+                                   stats=st, graph_cache=cap.decode_graphs)
+    torch.cuda.synchronize()
+    n = _counts()
+    rec = dict(caption_s=time.perf_counter() - t0, tokens=len(ids),
+               prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+               capture_s=st["capture_s"], k1_launches=n["k1"],
+               k2_launches=n["k2"], expected_k1=layers + n_layers)
+    # tokens after the prefill's first one, over the decode's seconds
+    rec["decode_tok_s"] = (len(ids) - 1) / st["decode_s"] if st["decode_s"] else None
+    if draft is not None:
+        rec.update({k: st[k] for k in ("rounds", "proposed", "accepted",
+                                       "accept_rate", "replays")})
+        rec["draft_layers"] = n_layers
+        rec["k2_per_round_formula"] = k2_per_round(n_layers, layers=layers)
+        rec["k2_launches_per_round"] = ((rec["k2_launches"] - 1) / st["rounds"]
+                                        if st["rounds"] else None)
+        rec["ok"] = bool(st["rounds"] >= 2 and st["replays"] == st["rounds"] - 1
+                         and rec["k2_launches"] - 1
+                         == st["rounds"] * rec["k2_per_round_formula"])
+    else:
+        rec["ok"] = rec["k2_launches"] == K2_PER_STEP * st["decode_steps"] + 1
+    rec["ok"] = bool(rec["ok"] and rec["k1_launches"] == rec["expected_k1"])
+    _reset_counts()
+    return rec, ids
+
+
+def _greedy_gap(cap, emb, ids_v, ids_s) -> dict:
+    """The prefix on which two greedy id streams agree and, where they
+    part, the target's logits there: its top-2 gap and the logits of the
+    two streams' tokens."""
+    import numpy as np
+    import torch
+    n = min(len(ids_v), len(ids_s))
+    m = next((i for i in range(n) if ids_v[i] != ids_s[i]), n)
+    rec = dict(agree_prefix=m, lengths=[len(ids_v), len(ids_s)],
+               equal=bool(np.array_equal(ids_v, ids_s)))
+    if m < n:
+        with torch.inference_mode():
+            prev = torch.tensor(ids_v[:m], device=emb.device, dtype=torch.long)
+            x = torch.cat([emb, cap.llama.embed(prev).to(emb.dtype)])[None]
+            lg, _ = cap.llama(x, None, 0, logits_at=torch.tensor(
+                [x.shape[1] - 1], device=emb.device))
+        lg = lg[0, 0].float()
+        top = lg.topk(2).values
+        rec.update(top2_gap=float(top[0] - top[1]),
+                   logit_vanilla=float(lg[int(ids_v[m])]),
+                   logit_spec=float(lg[int(ids_s[m])]))
+    return rec
+
+
+def phase_spec(seed: int, pipe, cd: Path, sr_path: str):
+    """Speculative caption decoding at full width, on the path's int4
+    captioner and its Stage-1 image: the 256-token caption at T = 0.2
+    three ways (vanilla; the self-draft of the first SELF_DRAFT_LAYERS
+    layers, k = SPEC_K; a seeded DRAFT_LAYERS-layer draft checkpoint of
+    the target's width and vocabulary written to <cd>/llava_draft and read
+    through the CLI's construction, infer.build_pipeline --draft_dir);
+    per run the caption's seconds, decode tok/s, rounds, acceptance, ms a
+    round by graph replay, capture seconds and K2 launches a round; then
+    the same three greedy (T = 0): the prefix on which the speculative ids
+    agree with the vanilla ones and the target's top-2 gap where they
+    part (reported; a 5-row verify and a 1-row step sum in other orders).
+    Then the target as its own draft (n = 32), sampled with the vanilla
+    run's draws: the accept branch at full width, its acceptance, round
+    time, and the prefix it shares with the vanilla ids (a report). Each
+    draft's round time also gives the rate were every proposal kept.
+    Fails if a round is not replayed from its graph, if K2's launches a
+    round are not k (7n + 1) + 7n + 225, if K1's a run are not 32 + n (the
+    two prefills), or if an output is not finite. The draft directory is
+    deleted at the end."""
+    import gc
+    import shutil
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch import infer
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.models.vlm.speculative import self_draft
+
+    cap = pipe.llava
+    lcfg = pipe.cfg.llava
+    img = Image.open(sr_path).convert("RGB")
+    prompt = gen.llama3_chat_prompt(lcfg.img_prompt.format(
+        DEFAULT_IMAGE_TOKEN="<image>"))
+    with torch.inference_mode():
+        emb = gen.embed_multimodal_prompt(
+            cap.llama, cap.vision, cap.projector, prompt, [img],
+            lambda t: cap.tokenizer.encode(t, add_special_tokens=False),
+            cap.image_newline, cap.vision.cfg.image_size)
+    sampled = gen.GenerateConfig(max_new_tokens=lcfg.max_new_tokens,
+                                 temperature=lcfg.temperature,
+                                 do_sample=lcfg.do_sample)
+    greedy = dataclasses.replace(sampled, do_sample=False)
+    dd = cd / "llava_draft"
+    rec: dict = dict(spec_k=SPEC_K, prompt_len=int(emb.shape[0]))
+    ids: dict = {}
+    try:
+        cap.attach_draft(None)  # no draft: the decode_graphs start empty
+        rec["vanilla"], ids["vanilla_sampled"] = _spec_run(cap, emb, sampled)
+        rec["vanilla_greedy"], ids["vanilla"] = _spec_run(cap, emb, greedy)
+        sd = self_draft(cap.llama, SELF_DRAFT_LAYERS)
+        rec["self_draft"], _ = _spec_run(cap, emb, sampled, sd, SELF_DRAFT_LAYERS)
+        rec["self_draft"].update(_spec_round_ms(cap, sd, int(emb.shape[0])))
+        rec["self_draft_greedy"], ids["self"] = _spec_run(
+            cap, emb, greedy, sd, SELF_DRAFT_LAYERS)
+        # the target as its own draft, sampled with the vanilla run's
+        # default draws: the accept branch at full width (a report: bf16
+        # 5-row and 1-row sums may part at near-ties)
+        layers = cap.llama.cfg.layers
+        rec["draft_is_target"], ids["target"] = _spec_run(
+            cap, emb, sampled, cap.llama, layers)
+        rec["draft_is_target"].update(
+            _spec_round_ms(cap, cap.llama, int(emb.shape[0])),
+            vs_vanilla_sampled=_greedy_gap(cap, emb, ids["vanilla_sampled"],
+                                           ids["target"]))
+        # the user's entry point too: caption() with the self-draft attached
+        cap.attach_draft(None, spec_k=SPEC_K, self_draft_layers=SELF_DRAFT_LAYERS)
+        text = cap.caption(img, lcfg)
+        rec["self_draft_caption"] = dict(words=len(text.split()),
+                                         rounds=cap.last_stats["rounds"],
+                                         accept_rate=cap.last_stats["accept_rate"])
+        cap.attach_draft(None)
+        dcfg = dataclasses.replace(cap.llama.cfg, layers=DRAFT_LAYERS)
+        t0 = time.perf_counter()
+        rec["draft_ckpt_bytes"] = _write_draft_dir(dd, dcfg, seed)
+        rec["draft_write_s"] = time.perf_counter() - t0
+        args = infer.parse_args([
+            "--input_img", sr_path, "--ckpt_dir", str(cd), "--quant", "int4",
+            "--draft_dir", str(dd), "--seed", str(seed)])
+        t0 = time.perf_counter()
+        pipe2 = infer.build_pipeline(args)
+        pipe2._load_llava()
+        cap2 = pipe2.llava
+        if cap2 is None:
+            raise RuntimeError(f"the captioner of {cd} with --draft_dir {dd} "
+                               "did not load")
+        torch.cuda.synchronize()
+        rec["draft_pipeline_load_s"] = time.perf_counter() - t0
+        rec["draft_load_s"] = cap2.load_stats.get("draft_s")
+        rec["draft_loaded"] = bool(cap2.draft is not None
+                                   and cap2.draft.cfg.layers == DRAFT_LAYERS
+                                   and cap2.self_draft_layers == 0)
+        rec["draft_ckpt"], _ = _spec_run(cap2, emb, sampled, cap2.draft,
+                                         DRAFT_LAYERS)
+        rec["draft_ckpt"].update(_spec_round_ms(cap2, cap2.draft, int(emb.shape[0])))
+        rec["draft_ckpt_greedy"], ids["ckpt"] = _spec_run(
+            cap2, emb, greedy, cap2.draft, DRAFT_LAYERS)
+        text2 = cap2.caption(img, lcfg)
+        rec["draft_ckpt_caption"] = dict(words=len(text2.split()),
+                                         rounds=cap2.last_stats["rounds"])
+        rec["greedy_self_vs_vanilla"] = _greedy_gap(cap, emb, ids["vanilla"],
+                                                    ids["self"])
+        rec["greedy_ckpt_vs_vanilla"] = _greedy_gap(cap, emb, ids["vanilla"],
+                                                    ids["ckpt"])
+        del pipe2, cap2
+    finally:
+        shutil.rmtree(dd, ignore_errors=True)
+        cap.attach_draft(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("vanilla", "self_draft", "draft_ckpt", "draft_is_target"):
+        rec[name]["vanilla_decode_tok_s"] = rec["vanilla"]["decode_tok_s"]
+    runs = [v for v in rec.values() if isinstance(v, dict) and "ok" in v]
+    rec["launches"] = {c: sum(r[f"{c}_launches"] for r in runs)
+                       for c in ("k1", "k2")}
+    rec["finite"] = bool(torch.isfinite(emb).all())
+    rec["ok"] = bool(all(r["ok"] for r in runs) and len(runs) == 7
+                     and rec["draft_loaded"] and rec["finite"]
+                     and all(rec[n]["replayed"] for n in (
+                         "self_draft", "draft_ckpt", "draft_is_target"))
+                     and rec["self_draft"]["k2_per_round"]
+                     == k2_per_round(SELF_DRAFT_LAYERS)
+                     and rec["draft_ckpt"]["k2_per_round"]
+                     == k2_per_round(DRAFT_LAYERS)
+                     and rec["draft_is_target"]["k2_per_round"]
+                     == k2_per_round(layers)
+                     and rec["self_draft_caption"]["rounds"] > 0
+                     and rec["draft_ckpt_caption"]["rounds"] > 0)
+    _say("spec", **rec)
+    return rec
+
+
+# -------------------------------------------------------------- phase 5t
+def _vae_alone(pipe, x, tiles: bool) -> dict:
+    """The VAE preparation and the final decode alone on x [1, H, W, 3]
+    (NHWC), tiled or whole: seconds and peak memory of each."""
+    import torch
+    from rsvldm_tpu_torch.pipeline import _nchw
+    pipe.cfg.refine.use_tile_vae = tiles
+    out = {}
+    with torch.inference_mode():
+        for name in ("vae_prep", "decode"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if name == "vae_prep":
+                _, x_stage1, z = pipe._vae_prep(_nchw(x))
+            else:
+                y = pipe._decode(z)
+            torch.cuda.synchronize()
+            out[f"{name}_s"] = time.perf_counter() - t0
+            out[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            out[f"{name}_peak_above_gib"] = (torch.cuda.max_memory_allocated()
+                                             - base) / 2**30
+        out["finite"] = bool(torch.isfinite(x_stage1).all() and torch.isfinite(y).all())
+        out["shapes"] = [list(x_stage1.shape), list(z.shape), list(y.shape)]
+    del x_stage1, z, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tiled(seed: int, pipe, sr_path: str, caption: str):
+    """The tiled VAE at full width on the path's pipeline: the 1024^2
+    refinement of the path's Stage-1 image (the path's caption, the same
+    seed's draws) without and with use_tile_vae at the default 512 / 64
+    tile sizes (4 encoder tiles of 576^2, 4 decoder tiles of 86^2
+    latent): vae_prep and decode seconds and the whole refinement's peak
+    memory, and the VAE alone (seconds, peak) each way; the mean and max
+    uint8 difference between the two images, both resized back to the
+    Stage-1 image's size as process() writes them (a report: halos and
+    pooled statistics make them differ). Then the tiled VAE preparation and
+    decode alone at 2048^2 (16 tiles each): seconds and peak; the whole
+    VAE is not run there, its mid-attention scores would be 65536^2 fp32
+    (the reckoned bytes are printed). Fails unless each refinement
+    launches K1 106 times a denoiser miss and 58 a hit (Stage 2b; the
+    VAE's attention is plain) and K2 never."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.pipeline import TorchNoise
+
+    r = pipe.cfg.refine
+    img = Image.open(sr_path).convert("RGB")
+    rec: dict = dict(encoder_tile=r.encoder_tile_size,
+                     decoder_tile=r.decoder_tile_size)
+    outs = {}
+    try:
+        for tiles in (False, True):
+            name = "tiled" if tiles else "whole"
+            r.use_tile_vae = tiles
+            pipe.noise = TorchNoise(seed, pipe.device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            outs[name] = np.asarray(pipe.run_refinement(img, caption,
+                                                        use_bucket=False), np.int16)
+            torch.cuda.synchronize()
+            n, dfb = _counts(), pipe.last_dfb
+            _reset_counts()
+            rec[name] = dict(refine_s=time.perf_counter() - t0,
+                             k1_launches=n["k1"], k2_launches=n["k2"],
+                             expected_k1=(dfb["steps"] - dfb["hits"]) * K1_PER_MISS
+                             + dfb["hits"] * K1_PER_HIT,
+                             vae_prep_s=pipe.timings["vae_prep"],
+                             decode_s=pipe.timings["decode"],
+                             sampling_s=pipe.timings["sampling"],
+                             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                             finite=pipe.outputs_finite["refined"],
+                             shape=list(outs[name].shape),
+                             tiles_used=pipe._use_tiles((1024, 1024)))
+        d = np.abs(outs["whole"] - outs["tiled"])
+        rec["tiled_vs_whole_uint8"] = dict(mean_abs=float(d.mean()),
+                                           max_abs=int(d.max()))
+        g = torch.Generator(device=pipe.device).manual_seed(seed + 9)
+        for side in (1024, 2048):
+            x = torch.rand((1, side, side, 3), generator=g,
+                           device=pipe.device) * 2 - 1
+            for tiles in ((False, True) if side == 1024 else (True,)):
+                rec[f"vae_alone_{side}_{'tiled' if tiles else 'whole'}"] = \
+                    _vae_alone(pipe, x, tiles)
+            del x
+        lat = (2048 // 8) ** 2
+        rec["whole_2048_mid_attention_scores_bytes"] = lat * lat * 4
+    finally:
+        r.use_tile_vae = False
+        torch.cuda.empty_cache()
+    alone = [v for k, v in rec.items() if k.startswith("vae_alone")]
+    rec["launches"] = {c: rec["whole"][f"{c}_launches"] + rec["tiled"][f"{c}_launches"]
+                       for c in ("k1", "k2")}
+    # the refined image comes back at the Stage-1 image's size
+    rec["ok"] = bool(rec["whole"]["finite"] and rec["tiled"]["finite"]
+                     and all(rec[n]["k1_launches"] == rec[n]["expected_k1"] > 0
+                             and rec[n]["k2_launches"] == 0
+                             for n in ("whole", "tiled"))
+                     and rec["tiled"]["tiles_used"]
+                     and not rec["whole"]["tiles_used"]
+                     and rec["tiled"]["shape"] == rec["whole"]["shape"]
+                     == [img.size[1], img.size[0], 3]
+                     and all(a["finite"] for a in alone)
+                     and rec["vae_alone_2048_tiled"]["shapes"][2]
+                     == [1, 3, 2048, 2048])
+    _say("tiled", **rec)
+    return rec
 
 
 # -------------------------------------------------------------- phase 5b
@@ -2333,9 +2909,11 @@ def main(argv=None) -> int:
     for quant in ("int4", "int8"):
         ok = phase_caption_reference(SEED, quant)["ok"] and ok
     ok = phase_batch_caption_reference(SEED)["ok"] and ok
+    ok = phase_spec_reference(SEED)["ok"] and ok
+    ok = phase_tiled_reference(SEED)["ok"] and ok
     for quant in ("int8", "int4"):
         ok = phase_train_reference(SEED, quant)["ok"] and ok
-    path = folder = train = None
+    path = folder = train = spec = tiled = None
     if not args.skip_path:
         import shutil
         path, pipe, cd = phase_path(SEED)
@@ -2344,6 +2922,12 @@ def main(argv=None) -> int:
             try:
                 if args.profile and pipe is not None:
                     phase_profile(pipe)
+                if pipe is not None:
+                    spec = phase_spec(SEED, pipe, cd, path["sr3_path"])
+                    ok = ok and spec["ok"]
+                    tiled = phase_tiled(SEED, pipe, path["sr3_path"],
+                                        pipe.last_caption)
+                    ok = tiled["ok"] and ok
                 del pipe  # its weights and kept graphs, before the folder's
                 folder = phase_folder(SEED, cd, path.get("process_s"),
                                       profile=args.profile)
@@ -2355,17 +2939,21 @@ def main(argv=None) -> int:
         train = phase_train(SEED, profile=args.profile)
         ok = ok and train["ok"]
     by_path = {"process": path.get("launches", {}) if path else {},
+               "spec": spec["launches"] if spec else {},
+               "tiled": tiled["launches"] if tiled else {},
                "folder": folder["launches"] if folder else {},
                "train": train["launches"] if train else {}}
 
     def launches(k):
-        return {p: c.get(k, 0) for p, c in by_path.items()}
+        # None where a path's run did not read this kernel's count
+        return {p: c.get(k) for p, c in by_path.items()}
 
     def entry(name, source, replaces, k, rows, keys):
         head = rows[0]
         n = launches(k)
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": sum(n.values()),
+                "replaces": replaces,
+                "launches": sum(v for v in n.values() if v is not None),
                 "launches_by_path": n,
                 "max_abs_err": max(c["max_abs_err"] for c in rows
                                    if "max_abs_err" in c),

@@ -2,9 +2,7 @@
 
 Same dataclasses and defaults as the JAX package's Stage1Config,
 LlavaConfig, RefinementConfig and PipelineConfig, the reference image
-prompt and the prompt-file reader. LlavaConfig's fields for speculative
-decoding are not ported yet and are refused when set away from their
-defaults.
+prompt and the prompt-file reader.
 """
 
 from __future__ import annotations
@@ -78,9 +76,14 @@ class LlavaConfig:
     img_prompt: str = REFERENCE_IMG_PROMPT
     prompt_yaml: str = ""          # optional external prompt file override
     quant: str = "int8"            # "int8" | "int4" | "" (dense)
-    # not ported yet: set away from their defaults they raise
+    # speculative caption decoding (models/vlm/speculative.py): a
+    # Llama-family draft checkpoint (safetensors + config.json, the
+    # target's hidden size and vocabulary); "" = <ckpt_dir>/llava_draft
+    # when it exists. The ids do not depend on the draft.
     draft_dir: str = ""
-    spec_k: int = 4
+    spec_k: int = 4                # draft tokens proposed a round
+    # without a draft checkpoint: the target's first N layers as the
+    # draft (0 = off)
     self_draft_layers: int = 0
     # train_vlm archives: LoRA adapters (folded into an fp decoder, the
     # runtime branch of an int8 / int4 one) and the mm projector
@@ -91,12 +94,6 @@ class LlavaConfig:
         if self.quant not in ("int8", "int4", ""):
             raise ValueError(f"LlavaConfig.quant={self.quant!r}: expected "
                              "'int8', 'int4' or ''")
-        for name, default in (("draft_dir", ""), ("spec_k", 4),
-                              ("self_draft_layers", 0)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"LlavaConfig.{name}: this caption option is not ported "
-                    "yet (speculative decoding is queued)")
         if self.prompt_yaml:
             self.img_prompt = load_prompt_yaml(self.prompt_yaml)
 

@@ -8,14 +8,17 @@ family without files is seeded with a warning. It runs on CUDA unless given
 --device cpu, and raises without a card. --quant picks the caption
 decoder's weights (int8, int4 or "" for dense). --stage1_sampler ddim runs
 Stage 1 as DDIM in --stage1_steps steps (default 50, eta 0) instead of the
-500-step ancestral loop. --debug_tiny runs the JAX
+500-step ancestral loop. --draft_dir D decodes the caption with
+speculative rounds proposed by the Llama checkpoint in D (by default
+<ckpt_dir>/llava_draft when it exists), --self_draft N by the caption
+decoder's own first N layers. --debug_tiny runs the JAX
 pipeline's tiny geometries (its `_tiny_overrides`) with Stage 2b at a
 64-pixel minimum size; unlike the JAX flag it still reads the files of
 --ckpt_dir that exist (a directory written at those geometries) and does
 not resize the input, and it captions nothing, as the JAX flag.
 
 `build_pipeline(args)` is the construction the CLI runs; `main(argv)` adds
-the run. Not ported yet (they raise): --draft_dir, --self_draft.
+the run.
 """
 
 from __future__ import annotations
@@ -29,9 +32,6 @@ from .models.sr3.unet import SR3UNetConfig
 from .models.text.clip import CLIPTextConfig
 from .models.vae.model import VAEConfig
 from .pipeline import SuperResolutionPipeline
-
-_QUEUED = "is not ported yet (ROADMAP: speculative decoding)"
-
 
 def tiny_model_cfgs() -> dict:
     """rsvldm_tpu/pipeline.py::_tiny_overrides in the port's classes."""
@@ -69,9 +69,13 @@ def parse_args(argv=None):
                     help="DDIM steps of Stage 1 (with --stage1_sampler ddim)")
     ap.add_argument("--debug_tiny", action="store_true",
                     help="the tiny geometries (smoke testing)")
-    ap.add_argument("--draft_dir", type=str, default="", help=_QUEUED)
+    ap.add_argument("--draft_dir", type=str, default="",
+                    help="Llama-family draft checkpoint for speculative "
+                         "caption decoding (default: <ckpt_dir>/llava_draft "
+                         "when it exists)")
     ap.add_argument("--self_draft", type=int, default=0, metavar="N",
-                    help=_QUEUED)
+                    help="speculative caption decoding with the caption "
+                         "decoder's first N layers as the draft")
     ap.add_argument("--lora_npz", type=str, default="",
                     help="adapter archive from train_vlm, folded into the "
                          "captioner (dense decoder) or served as the runtime "
@@ -89,8 +93,6 @@ def parse_args(argv=None):
 
 def build_pipeline(args) -> SuperResolutionPipeline:
     """The pipeline the CLI runs, from its parsed arguments."""
-    if args.draft_dir or args.self_draft:
-        raise NotImplementedError(f"--draft_dir / --self_draft {_QUEUED}")
     cfg = PipelineConfig(input_img=args.input_img, output_dir=args.output_dir,
                          upscale=args.upscale_factor, seed=args.seed,
                          ckpt_dir=args.ckpt_dir,
@@ -98,7 +100,9 @@ def build_pipeline(args) -> SuperResolutionPipeline:
                          stage1_only=args.stage1_only,
                          llava=LlavaConfig(quant=args.quant,
                                            lora_npz=args.lora_npz,
-                                           projector_npz=args.projector_npz))
+                                           projector_npz=args.projector_npz,
+                                           draft_dir=args.draft_dir,
+                                           self_draft_layers=args.self_draft))
     cfg.stage1.sampler = args.stage1_sampler
     cfg.stage1.ddim_steps = args.stage1_steps
     cfg.refine.img_threshold = args.img_threshold

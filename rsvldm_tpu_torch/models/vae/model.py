@@ -5,7 +5,9 @@ Parameter names are the sgm checkpoint's (`encoder.down.{i}.block.{j}`,
 `quant_conv`, `post_quant_conv`), plus the fine-tuned `denoise_encoder` twin
 of the SR overlay checkpoint. The mid attention runs plain torch over all
 (H/8 * W/8) tokens in one head, as the JAX einsum does: at 1024^2 that is a
-16384^2 fp32 score matrix (1 GiB). The tiled VAE is not ported yet.
+16384^2 fp32 score matrix (1 GiB). models/vae/tiled.py runs the encoder
+and decoder over halo-padded tiles instead, with GroupNorm statistics
+pooled over the tiles.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 (rsvldm_tpu/models/vlm/anyres.py; the reference's llava/mm_utils.py and the
 spatial_unpad branch of llava_arch.py).
 
-Not ported yet: the 'anyres_max_N' downscale (`max_num_patches`), which
-resizes the feature map bilinearly; it raises.
+The 'anyres_max_N' variant (`max_num_patches`) downscales the unpadded
+feature map with the triangle filter of JAX's
+`jax.image.resize(method="linear")`, which widens the filter when it
+shrinks (antialias): torch's bilinear interpolation with antialias=True.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 from PIL import Image
 
 # llama3-llava-next-8b grid pinpoints (2x2 grid family at 336)
@@ -103,16 +107,25 @@ def assemble_spatial_unpad(features: np.ndarray, image_size,
                            max_num_patches: int | None = None) -> np.ndarray:
     """[1 + n, T, C] projected features -> [tokens, C]: the T base tokens,
     then the unpadded tile grid row by row, each row closed by the
-    image_newline column."""
-    if max_num_patches is not None:
-        raise NotImplementedError("assemble_spatial_unpad: the anyres_max_N "
-                                  "downscale is not ported yet")
+    image_newline column. With max_num_patches N, an unpadded map of more
+    than 1.1^2 N patch areas is first downscaled by sqrt(h w / (N side^2))
+    (llava_arch.py:385-397)."""
     side = int(math.sqrt(features.shape[1]))
     c = features.shape[-1]
     npw, nph = get_anyres_image_grid_shape(image_size, grid_pinpoints, patch_size)
     grid = features[1:].reshape(nph, npw, side, side, c)
     grid = grid.transpose(0, 2, 1, 3, 4).reshape(nph * side, npw * side, c)
     grid = unpad_feature(grid, image_size)
+    if max_num_patches is not None:
+        h, w = grid.shape[:2]
+        times = math.sqrt(h * w / (max_num_patches * side ** 2))
+        if times > 1.1:
+            nh, nw = int(h // times), int(w // times)
+            t = torch.from_numpy(np.ascontiguousarray(grid, np.float32))
+            t = F.interpolate(t.permute(2, 0, 1)[None], size=(nh, nw),
+                              mode="bilinear", align_corners=False,
+                              antialias=True)
+            grid = t[0].permute(1, 2, 0).numpy()
     newline = np.broadcast_to(image_newline, (grid.shape[0], 1, c))
     grid = np.concatenate([grid, newline], axis=1)
     return np.concatenate([features[0], grid.reshape(-1, c)], axis=0)

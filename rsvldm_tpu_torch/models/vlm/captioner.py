@@ -25,12 +25,23 @@ checkpoint's projector.
 (generate.caption_images), through the same runtime LoRA branch, kept
 decode graphs and stats as `caption`.
 
-Not ported yet: speculative decoding (a draft checkpoint or the
-self-draft).
+Speculative decoding (JAX captioner.py:226-322, speculative.py): `load`
+reads a Llama-family draft from `draft_dir`, by default
+<ckpt_dir>/llava_draft when it exists (`draft_dir=False` disables that),
+with its geometry from its config.json (a tied lm_head too), quantized
+as the target; a draft
+of another hidden size or vocabulary raises, as does a named draft
+directory that is missing or holds no weights. Without a draft,
+`self_draft_layers` N > 0 makes one of the target's first N blocks. Then
+`caption` decodes with speculative rounds of `spec_k` proposals; the ids
+are the target's (greedy exactly, sampled in distribution), the speed is
+the draft's. `caption_batch` stays on the batched vanilla decode, as in
+JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import logging
@@ -50,6 +61,7 @@ from ...utils.weights import seeded_init_
 from .generate import GenerateConfig, caption_image, caption_images
 from .llama import LLAMA3_8B_CONFIG, LlamaConfig, LlamaModel, quantize_llama_
 from .projector import MLPProjector
+from .speculative import self_draft, speculative_generate
 from .tokenizer import Llama3Tokenizer
 from .vision import CLIP_VIT_L_336_CONFIG, CLIPVisionConfig, CLIPVisionTower
 
@@ -133,6 +145,28 @@ def merge_peft(sd: dict, adapter_dir: Path) -> tuple[dict, int]:
     return merged, n
 
 
+def _llama_config_from_json(d: Path, base: LlamaConfig) -> LlamaConfig:
+    """The LlamaConfig of an HF config.json in d (a draft checkpoint's own
+    geometry), keys it lacks taken from `base` (JAX
+    `_llama_config_from_json`)."""
+    p = d / "config.json"
+    if not p.exists():
+        return base
+    with open(p) as f:
+        raw = json.load(f)
+    return dataclasses.replace(
+        base,
+        vocab_size=raw.get("vocab_size", base.vocab_size),
+        dim=raw.get("hidden_size", base.dim),
+        layers=raw.get("num_hidden_layers", base.layers),
+        heads=raw.get("num_attention_heads", base.heads),
+        kv_heads=raw.get("num_key_value_heads", base.kv_heads),
+        ffn_dim=raw.get("intermediate_size", base.ffn_dim),
+        rope_theta=raw.get("rope_theta", base.rope_theta),
+        rms_eps=raw.get("rms_norm_eps", base.rms_eps),
+        tie_lm_head=raw.get("tie_word_embeddings", base.tie_lm_head))
+
+
 def _now(device) -> float:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -155,6 +189,11 @@ class LlavaCaptioner:
         # lora): a later caption of the same bucket replays, as JAX's
         # jit cache does (generate.generate)
         self.decode_graphs: dict = {}
+        # speculative decoding: the draft model, the proposals a round, and
+        # the self-draft's depth (0 for a draft checkpoint)
+        self.draft: LlamaModel | None = None
+        self.spec_k = 4
+        self.self_draft_layers = 0
         self.last_stats: dict = {}
         # seconds of each load step (read_s, merge_s, quantize_s,
         # archives_s) and the files read
@@ -248,20 +287,19 @@ class LlavaCaptioner:
              device: str | torch.device = "cpu",
              dtype: torch.dtype = torch.float32,
              lora_npz: str | Path | None = None,
-             projector_npz: str | Path | None = None
+             projector_npz: str | Path | None = None,
+             draft_dir: str | Path | None | bool = None,
+             spec_k: int = 4, self_draft_layers: int = 0
              ) -> Optional["LlavaCaptioner"]:
         """The captioner of <ckpt_dir>/llava (JAX LlavaCaptioner.load,
-        captioner.py:122-239): the shards, the Llava-next PEFT adapter
+        captioner.py:122-278): the shards, the Llava-next PEFT adapter
         merged in fp32, the modules on `device` in `dtype`, `quant`, the
-        archives, and the tokenizer (tokenizer.json unless one is given).
-        None when <ckpt_dir>/llava is missing or holds no weights."""
+        archives, the tokenizer (tokenizer.json unless one is given), and
+        the speculative draft (`attach_draft`). None when <ckpt_dir>/llava
+        is missing or holds no weights."""
         d = Path(ckpt_dir) / "llava"
         if not d.is_dir():
             return None
-        if (Path(ckpt_dir) / "llava_draft").is_dir():
-            log.warning("%s: speculative decoding is not ported yet; the "
-                        "caption decodes without the draft (the same ids)",
-                        Path(ckpt_dir) / "llava_draft")
         t0 = time.perf_counter()
         sd, files = load_sharded(d)
         if not sd:
@@ -281,7 +319,70 @@ class LlavaCaptioner:
         cap.attach_archives(lora_npz, projector_npz)
         cap.load_stats.update(files=files, open_s=open_s, merge_s=merge_s,
                               peft_merged=merged)
+        dd = (None if draft_dir is False
+              else Path(draft_dir) if draft_dir else Path(ckpt_dir) / "llava_draft")
+        cap.attach_draft(dd, named=bool(draft_dir), spec_k=spec_k,
+                         self_draft_layers=self_draft_layers, quant=quant)
         return cap
+
+    @torch.no_grad()
+    def attach_draft(self, draft_dir: Path | None, named: bool = True,
+                     spec_k: int = 4, self_draft_layers: int = 0,
+                     quant: str | None = None):
+        """The speculative draft (JAX captioner.py:226-278): the Llama
+        checkpoint of `draft_dir` (sorted *.safetensors shards, else
+        pytorch_model*.bin; config.json over the target's geometry) on the
+        target's device and dtype, quantized with `quant`; else, with
+        `self_draft_layers` N > 0, the target's first N blocks. A `named`
+        directory that is missing or holds no weights raises
+        FileNotFoundError; another hidden size or vocabulary, ValueError."""
+        self.spec_k = spec_k
+        self.decode_graphs.clear()
+        draft = None
+        if draft_dir is not None and draft_dir.is_dir():
+            t0 = time.perf_counter()
+            sd, files = load_sharded(draft_dir)
+            if not sd and named:
+                raise FileNotFoundError(
+                    f"--draft_dir {draft_dir} contains no safetensors weights")
+            if sd:
+                draft = self._load_draft(draft_dir, sd, quant)
+                self.load_stats.update(draft_files=files,
+                                       draft_s=_now(self.image_newline.device) - t0)
+                log.info("speculative draft loaded from %s (%d layers, k=%d)",
+                         draft_dir, draft.cfg.layers, spec_k)
+        elif draft_dir is not None and named:
+            raise FileNotFoundError(f"--draft_dir {draft_dir} does not exist")
+        self.self_draft_layers = 0
+        if draft is None and self_draft_layers:
+            draft = self_draft(self.llama, self_draft_layers)
+            self.self_draft_layers = self_draft_layers
+            log.info("self-draft: first %d of %d target layers",
+                     self_draft_layers, self.llama.cfg.layers)
+        self.draft = draft
+
+    def _load_draft(self, draft_dir: Path, sd: dict, quant) -> LlamaModel:
+        tcfg = self.llama.cfg
+        dcfg = _llama_config_from_json(draft_dir, tcfg)
+        if dcfg.dim != tcfg.dim:
+            raise ValueError(
+                f"draft hidden dim {dcfg.dim} != target {tcfg.dim} — "
+                "speculative decoding feeds the spliced prompt embeds to "
+                "both models")
+        if dcfg.vocab_size != tcfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target {tcfg.vocab_size} "
+                "— the acceptance rule compares the two token distributions "
+                "elementwise (the models must share a tokenizer)")
+        dev = self.image_newline.device
+        with torch.device("meta"):
+            draft = LlamaModel(dcfg)
+        draft = draft.to(dtype=self.image_newline.dtype).to_empty(device=dev)
+        load_checked(draft, sd, f"draft ({draft_dir})")
+        draft.eval().requires_grad_(False)
+        if quant:
+            quantize_llama_(draft, quant)
+        return draft
 
     def _gen_setup(self, llava_cfg):
         """The prompt, GenerateConfig and tokenizer closures of `caption`
@@ -297,18 +398,33 @@ class LlavaCaptioner:
     @torch.inference_mode()
     def caption(self, image, llava_cfg,
                 generator: torch.Generator | None = None,
-                noise=None) -> str:
+                noise=None, accept_noise=None) -> str:
         """Stage 2a on one PIL image; sampling adds `noise(i)` to token i's
         logits, or Gumbel draws from `generator` (default: seeded with 0 on
         the captioner's device); on the card the decode replays a CUDA
-        graph kept in `decode_graphs`; see `generate.generate`."""
+        graph kept in `decode_graphs`; see `generate.generate`. With a
+        draft, speculative rounds decode (`_generate_fn`), `accept_noise`
+        giving their acceptance and resample draws."""
         prompt, cfg, encode, decode = self._gen_setup(llava_cfg)
         self.last_stats = {}
         return caption_image(self.llama, self.vision, self.projector, image,
                              prompt, encode, decode, self.image_newline, cfg,
                              generator, patch_size=self.vision.cfg.image_size,
                              stats=self.last_stats, noise=noise, lora=self.lora,
-                             graph_cache=self.decode_graphs)
+                             graph_cache=self.decode_graphs,
+                             generate_fn=self._generate_fn(accept_noise))
+
+    def _generate_fn(self, accept_noise=None):
+        """The decode of `caption` (JAX `_generate_fn`): speculative rounds
+        when a draft is attached, else None (generate.generate)."""
+        if self.draft is None:
+            return None
+        # a self-draft's blocks are the target's first ones, so the
+        # target's adapters (looked up by block index) serve it as they are
+        draft_lora = self.lora if self.self_draft_layers else None
+        return lambda model, spliced, cfg, generator, **kw: speculative_generate(
+            model, self.draft, spliced, cfg, self.spec_k, generator,
+            accept_noise=accept_noise, draft_lora=draft_lora, **kw)
 
     @torch.inference_mode()
     def caption_batch(self, images, llava_cfg,

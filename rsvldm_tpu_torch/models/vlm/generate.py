@@ -355,15 +355,18 @@ def caption_image(model: LlamaModel, vision_apply, projector_apply, image,
                   generator: torch.Generator | None = None,
                   patch_size: int = 336, stats: dict | None = None,
                   noise: Noise | None = None, lora: dict | None = None,
-                  graph_cache: dict | None = None) -> str:
+                  graph_cache: dict | None = None,
+                  generate_fn: Callable | None = None) -> str:
     """Stage 2a: anyres -> tower -> projector -> spatial-unpad assembly ->
     splice -> generate -> decode. Sampling noise, `lora` and `graph_cache`
-    as in `generate`."""
+    as in `generate`. generate_fn: a decode with `generate`'s signature in
+    its place (JAX generate.py:277-290), such as the speculative one."""
     spliced = embed_multimodal_prompt(
         model, vision_apply, projector_apply, llama3_chat_prompt(prompt_text),
         [image], encode_fn, image_newline, patch_size)
-    ids = generate(model, spliced, cfg, generator, stats=stats, noise=noise,
-                   lora=lora, graph_cache=graph_cache)
+    ids = (generate_fn or generate)(model, spliced, cfg, generator,
+                                    stats=stats, noise=noise, lora=lora,
+                                    graph_cache=graph_cache)
     return decode_fn(ids.tolist()).lstrip()
 
 

@@ -4,7 +4,8 @@ Parameter names are HF LlamaForCausalLM's (`model.embed_tokens`,
 `model.layers.{i}.self_attn.{q,k,v,o}_proj`, `.mlp.{gate,up,down}_proj`,
 `.input_layernorm`, `.post_attention_layernorm`, `model.norm`, `lm_head`),
 the names convert_llama reads. RMSNorm with fp32 statistics, rotate-half
-RoPE, GQA, SwiGLU, an untied lm_head.
+RoPE, GQA, SwiGLU, an lm_head of its own or, with `tie_lm_head`, the
+embedding table's transpose (JAX's `embed_tokens.attend`).
 
 One forward serves prefill and decode: new tokens' K/V are written in place
 into a preallocated [L, B, T, kv_heads, head_dim] cache (the JAX package
@@ -62,6 +63,8 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     # recompute each block in the backward (gradient checkpointing)
     remat: bool = False
+    # logits from the embedding table (HF tie_word_embeddings): no lm_head
+    tie_lm_head: bool = False
     # not ported yet: set away from their defaults they raise
     sliding_window: int | None = None
     kv_quant: bool = False
@@ -283,7 +286,8 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.model = _Decoder(cfg)
-        self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False)
+        self.lm_head = (None if cfg.tie_lm_head
+                        else nn.Linear(cfg.dim, cfg.vocab_size, bias=False))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -319,6 +323,11 @@ class LlamaModel(nn.Module):
         if logits_at is not None:
             x = x[torch.arange(x.shape[0], device=x.device), logits_at][:, None]
         x = self.model.norm(x)
+        if self.lm_head is None:
+            # tied: x @ embedding^T in the wider of the two dtypes (JAX attend)
+            w = self.model.embed_tokens.weight
+            dt = torch.promote_types(x.dtype, w.dtype)
+            return F.linear(x.to(dt), w.to(dt)).float(), cache
         return self.lm_head(x).float(), cache
 
 

@@ -52,7 +52,13 @@ the JAX stream. Draws, in the JAX layout: "stage1" [T+1, 1, H, W, 3]
 w, 4]; a batched Stage 1 draws one "stage1" [rows, N, H, W, 3] per group,
 a batched refinement each of the others with N images.
 
-Not ported yet: the tiled VAE (use_tile_vae raises).
+The tiled VAE (cfg.refine.use_tile_vae, JAX pipeline.py:607-678): when the
+image's shorter side exceeds encoder_tile_size, the VAE preparation and the
+final decode run over tiles (models/vae/tiled.py): the twin encoder and the
+decoder tiled, then the encoder's moments tiled and the posterior sampled
+once on the stitched moments with the "vae_sample" draw. A batched
+refinement whose bucket-padded shape would tile refines image by image,
+as JAX does, since the tile axis is the statistics pool of one image.
 """
 
 from __future__ import annotations
@@ -81,7 +87,8 @@ from .models.text.clip import (CLIP_L_CONFIG, OPENCLIP_BIGG_CONFIG,
                                CLIPTextTransformer)
 from .models.text.conditioner import SDXLConditioner
 from .models.vlm.captioner import LlavaCaptioner
-from .models.vae.model import SDXL_VAE_CONFIG, AutoencoderKL
+from .models.vae import tiled
+from .models.vae.model import SDXL_VAE_CONFIG, AutoencoderKL, DiagonalGaussian
 from .ops import colorfix
 from .ops.image import (array_to_pil, load_lr_conditioning, pil_to_array,
                         round_to_multiple, to_uint8)
@@ -176,8 +183,6 @@ class SuperResolutionPipeline:
         if cfg.stage1.sampler not in ("ddpm", "ddim"):
             raise ValueError(f"Stage1Config.sampler={cfg.stage1.sampler!r}: "
                              "expected 'ddpm' or 'ddim'")
-        if cfg.refine.use_tile_vae:
-            raise NotImplementedError("the tiled VAE is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = compute_dtype(self.device, cfg.params_dtype)
@@ -300,6 +305,8 @@ class SuperResolutionPipeline:
         kw = {"quant": llava.quant or None, "device": self.device,
               "dtype": self.dtype, "lora_npz": llava.lora_npz or None,
               "projector_npz": llava.projector_npz or None,
+              "draft_dir": llava.draft_dir or None, "spec_k": llava.spec_k,
+              "self_draft_layers": llava.self_draft_layers,
               **self.llava_load_kw}
         try:
             self.llava = LlavaCaptioner.load(self.cfg.ckpt_dir, **kw)
@@ -440,18 +447,46 @@ class SuperResolutionPipeline:
         to = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
         return to(tl), to(tg)
 
+    def _use_tiles(self, hw) -> bool:
+        r = self.cfg.refine
+        return r.use_tile_vae and min(hw) > r.encoder_tile_size
+
+    def _vae_prep(self, x: torch.Tensor):
+        """x [N, 3, H, W] -> (z_lq, x_stage1, z_stage1): the twin encoder,
+        the decode, and the encoder's posterior sampled with the
+        "vae_sample" draw; tiled when `_use_tiles` (one image)."""
+        vae, r = self.vae, self.cfg.refine
+        if not self._use_tiles(x.shape[2:]):
+            z_lq = vae.encode_with_denoise(x)
+            x_stage1 = vae.decode(z_lq)
+            eps = self.noise("vae_sample", tuple(_nhwc(z_lq).shape))
+            return z_lq, x_stage1, vae.encode(x_stage1,
+                                              noise=_nchw(eps.to(self.device)))
+        z_lq = tiled.tiled_encode(vae.encode_with_denoise, x,
+                                  tile=r.encoder_tile_size)
+        x_stage1 = tiled.tiled_decode(vae.decode, z_lq, tile=r.decoder_tile_size)
+        # the moments tiled, the posterior sampled once on the stitched ones
+        moments = tiled.tiled_encode(lambda t: vae.quant_conv(vae.encoder(t)),
+                                     x_stage1, tile=r.encoder_tile_size)
+        eps = self.noise("vae_sample", tuple(_nhwc(z_lq).shape))
+        post = DiagonalGaussian(moments.float())
+        z_stage1 = vae.cfg.scale_factor * post.sample(_nchw(eps.to(self.device)))
+        return z_lq, x_stage1, z_stage1
+
+    def _decode(self, z: torch.Tensor) -> torch.Tensor:
+        """The final decode, tiled when `_use_tiles` at 8x z's extent."""
+        if self._use_tiles((8 * z.shape[2], 8 * z.shape[3])):
+            return tiled.tiled_decode(self.vae.decode, z,
+                                      tile=self.cfg.refine.decoder_tile_size)
+        return self.vae.decode(z)
+
     def _refine_core(self, x: torch.Tensor, texts_c):
         """x [N, H, W, 3] in [-1, 1] -> (samples, x_stage1), both [N, H, W, 3]
         fp32 on the device."""
         r = self.cfg.refine
         scfg = self._make_sampler_cfg()
-        vae = self.vae
         with self._timed("vae_prep"):
-            x = _nchw(x.to(self.device))
-            z_lq = vae.encode_with_denoise(x)
-            x_stage1 = vae.decode(z_lq)
-            eps = self.noise("vae_sample", tuple(_nhwc(z_lq).shape))
-            z_stage1 = vae.encode(x_stage1, noise=_nchw(eps.to(self.device)))
+            z_lq, x_stage1, z_stage1 = self._vae_prep(_nchw(x.to(self.device)))
         with self._timed("conditioning"):
             tl_c, tg_c = self._tokens(texts_c)
             tl_u, tg_u = self._tokens([r.n_prompt] * len(texts_c))
@@ -475,7 +510,7 @@ class SuperResolutionPipeline:
         self.last_dfb = {"hits": aux["cache_hits"], "steps": aux["num_steps"],
                          "trace": aux["hit_trace"]}
         with self._timed("decode"):
-            samples = vae.decode(_nchw(z))
+            samples = self._decode(_nchw(z))
         return _nhwc(samples), _nhwc(x_stage1)
 
     def _colorfix(self, samples, x_stage1):
@@ -527,7 +562,9 @@ class SuperResolutionPipeline:
         batch's largest size_bucket (else 64) multiple, one _refine_core
         with one text per row, then each cropped and colour-fixed on its
         own. With num_samples != 1 or one item, image by image through
-        run_refinement. Returns PIL images in order."""
+        run_refinement; so too when the padded shape would take the tiled
+        VAE, whose tile axis pools one image's statistics (JAX
+        pipeline.py:562-574). Returns PIL images in order."""
         self.ensure_stage2()
         r = self.cfg.refine
         if r.num_samples != 1 or len(items) == 1:
@@ -540,6 +577,8 @@ class SuperResolutionPipeline:
         bucket = r.size_bucket or 64
         hb = max(-(-m[0] // bucket) * bucket for m in metas)
         wb = max(-(-m[1] // bucket) * bucket for m in metas)
+        if self._use_tiles((hb, wb)):
+            return [self.run_refinement(p, c) for p, c in items]
         x = torch.from_numpy(np.stack([
             np.pad(x, ((0, hb - x.shape[0]), (0, wb - x.shape[1]), (0, 0)),
                    mode="edge") for x in xs]))

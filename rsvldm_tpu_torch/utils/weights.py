@@ -284,7 +284,8 @@ def _llama(p, cfg) -> _SD:
     sd = _SD()
     sd["model.embed_tokens.weight"] = _arr(p["embed_tokens"]["embedding"])
     sd["model.norm.weight"] = _arr(p["norm"]["weight"])
-    sd.dense("lm_head", p["lm_head"])
+    if "lm_head" in p:  # absent when tied to the embedding
+        sd.dense("lm_head", p["lm_head"])
     for i in range(cfg.layers):
         lp, b = f"model.layers.{i}", p[f"layer_{i}"]
         sd[f"{lp}.input_layernorm.weight"] = _arr(b["attn_norm"]["weight"])

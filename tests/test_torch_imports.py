@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("training", "training.vlm_trainer", "training.vlm_data",
                  "data", "data.prefetch", "train_vlm", "infer", "infer_dir",
                  "utils.safetensors", "utils.checkpoint", "utils.tokenizer",
-                 "models.vlm.tokenizer", "utils.graphs"):
+                 "models.vlm.tokenizer", "utils.graphs",
+                 "models.vlm.speculative", "models.vlm.conversation",
+                 "models.vae.tiled"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -64,12 +66,14 @@ def test_cuda_entry_points_raise_without_a_card():
         train_vlm.main(["--smoke", "--data_path", "d.json", "--output_dir", "o"])
 
 
-def test_caption_stage_is_refused_not_skipped():
-    """Caption options the port does not have yet (speculative decoding)
-    raise; they are never silently ignored. The archives are taken."""
+def test_caption_options_are_taken():
+    """Every caption option of the JAX package's LlavaConfig is taken with
+    its meaning: the speculative draft, its proposals a round, the
+    self-draft's depth, and the archives; an unknown quant raises."""
     from rsvldm_tpu_torch.config import LlavaConfig
-    for kw in (dict(draft_dir="d"), dict(spec_k=2), dict(self_draft_layers=8)):
-        with pytest.raises(NotImplementedError, match="caption"):
-            LlavaConfig(**kw)
+    cfg = LlavaConfig(draft_dir="d", spec_k=2, self_draft_layers=8)
+    assert (cfg.draft_dir, cfg.spec_k, cfg.self_draft_layers) == ("d", 2, 8)
     cfg = LlavaConfig(lora_npz="a.npz", projector_npz="p.npz")
     assert (cfg.lora_npz, cfg.projector_npz) == ("a.npz", "p.npz")
+    with pytest.raises(ValueError, match="quant"):
+        LlavaConfig(quant="int2")

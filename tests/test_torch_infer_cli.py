@@ -1,8 +1,8 @@
 """The port's CLI, `python -m rsvldm_tpu_torch.infer`, on CPU: at the tiny
 geometries it reads a checkpoint directory written at them (every family
 from its files) and writes both PNGs, and runs Stage 1 as DDIM; without
---device cpu on a machine with no card it raises; what is not ported yet
-raises."""
+--device cpu on a machine with no card it raises; --draft_dir and
+--self_draft build a speculative captioner."""
 
 import os
 import subprocess
@@ -21,6 +21,7 @@ from rsvldm_tpu_torch.utils.weights import seeded_init_
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "tests"))
 import chip_smoke  # noqa: E402
 
 
@@ -119,8 +120,41 @@ def test_cli_stage1_ddim(tiny_ckpt, tmp_path):
     assert png.shape == (16, 16, 3) and png.std() > 0
 
 
-@pytest.mark.parametrize("flags", [["--draft_dir", "d"], ["--self_draft", "4"]])
-def test_cli_refuses_what_is_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        infer.build_pipeline(infer.parse_args(
-            ["--input_img", "x.png", "--device", "cpu"] + flags))
+@pytest.mark.parametrize("flag", ["--draft_dir", "--self_draft"])
+def test_cli_builds_a_speculative_captioner(tmp_path, flag):
+    """--draft_dir D (a one-layer draft checkpoint with its config.json,
+    tests/test_captioner.py's) and --self_draft 1 reach LlavaConfig, and the
+    pipeline's captioner load builds a captioner with that draft (the
+    captioner at test_captioner's geometry, as the port's pipeline tests
+    load it)."""
+    from safetensors.torch import save_file
+    from rsvldm_tpu_torch.models.vlm.llama import LlamaConfig
+    from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig
+    import test_captioner as tc
+    (tmp_path / "llava").mkdir()
+    save_file(tc._tiny_llava_state_dict(),
+              str(tmp_path / "llava" / "model.safetensors"))
+    if flag == "--draft_dir":  # outside <ckpt_dir>, so found by name only
+        (tmp_path / "drafts").mkdir()
+        value = str(tc._write_draft_dir(tmp_path / "drafts", layers=1))
+    else:
+        value = "1"
+    pipe = infer.build_pipeline(infer.parse_args(
+        ["--input_img", "x.png", "--device", "cpu", "--debug_tiny",
+         "--ckpt_dir", str(tmp_path), flag, value]))
+    llava = pipe.cfg.llava
+    assert (llava.draft_dir, llava.self_draft_layers) == (
+        (value, 0) if flag == "--draft_dir" else ("", 1))
+    pipe.llava_load_kw = dict(
+        llama_cfg=LlamaConfig(vocab_size=256, dim=32, layers=2, heads=4,
+                              kv_heads=2, ffn_dim=64),
+        vision_cfg=CLIPVisionConfig(image_size=28, patch_size=14, width=24,
+                                    layers=2, heads=2, select_layer=-2),
+        tokenizer=tc.FakeTokenizer())
+    pipe._load_llava()
+    cap = pipe.llava
+    assert cap is not None and cap.draft is not None
+    if flag == "--draft_dir":
+        assert cap.self_draft_layers == 0 and cap.draft.cfg.layers == 1
+    else:
+        assert cap.draft.model.layers[0] is cap.llama.model.layers[0]

@@ -1,5 +1,6 @@
 """The port's caption stage held against the JAX package at tiny geometry,
-fp32 on the CPU: CLIP vision tower, projector, anyres assembly, the Llama
+fp32 on the CPU: CLIP vision tower, projector, anyres assembly (and its
+anyres_max_N downscale), the conversation templates, the Llama
 decoder (dense, int8, int4: prefill and decode logits, KV caches, greedy
 ids, sampled ids with JAX's Gumbel noise), the whole captioner from one HF-named state dict and from a
 checkpoint directory (two shards, a PEFT adapter, tokenizer.json; LoRA and
@@ -110,11 +111,49 @@ def test_anyres_assembly_equal(size):
     np.testing.assert_array_equal(tokens, want)
 
 
-def test_anyres_max_num_patches_refused():
-    with pytest.raises(NotImplementedError, match="anyres_max"):
-        anyres.assemble_spatial_unpad(np.zeros((3, 4, 2)), (28, 56), np.zeros(2),
-                                      anyres.grid_pinpoints_for(28), 28,
-                                      max_num_patches=1)
+@pytest.mark.parametrize("size,max_n,shrinks", [
+    ((672, 672), 1, True), ((672, 672), 3, True), ((672, 336), 1, True),
+    ((500, 900), 1, True), ((336, 1008), 2, True), ((672, 672), 9, False),
+    ((500, 900), 2, False)])
+def test_assemble_anyres_max_equal_jax(size, max_n, shrinks):
+    """anyres_max_N (JAX's test_assemble_anyres_max, 336-pixel patches of
+    4x4 features): the unpadded map downscaled with JAX's antialiased
+    linear resize when it exceeds N patch areas by more than 1.1^2, else
+    kept as it is; the base tokens untouched.
+    Tolerance 1e-6 absolute (fp32 filter weights summed in another
+    order)."""
+    side, c = 4, 8
+    rng = np.random.default_rng(1)
+    npw, nph = anyres.get_anyres_image_grid_shape(
+        size, anyres.DEFAULT_GRID_PINPOINTS, 336)
+    feats = rng.normal(size=(1 + npw * nph, side * side, c)).astype(np.float32)
+    newline = rng.normal(size=(c,)).astype(np.float32)
+    full = anyres.assemble_spatial_unpad(feats, size, newline, patch_size=336)
+    got = anyres.assemble_spatial_unpad(feats, size, newline, patch_size=336,
+                                        max_num_patches=max_n)
+    want = janyres.assemble_spatial_unpad(feats, size, newline, patch_size=336,
+                                          max_num_patches=max_n)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[:side * side], feats[0])
+    assert (got.shape[0] < full.shape[0]) == shrinks
+
+
+def test_conversation_templates_equal_jax():
+    """All six templates of the port's registry render JAX's prompts, with
+    JAX's stop tokens and system messages; llava_llama_3 is the caption
+    stage's prompt."""
+    from rsvldm_tpu.models.vlm.conversation import conv_templates as jconv
+    from rsvldm_tpu_torch.models.vlm.conversation import conv_templates
+    assert sorted(conv_templates) == sorted(jconv) and len(jconv) == 6
+    for name, conv in conv_templates.items():
+        j = jconv[name]
+        assert (conv.name, conv.stop_tokens, conv.system) == (
+            j.name, j.stop_tokens, j.system)
+        for msg in ("describe <image>", "hi"):
+            assert conv.prompt(msg) == j.prompt(msg)
+            assert conv.render("sys", msg) == j.render("sys", msg)
+    assert conv_templates["llava_llama_3"].prompt("x") == tgen.llama3_chat_prompt("x")
 
 
 # ------------------------------------------------------------------ llama
