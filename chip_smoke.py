@@ -29,10 +29,15 @@ Phases, each printed on its own line:
                teacher-forced with the CPU's tokens, logit cosine and top-1
                agreement per step (K1 and K2 in use), and the activation
                quantizers' codes and scales card against CPU, bit for bit;
-               then one QLoRA loss
-               and its adapter gradients at a small width with 128-wide
-               heads and 1024 tokens, int8 and int4, card (bf16, remat: K1
-               and the backward) against CPU (fp32): loss and per-leaf
+               then the three training losses at a small width with
+               128-wide heads and 1024 tokens, int8 and int4, card (bf16,
+               remat: K1 and the backward) against CPU (fp32): the QLoRA
+               loss and its adapter gradients, mm_loss with the projector
+               inside the graph (adapter and projector gradients), and
+               dpo_loss (its four sequence log-prob sums, each row's
+               policy-minus-reference delta, the loss against the DPO
+               formula on the card's own sums, planted faults that must
+               fail, and the adapter gradients); loss and per-leaf
                gradient cosine. In this phase too, the loops' step functions
                (utils/graphs.StepRunner) replayed as CUDA graphs against
                direct calls on the same inputs: SR3 and DDIM (8 steps),
@@ -89,11 +94,22 @@ Phases, each printed on its own line:
                alone at 2048^2 (16 tiles each), and the reckoned bytes of
                the whole VAE's 65536^2 mid-attention scores there;
                the directory is deleted after phase folder;
-               then the train_vlm loop at full width: the same geometry
-               with an int8 decoder, LoRA r=16 on the seven projections,
-               AdamW, gradient checkpointing, 16 anyres 224^2 records,
-               4 steps of batch 4 padded to 1536 tokens. Each path's kernel
-               launch counts are reset just before it and read just after.
+               then the train_vlm loop at full width on one seeded
+               captioner (int8 decoder, built once): LoRA r=16 on the
+               seven projections, AdamW, gradient checkpointing, 16 anyres
+               224^2 records, 4 steps of batch 4 padded to 1536 tokens
+               (train); video records of 8 frames from frame folders
+               (train_video); DPO on preference pairs padded to 1024
+               (train_dpo: K1 192, backward 64 a step); the projector
+               alone, then with the adapters at --mm_projector_lr 2e-5, on
+               pad-recipe image records padded to 1024 (train_mm_*); each
+               step's K1 / backward launches as the recipe implies, the
+               base's bytes unchanged, the projector moved exactly when it
+               trains; then train_sr3: SR3 training (the path's UNet, batch
+               8 at 224^2, fp32) through the CLI's construction, saved and
+               resumed, the resumed step equal to the uninterrupted one.
+               Each path's kernel launch counts are reset just before it
+               and read just after.
      folder    (before the directory is deleted, and after the path's
                pipeline is freed) folder mode as a user runs it: the
                processor built by infer_dir.build_processor (--quant int4)
@@ -202,6 +218,21 @@ CAP_COS_MIN, CAP_TOP1_MIN = 0.998, 0.5
 # cosine of 0.99925 / 0.99938 over the 28 leaves; the limits leave about
 # 14x and 6x margin (on 1 - cos).
 TRAIN_LOSS_RTOL, TRAIN_COS_MIN = 2e-3, 0.995
+# DPO's loss is -log sigmoid(beta * margin), the margin per pair
+# (pi_c - ref_c) - (pi_r - ref_r): four sums of 512 token log-probabilities
+# (about -3800 each). bf16 moves each sum by about 2e-4 of it (0.3-0.9
+# nats), and the policy's and the reference's moves do not cancel, so the
+# loss itself is not held against the fp32 one (an H100 gave 1.9e-2 /
+# 6.7e-2 relative, int8 / int4). Held instead, on the quantities the loss
+# is made of: each sum to TRAIN_LOSS_RTOL relative; each row's
+# policy-minus-reference delta against the CPU's to DPO_DELTA_ATOL nats (an
+# H100 gave at most 0.45 / 1.66); and the card's dpo_loss against the DPO
+# formula on the card's own sums to DPO_LOSS_SELF_ATOL (1.3e-8 / 8.4e-9:
+# the graph and no-graph forwards agree). Planted faults (the reference
+# run with the adapters on, or with its chosen and rejected rows swapped)
+# must fail these checks; the first moves a row's delta by 3.1-3.5 nats.
+DPO_DELTA_ATOL, DPO_LOSS_SELF_ATOL = 2.5, 1e-5
+DPO_BETA = 0.1
 # Graph replay against direct calls of the same step functions on the card
 # (utils/graphs.StepRunner): the same kernels on the same inputs, so the
 # latents are expected bit-equal; the limit, max |graph - direct| <=
@@ -2562,15 +2593,20 @@ def phase_folder(seed: int, cd: Path, process_s: float | None,
 
 # --------------------------------------------------------- phase 4b, 5c
 def phase_train_reference(seed: int, quant: str, seq: int = 1024):
-    """One loss and its adapter gradients at a small width with 128-wide
-    heads and {seq} tokens (so K1 and the backward run), on the card in bf16
-    with remat against the CPU in fp32 without: the same weights (rounded
-    to bf16 so both quantize the same values to the same bytes), adapters
-    (nonzero B) and batch. Passes on the loss's relative error and every
-    adapter leaf's gradient cosine."""
+    """The three training losses at a small width with 128-wide heads and
+    {seq} tokens (so K1 and the backward run), on the card in bf16 with
+    remat against the CPU in fp32 without: the same weights (rounded to
+    bf16 so both quantize the same values to the same bytes), adapters
+    (nonzero B), projector and batch. `sft`: vlm_loss and the adapters'
+    gradients; `mm`: mm_loss, the projector (fp32, as MMTrainer trains it)
+    filling a zero span of each row, and the adapters' and the projector's
+    gradients; `dpo`: dpo_loss over chosen / rejected rows and the adapters'
+    gradients. Passes on each loss's relative error, every trainable
+    leaf's gradient cosine and the launches each loss implies."""
     import torch
     from rsvldm_tpu_torch.models.vlm.llama import (LlamaConfig, LlamaModel,
                                                    quantize_llama_)
+    from rsvldm_tpu_torch.models.vlm.projector import MLPProjector
     from rsvldm_tpu_torch.training import vlm_trainer as vt
     from rsvldm_tpu_torch.utils.weights import seeded_init_
 
@@ -2579,13 +2615,23 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024):
     dense = seeded_init_(LlamaModel(lcfg), "llama", torch.device("cpu"))
     sd = {k: v.to(torch.bfloat16).float() for k, v in dense.state_dict().items()}
     gen = torch.Generator().manual_seed(seed + 5)
-    b = 2
-    emb = (torch.randn((b, seq, lcfg.dim), generator=gen) * 0.5).to(
-        torch.bfloat16).float()
+    b, t_img, dv = 2, 64, 64
+    bf = lambda x: x.to(torch.bfloat16).float()
+    emb = bf(torch.randn((b, seq, lcfg.dim), generator=gen) * 0.5)
     labels = torch.randint(0, lcfg.vocab_size, (b, seq), generator=gen)
     labels[:, : seq // 2] = vt.IGNORE_INDEX
+    rejected = bf(torch.randn((b, seq, lcfg.dim), generator=gen) * 0.5)
+    rej_labels = torch.randint(0, lcfg.vocab_size, (b, seq), generator=gen)
+    rej_labels[:, : seq // 2 + 7] = vt.IGNORE_INDEX
+    vis = bf(torch.randn((b, t_img, dv), generator=gen))
+    pos = [100, 300]
+    span = emb.clone()
+    for row, p in enumerate(pos):
+        span[row, p:p + t_img] = 0
+    proj0 = seeded_init_(MLPProjector(dv, lcfg.dim), "projector",
+                         torch.device("cpu"))
     cfg = vt.LoraConfig(r=16, alpha=16)
-    grads, losses, models = {}, {}, {}
+    models = {}
     for dev in ("cpu", "cuda"):
         m = LlamaModel(dataclasses.replace(lcfg, remat=dev == "cuda"))
         m.load_state_dict(sd)
@@ -2597,38 +2643,136 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024):
     same_bytes = all(torch.equal(v.cpu(), models["cpu"].state_dict()[k])
                      for k, v in models["cuda"].state_dict().items()
                      if v.dtype == torch.int8)
-    for dev in ("cpu", "cuda"):
-        lora = {p: {n: t.to(dev).requires_grad_() for n, t in ab.items()}
-                for p, ab in lora0.items()}
-        _reset_counts()
-        loss = vt.vlm_loss(models[dev], lora, cfg,
-                           emb.to(dev, models[dev].dtype), labels.to(dev))
-        leaves = [(f"{p}.{n}", t) for p, ab in lora.items()
-                  for n, t in ab.items()]
-        g = torch.autograd.grad(loss, [t for _, t in leaves])
-        torch.cuda.synchronize()
-        grads[dev] = {name: x.float().cpu() for (name, _), x in zip(leaves, g)}
-        losses[dev] = float(loss.detach())
-        launches = _counts()
-    cos = {k: float(torch.nn.functional.cosine_similarity(
-        grads["cpu"][k].flatten(), grads["cuda"][k].flatten(), dim=0))
-        for k in grads["cpu"]}
-    loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    rec = dict(quant=quant, seq=seq, batch=b, layers=lcfg.layers,
-               head_dim=lcfg.head_dim, loss_cpu=losses["cpu"],
-               loss_card=losses["cuda"], loss_rel_err=loss_rel,
-               grad_cos_min=min(cos.values()),
-               grad_cos_min_leaf=min(cos, key=cos.get),
-               same_quantized_bytes=same_bytes, card_launches=launches,
-               tol=f"loss rel err <= {TRAIN_LOSS_RTOL}, every leaf's "
-                   f"gradient cosine >= {TRAIN_COS_MIN}")
-    rec["ok"] = bool(same_bytes and loss_rel <= TRAIN_LOSS_RTOL
-                     and min(cos.values()) >= TRAIN_COS_MIN
-                     and launches["k1"] == 2 * lcfg.layers
-                     and launches["bwd"] == lcfg.layers)
+    L = lcfg.layers
+    # loss name -> (its function of (model, lora, projector, dtype, dev),
+    # trains the projector, K1 launches, backward launches)
+    cases = {
+        "sft": (lambda m, lora, proj, dt, d: vt.vlm_loss(
+            m, lora, cfg, emb.to(d, dt), labels.to(d)), False, 2 * L, L),
+        "mm": (lambda m, lora, proj, dt, d: vt.mm_loss(
+            m, lora, cfg, proj, vis.to(d, dt), span.to(d, dt), pos,
+            labels.to(d)), True, 2 * L, L),
+        "dpo": (lambda m, lora, proj, dt, d: vt.dpo_loss(
+            m, lora, cfg, emb.to(d, dt), labels.to(d), rejected.to(d, dt),
+            rej_labels.to(d), beta=DPO_BETA), False, 6 * L, 2 * L),
+    }
+
+    @torch.no_grad()
+    def logprobs(m, lora, dt, d):
+        """The four sums DPO's margin is made of: policy / reference,
+        chosen / rejected."""
+        rows = ((emb, labels), (rejected, rej_labels))
+        return [float(x) for a in (lora, None) for e, lab in rows
+                for x in vt.sequence_logprob(m, e.to(d, dt), lab.to(d), a,
+                                             cfg)]
+
+    recs = {}
+    for name, (loss_fn, with_proj, k1_want, bwd_want) in cases.items():
+        grads, losses, lps = {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            lora = {p: {n: t.to(dev).requires_grad_() for n, t in ab.items()}
+                    for p, ab in lora0.items()}
+            leaves = [(f"{p}.{n}", t) for p, ab in lora.items()
+                      for n, t in ab.items()]
+            proj = None
+            if with_proj:
+                proj = MLPProjector(dv, lcfg.dim).to(dev)
+                proj.load_state_dict(proj0.state_dict())
+                leaves += [(f"projector.{n}", t)
+                           for n, t in proj.named_parameters()]
+            _reset_counts()
+            loss = loss_fn(models[dev], lora, proj, models[dev].dtype, dev)
+            g = torch.autograd.grad(loss, [t for _, t in leaves])
+            torch.cuda.synchronize()
+            grads[dev] = {k: x.float().cpu() for (k, _), x in zip(leaves, g)}
+            losses[dev] = float(loss.detach())
+            launches = _counts()
+            if name == "dpo":
+                lps[dev] = logprobs(models[dev], lora, models[dev].dtype, dev)
+        cos = {k: float(torch.nn.functional.cosine_similarity(
+            grads["cpu"][k].flatten(), grads["cuda"][k].flatten(), dim=0))
+            for k in grads["cpu"]}
+        loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        rec = dict(loss=name, quant=quant, seq=seq, batch=b, layers=L,
+                   head_dim=lcfg.head_dim, loss_cpu=losses["cpu"],
+                   loss_card=losses["cuda"], loss_rel_err=loss_rel,
+                   leaves=len(cos), grad_cos_min=min(cos.values()),
+                   grad_cos_min_leaf=min(cos, key=cos.get),
+                   same_quantized_bytes=same_bytes, card_launches=launches,
+                   want_launches={"k1": k1_want, "bwd": bwd_want},
+                   tol=f"loss rel err <= {TRAIN_LOSS_RTOL}, every leaf's "
+                       f"gradient cosine >= {TRAIN_COS_MIN}")
+        if with_proj:
+            rec["projector_grad_cos_min"] = min(
+                v for k, v in cos.items() if k.startswith("projector."))
+        loss_ok = loss_rel <= TRAIN_LOSS_RTOL
+        if name == "dpo":
+            rec.update(_dpo_check(lps["cuda"], lps["cpu"], losses["cuda"], b))
+            loss_ok = rec["dpo_ok"]
+        rec["ok"] = bool(same_bytes and loss_ok
+                         and min(cos.values()) >= TRAIN_COS_MIN
+                         and launches["k1"] == k1_want
+                         and launches["bwd"] == bwd_want)
+        _say("train_reference", **rec)
+        recs[name] = rec
     _reset_counts()
-    _say("train_reference", **rec)
-    return rec
+    return {"ok": all(r["ok"] for r in recs.values()), "cases": recs}
+
+
+def _dpo_deltas(sums: list, b: int) -> list:
+    """sums: policy chosen, policy rejected, reference chosen, reference
+    rejected, b rows each -> the 2b policy-minus-reference deltas."""
+    return [sums[i] - sums[2 * b + i] for i in range(2 * b)]
+
+
+def _dpo_formula(sums: list, b: int) -> float:
+    """-log sigmoid(beta * margin) averaged over the b pairs, in fp64."""
+    d = _dpo_deltas(sums, b)
+    return sum(math.log1p(math.exp(-DPO_BETA * (d[i] - d[b + i])))
+               for i in range(b)) / b
+
+
+def _dpo_check(card: list, cpu: list, loss_card: float, b: int) -> dict:
+    """DPO on the card against the CPU (DPO_DELTA_ATOL's comment): the
+    sums, the per-row deltas, and dpo_loss against the formula on the
+    card's sums. Planted faults, made from the card's own sums, must fail:
+    the reference run with the adapters on (its sums the policy's, the loss
+    log 2), and its chosen and rejected rows swapped."""
+    want = _dpo_deltas(cpu, b)
+
+    def judge(sums, loss):
+        rel = max(abs(x - y) / abs(y) for x, y in zip(sums, cpu))
+        delta = max(abs(x - y) for x, y in zip(_dpo_deltas(sums, b), want))
+        self_err = abs(loss - _dpo_formula(sums, b))
+        return {"logprob_rel_err_max": rel, "delta_abs_err_max": delta,
+                "loss_self_err": self_err,
+                "ok": bool(rel <= TRAIN_LOSS_RTOL and delta <= DPO_DELTA_ATOL
+                           and self_err <= DPO_LOSS_SELF_ATOL)}
+
+    pol, ref = card[:2 * b], card[2 * b:]
+    faults = {
+        "reference_with_adapters": (pol + pol, math.log(2.0)),
+        "reference_rows_swapped": (pol + ref[b:] + ref[:b], None),
+        "loss_reference_with_adapters": (card, math.log(2.0)),
+    }
+    controls = {}
+    for fault, (sums, loss) in faults.items():
+        controls[fault] = judge(sums, _dpo_formula(sums, b) if loss is None
+                                else loss)
+    sound = judge(card, loss_card)
+    return dict(logprobs_cpu=cpu, logprobs_card=card,
+                deltas_cpu=want, deltas_card=_dpo_deltas(card, b),
+                **{k: v for k, v in sound.items() if k != "ok"},
+                loss_abs_err=abs(loss_card - _dpo_formula(cpu, b)),
+                controls=controls,
+                dpo_ok=bool(sound["ok"] and not any(
+                    c["ok"] for c in controls.values())),
+                tol=f"each sequence log-prob sum's rel err <= "
+                    f"{TRAIN_LOSS_RTOL}, each row's policy - reference "
+                    f"delta within {DPO_DELTA_ATOL} nats of the CPU's, "
+                    f"dpo_loss within {DPO_LOSS_SELF_ATOL} of the formula on "
+                    f"the card's sums, every planted fault rejected, every "
+                    f"leaf's gradient cosine >= {TRAIN_COS_MIN}")
 
 
 def _train_data(work: Path, cap, tok, seed: int, n: int, width: int):
@@ -2639,8 +2783,6 @@ def _train_data(work: Path, cap, tok, seed: int, n: int, width: int):
     import torch
     from PIL import Image
     from rsvldm_tpu_torch.models.vlm.generate import anyres_image_features
-    from rsvldm_tpu_torch.training.vlm_data import (normalize_multimodal,
-                                                    preprocess_llama3)
     rng = np.random.default_rng(seed + 3)
     (work / "imgs").mkdir(parents=True, exist_ok=True)
     for i in range(n):
@@ -2651,18 +2793,11 @@ def _train_data(work: Path, cap, tok, seed: int, n: int, width: int):
                                       cap.image_newline,
                                       cap.vision.cfg.image_size).shape[0]
     question = "<image>\nDescribe the remote sensing image in detail."
-    conv = lambda ans: [{"from": "human", "value": question},
-                        {"from": "gpt", "value": ans}]
-    # spliced length with a one-word answer: the <image> id becomes n_img rows
-    base = len(preprocess_llama3(normalize_multimodal(conv("w")),
-                                 tok.encode)[0]) - 1 + n_img
     recs, lengths = [], []
     for i in range(n):
         lengths.append(width - 60 + (i * 7) % 60)
-        words = lengths[-1] - base + 1
-        recs.append({"id": i, "image": f"tile_{i}.png",
-                     "conversations": conv(" ".join(
-                         f"a{(i * 31 + j) % 977}" for j in range(words)))})
+        recs.append({"id": i, "image": f"tile_{i}.png", "conversations": _conv(
+            question, _answer_for(tok, question, lengths[-1], n_img - 1, i))})
     (work / "train.json").write_text(json.dumps(recs))
     return n_img, lengths
 
@@ -2678,35 +2813,22 @@ def _device_kernels(prof):
     return rows, sum(t for _, t, _ in rows)
 
 
-def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
-                profile: bool = False):
-    """The port's train_vlm loop at full width: a seeded LLaVA-NeXT-8B
-    captioner (CLIP-L/336, mlp2x_gelu, Llama-3-8B) with an int8 decoder,
-    LoRA r=16 alpha=16 on the seven projections, AdamW lr 2e-4, gradient
-    checkpointing, anyres image records, batch 4 padded to `width` tokens.
-    Launch counts are reset just before the loop and read just after."""
+def _train_loop(name: str, cap, tok, argv, steps: int, k1_per_step: int,
+                bwd_per_step: int, projector_trains: bool = False,
+                profile: bool = False) -> tuple:
+    """train_vlm.train on `cap` with the CLI's arguments `argv`, launch
+    counts reset just before the loop and read just after (and per step in
+    between). Fails unless every step launched k1_per_step K1 and
+    bwd_per_step backward kernels, the losses are finite, the frozen base's
+    bytes did not move, and the projector moved exactly when it trains.
+    Returns (record, trainer)."""
     import torch
     from rsvldm_tpu_torch import train_vlm
-    from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
-
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    t0 = time.perf_counter()
-    tok = StandInTokenizer()
-    cap = LlavaCaptioner.seeded(tokenizer=tok, quant="int8", device="cuda",
-                                dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_img, lengths = _train_data(work, cap, tok, seed, steps * batch, width)
-    args = train_vlm.parse_args([
-        "--data_path", str(work / "train.json"),
-        "--image_folder", str(work / "imgs"), "--output_dir", str(work / "out"),
-        "--image_aspect_ratio", "anyres", "--bits", "8", "--lora_r", "16",
-        "--lora_alpha", "16", "--lr", "2e-4", "--batch_size", str(batch),
-        "--steps", str(steps), "--seed", str(seed), "--num_workers", "2"])
+    args = train_vlm.parse_args(argv)
     digest = _sd_digest(cap.llama.state_dict())
-    per_step = []
-    last = dict(_counts())
-    prof = []
+    proj_digest = _sd_digest(cap.projector.state_dict())
+    per_step, prof = [], []
+    last = {}
 
     def on_step(r):
         now = _counts()
@@ -2714,7 +2836,7 @@ def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
                  launches={k: now[k] - last[k] for k in now})
         last.update(now)
         per_step.append(r)
-        _say("train", **r)
+        _say(name, **r)
         if profile and r["step"] == steps - 1:
             # the last step (its batch's preparation included) is traced
             from torch.profiler import ProfilerActivity
@@ -2722,6 +2844,7 @@ def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
             prof[0].__enter__()
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     last.update(_counts())
@@ -2734,44 +2857,326 @@ def phase_train(seed: int, steps: int = 4, batch: int = 4, width: int = 1536,
     if prof:
         prof[0].__exit__(None, None, None)
         rows, dev_ms = _device_kernels(prof[0])
-        share = lambda name: sum(t for k, t, _ in rows if name in k)
+        share = lambda n: sum(t for k, t, _ in rows if n in k)
         hand = {k: share(n) for k, n in (
             ("k1", "flash_fwd_kernel"), ("bwd", "flash_bwd_kernel"),
             ("bwd_prep", "flash_bwd_prep_kernel"))}
-        _say("profile", step="train", device_ms=dev_ms,
+        _say("profile", step=name, device_ms=dev_ms,
              unprofiled_step_ms=per_step[-2]["seconds"] * 1e3,
              hand_ms=hand,
              hand_share_of_device={k: v / dev_ms for k, v in hand.items()},
              kernel_launches=sum(c for _, _, c in rows),
              top_kernels=[[k[:80], round(t, 3), c] for k, t, c in
                           sorted(rows, key=lambda r: -r[1])[:12]])
-    moved = all(float(ab["b"].detach().abs().max()) > 0
-                for ab in trainer.lora.values())
+    lora = getattr(trainer, "lora", None)
+    moved = lora is None or all(float(ab["b"].detach().abs().max()) > 0
+                                for ab in lora.values())
     unchanged = _sd_digest(cap.llama.state_dict()) == digest
-    rec = dict(init_s=init_s, loop_s=loop_s, steps=res["steps"],
-               batch=batch, width=width, image_tokens=n_img,
-               record_tokens=[min(lengths), max(lengths)],
+    proj_moved = _sd_digest(cap.projector.state_dict()) != proj_digest
+    rec = dict(loop_s=loop_s, steps=res["steps"], batch=args.batch_size,
+               widths=[r["width"] for r in per_step],
                losses=[r["loss"] for r in per_step],
                step_s=[r["seconds"] for r in per_step],
                tokens_per_s=[r["tokens_per_s"] for r in per_step],
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-               launches=launches, adapters=len(trainer.lora),
+               launches=launches,
+               want_per_step={"k1": k1_per_step, "bwd": bwd_per_step},
+               adapters=0 if lora is None else len(lora),
                adapters_moved=moved, base_unchanged=unchanged,
-               base_digest=digest)
+               projector_moved=proj_moved, base_digest=digest)
     rec["ok"] = bool(
         res["steps"] == steps
-        and all(r["width"] == width for r in per_step)
-        and all(r["launches"]["k1"] == 2 * 32 and r["launches"]["bwd"] == 32
-                for r in per_step)
-        and launches["k1"] == 64 * steps
-        and launches["bwd"] == 32 * steps
+        and all(w >= 1024 for w in rec["widths"])
+        and all(r["launches"]["k1"] == k1_per_step
+                and r["launches"]["bwd"] == bwd_per_step for r in per_step)
+        and launches["k1"] == k1_per_step * steps
+        and launches["bwd"] == bwd_per_step * steps
+        and launches["k2"] == 0
         and all(math.isfinite(x) for x in rec["losses"])
-        and moved and unchanged)
-    _say("train", **{k: v for k, v in rec.items() if k != "losses"},
+        and moved and unchanged and proj_moved == projector_trains)
+    _say(name, **{k: v for k, v in rec.items() if k != "losses"},
          losses=rec["losses"])
-    del trainer, cap
-    torch.cuda.empty_cache()
+    return rec, trainer
+
+
+def _conv(question: str, answer: str):
+    return [{"from": "human", "value": question},
+            {"from": "gpt", "value": answer}]
+
+
+def _answer_for(tok, question: str, target: int, extra: int, seed: int):
+    """An answer of words that makes the llama-3 record of `question`
+    `target` tokens long once `extra` - 1 rows replace its <image> (the
+    StandInTokenizer gives one id a word)."""
+    from rsvldm_tpu_torch.training.vlm_data import (normalize_multimodal,
+                                                    preprocess_llama3)
+    base = len(preprocess_llama3(normalize_multimodal(_conv(question, "w")),
+                                 tok.encode)[0]) + extra
+    return " ".join(f"a{(seed * 31 + j) % 977}" for j in range(target - base + 1))
+
+
+def _write_pngs(d: Path, n: int, side: int, rng, prefix: str = "tile"):
+    import numpy as np
+    from PIL import Image
+    d.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        Image.fromarray((rng.random((side, side, 3)) * 255).astype(
+            np.uint8)).save(d / f"{prefix}_{i:03d}.png")
+
+
+def _mm_data(work: Path, tok, seed: int, n: int, img_tokens: int,
+             width: int = 1024):
+    """n pad-recipe image records (seeded 224^2 PNGs, resized to the tower's
+    336^2) whose spliced rows are width-60 .. width-1 tokens long."""
+    import numpy as np
+    _write_pngs(work / "imgs", n, 224, np.random.default_rng(seed + 7))
+    q = "<image>\nDescribe the remote sensing image in detail."
+    recs = [{"id": i, "image": f"tile_{i:03d}.png",
+             "conversations": _conv(q, _answer_for(
+                 tok, q, width - 60 + (i * 7) % 60, img_tokens - 1, i))}
+            for i in range(n)]
+    (work / "mm.json").write_text(json.dumps(recs))
+
+
+def _dpo_data(work: Path, tok, seed: int, n: int, width: int = 1024):
+    """n text preference pairs whose chosen and rejected rows are
+    width-60 .. width-1 tokens long."""
+    prompt_words = width - 300
+    recs = []
+    for i in range(n):
+        prompt = " ".join(f"p{(i * 17 + j) % 991}" for j in range(prompt_words))
+        sides = {side: _answer_for(tok, prompt, width - 60 + (i * 13 + k * 29)
+                                   % 60, 0, i + 5 * k)
+                 for k, side in enumerate(("chosen", "rejected"))}
+        recs.append({"id": i, "prompt": prompt, **sides})
+    (work / "dpo.json").write_text(json.dumps(recs))
+
+
+def _video_data(work: Path, tok, seed: int, n: int, frames: int = 8,
+                folders: int = 4):
+    """`folders` frame folders of `frames` seeded 224^2 PNGs under a
+    shareVideoGPTV path (so no container decoder is needed) and n records
+    over them, each with a 40-word answer."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 11)
+    for v in range(folders):
+        _write_pngs(work / "vids" / "shareVideoGPTV" / f"v{v}", frames, 224,
+                    rng, prefix="frame")
+    q = "<image>\nDescribe what changes over the video."
+    recs = [{"id": i, "video": f"shareVideoGPTV/v{i % folders}",
+             "conversations": _conv(q, " ".join(
+                 f"a{(i * 31 + j) % 977}" for j in range(40 + i)))}
+            for i in range(n)]
+    (work / "video.json").write_text(json.dumps(recs))
+
+
+def phase_train(seed: int, cap, tok, work: Path, steps: int = 4,
+                batch: int = 4, width: int = 1536, profile: bool = False):
+    """The port's train_vlm loop at full width on the seeded LLaVA-NeXT-8B
+    captioner (CLIP-L/336, mlp2x_gelu, Llama-3-8B, int8 decoder): LoRA
+    r=16 alpha=16 on the seven projections, AdamW lr 2e-4, gradient
+    checkpointing, anyres image records, batch 4 padded to `width` tokens.
+    K1 64 and the backward 32 a step; the projector stays as it is."""
+    n_img, lengths = _train_data(work, cap, tok, seed, steps * batch, width)
+    rec, trainer = _train_loop("train", cap, tok, [
+        "--data_path", str(work / "train.json"),
+        "--image_folder", str(work / "imgs"), "--output_dir", str(work / "out"),
+        "--image_aspect_ratio", "anyres", "--bits", "8", "--lora_r", "16",
+        "--lora_alpha", "16", "--lr", "2e-4", "--batch_size", str(batch),
+        "--steps", str(steps), "--seed", str(seed), "--num_workers", "2",
+        "--pad_to", str(width)], steps, 64, 32, profile=profile)
+    rec.update(image_tokens=n_img, record_tokens=[min(lengths), max(lengths)])
+    rec["ok"] = rec["ok"] and all(w == width for w in rec["widths"])
+    del trainer
     return rec
+
+
+def phase_train_video(seed: int, cap, tok, work: Path, steps: int = 3,
+                      batch: int = 4):
+    """--tune lora on frame-folder video records: 8 frames a record, each
+    through the tower and projector in one batched call, pooled 2x2
+    bilinear with a newline a grid row (156 rows a frame, 1248 a record),
+    batches padded to a multiple of 64. K1 64 and the backward 32 a step
+    (the tower's 577-token attention stays plain)."""
+    _video_data(work, tok, seed, steps * batch)
+    rec, trainer = _train_loop("train_video", cap, tok, [
+        "--data_path", str(work / "video.json"),
+        "--video_folder", str(work / "vids"), "--frames_upbound", "8",
+        "--force_sample", "--output_dir", str(work / "out_video"),
+        "--bits", "8", "--batch_size", str(batch), "--steps", str(steps),
+        "--seed", str(seed), "--num_workers", "2"], steps, 64, 32)
+    del trainer
+    return rec
+
+
+def phase_train_dpo(seed: int, cap, tok, work: Path, steps: int = 3,
+                    batch: int = 4, width: int = 1024):
+    """--dpo on text preference pairs padded to `width`: per step the
+    policy's chosen and rejected forwards (K1 32 each), their recomputes
+    (32 each) and backwards (32 each), and the reference's two forwards
+    without a graph (32 each): K1 192, the backward 64."""
+    _dpo_data(work, tok, seed, steps * batch, width)
+    rec, trainer = _train_loop("train_dpo", cap, tok, [
+        "--data_path", str(work / "dpo.json"), "--dpo", "--dpo_beta", "0.1",
+        "--lr", "5e-5", "--output_dir", str(work / "out_dpo"), "--bits", "8",
+        "--batch_size", str(batch), "--steps", str(steps), "--seed",
+        str(seed), "--num_workers", "2", "--pad_to", str(width)],
+        steps, 192, 64)
+    rec["ok"] = rec["ok"] and all(w == width for w in rec["widths"])
+    del trainer
+    return rec
+
+
+def phase_train_mm(seed: int, cap, tok, work: Path, tune: str,
+                   steps: int = 3, batch: int = 4, width: int = 1024):
+    """--tune projector (the pretrain stage) or --tune lora,projector
+    --mm_projector_lr 2e-5 on pad-recipe image records padded to `width`:
+    the projector (fp32) inside the graph fills each row's 576-row span.
+    K1 64 and the backward 32 a step; the projector must move."""
+    img_tokens = (cap.vision.cfg.image_size // cap.vision.cfg.patch_size) ** 2
+    if not (work / "mm.json").exists():
+        _mm_data(work, tok, seed, steps * batch, img_tokens, width)
+    argv = ["--data_path", str(work / "mm.json"),
+            "--image_folder", str(work / "imgs"), "--tune", tune,
+            "--output_dir", str(work / f"out_{tune.replace(',', '_')}"),
+            "--bits", "8", "--batch_size", str(batch), "--steps", str(steps),
+            "--seed", str(seed), "--num_workers", "2", "--pad_to", str(width)]
+    if "lora" in tune:
+        argv += ["--mm_projector_lr", "2e-5"]
+    name = "train_mm_" + tune.replace(",", "_")
+    rec, trainer = _train_loop(name, cap, tok, argv, steps, 64, 32,
+                               projector_trains=True)
+    rec.update(tune=tune, image_tokens=img_tokens,
+               projector_dtype=str(next(cap.projector.parameters()).dtype),
+               lrs=[g["lr"] for g in trainer.opt.param_groups])
+    rec["ok"] = rec["ok"] and all(w == width for w in rec["widths"])
+    del trainer
+    return rec
+
+
+def phase_train_all(seed: int, profile: bool = False) -> dict:
+    """The caption finetune's recipes on one full-width captioner, built
+    once: anyres LoRA (`train`), video LoRA, DPO, then the projector
+    tuning (pretrain stage, then joint), which widens the projector to fp32
+    and trains it, last."""
+    import shutil
+    import torch
+    from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        t0 = time.perf_counter()
+        tok = StandInTokenizer()
+        cap = LlavaCaptioner.seeded(tokenizer=tok, quant="int8", device="cuda",
+                                    dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        out = {"init_s": time.perf_counter() - t0}
+        out["train"] = phase_train(seed, cap, tok, work, profile=profile)
+        out["train_video"] = phase_train_video(seed, cap, tok, work)
+        out["train_dpo"] = phase_train_dpo(seed, cap, tok, work)
+        out["train_mm"] = [phase_train_mm(seed, cap, tok, work, tune)
+                           for tune in ("projector", "lora,projector")]
+        del cap
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["ok"] = all(out[k]["ok"] for k in ("train", "train_video",
+                                           "train_dpo")) and all(
+        r["ok"] for r in out["train_mm"])
+    return out
+
+
+def phase_train_sr3(seed: int, steps: int = 4, images: int = 24):
+    """python -m rsvldm_tpu_torch.train_sr3 as a user runs it, through its
+    own construction (parse_args, build_trainer, run): the path's SR3 UNet
+    (64 channels, x(1, 2, 4, 8, 8), 224^2) in fp32, Adam and the EMA, the
+    CLI's default batch 8 from an LRHR folder of seeded images (hr_224,
+    lr_28, sr_28_224: decoded by worker threads, staged on the card by the
+    prefetcher), `steps` steps, saved as I{steps}_gen.pth / _opt.pth; then
+    a second trainer resumes from those files (--resume_iter) and takes
+    one more step beside the uninterrupted trainer on the same batch and
+    draws: the loss, every parameter and the EMA must be equal. No hand
+    kernel runs here: the launch counts read 0."""
+    import shutil
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch import train_sr3
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_sr3_"))
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    try:
+        rng = np.random.default_rng(seed + 13)
+        for sub in ("hr_224", "lr_28", "sr_28_224"):
+            (work / "data" / sub).mkdir(parents=True)
+        for i in range(images):
+            hr = Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
+            lr = hr.resize((28, 28), Image.BICUBIC)
+            hr.save(work / "data" / "hr_224" / f"{i:03d}.png")
+            lr.save(work / "data" / "lr_28" / f"{i:03d}.png")
+            lr.resize((224, 224), Image.BICUBIC).save(
+                work / "data" / "sr_28_224" / f"{i:03d}.png")
+        # the resume check compares bit for bit: deterministic conv kernels
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        argv = ["--data_root", str(work / "data"), "--save_dir",
+                str(work / "ckpt"), "--steps", str(steps), "--log_every", "1",
+                "--seed", str(seed), "--num_workers", "2"]
+        args = train_sr3.parse_args(argv)
+        trainer = train_sr3.build_trainer(args)
+        per_step = []
+        clock = [time.perf_counter()]
+
+        def on_step(r):  # the loss's float() synchronised the step
+            now = time.perf_counter()
+            per_step.append(dict(r, seconds=now - clock[0]))
+            clock[0] = now
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        clock[0] = t0
+        train_sr3.run(args, trainer, on_step=on_step)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        files = sorted(p.name for p in (work / "ckpt").iterdir())
+        resumed = train_sr3.build_trainer(train_sr3.parse_args(
+            argv + ["--resume_iter", str(steps)]))
+        gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+        hr = torch.rand((8, 224, 224, 3), generator=gen, device="cuda") * 2 - 1
+        sr = torch.rand((8, 224, 224, 3), generator=gen, device="cuda") * 2 - 1
+        draws = (torch.randint(1, 2001, (8,), generator=gen, device="cuda"),
+                 torch.rand((8,), generator=gen, device="cuda"),
+                 torch.randn((8, 224, 224, 3), generator=gen, device="cuda"))
+        la = trainer.train_step(hr, sr, *draws)
+        lb = resumed.train_step(hr, sr, *draws)
+        param_err = max(float((a - b).abs().max()) for a, b in zip(
+            trainer.model.state_dict().values(),
+            resumed.model.state_dict().values()))
+        ema_err = max(float((trainer.ema.params[k] - resumed.ema.params[k])
+                            .abs().max()) for k in trainer.ema.params)
+        rec = dict(steps=trainer.step, batch=args.batch_size, size=224,
+                   params=sum(p.numel() for p in trainer.model.parameters()),
+                   loop_s=loop_s, losses=[r["loss"] for r in per_step],
+                   step_s=[r["seconds"] for r in per_step],
+                   peak_mem_gib=peak, launches=launches, files=files,
+                   resumed_step=resumed.step, resumed_loss=lb,
+                   uninterrupted_loss=la, resumed_param_max_err=param_err,
+                   resumed_ema_max_err=ema_err)
+        rec["ok"] = bool(
+            len(per_step) == steps and trainer.step == resumed.step == steps + 1
+            and all(math.isfinite(x) for x in rec["losses"])
+            and all(v == 0 for v in launches.values())
+            and files == [f"I{steps}_gen.pth", f"I{steps}_opt.pth"]
+            and la == lb and param_err == 0 and ema_err == 0)
+        _say("train_sr3", **rec)
+        del trainer, resumed
+        torch.cuda.empty_cache()
+        return rec
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # --------------------------------------------------------------- phase 6
@@ -2913,7 +3318,8 @@ def main(argv=None) -> int:
     ok = phase_tiled_reference(SEED)["ok"] and ok
     for quant in ("int8", "int4"):
         ok = phase_train_reference(SEED, quant)["ok"] and ok
-    path = folder = train = spec = tiled = None
+    path = folder = spec = tiled = sr3 = None
+    tr = {}
     if not args.skip_path:
         import shutil
         path, pipe, cd = phase_path(SEED)
@@ -2936,13 +3342,22 @@ def main(argv=None) -> int:
                 shutil.rmtree(cd, ignore_errors=True)
         else:
             ok = False
-        train = phase_train(SEED, profile=args.profile)
-        ok = ok and train["ok"]
+        tr = phase_train_all(SEED, profile=args.profile)
+        ok = ok and tr["ok"]
+        sr3 = phase_train_sr3(SEED)
+        ok = ok and sr3["ok"]
+    mm = tr.get("train_mm", [])
     by_path = {"process": path.get("launches", {}) if path else {},
                "spec": spec["launches"] if spec else {},
                "tiled": tiled["launches"] if tiled else {},
                "folder": folder["launches"] if folder else {},
-               "train": train["launches"] if train else {}}
+               "train": tr["train"]["launches"] if tr else {},
+               # the pretrain-stage and the joint run together
+               "train_mm": ({k: sum(r["launches"][k] for r in mm)
+                             for k in mm[0]["launches"]} if mm else {}),
+               "train_dpo": tr["train_dpo"]["launches"] if tr else {},
+               "train_video": tr["train_video"]["launches"] if tr else {},
+               "train_sr3": sr3["launches"] if sr3 else {}}
 
     def launches(k):
         # None where a path's run did not read this kernel's count

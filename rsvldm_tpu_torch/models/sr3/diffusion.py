@@ -223,3 +223,39 @@ def sr3_sample_ddim(diff: SR3Diffusion, model, cond: torch.Tensor,
     return _run(("ddim", num_steps, eta),
                 lambda lt: _ddim(diff, model, lt, num_steps, eta), steps,
                 diff, model, cond, noise, graphs, stats, graph_cache)
+
+
+def sr3_loss(diff: SR3Diffusion, model, hr: torch.Tensor,
+             sr_bicubic: torch.Tensor, t: torch.Tensor | None = None,
+             u: torch.Tensor | None = None, noise: torch.Tensor | None = None,
+             generator: torch.Generator | None = None,
+             loss_type: str = "l1") -> torch.Tensor:
+    """The continuous-noise-level training loss (JAX sr3_loss, the
+    reference's p_losses): t ~ U{1..T}, gamma ~ U[sqrt_acp_prev[t-1],
+    sqrt_acp_prev[t]] (gamma = lo + u * (hi - lo)), x_noisy = gamma * HR +
+    sqrt(1 - gamma^2) * noise, and the L1 (or L2) sum of noise - eps_hat
+    over hr.numel(). hr, sr_bicubic [N, H, W, 3] in [-1, 1]. t [N] long,
+    u [N] and noise (as hr) are drawn from `generator` unless given (a
+    test feeds JAX's split(rng, 3) draws)."""
+    buf = diff.buffers
+    b, dev = hr.shape[0], hr.device
+    if t is None:
+        t = torch.randint(1, buf.num_timesteps + 1, (b,), generator=generator,
+                          device=dev)
+    if u is None:
+        u = torch.rand((b,), generator=generator, device=dev)
+    if noise is None:
+        noise = torch.randn(hr.shape, generator=generator, device=dev)
+    prev = buf.sqrt_alphas_cumprod_prev.to(dev, torch.float32)
+    t = t.to(dev, torch.long)
+    lo, hi = prev[t - 1], prev[t]
+    gamma = lo + u.to(dev, torch.float32) * (hi - lo)
+    g = gamma.reshape(b, 1, 1, 1)
+    nchw = lambda x: x.to(dev, torch.float32).permute(0, 3, 1, 2)
+    noise = nchw(noise)
+    x_noisy = g * nchw(hr) + torch.sqrt(1.0 - g ** 2) * noise
+    eps_hat = model(torch.cat([nchw(sr_bicubic), x_noisy], dim=1),
+                    gamma.reshape(b, 1))
+    err = noise - eps_hat
+    loss = err.abs().sum() if loss_type == "l1" else (err ** 2).sum()
+    return loss / float(hr.numel())

@@ -443,3 +443,26 @@ class LlavaCaptioner:
                               patch_size=self.vision.cfg.image_size,
                               stats=self.last_stats, noise=noise,
                               lora=self.lora, graph_cache=self.decode_graphs)
+
+    def video_features(self, frames, stride: int = 2,
+                       pool_mode: str = "bilinear",
+                       newline_position: str = "grid") -> torch.Tensor:
+        """PIL frames -> the flat video stream [T', D] spliced at <image>
+        (JAX captioner.py:324-345): CLIP's short-side resize and centre
+        crop per frame, every frame through the tower and projector in one
+        batched call, then video.video_feature_stream (the reference's
+        training defaults: bilinear pooling, a newline per grid row)."""
+        import numpy as np
+
+        from .video import clip_preprocess_frame, video_feature_stream
+        from .vision import normalize_pixels
+        s = self.vision.cfg.image_size
+        px = torch.from_numpy(np.stack([clip_preprocess_frame(f, s)
+                                        for f in frames]))
+        dev, dt = self.image_newline.device, self.image_newline.dtype
+        tower = self.vision(normalize_pixels(px.to(dev, dt)))
+        w = next(self.projector.parameters())
+        feats = self.projector(tower.to(w.dtype))
+        return video_feature_stream(feats, self.image_newline, stride=stride,
+                                    pool_mode=pool_mode,
+                                    newline_position=newline_position)

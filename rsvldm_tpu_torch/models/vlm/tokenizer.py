@@ -170,6 +170,10 @@ class Llama3Tokenizer:
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self.clean_up_spaces = clean_up_spaces
         self.cache: Dict[str, List[int]] = {}
+        # transformers' bos_token_id: tokenizer_config.json's bos_token
+        # (from_dir), else the template's leading special token
+        self.bos_token_id: int | None = (self.template[0] if self.template
+                                         else None)
 
     @classmethod
     def from_dir(cls, d: str | Path) -> "Llama3Tokenizer":
@@ -181,12 +185,17 @@ class Llama3Tokenizer:
                 "<ckpt_dir>/llava/tokenizer.json (the HF fast-tokenizer file)")
         with open(path, encoding="utf-8") as f:
             spec = json.load(f)
-        clean = False
+        conf = {}
         cfg = d / "tokenizer_config.json"
         if cfg.is_file():
             with open(cfg, encoding="utf-8") as f:
-                clean = bool(json.load(f).get("clean_up_tokenization_spaces", False))
-        return cls(spec, clean)
+                conf = json.load(f)
+        tok = cls(spec, bool(conf.get("clean_up_tokenization_spaces", False)))
+        bos = conf.get("bos_token")
+        bos = bos.get("content") if isinstance(bos, dict) else bos
+        if bos is not None:
+            tok.bos_token_id = tok.added.get(bos, tok.vocab.get(bos))
+        return tok
 
     @staticmethod
     def _template(step: dict) -> List[int]:

@@ -1,6 +1,7 @@
 """Host-side image preparation (rsvldm_tpu/ops/image.py), HWC numpy float32
-in [-1, 1]. Resampling goes through PIL; the JAX package's native resampler
-is not carried over."""
+in [-1, 1]. `pil_to_array` resamples each channel in PIL's float mode, which
+equals the JAX package's native float bicubic pixel for pixel; the other
+resizes are PIL's 8-bit bicubic, as JAX's."""
 
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ def pil_to_array(img, upscale: float = 1, min_size: int = 1024,
     """PIL.Image -> (float32 [H, W, 3] in [-1, 1], h0, w0): scale by
     `upscale`, enforce `min_size` on the short side, round H and W to
     multiples of `unit`, bicubic resample. h0/w0 are the sizes before
-    rounding, to which the final output is resized back."""
+    rounding, to which the final output is resized back. Each channel is
+    resampled in PIL's "F" mode, then rounded and clipped to [0, 255]: JAX's
+    native branch (`native.resize_bicubic_u8`), not PIL's 8-bit one."""
     w, h = img.size
     w *= upscale
     h *= upscale
@@ -33,9 +36,12 @@ def pil_to_array(img, upscale: float = 1, min_size: int = 1024,
         w0, h0 = round(w), round(h)
     w = round_to_multiple(w, unit)
     h = round_to_multiple(h, unit)
-    x = img.convert("RGB").resize((w, h), Image.BICUBIC)
-    x = np.asarray(x).round().clip(0, 255).astype(np.uint8)
-    return x.astype(np.float32) / 255.0 * 2.0 - 1.0, h0, w0
+    src = np.asarray(img.convert("RGB"), np.float32)
+    x = np.stack([np.asarray(Image.fromarray(np.ascontiguousarray(src[..., c]))
+                             .resize((w, h), Image.BICUBIC))
+                  for c in range(3)], axis=-1)
+    x = x.round().clip(0, 255) / 255.0 * 2.0 - 1.0
+    return x.astype(np.float32), h0, w0
 
 
 def _torch_cubic_matrix(in_size: int, out_size: int) -> np.ndarray:

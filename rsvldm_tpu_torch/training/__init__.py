@@ -1,8 +1,16 @@
-"""Training of the port (rsvldm_tpu/training): the LoRA / QLoRA finetune of
-the caption decoder and its llama-3 data pipeline. Not ported yet (ROADMAP
-item 15): the SR3 trainer, losses, EMA, lr schedules, MMTrainer and DPO."""
+"""Training of the port (rsvldm_tpu/training): the caption model's LoRA /
+QLoRA, projector and DPO finetunes with their data pipeline, the SR3
+trainer, the EMA, the lr schedules and the SDXL diffusion loss."""
 
-from .vlm_data import (LazyConversationDataset, get_length_grouped_indices,
-                       get_modality_length_grouped_indices, preprocess)
-from .vlm_trainer import (LoraConfig, VLMTrainer, apply_lora, export_merged,
-                          init_lora, vlm_loss)
+from .ema import EmaState, ema_init, ema_update
+from .losses import (StandardDiffusionLossConfig, discrete_sigma_sampling,
+                     edm_sigma_sampling, standard_diffusion_loss)
+from .lr_schedule import lambda_warmup_cosine, lambda_warmup_cosine2
+from .sr3_trainer import SR3TrainConfig, SR3Trainer
+from .vlm_data import (LazyConversationDataset, LazyPreferenceDataset,
+                       collate, get_length_grouped_indices,
+                       get_modality_length_grouped_indices, iter_batches,
+                       preprocess)
+from .vlm_trainer import (DPOTrainer, LoraConfig, MMTrainer, VLMTrainer,
+                          apply_lora, dpo_loss, export_merged, init_lora,
+                          mm_loss, vlm_loss)

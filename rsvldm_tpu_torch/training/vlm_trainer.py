@@ -1,6 +1,8 @@
-"""LLaVA supervised finetuning with LoRA adapters on a frozen base
+"""LLaVA finetuning with LoRA adapters on a frozen base
 (rsvldm_tpu/training/vlm_trainer.py, the QLoRA recipe when the base is int8
-or int4).
+or int4): supervised (VLMTrainer), with the projector inside the
+differentiated graph (MMTrainer: the pretrain stage and the joint
+finetune) and preference optimization (DPOTrainer).
 
 Adapters live in their own dictionary, keyed by the port's module path:
 {"model.layers.{i}.self_attn.q_proj": {"a": [in, r], "b": [r, out]}, ...},
@@ -13,13 +15,13 @@ a straight-through backward. Gradients reach the adapters through K1's
 autograd Function (the fused backward kernel) on CUDA at 1024 tokens and
 more.
 
+A trained projector is fp32 (MMTrainer widens it in place); the frozen
+base's reference policy in DPO is the same model run without adapters.
+
 Archives (`save_lora_npz` / `load_lora_npz`) keep the JAX package's keys
 (`layer_i/q_proj/a`, `__meta__`), so either package reads the other's;
-`load_projector_npz` reads the JAX package's projector archives
+`save_projector_npz` / `load_projector_npz` the JAX projector archives'
 (`params/fc0/kernel`, ...).
-
-Not ported yet (ROADMAP item 15): MMTrainer (projector tuning),
-DPOTrainer and dpo_loss.
 """
 
 from __future__ import annotations
@@ -166,6 +168,36 @@ def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return nll / n
 
 
+def _lora_leaves(lora: Lora | None) -> list:
+    return [] if lora is None else [t for ab in lora.values() for t in ab.values()]
+
+
+def _adamw(groups) -> torch.optim.AdamW:
+    """optax.adamw(lr, weight_decay=0) per parameter group."""
+    return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=0.0)
+
+
+def _descend(opt: torch.optim.Optimizer, loss: torch.Tensor) -> float:
+    """One optimizer step on `loss`; returns its value."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return float(loss.detach())
+
+
+def _trainable_lora(model: nn.Module, lora_cfg: LoraConfig,
+                    generator: torch.Generator | None,
+                    lora: Lora | None) -> Lora:
+    """Adapters as fp32 leaves that require grad on the model's device:
+    `lora` when given (a test feeds JAX's), else init_lora's draw."""
+    if lora is None:
+        lora = init_lora(model, lora_cfg, generator)
+    dev = next(model.buffers(), next(model.parameters(), None)).device
+    return {p: {n: t.detach().to(dev, torch.float32).requires_grad_()
+                for n, t in ab.items()} for p, ab in lora.items()}
+
+
 def vlm_loss(model: nn.Module, lora: Lora | None, lora_cfg: LoraConfig,
              input_embeds: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Masked next-token loss; input_embeds [B, S, D] already hold the
@@ -173,6 +205,68 @@ def vlm_loss(model: nn.Module, lora: Lora | None, lora_cfg: LoraConfig,
     A prefill from 0 with no KV cache."""
     logits, _ = apply_model(model, lora, lora_cfg, input_embeds)
     return masked_ce(logits, labels)
+
+
+def splice_span(text_embeds: torch.Tensor, feats: torch.Tensor,
+                img_pos) -> torch.Tensor:
+    """Row b of text_embeds [B, S, D] with feats[b] [T, D] written over
+    rows img_pos[b] .. img_pos[b] + T - 1, out of place so the gradient
+    reaches feats; the start is clamped into [0, S - T], as JAX's
+    dynamic_update_slice clamps it."""
+    s, t = text_embeds.shape[1], feats.shape[1]
+    rows = []
+    for e, f, p in zip(text_embeds, feats, [int(p) for p in img_pos]):
+        p = max(0, min(p, s - t))
+        rows.append(torch.cat([e[:p], f.to(e.dtype), e[p + t:]], dim=0))
+    return torch.stack(rows)
+
+
+def mm_loss(model: nn.Module, lora: Lora | None, lora_cfg: LoraConfig,
+            projector: nn.Module, vis_feats: torch.Tensor,
+            text_embeds: torch.Tensor, img_pos, labels: torch.Tensor
+            ) -> torch.Tensor:
+    """Masked next-token loss with the projector inside the differentiated
+    graph. vis_feats [B, T, Dv] are tower features before the projector;
+    text_embeds [B, S, D] hold a zero-filled span of T rows at img_pos[b]
+    (labels IGNORE there), which the projected features fill, so the
+    projector's gradient flows back through every block."""
+    w = next(projector.parameters())
+    feats = projector(vis_feats.to(w.device, w.dtype))
+    emb = splice_span(text_embeds, feats, img_pos)
+    logits, _ = apply_model(model, lora, lora_cfg, emb)
+    return masked_ce(logits, labels)
+
+
+def sequence_logprob(model: nn.Module, embeds: torch.Tensor,
+                     labels: torch.Tensor, lora: Lora | None = None,
+                     lora_cfg: LoraConfig | None = None) -> torch.Tensor:
+    """[B]: the summed log-probabilities of each row's supervised next
+    tokens."""
+    logits, _ = apply_model(model, lora, lora_cfg, embeds)
+    logits = logits[:, :-1]
+    targets = labels[:, 1:].long()
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          targets.reshape(-1), ignore_index=IGNORE_INDEX,
+                          reduction="none")
+    return -nll.reshape(targets.shape).sum(-1)
+
+
+def dpo_loss(model: nn.Module, lora: Lora, lora_cfg: LoraConfig,
+             chosen_embeds, chosen_labels, rejected_embeds, rejected_labels,
+             beta: float = 0.1) -> torch.Tensor:
+    """Direct preference optimization: -log sigmoid(beta * ((pi_c - ref_c)
+    - (pi_r - ref_r))) averaged over the pairs. The reference policy is the
+    frozen base without adapters; its two forwards run without a graph (no
+    gradient reaches them in JAX either)."""
+    pi_c = sequence_logprob(model, chosen_embeds, chosen_labels, lora,
+                            lora_cfg)
+    pi_r = sequence_logprob(model, rejected_embeds, rejected_labels, lora,
+                            lora_cfg)
+    with torch.no_grad():
+        ref_c = sequence_logprob(model, chosen_embeds, chosen_labels)
+        ref_r = sequence_logprob(model, rejected_embeds, rejected_labels)
+    margin = beta * ((pi_c - ref_c) - (pi_r - ref_r))
+    return -F.logsigmoid(margin).mean()
 
 
 class VLMTrainer:
@@ -184,28 +278,83 @@ class VLMTrainer:
                  lora: Lora | None = None):
         self.model = model.requires_grad_(False)
         self.lora_cfg = lora_cfg
-        if lora is None:
-            lora = init_lora(model, lora_cfg, generator)
-        dev = next(model.buffers(), next(model.parameters(), None)).device
-        self.lora = {p: {n: t.detach().to(dev, torch.float32).requires_grad_()
-                         for n, t in ab.items()} for p, ab in lora.items()}
-        self.opt = torch.optim.AdamW(
-            [t for ab in self.lora.values() for t in ab.values()], lr=lr,
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+        self.lora = _trainable_lora(model, lora_cfg, generator, lora)
+        self.opt = _adamw([{"params": _lora_leaves(self.lora), "lr": lr}])
         self.step = 0
 
     def train_step(self, input_embeds: torch.Tensor,
                    labels: torch.Tensor) -> float:
-        loss = vlm_loss(self.model, self.lora, self.lora_cfg, input_embeds,
-                        labels)
-        self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step()
         self.step += 1
-        return float(loss.detach())
+        return _descend(self.opt, vlm_loss(self.model, self.lora,
+                                           self.lora_cfg, input_embeds, labels))
 
     def merged_state_dict(self) -> dict:
         return export_merged(self.model, self.lora, self.lora_cfg)
+
+
+class DPOTrainer(VLMTrainer):
+    """LoRA-only DPO: the adapter-free base is the frozen reference policy,
+    so one model serves both; fp, int8 and int4 bases."""
+
+    def __init__(self, model: nn.Module, lora_cfg: LoraConfig = LoraConfig(),
+                 lr: float = 5e-5, beta: float = 0.1,
+                 generator: torch.Generator | None = None,
+                 lora: Lora | None = None):
+        super().__init__(model, lora_cfg, lr, generator, lora)
+        self.beta = beta
+
+    def train_step(self, chosen_embeds, chosen_labels, rejected_embeds,
+                   rejected_labels) -> float:
+        self.step += 1
+        return _descend(self.opt, dpo_loss(
+            self.model, self.lora, self.lora_cfg, chosen_embeds,
+            chosen_labels, rejected_embeds, rejected_labels, self.beta))
+
+
+class MMTrainer:
+    """Trains any non-empty subset of {lora, projector} with the projector
+    inside the graph: ("projector",) is the pretrain stage (decoder and
+    tower frozen), ("lora", "projector") the joint finetune, the projector
+    in its own AdamW group at `mm_projector_lr` (default `lr`), as
+    optax.multi_transform. A trained projector is widened to fp32 in place
+    and its parameters require grad; a frozen one is left as it is."""
+
+    def __init__(self, model: nn.Module, projector: nn.Module,
+                 lora_cfg: LoraConfig = LoraConfig(),
+                 tune: Sequence[str] = ("lora", "projector"),
+                 lr: float = 2e-4, mm_projector_lr: float | None = None,
+                 generator: torch.Generator | None = None,
+                 lora: Lora | None = None):
+        if not tune or not set(tune) <= {"lora", "projector"}:
+            raise ValueError(f"tune {tuple(tune)}: a non-empty subset of "
+                             "{lora, projector}")
+        self.model = model.requires_grad_(False)
+        self.lora_cfg = lora_cfg
+        self.tune = tuple(tune)
+        self.projector = projector
+        self.lora = (_trainable_lora(model, lora_cfg, generator, lora)
+                     if "lora" in tune else None)
+        groups = []
+        if self.lora is not None:
+            groups.append({"params": _lora_leaves(self.lora), "lr": lr})
+        if "projector" in tune:
+            projector.float().requires_grad_(True)
+            groups.append({"params": list(projector.parameters()),
+                           "lr": lr if mm_projector_lr is None
+                           else mm_projector_lr})
+        else:
+            projector.requires_grad_(False)
+        self.opt = _adamw(groups)
+        self.step = 0
+
+    def train_step(self, vis_feats: torch.Tensor, text_embeds: torch.Tensor,
+                   img_pos, labels: torch.Tensor) -> float:
+        """vis_feats [B, T, Dv] tower features; text_embeds [B, S, D] with
+        a zero span of T rows at img_pos[b]; labels [B, S]."""
+        self.step += 1
+        return _descend(self.opt, mm_loss(
+            self.model, self.lora, self.lora_cfg, self.projector, vis_feats,
+            text_embeds, img_pos, labels))
 
 
 # ------------------------------------------------------- adapter archives
@@ -232,6 +381,18 @@ def load_lora_npz(path, device=None) -> tuple[Lora, LoraConfig]:
         tree.setdefault(layer, {}).setdefault(proj, {})[n] = z[key]
     return lora_from_jax(tree, device), LoraConfig(
         r=meta["r"], alpha=meta["alpha"], targets=tuple(meta["targets"]))
+
+
+def save_projector_npz(projector: nn.Module, path) -> None:
+    """The projector under the JAX archive's keys (`params/fc0/kernel`
+    [in, out], `params/fc0/bias`, ..., fp32), which the JAX package's
+    load_projector_npz and load_projector_npz here read."""
+    arr = lambda t: t.detach().float().cpu().numpy()
+    flat = {}
+    for i, lin in enumerate(m for m in projector if isinstance(m, nn.Linear)):
+        flat[f"params/fc{i}/kernel"] = arr(lin.weight).T
+        flat[f"params/fc{i}/bias"] = arr(lin.bias)
+    np.savez(path, **flat)
 
 
 def load_projector_npz(path) -> Dict[str, torch.Tensor]:

@@ -360,8 +360,14 @@ def seeded_init_(module: nn.Module, family: str, device: torch.device) -> nn.Mod
     The seed is crc32 of the family name."""
     log.warning("checkpoint for %s not found: using seeded random init "
                 "(smoke mode, outputs are not meaningful)", family)
-    gen = torch.Generator(device=device).manual_seed(
-        zlib.crc32(family.encode()) % (2 ** 31))
+    return init_params_(module, torch.Generator(device=device).manual_seed(
+        zlib.crc32(family.encode()) % (2 ** 31)))
+
+
+@torch.no_grad()
+def init_params_(module: nn.Module, gen: torch.Generator) -> nn.Module:
+    """seeded_init_'s rule with draws from `gen` (on the module's device):
+    a fresh model to train."""
     for name, prm in module.named_parameters():
         owner_name, _, leaf = name.rpartition(".")
         owner = module.get_submodule(owner_name) if owner_name else module

@@ -23,7 +23,6 @@ import pytest
 import torch
 from PIL import Image
 
-import rsvldm_tpu.native
 import rsvldm_tpu.pipeline as jpipeline
 from rsvldm_tpu.config import (LlavaConfig as JLlavaConfig,
                                PipelineConfig as JPipelineConfig,
@@ -123,8 +122,6 @@ def folder_runs(tmp_path_factory):
               str(work / "ckpt" / "llava" / "model.safetensors"))
 
     mp = pytest.MonkeyPatch()
-    # both sides resize with PIL
-    mp.setattr(rsvldm_tpu.native, "available", lambda: False)
     # random weights of the real trees' shapes instead of the Flax init
     mp.setattr(jpipeline.SuperResolutionPipeline, "_init_params",
                lambda self, what, init_fn: randomize(
@@ -366,7 +363,6 @@ def test_refinement_bucket_pad_and_crop_equal_jax(folder_runs, batched):
             min_size=64, size_bucket=128))), pils[1])
     assert key == (128, 128)
     mp = pytest.MonkeyPatch()
-    mp.setattr(rsvldm_tpu.native, "available", lambda: False)
     mp.setattr(jp.cfg.refine, "size_bucket", 128)
     jp.rng = jax.random.PRNGKey(SEED)
     traced = len(jp.dfb)

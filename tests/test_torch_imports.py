@@ -46,7 +46,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "utils.safetensors", "utils.checkpoint", "utils.tokenizer",
                  "models.vlm.tokenizer", "utils.graphs",
                  "models.vlm.speculative", "models.vlm.conversation",
-                 "models.vae.tiled"):
+                 "models.vae.tiled", "models.vlm.video", "train_sr3",
+                 "training.sr3_trainer", "training.ema",
+                 "training.lr_schedule", "training.losses",
+                 "data.datasets"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -64,6 +67,9 @@ def test_cuda_entry_points_raise_without_a_card():
     from rsvldm_tpu_torch import train_vlm
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_vlm.main(["--smoke", "--data_path", "d.json", "--output_dir", "o"])
+    from rsvldm_tpu_torch import train_sr3
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_sr3.main(["--data_root", "d"])
 
 
 def test_caption_options_are_taken():

@@ -99,12 +99,7 @@ def test_hash_tokens_match_jax_fallback():
     np.testing.assert_array_equal(np.asarray(tl), np.asarray(tg))
 
 
-@pytest.fixture()
-def pil_only(monkeypatch):
-    monkeypatch.setattr(rsvldm_tpu.native, "available", lambda: False)
-
-
-def test_image_io_helpers(tmp_path, pil_only):
+def test_image_io_helpers(tmp_path):
     src = Image.fromarray((RNG.random((9, 13, 3)) * 255).astype(np.uint8))
     src.save(tmp_path / "lr.png")
     np.testing.assert_array_equal(
@@ -119,3 +114,29 @@ def test_image_io_helpers(tmp_path, pil_only):
                                   np.asarray(jimage.array_to_pil(y, 18, 26)))
     np.testing.assert_array_equal(timage.to_uint8(y), jimage.to_uint8(y))
     assert timage.round_to_multiple(95.9) == jimage.round_to_multiple(95.9) == 64
+
+
+def _seeded_image(side: int, kind: str, seed: int):
+    if kind == "noise":
+        a = np.random.default_rng(seed).random((side, side + 3, 3)) * 255
+    else:
+        yy, xx = np.mgrid[0:side, 0:side + 3]
+        a = np.stack([127 + 120 * np.sin(xx / 5.0 + c) * np.cos(yy / 7.0)
+                      for c in range(3)], axis=-1)
+    return Image.fromarray(a.astype(np.uint8))
+
+
+@pytest.mark.parametrize("kind", ["smooth", "noise"])
+@pytest.mark.parametrize("side", [224, 28])
+def test_pil_to_array_equals_native(side, kind):
+    """Stage 2b's resize: JAX's default path (the native float bicubic)
+    pixel for pixel, to 1024 on the short side. PIL's 8-bit bicubic
+    differs from it on about a quarter of the pixels of uniform noise."""
+    assert rsvldm_tpu.native.available()
+    img = _seeded_image(side, kind, side)
+    got = timage.pil_to_array(img, min_size=1024)
+    want = jimage.pil_to_array(img, min_size=1024)
+    assert got[0].shape == want[0].shape and got[0].shape[0] == 1024
+    assert got[0].dtype == np.float32
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]

@@ -21,7 +21,6 @@ import pytest
 import torch
 from PIL import Image
 
-import rsvldm_tpu.native
 from rsvldm_tpu.config import (LlavaConfig as JLlavaConfig,
                                PipelineConfig as JPipelineConfig,
                                RefinementConfig as JRefinementConfig,
@@ -106,8 +105,6 @@ def _run_both(work, ckpt, jax_kw=None, llava_kw=None, port_kw=None,
                     .astype("uint8")).save(work / "in.png")
     families = FAMILIES
     mp = pytest.MonkeyPatch()
-    # both sides resize with PIL
-    mp.setattr(rsvldm_tpu.native, "available", lambda: False)
     # missing checkpoints: random weights of the real tree's shapes instead
     # of the Flax init (which zeroes the control convs and is slow eagerly)
     mp.setattr(JPipeline, "_init_params", lambda self, what, init_fn: randomize(

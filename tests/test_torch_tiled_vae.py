@@ -18,7 +18,6 @@ import pytest
 import torch
 from PIL import Image
 
-import rsvldm_tpu.native
 from rsvldm_tpu.config import (PipelineConfig as JPipelineConfig,
                                RefinementConfig as JRefinementConfig)
 from rsvldm_tpu.models.vae import tiled as jtiled
@@ -193,7 +192,6 @@ def refined(tmp_path_factory):
             for _ in range(3)]
     jcfgs = dict(JAX_TINY, vae=JV)
     mp = pytest.MonkeyPatch()
-    mp.setattr(rsvldm_tpu.native, "available", lambda: False)
     mp.setattr(JPipeline, "_init_params", lambda self, what, init_fn: randomize(
         jax.eval_shape(init_fn, jax.random.PRNGKey(0)), 300 + FAMILIES.index(what)))
     try:

@@ -60,6 +60,17 @@ def test_llama3_ids_equal_oracles(oracles, text):
         tk.encode(text, add_special_tokens=True).ids
 
 
+def test_llama3_bos_token_id_equals_transformers(oracles, llama_assets, tmp_path):
+    """The BOS the plain finetune template leads with: transformers'
+    bos_token_id, from tokenizer_config.json, else the template's first
+    special token."""
+    _, hf, port = oracles
+    assert port.bos_token_id == hf.bos_token_id == 128000
+    d, _ = llama_assets
+    (tmp_path / "tokenizer.json").write_text((d / "tokenizer.json").read_text())
+    assert Llama3Tokenizer.from_dir(tmp_path).bos_token_id == 128000
+
+
 def test_llama3_caption_prompt(oracles, llama_assets):
     """The prompt as the captioner encodes it (split at <image>): equal to
     both oracles and to the assets' own encoding, special tokens mapped to
