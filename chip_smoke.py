@@ -52,7 +52,18 @@ Phases, each printed on its own line:
                ids of greedy `generate`, every round after the first
                replayed, K2 launches as the formula; and process() with
                the tiled VAE (three downsamples, 48-pixel encoder and
-               10-latent decoder tiles, overlapping) card against CPU
+               10-latent decoder tiles, overlapping) card against CPU;
+               then the serving engine at this width (serve_reference: int4,
+               card bf16 with its CUDA graphs against the CPU engine in
+               fp32): 6 requests on 4 slots in two waves (an image prompt,
+               texts, two on a registered prefix) with the decode horizon,
+               a chunked admission beside a decoding co-tenant, an int8 KV
+               pool, speculative rounds with a one-layer self-draft: each of
+               the first 16 greedy ids the best of the CPU teacher-forced on
+               the card's ids (up to a near-tie), first-token
+               logit cosines, K1 / K2 launches as the admissions and steps
+               imply; a sampled request alone and among co-tenants in
+               another slot, the same ids
   5. path      the full-width modules (SR3 64-ch; SDXL XL-base + GLVControl,
                the SDXL VAE with its twin encoder, CLIP-L, bigG; LLaVA-NeXT-8B:
                CLIP-L/336 + mlp2x_gelu + Llama-3-8B, dense) with seeded bf16
@@ -124,6 +135,18 @@ Phases, each printed on its own line:
                memory with the loops kept; then graph replay against direct
                calls at this width (16 decode steps at B=8: ids and K2
                launches; 10 SR3 steps at batch 7)
+     serve     (after folder, before the directory is deleted) the LLM
+               worker as a user launches it: serving.llm_worker.main on
+               that directory (--load-4bit --slots 8 --max-len 4096), 16
+               concurrent HTTP requests (4 with a base64 224^2 tile, 12
+               texts of 40-900 tokens, one streamed): wall seconds, tokens,
+               tok/s, time to first token, the replayed 8-slot decode step
+               (device time, the cache casts' and K2's shares), K1 = 32 an
+               admission padded to >= 1024, K2 = 225 a step + 1 an
+               admission; then on the same captioner one engine each for
+               --prefix-file, --prefill-chunk 512, --decode-horizon 8,
+               --kv-8bit and --self-draft 4 --spec-k 4 (4 slots), each
+               with its launches against the reckoning
   6. profile   (--profile) one int4 decode step, one SR3 step, one
                cache-miss and one cache-hit denoising step, each replayed
                from a CUDA graph, a decode step at 8 rows (folder), and the
@@ -1372,7 +1395,8 @@ def _small_captioners(quant: str):
                        kv_heads=2, ffn_dim=1024)
     vcfg = CLIPVisionConfig(width=64, layers=2, heads=1)
     tok = StandInTokenizer()
-    dense = LlavaCaptioner.seeded(lcfg, vcfg, tok)
+    dense = LlavaCaptioner.seeded(lcfg, vcfg, tok, device="cpu",
+                                  dtype=torch.float32)
     sd = {**dense.llama.state_dict(),
           **{VISION_PREFIX + k: v for k, v in dense.vision.state_dict().items()},
           **{PROJECTOR_PREFIX + k: v
@@ -3179,6 +3203,602 @@ def phase_train_sr3(seed: int, steps: int = 4, images: int = 24):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ------------------------------------------------------- serving phases
+# serve_reference: the engine at the small width, card (bf16) against CPU
+# (fp32). Each request decodes SERVE_NEW tokens; its first SERVE_AGREE
+# greedy ids are held against the CPU teacher-forced on them (the prompt,
+# then the card's ids before each position). bf16 moves a logit by about
+# 2.5% of the logits' rms (an H100 gave caption cosines 0.9997-0.9998 with
+# these weights), and 128256 random-weight logits have near-ties: at every
+# position the card's token must lie within SERVE_NEAR_TIE * rms of the
+# CPU's best (a tie that bf16 may break either way), hence be the CPU's
+# best wherever the CPU's top two lie further apart. A scheduling fault (a
+# wrong slot, position, key or dequantization) gives another token where
+# the CPU's top is clear.
+SERVE_NEW, SERVE_AGREE, SERVE_NEAR_TIE = 24, 16, 0.15
+# serve: the LLM worker's engine at full width; the registered system
+# prefix of its --prefix-file engine (padded past 1024: K1 at registration)
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PREFIX_TOKENS = 8, 4096, 1100
+
+
+def _serve_k1_per_admission(s: int, whole: bool, layers: int) -> int:
+    """K1 launches of one admission: one per layer when its prompt is
+    prefilled whole from position 0 at a padded length of 1024 or more."""
+    return layers if whole and -(-s // 128) * 128 >= 1024 else 0
+
+
+def _serve_k2_expected(eng, k2_step: int, k2_round: int = 0) -> int:
+    """K2 launches of an engine's run: the lm_head row of every admission,
+    k2_step a decode step (H of them a horizon), k2_round a round."""
+    return (eng.admissions + k2_step * (eng.steps["decode"] + eng.decode_horizon
+                                        * eng.steps["horizon"])
+            + k2_round * eng.steps["spec"])
+
+
+def _teacher_forced(model, prompt, card_ids, cpu_ids, n: int,
+                    kv_8bit: bool) -> dict:
+    """The CPU's logits at each of the card's first n greedy ids: the
+    prompt prefilled from 0 into a cache (int8 under kv_8bit, as the
+    engine's pool), then the card's first n - 1 ids as one block after it
+    (the einsum path over the cache, as the engine's decode steps). Per
+    position, the card token's distance below the CPU's best and the gap
+    of the CPU's top two, in units of the logits' rms. `agree`: where the
+    card's ids first part from the CPU engine's own greedy run."""
+    import dataclasses
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import KVCache
+    ids = [int(t) for t in card_ids[:n]]
+    a, b = ids, [int(t) for t in cpu_ids[:n]]
+    j = next((i for i in range(min(len(a), len(b))) if a[i] != b[i]), None)
+    cfg = (dataclasses.replace(model.cfg, kv_quant=True) if kv_8bit
+           else model.cfg)
+    s = prompt.shape[0]
+    cache = KVCache.init(cfg, 1, s + n, torch.float32, "cpu")
+    with torch.inference_mode():
+        lg0, _ = model(prompt[None], cache, 0, logits_at=torch.tensor([s - 1]))
+        rows = [lg0[0, 0]]
+        if len(ids) > 1:
+            x = model.embed(torch.tensor(ids[:-1], dtype=torch.long))
+            lg, _ = model(x[None], cache, torch.tensor(s))
+            rows += list(lg[0])
+    lg = torch.stack(rows).float()                        # [len(ids), V]
+    rms = lg.square().mean(-1).sqrt()
+    top2 = lg.topk(2, dim=-1).values
+    gap = (top2[:, 0] - lg[torch.arange(len(ids)), torch.tensor(ids)]) / rms
+    clear = (top2[:, 0] - top2[:, 1]) / rms > SERVE_NEAR_TIE
+    exact = lg.argmax(-1) == torch.tensor(ids)
+    parted = [[i, round(float(gap[i]), 4)] for i in range(len(ids))
+              if not exact[i]]
+    return dict(agree=min(len(a), len(b)) if j is None else j,
+                positions=len(ids), exact=int(exact.sum()),
+                max_gap_over_rms=round(float(gap.max()), 4), parted=parted,
+                ok=bool(len(ids) >= n and float(gap.max()) <= SERVE_NEAR_TIE
+                        and bool(exact[clear].all())))
+
+
+def phase_serve_reference(seed: int):
+    """The continuous-batching engine at the small width (2 layers, 128-wide
+    heads, int4; the caption references' captioner), card (bf16, CUDA
+    graphs) against the same engine on the CPU (fp32), same quantized
+    bytes and prompts: a 224^2 image prompt (1280 tokens: K1), text
+    prompts of 40-900 tokens and two requests on a registered 300-token
+    prefix, 6 requests on 4 slots admitted in two waves, with the decode
+    horizon (4); a chunked admission (3 chunks of 512) while a co-tenant
+    decodes; an int8 KV pool; speculative rounds with a one-layer
+    self-draft (k = 4). Each request's first SERVE_AGREE greedy ids the
+    CPU's teacher-forced best (up to a near-tie, above) at every position,
+    its first token's logit cosine
+    >= CAP_COS_MIN, K1 / K2 launches equal to the count reckoned from the
+    admissions and steps. Then on the card a sampled request (T = 0.7,
+    the default counter draws) alone and among co-tenants in another slot:
+    the same first SERVE_AGREE ids."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.config import REFERENCE_IMG_PROMPT
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.models.vlm.speculative import self_draft
+    from rsvldm_tpu_torch.serving.engine import DecodeEngine
+
+    caps, lcfg, vcfg, tok, same_bytes = _small_captioners("int4")
+    L, k2_step = lcfg.layers, 7 * lcfg.layers + 1
+    rng = np.random.default_rng(seed + 12)
+    img = Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
+    prompt = gen.llama3_chat_prompt(
+        REFERENCE_IMG_PROMPT.format(DEFAULT_IMAGE_TOKEN="<image>"))
+    with torch.inference_mode():
+        P = {"img": {d: c.embed_mm(prompt, [img]) for d, c in caps.items()}}
+        for n in (900, 600, 300, 100, 50, 40):
+            ids = torch.from_numpy(rng.integers(0, 128000, n))
+            P[n] = {d: c.llama.embed(ids.to(c.image_newline.device))
+                    for d, c in caps.items()}
+    greedy = gen.GenerateConfig(max_new_tokens=SERVE_NEW, do_sample=False)
+    models = {d: c.llama for d, c in caps.items()}
+
+    def run(dev, model, reqs, wave: int, gap_steps: int, **kw):
+        """reqs: (prompt key, prefix key or None); the first `wave`
+        submitted, `gap_steps` steps, then the rest."""
+        eng = DecodeEngine(model, max_len=2048, **kw)
+        logits = {}
+        first = eng._first_token
+
+        def first_token(lg, nonce, temp):
+            logits[nonce] = lg[0].float().cpu()
+            return first(lg, nonce, temp)
+
+        eng._first_token = first_token
+        eng.warmup()
+        pids = {p: eng.register_prefix(P[p][dev]) for _, p in reqs if p}
+        replays0 = {k: r.replays for k, r in eng.runners.items()}
+        _reset_counts()
+        uids = []
+        for i, (key, pre) in enumerate(reqs):
+            if i == wave:
+                for _ in range(gap_steps):
+                    eng.step()
+            uids.append(eng.submit(P[key][dev], greedy,
+                                   prefix_id=pids.get(pre)))
+        eng.run_until_idle()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out = dict(ids=[eng.result(u) for u in uids],
+                   logits=[logits[eng._requests[u].nonce] for u in uids],
+                   counts=_counts(), steps=dict(eng.steps),
+                   admissions=eng.admissions,
+                   replays={k: r.replays - replays0[k]
+                            for k, r in eng.runners.items()})
+        return out, eng
+
+    def full_prompt(key, pre):
+        x = P[key]["cpu"]
+        return torch.cat([P[pre]["cpu"], x]) if pre else x
+
+    cases = {
+        "pool": (dict(slots=4, decode_horizon=4),
+                 [("img", None), (900, None), (40, None), (100, 300),
+                  (600, None), (50, 300)], 4, 3, 0),
+        "chunk": (dict(slots=2, prefill_chunk=512),
+                  [(40, None), ("img", None)], 1, 2, 0),
+        "kv8": (dict(slots=2, kv_8bit=True), [(300, None), (40, None)], 2, 0,
+                0),
+        "spec": (dict(slots=2, spec_k=SPEC_K), [(300, None), (40, None)], 2,
+                 0, 1)}
+    rec: dict = dict(same_bytes=same_bytes)
+    ok = same_bytes
+    for name, (kw, reqs, wave, gap_steps, n_draft) in cases.items():
+        got = {}
+        for dev in ("cpu", "cuda"):
+            m = models[dev]
+            kw_dev = dict(kw, draft=self_draft(m, n_draft)) if n_draft else kw
+            got[dev], eng = run(dev, m, reqs, wave, gap_steps, **kw_dev)
+            if dev == "cuda":
+                whole = [p is None and not (kw.get("prefill_chunk") and
+                                            P[k]["cpu"].shape[0] > kw["prefill_chunk"])
+                         for k, p in reqs]
+                exp_k1 = sum(_serve_k1_per_admission(P[k]["cpu"].shape[0], w,
+                                                     L + n_draft)
+                             for (k, _), w in zip(reqs, whole))
+                exp_k2 = _serve_k2_expected(
+                    eng, k2_step, k2_per_round(n_draft, SPEC_K, L) if n_draft else 0)
+                replayed = all(got[dev]["replays"][k] == got[dev]["steps"][k]
+                               for k in eng.runners)
+            del eng
+        agree = [_teacher_forced(models["cpu"], full_prompt(k, p), a, b,
+                                 SERVE_AGREE, kw.get("kv_8bit", False))
+                 for (k, p), a, b in zip(reqs, got["cuda"]["ids"], got["cpu"]["ids"])]
+        cos = [float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+               for a, b in zip(got["cuda"]["logits"], got["cpu"]["logits"])]
+        c = got["cuda"]["counts"]
+        r = dict(agree=agree, first_token_cos=[round(x, 6) for x in cos],
+                 steps=got["cuda"]["steps"], admissions=got["cuda"]["admissions"],
+                 tokens=[len(i) for i in got["cuda"]["ids"]],
+                 k1=c["k1"], k2=c["k2"], expected_k1=exp_k1, expected_k2=exp_k2,
+                 replayed=replayed, ids=[i[:6].tolist() for i in got["cuda"]["ids"]])
+        r["ok"] = bool(all(a["ok"] for a in agree) and min(cos) >= CAP_COS_MIN
+                       and c["k1"] == exp_k1 and c["k2"] == exp_k2 and replayed
+                       and all(n == SERVE_NEW for n in r["tokens"]))
+        rec[name] = r
+        ok = ok and r["ok"]
+    # a sampled request alone, then in slot 2 among co-tenants (card)
+    sampled = gen.GenerateConfig(max_new_tokens=SERVE_NEW, temperature=0.7)
+    m = models["cuda"]
+    alone = DecodeEngine(m, slots=4, max_len=2048)
+    a = alone.generate_all([P[300]["cuda"]], sampled)[0]
+    busy = DecodeEngine(m, slots=4, max_len=2048)
+    busy._free = [2, 0, 1, 3]
+    uid = busy.submit(P[300]["cuda"], sampled)
+    for key in (40, 100, 600):
+        busy.submit(P[key]["cuda"], sampled)
+    busy.run_until_idle()
+    b = busy.result(uid)
+    rec["sampled_placement"] = dict(
+        slot=busy._requests[uid].slot, ids=a[:6].tolist(),
+        equal=bool(np.array_equal(a[:SERVE_AGREE], b[:SERVE_AGREE])),
+        ok=bool(busy._requests[uid].slot == 2 and len(a) == SERVE_NEW
+                and np.array_equal(a[:SERVE_AGREE], b[:SERVE_AGREE])))
+    ok = ok and rec["sampled_placement"]["ok"]
+    _reset_counts()
+    rec["ok"] = bool(ok)
+    _say("reference", serve=rec)
+    return rec
+
+
+def _b64_png(img) -> str:
+    import base64
+    import io
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def _chat_of_length(tok, words, n: int, offset: int) -> str:
+    """A Llama-3 chat prompt of about n tokens (at least the template's):
+    the user message is words[offset:offset + m], m found by bisection."""
+    from rsvldm_tpu_torch.models.vlm.generate import llama3_chat_prompt
+    count = lambda m: len(tok.encode(llama3_chat_prompt(
+        " ".join(words[offset:offset + m])), add_special_tokens=False))
+    lo, hi = 0, n
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if count(mid) <= n else (lo, mid - 1)
+    return llama3_chat_prompt(" ".join(words[offset:offset + lo]))
+
+
+def _serve_step_timing(eng, pos: int, iters: int = 20) -> dict:
+    """The engine's decode step at all its slots, replayed from its graph
+    at position `pos` of every row (sampled, T = 0.7): host wall per step
+    with the token read, device time by CUDA events, and one replay under
+    torch.profiler (device ms, the bf16 -> fp32 cache casts' share, K2's).
+    The launches counted here are taken back."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    before = _counts()
+    runner, out = eng.runners["decode"], eng._outs["decode"]
+    with torch.inference_mode():
+        st = eng._state
+        st[0].copy_(torch.arange(eng.slots) * 997 + 11)
+        st[1].fill_(pos)
+        st[2].copy_(torch.arange(1, eng.slots + 1))
+        st[3].fill_(8)
+        eng._temps.fill_(0.7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            runner()
+            out.cpu()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+        dev_ms = _time_ms(runner, iters, warmup=0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            runner()
+            torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.self_device_time_total > 0 and e.device_type == DeviceType.CUDA]
+    prof_ms = sum(t for _, t, _ in kernels)
+    copy_ms = sum(t for k, t, _ in kernels if "copy_kernel" in k)
+    k2_ms = sum(t for k, t, _ in kernels if "int4_decode_kernel" in k)
+    from rsvldm_tpu_torch.ops.flash_attention import flash_attention
+    from rsvldm_tpu_torch.ops.quant import int4_matmul
+    flash_attention.launches, int4_matmul.launches = before["k1"], before["k2"]
+    return dict(slots=eng.slots, pos=pos, step_wall_ms=round(wall, 3),
+                step_device_ms=round(dev_ms, 3),
+                profiled_device_ms=round(prof_ms, 3),
+                idle_share=round(1 - dev_ms / wall, 4),
+                cast_copy_ms=round(copy_ms, 3),
+                cast_copy_share=round(copy_ms / prof_ms, 4) if prof_ms else None,
+                k2_ms=round(k2_ms, 3),
+                k2_share=round(k2_ms / prof_ms, 4) if prof_ms else None,
+                top_kernels=[[k[:70], round(t, 3), c] for k, t, c in
+                             sorted(kernels, key=lambda r: -r[1])[:6]])
+
+
+def _serve_http(worker, server, tok, words, seed: int) -> dict:
+    """SERVE traffic over HTTP: 16 requests from threads, 50 ms apart: 4
+    multimodal (a base64 224^2 tile each) and 12 text prompts of 40-900
+    tokens, 64-128 new tokens each at T 0 / 0.2 / 0.7, one of them on
+    /worker_generate_stream. Returns the per-request records and the
+    wall seconds from the first send to the last reply."""
+    import threading
+    import urllib.request
+    import numpy as np
+    from PIL import Image
+    from rsvldm_tpu_torch.models.vlm.generate import llama3_chat_prompt
+    rng = np.random.default_rng(seed + 13)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    mm_prompt = llama3_chat_prompt(
+        "<image>\nDescribe the land cover of this remote sensing tile.")
+    reqs = []
+    for i in range(4):
+        tile = Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
+        reqs.append(dict(prompt=mm_prompt, images=[_b64_png(tile)]))
+    for i, n in enumerate((40, 90, 150, 220, 300, 380, 460, 540, 620, 700, 800, 900)):
+        reqs.append(dict(prompt=_chat_of_length(tok, words, n, 60 * i)))
+    order = rng.permutation(len(reqs))
+    temps = (0.0, 0.2, 0.7)
+    for j, i in enumerate(order):
+        reqs[i].update(max_new_tokens=int(64 + 64 * (j % 5) / 4),
+                       temperature=temps[j % 3])
+    stream_i = int(order[5])
+    out = [None] * len(reqs)
+
+    def client(j, i):
+        time.sleep(0.05 * j)
+        body = json.dumps(reqs[i]).encode()
+        path = "/worker_generate_stream" if i == stream_i else "/worker_generate"
+        t0 = time.perf_counter()
+        try:
+            r = urllib.request.urlopen(urllib.request.Request(
+                url + path, body, {"Content-Type": "application/json"}), timeout=600)
+            with r:
+                if i == stream_i:
+                    frames, first = [], None
+                    for line in r:
+                        if line.strip():
+                            frames.append(json.loads(line))
+                            first = first or time.perf_counter() - t0
+                    res = dict(frames[-1], frames=len(frames), first_frame_s=first)
+                else:
+                    res = json.loads(r.read())
+        except Exception as e:  # reported, and the phase fails
+            res = {"error": f"{type(e).__name__}: {e}"}
+        res.update(seconds=time.perf_counter() - t0, t_start=t0)
+        out[i] = res
+
+    threads = [threading.Thread(target=client, args=(j, int(i)))
+               for j, i in enumerate(order)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return dict(reqs=reqs, out=out, wall_s=time.perf_counter() - t0,
+                stream_i=stream_i)
+
+
+def phase_serve(seed: int, cd: Path) -> dict:
+    """The LLM worker at full width, as a user launches it:
+    serving.llm_worker.main(--ckpt_dir <the path's directory> --load-4bit
+    --slots 8 --max-len 4096 --no-register --port 0) loads the int4
+    LLaVA-NeXT-8B captioner from the checkpoint directory, captures the
+    engine's step graph and serves; 16 concurrent HTTP requests
+    (_serve_http). Checks: every reply without error and not empty; every
+    prompt embedded on the card by a handler thread while the stepping
+    thread stepped; the graph captured before the first request and
+    replayed at every decode step; K1 = 32 for each admission whose
+    padded prompt is >= 1024 tokens, K2 = 225 a decode step + 1 an
+    admission. Reports wall seconds, tokens, aggregate tok/s, time to
+    first token (engine: submit to token 0), the admissions' seconds (each
+    closed by a stream sync) and prompt tokens, the replayed decode step at
+    8 slots (_serve_step_timing), capture seconds, load seconds, peak
+    memory. Then on the same captioner one engine each, built from the
+    worker's flags by llm_worker.build_engine: --prefix-file (a ~1100-token
+    system prefix registered once: K1 32; 8 requests through
+    LLMWorker.generate_text from threads), --prefill-chunk 512 (7 slots
+    decoding, then an image request admitted in 3 chunks), --decode-horizon
+    8, --kv-8bit (an int8 pool, one image request), and --self-draft 4
+    --spec-k 4 at 4 slots (K2 k (7n + 1) + 7n + 225 a round); each with
+    its launches against the reckoning, tokens and tok/s."""
+    import gc
+    import threading
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.models.vlm.generate import GenerateConfig
+    from rsvldm_tpu_torch.serving import llm_worker
+
+    rng = np.random.default_rng(seed + 14)
+    words = _seeded_words(seed + 15, 20000)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    worker, server = llm_worker.main(
+        ["--ckpt_dir", str(cd), "--load-4bit", "--slots", str(SERVE_SLOTS),
+         "--max-len", str(SERVE_MAX_LEN), "--no-register", "--port", "0"],
+        block=False)
+    rec: dict = dict(start_s=round(time.perf_counter() - t0, 3))
+    eng = worker.engine
+    cap = worker.embed_mm.__self__
+    tok = cap.tokenizer
+    captured = {k: (r.graph is not None, r.capture_s) for k, r in eng.runners.items()}
+    seen = []
+
+    def recorded(fn):
+        def embed(*a):
+            x = fn(*a)
+            seen.append((x.device.type, threading.current_thread().name, x.shape[0]))
+            return x
+        return embed
+
+    worker.embed_prompt = recorded(worker.embed_prompt)
+    worker.embed_mm = recorded(worker.embed_mm)
+    _reset_counts()
+    http = _serve_http(worker, server, tok, words, seed)
+    torch.cuda.synchronize()
+    c = _counts()
+    lens = [n for _, _, n in seen]
+    exp_k1 = sum(_serve_k1_per_admission(n, True, 32) for n in lens)
+    exp_k2 = _serve_k2_expected(eng, K2_PER_STEP)
+    errors = [o.get("error") for o in http["out"] if "error" in o]
+    tokens_expected = sum(r["max_new_tokens"] for r in http["reqs"])
+    ttft = sorted(eng.first_token_s)
+    graphs_kept = all(eng.runners[k].graph is not None and eng.runners[k].capture_s == s
+                      and ok0 for k, (ok0, s) in captured.items())
+    rec.update(
+        requests=len(http["reqs"]), multimodal=4,
+        prompt_tokens=lens, wall_s=round(http["wall_s"], 3),
+        tokens=eng.generated, tokens_expected=tokens_expected,
+        tok_s=round(eng.generated / http["wall_s"], 2),
+        ttft_median_s=round(ttft[len(ttft) // 2], 3) if ttft else None,
+        ttft_max_s=round(ttft[-1], 3) if ttft else None,
+        stream=dict({k: v for k, v in http["out"][http["stream_i"]].items()
+                     if k in ("frames", "first_frame_s", "finished", "seconds")}),
+        decode_steps=eng.steps["decode"], admissions=eng.admissions,
+        admission_s=round(eng.admission_s, 3),
+        prefill_tokens=eng.prefill_tokens,
+        admission_ms_per_token=(round(1e3 * eng.admission_s / eng.prefill_tokens, 4)
+                                if eng.prefill_tokens else None),
+        capture_s=round(sum(r.capture_s for r in eng.runners.values()), 3),
+        graphs_captured_before_traffic=graphs_kept,
+        replays=eng.runners["decode"].replays,
+        embeds_on_card=all(d == "cuda" for d, _, _ in seen),
+        embed_threads=len({t for _, t, _ in seen}),
+        k1=c["k1"], k2=c["k2"], expected_k1=exp_k1, expected_k2=exp_k2,
+        load_s=round(sum(v for k, v in cap.load_stats.items()
+                         if k.endswith("_s")), 3),
+        errors=errors[:3])
+    rec["step"] = _serve_step_timing(eng, 1400)
+    rec["peak_mem_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+    rec["launches"] = dict(k1=c["k1"], k2=c["k2"], bwd=c["bwd"])
+    ok = bool(not errors and len(seen) == 16 and rec["embeds_on_card"]
+              and rec["embed_threads"] > 1 and graphs_kept
+              and all(o.get("text") for o in http["out"])
+              and c["k1"] == exp_k1 and c["k2"] == exp_k2 and exp_k1 > 0
+              and eng.runners["decode"].replays >= eng.steps["decode"] > 0)
+    worker.stop()
+    server.shutdown()
+    server.server_close()
+    del worker, server, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the engine's options on the same captioner
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    mm = cap.embed_mm
+    text = lambda n, i: mm(_chat_of_length(tok, words, n, 500 + 80 * i), [])
+    tile = Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
+    img = lambda: mm(_chat_of_length(tok, words, 0, 0).replace(
+        "<|start_header_id|>user<|end_header_id|>\n\n",
+        "<|start_header_id|>user<|end_header_id|>\n\n<image>\n"), [tile])
+    modes, by_mode = {}, {}
+
+    def mode(name, argv, drive, slots=SERVE_SLOTS, n_draft=0):
+        args = llm_worker.parse_args(
+            ["--ckpt_dir", str(cd), "--load-4bit", "--slots", str(slots),
+             "--max-len", str(SERVE_MAX_LEN)] + argv)
+        e = llm_worker.build_engine(args, cap)
+        e.warmup()
+        _reset_counts()
+        t = time.perf_counter()
+        lens_whole, extra_k1, info = drive(e, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        cc = _counts()
+        exp1 = extra_k1 + sum(_serve_k1_per_admission(n, w, 32 + n_draft)
+                              for n, w in lens_whole)
+        exp2 = _serve_k2_expected(e, K2_PER_STEP,
+                                  k2_per_round(n_draft) if n_draft else 0)
+        r = dict(wall_s=round(wall, 3), tokens=e.generated,
+                 tok_s=round(e.generated / wall, 2), steps=dict(e.steps),
+                 admissions=e.admissions, admission_s=round(e.admission_s, 3),
+                 prefill_tokens=e.prefill_tokens, k1=cc["k1"], k2=cc["k2"],
+                 expected_k1=exp1, expected_k2=exp2,
+                 capture_s=round(sum(x.capture_s for x in e.runners.values()), 3),
+                 **info)
+        r["ok"] = bool(cc["k1"] == exp1 and cc["k2"] == exp2
+                       and r.pop("fine", True) and e.generated > 0)
+        modes[name] = r
+        by_mode[name] = cc
+        del e
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def drive_prefix(e, args):
+        pf = work / "prefix.txt"
+        head = "<|begin_of_text|><|start_header_id|>system<|end_header_id|>\n\n"
+        n_pre = lambda m: len(tok.encode(head + " ".join(words[:m]) + "<|eot_id|>",
+                                         add_special_tokens=False))
+        m = next(m for m in range(50, 2000, 25) if n_pre(m) >= SERVE_PREFIX_TOKENS)
+        pre = head + " ".join(words[:m]) + "<|eot_id|>"
+        pf.write_text(pre, encoding="utf-8")
+        w = llm_worker.LLMWorker(
+            e, embed_prompt=lambda p: mm(p, []), decode_fn=tok.decode,
+            worker_name="prefix", prefix_text=pf.read_text(encoding="utf-8"),
+            embed_mm=mm, base_cfg=GenerateConfig(max_new_tokens=32,
+                                                 temperature=0.0, do_sample=False))
+        p_len = len(tok.encode(pre, add_special_tokens=False))
+        outs = [None] * 8
+
+        def ask(i):
+            q = ("<|start_header_id|>user<|end_header_id|>\n\n"
+                 + " ".join(words[2000 + 30 * i: 2000 + 30 * i + 10 + 8 * i])
+                 + "<|eot_id|><|start_header_id|>assistant<|end_header_id|>\n\n")
+            outs[i] = w.generate_text(pre + q, temperature=0.2 * (i % 2))
+        ts = [threading.Thread(target=ask, args=(i,)) for i in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        w.stop()
+        k1_prefix = 32 if -(-p_len // 128) * 128 >= 1024 else 0
+        # the prefix registered inside the window; suffixes admitted at
+        # offset p take the einsum path
+        return [], k1_prefix, dict(prefix_tokens=p_len,
+                                   fine=all(o for o in outs))
+
+    def drive_chunk(e, args):
+        cfg = GenerateConfig(max_new_tokens=64, temperature=0.2)
+        embs = [text(40 + 40 * i, i) for i in range(7)]
+        for x in embs:
+            e.submit(x, cfg)
+        e.step()
+        x_img = img()
+        uid = e.submit(x_img, cfg)
+        req = e._requests[uid]
+        gained, chunk_steps = 0, 0
+        while not req.out_ids and not req.done:
+            before = sum(len(r.out_ids) for r in e._active.values())
+            e.step()
+            chunk_steps += 1
+            gained += sum(len(r.out_ids) for s, r in e._active.items()
+                          if r is not req) - before
+        e.run_until_idle()
+        return ([(int(x.shape[0]), True) for x in embs]
+                + [(int(x_img.shape[0]), False)], 0,
+                dict(image_tokens=int(x_img.shape[0]), chunks=req.n_chunks,
+                     steps_while_chunking=chunk_steps,
+                     cotenant_tokens_while_chunking=gained,
+                     fine=bool(req.n_chunks == chunk_steps and gained > 0)))
+
+    def drive_batch(n_img, max_new, texts):
+        def drive(e, args):
+            cfg = GenerateConfig(max_new_tokens=max_new, temperature=0.2)
+            embs = [img() for _ in range(n_img)] + [text(n, i) for i, n in enumerate(texts)]
+            uids = [e.submit(x, cfg) for x in embs]
+            e.run_until_idle()
+            info = dict(prompt_tokens=[int(x.shape[0]) for x in embs],
+                        fine=all(len(e.result(u)) for u in uids))
+            if e.draft is not None:
+                info["rounds"] = e.steps["spec"]
+            if e.cache.k_scale is not None:
+                info["pool_dtype"] = str(e.cache.k.dtype)
+            return [(int(x.shape[0]), True) for x in embs], 0, info
+        return drive
+
+    mode("prefix", ["--prefix-file", str(work / "prefix.txt")], drive_prefix)
+    mode("chunk", ["--prefill-chunk", "512"], drive_chunk)
+    mode("horizon", ["--decode-horizon", "8"],
+         drive_batch(0, 64, (40, 80, 120, 160, 200, 240, 280, 320)))
+    mode("kv8", ["--kv-8bit"], drive_batch(1, 32, (40, 90, 140, 190, 240, 290, 340)))
+    cap.attach_draft(None, named=False, spec_k=SPEC_K,
+                     self_draft_layers=SELF_DRAFT_LAYERS)
+    mode("spec", ["--self-draft", str(SELF_DRAFT_LAYERS), "--spec-k", str(SPEC_K)],
+         drive_batch(1, 64, (60, 150, 300)), slots=4, n_draft=SELF_DRAFT_LAYERS)
+    cap.attach_draft(None, named=False)
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    rec["modes"] = modes
+    rec["ok"] = bool(ok and all(m["ok"] for m in modes.values()))
+    rec["launches_modes"] = {k: sum(by_mode[m][k] for m in by_mode if m != "spec")
+                             for k in ("k1", "k2", "bwd")}
+    rec["launches_spec"] = by_mode.get("spec", {})
+    _say("serve", **rec)
+    del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 # --------------------------------------------------------------- phase 6
 def phase_profile(pipe, iters: int = 10):
     """The loops' steps as process() runs them, each replayed from a CUDA
@@ -3315,10 +3935,11 @@ def main(argv=None) -> int:
         ok = phase_caption_reference(SEED, quant)["ok"] and ok
     ok = phase_batch_caption_reference(SEED)["ok"] and ok
     ok = phase_spec_reference(SEED)["ok"] and ok
+    ok = phase_serve_reference(SEED)["ok"] and ok
     ok = phase_tiled_reference(SEED)["ok"] and ok
     for quant in ("int8", "int4"):
         ok = phase_train_reference(SEED, quant)["ok"] and ok
-    path = folder = spec = tiled = sr3 = None
+    path = folder = spec = tiled = sr3 = serve = None
     tr = {}
     if not args.skip_path:
         import shutil
@@ -3338,6 +3959,8 @@ def main(argv=None) -> int:
                 folder = phase_folder(SEED, cd, path.get("process_s"),
                                       profile=args.profile)
                 ok = ok and folder["ok"]
+                serve = phase_serve(SEED, cd)
+                ok = ok and serve["ok"]
             finally:
                 shutil.rmtree(cd, ignore_errors=True)
         else:
@@ -3357,7 +3980,12 @@ def main(argv=None) -> int:
                              for k in mm[0]["launches"]} if mm else {}),
                "train_dpo": tr["train_dpo"]["launches"] if tr else {},
                "train_video": tr["train_video"]["launches"] if tr else {},
-               "train_sr3": sr3["launches"] if sr3 else {}}
+               "train_sr3": sr3["launches"] if sr3 else {},
+               # the LLM worker over HTTP; its engine's options (prefix,
+               # chunk, horizon, int8 KV); speculative rounds
+               "serve": serve["launches"] if serve else {},
+               "serve_modes": serve["launches_modes"] if serve else {},
+               "serve_spec": serve["launches_spec"] if serve else {}}
 
     def launches(k):
         # None where a path's run did not read this kernel's count

@@ -53,12 +53,14 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ...device import compute_dtype, resolve_device
 from ...training.vlm_trainer import (apply_lora, load_lora_npz,
                                      load_projector_npz, quant_mode,
                                      runtime_lora)
 from ...utils.checkpoint import load_checked, load_torch_state_dict
 from ...utils.weights import seeded_init_
-from .generate import GenerateConfig, caption_image, caption_images
+from .generate import (GenerateConfig, caption_image, caption_images,
+                       embed_multimodal_prompt)
 from .llama import LLAMA3_8B_CONFIG, LlamaConfig, LlamaModel, quantize_llama_
 from .projector import MLPProjector
 from .speculative import self_draft, speculative_generate
@@ -167,6 +169,14 @@ def _llama_config_from_json(d: Path, base: LlamaConfig) -> LlamaConfig:
         tie_lm_head=raw.get("tie_word_embeddings", base.tie_lm_head))
 
 
+def _placement(device, dtype):
+    """(device, dtype): the card unless the caller names a device (raising
+    when CUDA is asked for without a card), its compute dtype unless
+    given."""
+    device = resolve_device(device)
+    return device, dtype or compute_dtype(device)
+
+
 def _now(device) -> float:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -205,12 +215,16 @@ class LlavaCaptioner:
                         llama_cfg: LlamaConfig = LLAMA3_8B_CONFIG,
                         vision_cfg: CLIPVisionConfig = CLIP_VIT_L_336_CONFIG,
                         tokenizer=None, quant: str | None = None,
-                        device: str | torch.device = "cpu",
-                        dtype: torch.dtype = torch.float32) -> "LlavaCaptioner":
+                        device: str | torch.device | None = None,
+                        dtype: torch.dtype | None = None) -> "LlavaCaptioner":
         """Modules built on `device` in `dtype` and filled from `sd` tensor by
         tensor (missing names raise, extras are logged); with quant 'int8' /
         'int4' the decoder is then quantized module by module (its
-        embedding table narrowed to bf16, as the JAX loader does)."""
+        embedding table narrowed to bf16, as the JAX loader does). The
+        device defaults to the card (device.resolve_device: raises without
+        one), the dtype to its compute dtype (bf16 on the card, fp32 on the
+        CPU)."""
+        device, dtype = _placement(device, dtype)
         t0 = _now(device)
         parts = _empty_parts(llama_cfg, vision_cfg, device, dtype)
         for module, part_sd, what in zip(parts, split_llava_state_dict(sd),
@@ -227,10 +241,12 @@ class LlavaCaptioner:
     def seeded(cls, llama_cfg: LlamaConfig = LLAMA3_8B_CONFIG,
                vision_cfg: CLIPVisionConfig = CLIP_VIT_L_336_CONFIG,
                tokenizer=None, quant: str | None = None,
-               device: str | torch.device = "cpu",
-               dtype: torch.dtype = torch.float32) -> "LlavaCaptioner":
+               device: str | torch.device | None = None,
+               dtype: torch.dtype | None = None) -> "LlavaCaptioner":
         """Seeded random weights (utils/weights.seeded_init_, on the device)
-        instead of a checkpoint: smoke mode, the captions mean nothing."""
+        instead of a checkpoint: smoke mode, the captions mean nothing.
+        Device and dtype default as in `from_state_dict`."""
+        device, dtype = _placement(device, dtype)
         parts = _empty_parts(llama_cfg, vision_cfg, device, dtype)
         for module, family in zip(parts, ("llama", "clip_vision", "projector")):
             seeded_init_(module, family, torch.device(device))
@@ -284,8 +300,8 @@ class LlavaCaptioner:
              llama_cfg: LlamaConfig = LLAMA3_8B_CONFIG,
              vision_cfg: CLIPVisionConfig = CLIP_VIT_L_336_CONFIG,
              tokenizer=None, quant: str | None = None,
-             device: str | torch.device = "cpu",
-             dtype: torch.dtype = torch.float32,
+             device: str | torch.device | None = None,
+             dtype: torch.dtype | None = None,
              lora_npz: str | Path | None = None,
              projector_npz: str | Path | None = None,
              draft_dir: str | Path | None | bool = None,
@@ -296,7 +312,9 @@ class LlavaCaptioner:
         merged in fp32, the modules on `device` in `dtype`, `quant`, the
         archives, the tokenizer (tokenizer.json unless one is given), and
         the speculative draft (`attach_draft`). None when <ckpt_dir>/llava
-        is missing or holds no weights."""
+        is missing or holds no weights. Device and dtype default as in
+        `from_state_dict`."""
+        device, dtype = _placement(device, dtype)
         d = Path(ckpt_dir) / "llava"
         if not d.is_dir():
             return None
@@ -425,6 +443,18 @@ class LlavaCaptioner:
         return lambda model, spliced, cfg, generator, **kw: speculative_generate(
             model, self.draft, spliced, cfg, self.spec_k, generator,
             accept_noise=accept_noise, draft_lora=draft_lora, **kw)
+
+    @torch.inference_mode()
+    def embed_mm(self, prompt: str, images) -> torch.Tensor:
+        """The serving engine's multimodal prompt embedder (JAX
+        captioner.py:347-359; LLMWorker(embed_mm=cap.embed_mm)): the
+        rendered prompt with one anyres feature stream per <image>, spliced
+        in order -> [S, D] on the captioner's device; no images gives the
+        text's embeddings."""
+        encode = lambda s: self.tokenizer.encode(s, add_special_tokens=False)
+        return embed_multimodal_prompt(
+            self.llama, self.vision, self.projector, prompt, list(images),
+            encode, self.image_newline, patch_size=self.vision.cfg.image_size)
 
     @torch.inference_mode()
     def caption_batch(self, images, llava_cfg,

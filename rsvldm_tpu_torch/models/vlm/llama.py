@@ -33,8 +33,16 @@ a dense nn.Linear folds the adapter into its weight, W + (a @ b)^T (JAX
 `apply_lora`). `cfg.remat` recomputes each block in the backward
 (non-reentrant torch.utils.checkpoint, JAX `nn.remat`).
 
-Not ported yet: the other families' knobs, MoE, sliding windows and the
-int8 KV cache; their config fields raise when set.
+The int8 KV cache (`LlamaConfig.kv_quant`, JAX llama.py:115-130,
+322-352): `KVCache.init` then holds int8 K/V and fp32 scale planes
+`k_scale` / `v_scale` [L, B, T, kv_heads]. Each new token's K/V is
+quantized per (position, kv head) by absmax / 127 + 1e-8 and round half
+to even; a prefill from 0 still attends with the unquantized K/V (K1),
+every other call dequantizes the cache (k * k_scale) before its einsum.
+A block follows the cache it is given: scale planes mean int8.
+
+Not ported yet: the other families' knobs, MoE and sliding windows; their
+config fields raise when set.
 """
 
 from __future__ import annotations
@@ -65,19 +73,20 @@ class LlamaConfig:
     remat: bool = False
     # logits from the embedding table (HF tie_word_embeddings): no lm_head
     tie_lm_head: bool = False
+    # the int8 KV cache (KVCache.init): half the cache bytes of bf16
+    kv_quant: bool = False
     # not ported yet: set away from their defaults they raise
     sliding_window: int | None = None
-    kv_quant: bool = False
     num_experts: int = 0
     head_dim_cfg: int = 0
 
     def __post_init__(self):
-        for name, default in (("sliding_window", None), ("kv_quant", False),
-                              ("num_experts", 0), ("head_dim_cfg", 0)):
+        for name, default in (("sliding_window", None), ("num_experts", 0),
+                              ("head_dim_cfg", 0)):
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"LlamaConfig.{name} is not ported yet (queued with the "
-                    "other families, MoE and the int8 KV cache)")
+                    "other families and MoE)")
 
     @property
     def head_dim(self) -> int:
@@ -89,15 +98,48 @@ LLAMA3_8B_CONFIG = LlamaConfig()
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor  # [L, B, T, kv_heads, head_dim]
+    k: torch.Tensor  # [L, B, T, kv_heads, head_dim] (int8 under kv_quant)
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None  # [L, B, T, kv_heads] fp32
+    v_scale: torch.Tensor | None = None
 
     @classmethod
     def init(cls, cfg: LlamaConfig, batch: int, max_len: int,
              dtype=torch.float32, device=None) -> "KVCache":
+        """Zeros; int8 K/V with fp32 scale planes when cfg.kv_quant (then
+        `dtype` is not used)."""
         shape = (cfg.layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+        if cfg.kv_quant:
+            z = lambda sh, dt: torch.zeros(sh, dtype=dt, device=device)
+            return cls(z(shape, torch.int8), z(shape, torch.int8),
+                       z(shape[:-1], torch.float32), z(shape[:-1], torch.float32))
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+    def leaves(self) -> list:
+        """The cache's tensors, batch on axis 1 in each."""
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale)
+                if t is not None]
+
+    def row(self, slot: int) -> "KVCache":
+        """Views of batch row `slot` (batch 1): writes into them land in
+        this cache."""
+        return KVCache(*(None if t is None else t[:, slot:slot + 1]
+                         for t in (self.k, self.v, self.k_scale, self.v_scale)))
+
+    def layer(self, i: int) -> tuple:
+        """Layer i's (k, v, k_scale, v_scale), the scales None unless int8."""
+        return tuple(None if t is None else t[i]
+                     for t in (self.k, self.v, self.k_scale, self.v_scale))
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per (position, kv head) absmax int8 (JAX llama.py:322-333): x [..., hd]
+    -> (int8 codes, fp32 scales [...]), scale = absmax / 127 + 1e-8, codes
+    rounded half to even."""
+    xf = x.float()
+    scale = xf.abs().amax(-1) / 127.0 + 1e-8
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -207,13 +249,15 @@ class LlamaBlock(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.dim, cfg.rms_eps)
         self.mlp = _MLP(cfg)
 
-    def forward(self, x, cache_k, cache_v, start_pos, lora=None):
+    def forward(self, x, cache_k, cache_v, start_pos, lora=None,
+                cache_ks=None, cache_vs=None):
         """x [B, S, D], new tokens at positions start_pos..start_pos+S-1;
         start_pos the Python int 0 for a prefill, else a long tensor, 0-d
         or [B] (one position per row), or an int; cache_k/v [B, T, kvh,
         hd], written in place (detached), or None for a prefill from 0
-        that keeps no cache; lora: this block's adapters by projection
-        name."""
+        that keeps no cache; cache_ks/vs [B, T, kvh]: the int8 cache's
+        scale planes (then cache_k/v hold int8 codes); lora: this block's
+        adapters by projection name."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd, kvh = cfg.head_dim, cfg.kv_heads
@@ -236,11 +280,21 @@ class LlamaBlock(nn.Module):
             positions = (pos + torch.arange(s, device=x.device)).expand(b, s)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+        quant = cache_ks is not None
+        if cache_k is not None:
+            with torch.no_grad():
+                if quant:
+                    (k_st, k_sc), (v_st, v_sc) = quantize_kv(k), quantize_kv(v)
+                else:
+                    k_st, v_st = k.to(cache_k.dtype), v.to(cache_v.dtype)
         if prefill:
             if cache_k is not None:
                 with torch.no_grad():
-                    cache_k[:, :s] = k.to(cache_k.dtype)
-                    cache_v[:, :s] = v.to(cache_v.dtype)
+                    cache_k[:, :s] = k_st
+                    cache_v[:, :s] = v_st
+                    if quant:
+                        cache_ks[:, :s] = k_sc
+                        cache_vs[:, :s] = v_sc
             # prefill: no history; the GQA repeat is paid once here
             kk = k.repeat_interleave(rep, dim=2).to(q.dtype)
             vv = v.repeat_interleave(rep, dim=2).to(q.dtype)
@@ -256,17 +310,28 @@ class LlamaBlock(nn.Module):
                      + positions).reshape(-1)
             with torch.no_grad():
                 cache_k.view(b * t, kvh, hd).index_copy_(
-                    0, slots, k.reshape(b * s, kvh, hd).to(cache_k.dtype))
+                    0, slots, k_st.reshape(b * s, kvh, hd))
                 cache_v.view(b * t, kvh, hd).index_copy_(
-                    0, slots, v.reshape(b * s, kvh, hd).to(cache_v.dtype))
+                    0, slots, v_st.reshape(b * s, kvh, hd))
+                if quant:
+                    cache_ks.view(b * t, kvh).index_copy_(
+                        0, slots, k_sc.reshape(b * s, kvh))
+                    cache_vs.view(b * t, kvh).index_copy_(
+                        0, slots, v_sc.reshape(b * s, kvh))
+            if quant:
+                # dequantized in the compute dtype, as JAX's astype(q.dtype)
+                k_eff = (cache_k.float() * cache_ks[..., None]).to(q.dtype)
+                v_eff = (cache_v.float() * cache_vs[..., None]).to(q.dtype)
+            else:
+                k_eff, v_eff = cache_k, cache_v
             qg = q.reshape(b, s, kvh, rep, hd)
             logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
-                                  cache_k.float()) / (hd ** 0.5)
+                                  k_eff.float()) / (hd ** 0.5)
             k_pos = torch.arange(t, device=x.device)
             mask = k_pos <= positions[:, :, None]  # [B, S, T]
             logits = logits.masked_fill(~mask[:, None, None], -1e30)
-            probs = torch.softmax(logits, dim=-1).to(cache_v.dtype)
-            o = torch.einsum("bgrqk,bkgd->bqgrd", probs.float(), cache_v.float())
+            probs = torch.softmax(logits, dim=-1).to(v_eff.dtype)
+            o = torch.einsum("bgrqk,bkgd->bqgrd", probs.float(), v_eff.float())
             o = o.reshape(b, s, cfg.heads, hd).to(x.dtype)
         x = x + project(a.o_proj, o.reshape(b, s, cfg.heads * hd),
                         lora.get("o_proj"))
@@ -313,13 +378,13 @@ class LlamaModel(nn.Module):
         x = embeds.to(self.dtype)
         remat = self.cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.model.layers):
-            ck, cv = (None, None) if cache is None else (cache.k[i], cache.v[i])
+            ck, cv, cks, cvs = ((None,) * 4 if cache is None else cache.layer(i))
             layer_lora = _layer_lora(lora, i)
             if remat:
                 x = checkpoint(block, x, ck, cv, start_pos, layer_lora,
-                               use_reentrant=False)
+                               cks, cvs, use_reentrant=False)
             else:
-                x = block(x, ck, cv, start_pos, layer_lora)
+                x = block(x, ck, cv, start_pos, layer_lora, cks, cvs)
         if logits_at is not None:
             x = x[torch.arange(x.shape[0], device=x.device), logits_at][:, None]
         x = self.model.norm(x)

@@ -74,7 +74,8 @@ def _feed(model: LlamaModel, embeds: torch.Tensor, cache: KVCache,
     which no logits are needed."""
     x = embeds.to(model.dtype)
     for i, block in enumerate(model.model.layers):
-        x = block(x, cache.k[i], cache.v[i], start_pos, _layer_lora(lora, i))
+        ck, cv, cks, cvs = cache.layer(i)
+        x = block(x, ck, cv, start_pos, _layer_lora(lora, i), cks, cvs)
 
 
 def _token_dist(logits: torch.Tensor, temp: torch.Tensor, greedy: bool):

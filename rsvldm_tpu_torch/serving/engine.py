@@ -1,0 +1,644 @@
+"""Continuous-batching LLM decode engine (rsvldm_tpu/serving/engine.py).
+
+A fixed pool of `slots` rows backs one KV cache [L, slots, max_len, kvh,
+hd], allocated once; requests join and leave the batch between steps:
+- `submit` queues a spliced prompt [S, D]; its padded bucket (`pad_to`)
+  plus max_new_tokens must fit `max_len`.
+- Admission zeroes the slot's row of the pool and prefills the padded
+  prompt into it from position 0 (through ops/attention.py: K1 on the card
+  from 1024 tokens), the lm_head on the last real position alone (JAX
+  computes every position's logits and reads that one: the values are the
+  same), then samples token 0.
+- `register_prefix` prefills a shared prefix [P, D] once and keeps its KV
+  block; `submit(suffix, prefix_id=)` copies that block into the slot's
+  zeroed row and prefills only the suffix, at offset P (the general
+  einsum path, as JAX's traced offset takes). Positions P..P_pad hold
+  prefix padding that the suffix overwrites before a query reaches them.
+- Chunked prefill (`prefill_chunk=C`): a prompt longer than C fills a row
+  cache of its own C tokens per `step()` (the einsum path, even for the
+  first chunk), every other slot decoding in between; the last chunk's
+  lm_head row gives token 0 and the row is copied into the pool.
+- One decode step advances every slot at its own position. Free slots
+  decode on frozen positions into rows the next admission zeroes; a padded
+  prompt's tail sits in the causal future and is overwritten before the
+  frontier reaches it.
+- The decode horizon (`decode_horizon=H`) runs H steps in one call when
+  nothing waits (no queued request, no chunked prefill) and some row has H
+  tokens left; rows that stop inside it are trimmed on the host.
+- Speculative rounds (`draft=`, `spec_k=k`): k draft steps at every
+  slot's position, the catch-up feed (blocks only), one (k+1)-token verify
+  of the target over all slots, and the Leviathan acceptance per row
+  (models/vlm/speculative.py::accept_and_correct); each slot commits 1..k+1
+  tokens a round.
+
+The scheduler's state enters each step as device tensors [B] updated in
+place (tokens, positions, nonces, counts; temperatures), so a step, a
+horizon and a round are each one function with no host read: on the card
+they are captured once into CUDA graphs and replayed (utils/graphs.py;
+`warmup` captures them all before a worker serves, so handler threads that
+embed prompts meanwhile never meet a capture). The host reads the tokens
+once after each step, horizon or round.
+
+Sampling follows JAX's `_sample` per row: argmax where the temperature is
+0, else argmax(logits / max(T, 1e-6) + g). The draws are keyed by
+(request nonce, generated index), never by slot, so a request's stream does
+not depend on its slot or its co-tenants. They come from a `noise` object:
+`gumbel(nonces, counts) -> [B, V]`, and for speculative rounds
+`uniform(nonces, counts) -> [B]` (the acceptance draw) and
+`resample(nonces, counts) -> [B, V]` (the correction's Gumbel), JAX's
+fold_in(key, 7) and fold_in(key, 13). The default, `CounterNoise`, hashes
+(stream, nonce, count, vocabulary index) with integer tensor ops on the
+device, so it replays inside a graph; the tests inject JAX's draws.
+
+The pools' format is one decision, `kv_8bit` (or the model's own
+cfg.kv_quant): int8 K/V with fp32 scale planes for the slot pool, the
+prefix blocks, the chunk rows and the draft's pool; else the model's dtype.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import threading
+import time
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.vlm.generate import GenerateConfig
+from ..models.vlm.llama import KVCache, LlamaModel
+from ..models.vlm.speculative import (_feed, _sample_dist, _token_dist,
+                                      accept_and_correct)
+from ..utils.graphs import StepRunner, use_graphs
+
+
+@dataclasses.dataclass
+class _Request:
+    uid: int
+    embeds: Any                 # [S, D] spliced prompt embeddings
+    max_new_tokens: int
+    temperature: float
+    eot_ids: tuple
+    nonce: int
+    prefix_id: int | None = None
+    # chunked-prefill state (engine.prefill_chunk): a row cache of its own
+    # filled one chunk per step() before the slot joins the decode batch
+    row: Any = None
+    chunk_emb: Any = None
+    base_off: int = 0
+    chunk_i: int = 0
+    n_chunks: int = 0
+    out_ids: list = dataclasses.field(default_factory=list)
+    slot: int = -1
+    prompt_len: int = 0
+    done: bool = False
+    error: str | None = None
+    t_submit: float = 0.0
+    t_first: float | None = None
+    event: threading.Event = dataclasses.field(
+        default_factory=threading.Event)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash of int64 values in [0, 2^32): xor-shifts and
+    multiplies by constants below 2^31, so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x1B873593) & _M32
+    return x ^ (x >> 16)
+
+
+class CounterNoise:
+    """Draws computed from (stream, nonce, count, vocabulary index) alone:
+    integer tensor ops on the device, no generator state, so the same
+    request gets the same draws in any slot, and a captured step replays
+    them. Uniforms have 24 bits, in (0, 1)."""
+
+    _SEED = 0x2545F491
+
+    def __init__(self, vocab: int, device):
+        self.vocab = vocab
+        self._vhash = _mix((torch.arange(vocab, dtype=torch.long, device=device)
+                            * 0x9E3779B1 + 0x632BE5AB) & _M32)
+
+    def _key(self, stream: int, nonces, counts):
+        h = _mix(torch.full_like(nonces, (self._SEED + stream * 0x9E3779B9) & _M32))
+        h = _mix(h ^ (nonces & _M32))
+        return _mix(h ^ (counts & _M32))
+
+    @staticmethod
+    def _unit(x):
+        return ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+    def _gumbel(self, stream, nonces, counts):
+        x = _mix(self._key(stream, nonces, counts)[:, None] ^ self._vhash)
+        return -torch.log(-torch.log(self._unit(x)))
+
+    def gumbel(self, nonces, counts) -> torch.Tensor:
+        return self._gumbel(0, nonces, counts)
+
+    def uniform(self, nonces, counts) -> torch.Tensor:
+        return self._unit(_mix(self._key(7, nonces, counts) ^ 0x5BD1E995))
+
+    def resample(self, nonces, counts) -> torch.Tensor:
+        return self._gumbel(13, nonces, counts)
+
+
+def _sample(lg: torch.Tensor, temps: torch.Tensor, g: torch.Tensor):
+    """Per row (JAX engine.py:119-124): argmax(lg / max(T, 1e-6) + g) where
+    T > 0, argmax(lg) elsewhere. lg [B, V], temps [B], g [B, V]."""
+    safe = temps.clamp_min(1e-6)
+    samp = torch.argmax(lg.float() / safe[:, None] + g, dim=-1)
+    return torch.where(temps > 0, samp, torch.argmax(lg, dim=-1))
+
+
+def _token_dists(lg: torch.Tensor, temps: torch.Tensor) -> torch.Tensor:
+    """JAX `_token_dist` with one temperature per row (lg [B, ..., V]):
+    the softmax at T where T > 0, the one-hot argmax elsewhere."""
+    t = temps.reshape(-1, *([1] * (lg.dim() - 1)))
+    return torch.where(t > 0, _token_dist(lg, t, False),
+                       _token_dist(lg, t, True))
+
+
+def _pad_rows(emb: torch.Tensor, n: int) -> torch.Tensor:
+    return F.pad(emb, (0, 0, 0, n - emb.shape[0]))
+
+
+class DecodeEngine:
+    """Slot-pool continuous-batching decoder over a LlamaModel.
+
+    model: the (possibly quantized) decoder, on its device; slots: the
+    concurrent sequences; max_len: each slot's cache length (prompt and
+    generation). kv_8bit: int8 pools with scale planes (as the model's
+    cfg.kv_quant gives), else pools in the model's dtype. noise: the draws
+    (module docstring; default CounterNoise). On the card the step, the
+    horizon and the round replay CUDA graphs."""
+
+    def __init__(self, model: LlamaModel, slots: int = 4,
+                 max_len: int = 4096, pad_to: int = 128, kv_8bit: bool = False,
+                 noise=None, prefill_chunk: int | None = None,
+                 draft: LlamaModel | None = None, spec_k: int = 4, mesh=None,
+                 decode_horizon: int = 1):
+        """draft/spec_k: speculative rounds; the draft must share the
+        target's hidden size (its prefill takes the same spliced embeds).
+        They compose with neither prefix caching nor chunked prefill nor
+        the decode horizon, as in JAX. mesh: the tensor-parallel engine is
+        not ported (ROADMAP item 7) and raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "DecodeEngine(mesh=): the tensor-parallel engine is not "
+                "ported yet (ROADMAP item 7, parallel)")
+        self.model = model
+        self.slots = slots
+        self.max_len = max_len
+        self.pad_to = pad_to
+        if prefill_chunk is not None and prefill_chunk % pad_to:
+            raise ValueError("prefill_chunk must be a multiple of pad_to")
+        if draft is not None and prefill_chunk is not None:
+            raise ValueError("speculative decoding does not compose with "
+                             "prefill_chunk")
+        if decode_horizon < 1:
+            raise ValueError("decode_horizon must be >= 1")
+        if draft is not None and decode_horizon > 1:
+            raise ValueError("speculative decoding does not compose with "
+                             "decode_horizon (a spec round already commits "
+                             "up to k+1 tokens per dispatch)")
+        if draft is not None and draft.cfg.dim != model.cfg.dim:
+            raise ValueError(
+                f"draft hidden dim {draft.cfg.dim} != target "
+                f"{model.cfg.dim} — the draft prefill consumes the "
+                "target's spliced embeds")
+        self.prefill_chunk = prefill_chunk
+        self.decode_horizon = decode_horizon
+        self.draft = draft
+        self.spec_k = spec_k
+        dev = model.model.norm.weight.device
+        self.device = dev
+        self.graphs = use_graphs(dev, None)
+        self.noise = noise or CounterNoise(model.cfg.vocab_size, dev)
+        quant = lambda cfg: (dataclasses.replace(cfg, kv_quant=True)
+                             if kv_8bit else cfg)
+        self._kv_cfg = quant(model.cfg)
+        self.cache = self._new_cache(slots, max_len)
+        self.draft_cache = (KVCache.init(quant(draft.cfg), slots, max_len,
+                                         draft.dtype, dev)
+                            if draft is not None else None)
+        long = dict(dtype=torch.long, device=dev)
+        # the scheduler's state a step reads: toks, pos, nonces, counts
+        self._state = torch.zeros((4, slots), **long)
+        self._temps = torch.zeros(slots, dtype=torch.float32, device=dev)
+        self._outs = {"decode": torch.zeros((slots, 1), **long)}
+        runners = {"decode": lambda: self._decode_body(1, self._outs["decode"])}
+        if decode_horizon > 1:
+            self._outs["horizon"] = torch.zeros((slots, decode_horizon), **long)
+            runners["horizon"] = lambda: self._decode_body(
+                decode_horizon, self._outs["horizon"])
+        if draft is not None:
+            self._outs["spec"] = torch.zeros((slots, spec_k + 2), **long)
+            runners["spec"] = lambda: self._spec_body(self._outs["spec"])
+        self.runners = {name: StepRunner(fn, self.graphs)
+                        for name, fn in runners.items()}
+        # the three dispatches step() makes (swappable by tests)
+        self._decode = lambda: self._run("decode")
+        self._decode_multi = lambda: self._run("horizon")
+        self._spec_round = lambda: self._run("spec")
+
+        self._free = list(range(slots))
+        self._active: dict[int, _Request] = {}      # slot -> request
+        self._waiting: list[_Request] = []
+        self._uid = itertools.count()
+        self._nonce = itertools.count(1)
+        self._lock = threading.RLock()
+        self._requests: dict[int, _Request] = {}
+        self._prefixes: dict[int, tuple[KVCache, int]] = {}  # id -> (kv, p)
+        self._prefix_uid = itertools.count()
+        self._prefilling: dict[int, _Request] = {}  # slot -> chunking req
+        # counters: dispatches of each step kind, admissions, tokens
+        # recorded, and the latest requests' seconds from submit to token 0
+        self.steps = {"decode": 0, "horizon": 0, "spec": 0}
+        self.admissions = 0
+        self.generated = 0
+        self.first_token_s: collections.deque = collections.deque(maxlen=4096)
+        # seconds in admissions (prefills whole or by chunk, each closed
+        # by a device sync) and the prompt tokens they prefilled
+        self.admission_s = 0.0
+        self.prefill_tokens = 0
+
+    def _new_cache(self, batch: int, length: int) -> KVCache:
+        return KVCache.init(self._kv_cfg, batch, length, self.model.dtype,
+                            self.device)
+
+    def _timed(self, fn, *a):
+        """fn(*a), its seconds to the end of its device work added to
+        admission_s (the stream is shared: work that handler threads queued
+        on it meanwhile counts too)."""
+        t = time.perf_counter()
+        out = fn(*a)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.admission_s += time.perf_counter() - t
+        return out
+
+    # -- device bodies (no host read: captured and replayed on the card) --
+    def _draws(self, lg, nonces, counts):
+        return _sample(lg, self._temps, self.noise.gumbel(nonces, counts))
+
+    def _decode_body(self, h: int, out: torch.Tensor):
+        """`h` decode steps for every slot (JAX `_decode` / `_decode_multi`):
+        step i writes each row at pos + i and samples with key
+        (nonce, count + i); out [B, h] takes the tokens."""
+        toks, pos, nonces, counts = self._state
+        tok, mdl = toks, self.model
+        for i in range(h):
+            logits, _ = mdl(mdl.embed(tok[:, None]), self.cache, pos + i)
+            tok = self._draws(logits[:, -1], nonces, counts + i)
+            out[:, i].copy_(tok)
+
+    def _spec_body(self, out: torch.Tensor):
+        """One speculative round for all slots (JAX `_spec_round`): toks
+        [B] are the pending tokens at pos [B]; counts the generated index
+        of the first new token. out [B, k+2]: the committed tokens, then
+        their count."""
+        toks, pos, nonces, counts = self._state
+        tgt, drf, k = self.model, self.draft, self.spec_k
+        temps, nz = self._temps, self.noise
+        tok, d_toks, d_dists = toks, [], []
+        for i in range(k):
+            lg, _ = drf(drf.embed(tok[:, None]), self.draft_cache, pos + i)
+            dist = _token_dists(lg[:, -1], temps)
+            tok = _sample_dist(dist, nz.gumbel(nonces, counts + i))
+            d_toks.append(tok)
+            d_dists.append(dist)
+        # catch-up feed, so that the draft's cache covers the whole block
+        _feed(drf, drf.embed(tok[:, None]), self.draft_cache, pos + k, None)
+        d_toks = torch.stack(d_toks, 1)                      # [B, k]
+        d_dists = torch.stack(d_dists, 1)                    # [B, k, V]
+        block = torch.cat([toks[:, None], d_toks], 1)        # [B, k+1]
+        t_lg, _ = tgt(tgt.embed(block), self.cache, pos)
+        t_dists = _token_dists(t_lg, temps)                  # [B, k+1, V]
+        u = torch.stack([nz.uniform(nonces, counts + i) for i in range(k)], 1)
+        res = torch.stack([nz.resample(nonces, counts + i) for i in range(k)], 1)
+        bonus = nz.gumbel(nonces, counts + k)
+        for b in range(self.slots):
+            committed, n = accept_and_correct(d_toks[b], d_dists[b], t_dists[b],
+                                              u[b], res[b], bonus[b])
+            out[b, :k + 1].copy_(committed)
+            out[b, k + 1].copy_(n)
+
+    def _run(self, name: str) -> torch.Tensor:
+        self.runners[name]()
+        self.steps[name] += 1
+        return self._outs[name]
+
+    @torch.inference_mode()
+    def warmup(self) -> None:
+        """Run each step function twice with every slot free, so that on
+        the card each is captured before any request arrives (a capture
+        while another thread launches work would fail). The writes land in
+        free rows, which admission zeroes. Call it while the engine is
+        idle."""
+        if not self.graphs:
+            return
+        with self._lock:
+            if self._active or self._prefilling:
+                raise RuntimeError("DecodeEngine.warmup: the engine is busy")
+            self._state.zero_()
+            self._temps.zero_()
+            for runner in self.runners.values():
+                while runner.graph is None:
+                    runner()
+
+    # -- admission (eager, on the host's schedule) -------------------------
+    def _first_token(self, logits, nonce: int, temp: float) -> int:
+        """Token 0 from the last prompt row's logits [1, V], key (nonce, 0)."""
+        dev = self.device
+        t = torch.full((1,), temp, dtype=torch.float32, device=dev)
+        g = self.noise.gumbel(torch.full((1,), nonce, dtype=torch.long, device=dev),
+                              torch.zeros(1, dtype=torch.long, device=dev))
+        return int(_sample(logits, t, g)[0])
+
+    def _fresh_row(self, cache: KVCache, slot: int) -> KVCache:
+        row = cache.row(slot)
+        for t in row.leaves():
+            t.zero_()
+        return row
+
+    def _prefill(self, req: _Request, slot: int) -> int:
+        s = req.embeds.shape[0]
+        s_pad = -(-s // self.pad_to) * self.pad_to
+        emb = _pad_rows(req.embeds, s_pad)[None]
+        last = torch.tensor([s - 1], device=self.device)
+        row = self._fresh_row(self.cache, slot)
+        if req.prefix_id is not None:
+            kv, p = self._prefixes[req.prefix_id]
+            p_pad = kv.k.shape[2]
+            for r, t in zip(row.leaves(), kv.leaves()):
+                r[:, :, :p_pad].copy_(t)
+            start = torch.tensor(p, device=self.device)
+            req.prompt_len = p + s
+        else:
+            start, req.prompt_len = 0, s
+        logits, _ = self.model(emb, row, start, logits_at=last)
+        if self.draft is not None:
+            _feed(self.draft, emb, self._fresh_row(self.draft_cache, slot), 0, None)
+        return self._first_token(logits[:, 0], req.nonce, req.temperature)
+
+    def register_prefix(self, prefix_embeds) -> int:
+        """Prefill a shared prompt prefix [P, D] once and keep its KV block
+        ([L, 1, P_pad, ...] per cache tensor: P_pad positions of memory,
+        not a slot). Returns the id for submit(prefix_id=)."""
+        emb = self._to_device(prefix_embeds)
+        p = emb.shape[0]
+        p_pad = -(-p // self.pad_to) * self.pad_to
+        with torch.inference_mode(), self._lock:
+            kv = self._new_cache(1, p_pad)
+            _feed(self.model, _pad_rows(emb, p_pad)[None], kv, 0, None)
+            pid = next(self._prefix_uid)
+            self._prefixes[pid] = (kv, p)
+        return pid
+
+    def drop_prefix(self, prefix_id: int) -> None:
+        """Release a registered prefix's KV block."""
+        self._prefixes.pop(prefix_id, None)
+
+    def _to_device(self, embeds) -> torch.Tensor:
+        if not isinstance(embeds, torch.Tensor):
+            embeds = torch.from_numpy(np.array(embeds))
+        return embeds.to(self.device, self.model.dtype)
+
+    def submit(self, input_embeds, cfg: GenerateConfig | None = None,
+               prefix_id: int | None = None) -> int:
+        """Queue one spliced prompt [S, D]; returns a request uid. It starts
+        decoding when a slot frees up. With prefix_id, input_embeds is the
+        suffix after the registered prefix."""
+        cfg = cfg or GenerateConfig()
+        s = input_embeds.shape[0]
+        s_pad = -(-s // self.pad_to) * self.pad_to
+        # a speculative round writes up to k+1 positions past the frontier
+        spec_pad = (self.spec_k + 1) if self.draft is not None else 0
+        if prefix_id is not None:
+            if self.draft is not None:
+                raise ValueError("speculative decoding does not compose "
+                                 "with prefix caching")
+            kv, p = self._prefixes[prefix_id]
+            p_pad = kv.k.shape[2]
+            # suffix KV lands at p..p+s_pad; everything must fit the slot
+            if max(p_pad, p + s_pad, p + s + cfg.max_new_tokens) > self.max_len:
+                raise ValueError(
+                    f"prefix {p} + suffix {s} (padded {s_pad}) + max_new "
+                    f"{cfg.max_new_tokens} exceeds the engine max_len "
+                    f"{self.max_len}")
+        # the prefill writes the padded prompt into the slot row, so the
+        # bucket itself must fit the cache too
+        elif max(s_pad, s + cfg.max_new_tokens + spec_pad) > self.max_len:
+            margin = (f" + speculative margin {spec_pad}" if spec_pad
+                      else "")
+            raise ValueError(
+                f"prompt {s} (padded {s_pad}) + max_new "
+                f"{cfg.max_new_tokens}{margin} exceeds the engine max_len "
+                f"{self.max_len}")
+        req = _Request(uid=next(self._uid),
+                       embeds=self._to_device(input_embeds),
+                       max_new_tokens=cfg.max_new_tokens,
+                       temperature=(cfg.temperature if cfg.do_sample
+                                    else 0.0),
+                       eot_ids=tuple(int(e) for e in cfg.eot_ids),
+                       nonce=next(self._nonce), prefix_id=prefix_id,
+                       t_submit=time.perf_counter())
+        with self._lock:
+            self._waiting.append(req)
+            self._requests[req.uid] = req
+        return req.uid
+
+    # -- scheduling --------------------------------------------------------
+    def _admit(self):
+        while self._free and self._waiting:
+            req = self._waiting.pop(0)
+            slot = self._free.pop(0)
+            self.admissions += 1
+            s = req.embeds.shape[0]
+            self.prefill_tokens += s
+            c = self.prefill_chunk
+            if c and s > c:
+                pkv, p = ((None, 0) if req.prefix_id is None
+                          else self._prefixes[req.prefix_id])
+                n = -(-s // c)
+                if p + n * c <= self.max_len:
+                    row = self._new_cache(1, self.max_len)
+                    if pkv is not None:
+                        for r, t in zip(row.leaves(), pkv.leaves()):
+                            r[:, :, :t.shape[2]].copy_(t)
+                    req.row = row
+                    req.chunk_emb = _pad_rows(req.embeds, n * c)
+                    req.base_off, req.chunk_i, req.n_chunks = p, 0, n
+                    req.slot = slot
+                    self._prefilling[slot] = req
+                    continue
+            tok = self._timed(self._prefill, req, slot)
+            req.slot = slot
+            self._active[slot] = req
+            self._record(req, tok)
+
+    def _record(self, req: _Request, tok: int):
+        # EOT is never appended (an append-then-pop would let a concurrent
+        # streaming reader observe a frame holding the stop token whose
+        # successor frame then shrinks)
+        if req.t_first is None:
+            req.t_first = time.perf_counter()
+            self.first_token_s.append(req.t_first - req.t_submit)
+        is_eot = tok in req.eot_ids
+        if not is_eot:
+            req.out_ids.append(tok)
+            self.generated += 1
+        if (is_eot or len(req.out_ids) >= req.max_new_tokens
+                or req.prompt_len + len(req.out_ids) >= self.max_len):
+            req.done = True
+            # the prompt embeddings (MBs of spliced image features) and a
+            # chunked prefill's row are dead weight once decoding ends
+            req.embeds = None
+            req.chunk_emb = None
+            req.row = None
+            self._active.pop(req.slot, None)
+            self._free.append(req.slot)
+            req.event.set()
+
+    def _advance_prefills(self):
+        """One chunk for every chunk-prefilling slot. Co-tenant steps write
+        garbage into such a slot's pool row; the finished row replaces it
+        whole."""
+        c = self.prefill_chunk
+        for slot, req in list(self._prefilling.items()):
+            off = torch.tensor(req.base_off + req.chunk_i * c, device=self.device)
+            chunk = req.chunk_emb[req.chunk_i * c:(req.chunk_i + 1) * c][None]
+            req.chunk_i += 1
+            if req.chunk_i < req.n_chunks:
+                _feed(self.model, chunk, req.row, off, None)
+                continue
+            s = req.embeds.shape[0]
+            idx = torch.tensor([(s - 1) - (req.n_chunks - 1) * c],
+                               device=self.device)
+            logits, _ = self.model(chunk, req.row, off, logits_at=idx)
+            for pool, r in zip(self.cache.row(slot).leaves(), req.row.leaves()):
+                pool.copy_(r)
+            tok = self._first_token(logits[:, 0], req.nonce, req.temperature)
+            req.row = req.chunk_emb = None
+            del self._prefilling[slot]
+            req.prompt_len = req.base_off + s
+            self._active[slot] = req
+            self._record(req, tok)
+
+    def _use_horizon(self) -> bool:
+        """Multi-step only when the scheduler would otherwise idle between
+        steps: nothing waiting for a slot, no chunked prefill needing its
+        per-step cadence, and some row with a full horizon of tokens left."""
+        if (self.decode_horizon <= 1 or self._waiting or self._prefilling
+                or self.draft is not None):
+            return False
+        return any(
+            min(req.max_new_tokens,
+                self.max_len - req.prompt_len) - len(req.out_ids)
+            >= self.decode_horizon for req in self._active.values())
+
+    @torch.inference_mode()
+    def step(self) -> int:
+        """Admit waiting requests, advance chunked prefills by one chunk,
+        then advance every active slot (one token, a horizon, or a
+        speculative round). Returns the number of unfinished requests."""
+        with self._lock:
+            self._admit()
+            if self._prefilling:
+                self._timed(self._advance_prefills)
+            if not self._active:
+                return len(self._prefilling) + len(self._waiting)
+            state = np.zeros((4, self.slots), np.int64)
+            temps = np.zeros((self.slots,), np.float32)
+            for slot, req in self._active.items():
+                # the incoming token out_ids[-1] goes at the position after
+                # the prompt and the previously written generations
+                state[:, slot] = (req.out_ids[-1],
+                                  req.prompt_len + len(req.out_ids) - 1,
+                                  req.nonce, len(req.out_ids))
+                temps[slot] = req.temperature
+            self._state.copy_(torch.from_numpy(state))
+            self._temps.copy_(torch.from_numpy(temps))
+            if self.draft is not None:
+                res = self._spec_round().cpu().numpy()
+                k = self.spec_k
+                for slot, req in list(self._active.items()):
+                    for t in res[slot, :int(res[slot, k + 1])]:
+                        self._record(req, int(t))
+                        if req.done:
+                            break   # drop the rest of the block
+            else:
+                burst = (self._decode_multi() if self._use_horizon()
+                         else self._decode()).cpu().numpy()
+                for slot, req in list(self._active.items()):
+                    for t in burst[slot]:
+                        self._record(req, int(t))
+                        if req.done:
+                            break   # trim the burst at the stop
+            return (len(self._active) + len(self._prefilling)
+                    + len(self._waiting))
+
+    # -- results -----------------------------------------------------------
+    def result(self, uid: int) -> np.ndarray:
+        req = self._requests[uid]
+        if req.error is not None:
+            raise RuntimeError(f"request {uid} failed: {req.error}")
+        if not req.done:
+            raise RuntimeError(f"request {uid} not finished")
+        return np.asarray(req.out_ids, np.int32)
+
+    def wait(self, uid: int, timeout: float | None = None) -> np.ndarray:
+        """Block until `uid` finishes (another thread must drive step())."""
+        req = self._requests[uid]
+        if not req.event.wait(timeout):
+            raise TimeoutError(f"request {uid}")
+        return self.result(uid)
+
+    def release(self, uid: int) -> None:
+        """Forget a finished (or abandoned) request: a long-running worker
+        calls this after reading the result. Decoding of a still-active
+        uid continues; only the uid's index entry goes."""
+        with self._lock:
+            self._requests.pop(uid, None)
+
+    def fail_all(self, msg: str) -> None:
+        """Fail every in-flight request (the stepping thread's recovery): wake
+        all waiters with `msg`, free the slots, drop queued work. The pool
+        stays as it is: a freed slot is zeroed on reuse."""
+        with self._lock:
+            inflight = (list(self._active.values())
+                        + list(self._prefilling.values())
+                        + list(self._waiting))
+            self._active.clear()
+            self._prefilling.clear()
+            self._waiting.clear()
+            self._free = list(range(self.slots))
+        for req in inflight:
+            req.error = msg
+            req.done = True
+            req.embeds = req.chunk_emb = req.row = None
+            req.event.set()
+
+    def run_until_idle(self, max_steps: int = 100_000) -> None:
+        """Drive step() until every submitted request has finished."""
+        for _ in range(max_steps):
+            if self.step() == 0 and not self._waiting:
+                return
+        raise RuntimeError("engine did not drain")
+
+    def generate_all(self, prompts: Sequence, cfg: GenerateConfig
+                     ) -> list[np.ndarray]:
+        """Submit [S, D] prompts, drain, return the ids in submission
+        order."""
+        uids = [self.submit(p, cfg) for p in prompts]
+        self.run_until_idle()
+        return [self.result(u) for u in uids]

@@ -191,7 +191,7 @@ def captioners(tmp_path_factory):
     jcap = JCaptioner.load(d, llama_cfg=JL, vision_cfg=JV,
                            tokenizer=FakeTokenizer(), quant="int4")
     tcap = LlavaCaptioner.from_state_dict(sd, TL, TV, FakeTokenizer(),
-                                          quant="int4")
+                                          quant="int4", device="cpu")
     return jcap, tcap
 
 

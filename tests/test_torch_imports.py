@@ -49,7 +49,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "models.vae.tiled", "models.vlm.video", "train_sr3",
                  "training.sr3_trainer", "training.ema",
                  "training.lr_schedule", "training.losses",
-                 "data.datasets"):
+                 "data.datasets", "serving", "serving.engine",
+                 "serving.http_util", "serving.worker", "serving.llm_worker",
+                 "serving.controller", "serving.web", "serving.cli",
+                 "serving.register_worker", "serving.test_message"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -70,6 +73,26 @@ def test_cuda_entry_points_raise_without_a_card():
     from rsvldm_tpu_torch import train_sr3
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_sr3.main(["--data_root", "d"])
+    # the captioner's constructors default to the card
+    from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
+    from rsvldm_tpu_torch.models.vlm.llama import LlamaConfig
+    from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig
+    tiny = dict(llama_cfg=LlamaConfig(vocab_size=64, dim=32, layers=1, heads=4,
+                                      kv_heads=2, ffn_dim=64),
+                vision_cfg=CLIPVisionConfig(image_size=28, patch_size=14,
+                                            width=24, layers=1, heads=2))
+    for build in (lambda: LlavaCaptioner.seeded(**tiny, tokenizer=object()),
+                  lambda: LlavaCaptioner.from_state_dict({}, **tiny),
+                  lambda: LlavaCaptioner.load("no_such_dir", **tiny)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    # the serving entry points: each main, before it reads anything
+    from rsvldm_tpu_torch.serving import cli, llm_worker, worker
+    for main, argv in ((llm_worker.main, ["--no-register", "--ckpt_dir", "c"]),
+                       (worker.main, ["--no-register", "--ckpt_dir", "c"]),
+                       (cli.main, ["--image-file", "i.png", "--ckpt_dir", "c"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
 
 
 def test_caption_options_are_taken():

@@ -18,6 +18,7 @@ without weights, a draft with a tied lm_head, and a self-draft carrying
 the target's LoRA adapters, as JAX's."""
 
 import dataclasses
+import functools
 import json
 import sys
 from pathlib import Path
@@ -358,7 +359,7 @@ def _load_both(root, **kw):
     j = JCaptioner.load(root, llama_cfg=tc.LCFG, vision_cfg=tc.VCFG,
                         tokenizer=tc.FakeTokenizer(), **kw)
     t = LlavaCaptioner.load(root, llama_cfg=CAP_L, vision_cfg=CAP_V,
-                            tokenizer=tc.FakeTokenizer(), **kw)
+                            tokenizer=tc.FakeTokenizer(), device="cpu", **kw)
     return j, t
 
 
@@ -384,7 +385,8 @@ def test_auto_detected_draft_caption_equals_jax(tmp_path):
     assert tcap.caption(img, lcfg) == jcap.caption(img, jlcfg) == ref
     assert tcap.last_stats["rounds"] > 0
     off = LlavaCaptioner.load(root, llama_cfg=CAP_L, vision_cfg=CAP_V,
-                              tokenizer=tc.FakeTokenizer(), draft_dir=False)
+                              tokenizer=tc.FakeTokenizer(), draft_dir=False,
+                              device="cpu")
     assert off.draft is None
 
 
@@ -399,7 +401,7 @@ def test_draft_equal_to_target_keeps_the_sampled_caption(tmp_path):
     ref = vanilla.caption(img, lcfg)
     tc._write_draft_dir(root, layers=2)
     cap = LlavaCaptioner.load(root, llama_cfg=CAP_L, vision_cfg=CAP_V,
-                              tokenizer=tc.FakeTokenizer())
+                              tokenizer=tc.FakeTokenizer(), device="cpu")
     assert cap.draft.cfg.layers == 2
     assert cap.caption(img, lcfg) == ref
     assert cap.last_stats["accept_rate"] == 1.0
@@ -427,7 +429,8 @@ def test_mismatched_draft_raises_as_jax(tmp_path, over, err, match):
     root = _llava_dir(tmp_path)
     dd = _write_config(tmp_path / "d", **over)
     for load, cfgs in ((JCaptioner.load, (tc.LCFG, tc.VCFG)),
-                       (LlavaCaptioner.load, (CAP_L, CAP_V))):
+                       (functools.partial(LlavaCaptioner.load, device="cpu"),
+                        (CAP_L, CAP_V))):
         with pytest.raises(err, match=match):
             load(root, llama_cfg=cfgs[0], vision_cfg=cfgs[1],
                  tokenizer=tc.FakeTokenizer(), draft_dir=str(dd))
@@ -441,7 +444,8 @@ def test_named_draft_dir_without_weights_raises_as_jax(tmp_path, what):
         dd.mkdir()
     match = "does not exist" if what == "missing" else "contains no safetensors"
     for load, cfgs in ((JCaptioner.load, (tc.LCFG, tc.VCFG)),
-                       (LlavaCaptioner.load, (CAP_L, CAP_V))):
+                       (functools.partial(LlavaCaptioner.load, device="cpu"),
+                        (CAP_L, CAP_V))):
         with pytest.raises(FileNotFoundError, match=match):
             load(root, llama_cfg=cfgs[0], vision_cfg=cfgs[1],
                  tokenizer=tc.FakeTokenizer(), draft_dir=str(dd))

@@ -309,7 +309,7 @@ def test_cli_smoke_recipes_equal_jax_cli(tmp_path, monkeypatch, capsys,
         method=jm.from_tokens))(jax.random.PRNGKey(0))
     qparams = {"params": quantize_llama_params(jparams["params"], mode="int8")}
     cap = LlavaCaptioner.seeded(ttrain.SMOKE_LLAMA, ttrain.SMOKE_VISION,
-                                ttrain.HashTokenizer())
+                                ttrain.HashTokenizer(), device="cpu")
     cap.llama.load_state_dict(params_from_jax("llama", jparams,
                                               ttrain.SMOKE_LLAMA))
     quantize_llama_(cap.llama, "int8", embed_dtype=torch.float32)

@@ -367,7 +367,8 @@ def test_caption_string_equal(tmp_path):
     save_file(sd, str(tmp_path / "llava" / "model.safetensors"))
     jcap = JCaptioner.load(tmp_path, llama_cfg=JL, vision_cfg=JV,
                            tokenizer=FakeTokenizer(), quant=quant)
-    tcap = LlavaCaptioner.from_state_dict(sd, TL, TV, FakeTokenizer(), quant=quant)
+    tcap = LlavaCaptioner.from_state_dict(sd, TL, TV, FakeTokenizer(), quant=quant,
+                                          device="cpu")
     img = Image.fromarray(RNG.integers(0, 255, (50, 70, 3), dtype=np.uint8))
     lcfg = LlavaConfig(max_new_tokens=8, temperature=0.0, do_sample=False)
     want = jcap.caption(img, lcfg)
@@ -390,14 +391,14 @@ def test_splice_image_embeds_equal():
 def test_captioner_load_without_assets(tmp_path, llava_dir):
     """No llava/ or no weights in it: None, as JAX. Weights without
     tokenizer.json: a clear error. With it: the real load."""
-    assert LlavaCaptioner.load(tmp_path) is None
+    assert LlavaCaptioner.load(tmp_path, device="cpu") is None
     (tmp_path / "llava").mkdir()
-    assert LlavaCaptioner.load(tmp_path) is None
+    assert LlavaCaptioner.load(tmp_path, device="cpu") is None
     for f in (llava_dir / "llava").glob("*.safetensors"):
         (tmp_path / "llava" / f.name).symlink_to(f)
     with pytest.raises(FileNotFoundError, match="tokenizer.json"):
-        LlavaCaptioner.load(tmp_path, llama_cfg=TL2, vision_cfg=TV)
-    cap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV)
+        LlavaCaptioner.load(tmp_path, llama_cfg=TL2, vision_cfg=TV, device="cpu")
+    cap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, device="cpu")
     assert cap.load_stats["files"][-1].endswith("Llava-next")
     assert cap.load_stats["peft_merged"] == 4
     assert cap.tokenizer.encode("<|eot_id|>") == [509]
@@ -476,7 +477,8 @@ def test_load_from_dir_equal_jax(llava_dir, quant):
     decoder equals JAX's tree, the tower, projector and newline too, and the
     greedy caption is JAX's."""
     jcap = JCaptioner.load(llava_dir, llama_cfg=JL2, vision_cfg=JV, quant=quant)
-    tcap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant=quant)
+    tcap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant=quant,
+                               device="cpu")
     got = tcap.llama.state_dict()
     jp = jcap.llama_params["params"]
     if quant is None:
@@ -525,12 +527,13 @@ def test_lora_archive_caption_equal_jax(llava_dir, archives, quant):
     jcap = JCaptioner.load(llava_dir, llama_cfg=JL2, vision_cfg=JV, quant=quant,
                            lora_npz=npz)
     tcap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant=quant,
-                               lora_npz=npz)
+                               lora_npz=npz, device="cpu")
     assert (tcap.lora is not None) == (quant is not None)
     img = Image.fromarray(RNG.integers(0, 255, (50, 70, 3), dtype=np.uint8))
     got = tcap.caption(img, _lcfg())
     assert got == jcap.caption(img, _lcfg())
-    plain = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant=quant)
+    plain = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant=quant,
+                                device="cpu")
     assert plain.caption(img, _lcfg()) != got
 
 
@@ -541,7 +544,7 @@ def test_projector_archive_caption_equal_jax(llava_dir, archives):
     jcap = JCaptioner.load(llava_dir, llama_cfg=JL2, vision_cfg=JV, quant="int8",
                            projector_npz=npz)
     tcap = LlavaCaptioner.load(llava_dir, llama_cfg=TL2, vision_cfg=TV, quant="int8",
-                               projector_npz=npz)
+                               projector_npz=npz, device="cpu")
     want = params_from_jax("projector", jcap.projector_params, None)
     for k, v in tcap.projector.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), want[k].numpy(), err_msg=k)
@@ -585,7 +588,7 @@ def test_round_trip_llava_state_dict(llama_tree, vision):
     _assert_trees_equal(convert_hf.convert_hf_clip_vision(vsd, JV), vtree)
     _assert_trees_equal(convert_hf.convert_llama(sd, JL), llama_tree)
     np.testing.assert_array_equal(sd["model.image_newline"].numpy(), newline)
-    cap = LlavaCaptioner.from_state_dict(sd, TL, TV, FakeTokenizer())
+    cap = LlavaCaptioner.from_state_dict(sd, TL, TV, FakeTokenizer(), device="cpu")
     np.testing.assert_array_equal(cap.image_newline.numpy(), newline)
 
 

@@ -288,7 +288,7 @@ def test_video_features_equal_jax(tmp_path):
                            tokenizer=ttrain.HashTokenizer())
     tcap = LlavaCaptioner.from_state_dict(sd, LlamaConfig(**lk),
                                           CLIPVisionConfig(**vk),
-                                          ttrain.HashTokenizer())
+                                          ttrain.HashTokenizer(), device="cpu")
     rng = np.random.default_rng(2)
     frames = [Image.fromarray((rng.random((40, 56, 3)) * 255).astype(np.uint8))
               for _ in range(3)]
