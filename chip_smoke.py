@@ -63,7 +63,18 @@ Phases, each printed on its own line:
                the card's ids (up to a near-tie), first-token
                logit cosines, K1 / K2 launches as the admissions and steps
                imply; a sampled request alone and among co-tenants in
-               another slot, the same ids
+               another slot, the same ids; then the tiled sgm samplers
+               (samplers_reference: tiled RestoreEDM with restore_cfg and
+               tiled RestoreDPMPP2M, 3 steps each on a 96^2 latent in 2 x 2
+               windows of 64, over the controlled denoiser with CFG, the
+               CPU's weights rounded to bf16, conditioning, noise and
+               Brownian draws on both): the card in fp32 (plain attention)
+               within SAMPLER_FP32_TOL of the CPU's latents; K1 against the
+               plain attention in bf16 (SAMPLER_K1_TOL) and in the fp32
+               modules on bf16-rounded q, k, v (SAMPLER_K1_FP32_TOL, which a
+               planted 10% softmax-scale fault must exceed); K1 launches
+               equal to the calls times one call's; the single-window tiled
+               DPM++(2M) within SINGLE_TILE_FP32_TOL of the untiled in fp32
   5. path      the full-width modules (SR3 64-ch; SDXL XL-base + GLVControl,
                the SDXL VAE with its twin encoder, CLIP-L, bigG; LLaVA-NeXT-8B:
                CLIP-L/336 + mlp2x_gelu + Llama-3-8B, dense) with seeded bf16
@@ -147,6 +158,26 @@ Phases, each printed on its own line:
                --prefix-file, --prefill-chunk 512, --decode-horizon 8,
                --kv-8bit and --self-draft 4 --spec-k 4 (4 slots), each
                with its launches against the reckoning
+     samplers  (after tiled, on the path's pipeline) the sgm sampler family
+               over the controlled XL-base denoiser with CFG and the path
+               tile's conditioning: EDM (churn), Heun, Euler-ancestral,
+               DPM++(2S)-ancestral, DPM++(2M), linear multistep, the substep
+               sigmas and RestoreDPMPP2M (Brownian tree of counter-hash
+               draws), 10 steps on the 128^2 latent; both tiled samplers 20
+               steps on a 192^2 latent (4 windows of 128 at stride 64, one
+               denoiser call a step): denoiser calls and K1 launches (106 a
+               call) as the sigma table implies, seconds a step, finite,
+               peak; the single-window tiled DPM++(2M) against the untiled
+               (SINGLE_TILE_TOL), beside the untiled run from noise one
+               fp32 ulp away (reported)
+     eval      (after folder) the quality harness over folder's 8 outputs:
+               seeded full-width CLIP ViT-L/14 (HF CLIPModel names) and
+               LPIPS-VGG assets, HR images from data.prepare_triplets,
+               `python -m rsvldm_tpu_torch.eval_dir` on the card (JAX's
+               JSON keys), the tower's and LPIPS's ms an image, peak; the
+               same CLI with --device cpu on two images, card within
+               EVAL_TOL of CPU per image and metric; TF32 on must move a
+               metric beyond EVAL_TOL
   6. profile   (--profile) one int4 decode step, one SR3 step, one
                cache-miss and one cache-hit denoising step, each replayed
                from a CUDA graph, a decode step at 8 rows (folder), and the
@@ -2585,7 +2616,8 @@ def phase_folder(seed: int, cd: Path, process_s: float | None,
         held_before_gib=held_before,
         kept_loops=kept,
         kept_decode_states=len(pipe.llava.decode_graphs) if pipe.llava else 0,
-        pngs=pngs, outputs_finite=pipe.outputs_finite)
+        pngs=pngs, outputs_finite=pipe.outputs_finite,
+        out_dir=str(work / "out"))
     ok = bool(all(s == "ok" for _, s in results) and len(results) == n
               and not proc.fallbacks and pngs_ok
               and all(pipe.outputs_finite.values())
@@ -2613,6 +2645,654 @@ def phase_folder(seed: int, cd: Path, process_s: float | None,
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+# ------------------------------------------------ the sgm sampler family
+def _cfg_denoisers(den, cond, uc, scfg):
+    """The closures the extra samplers take, over a ControlDenoiser with
+    the pipeline's linear CFG (scfg.cfg_scale_start at sigma_max to
+    scfg.cfg_scale at 0): `tile_fn(tiles, sigma, lq_tiles)` runs the
+    uncond and cond halves of every tile as one batch of 2 x tiles, each
+    tile's control its LQ crop; `whole_fn(x, sigma)` is it on the whole
+    latent with cond's control. NHWC fp32 in and out; `calls` counts the
+    denoiser's calls."""
+    import torch
+    from rsvldm_tpu_torch.diffusion.guidance import apply_cfg, linear_cfg_scale
+    calls = [0]
+
+    def both(k, n):
+        return torch.cat([uc[k].expand(n, *uc[k].shape[1:]),
+                          cond[k].expand(n, *cond[k].shape[1:])])
+
+    def tile_fn(tiles, sigma, lq):
+        calls[0] += 1
+        n = tiles.shape[0]
+        c2 = dict(crossattn=both("crossattn", n), vector=both("vector", n),
+                  control=torch.cat([lq, lq]).permute(0, 3, 1, 2).float())
+        out = den(torch.cat([tiles, tiles]).permute(0, 3, 1, 2),
+                  sigma.expand(2 * n), c2)
+        scale = linear_cfg_scale(sigma, scfg.cfg_scale_start, scfg.cfg_scale)
+        return apply_cfg(out.float(), scale).permute(0, 2, 3, 1)
+
+    def whole_fn(x, sigma):
+        return tile_fn(x, sigma, cond["control"])
+
+    return whole_fn, tile_fn, calls
+
+
+def _paired_cond(pipe, z_lq, texts):
+    """(cond, uc) of `texts` against the negative prompt over the control
+    latent z_lq [N, 4, h, w], as the pipeline's refinement builds them."""
+    from rsvldm_tpu_torch.models.text.conditioner import SDXLConditioner
+    r = pipe.cfg.refine
+    tl_c, tg_c = pipe._tokens(texts)
+    tl_u, tg_u = pipe._tokens([r.n_prompt] * len(texts))
+    return SDXLConditioner(pipe.clip_l, pipe.big_g).paired(
+        tl_c, tg_c, tl_u, tg_u, z_lq.permute(0, 2, 3, 1))
+
+
+class _RecordedDraws:
+    """A Brownian-tree draw source that keeps what `src` drew, by key, so
+    another device can replay the same normals (`replay(device)`)."""
+
+    def __init__(self, src):
+        self.src, self.seen = src, {}
+
+    def __call__(self, level, index, shape):
+        key = (level, index, tuple(shape))
+        if key not in self.seen:
+            self.seen[key] = self.src(level, index, shape)
+        return self.seen[key]
+
+    def replay(self, device):
+        return lambda level, index, shape: self.seen[
+            (level, index, tuple(shape))].to(device)
+
+
+def _k1_per_call(fn, *args) -> int:
+    """K1 launches of one direct call of a denoiser closure."""
+    import torch
+    before = _counts()["k1"]
+    with torch.inference_mode():
+        fn(*args)
+    return _counts()["k1"] - before
+
+
+# The tiled samplers at small width, the same weights, noise and draws on
+# every run. The card in fp32 (the CPU's modules moved there, plain
+# attention) against the CPU: the same arithmetic in another order; max
+# |card - cpu| over the latent <= SAMPLER_FP32_TOL * max(1, max |cpu|); an
+# H100 gave 4.4e-6-4.7e-6. bf16 moves one call of this random-weight
+# denoiser with CFG 2% rms off fp32, and any change of a bf16 rounding
+# (K1 for plain attention, or K1 with its softmax scale 10% off) moves the
+# 3-step latents 2-3.5% rms: the bf16 run with K1 against the bf16 run
+# with plain attention, rel rms <= SAMPLER_K1_TOL (an H100 read 2.3-3.0%),
+# catches only a gross fault. K1 is held finely in the fp32 modules, where
+# the sequences K1 takes go through K1 or the plain attention on q, k, v
+# rounded to bf16: rel rms <= SAMPLER_K1_FP32_TOL (read 5.8e-4-7.7e-4),
+# and K1 with its softmax scale K1_FAULT_SCALE times the true one must
+# exceed it (read 1.2e-2-1.6e-2). The bf16 runs' decodes against the CPU's
+# are reported.
+SAMPLER_FP32_TOL = 1e-4
+SAMPLER_K1_TOL = 6e-2
+SAMPLER_K1_FP32_TOL = 4e-3
+K1_FAULT_SCALE = 1.1
+K1_RUNS = ("card_bf16", "card_fp32_k1", "card_fp32_fault")
+# The single-window tiled DPM++(2M) against the untiled one on the card in
+# fp32 (plain attention), the same noise and draws: they differ by (v * w)
+# / w in the stitch, within an ulp a step; max |tiled - untiled| <=
+# SINGLE_TILE_FP32_TOL * max(1, max |untiled|), as the CPU test's 1e-5.
+SINGLE_TILE_FP32_TOL = 1e-5
+
+
+def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
+    """The tiled samplers at a small width, as a tiled refinement of a 24^2
+    Stage-1 image at 192^2 (a 96^2 latent, 2 x 2 windows of 64 at stride
+    32): tiled_restore_edm_sample (restore_cfg 4) and
+    tiled_restore_dpmpp2m_sample, `steps` steps each, over the controlled
+    denoiser with CFG. The same weights (rounded to bf16 values, so the
+    card's bf16 modules hold the CPU's numbers), the CPU's conditioning,
+    initial noise and Brownian draws (replayed on the card). Seven runs:
+    the CPU in fp32; the card in fp32 with plain attention, its latents
+    within SAMPLER_FP32_TOL of the CPU's; the card in bf16 with K1 and
+    with plain attention, within SAMPLER_K1_TOL of each other; the card's
+    fp32 modules with K1, with the plain attention and with a planted K1
+    fault, each on q, k, v rounded to bf16: K1 within SAMPLER_K1_FP32_TOL
+    of the plain attention, the fault beyond it. K1 launches equal to the
+    calls times one call's where K1 runs, none elsewhere. Reported: the
+    bf16 run's decodes against the CPU's, raw (192^2) and as process()
+    writes them (colour-fixed, resized to 24^2). Then, on the card in fp32
+    and in bf16 with K1, restore_dpmpp2m_sample on the whole latent
+    against tiled_restore_dpmpp2m_sample with one window: in fp32 within
+    SINGLE_TILE_FP32_TOL; in bf16 reported (what bf16 makes of the
+    stitch's rounding)."""
+    import copy
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.config import PipelineConfig
+    from rsvldm_tpu_torch.diffusion import samplers_extra as S
+    from rsvldm_tpu_torch.diffusion.samplers import RestoreEDMConfig
+    from rsvldm_tpu_torch.diffusion.schedules import legacy_ddpm_sigmas
+    from rsvldm_tpu_torch.models.sdxl.denoiser import ControlDenoiser
+    from rsvldm_tpu_torch.ops import attention
+    from rsvldm_tpu_torch.ops.image import pil_to_array, to_uint8
+    from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
+
+    small = _small_cfgs()
+    fams = ("sr3", "unet", "control", "vae", "clip_l", "big_g")
+    mk = lambda dt: PipelineConfig(no_llava=True, params_dtype=dt, seed=seed,
+                                   ckpt_dir=str(REPO / "no_checkpoint_here"))
+    cpu = SuperResolutionPipeline(mk("fp32"), device="cpu", model_cfgs=small)
+    cpu.ensure_stage2()
+    with torch.no_grad():
+        for f in fams:
+            for t in getattr(cpu, f).state_dict().values():
+                if t.is_floating_point():
+                    t.copy_(t.bfloat16().float())
+    gpu = SuperResolutionPipeline(mk("bf16"), device="cuda", model_cfgs=small,
+                                  state_dicts={f: getattr(cpu, f).state_dict()
+                                               for f in fams})
+    gpu.ensure_stage2()
+    mods32 = {f: copy.deepcopy(getattr(cpu, f)).to("cuda")
+              for f in ("unet", "control", "vae")}
+    rng = np.random.default_rng(seed + 21)
+    lat = tile + tile // 2
+    side0 = 2 * lat // 8  # the Stage-1 size, 8x below the refinement
+    x, h0, w0 = pil_to_array(Image.fromarray(rng.integers(
+        0, 256, (side0, side0, 3), dtype=np.uint8)), upscale=1, min_size=2 * lat)
+    with torch.inference_mode():
+        z_lq = cpu.vae.encode_with_denoise(
+            torch.from_numpy(x).permute(2, 0, 1)[None])  # the small VAE's factor 2
+        cond, uc = _paired_cond(cpu, z_lq, ["a seeded tile of fields"])
+    noise = torch.from_numpy(rng.standard_normal((1, lat, lat, 4)).astype(np.float32))
+    sigmas = legacy_ddpm_sigmas(steps)
+    scfg = RestoreEDMConfig()
+    draws = _RecordedDraws(S.CounterDraws(seed, "cpu"))
+    wins = S.sliding_windows(lat, lat, tile, tile // 2)
+    metas = [(x.shape[0], x.shape[1], h0, w0)]
+    # run: (device, denoiser, VAE, attention): "k1" as the path routes it;
+    # "plain" plain attention everywhere; "k1_bf16io" / "plain_bf16io" /
+    # "fault_bf16io" the sequences K1 takes (>= FLASH_MIN_SEQ) through K1 /
+    # the plain attention / K1 with its softmax scale K1_FAULT_SCALE times
+    # the true one, on q, k, v rounded to bf16, the output back to fp32
+    card32 = ControlDenoiser(unet=mods32["unet"], control_net=mods32["control"])
+    runs = {"cpu": ("cpu", cpu.denoiser, cpu.vae, "k1"),
+            "card_fp32": ("cuda", card32, mods32["vae"], "plain"),
+            "card_bf16": ("cuda", gpu.denoiser, gpu.vae, "k1"),
+            "card_bf16_plain": ("cuda", gpu.denoiser, gpu.vae, "plain"),
+            "card_fp32_k1": ("cuda", card32, mods32["vae"], "k1_bf16io"),
+            "card_fp32_plain": ("cuda", card32, mods32["vae"], "plain_bf16io"),
+            "card_fp32_fault": ("cuda", card32, mods32["vae"], "fault_bf16io")}
+    k1, plain_attn = attention.flash_attention, attention.plain_attention
+
+    def bf16io(fn, mult=1.0):
+        return lambda q, k, v, causal=False, scale=None: fn(
+            q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=causal,
+            scale=(scale or q.shape[-1] ** -0.5) * mult).to(q.dtype)
+
+    hooks = {"k1_bf16io": bf16io(k1), "plain_bf16io": bf16io(plain_attn),
+             "fault_bf16io": bf16io(k1, K1_FAULT_SCALE)}
+    out: dict = {}
+    rel_rms = lambda a, b: float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+    for run, (dev, den, vae, mode) in runs.items():
+        dt = den.unet.dtype
+        to = lambda d: {k: v.to(dev, dt if k == "crossattn" else v.dtype)
+                        for k, v in d.items()}
+        whole_fn, tile_fn, calls = _cfg_denoisers(den, to(cond), to(uc), scfg)
+        lq = cond["control"].float().to(dev)
+        res: dict = {}
+        flash_min = attention.FLASH_MIN_SEQ
+        if mode == "plain":
+            attention.FLASH_MIN_SEQ = 1 << 30
+        attention.flash_attention = hooks.get(mode, k1)
+        try:
+            with torch.inference_mode():
+                x_stage1 = vae.decode(z_lq.to(dev, dt)).float().permute(0, 2, 3, 1)
+                for name in ("tiled_restore_edm", "tiled_restore_dpmpp2m"):
+                    calls[0] = 0
+                    _reset_counts()
+                    t0 = time.perf_counter()
+                    if name == "tiled_restore_edm":
+                        z = S.tiled_restore_edm_sample(
+                            tile_fn, noise.to(dev), sigmas, lq, lq, tile=tile,
+                            stride=tile // 2, restore_cfg=4.0)
+                    else:
+                        z = S.tiled_restore_dpmpp2m_sample(
+                            tile_fn, noise.to(dev), sigmas, lq,
+                            draws if dev == "cpu" else draws.replay(dev),
+                            tile=tile, stride=tile // 2)
+                    samples = vae.decode(z.permute(0, 3, 1, 2).to(dt)).float()
+                    samples = samples.permute(0, 2, 3, 1)
+                    res[name] = dict(
+                        z=z.float().cpu(), calls=calls[0], k1=_counts()["k1"],
+                        seconds=time.perf_counter() - t0,
+                        finite=bool(torch.isfinite(samples).all()),
+                        raw=to_uint8(samples[0].cpu().numpy()),
+                        png=np.asarray(cpu._finish(samples.cpu(), x_stage1.cpu(),
+                                                   metas)[0]))
+                if run in ("card_fp32", "card_bf16"):
+                    sig = torch.tensor(float(sigmas[0]), device=dev)
+                    res["k1_per_call"] = _k1_per_call(
+                        tile_fn, S.tile_slices(noise.to(dev), wins), sig,
+                        S.tile_slices(lq, wins))
+                    res["k1_per_whole_call"] = _k1_per_call(whole_fn, noise.to(dev), sig)
+                    calls[0] = 0
+                    _reset_counts()
+                    untiled = S.restore_dpmpp2m_sample(
+                        whole_fn, noise.to(dev), sigmas, S.CounterDraws(seed, dev))
+                    one = S.tiled_restore_dpmpp2m_sample(
+                        tile_fn, noise.to(dev), sigmas, lq, S.CounterDraws(seed, dev),
+                        tile=lat, stride=lat)
+                    diff = (one - untiled).abs()
+                    res["single_window"] = dict(
+                        max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+                        max_abs_untiled=float(untiled.abs().max()),
+                        bit_equal=bool(torch.equal(one, untiled)),
+                        calls=calls[0], k1=_counts()["k1"])
+        finally:
+            attention.FLASH_MIN_SEQ = flash_min
+            attention.flash_attention = k1
+        out[run] = res
+    sw32, sw16 = out["card_fp32"]["single_window"], out["card_bf16"]["single_window"]
+    rec: dict = dict(steps=steps, latent=lat, tile=tile, windows=len(wins),
+                     stage1_side=side0, k1_per_call=out["card_bf16"]["k1_per_call"],
+                     k1_per_whole_call=out["card_bf16"]["k1_per_whole_call"],
+                     single_window_fp32=sw32, single_window_bf16=sw16,
+                     tol=f"card fp32 latents: max <= {SAMPLER_FP32_TOL} * max(1, "
+                     f"max |cpu|); K1 against plain attention: rel rms <= "
+                     f"{SAMPLER_K1_TOL} in bf16, <= {SAMPLER_K1_FP32_TOL} in fp32 "
+                     f"modules (K1 at scale x {K1_FAULT_SCALE}: above); single "
+                     f"window in fp32: max <= {SINGLE_TILE_FP32_TOL} * max(1, max "
+                     "|untiled|)")
+    ok = bool(rec["windows"] == 4 and rec["k1_per_call"] > 0
+              and out["card_fp32"]["k1_per_call"] == 0
+              and sw32["max_abs"] <= SINGLE_TILE_FP32_TOL * max(1.0, sw32["max_abs_untiled"])
+              and sw32["calls"] == sw16["calls"] == 2 * steps and sw32["k1"] == 0
+              and sw16["k1"] == 2 * steps * rec["k1_per_whole_call"])
+    launches = sw16["k1"]
+    for name in ("tiled_restore_edm", "tiled_restore_dpmpp2m"):
+        r = {run: res[name] for run, res in out.items()}
+        a, b = r["cpu"], r["card_bf16"]
+        zdiff = float((r["card_fp32"]["z"] - a["z"]).abs().max())
+        d = np.abs(a["png"].astype(np.int16) - b["png"].astype(np.int16))
+        raw = np.abs(a["raw"].astype(np.int16) - b["raw"].astype(np.int16))
+        want = steps * rec["k1_per_call"]
+        rec[name] = dict(
+            fp32_latent_max_abs=zdiff, latent_max_abs_cpu=float(a["z"].abs().max()),
+            fp32_latent_rel_rms=rel_rms(r["card_fp32"]["z"], a["z"]),
+            k1_vs_plain_rel_rms=rel_rms(b["z"], r["card_bf16_plain"]["z"]),
+            k1_vs_plain_fp32_rel_rms=rel_rms(r["card_fp32_k1"]["z"],
+                                             r["card_fp32_plain"]["z"]),
+            fault_vs_plain_fp32_rel_rms=rel_rms(r["card_fp32_fault"]["z"],
+                                                r["card_fp32_plain"]["z"]),
+            bf16_latent_rel_rms=rel_rms(b["z"], a["z"]),
+            bf16_plain_latent_rel_rms=rel_rms(r["card_bf16_plain"]["z"], a["z"]),
+            png_shape=list(b["png"].shape), mean_abs=float(d.mean()),
+            max_abs=int(d.max()), raw_mean_abs=float(raw.mean()),
+            raw_max_abs=int(raw.max()), calls=b["calls"], k1_launches=b["k1"],
+            k1_reckoned=want, card_s=b["seconds"], cpu_s=a["seconds"],
+            finite=all(v["finite"] for v in r.values()),
+            raw_std=float(b["raw"].std()))
+        launches += b["k1"]
+        m = rec[name]
+        ok = ok and bool(zdiff <= SAMPLER_FP32_TOL * max(1.0, m["latent_max_abs_cpu"])
+                         and m["k1_vs_plain_rel_rms"] <= SAMPLER_K1_TOL
+                         and m["k1_vs_plain_fp32_rel_rms"] <= SAMPLER_K1_FP32_TOL
+                         < m["fault_vs_plain_fp32_rel_rms"]
+                         and a["png"].shape == b["png"].shape == (side0, side0, 3)
+                         and all(v["calls"] == steps for v in r.values())
+                         and all(v["k1"] == (want if run in K1_RUNS else 0)
+                                 for run, v in r.items())
+                         and m["finite"] and b["raw"].std() > 0)
+    rec["launches"] = dict(k1=launches, k2=0, bwd=0)
+    rec["ok"] = bool(ok)
+    _say("reference", samplers_reference=rec)
+    return rec
+
+
+SAMPLER_STEPS, TILED_STEPS = 10, 20
+# The single-window tiled DPM++(2M) against the untiled one, both on the
+# card in bf16 with the same noise and Brownian draws: they differ only by
+# (v * w) / w in the stitch, within an ulp a step, which can move a bf16
+# rounding inside the denoiser. Max |tiled - untiled| <= SINGLE_TILE_TOL *
+# max(1, max |untiled|). The stitch itself is held to 1e-5 in fp32 by
+# `samplers_reference`; here the untiled run from noise one fp32 ulp away
+# shows what bf16 makes of such a rounding at full width (reported).
+SINGLE_TILE_TOL = 5e-2
+
+
+def phase_samplers(seed: int, pipe, sr_path: str, caption: str):
+    """The sgm sampler family at full width on the path's pipeline: the
+    controlled XL-base denoiser with CFG over the path tile's conditioning
+    (its caption and the negative prompt, the control latent of its 1024^2
+    Stage-1 image). On the 128^2 latent, SAMPLER_STEPS LegacyDDPM steps of
+    EDM (churn 5), Heun, Euler-ancestral, DPM++(2S)-ancestral, DPM++(2M),
+    linear multistep, RestoreDPMPP2M, and EDM over the 4-step substep
+    sigmas; on a 192^2 latent (the control latent resized; a 1536^2 image:
+    4 windows of 128 at stride 64), TILED_STEPS steps of both tiled
+    samplers. Each: steps, denoiser calls against the count the sigma
+    table implies (Heun skips its correction at the last sigma, DPM++(2S)
+    takes the Euler branch where sigma_down <= 1e-14), K1 launches against
+    K1_PER_MISS a call, seconds a step, finite output, peak memory. Then
+    the tiled DPM++(2M) with one window over the 128^2 latent against the
+    untiled run's latent (SINGLE_TILE_TOL), and, reported beside it, the
+    untiled run from noise one fp32 ulp away against the untiled run."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from PIL import Image
+    from rsvldm_tpu_torch.diffusion import samplers_extra as S
+    from rsvldm_tpu_torch.diffusion.samplers import RestoreEDMConfig
+    from rsvldm_tpu_torch.diffusion.schedules import legacy_ddpm_sigmas
+    from rsvldm_tpu_torch.ops.image import pil_to_array
+
+    dev = pipe.device
+    r = pipe.cfg.refine
+    x, _, _ = pil_to_array(Image.open(sr_path).convert("RGB"), upscale=1,
+                           min_size=r.min_size)
+    with torch.inference_mode():
+        z_lq = pipe.vae.encode_with_denoise(
+            torch.from_numpy(x).permute(2, 0, 1)[None].to(dev, pipe.dtype))
+        cond, uc = _paired_cond(pipe, z_lq, [" ".join([caption, r.a_prompt])])
+    whole_fn, tile_fn, calls = _cfg_denoisers(pipe.denoiser, cond, uc,
+                                              RestoreEDMConfig())
+    lat = cond["control"].shape[1]
+    g = torch.Generator(device=dev).manual_seed(seed + 31)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    noise, eps = rnd(1, lat, lat, 4), rnd(SAMPLER_STEPS, 1, lat, lat, 4)
+    big = 3 * lat // 2
+    lq_big = F.interpolate(cond["control"].float().permute(0, 3, 1, 2), size=(big, big),
+                           mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    noise_big = rnd(1, big, big, 4)
+    sig = legacy_ddpm_sigmas(SAMPLER_STEPS)
+    sig_t = legacy_ddpm_sigmas(TILED_STEPS)
+    host = sig.numpy()
+    n = SAMPLER_STEPS
+    heun = n + int((host[1:] > 0).sum())
+    dpm2s = n + sum(int(S.get_ancestral_step(a, b)[0] > 1e-14)
+                    for a, b in zip(host[:-1], host[1:]))
+    cases = {
+        "edm": (n, n, lambda: S.edm_sample(whole_fn, noise, sig, eps, s_churn=5.0,
+                                           s_noise=1.003)),
+        "heun": (n, heun, lambda: S.edm_sample(whole_fn, noise, sig, heun=True)),
+        "euler_ancestral": (n, n, lambda: S.euler_ancestral_sample(
+            whole_fn, noise, sig, eps)),
+        "dpmpp2s_ancestral": (n, dpm2s, lambda: S.dpmpp2s_ancestral_sample(
+            whole_fn, noise, sig, eps)),
+        "dpmpp2m": (n, n, lambda: S.dpmpp2m_sample(whole_fn, noise, sig)),
+        "linear_multistep": (n, n, lambda: S.linear_multistep_sample(
+            whole_fn, noise, sig)),
+        "substep": (4, 4, lambda: S.edm_sample(whole_fn, noise, S.substep_sigmas(4))),
+        "restore_dpmpp2m": (n, n, lambda: S.restore_dpmpp2m_sample(
+            whole_fn, noise, sig, S.CounterDraws(seed, dev))),
+        "tiled_restore_edm": (TILED_STEPS, TILED_STEPS, lambda: S.tiled_restore_edm_sample(
+            tile_fn, noise_big, sig_t, lq_big, lq_big, restore_cfg=4.0)),
+        "tiled_restore_dpmpp2m": (TILED_STEPS, TILED_STEPS,
+                                  lambda: S.tiled_restore_dpmpp2m_sample(
+                                      tile_fn, noise_big, sig_t, lq_big,
+                                      S.CounterDraws(seed, dev))),
+    }
+    rec: dict = dict(latent=lat, tiled_latent=big,
+                     windows=len(S.sliding_windows(big, big, 128, 64)),
+                     k1_per_call=_k1_per_call(whole_fn, noise,
+                                              torch.tensor(float(sig[0]), device=dev)))
+    ok = rec["windows"] == 4 and rec["k1_per_call"] == K1_PER_MISS
+    launches, outs = 0, {}
+    for name, (steps, want_calls, run) in cases.items():
+        calls[0] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            z = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1 = _counts()["k1"]
+        launches += k1
+        outs[name] = z
+        rec[name] = dict(steps=steps, calls=calls[0], calls_reckoned=want_calls,
+                         k1_launches=k1, k1_reckoned=want_calls * K1_PER_MISS,
+                         s_per_step=secs / steps, seconds=secs,
+                         finite=bool(torch.isfinite(z).all()),
+                         std=float(z.std()), shape=list(z.shape),
+                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        ok = ok and bool(calls[0] == want_calls and k1 == want_calls * K1_PER_MISS
+                         and rec[name]["finite"] and rec[name]["std"] > 0)
+    calls[0] = 0
+    _reset_counts()
+    with torch.inference_mode():
+        one = S.tiled_restore_dpmpp2m_sample(tile_fn, noise, sig, cond["control"].float(),
+                                             S.CounterDraws(seed, dev), tile=lat,
+                                             stride=lat)
+    one_calls, one_k1 = calls[0], _counts()["k1"]
+    calls[0] = 0
+    _reset_counts()
+    with torch.inference_mode():
+        ulp = S.restore_dpmpp2m_sample(whole_fn, torch.nextafter(noise, noise + 1), sig,
+                                       S.CounterDraws(seed, dev))
+    ulp_calls, ulp_k1 = calls[0], _counts()["k1"]
+    launches += one_k1 + ulp_k1
+    ref = outs["restore_dpmpp2m"]
+    diff, udiff = (one - ref).abs(), (ulp - ref).abs()
+    scale = max(1.0, float(ref.abs().max()))
+    rec["single_window_vs_untiled"] = dict(
+        max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+        max_abs_untiled=float(ref.abs().max()), bit_equal=bool(torch.equal(one, ref)),
+        calls=one_calls, tol=f"max <= {SINGLE_TILE_TOL} * max(1, max |untiled|)")
+    rec["one_ulp_noise_vs_untiled"] = dict(max_abs=float(udiff.max()),
+                                           mean_abs=float(udiff.mean()), calls=ulp_calls)
+    ok = ok and bool(float(diff.max()) <= SINGLE_TILE_TOL * scale
+                     and one_calls == ulp_calls == n
+                     and one_k1 == ulp_k1 == n * K1_PER_MISS)
+    rec["launches"] = dict(k1=launches, k2=0, bwd=0)
+    rec["ok"] = bool(ok)
+    _say("samplers", **rec)
+    del outs, one, ref, ulp
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ------------------------------------------------------ quality evaluation
+# The card's per-image metrics against the CPU's on the same files: both
+# fp32 (TF32 off on the card), so they differ by summation order through
+# the 24-layer tower and VGG16; absolute, on every metric (PSNR in dB). An
+# H100 read at most 9.8e-7-2.1e-6. The same run with TF32 on must move a
+# metric beyond it (`tf32_vs_fp32`: CLIP-IQA 3.4e-4, SMS 2.9e-5, LPIPS
+# 7.5e-6 on an H100).
+EVAL_TOL = 2e-5
+EVAL_KEYS = ["num_images", "CLIP-IQA", "SMS", "PSNR", "SSIM", "LPIPS"]
+
+
+def _write_eval_assets(d: Path, seed: int) -> int:
+    """Seeded quality-harness assets as a user has them: a full-width CLIP
+    ViT-L/14 at 224 (openai clip-vit-large-patch14's geometry: vision 24 x
+    1024, 16 heads, patch 14; text 12 x 768, 12 heads; projection 768) in
+    HF CLIPModel names, fp32, with config.json; a seeded CLIP vocabulary
+    (clip_vocab/); VGG16's features in torchvision names and the LPIPS
+    heads. Returns the bytes written."""
+    import torch
+    from rsvldm_tpu_torch.models.text.clip import CLIPTextConfig, CLIPTextTransformer
+    from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig, CLIPVisionEmbedder
+    from rsvldm_tpu_torch.utils.lpips import LPIPS
+    from rsvldm_tpu_torch.utils.metrics import CLIPScorer
+    from rsvldm_tpu_torch.utils.weights import init_params_
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    with torch.device("cuda"):
+        vision = CLIPVisionEmbedder(CLIPVisionConfig(
+            image_size=224, patch_size=14, width=1024, layers=24, heads=16), 768)
+        text = CLIPTextTransformer(CLIPTextConfig(
+            vocab_size=49408, width=768, layers=12, heads=12,
+            use_text_projection=True, projection_dim=768))
+        lp = LPIPS()
+    for m in (vision, text, lp):
+        init_params_(m, gen)
+    (d / "clip").mkdir(parents=True)
+    n = write_safetensors(d / "clip" / "model.safetensors",
+                          {**vision.state_dict(), **text.state_dict(),
+                           "logit_scale": torch.tensor(4.6052)})
+    (d / "clip" / "config.json").write_text(json.dumps({
+        "projection_dim": 768,
+        "vision_config": {"hidden_size": 1024, "num_hidden_layers": 24,
+                          "num_attention_heads": 16, "patch_size": 14,
+                          "image_size": 224},
+        "text_config": {"hidden_size": 768, "num_hidden_layers": 12,
+                        "num_attention_heads": 12}}))
+    ClipAssets(list(CLIPScorer.GOOD_BAD)).write(d / "clip_vocab")
+    (d / "lpips").mkdir()
+    sd = {k: v.cpu() for k, v in lp.state_dict().items()}
+    torch.save({k: v for k, v in sd.items() if k.startswith("features.")},
+               d / "lpips" / "vgg16.pth")
+    torch.save({k: v for k, v in sd.items() if k.startswith("lin")},
+               d / "lpips" / "lpips_vgg.pth")
+    del vision, text, lp
+    torch.cuda.empty_cache()
+    return n + sum(f.stat().st_size for f in (d / "lpips").iterdir())
+
+
+def _eval_cli(sr_dir, hr_dir, ckpt, out, device: str | None = None):
+    """`python -m rsvldm_tpu_torch.eval_dir` in a subprocess: (its JSON
+    line, its --out records, seconds, return code, the end of stderr)."""
+    cmd = [sys.executable, "-m", "rsvldm_tpu_torch.eval_dir", "--sr_dir", str(sr_dir),
+           "--hr_dir", str(hr_dir), "--ckpt_dir", str(ckpt), "--out", str(out)]
+    if device:
+        cmd += ["--device", device]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    line = None
+    if res.returncode == 0 and res.stdout.strip():
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+    recs = json.loads(Path(out).read_text())["images"] if Path(out).exists() else []
+    return line, recs, secs, res.returncode, res.stderr[-2000:]
+
+
+def phase_eval(seed: int, out_dir: Path):
+    """The quality harness as a user runs it, over phase folder's 8 final
+    PNGs (seven 224^2, one 256^2): seeded full-width CLIP ViT-L/14 and
+    LPIPS-VGG assets (`_write_eval_assets`), HR images from
+    data.prepare_triplets (seeded sources named as the tiles, centre-cropped
+    to 224^2; the 256^2 output is resized to that grid), then `python -m
+    rsvldm_tpu_torch.eval_dir` on the card: its JSON line (JAX's keys),
+    the aggregate per metric, seconds. In process on the card: seconds an
+    image through evaluate_dir, the CLIP tower's and LPIPS's ms an image at
+    the HR size, peak memory, K1 launches (none: the tower's 257 tokens
+    take the plain attention). Then the same CLI with --device cpu on two
+    of the images (a 224^2 one and the resized one): each per-image metric
+    of the card within EVAL_TOL of the CPU's; the in-process run again
+    with TF32 on moves some metric beyond EVAL_TOL."""
+    import shutil
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.data.prepare import prepare_triplets
+    from rsvldm_tpu_torch.eval.quality import build_clip_scorer, evaluate_dir
+    from rsvldm_tpu_torch.utils.metrics import load_lpips
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_eval_"))
+    try:
+        t0 = time.perf_counter()
+        ckpt_bytes = _write_eval_assets(work / "ckpt", seed)
+        write_s = time.perf_counter() - t0
+        sr_dir = Path(out_dir) / "output"
+        srs = sorted(sr_dir.glob("*.png"))
+        rng = np.random.default_rng(seed + 43)
+        (work / "src").mkdir()
+        for p in srs:
+            stem = p.stem[:-len("_final_0")]
+            Image.fromarray(rng.integers(0, 256, (300, 260, 3), dtype=np.uint8)
+                            ).save(work / "src" / f"{stem}.png")
+        prepare_triplets(str(work / "src"), str(work / "prep"), l_res=28, r_res=224)
+        hr_dir = work / "prep" / "hr_224"
+
+        line, card, cli_s, rc, err = _eval_cli(sr_dir, hr_dir, work / "ckpt",
+                                               work / "card.json")
+        rec: dict = dict(images=len(srs), ckpt_bytes=ckpt_bytes, write_s=write_s,
+                         cli_rc=rc, cli_s=cli_s, cli_line=line,
+                         cli_s_per_image=cli_s / max(1, len(srs)))
+        if rc != 0:
+            rec.update(ok=False, cli_stderr=err)
+            _say("eval", **rec)
+            return rec
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        scorer = build_clip_scorer(work / "ckpt", "cuda")
+        lp = load_lpips(work / "ckpt", "cuda")
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = evaluate_dir(sr_dir, hr_dir, scorer=scorer, lpips=lp, device="cuda")
+        torch.cuda.synchronize()
+        rec["in_process_s_per_image"] = (time.perf_counter() - t0) / len(srs)
+        rec["launches"] = _counts()
+        # the same with TF32 on for the products and convolutions
+        # (resolve_device, which turns it off, held back for this call)
+        import rsvldm_tpu_torch.eval.quality as Q
+        keep = Q.resolve_device
+        Q.resolve_device = lambda d: torch.device("cuda")
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf = evaluate_dir(sr_dir, hr_dir, scorer=scorer, lpips=lp, device="cuda")
+        finally:
+            Q.resolve_device = keep
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        rec["tf32_vs_fp32"] = {k: max(abs(a[k] - b[k]) for a, b in
+                                      zip(tf["images"], res["images"]))
+                               for k in EVAL_KEYS[1:]}
+        x = torch.rand((1, 224, 224, 3), device="cuda")
+        y = torch.rand((1, 224, 224, 3), device="cuda")
+        with torch.inference_mode():
+            rec["clip_tower_ms_per_image"] = _time_ms(lambda: scorer.vision_embed(x), 20)
+            rec["lpips_ms_per_image"] = _time_ms(lambda: lp(x * 2 - 1, y * 2 - 1), 20)
+        rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        anchor_ids = scorer.tokenizer(list(scorer.GOOD_BAD), pad_id=0)
+        rec["anchor_ids_equal"] = all(
+            list(row[:len(want)]) == want
+            for row, want in zip(anchor_ids, (ClipAssets(list(scorer.GOOD_BAD)).encode(t)
+                                              for t in scorer.GOOD_BAD)))
+        del scorer, lp
+        torch.cuda.empty_cache()
+
+        # the CPU on two of the images: a 224^2 one and the resized one
+        two = sorted({srs[0], *(p for p in srs if Image.open(p).size != (224, 224))})[:2]
+        (work / "two").mkdir()
+        for p in two:
+            shutil.copy(p, work / "two" / p.name)
+        cpu_line, cpu, cpu_s, cpu_rc, cpu_err = _eval_cli(
+            work / "two", hr_dir, work / "ckpt", work / "cpu.json", "cpu")
+        by_name = {r["image"]: r for r in card}
+        diffs = {}
+        for r in cpu:
+            c = by_name.get(r["image"], {})
+            diffs[r["image"]] = {k: abs(c[k] - r[k]) if k in c else None
+                                 for k in EVAL_KEYS[1:] if k in r}
+        worst = max((v for d in diffs.values() for v in d.values() if v is not None),
+                    default=None)
+        rec.update(cpu_rc=cpu_rc, cpu_s=cpu_s, cpu_images=[p.name for p in two],
+                   card_vs_cpu=diffs, card_vs_cpu_max=worst,
+                   tol=f"|card - cpu| <= {EVAL_TOL} per image and metric",
+                   in_process_equals_cli={k: abs(res[k] - line[k])
+                                          for k in EVAL_KEYS[1:]})
+        if cpu_rc != 0:
+            rec["cpu_stderr"] = cpu_err
+        ok = bool(line is not None and list(line) == EVAL_KEYS
+                  and line["num_images"] == len(srs) == 8
+                  and all(np.isfinite(line[k]) for k in EVAL_KEYS)
+                  and 0.0 <= line["CLIP-IQA"] <= 1.0
+                  and all(len(r) == 6 for r in card)
+                  and cpu_rc == 0 and len(cpu) == 2
+                  and all(v is not None and v <= EVAL_TOL
+                          for d in diffs.values() for v in d.values())
+                  and max(rec["tf32_vs_fp32"].values()) > EVAL_TOL
+                  and rec["anchor_ids_equal"] and rec["launches"]["k1"] == 0)
+        rec["ok"] = ok
+        _say("eval", **rec)
+        return rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # --------------------------------------------------------- phase 4b, 5c
@@ -3937,9 +4617,11 @@ def main(argv=None) -> int:
     ok = phase_spec_reference(SEED)["ok"] and ok
     ok = phase_serve_reference(SEED)["ok"] and ok
     ok = phase_tiled_reference(SEED)["ok"] and ok
+    sref = phase_samplers_reference(SEED)
+    ok = sref["ok"] and ok
     for quant in ("int8", "int4"):
         ok = phase_train_reference(SEED, quant)["ok"] and ok
-    path = folder = spec = tiled = sr3 = serve = None
+    path = folder = spec = tiled = sr3 = serve = samplers = ev = None
     tr = {}
     if not args.skip_path:
         import shutil
@@ -3955,10 +4637,15 @@ def main(argv=None) -> int:
                     tiled = phase_tiled(SEED, pipe, path["sr3_path"],
                                         pipe.last_caption)
                     ok = tiled["ok"] and ok
+                    samplers = phase_samplers(SEED, pipe, path["sr3_path"],
+                                              pipe.last_caption)
+                    ok = samplers["ok"] and ok
                 del pipe  # its weights and kept graphs, before the folder's
                 folder = phase_folder(SEED, cd, path.get("process_s"),
                                       profile=args.profile)
                 ok = ok and folder["ok"]
+                ev = phase_eval(SEED, Path(folder["out_dir"]))
+                ok = ok and ev["ok"]
                 serve = phase_serve(SEED, cd)
                 ok = ok and serve["ok"]
             finally:
@@ -3985,7 +4672,11 @@ def main(argv=None) -> int:
                # chunk, horizon, int8 KV); speculative rounds
                "serve": serve["launches"] if serve else {},
                "serve_modes": serve["launches_modes"] if serve else {},
-               "serve_spec": serve["launches_spec"] if serve else {}}
+               "serve_spec": serve["launches_spec"] if serve else {},
+               # the sgm sampler family: small width card vs CPU, full width
+               "samplers_reference": sref["launches"],
+               "samplers": samplers["launches"] if samplers else {},
+               "eval": ev.get("launches", {}) if ev else {}}
 
     def launches(k):
         # None where a path's run did not read this kernel's count

@@ -67,6 +67,16 @@ class RestoreEDMConfig:
                    + f32(self.control_scale))
 
 
+def to_d(x, sigma, denoised):
+    """The EDM ODE direction (x - denoised) / sigma."""
+    return (x - denoised) / sigma
+
+
+def init_noise_scaling(noise, sigma0):
+    """noise * sqrt(1 + sigma_0^2), the factor in float32."""
+    return noise * float(np.sqrt(f32(1.0) + f32(sigma0) ** 2))
+
+
 def _rel_l1(cur, prev):
     """mean|prev - cur| / (mean|prev| + 1e-6), fp32."""
     cur, prev = cur.float(), prev.float()

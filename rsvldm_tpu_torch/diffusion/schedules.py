@@ -126,6 +126,19 @@ def legacy_ddpm_sigmas(n: int, linear_start: float = 0.00085, linear_end: float 
     return torch.as_tensor(np.ascontiguousarray(sigmas))
 
 
+def karras_sigmas(n: int, sigma_min: float = 0.02, sigma_max: float = 80.0,
+                  rho: float = 7.0, do_append_zero: bool = True) -> torch.Tensor:
+    """EDM (Karras) sigma ramp, descending, in float64 then float32, with
+    an appended 0 by default; on the CPU."""
+    ramp = np.linspace(0, 1, n, dtype=np.float64)
+    min_inv_rho = sigma_min ** (1 / rho)
+    max_inv_rho = sigma_max ** (1 / rho)
+    sigmas = (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho
+    if do_append_zero:
+        sigmas = np.append(sigmas, 0.0)
+    return torch.as_tensor(sigmas.astype(np.float32))
+
+
 def sigma_to_idx(sigma: torch.Tensor, sigma_table_asc: torch.Tensor) -> torch.Tensor:
     """Nearest index of an ascending sigma table: argmin |sigma - table|."""
     dists = (sigma[..., None] - sigma_table_asc[None, ...]).abs()

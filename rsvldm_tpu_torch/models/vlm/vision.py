@@ -5,11 +5,13 @@ Parameter names are HF CLIPVisionModel's (`vision_model.embeddings.*`,
 convert_hf_clip_vision reads. 14x14 patch conv, CLS token, learned
 positional table, pre-LN, non-causal blocks with quick_gelu. Features are
 the HF hidden state `select_layer` (hidden_states[0] is the pre-LN output,
-[i + 1] the output of block i) with the CLS token dropped ('patch'); the
-blocks after it are not run. Pixels come in [N, H, W, 3], the JAX layout.
+[i + 1] the output of block i) with the CLS token dropped ('patch') or
+kept at 0 (keep_cls); the blocks after it are not run. Pixels come in
+[N, H, W, 3], the JAX layout. `CLIPVisionEmbedder` is the HF CLIPModel
+image-feature head over the same tower (the quality harness's scorer).
 
-Not ported yet (they raise): the 2D-RoPE tower, the multi-layer slice
-feature modes and keep_cls.
+Not ported yet (they raise): the 2D-RoPE tower and the multi-layer slice
+feature modes.
 """
 
 from __future__ import annotations
@@ -34,14 +36,13 @@ class CLIPVisionConfig:
     layers: int = 24
     heads: int = 16
     select_layer: int = -2
+    keep_cls: bool = False      # True: [N, 1 + T, W] with CLS at 0
     # not ported yet: set away from their defaults they raise
-    keep_cls: bool = False
     select_feature: str = ""
     pos_embed: str = "learned"
 
     def __post_init__(self):
-        for name, default in (("keep_cls", False), ("select_feature", ""),
-                              ("pos_embed", "learned")):
+        for name, default in (("select_feature", ""), ("pos_embed", "learned")):
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"CLIPVisionConfig.{name} is not ported yet (the other "
@@ -120,11 +121,28 @@ class _Encoder(nn.Module):
 
 
 class _VisionModel(nn.Module):
-    def __init__(self, cfg: CLIPVisionConfig):
+    def __init__(self, cfg: CLIPVisionConfig, post_layernorm: bool = False):
         super().__init__()
         self.embeddings = _Embeddings(cfg)
         self.pre_layrnorm = LayerNorm32(cfg.width, eps=1e-5)
         self.encoder = _Encoder(cfg)
+        if post_layernorm:
+            self.post_layernorm = LayerNorm32(cfg.width, eps=1e-5)
+
+    def hidden(self, pixels: torch.Tensor, select_layer: int) -> torch.Tensor:
+        """pixels [N, S, S, 3] CLIP-normalized -> the HF hidden state
+        `select_layer`, CLS at 0: [N, 1 + (S/14)^2, width]."""
+        emb = self.embeddings
+        dt = emb.patch_embedding.weight.dtype
+        x = emb.patch_embedding(pixels.permute(0, 3, 1, 2).to(dt))
+        x = x.flatten(2).transpose(1, 2)  # [N, h*w, W], row-major patches
+        cls = emb.class_embedding.to(dt).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + emb.position_embedding.weight[None].to(dt)
+        x = self.pre_layrnorm(x).to(dt)  # hidden_states[0]
+        layers = self.encoder.layers
+        for block in layers[:select_layer % (len(layers) + 1)]:
+            x = block(x)
+        return x
 
 
 class CLIPVisionTower(nn.Module):
@@ -134,16 +152,26 @@ class CLIPVisionTower(nn.Module):
         self.vision_model = _VisionModel(cfg)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        """pixels [N, S, S, 3] CLIP-normalized -> [N, (S/14)^2, width]."""
+        """pixels [N, S, S, 3] CLIP-normalized -> [N, (S/14)^2, width]
+        ('patch'), or [N, 1 + (S/14)^2, width] with keep_cls."""
+        x = self.vision_model.hidden(pixels, self.cfg.select_layer)
+        return x if self.cfg.keep_cls else x[:, 1:]
+
+
+class CLIPVisionEmbedder(nn.Module):
+    """HF CLIPModel.get_image_features: the tower through its last block,
+    post_layernorm on the CLS row, then visual_projection, in fp32. Names
+    are CLIPModel's (`vision_model.*`, `vision_model.post_layernorm`,
+    `visual_projection.weight`)."""
+
+    def __init__(self, cfg: CLIPVisionConfig, projection_dim: int = 768):
+        super().__init__()
+        self.cfg = dataclasses.replace(cfg, select_layer=-1, keep_cls=True)
+        self.vision_model = _VisionModel(self.cfg, post_layernorm=True)
+        self.visual_projection = nn.Linear(cfg.width, projection_dim, bias=False)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """pixels [N, S, S, 3] CLIP-normalized -> [N, projection_dim] fp32."""
         vm = self.vision_model
-        emb = vm.embeddings
-        dt = emb.patch_embedding.weight.dtype
-        x = emb.patch_embedding(pixels.permute(0, 3, 1, 2).to(dt))
-        x = x.flatten(2).transpose(1, 2)  # [N, h*w, W], row-major patches
-        cls = emb.class_embedding.to(dt).expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + emb.position_embedding.weight[None].to(dt)
-        x = vm.pre_layrnorm(x).to(dt)  # hidden_states[0]
-        want = self.cfg.select_layer % (self.cfg.layers + 1)
-        for block in vm.encoder.layers[:want]:
-            x = block(x)
-        return x[:, 1:]  # 'patch': CLS dropped
+        cls = vm.post_layernorm(vm.hidden(pixels, -1)[:, 0])
+        return cls.float() @ self.visual_projection.weight.float().t()

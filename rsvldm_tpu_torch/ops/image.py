@@ -1,11 +1,14 @@
 """Host-side image preparation (rsvldm_tpu/ops/image.py), HWC numpy float32
 in [-1, 1]. `pil_to_array` resamples each channel in PIL's float mode, which
 equals the JAX package's native float bicubic pixel for pixel; the other
-resizes are PIL's 8-bit bicubic, as JAX's."""
+resizes are PIL's 8-bit bicubic, as JAX's. `resize_linear` is
+jax.image.resize(method="linear") as explicit weight matrices, on the
+tensor's device."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 from PIL import Image
 
 
@@ -77,6 +80,40 @@ def resize_bicubic_torch(x, size: tuple[int, int]) -> np.ndarray:
     ww = _torch_cubic_matrix(w_in, size[1])
     y = np.einsum("oh,nhwc->nowc", wh, x, optimize=True)
     return np.einsum("pw,nowc->nopc", ww, y, optimize=True)
+
+
+def _jax_linear_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] resample matrix of jax.image.resize(method="linear") with
+    its default antialias, float32 as jax.image.scale_and_translate
+    computes it: the triangle kernel at half-pixel centres, widened by
+    in/out when shrinking, each output's weights normalized to sum 1."""
+    f = np.float32
+    inv = f(1.0 / (out_size / in_size))
+    kscale = np.maximum(inv, f(1.0))
+    sample = (np.arange(out_size, dtype=f) + f(0.5)) * inv - f(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f)[:, None]) / kscale
+    w = np.maximum(f(0.0), f(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f).eps),
+                 w / np.where(total != 0, total, f(1.0)), f(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, f(0.0)).T.astype(f)
+
+
+def resize_linear(x: torch.Tensor, size: tuple[int, int],
+                  dims=(-3, -2)) -> torch.Tensor:
+    """x resized along `dims` (default H and W of [..., H, W, C]) to `size`
+    as jax.image.resize(..., "linear") does (antialiased), fp32, on x's
+    device; a dim already at its size is left as it is."""
+    x = x.float()
+    for d, n in zip(dims, size):
+        d = d % x.dim()
+        if x.shape[d] == n:
+            continue
+        w = torch.from_numpy(_jax_linear_matrix(x.shape[d], n))
+        x = torch.tensordot(x.movedim(d, -1), w.to(x.device).t(),
+                            dims=1).movedim(-1, d)
+    return x
 
 
 def array_to_pil(x: np.ndarray, h0: int | None = None, w0: int | None = None):

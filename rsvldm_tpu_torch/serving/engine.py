@@ -72,6 +72,7 @@ from ..models.vlm.generate import GenerateConfig
 from ..models.vlm.llama import KVCache, LlamaModel
 from ..models.vlm.speculative import (_feed, _sample_dist, _token_dist,
                                       accept_and_correct)
+from ..utils.counter import M32, mix, unit
 from ..utils.graphs import StepRunner, use_graphs
 
 
@@ -102,19 +103,6 @@ class _Request:
         default_factory=threading.Event)
 
 
-_M32 = 0xFFFFFFFF
-
-
-def _mix(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash of int64 values in [0, 2^32): xor-shifts and
-    multiplies by constants below 2^31, so no product leaves int64."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x1B873593) & _M32
-    return x ^ (x >> 16)
-
-
 class CounterNoise:
     """Draws computed from (stream, nonce, count, vocabulary index) alone:
     integer tensor ops on the device, no generator state, so the same
@@ -125,27 +113,23 @@ class CounterNoise:
 
     def __init__(self, vocab: int, device):
         self.vocab = vocab
-        self._vhash = _mix((torch.arange(vocab, dtype=torch.long, device=device)
-                            * 0x9E3779B1 + 0x632BE5AB) & _M32)
+        self._vhash = mix((torch.arange(vocab, dtype=torch.long, device=device)
+                            * 0x9E3779B1 + 0x632BE5AB) & M32)
 
     def _key(self, stream: int, nonces, counts):
-        h = _mix(torch.full_like(nonces, (self._SEED + stream * 0x9E3779B9) & _M32))
-        h = _mix(h ^ (nonces & _M32))
-        return _mix(h ^ (counts & _M32))
-
-    @staticmethod
-    def _unit(x):
-        return ((x >> 8).float() + 0.5) * (1.0 / (1 << 24))
+        h = mix(torch.full_like(nonces, (self._SEED + stream * 0x9E3779B9) & M32))
+        h = mix(h ^ (nonces & M32))
+        return mix(h ^ (counts & M32))
 
     def _gumbel(self, stream, nonces, counts):
-        x = _mix(self._key(stream, nonces, counts)[:, None] ^ self._vhash)
-        return -torch.log(-torch.log(self._unit(x)))
+        x = mix(self._key(stream, nonces, counts)[:, None] ^ self._vhash)
+        return -torch.log(-torch.log(unit(x)))
 
     def gumbel(self, nonces, counts) -> torch.Tensor:
         return self._gumbel(0, nonces, counts)
 
     def uniform(self, nonces, counts) -> torch.Tensor:
-        return self._unit(_mix(self._key(7, nonces, counts) ^ 0x5BD1E995))
+        return unit(mix(self._key(7, nonces, counts) ^ 0x5BD1E995))
 
     def resample(self, nonces, counts) -> torch.Tensor:
         return self._gumbel(13, nonces, counts)

@@ -52,7 +52,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "data.datasets", "serving", "serving.engine",
                  "serving.http_util", "serving.worker", "serving.llm_worker",
                  "serving.controller", "serving.web", "serving.cli",
-                 "serving.register_worker", "serving.test_message"):
+                 "serving.register_worker", "serving.test_message",
+                 "diffusion.brownian", "diffusion.samplers_extra",
+                 "utils.counter", "utils.metrics", "utils.lpips",
+                 "utils.debug", "utils.file", "utils.moderation",
+                 "utils.run_logger", "utils.face_restore", "data.prepare",
+                 "eval", "eval.text_metrics", "eval.runner",
+                 "eval.interleave", "eval.quality", "eval_dir"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -93,6 +99,19 @@ def test_cuda_entry_points_raise_without_a_card():
                        (cli.main, ["--image-file", "i.png", "--ckpt_dir", "c"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
+    # quality evaluation, the Brownian tree's default draws, the face
+    # helper: each before it reads or draws anything
+    from rsvldm_tpu_torch.diffusion.brownian import (BrownianTreeNoiseSampler,
+                                                     CounterDraws)
+    from rsvldm_tpu_torch.eval import quality
+    from rsvldm_tpu_torch.utils.face_restore import FaceRestoreHelper
+    for build in (lambda: quality.main(["--sr_dir", "no_such_dir"]),
+                  lambda: quality.evaluate_dir("no_such_dir"),
+                  lambda: CounterDraws(0),
+                  lambda: BrownianTreeNoiseSampler(0.03, 14.6, (1, 4)),
+                  lambda: FaceRestoreHelper(upscale_factor=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
 
 
 def test_caption_options_are_taken():
