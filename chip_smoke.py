@@ -20,7 +20,13 @@ Phases, each printed on its own line:
                K2 at 8 rows on the five decode shapes and its sum per
                decode step at 8 rows; and the speculative verify forward's:
                K2 at 5 rows (spec_k + 1) on the five shapes, its sum per
-               verify step
+               verify step; the other families': K1 at Gemma-7B's caption
+               prefill (causal, [1, 1280, 16, 256]) and MLCD-bigG-448's
+               attention ([5, 1025, 16, 104], padded to 128 by the
+               wrapper), each also at 1.1x its softmax scale, which must
+               fail the limits; D=256 at its tiles' edges and with zero
+               rows, padded D=72; K2 at the int4 Gemma-7B and Qwen2-7B
+               decode shapes and their sums per step (196 / 197 launches)
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
                noise, PNGs within a stated uint8 tolerance; then a
@@ -74,7 +80,16 @@ Phases, each printed on its own line:
                modules on bf16-rounded q, k, v (SAMPLER_K1_FP32_TOL, which a
                planted 10% softmax-scale fault must exceed); K1 launches
                equal to the calls times one call's; the single-window tiled
-               DPM++(2M) within SINGLE_TILE_FP32_TOL of the untiled in fp32
+               DPM++(2M) within SINGLE_TILE_FP32_TOL of the untiled in fp32;
+               then the other families at a small width (families_reference,
+               bf16-rounded weights on both sides): Qwen2 and Gemma on int4
+               bases, Mistral with a 512 window, Mixtral, Qwen2-MoE and
+               MPT, a 1100-token prefill and 8 decode steps fed the CPU's
+               greedy tokens (logit cosine >= FAM_COS_MIN; K1 once a layer
+               except Mistral and MPT, K2 7 a layer and step); MLCD at 448
+               pixels (heads of 104: K1 padded), open_clip indexing, EVA02,
+               EVA01, SigLIP, T5, the Q-Former, the perceiver and the
+               pooler projector (features within TOWER_REL_TOL)
   5. path      the full-width modules (SR3 64-ch; SDXL XL-base + GLVControl,
                the SDXL VAE with its twin encoder, CLIP-L, bigG; LLaVA-NeXT-8B:
                CLIP-L/336 + mlp2x_gelu + Llama-3-8B, dense) with seeded bf16
@@ -170,6 +185,23 @@ Phases, each printed on its own line:
                peak; the single-window tiled DPM++(2M) against the untiled
                (SINGLE_TILE_TOL), beside the untiled run from noise one
                fp32 ulp away (reported)
+     families  (after train_sr3) the other decoder families at their
+               published widths, seeded bf16 weights, one at a time: Gemma-7B
+               and Qwen2-7B int4 captions of one 224^2 tile through
+               LlavaCaptioner.seeded(..., device="cuda") (64 tokens; K1 28
+               in the prefill, K2 196 / 197 a step + Qwen2's prefill
+               lm_head), Qwen2-MoE-A2.7B, Mistral-7B (window cut to 512 for
+               this run), Mixtral-8x7B at MIXTRAL_LAYERS = 8 of its 32
+               layers (93 GB in bf16 whole) and MPT-7B: a 1200-token prefill
+               (padded to 1280) and 32 greedy decode steps; prefill ms,
+               decode tok/s, peak GiB, K1 / K2 launches against the
+               reckoning
+     towers    every build_vision_tower family at its published size, one
+               batch of 5 each (CLIP-L-336, SigLIP-so400m-384, EVA02-L-336,
+               EVA01-g-14, open_clip ViT-H-14-378, MLCD-bigG-336 and -448:
+               K1 47 launches padded to 128), S2 (336, 672), T5-XXL on 77
+               tokens, a Q-Former, a perceiver and a pooler projector: ms,
+               feature shape, K1 against the reckoning
      eval      (after folder) the quality harness over folder's 8 outputs:
                seeded full-width CLIP ViT-L/14 (HF CLIPModel names) and
                LPIPS-VGG assets, HR images from data.prepare_triplets,
@@ -240,6 +272,20 @@ K2_STEP = (("q_o_proj", 4096, 4096, 64), ("k_v_proj", 4096, 1024, 64),
            ("gate_up_proj", 4096, 14336, 64), ("down_proj", 14336, 4096, 32),
            ("lm_head", 4096, 128256, 1))
 K2_PER_STEP = sum(n for *_, n in K2_STEP)
+# the int4 decode steps of the other families (phase families): Gemma-7B's
+# 28 layers (q, k, v 3072 -> 16 x 256; o; gate, up; down; the tied head is
+# the bf16 embedding, no K2: 196 launches) and Qwen2-7B's (28 layers, 4 KV
+# heads of 128, its own lm_head: 197)
+K2_FAMILY_STEP = {
+    "gemma": (("gemma_q_k_v_proj", 3072, 4096, 84),
+              ("gemma_o_proj", 4096, 3072, 28),
+              ("gemma_gate_up_proj", 3072, 24576, 56),
+              ("gemma_down_proj", 24576, 3072, 28)),
+    "qwen2": (("qwen2_q_o_proj", 3584, 3584, 56),
+              ("qwen2_k_v_proj", 3584, 512, 56),
+              ("qwen2_gate_up_proj", 3584, 18944, 56),
+              ("qwen2_down_proj", 18944, 3584, 28),
+              ("qwen2_lm_head", 3584, 152064, 1))}
 # speculative caption decoding (phase spec): proposals a round, the
 # self-draft's depth, the draft checkpoint's depth; K2 launches a round
 # with a draft of n int4 layers: k draft steps (7n projections and the
@@ -667,7 +713,7 @@ def _valid_pairs(sq, sk, kv_len, causal):
 
 
 def _flash_case(name, b, sq, sk, h, d, *, causal=False, kv_len=None,
-                lse=False, timed=False, main_path=False):
+                lse=False, timed=False, main_path=False, scale_fault=False):
     import torch
     import torch.nn.functional as F
     from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
@@ -704,6 +750,17 @@ def _flash_case(name, b, sq, sk, h, d, *, causal=False, kv_len=None,
     if causal and sq > kvl:
         rec["zero_rows_exact"] = bool((o[:, :sq - kvl] == 0).all())
         ok = ok and rec["zero_rows_exact"]
+    if scale_fault:
+        # a planted fault: K1 at 1.1x the softmax scale must fail the limits
+        n_launch = flash_attention.launches
+        bad = flash_attention(q, k, v, causal=causal, kv_len=kvl,
+                              scale=1.1 / math.sqrt(d))
+        flash_attention.launches = n_launch
+        e = (bad.float() - r).abs()
+        rec["fault_rel_rms_err"] = rms(e) / max(rms(r), 1e-30)
+        rec["fault_rejected"] = not (bool((e <= tol).all())
+                                     and rec["fault_rel_rms_err"] <= K1_RMS_TOL)
+        ok = ok and rec["fault_rejected"]
     pairs = _valid_pairs(sq, sk, kvl, causal)
     flops = 4.0 * b * h * d * pairs
     nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * h * d)
@@ -1033,17 +1090,20 @@ def _k2_library(x, ql, ref):
                 library_max_abs_err_vs_ref=float((y.float() - ref).abs().max()))
 
 
-def _k2_step(k2, rows: int = 1, suffix: str = ""):
+def _k2_step(k2, rows: int = 1, suffix: str = "", steps=K2_STEP,
+             label: str = "llama3"):
     """K2's device time per decode step of `rows` rows: sum of launches x
-    time at the five shapes (cases named <shape><suffix>), beside its
+    time at the step's shapes (cases named <shape><suffix>), beside its
     bound and tinygemm's sum."""
     by = {c["case"]: c for c in k2}
     at = lambda c, key: by[c + suffix][key]
-    rec = dict(step="decode", rows=rows, launches=K2_PER_STEP,
-               ms=sum(n * at(c, "ms") for c, *_, n in K2_STEP),
-               bound_ms=sum(n * at(c, "bound_ms") for c, *_, n in K2_STEP),
-               library_ms=sum(n * at(c, "library_ms") for c, *_, n in K2_STEP))
-    _say("kernels", **{f"k2_per_decode_step{suffix}": rec})
+    rec = dict(step="decode", model=label, rows=rows,
+               launches=sum(n for *_, n in steps),
+               ms=sum(n * at(c, "ms") for c, *_, n in steps),
+               bound_ms=sum(n * at(c, "bound_ms") for c, *_, n in steps),
+               library_ms=sum(n * at(c, "library_ms") for c, *_, n in steps))
+    key = "k2_per_decode_step" + (suffix if label == "llama3" else f"_{label}")
+    _say("kernels", **{key: rec})
     return rec
 
 
@@ -1086,6 +1146,27 @@ def phase_kernels():
         _flash_case("d128_causal_sq_gt_sk", 1, 700, 300, 4, 128, causal=True,
                     lse=True),
         _flash_case("d64_sq_lt_tile", 2, 77, 1024, 4, 64, lse=True),
+        # the other families (phases families / towers): Gemma-7B's caption
+        # prefill (causal, 16 heads of 256) and MLCD-bigG-448's attention
+        # (non-causal, 5 tiles of 32^2 + 1 tokens, 1664 / 16 = 104 padded
+        # to 128 by the wrapper), each with a planted 10% scale fault
+        _flash_case("gemma_prefill_s1280_d256", 1, 1280, 1280, 16, 256,
+                    causal=True, timed=True, main_path=True, scale_fault=True),
+        _flash_case("mlcd448_b5_s1025_d104", 5, 1025, 1025, 16, 104,
+                    timed=True, main_path=True, scale_fault=True),
+        # the families' other K1 prefills: Qwen2-7B (28 heads of 128 after
+        # the GQA repeat) and Qwen2-MoE-A2.7B (16); their head counts change
+        # the persistent grid's items and its last, partial wave
+        _flash_case("qwen2_prefill_s1280_h28", 1, 1280, 1280, 28, 128,
+                    causal=True, timed=True, main_path=True, scale_fault=True),
+        _flash_case("qwen2moe_prefill_s1280_h16", 1, 1280, 1280, 16, 128,
+                    causal=True, timed=True, main_path=True, scale_fault=True),
+        # D=256 at the edges of its tiles and with zero rows; padded D=72
+        _flash_case("d256_ragged_tiles", 1, 1153, 1217, 3, 256, lse=True),
+        _flash_case("d256_causal_sq_gt_sk", 1, 700, 300, 4, 256, causal=True,
+                    lse=True),
+        _flash_case("d72_causal_padded", 2, 300, 300, 3, 72, causal=True,
+                    lse=True),
     ]
     int4_matmul.launches = 0
     k2 = phase_k2()
@@ -1107,6 +1188,9 @@ def phase_kernels():
         _flash_bwd_case("d64_causal_s77", 2, 77, 77, 4, 64, causal=True),
         _flash_bwd_case("d128_causal_sq_gt_sk", 1, 700, 300, 4, 128,
                         causal=True),
+        # head dims the wrapper pads to 128 / 64 (MLCD's 104, and 40)
+        _flash_bwd_case("d104_padded", 1, 1025, 1025, 4, 104),
+        _flash_bwd_case("d40_causal_padded", 1, 300, 300, 3, 40, causal=True),
     ]
     _reset_counts()
     return cases, k2, bwd
@@ -1136,6 +1220,11 @@ def phase_k2():
     _k2_step(k2)
     _k2_step(k2, rows=8, suffix="_r8")
     _k2_step(k2, rows=SPEC_K + 1, suffix="_r5")
+    # the int4 Gemma-7B and Qwen2-7B decode steps (phase families)
+    for family, shapes in K2_FAMILY_STEP.items():
+        k2 += [_k2_case(name, 1, inf, out, main_path=True)
+               for name, inf, out, _ in shapes]
+        _k2_step(k2, steps=shapes, suffix="", label=family)
     return k2
 
 
@@ -4480,6 +4569,446 @@ def phase_serve(seed: int, cd: Path) -> dict:
 
 
 # --------------------------------------------------------------- phase 6
+# ----------------------------------------------- the other model families
+# Card (bf16) against CPU (fp32) at a small width, on weights rounded to
+# bf16 (families_reference): per family, the cosine of the logits at the
+# prefill's last position and at 8 decode steps fed the CPU's greedy
+# tokens; per tower or text module, the relative rms error of the features.
+# An H100 gave cosines 0.99917-0.99999, the lowest 0.99752 at Mixtral's
+# prefill position (a bf16 router picks another expert for a few tokens),
+# and features 3.6e-3-1.1e-2; the limits leave 4x margin on 1 - cos
+# there and 2.7x on the features. The cosine is only a gross-fault check:
+# 1 - cos is second order in the error, so a fault that moves the logits
+# by 10% of their norm costs only about 0.005. K1 at each family's prefill
+# shape is held to K1's own limits, against a planted fault, in `kernels`.
+FAM_COS_MIN = 0.99
+TOWER_REL_TOL = 3e-2
+# the small widths: heads of 128 (256 for Gemma) so that a 1100-token
+# prefill reaches K1 on the card; MLCD at 448 pixels with heads of 104
+_FAM_SMALL = dict(vocab_size=32000, dim=512, layers=2, heads=4, kv_heads=2,
+                  ffn_dim=1024)
+FAMILY_KNOBS = {
+    "qwen2": dict(attn_bias=True, rope_theta=1e6, rms_eps=1e-6),
+    "mistral": dict(sliding_window=512, rope_theta=1e4),
+    "gemma": dict(norm_plus_one=True, scale_embeds=True, tie_lm_head=True,
+                  act="gelu_tanh", heads=2, kv_heads=2, head_dim_cfg=256,
+                  rms_eps=1e-6),
+    "mixtral": dict(num_experts=4, experts_per_tok=2),
+    "qwen2_moe": dict(attn_bias=True, num_experts=8, experts_per_tok=4,
+                      moe_ffn_dim=256, norm_topk_prob=False,
+                      shared_expert_dim=512),
+}
+FAM_QUANT = {"qwen2": "int4", "gemma": "int4"}  # the rest in bf16
+
+
+def _bf16_rounded(module):
+    import torch
+    with torch.no_grad():
+        for t in list(module.parameters()) + list(module.buffers()):
+            if t.is_floating_point():
+                t.copy_(t.to(torch.bfloat16).float())
+    return module
+
+
+def _pair(build, family: str, quant: str | None = None):
+    """(CPU fp32, card bf16) copies of one seeded module, its weights
+    rounded to bf16 first (so both quantize the same values alike)."""
+    import copy
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import quantize_llama_
+    from rsvldm_tpu_torch.utils.weights import seeded_init_
+    cpu = _bf16_rounded(seeded_init_(build(), family, torch.device("cpu")))
+    card = copy.deepcopy(cpu).to("cuda", torch.bfloat16)
+    if quant:
+        quantize_llama_(cpu, quant)
+        quantize_llama_(card, quant)
+    return cpu.eval().requires_grad_(False), card.eval().requires_grad_(False)
+
+
+def _teacher_forced_logits(model, toks, steps: int, cache, greedy=None):
+    """The prefill's last logits and `steps` decode steps' logits (fed
+    `greedy`, else the model's own argmax): ([steps + 1, vocab] fp32 CPU,
+    the tokens fed)."""
+    import torch
+    dev = toks.device
+    lg, _ = model(model.embed(toks), cache, 0)
+    rows, fed = [lg[0, -1]], []
+    for i in range(steps):
+        nxt = int(rows[-1].argmax()) if greedy is None else greedy[i]
+        fed.append(nxt)
+        lg, _ = model(model.embed(torch.tensor([[nxt]], device=dev)), cache,
+                      torch.tensor(toks.shape[1] + i, device=dev))
+        rows.append(lg[0, -1])
+    return torch.stack(rows).float().cpu(), fed
+
+
+def phase_families_reference(seed: int, prompt: int = 1100, steps: int = 8):
+    """Each decoder family at a small width, card against CPU on the same
+    bf16-rounded weights and tokens: Qwen2 and Gemma on int4 bases (K2),
+    Mistral with a 512-token window (no K1: its prefill takes the windowed
+    general path), Mixtral and Qwen2-MoE (MoEFFN), MPT (ALiBi, no K1).
+    K1 must launch once per layer for the others (1100 tokens), K2 7 times
+    a layer and step (+ Qwen2's lm_head)."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm import mpt
+    from rsvldm_tpu_torch.models.vlm.llama import (KVCache, LlamaConfig,
+                                                   LlamaModel)
+    gen = torch.Generator().manual_seed(seed + 14)
+    recs, ok = {}, True
+    for family in list(FAMILY_KNOBS) + ["mpt"]:
+        if family == "mpt":
+            cfg = mpt.MPTConfig(vocab_size=32000, dim=512, layers=2, heads=4)
+            cpu, card = _pair(lambda: mpt.MPTModel(cfg), "mpt")
+            cache = lambda dev, dt: mpt.MPTKVCache.init(cfg, 1, prompt + steps,
+                                                        dt, dev)
+            quant = None
+        else:
+            cfg = LlamaConfig(**dict(_FAM_SMALL, **FAMILY_KNOBS[family]))
+            quant = FAM_QUANT.get(family)
+            cpu, card = _pair(lambda: LlamaModel(cfg), family, quant)
+            cache = lambda dev, dt: KVCache.init(cfg, 1, prompt + steps, dt, dev)
+        toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=gen)
+        with torch.inference_mode():
+            a, fed = _teacher_forced_logits(cpu, toks, steps,
+                                            cache("cpu", torch.float32))
+            _reset_counts()
+            b, _ = _teacher_forced_logits(card, toks.cuda(), steps,
+                                          cache("cuda", torch.bfloat16), fed)
+            torch.cuda.synchronize()
+            n = _counts()
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+        k1_want = (0 if family == "mpt" or getattr(cfg, "sliding_window", None)
+                   else cfg.layers)
+        k2_want = (steps * (7 * cfg.layers + (0 if cfg.tie_lm_head else 1))
+                   if quant == "int4" else 0)
+        rec = dict(quant=quant, cos=[round(float(c), 6) for c in cos],
+                   top1=int((a.argmax(-1) == b.argmax(-1)).sum()),
+                   k1=n["k1"], k1_reckoned=k1_want, k2=n["k2"],
+                   k2_reckoned=k2_want)
+        rec["ok"] = bool(float(cos.min()) >= FAM_COS_MIN and n["k1"] == k1_want
+                         and n["k2"] == k2_want)
+        ok = ok and rec["ok"]
+        recs[family] = rec
+        del cpu, card
+    _reset_counts()
+    towers = _towers_reference(seed)
+    ok = ok and towers["ok"]
+    runs = list(recs.values()) + list(towers["modules"].values())
+    launches = dict(k1=sum(r["k1"] for r in runs),
+                    k2=sum(r.get("k2", 0) for r in runs), bwd=0)
+    rec = dict(families=recs, towers=towers, ok=ok, launches=launches,
+               tol=f"cos >= {FAM_COS_MIN} at every position; features "
+                   f"rel rms <= {TOWER_REL_TOL}; launches as reckoned")
+    _say("families_reference", **rec)
+    return rec
+
+
+def _towers_reference(seed: int):
+    """The towers, resamplers, projectors and T5 at a small width, card
+    (bf16) against CPU (fp32) on bf16-rounded weights: MLCD at 448 pixels
+    with heads of 104 (1025 tokens: K1 padded, once per block run), EVA02
+    and EVA01, SigLIP, open_clip indexing, T5 on 77 tokens, the Q-Former,
+    the perceiver and the pooler projector."""
+    import torch
+    from rsvldm_tpu_torch.models.text import t5
+    from rsvldm_tpu_torch.models.vlm import (eva_vit, projector, resampler,
+                                             siglip, vision)
+    gen = torch.Generator().manual_seed(seed + 15)
+    px = lambda side: torch.randn((2, side, side, 3), generator=gen)
+    mods = {
+        "mlcd_448_d104": (lambda: vision.CLIPVisionTower(vision.CLIPVisionConfig(
+            image_size=448, width=208, layers=3, heads=2, act="gelu",
+            ffn_width=256, pos_embed="rope2d")), px(448), 2),
+        "open_clip_336": (lambda: vision.CLIPVisionTower(vision.CLIPVisionConfig(
+            width=128, layers=4, heads=2, hidden_base="open_clip",
+            select_feature="slicefour_patch", select_layer=-1)), px(336), 0),
+        "eva02_336": (lambda: eva_vit.EvaVisionTower(eva_vit.EvaVitConfig(
+            width=128, layers=3)), px(336), 0),
+        "eva01_224": (lambda: eva_vit.EvaVisionTower(eva_vit.EvaVitConfig(
+            image_size=224, width=128, layers=3, head_width=64, rope=False,
+            naiveswiglu=False, subln=False, intp_freq=False,
+            ls_init_value=0.1)), px(224), 0),
+        "siglip_384": (lambda: siglip.SigLIPVisionTower(siglip.SigLIPVisionConfig(
+            width=128, layers=3, heads=2, mlp_dim=256)), px(384), 0),
+        "t5_77": (lambda: t5.T5Encoder(t5.T5Config(
+            vocab_size=32128, d_model=256, d_kv=64, d_ff=512, layers=2,
+            heads=4)), torch.randint(0, 32128, (2, 77), generator=gen), 0),
+        "qformer": (lambda: resampler.QFormerResampler(resampler.QFormerConfig(
+            hidden_size=128, layers=2, heads=2, intermediate=256,
+            encoder_width=128, num_latents=32)), torch.randn((2, 576, 128),
+                                                             generator=gen), 0),
+        "perceiver": (lambda: resampler.PerceiverResampler(
+            resampler.PerceiverConfig(dim=128, depth=2, heads=2)),
+            torch.randn((2, 576, 128), generator=gen), 0),
+        "pooler": (lambda: projector.PoolerProjector(128, 256, hw=24),
+                   torch.randn((2, 576, 128), generator=gen), 0),
+    }
+    recs, ok = {}, True
+    rms = lambda t: float(t.square().mean().sqrt())
+    for name, (build, x, k1_want) in mods.items():
+        cpu, card = _pair(build, name)
+        xc = x.cuda() if not x.is_floating_point() else x.cuda().to(torch.bfloat16)
+        with torch.inference_mode():
+            a = cpu(x).float()
+            _reset_counts()
+            b = card(xc).float().cpu()
+            torch.cuda.synchronize()
+            k1 = _counts()["k1"]
+        rel = rms(a - b) / max(rms(a), 1e-30)
+        recs[name] = dict(shape=list(a.shape), rel_rms_err=rel, k1=k1,
+                          k1_reckoned=k1_want,
+                          ok=bool(rel <= TOWER_REL_TOL and k1 == k1_want
+                                  and bool(torch.isfinite(b).all())))
+        ok = ok and recs[name]["ok"]
+    _reset_counts()
+    return dict(modules=recs, ok=ok)
+
+
+def _free_card():
+    """Collect the previous model (a decode loop's state and its graph refer
+    to each other) and return its memory, so that each run's peak is its
+    own."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _seeded_on_card(build, family: str):
+    """`build()` on the meta device, then on the card in bf16 with seeded
+    weights (utils/weights.seeded_init_)."""
+    import torch
+    from rsvldm_tpu_torch.utils.weights import seeded_init_
+    with torch.device("meta"):
+        m = build()
+    m = m.to(dtype=torch.bfloat16).to_empty(device="cuda")
+    return seeded_init_(m, family, torch.device("cuda")).eval().requires_grad_(False)
+
+
+def _family_caption(cfg, quant: str, seed: int, name: str) -> dict:
+    """One 224^2 tile captioned through LlavaCaptioner.seeded on the card
+    (CLIP-L/336 + mlp2x_gelu to cfg.dim + the family's decoder, `quant`):
+    64 tokens at T = 0.2."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from rsvldm_tpu_torch.config import LlavaConfig
+    from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
+    from rsvldm_tpu_torch.models.vlm.vision import CLIP_VIT_L_336_CONFIG
+    _free_card()
+    t0 = time.perf_counter()
+    cap = LlavaCaptioner.seeded(cfg, CLIP_VIT_L_336_CONFIG, StandInTokenizer(),
+                                quant=quant, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 16)
+    img = Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
+    lcfg = LlavaConfig(max_new_tokens=64)
+    cap.caption(img, lcfg)  # the first call captures the decode graph
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = cap.caption(img, lcfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, st = _counts(), cap.last_stats
+    steps = st["decode_steps"]
+    per_step = 7 * cfg.layers + (0 if cfg.tie_lm_head else 1)
+    rec = dict(model=name, quant=quant, build_s=build_s, caption_s=wall,
+               prompt_len=st["prompt_len"], padded_len=st["padded_len"],
+               prefill_ms=st["prefill_s"] * 1e3, decode_steps=steps,
+               decode_tok_s=steps / max(st["decode_s"], 1e-9),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               k1=n["k1"], k1_reckoned=cfg.layers, k2=n["k2"],
+               k2_reckoned=steps * per_step + (0 if cfg.tie_lm_head else 1),
+               caption_words=len(text.split()))
+    rec["ok"] = bool(st["padded_len"] >= 1024 and n["k1"] == rec["k1_reckoned"]
+                     and n["k2"] == rec["k2_reckoned"] and steps > 0)
+    del cap
+    _free_card()
+    return rec
+
+
+def _family_decode(build, family: str, cfg, seed: int, name: str,
+                   prompt: int = 1200, steps: int = 32) -> dict:
+    """A seeded bf16 decoder on the card: a `prompt`-token prefill (padded
+    to 1280) and `steps` greedy decode steps through generate (replayed
+    from a CUDA graph after the first run); MPT by its own loop."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.models.vlm import mpt
+    _free_card()
+    t0 = time.perf_counter()
+    model = _seeded_on_card(build, family)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g,
+                         device="cuda")
+    with torch.inference_mode():
+        if isinstance(model, mpt.MPTModel):
+            def run():
+                cache = mpt.MPTKVCache.init(cfg, 1, prompt + steps, torch.bfloat16,
+                                            "cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, _ = model(model.embed(toks), cache, 0)
+                tok = lg[0, -1].argmax().reshape(1, 1)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for i in range(steps):
+                    lg, _ = model(model.embed(tok), cache,
+                                  torch.tensor(prompt + i, device="cuda"))
+                    tok = lg[0, -1].argmax().reshape(1, 1)
+                torch.cuda.synchronize()
+                return dict(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
+                            decode_steps=steps, padded_len=prompt)
+        else:
+            emb = model.embed(toks[0])
+            gcfg = gen.GenerateConfig(max_new_tokens=steps + 1, do_sample=False,
+                                      eot_ids=(-1,))
+            cache: dict = {}
+
+            def run():
+                st = {}
+                gen.generate(model, emb, gcfg, stats=st, graph_cache=cache)
+                return st
+        run()  # the first run builds (and on the card captures) the loop
+        _reset_counts()
+        st = run()
+    n = _counts()
+    k1_want = (0 if isinstance(model, mpt.MPTModel)
+               or getattr(cfg, "sliding_window", None) else cfg.layers)
+    rec = dict(model=name, build_s=build_s, prefill_ms=st["prefill_s"] * 1e3,
+               padded_len=st["padded_len"], decode_steps=st["decode_steps"],
+               decode_tok_s=st["decode_steps"] / max(st["decode_s"], 1e-9),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               k1=n["k1"], k1_reckoned=k1_want, k2=n["k2"], k2_reckoned=0)
+    rec["ok"] = bool(n["k1"] == k1_want and n["k2"] == 0
+                     and st["decode_steps"] == steps)
+    del model
+    _free_card()
+    return rec
+
+
+MIXTRAL_LAYERS = 8  # of Mixtral-8x7B's 32: 93 GB in bf16 at full depth
+
+
+def phase_families(seed: int) -> dict:
+    """The other decoder families at their published widths, one at a time:
+    Gemma-7B and Qwen2-7B int4 captions of one tile (LlavaCaptioner.seeded
+    + caption: K1 28 in the prefill, K2 196 / 197 a decode step, + 1 for
+    Qwen2's prefill lm_head), Qwen2-MoE-A2.7B, Mistral-7B (window cut to
+    512 for this run: no K1), Mixtral-8x7B at MIXTRAL_LAYERS layers and
+    MPT-7B (ALiBi, no K1) in bf16: a prefill and 32 decode steps each."""
+    import dataclasses as dc
+    from rsvldm_tpu_torch.models.vlm import llama, mpt
+    recs = [_family_caption(llama.GEMMA_7B_CONFIG, "int4", seed, "gemma-7b"),
+            _family_caption(llama.QWEN2_7B_CONFIG, "int4", seed, "qwen2-7b")]
+    for name, cfg in (
+            ("qwen2-moe-a2.7b", llama.QWEN2_MOE_A2_7B_CONFIG),
+            ("mistral-7b-window512", dc.replace(llama.MISTRAL_7B_CONFIG,
+                                                sliding_window=512)),
+            (f"mixtral-8x7b-{MIXTRAL_LAYERS}l",
+             dc.replace(llama.MIXTRAL_8X7B_CONFIG, layers=MIXTRAL_LAYERS))):
+        recs.append(_family_decode(lambda c=cfg: llama.LlamaModel(c),
+                                   name.split("-")[0], cfg, seed, name))
+    recs.append(_family_decode(lambda: mpt.MPTModel(mpt.MPT_7B_CONFIG), "mpt",
+                               mpt.MPT_7B_CONFIG, seed, "mpt-7b"))
+    for r in recs:
+        _say("families", **r)
+    launches = dict(k1=sum(r["k1"] for r in recs), k2=sum(r["k2"] for r in recs),
+                    bwd=0)
+    rec = dict(ok=all(r["ok"] for r in recs), launches=launches)
+    _say("families", **rec)
+    _reset_counts()
+    return rec
+
+
+def _tower_run(spec, x, name: str, k1_want: int, s2: bool = False) -> dict:
+    import torch
+    from rsvldm_tpu_torch.models.vlm.vision import s2_multiscale_features
+    fn = ((lambda t: s2_multiscale_features(spec.module, t, scales=(336, 672)))
+          if s2 else spec.module)
+    with torch.inference_mode():
+        fn(x)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn(x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    k1 = _counts()["k1"]
+    rec = dict(module=name, batch=int(x.shape[0]), ms=ms,
+               feature_shape=list(y.shape), k1=k1, k1_reckoned=k1_want,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               ok=bool(torch.isfinite(y.float()).all() and k1 == k1_want))
+    _say("towers", **rec)
+    return rec
+
+
+def phase_towers(seed: int, batch: int = 5) -> dict:
+    """Every build_vision_tower family at its published size (seeded bf16
+    weights, one batch of `batch` normalized images each): CLIP-L-336,
+    SigLIP-so400m-384, EVA02-L-336, EVA01-g-14, open_clip ViT-H-14-378,
+    MLCD-bigG-336, MLCD-bigG-448 (1025 tokens: K1 with heads of 104 padded
+    to 128, once in each of the 47 blocks run), S2 over CLIP-L at (336,
+    672); then T5-XXL's encoder on 77 tokens, a Q-Former and a perceiver
+    resampler over 576 CLIP-L features and the pooler projector to 4096:
+    ms (host clock around a synchronised call, after one warm call), the
+    feature shape, K1 launches against the reckoning."""
+    from types import SimpleNamespace
+    import torch
+    from rsvldm_tpu_torch.models.text import t5
+    from rsvldm_tpu_torch.models.vlm import projector, resampler
+    from rsvldm_tpu_torch.models.vlm.towers import build_vision_tower
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+    recs = []
+    names = (("openai/clip-vit-large-patch14-336", 0),
+             ("google/siglip-so400m-patch14-384", 0),
+             ("EVA02-CLIP-L-14-336", 0), ("EVA01-CLIP-g-14", 0),
+             ("open_clip_hub:ViT-H-14-378-quickgelu", 0),
+             ("DeepGlint-AI/mlcd-vit-bigG-patch14-336", 0),
+             ("DeepGlint-AI/mlcd-vit-bigG-patch14-448", 47))
+    for name, k1_want in names:
+        _free_card()
+        spec = build_vision_tower(name, device="cuda")
+        x = torch.randn((batch, spec.image_size, spec.image_size, 3), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        recs.append(_tower_run(spec, x, name, k1_want))
+        if name.startswith("openai"):
+            x = torch.randn((1, 672, 672, 3), generator=g, device="cuda")
+            recs.append(_tower_run(spec, x.to(torch.bfloat16), "s2(336,672)", 0,
+                                   s2=True))
+        del spec, x
+        torch.cuda.empty_cache()
+    for name, build, x in (
+            ("t5-v1_1-xxl encoder, 77 tokens",
+             lambda: t5.T5Encoder(t5.T5_V1_1_XXL_CONFIG),
+             torch.randint(0, 32128, (batch, 77), generator=g, device="cuda")),
+            ("qformer (bert-base, 32 queries)",
+             lambda: resampler.QFormerResampler(resampler.QFormerConfig()),
+             torch.randn((batch, 576, 1024), generator=g, device="cuda")),
+            ("perceiver (depth 3, 32 latents)",
+             lambda: resampler.PerceiverResampler(resampler.PerceiverConfig()),
+             torch.randn((batch, 576, 1024), generator=g, device="cuda")),
+            ("pooler projector 1024 -> 4096",
+             lambda: projector.PoolerProjector(1024, 4096, hw=24),
+             torch.randn((batch, 576, 1024), generator=g, device="cuda"))):
+        _free_card()
+        module = _seeded_on_card(build, name)
+        xin = x if not x.is_floating_point() else x.to(torch.bfloat16)
+        recs.append(_tower_run(SimpleNamespace(module=module), xin, name, 0))
+        del module
+        torch.cuda.empty_cache()
+    rec = dict(ok=all(r["ok"] for r in recs),
+               launches=dict(k1=sum(r["k1"] for r in recs), k2=0, bwd=0))
+    _say("towers", **rec)
+    _reset_counts()
+    return rec
+
+
 def phase_profile(pipe, iters: int = 10):
     """The loops' steps as process() runs them, each replayed from a CUDA
     graph (utils/graphs.StepRunner): one int4 decode step of the caption
@@ -4621,7 +5150,10 @@ def main(argv=None) -> int:
     ok = sref["ok"] and ok
     for quant in ("int8", "int4"):
         ok = phase_train_reference(SEED, quant)["ok"] and ok
+    fref = phase_families_reference(SEED)
+    ok = fref["ok"] and ok
     path = folder = spec = tiled = sr3 = serve = samplers = ev = None
+    fam = tow = None
     tr = {}
     if not args.skip_path:
         import shutil
@@ -4656,6 +5188,10 @@ def main(argv=None) -> int:
         ok = ok and tr["ok"]
         sr3 = phase_train_sr3(SEED)
         ok = ok and sr3["ok"]
+        fam = phase_families(SEED)
+        ok = ok and fam["ok"]
+        tow = phase_towers(SEED)
+        ok = ok and tow["ok"]
     mm = tr.get("train_mm", [])
     by_path = {"process": path.get("launches", {}) if path else {},
                "spec": spec["launches"] if spec else {},
@@ -4676,7 +5212,12 @@ def main(argv=None) -> int:
                # the sgm sampler family: small width card vs CPU, full width
                "samplers_reference": sref["launches"],
                "samplers": samplers["launches"] if samplers else {},
-               "eval": ev.get("launches", {}) if ev else {}}
+               "eval": ev.get("launches", {}) if ev else {},
+               # the other decoder families and towers: small width card
+               # vs CPU, then at their published widths
+               "families_reference": fref["launches"],
+               "families": fam["launches"] if fam else {},
+               "towers": tow["launches"] if tow else {}}
 
     def launches(k):
         # None where a path's run did not read this kernel's count

@@ -59,6 +59,14 @@
 //   kv_len or the causal diagonal of the warpgroup's first row are masked
 //   (to -inf; TMA's zero fill would otherwise score 0).
 // - Epilogue: normalise by l, guarded bf16 stores of rows < Sq, lse.
+// - Head dims: 64 and 128 as above; 256 (Gemma-7B's prefill) with O split
+//   into two 128-wide halves, each its own work item that recomputes S over
+//   all 256 columns and multiplies by its half of V, in a one-stage ring
+//   (Cfg). That keeps the consumers' registers at D=128's, at 1.5x the
+//   tensor-core work; it is the simple form, not yet the fast one. Other
+//   D <= 128 (MLCD's 104) are zero-padded along D to 64 or 128 by the
+//   wrapper (ops/flash_attention.py::pad_head_dim), which is exact when
+//   the scale stays 1/sqrt(D) of the true D.
 //
 // ptxas (sm_90a): 168 registers at launch for both instantiations (the
 // consumers run at 240 after setmaxnreg), no spills, no serialised wgmma.
@@ -94,15 +102,25 @@ static_assert(BLOCK_M == BLOCK_N, "Q, K and V tiles share one box shape");
 // Per head dim: ring stages, and whether P_{j-1} V_{j-1} runs under
 // softmax(S_j) (at D=128, S, P and O together do not fit the consumers'
 // 240 registers: ptxas spills and serialises the wgmmas).
+// D=256 (Gemma-7B) splits O into two 128-wide halves, one work item each:
+// an item computes S = Q K^T over all 256 columns, then P V_half, so its
+// consumers hold what D=128's hold (O alone would be 128 registers a
+// thread at full width). S is computed twice, 1.5x the tensor-core work of
+// an unsplit kernel. Q and K tiles are 64 KB each, so one stage fits
+// (Q 64 + K 64 + V half 32 = 160 KB; two would need 256 KB of the 227).
 template <int D>
 struct Cfg {
-  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int DV = D > 128 ? 128 : D;  // O columns of one item
+  static constexpr int SPLIT = D / DV;          // items a (b*h, q tile)
+  static constexpr int STAGES = D == 64 ? 3 : (D == 128 ? 2 : 1);
   static constexpr bool OVERLAP_PV = D == 64;
-  static constexpr int TILE_BYTES = (D / 64) * HALF_BYTES;  // Q, K or V tile
+  static constexpr int QK_BYTES = (D / 64) * HALF_BYTES;  // a Q or K tile
+  static constexpr int V_BYTES = (DV / 64) * HALF_BYTES;  // a V tile (half)
   static constexpr int BAR_BYTES = 8 * (2 + 4 * STAGES);
   // + 1024: the dynamic shared memory is aligned up to 1024 bytes by hand
-  static constexpr int SMEM =
-      TILE_BYTES * (1 + 2 * STAGES) + BAR_BYTES + 1024;
+  static constexpr int SMEM = QK_BYTES * (1 + STAGES) + V_BYTES * STAGES +
+                              BAR_BYTES + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block can use");
 };
 
 // Number of K/V tiles the q tile [q_start, q_start + BLOCK_M) can see.
@@ -221,17 +239,21 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&a)[2]) {
   for (int i = 0; i < N; ++i) o[i] *= a[(i >> 1) & 1];
 }
 
-// One work item: a (b*h, BLOCK_M-row q tile) pair. Items are numbered
-// longest first (the q tiles with the most causal keys, then the rest), and
-// block c of the persistent grid takes items c, c + gridDim.x, ...
+// One work item: a (b*h, BLOCK_M-row q tile, O column half) triple (one
+// half unless D=256). Items are numbered longest first (the q tiles with
+// the most causal keys, then the rest), and block c of the persistent grid
+// takes items c, c + gridDim.x, ...
 struct Item {
-  int bh, b, h, q_start, n_tiles;
+  int bh, b, h, q_start, n_tiles, half;
 };
 
+template <int SPLIT>
 __device__ __forceinline__ Item item_at(int i, int BH, int H, int n_qt,
                                         int Sq, int kv_len, int causal,
                                         int q_offset) {
   Item it;
+  it.half = i % SPLIT;
+  i /= SPLIT;
   it.bh = i % BH;
   it.b = it.bh / H;
   it.h = it.bh - it.b * H;
@@ -255,9 +277,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sK = sQ + C::TILE_BYTES;
-  const uint32_t sV = sK + STAGES * C::TILE_BYTES;
-  const uint32_t q_full = sV + STAGES * C::TILE_BYTES;  // then q_empty and
+  const uint32_t sK = sQ + C::QK_BYTES;
+  const uint32_t sV = sK + STAGES * C::QK_BYTES;
+  const uint32_t q_full = sV + STAGES * C::V_BYTES;  // then q_empty and
   const uint32_t q_empty = q_full + 8;                // the two rings
   const uint32_t k_full = q_empty + 8;
   const uint32_t k_empty = k_full + 8 * STAGES;
@@ -265,7 +287,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t v_empty = v_full + 8 * STAGES;
 
   const int n_qt = (Sq + BLOCK_M - 1) / BLOCK_M;
-  const int n_items = BH * n_qt;
+  const int n_items = BH * n_qt * C::SPLIT;
   // warp-uniform as far as the compiler can tell, so that the wgmma
   // descriptors derived from it stay in uniform registers
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -295,11 +317,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       int q_loads = 0;  // Q tiles loaded so far
       for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
         const Item w =
-            item_at(i, BH, H, n_qt, Sq, kv_len, causal, q_offset);
+            item_at<C::SPLIT>(i, BH, H, n_qt, Sq, kv_len, causal, q_offset);
         if (w.n_tiles == 0) continue;
         // the consumers are done with the previous item's Q
         mbar_wait(q_empty, (q_loads++ & 1) ^ 1);
-        mbar_arrive_expect_tx(q_full, C::TILE_BYTES);
+        mbar_arrive_expect_tx(q_full, C::QK_BYTES);
 #pragma unroll
         for (int half = 0; half < D / 64; ++half)
           tma_load_4d(sQ + half * HALF_BYTES, &tm_q, q_full, half * 64, w.h,
@@ -309,17 +331,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           // the stage's previous fill was released (passes on the first)
           const uint32_t parity = ((t / STAGES) & 1) ^ 1;
           mbar_wait(k_empty + 8 * s, parity);
-          mbar_arrive_expect_tx(k_full + 8 * s, C::TILE_BYTES);
+          mbar_arrive_expect_tx(k_full + 8 * s, C::QK_BYTES);
 #pragma unroll
           for (int half = 0; half < D / 64; ++half)
-            tma_load_4d(sK + s * C::TILE_BYTES + half * HALF_BYTES, &tm_k,
+            tma_load_4d(sK + s * C::QK_BYTES + half * HALF_BYTES, &tm_k,
                         k_full + 8 * s, half * 64, w.h, j * BLOCK_N, w.b);
           mbar_wait(v_empty + 8 * s, parity);
-          mbar_arrive_expect_tx(v_full + 8 * s, C::TILE_BYTES);
+          mbar_arrive_expect_tx(v_full + 8 * s, C::V_BYTES);
 #pragma unroll
-          for (int half = 0; half < D / 64; ++half)
-            tma_load_4d(sV + s * C::TILE_BYTES + half * HALF_BYTES, &tm_v,
-                        v_full + 8 * s, half * 64, w.h, j * BLOCK_N, w.b);
+          for (int half = 0; half < C::DV / 64; ++half)
+            tma_load_4d(sV + s * C::V_BYTES + half * HALF_BYTES, &tm_v,
+                        v_full + 8 * s, w.half * C::DV + half * 64, w.h,
+                        j * BLOCK_N, w.b);
         }
       }
     }
@@ -336,7 +359,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     int t = 0;       // K/V tiles consumed so far: the ring position
     int q_uses = 0;  // Q tiles consumed so far
 
-    float acc[D / 2];
+    float acc[C::DV / 2];
     float s[64];
     uint32_t p[32];
 #pragma unroll
@@ -344,7 +367,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     if (wg == 1) named_bar_arrive(BAR_TURN, TURN_THREADS);  // 0 goes first
     for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
-      const Item w = item_at(i, BH, H, n_qt, Sq, kv_len, causal, q_offset);
+      const Item w =
+          item_at<C::SPLIT>(i, BH, H, n_qt, Sq, kv_len, causal, q_offset);
       const int n = w.n_tiles;
       const int wg_row0 = w.q_start + wg * WG_ROWS;
       const int row0 = wg_row0 + warp * 16 + (lane >> 2);  // and row0 + 8
@@ -352,7 +376,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int mask_from = causal ? min(kv_len, wg_row0 + q_offset + 1)
                                    : kv_len;
 #pragma unroll
-      for (int k = 0; k < D / 2; ++k) acc[k] = 0.f;
+      for (int k = 0; k < C::DV / 2; ++k) acc[k] = 0.f;
       float m[2] = {NEG_INF, NEG_INF};
       float l[2] = {0.f, 0.f};  // partial over this thread's columns
       float alpha[2] = {1.f, 1.f};
@@ -363,7 +387,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         wait_full(k_full, t, STAGES);
         named_bar_sync(my_turn, TURN_THREADS);
         wgmma_fence();
-        issue_qk<D>(s, q_addr, sK + (t % STAGES) * C::TILE_BYTES);
+        issue_qk<D>(s, q_addr, sK + (t % STAGES) * C::QK_BYTES);
         wgmma_commit();
         named_bar_arrive(next_turn, TURN_THREADS);
         wgmma_wait<0>();
@@ -383,9 +407,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_fence();
           fence_regs(acc);
           fence_regs(p);
-          issue_qk<D>(s, q_addr, sK + (tk % STAGES) * C::TILE_BYTES);
+          issue_qk<D>(s, q_addr, sK + (tk % STAGES) * C::QK_BYTES);
           wgmma_commit();
-          issue_pv<D>(acc, p, sV + ((tk - 1) % STAGES) * C::TILE_BYTES);
+          issue_pv<C::DV>(acc, p, sV + ((tk - 1) % STAGES) * C::V_BYTES);
           wgmma_commit();
           named_bar_arrive(next_turn, TURN_THREADS);
           wgmma_wait<1>();  // S_j is done, P_{j-1} V_{j-1} may still run
@@ -409,7 +433,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
         fence_regs(acc);
         fence_regs(p);
-        issue_pv<D>(acc, p, sV + (last % STAGES) * C::TILE_BYTES);
+        issue_pv<C::DV>(acc, p, sV + (last % STAGES) * C::V_BYTES);
         wgmma_commit();
         named_bar_arrive(next_turn, TURN_THREADS);
         wgmma_wait<0>();
@@ -422,7 +446,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           wait_full(k_full, tk, STAGES);
           named_bar_sync(my_turn, TURN_THREADS);
           wgmma_fence();
-          issue_qk<D>(s, q_addr, sK + (tk % STAGES) * C::TILE_BYTES);
+          issue_qk<D>(s, q_addr, sK + (tk % STAGES) * C::QK_BYTES);
           wgmma_commit();
           named_bar_arrive(next_turn, TURN_THREADS);
           wgmma_wait<0>();
@@ -437,7 +461,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_fence();
           fence_regs(acc);
           fence_regs(p);
-          issue_pv<D>(acc, p, sV + (tk % STAGES) * C::TILE_BYTES);
+          issue_pv<C::DV>(acc, p, sV + (tk % STAGES) * C::V_BYTES);
           wgmma_commit();
           wgmma_wait<0>();
           fence_regs(acc);
@@ -457,12 +481,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int row = row0 + r * 8;
         if (row < Sq) {
           __nv_bfloat16* orow =
-              o + (((long long)w.b * Sq + row) * H + w.h) * D;
+              o + (((long long)w.b * Sq + row) * H + w.h) * D + w.half * C::DV;
 #pragma unroll
-          for (int k = 0; k < D / 8; ++k)
+          for (int k = 0; k < C::DV / 8; ++k)
             *reinterpret_cast<uint32_t*>(orow + k * 8 + t2) = pack_bf16(
                 acc[4 * k + 2 * r] * inv, acc[4 * k + 2 * r + 1] * inv);
-          if (lse != nullptr && t2 == 0) {
+          if (lse != nullptr && t2 == 0 && w.half == 0) {
             // the running max in scaled units; NEG_INF where no key was valid
             const float m_scaled = lsum > 0.f ? m[r] * c : NEG_INF;
             lse[(long long)w.bh * Sq + row] = m_scaled * LN2 + logf(l_safe);
@@ -501,7 +525,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   }();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
   const long long items =
-      (long long)B * H * ((Sq + BLOCK_M - 1) / BLOCK_M);
+      (long long)B * H * ((Sq + BLOCK_M - 1) / BLOCK_M) * C::SPLIT;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = (int)(items < sms ? items : sms);
   flash_fwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
@@ -526,5 +550,8 @@ extern "C" int rsv_flash_fwd(const void* q, const void* k, const void* v,
     return launch<64>(q, k, v, o, lse, B, H, Sq, Sk, kv_len, causal, scale, st);
   if (D == 128)
     return launch<128>(q, k, v, o, lse, B, H, Sq, Sk, kv_len, causal, scale, st);
+  if (D == 256)
+    return launch<256>(q, k, v, o, lse, B, H, Sq, Sk, kv_len, causal, scale, st);
+  // other D <= 128 are zero-padded to 64 or 128 by the wrapper
   return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-"""Llama-3 decoder with a KV cache (rsvldm_tpu/models/vlm/llama.py).
+"""Llama-family decoders with a KV cache (rsvldm_tpu/models/vlm/llama.py).
 
 Parameter names are HF LlamaForCausalLM's (`model.embed_tokens`,
 `model.layers.{i}.self_attn.{q,k,v,o}_proj`, `.mlp.{gate,up,down}_proj`,
@@ -41,8 +41,21 @@ to even; a prefill from 0 still attends with the unquantized K/V (K1),
 every other call dequantizes the cache (k * k_scale) before its einsum.
 A block follows the cache it is given: scale planes mean int8.
 
-Not ported yet: the other families' knobs, MoE and sliding windows; their
-config fields raise when set.
+The other families are config knobs, as in JAX: `attn_bias` (Qwen2: q/k/v
+carry biases), `sliding_window` (Mistral: keys older than the window are
+masked; such a model never takes K1, even in a prefill from 0, because
+the window is not K1's mask), `norm_plus_one`, `act="gelu_tanh"`,
+`scale_embeds`, `tie_lm_head` and `head_dim_cfg` (Gemma: heads of 256 that
+are not dim // heads, so q/k/v/o and the cache are sized by heads *
+head_dim), and the sparse MoE FFN (`num_experts`: Mixtral, and Qwen2-MoE
+with its sigmoid-gated shared expert; `MoEFFN`). An MoE block keeps its
+experts stacked ([E, f, d] in the checkpoint's [out, in] layout) and runs
+every expert on every token as JAX's dense mix does; its state dict reads
+and writes the reference's per-expert names: Mixtral's
+`block_sparse_moe.{gate, experts.{e}.w1/w2/w3}` without a shared expert,
+Qwen2-MoE's `mlp.{gate, experts.{e}.{gate,up,down}_proj, shared_expert.*,
+shared_expert_gate}` with one. Weight-only quantization refuses MoE, as
+JAX does: it would leave the expert stacks wide.
 """
 
 from __future__ import annotations
@@ -75,25 +88,62 @@ class LlamaConfig:
     tie_lm_head: bool = False
     # the int8 KV cache (KVCache.init): half the cache bytes of bf16
     kv_quant: bool = False
-    # not ported yet: set away from their defaults they raise
-    sliding_window: int | None = None
-    num_experts: int = 0
-    head_dim_cfg: int = 0
+    # family knobs (JAX llama.py:39-45, 70-81)
+    attn_bias: bool = False        # Qwen2: q/k/v projections carry bias
+    sliding_window: int | None = None  # Mistral: local attention window
+    norm_plus_one: bool = False    # Gemma: y = x_norm * (1 + w)
+    act: str = "silu"              # Gemma: "gelu_tanh"
+    scale_embeds: bool = False     # Gemma: embeds *= sqrt(dim)
+    num_experts: int = 0           # 0 = dense FFN
+    experts_per_tok: int = 2       # Mixtral top-2; Qwen2-MoE top-4
+    moe_ffn_dim: int | None = None     # per-expert FFN width (def: ffn_dim)
+    norm_topk_prob: bool = True    # Mixtral: renormalize top-k weights
+    shared_expert_dim: int | None = None  # Qwen2-MoE sigmoid-gated shared FFN
+    head_dim_cfg: int = 0          # Gemma-7B: 256, not dim // heads
 
     def __post_init__(self):
-        for name, default in (("sliding_window", None), ("num_experts", 0),
-                              ("head_dim_cfg", 0)):
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"LlamaConfig.{name} is not ported yet (queued with the "
-                    "other families and MoE)")
+        if self.act not in ("silu", "gelu_tanh"):
+            raise ValueError(f"LlamaConfig.act {self.act!r}: silu or gelu_tanh")
 
     @property
     def head_dim(self) -> int:
-        return self.dim // self.heads
+        return self.head_dim_cfg or self.dim // self.heads
+
+    @property
+    def moe_layout(self) -> str | None:
+        """The reference's MoE weight names: Qwen2-MoE's with a shared
+        expert, Mixtral's without."""
+        if not self.num_experts:
+            return None
+        return "qwen2_moe" if self.shared_expert_dim else "mixtral"
 
 
 LLAMA3_8B_CONFIG = LlamaConfig()
+QWEN2_7B_CONFIG = LlamaConfig(vocab_size=152064, dim=3584, layers=28,
+                              heads=28, kv_heads=4, ffn_dim=18944,
+                              rope_theta=1000000.0, rms_eps=1e-6,
+                              attn_bias=True)
+MISTRAL_7B_CONFIG = LlamaConfig(vocab_size=32000, dim=4096, layers=32,
+                                heads=32, kv_heads=8, ffn_dim=14336,
+                                rope_theta=10000.0, rms_eps=1e-5,
+                                sliding_window=4096)
+GEMMA_7B_CONFIG = LlamaConfig(vocab_size=256000, dim=3072, layers=28,
+                              heads=16, kv_heads=16, ffn_dim=24576,
+                              rope_theta=10000.0, rms_eps=1e-6,
+                              norm_plus_one=True, scale_embeds=True,
+                              tie_lm_head=True, act="gelu_tanh",
+                              head_dim_cfg=256)
+MIXTRAL_8X7B_CONFIG = LlamaConfig(vocab_size=32000, dim=4096, layers=32,
+                                  heads=32, kv_heads=8, ffn_dim=14336,
+                                  rope_theta=1000000.0, rms_eps=1e-5,
+                                  num_experts=8, experts_per_tok=2)
+QWEN2_MOE_A2_7B_CONFIG = LlamaConfig(vocab_size=151936, dim=2048, layers=24,
+                                     heads=16, kv_heads=16, ffn_dim=5632,
+                                     rope_theta=1000000.0, rms_eps=1e-6,
+                                     attn_bias=True, num_experts=60,
+                                     experts_per_tok=4, moe_ffn_dim=1408,
+                                     norm_topk_prob=False,
+                                     shared_expert_dim=5632)
 
 
 @dataclasses.dataclass
@@ -158,15 +208,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-5):
+    """fp32 statistics; scale w, or 1 + w with `plus_one` (Gemma, whose
+    weights start at 0)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, plus_one: bool = False):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim))
+        self.plus_one = plus_one
+        self.weight = nn.Parameter(torch.zeros(dim) if plus_one else torch.ones(dim))
 
     def forward(self, x):
         xf = x.float()
         n = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
-        return (n * self.weight.float()).to(x.dtype)
+        w = self.weight.float()
+        return (n * (1.0 + w if self.plus_one else w)).to(x.dtype)
 
 
 def _maybe_lora(x, y, lora):
@@ -177,32 +232,40 @@ def _maybe_lora(x, y, lora):
     return y + ((x.float() @ lora["a"]) @ lora["b"]).to(y.dtype)
 
 
+def _add_bias(mod: nn.Module, y):
+    """A quantized projection's fp32 bias (Qwen2's q/k/v), added after the
+    adapter branch in the output's dtype, as JAX's QDense / Q4Dense."""
+    return y if mod.bias is None else y + mod.bias.to(y.dtype)
+
+
 class QDense(nn.Module):
     """int8 weight storage (JAX QDense): buffers kernel_q int8 [in, out],
-    scale fp32 [out]; returns the input's dtype."""
+    scale fp32 [out] (and an fp32 bias [out]); returns the input's dtype."""
 
-    def __init__(self, ql: QuantizedLinear):
+    def __init__(self, ql: QuantizedLinear, bias: torch.Tensor | None = None):
         super().__init__()
         self.register_buffer("kernel_q", ql.q)
         self.register_buffer("scale", ql.scale)
+        self.register_buffer("bias", bias)
 
     def forward(self, x, lora=None):
         y = int8_matmul_ste(x, QuantizedLinear(self.kernel_q, self.scale), x.dtype)
-        return _maybe_lora(x, y, lora)
+        return _add_bias(self, _maybe_lora(x, y, lora))
 
 
 class Q4Dense(nn.Module):
     """int4 weight storage (JAX Q4Dense): buffers kernel_q4 int8 [in/2, out]
-    (plane-packed nibbles), scale fp32 [in/group, out]."""
+    (plane-packed nibbles), scale fp32 [in/group, out] (and an fp32 bias)."""
 
-    def __init__(self, ql: Int4Linear):
+    def __init__(self, ql: Int4Linear, bias: torch.Tensor | None = None):
         super().__init__()
         self.register_buffer("kernel_q4", ql.packed)
         self.register_buffer("scale", ql.scale)
+        self.register_buffer("bias", bias)
 
     def forward(self, x, lora=None):
         y = int4_matmul_ste(x, Int4Linear(self.kernel_q4, self.scale), x.dtype)
-        return _maybe_lora(x, y, lora)
+        return _add_bias(self, _maybe_lora(x, y, lora))
 
 
 def project(mod: nn.Module, x, lora=None):
@@ -219,35 +282,142 @@ def project(mod: nn.Module, x, lora=None):
 class _Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        hd = cfg.head_dim
-        self.q_proj = nn.Linear(cfg.dim, cfg.heads * hd, bias=False)
-        self.k_proj = nn.Linear(cfg.dim, cfg.kv_heads * hd, bias=False)
-        self.v_proj = nn.Linear(cfg.dim, cfg.kv_heads * hd, bias=False)
+        hd, bias = cfg.head_dim, cfg.attn_bias
+        self.q_proj = nn.Linear(cfg.dim, cfg.heads * hd, bias=bias)
+        self.k_proj = nn.Linear(cfg.dim, cfg.kv_heads * hd, bias=bias)
+        self.v_proj = nn.Linear(cfg.dim, cfg.kv_heads * hd, bias=bias)
         self.o_proj = nn.Linear(cfg.heads * hd, cfg.dim, bias=False)
 
 
+def _act(name: str):
+    if name == "silu":
+        return F.silu
+    return lambda v: F.gelu(v, approximate="tanh")
+
+
 class _MLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig):
+    def __init__(self, dim: int, ffn_dim: int, act: str = "silu"):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.dim, cfg.ffn_dim, bias=False)
-        self.up_proj = nn.Linear(cfg.dim, cfg.ffn_dim, bias=False)
-        self.down_proj = nn.Linear(cfg.ffn_dim, cfg.dim, bias=False)
+        self.act = _act(act)
+        self.gate_proj = nn.Linear(dim, ffn_dim, bias=False)
+        self.up_proj = nn.Linear(dim, ffn_dim, bias=False)
+        self.down_proj = nn.Linear(ffn_dim, dim, bias=False)
 
     def forward(self, h, lora=None):
         lora = lora or {}
         gate = project(self.gate_proj, h, lora.get("gate_proj"))
         up = project(self.up_proj, h, lora.get("up_proj"))
-        return project(self.down_proj, F.silu(gate) * up, lora.get("down_proj"))
+        return project(self.down_proj, self.act(gate) * up, lora.get("down_proj"))
+
+
+# the reference's per-expert weight names (gate, up, down) by layout
+# (rsvldm_tpu/utils/convert_hf.py:293-302)
+_EXPERT_NAMES = {"mixtral": ("w1", "w3", "w2"),
+                 "qwen2_moe": ("gate_proj", "up_proj", "down_proj")}
+_STACKS = ("experts_gate", "experts_up", "experts_down")
+
+
+class MoEFFN(nn.Module):
+    """Sparse-MoE FFN (JAX MoEFFN, llama.py:416-466): an fp32 softmax
+    router, top-k experts (renormalized with `norm_topk_prob`), SwiGLU
+    experts mixed densely (every expert on every token, the unselected
+    weighted 0), plus Qwen2-MoE's sigmoid-gated shared expert. The experts
+    are stacked Parameters ([E, f, d], [E, f, d], [E, d, f]); the state
+    dict holds them under the reference's per-expert names, and a load
+    takes either layout's."""
+
+    def __init__(self, cfg: LlamaConfig):
+        super().__init__()
+        e, d = cfg.num_experts, cfg.dim
+        f = cfg.moe_ffn_dim or cfg.ffn_dim
+        self.top_k, self.renorm = cfg.experts_per_tok, cfg.norm_topk_prob
+        self.layout = cfg.moe_layout
+        self.gate = nn.Linear(d, e, bias=False)  # the router
+        self.experts_gate = nn.Parameter(torch.empty(e, f, d))
+        self.experts_up = nn.Parameter(torch.empty(e, f, d))
+        self.experts_down = nn.Parameter(torch.empty(e, d, f))
+        if cfg.shared_expert_dim:
+            self.shared_expert = _MLP(d, cfg.shared_expert_dim)
+            self.shared_expert_gate = nn.Linear(d, 1, bias=False)
+        self._register_state_dict_hook(MoEFFN._per_expert_names)
+        self._register_load_state_dict_pre_hook(MoEFFN._stack_experts)
+
+    @staticmethod
+    def _per_expert_names(module, sd, prefix, _meta):
+        for stack, name in zip(_STACKS, _EXPERT_NAMES[module.layout]):
+            w = sd.pop(prefix + stack)
+            for e in range(w.shape[0]):
+                sd[f"{prefix}experts.{e}.{name}.weight"] = w[e]
+        return sd
+
+    @staticmethod
+    def _stack_experts(sd, prefix, *_):
+        for names in _EXPERT_NAMES.values():
+            if f"{prefix}experts.0.{names[0]}.weight" not in sd:
+                continue
+            for stack, name in zip(_STACKS, names):
+                keys = []
+                while f"{prefix}experts.{len(keys)}.{name}.weight" in sd:
+                    keys.append(f"{prefix}experts.{len(keys)}.{name}.weight")
+                sd[prefix + stack] = torch.stack([sd.pop(k) for k in keys])
+
+    def forward(self, h, lora=None):
+        if lora:
+            raise NotImplementedError("MoEFFN: LoRA adapters on the experts "
+                                      "are not supported (nor in JAX)")
+        b, s, d = h.shape
+        e, f = self.experts_gate.shape[:2]
+        probs = torch.softmax(self.gate(h).float(), dim=-1)
+        topv, topi = probs.topk(self.top_k, dim=-1)
+        if self.renorm:
+            topv = topv / topv.sum(-1, keepdim=True)
+        w = torch.zeros_like(probs).scatter(-1, topi, topv)  # [B, S, E]
+        x = h.reshape(b * s, d)
+        g = F.linear(x, self.experts_gate.reshape(e * f, d)).reshape(b * s, e, f)
+        u = F.linear(x, self.experts_up.reshape(e * f, d)).reshape(b * s, e, f)
+        a = (F.silu(g) * u).transpose(0, 1)                     # [E, BS, f]
+        y = torch.bmm(a, self.experts_down.transpose(1, 2))     # [E, BS, d]
+        out = (y * w.reshape(b * s, e).t()[..., None].to(y.dtype)).sum(0)
+        out = out.reshape(b, s, d)
+        if hasattr(self, "shared_expert"):
+            out = out + (torch.sigmoid(self.shared_expert_gate(h))
+                         * self.shared_expert(h))
+        return out.to(h.dtype)
+
+
+def _grouped_attention(q, k_all, v_all, positions, window: int | None):
+    """The general path (JAX llama.py:368-407): q [B, S, H, hd] at
+    `positions` [B, S] against the unrepeated keys / values [B, T, kvh, hd]
+    at positions 0..T-1, masked causally (and to the last `window`
+    positions), fp32 logits and softmax, probabilities in v's dtype."""
+    b, s, heads, hd = q.shape
+    t, kvh = k_all.shape[1], k_all.shape[2]
+    qg = q.reshape(b, s, kvh, heads // kvh, hd)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                          k_all.float()) / (hd ** 0.5)
+    k_pos = torch.arange(t, device=q.device)
+    mask = k_pos <= positions[:, :, None]  # [B, S, T]
+    if window is not None:
+        mask = mask & (k_pos > positions[:, :, None] - window)
+    logits = logits.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v_all.dtype)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", probs.float(), v_all.float())
+    return o.reshape(b, s, heads, hd)
 
 
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
         self.cfg = cfg
-        self.input_layernorm = RMSNorm(cfg.dim, cfg.rms_eps)
+        self.input_layernorm = RMSNorm(cfg.dim, cfg.rms_eps, cfg.norm_plus_one)
         self.self_attn = _Attention(cfg)
-        self.post_attention_layernorm = RMSNorm(cfg.dim, cfg.rms_eps)
-        self.mlp = _MLP(cfg)
+        self.post_attention_layernorm = RMSNorm(cfg.dim, cfg.rms_eps,
+                                                cfg.norm_plus_one)
+        # the FFN under its reference name: Mixtral's block_sparse_moe, else mlp
+        self.ffn_name = ("block_sparse_moe" if cfg.moe_layout == "mixtral"
+                         else "mlp")
+        setattr(self, self.ffn_name, MoEFFN(cfg) if cfg.num_experts
+                else _MLP(cfg.dim, cfg.ffn_dim, cfg.act))
 
     def forward(self, x, cache_k, cache_v, start_pos, lora=None,
                 cache_ks=None, cache_vs=None):
@@ -257,7 +427,10 @@ class LlamaBlock(nn.Module):
         hd], written in place (detached), or None for a prefill from 0
         that keeps no cache; cache_ks/vs [B, T, kvh]: the int8 cache's
         scale planes (then cache_k/v hold int8 codes); lora: this block's
-        adapters by projection name."""
+        adapters by projection name. A prefill from 0 attends through
+        ops/attention.py (K1 on the card at 1024 tokens and more) unless
+        the model has a sliding window; every other call takes the
+        grouped einsum against the cache."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd, kvh = cfg.head_dim, cfg.kv_heads
@@ -272,7 +445,7 @@ class LlamaBlock(nn.Module):
         k = project(a.k_proj, h, lora.get("k_proj")).reshape(b, s, kvh, hd)
         v = project(a.v_proj, h, lora.get("v_proj")).reshape(b, s, kvh, hd)
         if prefill:
-            positions = torch.arange(s, device=x.device)
+            positions = torch.arange(s, device=x.device).expand(b, s)
         else:
             # [B, S]: the host never reads a position, so a decode step
             # can be captured once and replayed
@@ -287,7 +460,7 @@ class LlamaBlock(nn.Module):
                     (k_st, k_sc), (v_st, v_sc) = quantize_kv(k), quantize_kv(v)
                 else:
                     k_st, v_st = k.to(cache_k.dtype), v.to(cache_v.dtype)
-        if prefill:
+        if prefill and cfg.sliding_window is None:
             if cache_k is not None:
                 with torch.no_grad():
                     cache_k[:, :s] = k_st
@@ -299,6 +472,10 @@ class LlamaBlock(nn.Module):
             kk = k.repeat_interleave(rep, dim=2).to(q.dtype)
             vv = v.repeat_interleave(rep, dim=2).to(q.dtype)
             o = attention(q, kk, vv, causal=True).to(x.dtype)
+        elif cache_k is None:
+            # a windowed prefill that keeps no cache (training)
+            o = _grouped_attention(q, k.to(q.dtype), v.to(q.dtype), positions,
+                                   cfg.sliding_window).to(x.dtype)
         else:
             if torch.is_grad_enabled() and x.requires_grad:
                 raise NotImplementedError(
@@ -324,18 +501,12 @@ class LlamaBlock(nn.Module):
                 v_eff = (cache_v.float() * cache_vs[..., None]).to(q.dtype)
             else:
                 k_eff, v_eff = cache_k, cache_v
-            qg = q.reshape(b, s, kvh, rep, hd)
-            logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
-                                  k_eff.float()) / (hd ** 0.5)
-            k_pos = torch.arange(t, device=x.device)
-            mask = k_pos <= positions[:, :, None]  # [B, S, T]
-            logits = logits.masked_fill(~mask[:, None, None], -1e30)
-            probs = torch.softmax(logits, dim=-1).to(v_eff.dtype)
-            o = torch.einsum("bgrqk,bkgd->bqgrd", probs.float(), v_eff.float())
-            o = o.reshape(b, s, cfg.heads, hd).to(x.dtype)
+            o = _grouped_attention(q, k_eff, v_eff, positions,
+                                   cfg.sliding_window).to(x.dtype)
         x = x + project(a.o_proj, o.reshape(b, s, cfg.heads * hd),
                         lora.get("o_proj"))
-        return x + self.mlp(self.post_attention_layernorm(x), lora)
+        ffn = getattr(self, self.ffn_name)
+        return x + ffn(self.post_attention_layernorm(x), lora)
 
 
 class _Decoder(nn.Module):
@@ -343,7 +514,7 @@ class _Decoder(nn.Module):
         super().__init__()
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.dim)
         self.layers = nn.ModuleList(LlamaBlock(cfg) for _ in range(cfg.layers))
-        self.norm = RMSNorm(cfg.dim, cfg.rms_eps)
+        self.norm = RMSNorm(cfg.dim, cfg.rms_eps, cfg.norm_plus_one)
 
 
 class LlamaModel(nn.Module):
@@ -360,7 +531,13 @@ class LlamaModel(nn.Module):
         return self.model.norm.weight.dtype
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.model.embed_tokens(tokens).to(self.dtype)
+        """Token embeddings in the compute dtype; Gemma's scale by sqrt(dim)
+        is taken in fp32 and rounded to that dtype first (JAX llama.py:
+        497-501: in bf16, sqrt(3072) = 55.43 becomes 55.5)."""
+        e = self.model.embed_tokens(tokens).to(self.dtype)
+        if self.cfg.scale_embeds:
+            e = e * torch.sqrt(torch.tensor(float(self.cfg.dim))).to(e.dtype)
+        return e
 
     def forward(self, embeds: torch.Tensor, cache: KVCache | None = None,
                 start_pos: int | torch.Tensor = 0, lora: dict | None = None,
@@ -417,20 +594,29 @@ def quantize_llama_(model: LlamaModel, mode: str = "int8", group: int = 128,
                     embed_dtype=torch.bfloat16) -> LlamaModel:
     """In place: every `_QUANT_MODULES` nn.Linear becomes QDense (int8,
     per-output-channel) or Q4Dense (int4, per (group, out)), one module at a
-    time so that only one dense weight is widened at once; the embedding
-    table is narrowed to `embed_dtype`."""
+    time so that only one dense weight is widened at once, its bias kept in
+    fp32; the embedding table is narrowed to `embed_dtype`. MoE models
+    raise."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"quantize_llama_: mode {mode!r}")
+    if model.cfg.num_experts:
+        raise NotImplementedError(
+            "weight-only quantization does not cover MoE expert stacks (as "
+            "in JAX): quantizing only the attention projections would leave "
+            "most of the weights wide; load MoE families unquantized")
     # (parent, name) pairs only: holding the Linear modules themselves would
     # keep every dense weight alive to the end
     targets = [(parent, name) for parent in model.modules()
                for name, child in parent.named_children()
                if name in _QUANT_MODULES and isinstance(child, nn.Linear)]
     for parent, name in targets:
-        kernel = getattr(parent, name).weight.t()  # [in, out], the JAX layout
+        dense = getattr(parent, name)
+        kernel = dense.weight.t()  # [in, out], the JAX layout
+        bias = None if dense.bias is None else dense.bias.detach().float()
+        del dense
         setattr(parent, name,
-                Q4Dense(quantize_weight_int4(kernel, group)) if mode == "int4"
-                else QDense(quantize_weight(kernel)))
+                Q4Dense(quantize_weight_int4(kernel, group), bias) if mode == "int4"
+                else QDense(quantize_weight(kernel), bias))
         del kernel
     emb = model.model.embed_tokens
     emb.weight = nn.Parameter(emb.weight.to(embed_dtype), requires_grad=False)

@@ -1,25 +1,41 @@
-"""The Llama-3 tokenizer from <ckpt_dir>/llava/tokenizer.json, without the
+"""The decoder's tokenizer from <ckpt_dir>/llava/tokenizer.json, without the
 `tokenizers` or `transformers` packages (the JAX captioner reads it through
 transformers.AutoTokenizer, rsvldm_tpu/models/vlm/captioner.py:222-224).
+
+It reads the shapes the Llama-family checkpoints ship: byte-level BPE
+(Llama-3; Qwen2, with NFC and its own Split pattern) and SentencePiece-style
+BPE with byte fallback (Mistral, Mixtral, Gemma: a Prepend / Replace
+normalizer to "▁", no pre-tokenizer or a Split on a string, the Replace /
+ByteFallback / Fuse / Strip decoders). A component it does not implement
+raises NotImplementedError naming it: a file is never tokenized wrongly.
 
 What it reads, in encode order:
   1. `added_tokens`, split out of the raw text first (longest match at the
      leftmost position), so that the chat template's `<|begin_of_text|>`,
      `<|start_header_id|>`, `<|eot_id|>` ... map to their ids even with
      add_special_tokens=False;
-  2. the `Split` pre-tokenizer (behaviour "Isolated": matches and the text
-     between them are both pieces) in the stdlib `re`. `re` has no
+  2. the `normalizer` on each segment between them: NFC, Prepend,
+     Replace of a string;
+  3. the `Split` pre-tokenizer (behaviour "Isolated": matches and the text
+     between them are both pieces; "MergedWithPrevious": a match ends its
+     piece) in the stdlib `re`. `re` has no
      \\p{L} / \\p{N}; they become explicit classes built from
      unicodedata (letters: categories L*, numbers: N*, which takes in the
      Nl / No characters such as `½`, `²` and `Ⅻ` that `\\d` misses), and
      \\s / \\S become the Unicode White_Space set (stdlib `\\s` also takes
      U+001C-U+001F);
-  3. the `ByteLevel` map of each piece's UTF-8 bytes to printable chars;
-  4. the `BPE` model: with `ignore_merges`, a piece that is in the
-     vocabulary whole is one id; otherwise merges by rank, lowest first.
+  4. the `ByteLevel` map of each piece's UTF-8 bytes to printable chars
+     (byte-level files only);
+  5. the `BPE` model: with `ignore_merges`, a piece that is in the
+     vocabulary whole is one id; otherwise merges by rank, lowest first; a
+     symbol left outside the vocabulary becomes its `<0xXX>` byte tokens
+     with `byte_fallback`, else the unk token (runs fused with
+     `fuse_unk`), else nothing.
 `add_special_tokens=True` applies the `post_processor`'s TemplateProcessing
-(Llama-3: BOS before the text). `decode` drops special added tokens when
-asked, reverses the byte map (invalid UTF-8 becomes U+FFFD) and applies
+(BOS before the text). `decode` drops special added tokens when asked,
+then runs the `decoder`: ByteLevel reverses the byte map (invalid UTF-8
+becomes U+FFFD); Replace, ByteFallback (byte tokens to UTF-8, one U+FFFD
+a byte of an invalid run), Fuse and Strip as `tokenizers` does; then
 transformers' clean-up of spaces before punctuation when
 tokenizer_config.json asks for it.
 """
@@ -131,28 +147,42 @@ def _steps(node: dict | None, key: str) -> list:
 class Llama3Tokenizer:
     """encode(text, add_special_tokens=False) / decode(ids,
     skip_special_tokens=True), as transformers' fast tokenizer gives them
-    for a tokenizer.json of Llama-3's kind (ByteLevel BPE)."""
+    for a tokenizer.json of the shapes in the module docstring."""
 
     def __init__(self, spec: dict, clean_up_spaces: bool = False):
         model = spec["model"]
         if model.get("type") != "BPE":
             raise NotImplementedError(f"tokenizer.json: model {model.get('type')}")
-        if spec.get("normalizer") is not None:
-            raise NotImplementedError("tokenizer.json: a normalizer is not supported")
+        for knob in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
+            if model.get(knob):
+                raise NotImplementedError(f"tokenizer.json: BPE {knob}")
         self.vocab: Dict[str, int] = dict(model["vocab"])
         merges = [tuple(m.split(" ")) if isinstance(m, str) else tuple(m)
                   for m in model["merges"]]
         self.ranks = {m: i for i, m in enumerate(merges)}
         self.ignore_merges = bool(model.get("ignore_merges", False))
+        self.byte_fallback = bool(model.get("byte_fallback", False))
+        self.unk_id = self.vocab.get(model.get("unk_token") or "")
+        self.fuse_unk = bool(model.get("fuse_unk", False))
+        self.normalizers = [self._normalizer(step) for step in
+                            _steps(spec.get("normalizer"), "normalizers")]
         self.split = None
+        self.merge_with_previous = False
+        self.byte_level = False
         for step in _steps(spec.get("pre_tokenizer"), "pretokenizers"):
             kind = step.get("type")
             if kind == "Split":
-                if step.get("behavior") != "Isolated" or step.get("invert"):
+                if step.get("invert") or step.get("behavior") not in (
+                        "Isolated", "MergedWithPrevious"):
                     raise NotImplementedError(f"tokenizer.json: Split {step}")
-                self.split = re.compile(translate_pattern(step["pattern"]["Regex"]))
-            elif kind != "ByteLevel" or step.get("use_regex") or \
-                    step.get("add_prefix_space"):
+                pat = step["pattern"]
+                self.split = re.compile(translate_pattern(pat["Regex"]) if "Regex"
+                                        in pat else re.escape(pat["String"]))
+                self.merge_with_previous = step["behavior"] == "MergedWithPrevious"
+            elif kind == "ByteLevel" and not step.get("use_regex") and \
+                    not step.get("add_prefix_space"):
+                self.byte_level = True
+            else:
                 raise NotImplementedError(f"tokenizer.json: pre-tokenizer {step}")
         self.added = {t["content"]: t["id"] for t in spec.get("added_tokens", [])}
         self.special_ids = {t["id"] for t in spec.get("added_tokens", [])
@@ -164,6 +194,11 @@ class Llama3Tokenizer:
         for step in _steps(spec.get("post_processor"), "processors"):
             if step.get("type") == "TemplateProcessing":
                 self.template = self._template(step)
+            elif step.get("type") != "ByteLevel":  # ByteLevel: offsets only
+                raise NotImplementedError(
+                    f"tokenizer.json: post-processor {step.get('type')}")
+        self.decoders = [self._decoder(step) for step in
+                         _steps(spec.get("decoder"), "decoders")]
         self.id_to_token = {i: t for t, i in self.vocab.items()}
         self.id_to_token.update({i: t for t, i in self.added.items()})
         self.byte_encoder = bytes_to_unicode()
@@ -174,6 +209,28 @@ class Llama3Tokenizer:
         # (from_dir), else the template's leading special token
         self.bos_token_id: int | None = (self.template[0] if self.template
                                          else None)
+
+    @staticmethod
+    def _normalizer(step: dict) -> tuple:
+        kind = step.get("type")
+        if kind == "NFC":
+            return ("nfc",)
+        if kind == "Prepend":
+            return ("prepend", step["prepend"])
+        if kind == "Replace" and "String" in step["pattern"]:
+            return ("replace", step["pattern"]["String"], step["content"])
+        raise NotImplementedError(f"tokenizer.json: normalizer {step}")
+
+    @staticmethod
+    def _decoder(step: dict) -> tuple:
+        kind = step.get("type")
+        if kind in ("ByteLevel", "ByteFallback", "Fuse"):
+            return (kind,)
+        if kind == "Replace" and "String" in step["pattern"]:
+            return (kind, step["pattern"]["String"], step["content"])
+        if kind == "Strip":
+            return (kind, step["content"], step["start"], step["stop"])
+        raise NotImplementedError(f"tokenizer.json: decoder {step}")
 
     @classmethod
     def from_dir(cls, d: str | Path) -> "Llama3Tokenizer":
@@ -233,8 +290,16 @@ class Llama3Tokenizer:
                         merged.append(word[i])
                         i += 1
                 word = merged
-            # no unk token: a symbol outside the vocabulary is dropped
-            ids = [self.vocab[w] for w in word if w in self.vocab]
+            ids = []
+            for w in word:
+                if w in self.vocab:
+                    ids.append(self.vocab[w])
+                elif self.byte_fallback:
+                    ids += [self.vocab[f"<0x{b:02X}>"] for b in w.encode("utf-8")]
+                elif self.unk_id is not None:
+                    if not (self.fuse_unk and ids and ids[-1] == self.unk_id):
+                        ids.append(self.unk_id)
+                # no unk token: a symbol outside the vocabulary is dropped
         self.cache[piece] = ids
         return ids
 
@@ -243,20 +308,35 @@ class Llama3Tokenizer:
             return [text] if text else []
         out, pos = [], 0
         for m in self.split.finditer(text):
-            if m.start() > pos:
-                out.append(text[pos:m.start()])
-            if m.end() > m.start():
+            if m.end() == m.start():
+                continue
+            if self.merge_with_previous:  # the match closes its piece
+                out.append(text[pos:m.end()])
+            else:
+                if m.start() > pos:
+                    out.append(text[pos:m.start()])
                 out.append(m.group())
             pos = m.end()
         if pos < len(text):
             out.append(text[pos:])
         return out
 
+    def _normalize(self, text: str) -> str:
+        for step in self.normalizers:
+            if step[0] == "nfc":
+                text = unicodedata.normalize("NFC", text)
+            elif step[0] == "prepend":
+                text = step[1] + text if text else text
+            else:
+                text = text.replace(step[1], step[2])
+        return text
+
     def _encode_text(self, text: str) -> List[int]:
         ids = []
-        for piece in self._pieces(text):
-            mapped = "".join(self.byte_encoder[b] for b in piece.encode("utf-8"))
-            ids += self._bpe(mapped)
+        for piece in self._pieces(self._normalize(text)):
+            if self.byte_level:
+                piece = "".join(self.byte_encoder[b] for b in piece.encode("utf-8"))
+            ids += self._bpe(piece)
         return ids
 
     def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:
@@ -274,15 +354,66 @@ class Llama3Tokenizer:
     # ------------------------------------------------------------ decode
     def decode(self, ids, skip_special_tokens: bool = True) -> str:
         """Ids outside the vocabulary are dropped, as `tokenizers` does."""
-        raw = bytearray()
+        tokens = []
         for i in ids:
             i = int(i)
             tok = self.id_to_token.get(i)
             if tok is None or (skip_special_tokens and i in self.special_ids):
                 continue
+            tokens.append(tok)
+        for step in self.decoders:
+            tokens = getattr(self, f"_dec_{step[0].lower()}")(tokens, *step[1:])
+        text = "".join(tokens)
+        return _clean_up_tokenization(text) if self.clean_up_spaces else text
+
+    def _dec_bytelevel(self, tokens):
+        raw = bytearray()
+        for tok in tokens:
             if all(c in self.byte_decoder for c in tok):
                 raw += bytes(self.byte_decoder[c] for c in tok)
             else:
                 raw += tok.encode("utf-8")
-        text = raw.decode("utf-8", errors="replace")
-        return _clean_up_tokenization(text) if self.clean_up_spaces else text
+        return [raw.decode("utf-8", errors="replace")]
+
+    @staticmethod
+    def _dec_replace(tokens, old, new):
+        return [t.replace(old, new) for t in tokens]
+
+    @staticmethod
+    def _dec_bytefallback(tokens):
+        out, run = [], bytearray()
+
+        def flush():
+            if run:
+                try:
+                    out.append(run.decode("utf-8"))
+                except UnicodeDecodeError:
+                    out.append("\ufffd" * len(run))
+                run.clear()
+        for t in tokens:
+            if len(t) == 6 and t.startswith("<0x") and t.endswith(">"):
+                try:
+                    run.append(int(t[3:5], 16))
+                    continue
+                except ValueError:
+                    pass
+            flush()
+            out.append(t)
+        flush()
+        return out
+
+    @staticmethod
+    def _dec_fuse(tokens):
+        return ["".join(tokens)]
+
+    @staticmethod
+    def _dec_strip(tokens, content, start, stop):
+        out = []
+        for t in tokens:
+            i, j = 0, len(t)
+            while i < min(start, len(t)) and t[i] == content:
+                i += 1
+            while len(t) - j < stop and j > i and t[j - 1] == content:
+                j -= 1
+            out.append(t[i:j])
+        return out

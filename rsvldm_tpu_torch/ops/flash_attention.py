@@ -15,6 +15,14 @@ CPU tensors take them; CUDA tensors launch the kernels or raise. Layout
 A gradient through K1 goes through `ops/attention.py::FlashAttention`, whose
 backward is the fused kernel: `flash_attention` sends CUDA calls that need
 a gradient there, and raises for the calls it cannot differentiate.
+
+Head dims: K1 is built for 64, 128 and 256 (JAX's kernel takes any D). Any
+other D <= 128 (MLCD's 104) runs zero-padded along D to 64 or 128 with the
+scale of the true D, and its output is sliced back (`with_padded_head_dim`,
+exact: zero columns add 0 to every score and give 0 output columns). The
+fused backward takes the same padding; at D=256 it raises
+NotImplementedError (queued), and a D K1 cannot take raises ValueError:
+a CUDA call never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..utils import cuda_build
 
@@ -31,7 +40,8 @@ BWD_SOURCE = "flash_bwd.cu"
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)  # K1's instantiations (csrc/flash_fwd.cu)
+BWD_HEAD_DIMS = (64, 128)   # the fused backward's (csrc/flash_bwd.cu)
 BWD_Q_TILE = 64  # queries per tile of the backward kernel (csrc Q_TILE)
 
 
@@ -62,6 +72,40 @@ def flash_attention_ref(q, k, v, *, causal: bool = False,
     if return_lse:
         return out, (m * LN2 + torch.log(l))[..., 0]
     return out
+
+
+def padded_head_dim(d: int) -> int | None:
+    """The head dim K1 runs a true head dim `d` at: d itself when K1 is
+    built for it, else 64 or 128 for d <= 128 (zero padding), else None."""
+    if d in HEAD_DIMS:
+        return d
+    if 0 < d <= 128:
+        return 64 if d < 64 else 128
+    return None
+
+
+def with_padded_head_dim(fn, q, k, v, *rest, scale: float | None = None,
+                         **kw):
+    """fn(q, k, v, *rest, scale=..., **kw) with every [B, S, H, D] argument
+    zero-padded along D to `padded_head_dim(D)`, the softmax scale kept at
+    1 / sqrt(D) of the true D (or the given one), and every [..., D'] result
+    sliced back to D. lse ([B, H, Sq]) passes through: the padded columns
+    add nothing to any score. The CUDA wrappers call it; the CPU tests run
+    it around the plain versions."""
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    if dp is None:
+        raise ValueError(f"flash_attention: head dim {d} is neither one of "
+                         f"K1's {HEAD_DIMS} nor <= 128 (padded)")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if dp == d:
+        return fn(q, k, v, *rest, scale=scale, **kw)
+    pad = lambda x: (F.pad(x, (0, dp - d)) if x is not None and x.dim() == 4
+                     and x.shape[-1] == d else x)
+    res = fn(*(pad(x) for x in (q, k, v) + rest), scale=scale, **kw)
+    cut = lambda x: (x[..., :d].contiguous() if x is not None and x.dim() == 4
+                     and x.shape[-1] == dp else x)
+    return tuple(cut(x) for x in res) if isinstance(res, tuple) else cut(res)
 
 
 def _bind():
@@ -116,8 +160,13 @@ def flash_attention(q, k, v, *, causal: bool = False,
         if return_lse or kv_len not in (None, k.shape[1]):
             raise ValueError("flash_attention: return_lse and kv_len have no "
                              "backward; call with neither to differentiate")
+        _check_bwd_head_dim(q.shape[-1])
         from .attention import FlashAttention
         return FlashAttention.apply(q, k, v, causal, scale)
+    if q.shape[-1] not in HEAD_DIMS:
+        return with_padded_head_dim(flash_attention, q, k, v, causal=causal,
+                                    scale=scale, kv_len=kv_len,
+                                    return_lse=return_lse)
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     _check(q, k, v, kv_len)
     b, sq, h, d = q.shape
@@ -146,6 +195,13 @@ def _valid_mask(sq, sk, causal, device):
     if not causal:
         return torch.ones((sq, sk), dtype=torch.bool, device=device)
     return torch.ones((sq, sk), dtype=torch.bool, device=device).tril(sk - sq)
+
+
+def _check_bwd_head_dim(d: int):
+    if d > 128 and d in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention: the fused backward at head dim {d} is not "
+            "built yet (queued); no entry point trains at that width")
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = False,
@@ -193,6 +249,10 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        scale=scale)
+    _check_bwd_head_dim(q.shape[-1])
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        return with_padded_head_dim(flash_attention_bwd, q, k, v, out, lse, do,
+                                    causal=causal, scale=scale)
     _check(q, k, v, k.shape[1])
     b, sq, h, d = q.shape
     for name, x in (("out", out), ("do", do)):

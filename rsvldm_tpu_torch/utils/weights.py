@@ -4,8 +4,10 @@ init for missing checkpoints.
 The port's parameter names are the reference torch checkpoints' names, the
 ones rsvldm_tpu/utils/convert.py (SR3, VAE, GLVControl, SDXL UNet) and
 rsvldm_tpu/utils/convert_hf.py (CLIP-L in HF layout, bigG in open_clip
-layout, the Llama decoder, the CLIP-336 vision tower, the mm projector)
-read. `params_from_jax` is the inverse of those converters: a Flax
+layout, the Llama-family decoders with MoE in Mixtral's or Qwen2-MoE's
+names, MPT, the CLIP-336 / MLCD / open_clip / EVA vision towers, the
+projectors, T5, the Q-Former and perceiver resamplers) and
+rsvldm_tpu/models/vlm/siglip.py (SigLIP) read. `params_from_jax` is the inverse of those converters: a Flax
 tree (numpy leaves) becomes a state dict that the port's module loads with
 strict=True. Layouts: Flax conv [kh, kw, in, out] -> torch [out, in, kh, kw];
 dense [in, out] -> [out, in]; norm scale -> weight.
@@ -27,7 +29,8 @@ from ..ops.norm import GroupNorm32
 
 log = logging.getLogger("rsvldm_torch")
 FAMILIES = ("sr3", "vae", "control", "unet", "clip_l", "big_g", "llama",
-            "clip_vision", "projector")
+            "clip_vision", "projector", "mpt", "mlcd", "openclip_vision",
+            "siglip", "eva", "t5", "qformer", "perceiver", "pooler_projector")
 
 
 def _arr(x) -> torch.Tensor:
@@ -49,7 +52,8 @@ class _SD(dict):
 
     def norm(self, prefix, p):
         self[f"{prefix}.weight"] = _arr(p["scale"])
-        self[f"{prefix}.bias"] = _arr(p["bias"])
+        if "bias" in p:  # bias-free LayerNorms (MPT) have none
+            self[f"{prefix}.bias"] = _arr(p["bias"])
 
 
 # ------------------------------------------------------------------ SR3
@@ -280,7 +284,9 @@ def _big_g(p, cfg) -> _SD:
 
 # ------------------------------------------------------------ LLaVA
 def _llama(p, cfg) -> _SD:
-    """HF LlamaForCausalLM names (convert_llama)."""
+    """HF LlamaForCausalLM names (convert_llama): q/k/v biases where the
+    tree has them (Qwen2), no lm_head when tied (Gemma), MoE layers in
+    Mixtral's or Qwen2-MoE's names (`_moe`)."""
     sd = _SD()
     sd["model.embed_tokens.weight"] = _arr(p["embed_tokens"]["embedding"])
     sd["model.norm.weight"] = _arr(p["norm"]["weight"])
@@ -292,8 +298,47 @@ def _llama(p, cfg) -> _SD:
         sd[f"{lp}.post_attention_layernorm.weight"] = _arr(b["mlp_norm"]["weight"])
         for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
             sd.dense(f"{lp}.self_attn.{n}", b[n])
+        if "moe" in b:
+            _moe(sd, lp, b["moe"], cfg)
+            continue
         for n in ("gate_proj", "up_proj", "down_proj"):
             sd.dense(f"{lp}.mlp.{n}", b[n])
+    return sd
+
+
+def _moe(sd, lp, m, cfg):
+    """One MoEFFN (the inverse of convert_hf._convert_moe_layer): Mixtral's
+    `block_sparse_moe.{gate, experts.{e}.{w1, w3, w2}}` without a shared
+    expert, Qwen2-MoE's `mlp.{gate, experts.{e}.{gate,up,down}_proj,
+    shared_expert.*, shared_expert_gate}` with one."""
+    if cfg.moe_layout == "mixtral":
+        mp, names = f"{lp}.block_sparse_moe", ("w1", "w3", "w2")
+    else:
+        mp, names = f"{lp}.mlp", ("gate_proj", "up_proj", "down_proj")
+    sd.dense(f"{mp}.gate", m["router"])
+    for stack, name in zip(("experts_gate", "experts_up", "experts_down"), names):
+        w = np.asarray(m[stack])
+        for e in range(w.shape[0]):
+            sd[f"{mp}.experts.{e}.{name}.weight"] = _arr(w[e].T)
+    if "shared_gate_proj" in m:
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            sd.dense(f"{mp}.shared_expert.{n}", m[f"shared_{n}"])
+        sd.dense(f"{mp}.shared_expert_gate", m["shared_expert_gate"])
+
+
+def _mpt(p, cfg) -> _SD:
+    """HF MptForCausalLM names (convert_mpt); the lm_head is tied to wte."""
+    sd = _SD()
+    sd["transformer.wte.weight"] = _arr(p["wte"]["embedding"])
+    sd.norm("transformer.norm_f", p["norm_f"])
+    for i in range(cfg.layers):
+        lp, b = f"transformer.blocks.{i}", p[f"block_{i}"]
+        sd.norm(f"{lp}.norm_1", b["norm_1"])
+        sd.norm(f"{lp}.norm_2", b["norm_2"])
+        sd.dense(f"{lp}.attn.Wqkv", b["wqkv"])
+        sd.dense(f"{lp}.attn.out_proj", b["out_proj"])
+        sd.dense(f"{lp}.ffn.up_proj", b["up_proj"])
+        sd.dense(f"{lp}.ffn.down_proj", b["down_proj"])
     return sd
 
 
@@ -304,7 +349,34 @@ def _clip_vision(p, cfg) -> _SD:
     sd[f"{pre}.embeddings.position_embedding.weight"] = _arr(p["positional_embedding"])
     sd.conv(f"{pre}.embeddings.patch_embedding", p["patch_embed"])
     sd.norm(f"{pre}.pre_layrnorm", p["ln_pre"])
-    for i in range(cfg.layers):
+    _clip_blocks(sd, pre, p, cfg.layers)
+    return sd
+
+
+def _projector(p, cfg) -> _SD:
+    """mlpNx_gelu as nn.Sequential (convert_mm_projector for N = 2):
+    fc{i} -> 2i; one layer (`linear`) is a bare nn.Linear."""
+    sd = _SD()
+    n = len([k for k in p if k.startswith("fc")])
+    if n == 1:
+        sd["weight"] = _arr(np.asarray(p["fc0"]["kernel"]).T)
+        sd["bias"] = _arr(p["fc0"]["bias"])
+        return sd
+    for i in range(n):
+        sd.dense(str(2 * i), p[f"fc{i}"])
+    return sd
+
+
+def _pooler_projector(p, cfg) -> _SD:
+    """PoolerProjector (convert_pooler_projector): conv_pool, proj.1."""
+    sd = _SD()
+    sd.conv("conv_pool", p["conv_pool"])
+    sd.dense("proj.1", p["proj"])
+    return sd
+
+
+def _clip_blocks(sd, pre, p, layers):
+    for i in range(layers):
         lp, b = f"{pre}.encoder.layers.{i}", p[f"block_{i}"]
         sd.norm(f"{lp}.layer_norm1", b["ln_1"])
         sd.norm(f"{lp}.layer_norm2", b["ln_2"])
@@ -312,20 +384,151 @@ def _clip_vision(p, cfg) -> _SD:
             sd.dense(f"{lp}.self_attn.{n}", b[n])
         sd.dense(f"{lp}.mlp.fc1", b["mlp_fc"])
         sd.dense(f"{lp}.mlp.fc2", b["mlp_proj"])
+
+
+def _mlcd(p, cfg) -> _SD:
+    """HF MLCDVisionModel names (convert_mlcd_vision): CLIP's without the
+    position table, with `vision_model.class_pos_emb`."""
+    sd, pre = _SD(), "vision_model"
+    sd[f"{pre}.embeddings.class_embedding"] = _arr(p["class_embedding"])
+    sd[f"{pre}.class_pos_emb"] = _arr(p["class_pos_emb"])
+    sd.conv(f"{pre}.embeddings.patch_embedding", p["patch_embed"])
+    sd.norm(f"{pre}.pre_layrnorm", p["ln_pre"])
+    _clip_blocks(sd, pre, p, cfg.layers)
     return sd
 
 
-def _projector(p, cfg) -> _SD:
-    """mlp2x_gelu as nn.Sequential (convert_mm_projector): fc0 -> 0, fc1 -> 2."""
+def _openclip_vision(p, cfg) -> _SD:
+    """open_clip VisionTransformer names (convert_openclip_vision): conv1,
+    the fused in_proj of q, k, v."""
     sd = _SD()
-    sd.dense("0", p["fc0"])
-    sd.dense("2", p["fc1"])
+    sd.conv("conv1", p["patch_embed"])
+    sd["class_embedding"] = _arr(p["class_embedding"])
+    sd["positional_embedding"] = _arr(p["positional_embedding"])
+    sd.norm("ln_pre", p["ln_pre"])
+    for i in range(cfg.layers):
+        lp, b = f"transformer.resblocks.{i}", p[f"block_{i}"]
+        qkv = [b[n] for n in ("q_proj", "k_proj", "v_proj")]
+        sd[f"{lp}.attn.in_proj_weight"] = _arr(np.concatenate(
+            [np.asarray(x["kernel"]).T for x in qkv]))
+        sd[f"{lp}.attn.in_proj_bias"] = _arr(np.concatenate(
+            [np.asarray(x["bias"]) for x in qkv]))
+        sd.dense(f"{lp}.attn.out_proj", b["out_proj"])
+        sd.norm(f"{lp}.ln_1", b["ln_1"])
+        sd.norm(f"{lp}.ln_2", b["ln_2"])
+        sd.dense(f"{lp}.mlp.c_fc", b["mlp_fc"])
+        sd.dense(f"{lp}.mlp.c_proj", b["mlp_proj"])
+    return sd
+
+
+def _siglip(p, cfg) -> _SD:
+    """HF SiglipVisionModel names (convert_hf_siglip_vision)."""
+    sd, pre = _SD(), "vision_model"
+    sd.conv(f"{pre}.embeddings.patch_embedding", p["patch_embed"])
+    sd[f"{pre}.embeddings.position_embedding.weight"] = _arr(p["positional_embedding"])
+    _clip_blocks(sd, pre, p, cfg.layers)
+    return sd
+
+
+def _eva(p, cfg) -> _SD:
+    """The vendored EVA tree's names (convert_eva_vision), its last block
+    absent as in the tower."""
+    sd = _SD()
+    sd["cls_token"] = _arr(np.asarray(p["cls_token"]).reshape(1, 1, -1))
+    sd["pos_embed"] = _arr(np.asarray(p["pos_embed"])[None])
+    sd.conv("patch_embed.proj", p["patch_embed"])
+    for i in range(cfg.layers - 1):
+        lp, b = f"blocks.{i}", p[f"block_{i}"]
+        sd.norm(f"{lp}.norm1", b["norm1"])
+        sd.norm(f"{lp}.norm2", b["norm2"])
+        sd.dense(f"{lp}.attn.proj", b["proj"])
+        if cfg.subln:
+            for n in ("q_proj", "k_proj", "v_proj"):
+                sd[f"{lp}.attn.{n}.weight"] = _arr(np.asarray(b[n]["kernel"]).T)
+            if cfg.qkv_bias:
+                sd[f"{lp}.attn.q_bias"] = _arr(b["q_proj"]["bias"])
+                sd[f"{lp}.attn.v_bias"] = _arr(b["v_proj"]["bias"])
+            sd.norm(f"{lp}.attn.inner_attn_ln", b["inner_attn_ln"])
+        else:
+            sd[f"{lp}.attn.qkv.weight"] = _arr(np.asarray(b["qkv"]["kernel"]).T)
+            if cfg.qkv_bias:
+                sd[f"{lp}.attn.q_bias"] = _arr(b["q_bias"])
+                sd[f"{lp}.attn.v_bias"] = _arr(b["v_bias"])
+        for n in (("w1", "w2", "w3") if cfg.naiveswiglu else ("fc1", "fc2")):
+            sd.dense(f"{lp}.mlp.{n}", b[n])
+        if cfg.subln:
+            sd.norm(f"{lp}.mlp.ffn_ln", b["ffn_ln"])
+        if cfg.ls_init_value is not None:
+            sd[f"{lp}.gamma_1"] = _arr(b["gamma_1"])
+            sd[f"{lp}.gamma_2"] = _arr(b["gamma_2"])
+    return sd
+
+
+def _t5(p, cfg) -> _SD:
+    """HF T5EncoderModel names (convert_t5_encoder)."""
+    sd = _SD()
+    sd["shared.weight"] = _arr(p["shared"]["embedding"])
+    sd["encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] = \
+        _arr(p["relative_attention_bias"])
+    sd["encoder.final_layer_norm.weight"] = _arr(p["ln_final"]["weight"])
+    for i in range(cfg.layers):
+        bp, b = f"encoder.block.{i}", p[f"block_{i}"]
+        sd[f"{bp}.layer.0.layer_norm.weight"] = _arr(b["ln_attn"]["weight"])
+        sd[f"{bp}.layer.1.layer_norm.weight"] = _arr(b["ln_ff"]["weight"])
+        for n in ("q", "k", "v", "o"):
+            sd.dense(f"{bp}.layer.0.SelfAttention.{n}", b[n])
+        for n in ("wi_0", "wi_1", "wi", "wo"):
+            if n in b:
+                sd.dense(f"{bp}.layer.1.DenseReluDense.{n}", b[n])
+    return sd
+
+
+def _qformer(p, cfg) -> _SD:
+    """The BLIP-2 Q-Former resampler's names (convert_qformer)."""
+    sd = _SD()
+    sd["query_tokens"] = _arr(np.asarray(p["query_tokens"])[None])
+    sd.norm("ln_vision", p["ln_vision"])
+    sd.norm("Qformer.bert.embeddings.LayerNorm", p["emb_ln"])
+    for i in range(cfg.layers):
+        lp, b = f"Qformer.bert.encoder.layer.{i}", p[f"layer_{i}"]
+        for kind, attn in (("self", "attention"), ("cross", "crossattention")):
+            if f"{kind}_query" not in b:
+                continue
+            for n in ("query", "key", "value"):
+                sd.dense(f"{lp}.{attn}.self.{n}", b[f"{kind}_{n}"])
+            sd.dense(f"{lp}.{attn}.output.dense", b[f"{kind}_out"])
+            sd.norm(f"{lp}.{attn}.output.LayerNorm", b[f"{kind}_ln"])
+        sd.dense(f"{lp}.intermediate_query.dense", b["ffn_fc"])
+        sd.dense(f"{lp}.output_query.dense", b["ffn_out"])
+        sd.norm(f"{lp}.output_query.LayerNorm", b["ffn_ln"])
+    return sd
+
+
+def _perceiver(p, cfg) -> _SD:
+    """The Flamingo perceiver resampler's names (convert_perceiver)."""
+    sd = _SD()
+    sd["perceiver.latents"] = _arr(p["latents"])
+    sd.norm("perceiver.norm", p["norm"])
+    for i in range(cfg.depth):
+        ap, a = f"perceiver.layers.{i}.0", p[f"attn_{i}"]
+        sd.norm(f"{ap}.norm_media", a["norm_media"])
+        sd.norm(f"{ap}.norm_latents", a["norm_latents"])
+        for n in ("to_q", "to_kv", "to_out"):
+            sd.dense(f"{ap}.{n}", a[n])
+        if f"ff_{i}_norm" in p:
+            fp = f"perceiver.layers.{i}.1"
+            sd.norm(f"{fp}.0", p[f"ff_{i}_norm"])
+            sd.dense(f"{fp}.1", p[f"ff_{i}_fc"])
+            sd.dense(f"{fp}.3", p[f"ff_{i}_out"])
     return sd
 
 
 _FROM_JAX = {"sr3": _sr3, "vae": _vae, "control": _control, "unet": _unet,
              "clip_l": _clip_l, "big_g": _big_g, "llama": _llama,
-             "clip_vision": _clip_vision, "projector": _projector}
+             "clip_vision": _clip_vision, "projector": _projector,
+             "mpt": _mpt, "mlcd": _mlcd, "openclip_vision": _openclip_vision,
+             "siglip": _siglip, "eva": _eva, "t5": _t5, "qformer": _qformer,
+             "perceiver": _perceiver, "pooler_projector": _pooler_projector}
 
 
 def params_from_jax(family: str, tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
@@ -374,7 +577,8 @@ def init_params_(module: nn.Module, gen: torch.Generator) -> nn.Module:
         if leaf == "bias" or prm.dim() == 0:
             prm.zero_()
         elif isinstance(owner, (GroupNorm32, nn.LayerNorm, RMSNorm)):
-            prm.fill_(1.0)
+            # a (1 + w) RMSNorm (Gemma) starts at w = 0
+            prm.fill_(0.0 if getattr(owner, "plus_one", False) else 1.0)
         elif (isinstance(owner, (nn.Conv2d, nn.Linear)) and leaf == "weight"
               or leaf == "in_proj_weight"):
             fan_in = prm[0].numel()

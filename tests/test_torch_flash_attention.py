@@ -101,3 +101,63 @@ def test_wrapper_raises_off_cpu_without_kernel():
     q = torch.empty((1, 8, 1, 64), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
+
+
+# ------------------------------------------------- head dims K1 pads or splits
+@pytest.mark.parametrize("d,causal", [(104, False), (72, True), (40, True)])
+def test_padded_head_dim_equals_jax(d, causal):
+    """MLCD-bigG's 104 (and 72, 40): the padding the CUDA wrapper applies
+    (zeros along D to 128 or 64, the true D's scale, the output sliced
+    back), run here around the plain version, equals JAX's flash attention
+    at the true D (interpret mode)."""
+    from rsvldm_tpu_torch.ops.flash_attention import (padded_head_dim,
+                                                      with_padded_head_dim)
+    assert padded_head_dim(d) == (64 if d < 64 else 128)
+    q, k, v = _qkv(2, 100, 100, 3, d, d)
+    out_j, lse_j = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, block_q=64, block_k=64,
+                             interpret=True, return_lse=True)
+    calls = []
+
+    def plain(*xs, **kw):
+        calls.append(xs[0].shape[-1])
+        return flash_attention_ref(*xs, **kw)
+
+    out_t, lse_t = with_padded_head_dim(
+        plain, torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, return_lse=True)
+    assert calls == [padded_head_dim(d)] and out_t.shape[-1] == d
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=ATOL,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_d256_equals_jax(causal):
+    """Gemma-7B's 256-wide heads: K1 takes them as they are (no padding);
+    the plain version equals JAX's kernel in interpret mode."""
+    from rsvldm_tpu_torch.ops.flash_attention import (HEAD_DIMS,
+                                                      padded_head_dim)
+    assert 256 in HEAD_DIMS and padded_head_dim(256) == 256
+    q, k, v = _qkv(1, 96, 96, 2, 256, 256 + causal)
+    out_j = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=causal, block_q=64, block_k=64, interpret=True)
+    out_t = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL)
+
+
+def test_head_dims_k1_cannot_take_raise():
+    """Past 128 only 256 is built: another D raises (never the plain path
+    on a card), and so does the D=256 backward."""
+    from rsvldm_tpu_torch.ops.flash_attention import flash_attention_bwd
+    q = torch.empty((1, 8, 1, 192), device="meta")
+    with pytest.raises(ValueError, match="head dim 192"):
+        flash_attention(q, q, q)
+    q = torch.empty((1, 8, 1, 256), device="meta")
+    lse = torch.empty((1, 1, 8), device="meta")
+    with pytest.raises(NotImplementedError, match="256"):
+        flash_attention_bwd(q, q, q, q, lse, q)
+    r = torch.empty((1, 8, 1, 256), device="meta", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="256"):
+        flash_attention(r, r, r)

@@ -17,7 +17,8 @@ from rsvldm_tpu.ops.flash_attention import flash_attention_bwd as jax_bwd
 from rsvldm_tpu_torch.ops import attention as port_attn
 from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_bwd,
-                                                  flash_attention_bwd_ref)
+                                                  flash_attention_bwd_ref,
+                                                  with_padded_head_dim)
 
 torch.set_num_threads(1)
 TOL = dict(atol=2e-4, rtol=2e-3)
@@ -29,22 +30,33 @@ def _inputs(b, sq, sk, h, d, seed):
     return mk(sq), mk(sk), mk(sk), mk(sq)
 
 
+# head dims the CUDA wrapper zero-pads (to 128 / 64): MLCD-bigG's 104 and 40
+PADDED_DS = (104, 40)
+
+
 def _port_bwd(q, k, v, g, causal):
     t = [torch.from_numpy(x) for x in (q, k, v, g)]
     out, lse = flash_attention(*t[:3], causal=causal, return_lse=True)
+    if q.shape[-1] in PADDED_DS:
+        # the padding flash_attention_bwd applies on the card, around the
+        # plain backward: pad along D, scale by the true D, slice back
+        return with_padded_head_dim(flash_attention_bwd_ref, *t[:3], out, lse,
+                                    t[3], causal=causal)
     return flash_attention_bwd_ref(*t[:3], out, lse, t[3], causal=causal)
 
 
 # tests/test_attention.py:151-157 and :197-201: causal and not, sq != sk,
 # lengths off the block; D=16 as there and D=128 as the Llama heads; then
 # the card's tile-edge cases scaled down (lengths off the kernel's 64-query
-# and 128-key tiles, causal Sq < Sk, D=64)
+# and 128-key tiles, causal Sq < Sk, D=64); then the padded dims, the port's
+# side through with_padded_head_dim and JAX's at the true D
 @pytest.mark.parametrize("sq,sk,causal,d", [
     (96, 96, False, 16), (96, 96, True, 16), (64, 160, True, 16),
     (90, 150, False, 16), (90, 150, True, 16),
     (192, 192, False, 16), (192, 192, True, 16), (200, 264, True, 16),
     (96, 96, True, 128), (90, 150, False, 128),
     (130, 130, True, 128), (70, 200, True, 128), (77, 77, False, 64),
+    (70, 70, True, 104), (90, 150, False, 40),
 ])
 def test_bwd_ref_matches_pallas_and_xla_vjp(sq, sk, causal, d):
     q, k, v, g = _inputs(2, sq, sk, 2, d, sq * 7 + sk + d)

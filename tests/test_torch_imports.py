@@ -23,7 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(rsvldm_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-absent = ("safetensors", "transformers", "tokenizers", "regex", "orbax")
+absent = ("safetensors", "transformers", "tokenizers", "regex", "orbax",
+          "sentencepiece")
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "rsvldm_tpu") + absent or m.startswith(
                  ("jax.", "jaxlib", "flax.", "rsvldm_tpu.")
@@ -58,7 +59,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "utils.debug", "utils.file", "utils.moderation",
                  "utils.run_logger", "utils.face_restore", "data.prepare",
                  "eval", "eval.text_metrics", "eval.runner",
-                 "eval.interleave", "eval.quality", "eval_dir"):
+                 "eval.interleave", "eval.quality", "eval_dir",
+                 "models.vlm.mpt", "models.vlm.siglip", "models.vlm.eva_vit",
+                 "models.vlm.towers", "models.vlm.projector",
+                 "models.vlm.resampler", "models.text.t5",
+                 "models.text.embedders"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -90,6 +95,22 @@ def test_cuda_entry_points_raise_without_a_card():
     for build in (lambda: LlavaCaptioner.seeded(**tiny, tokenizer=object()),
                   lambda: LlavaCaptioner.from_state_dict({}, **tiny),
                   lambda: LlavaCaptioner.load("no_such_dir", **tiny)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    # the other families' constructors (Gemma's tied head, MoE) and the
+    # vision-tower registry, each before it builds anything
+    import dataclasses
+    from rsvldm_tpu_torch.models.vlm.towers import build_vision_tower
+    gemma = dict(tiny, llama_cfg=dataclasses.replace(
+        tiny["llama_cfg"], norm_plus_one=True, scale_embeds=True,
+        tie_lm_head=True, act="gelu_tanh", head_dim_cfg=16))
+    moe = dict(tiny, llama_cfg=dataclasses.replace(
+        tiny["llama_cfg"], num_experts=4, shared_expert_dim=16))
+    for build in (lambda: LlavaCaptioner.seeded(**gemma, tokenizer=object()),
+                  lambda: LlavaCaptioner.seeded(**moe, tokenizer=object()),
+                  lambda: build_vision_tower("openai/clip-vit-large-patch14-336"),
+                  lambda: build_vision_tower("DeepGlint-AI/mlcd-vit-bigG-patch14-448"),
+                  lambda: build_vision_tower("EVA02-CLIP-L-14-336")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
     # the serving entry points: each main, before it reads anything

@@ -6,7 +6,8 @@ above 0.999), greedy `generate`, `generate_batch` (the per-row writes) and
 `speculative_generate` give JAX's ids, the engine on an int8 pool (with a
 prefix and with speculative rounds) gives JAX's engine's ids. The shard
 case waits for the parallel port (ROADMAP item 7). The other three knobs
-still refuse."""
+(the sliding window, MoE, a head dim of its own) compose with it as in
+JAX."""
 
 import dataclasses
 import sys
@@ -181,5 +182,37 @@ def test_engine_speculative_on_int8_pools(pairs):
                                          ("num_experts", 2),
                                          ("head_dim_cfg", 16)])
 def test_other_knobs_still_refused(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        LlamaConfig(**{field: value})
+    """The three knobs this test once showed refused (the name is kept) are
+    ported now: each composes with the int8 KV cache as in JAX. A 12-token
+    prefill (past the window of 8) and 3 decode steps: logits within 1e-4
+    of JAX's int8-cache logits, the caches' codes equal."""
+    from rsvldm_tpu.models.vlm.llama import LlamaConfig as JLlamaConfig
+    from rsvldm_tpu.models.vlm.llama import LlamaModel as JLlama
+    from rsvldm_tpu_torch.models.vlm.llama import LlamaModel
+    from rsvldm_tpu_torch.utils.weights import params_from_jax
+    from torch_parity_lib import randomize, to_np
+    kw = dict(vocab_size=96, dim=32, layers=2, heads=4, kv_heads=2, ffn_dim=64,
+              kv_quant=True, **{field: value})
+    jcfg, tcfg = JLlamaConfig(**kw), LlamaConfig(**kw)
+    jm = JLlama(jcfg)
+    tree = to_np(randomize(jax.eval_shape(lambda k: jm.init(
+        k, jnp.zeros((1, 4), jnp.int32), JKVCache.init(jcfg, 1, 8), 0,
+        method=jm.from_tokens), jax.random.PRNGKey(0)), 9))
+    tm = LlamaModel(tcfg)
+    tm.load_state_dict(params_from_jax("llama", tree, tcfg), strict=True)
+    ids = np.random.default_rng(1).integers(0, 96, (1, 12))
+    jc, tc = JKVCache.init(jcfg, 1, 20), KVCache.init(tcfg, 1, 20)
+    step = jax.jit(lambda t, c, p: jm.apply(tree, t, c, p, method=jm.from_tokens),
+                   static_argnums=2)
+    with torch.inference_mode():
+        tl, _ = tm(tm.embed(torch.from_numpy(ids)), tc, 0)
+        jl, jc = step(jnp.asarray(ids, jnp.int32), jc, 0)
+        for i in range(3):
+            np.testing.assert_allclose(tl[0, -1].numpy(), np.asarray(jl[0, -1]),
+                                       atol=1e-4, rtol=0)
+            tok = int(np.asarray(jl[0, -1]).argmax())
+            tl, _ = tm(tm.embed(torch.tensor([[tok]])), tc, torch.tensor(12 + i))
+            jl, jc = step(jnp.asarray([[tok]], jnp.int32), jc, 12 + i)
+    np.testing.assert_allclose(tl[0, -1].numpy(), np.asarray(jl[0, -1]),
+                               atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(tc.k.numpy(), np.asarray(jc.k))

@@ -6,6 +6,7 @@ edges where a hand-written reader diverges, and the whole caption prompt),
 in ids and in decode."""
 
 import gzip
+import json
 import sys
 from pathlib import Path
 
@@ -171,3 +172,152 @@ def test_clip_assets_own_encoding(clip_dirs):
 def test_clip_missing_assets(tmp_path):
     with pytest.raises(FileNotFoundError):
         CLIPTokenizer.from_dir(str(tmp_path))
+
+
+# ------------------------------------------- the other families' tokenizers
+QWEN2_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"
+               r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+FAMILY_TEXTS = [
+    "a remote sensing image of farmland and a river", "Hello  world ",
+    "café naïve Ångström", "地形と土地利用 中文", "emoji 🛰️🌍 ok", "x1234 y56",
+    "tab\there\nnew line", "  leading and trailing  ", "Œuvre ſ K",
+    "<|im_start|>user\nhi<|im_end|>", "<s>text</s> more", "",
+]
+
+
+def _family_spec(kind: str) -> dict:
+    """A tokenizer.json of `kind`'s shape (tokenizers' format) with merges
+    learnt from seeded words: 'qwen2' (NFC, Qwen2's Split, ByteLevel BPE,
+    <|im_start|> / <|im_end|> / <|endoftext|>), 'mistral' (Prepend and
+    Replace to "▁", BPE with byte fallback and fused unk, the
+    Replace / ByteFallback / Fuse / Strip decoders, the <s> template) and
+    'gemma' (Replace only, a Split on " " merged with the previous piece,
+    no Strip, the <bos> template)."""
+    words = chip_smoke._seeded_words(3, 600) + "a remote sensing image of " \
+        "farmland and river hello world cafe".split()
+    if kind == "qwen2":
+        bc = chip_smoke._byte_chars()
+        counts = {}
+        for w in words:
+            key = tuple(bc[b] for b in (" " + w).encode())
+            counts[key] = counts.get(key, 0) + 1
+        merges, _ = chip_smoke._learn_bpe(counts, 300)
+        vocab = {bc[b]: i for i, b in enumerate(sorted(bc))}
+        for a, b in merges:
+            vocab[a + b] = len(vocab)
+        added = ["<|endoftext|>", "<|im_start|>", "<|im_end|>"]
+        return {
+            "version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [dict(id=len(vocab) + i, content=t, single_word=False,
+                                  lstrip=False, rstrip=False, normalized=False,
+                                  special=True) for i, t in enumerate(added)],
+            "normalizer": {"type": "NFC"},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": QWEN2_SPLIT},
+                 "behavior": "Isolated", "invert": False},
+                {"type": "ByteLevel", "add_prefix_space": False,
+                 "trim_offsets": False, "use_regex": False}]},
+            "post_processor": {"type": "ByteLevel", "add_prefix_space": False,
+                               "trim_offsets": False, "use_regex": False},
+            "decoder": {"type": "ByteLevel", "add_prefix_space": False,
+                        "trim_offsets": False, "use_regex": False},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                      "fuse_unk": False, "byte_fallback": False,
+                      "ignore_merges": False, "vocab": vocab,
+                      "merges": [f"{a} {b}" for a, b in merges]}}
+    bos = "<s>" if kind == "mistral" else "<bos>"
+    specials = ["<unk>", bos, "</s>" if kind == "mistral" else "<eos>"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    counts = {}
+    for w in words:
+        counts[tuple("▁" + w)] = counts.get(tuple("▁" + w), 0) + 1
+    merges, _ = chip_smoke._learn_bpe(counts, 300)
+    for c in sorted({c for w in counts for c in w}):
+        vocab.setdefault(c, len(vocab))
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    if kind == "mistral":
+        normalizer = {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]}
+        pre = None
+        strip = [{"type": "Strip", "content": " ", "start": 1, "stop": 0}]
+    else:
+        normalizer = {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}
+        pre = {"type": "Split", "pattern": {"String": " "},
+               "behavior": "MergedWithPrevious", "invert": False}
+        strip = []
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [dict(id=i, content=t, single_word=False, lstrip=False,
+                              rstrip=False, normalized=False, special=True)
+                         for i, t in enumerate(specials)],
+        "normalizer": normalizer, "pre_tokenizer": pre,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {bos: {"id": bos, "ids": [1], "tokens": [bos]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"}] + strip},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]}}
+
+
+@pytest.fixture(scope="module", params=["qwen2", "mistral", "gemma"])
+def family_tokenizers(request, tmp_path_factory):
+    import tokenizers
+    from transformers import PreTrainedTokenizerFast
+    d = tmp_path_factory.mktemp(request.param)
+    (d / "tokenizer.json").write_text(json.dumps(_family_spec(request.param),
+                                                 ensure_ascii=False))
+    tk = tokenizers.Tokenizer.from_file(str(d / "tokenizer.json"))
+    return (tk, PreTrainedTokenizerFast(tokenizer_file=str(d / "tokenizer.json")),
+            Llama3Tokenizer.from_dir(d))
+
+
+def test_family_ids_equal_tokenizers(family_tokenizers):
+    tk, _, port = family_tokenizers
+    for text in FAMILY_TEXTS + EDGES:
+        for special in (False, True):
+            assert port.encode(text, add_special_tokens=special) == \
+                tk.encode(text, add_special_tokens=special).ids, (text, special)
+
+
+def test_family_decode_equal_transformers(family_tokenizers):
+    tk, hf, port = family_tokenizers
+    rng = np.random.default_rng(4)
+    lists = [tk.encode(t, add_special_tokens=True).ids for t in FAMILY_TEXTS + EDGES]
+    lists.append(rng.integers(0, tk.get_vocab_size(), 48).tolist())
+    lists.append([tk.token_to_id("<0xE5>") or 0, 9])  # half a UTF-8 sequence
+    for ids in lists:
+        for skip in (True, False):
+            assert port.decode(ids, skip_special_tokens=skip) == \
+                hf.decode(ids, skip_special_tokens=skip), (ids, skip)
+
+
+@pytest.mark.parametrize("part,value,name", [
+    ("normalizer", {"type": "NFKC"}, "normalizer"),
+    ("pre_tokenizer", {"type": "Metaspace", "replacement": "▁"}, "pre-tokenizer"),
+    ("decoder", {"type": "WordPiece"}, "decoder"),
+    ("post_processor", {"type": "RobertaProcessing"}, "post-processor"),
+    ("model", "WordPiece", "model"),
+])
+def test_unimplemented_parts_raise_by_name(part, value, name):
+    """A component the reader does not implement raises, naming it."""
+    spec = _family_spec("mistral")
+    if part == "model":
+        spec["model"]["type"] = value
+    else:
+        spec[part] = value
+    with pytest.raises(NotImplementedError, match=f"tokenizer.json: {name}"):
+        Llama3Tokenizer(spec)
