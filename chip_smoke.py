@@ -26,7 +26,12 @@ Phases, each printed on its own line:
                wrapper), each also at 1.1x its softmax scale, which must
                fail the limits; D=256 at its tiles' edges and with zero
                rows, padded D=72; K2 at the int4 Gemma-7B and Qwen2-7B
-               decode shapes and their sums per step (196 / 197 launches)
+               decode shapes and their sums per step (196 / 197 launches);
+               the tensor-parallel caption's (phase parallel): K1 at one
+               rank's heads at TP=4 ([1, 1280, 8, 128] causal; TP=2's is
+               the Qwen2-MoE case), K2 at one rank's six shard shapes of
+               the TP=2 decode step (q, k / v, gate / up, the lm_head's
+               vocab shard; o and down with fp32 partials) and their sum
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
                noise, PNGs within a stated uint8 tolerance; then a
@@ -210,6 +215,22 @@ Phases, each printed on its own line:
                same CLI with --device cpu on two images, card within
                EVAL_TOL of CPU per image and metric; TF32 on must move a
                metric beyond EVAL_TOL
+     parallel  (last) the parallel layer: this process runs the int4
+               Llama-3-8B caption of one 224^2 tile (1280-token prefill, 64
+               greedy tokens), folder Stage 1 of four 28^2 tiles (500
+               steps), the tiled VAE at 2048^2 (bf16 and widened to fp32)
+               and 4 SR3 training steps at global batch 8 without a mesh,
+               then the same caption with its decoder sharded over a world
+               of one on NCCL (the ids must be the same); two ranks of this
+               script (--parallel-worker) on the same card over gloo run
+               the caption at TP=2 (each rank building its shard; logits
+               teacher-forced on the unsharded ids, cosine >=
+               PAR_COS_MIN; K1 / K2 as reckoned), Stage 1 at data=2, the
+               tiled VAE at tile=2 and DP SR3 training, each against the
+               unsharded run (limits at PAR_*); prefill ms, tok/s, peak
+               GiB per rank. --parallel-only runs the build and this
+               phase alone; --parallel-ranks 4 --parallel-backend nccl one
+               NCCL rank a card on a 4-card machine
   6. profile   (--profile) one int4 decode step, one SR3 step, one
                cache-miss and one cache-hit denoising step, each replayed
                from a CUDA graph, a decode step at 8 rows (folder), and the
@@ -227,6 +248,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -272,6 +294,16 @@ K2_STEP = (("q_o_proj", 4096, 4096, 64), ("k_v_proj", 4096, 1024, 64),
            ("gate_up_proj", 4096, 14336, 64), ("down_proj", 14336, 4096, 32),
            ("lm_head", 4096, 128256, 1))
 K2_PER_STEP = sum(n for *_, n in K2_STEP)
+# K2's shapes on one rank of the Llama-3-8B decode step at TP=2 (phase
+# parallel): column-parallel q (4096 -> 2048), k / v (-> 512), gate / up
+# (-> 7168) and the vocab shard of the lm_head (-> 64128); row-parallel o
+# (2048 -> 4096) and down (7168 -> 4096) write fp32 partials (summed over
+# the ranks in fp32): still 225 launches a step
+K2_TP2_STEP = (("tp2_q_proj", 4096, 2048, 32), ("tp2_k_v_proj", 4096, 512, 64),
+               ("tp2_gate_up_proj", 4096, 7168, 64),
+               ("tp2_lm_head", 4096, 64128, 1),
+               ("tp2_o_proj_f32", 2048, 4096, 32),
+               ("tp2_down_proj_f32", 7168, 4096, 32))
 # the int4 decode steps of the other families (phase families): Gemma-7B's
 # 28 layers (q, k, v 3072 -> 16 x 256; o; gate, up; down; the tied head is
 # the bf16 embedding, no K2: 196 launches) and Qwen2-7B's (28 layers, 4 KV
@@ -936,20 +968,23 @@ def _k2_inputs(name, r, inf, out):
     return x, ql
 
 
-def _k2_bytes(r, inf, out):
-    """What K2 must move: bf16 x in, packed weights and fp32 scales, bf16
-    y out."""
-    return r * inf * 2 + inf // 2 * out + inf // 128 * out * 4 + r * out * 2
+def _k2_bytes(r, inf, out, out_bytes: int = 2):
+    """What K2 must move: bf16 x in, packed weights and fp32 scales, y out
+    (bf16, or fp32 for a row-parallel shard's partials)."""
+    return (r * inf * 2 + inf // 2 * out + inf // 128 * out * 4
+            + r * out * out_bytes)
 
 
-def _k2_case(name, r, inf, out, *, main_path=False, x=None):
+def _k2_case(name, r, inf, out, *, main_path=False, x=None, out_dtype=None):
     """K2 (through int4_matmul, the wrapper that launches it) against
     int4_matmul_ref on the same bf16 input and int4 weights: y in fp32
-    within the tolerance, y in bf16 equal to the fp32 y rounded."""
+    within the tolerance, y in bf16 equal to the fp32 y rounded. Timed
+    with y in `out_dtype` (bf16 by default, as in decode)."""
     import torch
     from rsvldm_tpu_torch.ops import quant
     x0, ql = _k2_inputs(name, r, inf, out)
     x = x0 if x is None else x
+    out_dtype = out_dtype or torch.bfloat16
     n_launch = quant.int4_matmul.launches
     y = quant.int4_matmul(x, ql, torch.float32)
     y16 = quant.int4_matmul(x, ql, torch.bfloat16)
@@ -975,14 +1010,15 @@ def _k2_case(name, r, inf, out, *, main_path=False, x=None):
                max_err_over_tol=float((err / tol).max()),
                max_abs_ref=float(ref.abs().max()), bf16_out_is_cast=cast_exact,
                tol=f"|err| <= {K2_RTOL}*sum|terms| + {K2_ATOL}")
-    nbytes = _k2_bytes(r, inf, out)
+    nbytes = _k2_bytes(r, inf, out, out_dtype.itemsize)
     ops = 2.0 * r * inf * out
     rec["bound_ms"] = max(nbytes / H100_HBM_BYTES, ops / H100_INT8_OPS) * 1e3
     rec["bound_by"] = ("bytes" if nbytes / H100_HBM_BYTES
                        >= ops / H100_INT8_OPS else "operations")
-    # the whole projection is the one launch, bf16 in and out as in decode:
+    # the whole projection is the one launch, bf16 in and y as in decode:
     # device time by graph replay, the wrapper with its host cost by events
-    call = lambda: quant.int4_matmul(x, ql)
+    call = lambda: quant.int4_matmul(x, ql, out_dtype)
+    rec["out_dtype"] = str(out_dtype).replace("torch.", "")
     rec["ms"] = _graph_ms(call)
     rec["wrapper_ms"] = _time_ms(call, 20)
     quant.int4_matmul.launches = n_launch  # comparison launches not counted
@@ -1161,6 +1197,11 @@ def phase_kernels():
                     causal=True, timed=True, main_path=True, scale_fault=True),
         _flash_case("qwen2moe_prefill_s1280_h16", 1, 1280, 1280, 16, 128,
                     causal=True, timed=True, main_path=True, scale_fault=True),
+        # the tensor-parallel caption prefill (phase parallel): one rank's
+        # 32 / n heads of the Llama-3-8B prefill; TP=2's [1, 1280, 16, 128]
+        # is the Qwen2-MoE case above, TP=4's is this one
+        _flash_case("llama_tp4_prefill_s1280_h8", 1, 1280, 1280, 8, 128,
+                    causal=True, timed=True, main_path=True),
         # D=256 at the edges of its tiles and with zero rows; padded D=72
         _flash_case("d256_ragged_tiles", 1, 1153, 1217, 3, 256, lse=True),
         _flash_case("d256_causal_sq_gt_sk", 1, 700, 300, 4, 256, causal=True,
@@ -1201,7 +1242,9 @@ def phase_k2():
     32, ragged outs (out % 16 != 0 takes byte loads), ties, zero rows; the
     one-launch check; the decode step's shapes at 8 rows (folder mode) and
     at 5 rows (the speculative verify forward, spec_k + 1 tokens); the
-    sums per decode step at 1, 8 and 5 rows."""
+    sums per decode step at 1, 8 and 5 rows; one rank's shard shapes of
+    the TP=2 decode step and their sum."""
+    import torch
     k2 = [_k2_case(name, 1, inf, out, main_path=True)
           for name, inf, out, _ in K2_STEP]
     k2 += [_k2_case("rows_8", 8, 4096, 4096),
@@ -1220,6 +1263,12 @@ def phase_k2():
     _k2_step(k2)
     _k2_step(k2, rows=8, suffix="_r8")
     _k2_step(k2, rows=SPEC_K + 1, suffix="_r5")
+    # one rank's shards of the Llama-3-8B decode step at TP=2 (phase
+    # parallel), the row-parallel ones with fp32 partials
+    k2 += [_k2_case(name, 1, inf, out, main_path=True,
+                    out_dtype=torch.float32 if name.endswith("_f32") else None)
+           for name, inf, out, _ in K2_TP2_STEP]
+    _k2_step(k2, steps=K2_TP2_STEP, label="llama3_tp2")
     # the int4 Gemma-7B and Qwen2-7B decode steps (phase families)
     for family, shapes in K2_FAMILY_STEP.items():
         k2 += [_k2_case(name, 1, inf, out, main_path=True)
@@ -5114,16 +5163,709 @@ def _profile_steps(steps: dict, hand_of: dict, iters: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------- phase parallel
+# Two ranks on the one card over gloo (NCCL refuses two ranks on one
+# device), workers of this same script (--parallel-worker), against the
+# script's own process run without a mesh on the same seed; then a world of
+# one over NCCL in the script's process. Limits:
+# - the TP=2 caption's logits (prefill and every step, teacher-forced on
+#   the unsharded run's greedy ids): cosine >= PAR_COS_MIN. The row-parallel
+#   int4 products sum two fp32 partials where the unsharded one sums all
+#   groups in one order, then both round to bf16: a few bf16 ulps a layer.
+#   A rank that dropped its partial gives a cosine near 0.7;
+# - folder Stage 1 at data=2 against the unsharded run: uint8 images within
+#   REF_MEAN_TOL / REF_MAX_TOL levels (phase reference's limit);
+#   bit-equality is reported;
+# - the tiled VAE at tile=2 against the unsharded tiled VAE, held in fp32
+#   (the weights widened): latents within PAR_VAE_REL_RMS relative rms and
+#   the image within PAR_VAE_MAX_LEVELS uint8 levels; what differs is the
+#   sharded GroupNorm's E[x^2] - mean^2 formula and two batches of 8 tiles
+#   for one of 16. In bf16 (the path's dtype) an H100 gave 0.95% latent
+#   rms and 1.40 mean / 17 max levels against the unsharded run, over
+#   phase tiled's REF_MAX_TOL: there only the mean is held (REF_MEAN_TOL).
+#   The script's process runs three witnesses in bf16 (`_Meet`): the
+#   ranks' batch of 8 with the one process's statistics (on an H100: the
+#   latents bit-equal, 4 levels), the one batch of 16 with the ranks'
+#   formula (the whole 0.95% and 17 levels: its fp32 cancellation is the
+#   cause), and both, which is what the ranks compute: the bf16 ranks are
+#   held to it with the fp32 limits;
+# - DP SR3 training, 4 steps at global batch 8 (4 a rank): each step's
+#   loss within PAR_LOSS_RTOL of the single process's (fp32 sums in
+#   another order), the parameters' distance from the single process's
+#   within PAR_UPDATE_RTOL of the distance they moved (a rank training on
+#   its half alone, without the gradient all-reduce, is off by about the
+#   whole update), and every rank's parameters equal bit for bit;
+# - the world of one over NCCL: the caption's decoder stays whole (no tp,
+#   its steps captured) and its ids equal the unsharded run's; the
+#   collectives of parallel/distributed.py give their values on it.
+PAR_NEW_TOKENS = 64
+PAR_COS_MIN = 0.999
+PAR_VAE_REL_RMS, PAR_VAE_MAX_LEVELS = 1e-3, 2
+PAR_LOSS_RTOL, PAR_UPDATE_RTOL = 1e-4, 1e-2
+PAR_LR_SIDES = (28, 28, 28, 28)
+PAR_TRAIN_STEPS, PAR_TRAIN_BATCH = 4, 8
+PAR_TIMEOUT_S = 600
+
+
+def _par_cfg(tiny: bool) -> dict:
+    """The phase's models: full width, or (`tiny`, a CPU rehearsal of the
+    phase's control flow) the tests' tiny geometries."""
+    from rsvldm_tpu_torch.models.vlm.llama import LLAMA3_8B_CONFIG, LlamaConfig
+    from rsvldm_tpu_torch.models.vlm.vision import (CLIP_VIT_L_336_CONFIG,
+                                                    CLIPVisionConfig)
+    if not tiny:
+        return dict(device="cuda", llama=LLAMA3_8B_CONFIG,
+                    vision=CLIP_VIT_L_336_CONFIG, quant="int4", model_cfgs=None,
+                    vae_side=2048, enc_tile=512, dec_tile=64, train_side=224,
+                    lr_sides=PAR_LR_SIDES, upscale=8, s1_steps=None)
+    from rsvldm_tpu_torch.infer import tiny_model_cfgs
+    # 128-wide heads and FFN, so the int4 shards keep whole 128-groups
+    llama = LlamaConfig(vocab_size=128256, dim=512, layers=2, heads=4,
+                        kv_heads=4, ffn_dim=512)
+    vision = CLIPVisionConfig(width=32, layers=2, heads=1)
+    return dict(device="cpu", llama=llama, vision=vision, quant="int4",
+                model_cfgs=tiny_model_cfgs(), vae_side=128, enc_tile=64,
+                dec_tile=8, train_side=16, lr_sides=(4, 4, 4, 4), upscale=4,
+                s1_steps=4)
+
+
+def _par_sync(dev):
+    import torch
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_peak_gib(dev) -> float | None:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" else None
+
+
+def _par_image(seed: int):
+    import numpy as np
+    from PIL import Image
+    rng = np.random.default_rng(seed + 16)
+    return Image.fromarray((rng.random((224, 224, 3)) * 255).astype(np.uint8))
+
+
+def _par_prompt():
+    from rsvldm_tpu_torch.config import LlavaConfig
+    from rsvldm_tpu_torch.models.vlm.generate import llama3_chat_prompt
+    return llama3_chat_prompt(LlavaConfig().img_prompt.format(
+        DEFAULT_IMAGE_TOKEN="<image>"))
+
+
+def _par_gcfg():
+    from rsvldm_tpu_torch.models.vlm.generate import GenerateConfig
+    # eot never: every run makes exactly PAR_NEW_TOKENS tokens
+    return GenerateConfig(max_new_tokens=PAR_NEW_TOKENS, do_sample=False,
+                          eot_ids=(-1,))
+
+
+def _tf_logits(model, spliced, ids):
+    """fp32 logits [1 + len(ids) - 1, vocab] on the host: the prefill's at
+    the prompt's last position, then one decode step per id of `ids`
+    (teacher-forced) but the last."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import KVCache
+    dev = spliced.device
+    s = spliced.shape[0]
+    with torch.inference_mode():
+        cache = KVCache.init(model.cache_cfg, 1, s + len(ids), model.dtype, dev)
+        lg, _ = model(spliced[None], cache, 0,
+                      logits_at=torch.tensor([s - 1], device=dev))
+        out = [lg[0, -1].float().cpu()]
+        for i, t in enumerate(ids[:-1]):
+            tok = torch.tensor([[int(t)]], device=dev)
+            lg, _ = model(model.embed(tok), cache,
+                          torch.tensor(s + i, device=dev))
+            out.append(lg[0, -1].float().cpu())
+    return torch.stack(out)
+
+
+def _par_caption_ref(seed: int, cfg: dict, work: Path) -> dict:
+    """The unsharded caption: greedy ids, teacher-forced logits (saved for
+    the ranks); then the same captioner sharded over a world of one on
+    NCCL, whose ids must be the same."""
+    import torch
+    import torch.distributed as dist
+    from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
+    from rsvldm_tpu_torch.models.vlm.generate import generate
+    from rsvldm_tpu_torch.parallel.distributed import init_world_of_one
+    from rsvldm_tpu_torch.parallel.llama_sharding import shard_llama_
+    from rsvldm_tpu_torch.parallel.mesh import make_mesh
+    dev = cfg["device"]
+    if dev == "cuda":
+        _free_card()
+    cap = LlavaCaptioner.seeded(cfg["llama"], cfg["vision"], StandInTokenizer(),
+                                quant=cfg["quant"], device=dev)
+    spliced = cap.embed_mm(_par_prompt(), [_par_image(seed)])
+    gcfg, st = _par_gcfg(), {}
+    generate(cap.llama, spliced, gcfg)  # captures the decode graph
+    _reset_counts()
+    ids = generate(cap.llama, spliced, gcfg, stats=st)
+    n = _counts()
+    logits = _tf_logits(cap.llama, spliced, ids)
+    torch.save({"ids": torch.from_numpy(ids.astype("int64")),
+                "logits": logits}, work / "caption_ref.pt")
+    rec = dict(prompt_len=st["prompt_len"], padded_len=st["padded_len"],
+               prefill_ms=st["prefill_s"] * 1e3,
+               decode_tok_s=st["decode_steps"] / max(st["decode_s"], 1e-9),
+               k1=n["k1"], k2=n["k2"], peak_gib=_par_peak_gib(dev))
+    # a world of one over NCCL (gloo in the CPU rehearsal): the decoder
+    # "sharded" over it stays whole (no tp), so its steps keep their graph;
+    # the collectives themselves are held on the group's CUDA tensors
+    backend = "nccl" if dev == "cuda" else "gloo"
+    init_world_of_one(backend)
+    try:
+        mesh = make_mesh(1)
+        shard_llama_(cap.llama, mesh.get_group("data"))
+        _reset_counts()
+        st1 = {}
+        ids1 = generate(cap.llama, spliced, gcfg, stats=st1)
+        n1 = _counts()
+        rec["world_of_one"] = dict(
+            backend=dist.get_backend(), tp_none=cap.llama.tp is None,
+            ids_equal=bool(len(ids1) == len(ids) and (ids1 == ids).all()),
+            decode_tok_s=st1["decode_steps"] / max(st1["decode_s"], 1e-9),
+            unsharded_tok_s=rec["decode_tok_s"], k1=n1["k1"], k2=n1["k2"],
+            collectives_ok=_par_collectives_ok(mesh.get_group("data"), dev))
+    finally:
+        dist.destroy_process_group()
+    del cap
+    if dev == "cuda":
+        _free_card()
+    return rec
+
+
+def _par_collectives_ok(group, dev) -> bool:
+    """parallel/distributed.py's all_reduce, all_gather and broadcast on
+    tensors of `dev` over a group of one give what they must."""
+    import torch
+    from rsvldm_tpu_torch.parallel.distributed import (all_gather, all_reduce,
+                                                       broadcast)
+    t = torch.arange(6, dtype=torch.float32, device=dev)
+    want = t.clone()
+    ok = torch.equal(all_reduce(t.clone(), group), want)
+    ok &= torch.equal(all_gather(t[None], group, 0), want[None])
+    ok &= torch.equal(broadcast(t.clone(), group, 0), want)
+    return bool(ok)
+
+
+def _par_pipe(cfg: dict, work: Path, mesh=None):
+    from rsvldm_tpu_torch.config import PipelineConfig
+    from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
+    pcfg = PipelineConfig(no_llava=True, ckpt_dir=str(work / "no_ckpt"),
+                          upscale=cfg["upscale"])
+    if cfg["s1_steps"]:
+        pcfg.stage1.sampler, pcfg.stage1.ddim_steps = "ddim", cfg["s1_steps"]
+    return SuperResolutionPipeline(pcfg, device=cfg["device"],
+                                   model_cfgs=cfg["model_cfgs"], mesh=mesh)
+
+
+def _par_lr(seed: int, cfg: dict, work: Path) -> list:
+    import numpy as np
+    from PIL import Image
+    d = work / "lr"
+    d.mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed + 18)
+    paths = []
+    for i, side in enumerate(cfg["lr_sides"]):
+        p = d / f"tile_{i}.png"
+        Image.fromarray((rng.random((side, side, 3)) * 255).astype(np.uint8)).save(p)
+        paths.append(p)
+    return paths
+
+
+def _par_vae_input(seed: int, cfg: dict, dtype):
+    import torch
+    g = torch.Generator(device=cfg["device"]).manual_seed(seed + 19)
+    side = cfg["vae_side"]
+    return (torch.rand((1, 3, side, side), generator=g, device=cfg["device"])
+            * 2 - 1).to(dtype)
+
+
+def _par_vae(vae, x, cfg, mesh=None, wrap=lambda fn: fn) -> tuple:
+    """The tiled VAE alone: the twin encoder over 512^2 tiles, then the
+    decoder over 64^2 latent tiles (JAX's and the pipeline's sizes).
+    `wrap`: how the tile batch is run (`_Meet`'s witnesses)."""
+    import torch
+    from rsvldm_tpu_torch.models.vae import tiled
+    x = x.to(next(vae.parameters()).dtype)
+    with torch.inference_mode():
+        _par_sync(cfg["device"])
+        t0 = time.perf_counter()
+        z = tiled.tiled_encode(wrap(vae.encode_with_denoise), x,
+                               tile=cfg["enc_tile"], mesh=mesh)
+        _par_sync(cfg["device"])
+        t1 = time.perf_counter()
+        y = tiled.tiled_decode(wrap(vae.decode), z, tile=cfg["dec_tile"],
+                               mesh=mesh)
+        _par_sync(cfg["device"])
+        t2 = time.perf_counter()
+    return z.float().cpu(), y.float().cpu(), dict(encode_s=t1 - t0,
+                                                   decode_s=t2 - t1)
+
+
+class _Meet:
+    """The tiled VAE's one-process witnesses: the tile batch cut into
+    `parts` equal parts, run by as many threads (`threaded`) or as one
+    batch, whose GroupNorm32s meet and normalise every part with the
+    statistics of all tiles: JAX's pmean formula over the parts' moments,
+    as the ranks of the 'tile' group take them (`pmean`), else the one
+    process's two-pass statistics. Threaded with pmean, a process
+    computes what the ranks do at their batch size; threaded without it,
+    the ranks' batch size with the one process's statistics; one batch
+    with pmean, the one process's batch size with the ranks' formula."""
+
+    def __init__(self, parts: int, threaded: bool, pmean: bool):
+        import threading
+        self.parts, self.threaded, self.pmean = parts, threaded, pmean
+        self.barrier = threading.Barrier(parts if threaded else 1)
+        self.slots: list = [None] * parts
+        self.stats = None
+
+    def stats_of(self, xs: list) -> tuple:
+        """(mean, var) over the fp32 grouped parts xs [n, G, C/G, HW]."""
+        import torch
+        dims = (0, 2, 3)
+        if not self.pmean:
+            xa = torch.cat(xs)
+            mean = xa.mean(dim=dims, keepdim=True)
+            return mean, (xa - mean).square().mean(dim=dims, keepdim=True)
+        st = 0
+        for x in xs:
+            m = x.mean(dim=dims, keepdim=True)
+            v = (x - m).square().mean(dim=dims, keepdim=True)
+            st = st + torch.stack([m, v + m.square()])
+        st = st / len(xs)
+        return st[0], st[1] - st[0].square()
+
+    def norm(self, gn, x, i: int):
+        """GroupNorm32.forward_fp32 of part i's tiles x (all parts for one
+        batch), as `_group_fp32` writes it."""
+        import torch
+        n, c = x.shape[:2]
+        xg = x.float().reshape(n, gn.num_groups, c // gn.num_groups, -1)
+        if not self.threaded:
+            mean, var = self.stats_of(list(xg.chunk(self.parts)))
+        else:
+            self.slots[i] = xg
+            if self.barrier.wait() == 0:
+                self.stats = self.stats_of(self.slots)
+            self.barrier.wait()
+            mean, var = self.stats
+        y = (xg - mean).mul_(torch.rsqrt(var + gn.eps)).reshape(x.shape)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        return y.mul_(gn.weight.float().reshape(shape)).add_(
+            gn.bias.float().reshape(shape))
+
+    @staticmethod
+    def wrap(parts: int, threaded: bool, pmean: bool):
+        """A `_par_vae` wrap: fn over the tiles as such a witness runs it
+        (a fresh _Meet a call)."""
+        def wrap(fn):
+            def apply(tiles):
+                import threading
+                import torch
+                from rsvldm_tpu_torch.ops.norm import tile_collective_gn
+                meet = _Meet(parts, threaded, pmean)
+                if not threaded:
+                    with tile_collective_gn((meet, 0)):
+                        return fn(tiles)
+                out, err = [None] * parts, []
+                per = tiles.shape[0] // parts
+
+                def run(i):
+                    try:
+                        with torch.inference_mode(), \
+                                tile_collective_gn((meet, i)):
+                            out[i] = fn(tiles[i * per:(i + 1) * per])
+                    except BaseException as e:  # raised below
+                        err.append(e)
+                        meet.barrier.abort()
+                ts = [threading.Thread(target=run, args=(i,))
+                      for i in range(parts)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join()
+                if err:
+                    raise err[0]
+                return torch.cat(out)
+            return apply
+        return wrap
+
+
+def _par_witnesses(vae, x, cfg, parts: int, ref: dict) -> tuple:
+    """The bf16 tiled VAE's one-process witnesses (`_Meet`) against the
+    unsharded run `ref`: ({name: times and differences}, {name: z, y})."""
+    from rsvldm_tpu_torch.ops.norm import GroupNorm32
+    orig = GroupNorm32._group_fp32
+
+    def group_fp32(gn, x, group):
+        if isinstance(group, tuple) and isinstance(group[0], _Meet):
+            return group[0].norm(gn, x, group[1])
+        return orig(gn, x, group)
+    rec, outs = {}, {}
+    GroupNorm32._group_fp32 = group_fp32
+    try:
+        for name, threaded, pmean in (("split_pooled", True, False),
+                                      ("whole_pmean", False, True),
+                                      ("split_pmean", True, True)):
+            z, y, secs = _par_vae(vae, x, cfg,
+                                  wrap=_Meet.wrap(parts, threaded, pmean))
+            rec[name] = dict(secs, **_vae_diff(z, y, ref))
+            outs[name] = {"z": z, "y": y}
+    finally:
+        GroupNorm32._group_fp32 = orig
+    return rec, outs
+
+
+def _vae_diff(z, y, ref: dict) -> dict:
+    """A tiled VAE run's (z, y) against `ref`'s: the latents' relative
+    rms and the uint8 image's levels."""
+    import torch
+    to8 = lambda t: ((t.clamp(-1, 1) + 1) * 127.5).round().to(torch.uint8).numpy()
+    rel = float((z - ref["z"]).square().mean().sqrt()
+                / ref["z"].square().mean().sqrt().clamp_min(1e-30))
+    return dict(latent_rel_rms=rel,
+                latent_bit_equal=bool(torch.equal(z, ref["z"])),
+                image_uint8=_uint8_diff(to8(y), to8(ref["y"])),
+                finite=bool(torch.isfinite(y).all()))
+
+
+def _par_vaes(pipe) -> dict:
+    """The seeded VAE in the pipeline's dtype and widened to fp32."""
+    import copy
+    from rsvldm_tpu_torch.models.vae.model import AutoencoderKL
+    vae = pipe._build("vae", AutoencoderKL, pipe.vae_cfg)
+    return {"bf16": vae, "fp32": copy.deepcopy(vae).float()}
+
+
+def _par_train_data(seed: int, cfg: dict):
+    import numpy as np
+    rng = np.random.default_rng(seed + 20)
+    s = cfg["train_side"]
+    shape = (PAR_TRAIN_BATCH, s, s, 3)
+    return (rng.uniform(-1, 1, shape).astype(np.float32),
+            rng.uniform(-1, 1, shape).astype(np.float32))
+
+
+def _par_trainer(seed: int, cfg: dict, mesh=None):
+    import torch
+    from rsvldm_tpu_torch.models.sr3.unet import SR3UNetConfig
+    from rsvldm_tpu_torch.training.sr3_trainer import SR3TrainConfig, SR3Trainer
+    mc = SR3UNetConfig(image_size=cfg["train_side"])
+    if cfg["device"] == "cpu":
+        from rsvldm_tpu_torch.train_sr3 import TINY_SR3
+        mc = dataclasses.replace(mc, **TINY_SR3)
+    dev = cfg["device"]
+    return SR3Trainer(mc, SR3TrainConfig(), device=dev, mesh=mesh,
+                      generator=torch.Generator(dev).manual_seed(seed))
+
+
+def _flat_params(model):
+    import torch
+    return torch.cat([p.detach().float().reshape(-1).cpu()
+                      for p in model.parameters()])
+
+
+def _par_references(seed: int, cfg: dict, work: Path, ranks: int) -> dict:
+    """The unsharded runs in this process, their outputs saved in `work`;
+    the tiled VAE's witnesses at the `ranks` ranks' split."""
+    import numpy as np
+    import torch
+    dev = cfg["device"]
+    rec = {"caption": _par_caption_ref(seed, cfg, work)}
+    pipe = _par_pipe(cfg, work)
+    paths = _par_lr(seed, cfg, work)
+    t0 = time.perf_counter()
+    outs = pipe.run_stage1_batch(paths)
+    _par_sync(dev)
+    rec["stage1"] = dict(seconds=time.perf_counter() - t0, n=len(outs))
+    np.save(work / "stage1_ref.npy", np.stack(outs))
+    vaes = _par_vaes(pipe)
+    x = _par_vae_input(seed, cfg, pipe.dtype)
+    rec["vae"], refs = {}, {}
+    for dt, vae in vaes.items():
+        z, y, rec["vae"][dt] = _par_vae(vae, x, cfg)
+        refs[dt] = {"z": z, "y": y}
+    rec["vae"]["witness"], wit = _par_witnesses(vaes["bf16"], x, cfg, ranks,
+                                                refs["bf16"])
+    refs.update(wit)
+    torch.save(refs, work / "vae_ref.pt")
+    del pipe, vaes
+    tr = _par_trainer(seed, cfg)
+    p0 = _flat_params(tr.model)
+    hr, sr = _par_train_data(seed, cfg)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    _par_sync(dev)
+    t0 = time.perf_counter()
+    losses = [tr.train_step(hr, sr, generator=gen)
+              for _ in range(PAR_TRAIN_STEPS)]
+    _par_sync(dev)
+    rec["train"] = dict(losses=losses,
+                        s_per_step=(time.perf_counter() - t0) / PAR_TRAIN_STEPS)
+    p1 = _flat_params(tr.model)
+    torch.save({"params": p1, "moved": float((p1 - p0).norm()),
+                "losses": losses}, work / "train_ref.pt")
+    del tr
+    if dev == "cuda":
+        _free_card()
+    return rec
+
+
+def _cos(a, b) -> float:
+    import torch
+    return float(torch.nn.functional.cosine_similarity(a.double(), b.double(),
+                                                       dim=0))
+
+
+def _uint8_diff(a, b) -> dict:
+    import numpy as np
+    d = np.abs(np.asarray(a, np.int16) - np.asarray(b, np.int16))
+    return dict(mean_abs=float(d.mean()), max_abs=int(d.max()),
+                bit_equal=bool(d.max() == 0))
+
+
+def _par_worker_caption(seed, cfg, mesh, work) -> dict:
+    import torch
+    from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
+    from rsvldm_tpu_torch.models.vlm.generate import generate
+    dev = cfg["device"]
+    t0 = time.perf_counter()
+    cap = LlavaCaptioner.seeded(cfg["llama"], cfg["vision"], StandInTokenizer(),
+                                quant=cfg["quant"], device=dev, mesh=mesh)
+    _par_sync(dev)
+    build_s = time.perf_counter() - t0
+    q = cap.llama.model.layers[0].self_attn.q_proj
+    q_rows = (q.kernel_q4 if hasattr(q, "kernel_q4") else q.weight.t()).shape[1]
+    spliced = cap.embed_mm(_par_prompt(), [_par_image(seed)])
+    _reset_counts()
+    st = {}
+    ids = generate(cap.llama, spliced, _par_gcfg(), stats=st)
+    n = _counts()
+    ref = torch.load(work / "caption_ref.pt")
+    logits = _tf_logits(cap.llama, spliced, ref["ids"].numpy())
+    cos = [_cos(a, b) for a, b in zip(logits, ref["logits"])]
+    rids = ref["ids"].numpy()
+    same = (ids[:len(rids)] == rids[:len(ids)])
+    diverge = int(same.argmin()) if not same.all() else None
+    steps = st["decode_steps"]
+    layers = cfg["llama"].layers
+    rec = dict(build_s=build_s, q_proj_out=int(q_rows),
+               q_proj_out_full=cfg["llama"].heads * cfg["llama"].head_dim,
+               prompt_len=st["prompt_len"], padded_len=st["padded_len"],
+               prefill_ms=st["prefill_s"] * 1e3, decode_steps=steps,
+               decode_tok_s=steps / max(st["decode_s"], 1e-9),
+               k1=n["k1"], k1_reckoned=layers if dev == "cuda" else 0,
+               k2=n["k2"], k2_reckoned=(steps * (7 * layers + 1) + 1
+                                        if dev == "cuda" else 0),
+               cos_min=min(cos), cos_prefill=cos[0], cos=cos,
+               first_divergence=diverge,
+               tokens=len(ids), peak_gib=_par_peak_gib(dev))
+    rec["ok"] = bool(rec["cos_min"] >= PAR_COS_MIN
+                     and rec["q_proj_out"] * mesh.size() == rec["q_proj_out_full"]
+                     and n["k1"] == rec["k1_reckoned"]
+                     and n["k2"] == rec["k2_reckoned"]
+                     and len(ids) == PAR_NEW_TOKENS)
+    del cap
+    if dev == "cuda":
+        _free_card()
+    return rec
+
+
+def _par_worker_stage1(seed, cfg, mesh, work) -> dict:
+    import numpy as np
+    paths = sorted((work / "lr").glob("tile_*.png"))
+    pipe = _par_pipe(cfg, work, mesh)
+    _par_sync(cfg["device"])
+    t0 = time.perf_counter()
+    outs = pipe.run_stage1_batch(paths, mesh=mesh)
+    _par_sync(cfg["device"])
+    secs = time.perf_counter() - t0
+    d = _uint8_diff(np.stack(outs), np.load(work / "stage1_ref.npy"))
+    rec = dict(seconds=secs, n=len(outs), groups=pipe.stage1_groups, **d)
+    rec["ok"] = bool(len(outs) == len(paths) and d["mean_abs"] <= REF_MEAN_TOL
+                     and d["max_abs"] <= REF_MAX_TOL)
+    return rec, pipe
+
+
+def _par_worker_vae(seed, cfg, pipe, mesh, work) -> dict:
+    import torch
+    refs = torch.load(work / "vae_ref.pt")
+    x = _par_vae_input(seed, cfg, pipe.dtype)
+    rec = {}
+    for dt, vae in _par_vaes(pipe).items():
+        z, y, secs = _par_vae(vae, x, cfg, mesh)
+        rec[dt] = dict(secs, **_vae_diff(z, y, refs[dt]))
+        if dt == "bf16":
+            rec["bf16_vs_split_pmean"] = _vae_diff(z, y, refs["split_pmean"])
+        del vae
+    rec["peak_gib"] = _par_peak_gib(cfg["device"])
+    f32, b16, wit = rec["fp32"], rec["bf16"], rec["bf16_vs_split_pmean"]
+    tight = lambda d: (d["latent_rel_rms"] <= PAR_VAE_REL_RMS
+                       and d["image_uint8"]["max_abs"] <= PAR_VAE_MAX_LEVELS)
+    rec["ok"] = bool(tight(f32) and tight(wit)
+                     and b16["finite"] and f32["finite"]
+                     and b16["image_uint8"]["mean_abs"] <= REF_MEAN_TOL)
+    return rec
+
+
+def _par_worker_train(seed, cfg, mesh, work) -> dict:
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from rsvldm_tpu_torch.parallel.distributed import local_batch_range
+    dev = cfg["device"]
+    tr = _par_trainer(seed, cfg, mesh)
+    hr, sr = _par_train_data(seed, cfg)
+    a, b = local_batch_range(PAR_TRAIN_BATCH)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    _par_sync(dev)
+    t0 = time.perf_counter()
+    losses = [tr.train_step(hr[a:b], sr[a:b], generator=gen)
+              for _ in range(PAR_TRAIN_STEPS)]
+    _par_sync(dev)
+    s_per_step = (time.perf_counter() - t0) / PAR_TRAIN_STEPS
+    ref = torch.load(work / "train_ref.pt")
+    p = _flat_params(tr.model)
+    digest = hashlib.sha256(p.numpy().tobytes()).hexdigest()[:16]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, digest)
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(losses, ref["losses"]))
+    update_rel = float((p - ref["params"]).norm()) / max(ref["moved"], 1e-30)
+    rec = dict(losses=losses, ref_losses=ref["losses"], loss_rel_err=loss_rel,
+               update_rel_err=update_rel, digest=digest,
+               ranks_equal=len(set(every)) == 1, s_per_step=s_per_step,
+               rows=[a, b], peak_gib=_par_peak_gib(dev))
+    rec["ok"] = bool(loss_rel <= PAR_LOSS_RTOL
+                     and update_rel <= PAR_UPDATE_RTOL and rec["ranks_equal"])
+    return rec
+
+
+def parallel_worker(rank: int, work: str, seed: int, tiny: bool) -> int:
+    """One of the n ranks of phase `parallel` (RSVLDM_* env set by the
+    phase; n = 2 on one card): the TP=n caption, folder Stage 1 at data=n,
+    the tiled VAE at tile=n and DP SR3 training; its record in
+    <work>/rank<i>.json."""
+    import torch.distributed as dist
+    from rsvldm_tpu_torch.device import resolve_device
+    from rsvldm_tpu_torch.parallel.distributed import init_distributed
+    from rsvldm_tpu_torch.parallel.mesh import make_mesh
+    cfg = _par_cfg(tiny)
+    resolve_device(cfg["device"])
+    work = Path(work)
+    rec: dict = {"rank": rank}
+    try:
+        assert init_distributed()
+        n = dist.get_world_size()
+        rec.update(backend=dist.get_backend(), world=n)
+        mesh = make_mesh(n, tile=1)
+        rec["caption"] = _par_worker_caption(seed, cfg, mesh, work)
+        rec["stage1"], pipe = _par_worker_stage1(seed, cfg, mesh, work)
+        rec["vae"] = _par_worker_vae(seed, cfg, pipe, make_mesh(n, tile=n), work)
+        del pipe
+        rec["train"] = _par_worker_train(seed, cfg, mesh, work)
+        rec["ok"] = all(rec[k]["ok"] for k in ("caption", "stage1", "vae",
+                                                 "train"))
+    except Exception as e:  # reported, and fails the phase
+        import traceback
+        rec["error"] = traceback.format_exc()[-3000:]
+        rec["ok"] = False
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0 if rec["ok"] else 1
+
+
+def phase_parallel(seed: int, tiny: bool = False, ranks: int = 2,
+                   backend: str = "gloo") -> dict:
+    """The parallel layer (rsvldm_tpu_torch/parallel) on the card: the
+    unsharded runs and the NCCL world of one in this process, then
+    `ranks` worker ranks over `backend` (module docstring, limits above):
+    two over gloo on the one card by default; over NCCL one rank a card
+    (--parallel-ranks / --parallel-backend, a machine with that many)."""
+    import shutil
+    import socket
+    cfg = _par_cfg(tiny)
+    work = Path(tempfile.mkdtemp(prefix="rsv_parallel_"))
+    procs, rec, recs = [], {}, []
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        rec["unsharded"] = _par_references(seed, cfg, work, ranks)
+        rec["unsharded"]["seconds"] = time.perf_counter() - t0
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        for rank in range(ranks):
+            env = dict(os.environ, RSVLDM_COORDINATOR=f"127.0.0.1:{port}",
+                       RSVLDM_NUM_PROCESSES=str(ranks),
+                       RSVLDM_PROCESS_ID=str(rank), RSVLDM_BACKEND=backend,
+                       OMP_NUM_THREADS="2")
+            cmd = [sys.executable, str(Path(__file__).resolve()),
+                   "--parallel-worker", str(rank), str(work), str(seed)]
+            procs.append(subprocess.Popen(cmd + (["--tiny"] if tiny else []),
+                                          env=env, cwd=str(REPO)))
+        deadline = time.time() + PAR_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+        rec["workers_s"] = time.perf_counter() - t0
+        recs = [json.loads((work / f"rank{r}.json").read_text())
+                for r in range(ranks)]
+    except Exception as e:  # reported, and fails the phase
+        import traceback
+        rec["error"] = traceback.format_exc()[-3000:]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    rec["ranks"] = recs
+    one = rec.get("unsharded", {}).get("caption", {}).get("world_of_one", {})
+    # the TP captions: every worker rank's and the world of one's
+    rec["launches"] = {k: sum(r.get("caption", {}).get(k, 0) for r in recs)
+                       + one.get(k, 0) for k in ("k1", "k2")}
+    rec["launches"]["bwd"] = 0
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["ok"] = bool(len(recs) == ranks and all(r["ok"] for r in recs)
+                     and all(p.returncode == 0 for p in procs)
+                     and one.get("ids_equal") is True
+                     and one.get("tp_none") is True
+                     and one.get("collectives_ok") is True)
+    _say("parallel", **rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--skip-path", action="store_true",
                     help="stop after the kernel checks (no pipeline run)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="only the build and phase parallel (no result "
+                         "line)")
+    ap.add_argument("--parallel-ranks", type=int, default=2,
+                    help="phase parallel's worker ranks (with --parallel-only)")
+    ap.add_argument("--parallel-backend", default="gloo",
+                    help="their backend: gloo (two ranks on one card) or "
+                         "nccl (one rank a card)")
+    ap.add_argument("--parallel-worker", nargs=3, metavar=("RANK", "WORK", "SEED"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tiny", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--profile", action="store_true",
                     help="after the path, profile a replayed decode step, "
                          "SR3 step, cache-miss and cache-hit denoising step, "
                          "and the last training step")
     args = ap.parse_args(argv)
 
+    if args.parallel_worker:  # a rank of phase parallel, started by it
+        sys.path.insert(0, str(REPO))
+        rank, work, seed = args.parallel_worker
+        return parallel_worker(int(rank), work, int(seed), args.tiny)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5137,6 +5879,12 @@ def main(argv=None) -> int:
 
     smi = phase_device()
     phase_build()
+    if args.parallel_only:
+        par = phase_parallel(SEED, ranks=args.parallel_ranks,
+                             backend=args.parallel_backend)
+        print("chip_smoke: --parallel-only given, no result line",
+              file=sys.stderr)
+        return 0 if par["ok"] else 1
     cases, k2, bwd = phase_kernels()
     ok = all(c["ok"] for c in cases + k2 + bwd)
     ok = phase_reference(SEED)["ok"] and ok
@@ -5153,7 +5901,7 @@ def main(argv=None) -> int:
     fref = phase_families_reference(SEED)
     ok = fref["ok"] and ok
     path = folder = spec = tiled = sr3 = serve = samplers = ev = None
-    fam = tow = None
+    fam = tow = par = None
     tr = {}
     if not args.skip_path:
         import shutil
@@ -5192,6 +5940,8 @@ def main(argv=None) -> int:
         ok = ok and fam["ok"]
         tow = phase_towers(SEED)
         ok = ok and tow["ok"]
+        par = phase_parallel(SEED)
+        ok = ok and par["ok"]
     mm = tr.get("train_mm", [])
     by_path = {"process": path.get("launches", {}) if path else {},
                "spec": spec["launches"] if spec else {},
@@ -5217,7 +5967,9 @@ def main(argv=None) -> int:
                # vs CPU, then at their published widths
                "families_reference": fref["launches"],
                "families": fam["launches"] if fam else {},
-               "towers": tow["launches"] if tow else {}}
+               "towers": tow["launches"] if tow else {},
+               # the two gloo ranks' TP=2 caption (both ranks' launches)
+               "parallel": par["launches"] if par else {}}
 
     def launches(k):
         # None where a path's run did not read this kernel's count

@@ -149,14 +149,18 @@ class prefetch_to_device:
 
 def make_loader(dataset, batch_size: int, *, num_workers: int = 4,
                 prefetch: int = 2, device=None, seed: int = 0,
-                drop_last: bool = True, epochs: int | None = None):
+                drop_last: bool = True, epochs: int | None = None,
+                rows: tuple[int, int] | None = None):
     """Shuffled epochs (random.Random(seed)) of an indexable dataset:
     items fetched by worker_map, stacked per column on the host, staged on
     `device` (default CUDA) by prefetch_to_device. Batches never span a reshuffle; with
     drop_last an epoch's remainder is dropped. When the dataset has
     getitem_rng(idx, rng), each fetch gets random.Random(f"{seed}/{epoch}/
     {idx}"), so augmentation does not depend on the worker count.
-    epochs=None streams forever. JAX's loader gives the same batches."""
+    epochs=None streams forever. JAX's loader gives the same batches.
+    rows=(start, stop): fetch only those rows of every global batch of
+    `batch_size` (a data-parallel rank's share, parallel/distributed.
+    local_batch_range); with drop_last only."""
     seeded = getattr(dataset, "getitem_rng", None)
 
     def fetch(key):
@@ -165,16 +169,26 @@ def make_loader(dataset, batch_size: int, *, num_workers: int = 4,
             return seeded(idx, random.Random(f"{seed}/{epoch}/{idx}"))
         return dataset[idx]
 
+    if rows is not None and not drop_last:
+        raise ValueError("make_loader: rows= needs drop_last")
+    lo, hi = rows if rows is not None else (0, batch_size)
+    global_batch = batch_size
+    full = len(dataset) // global_batch * global_batch
+
+    def keep(j: int) -> bool:
+        return rows is None or (j < full and lo <= j % global_batch < hi)
+
     def indices():
         rng = random.Random(seed)
         order = list(range(len(dataset)))
         epoch = 0
         while epochs is None or epoch < epochs:
             rng.shuffle(order)
-            yield from ((epoch, i) for i in order)
+            yield from ((epoch, i) for j, i in enumerate(order) if keep(j))
             epoch += 1
 
-    per_epoch = len(dataset)
+    per_epoch = len(dataset) if rows is None else full // global_batch * (hi - lo)
+    batch_size = hi - lo
 
     def batches():
         buf = []

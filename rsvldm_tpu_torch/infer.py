@@ -118,7 +118,10 @@ def build_pipeline(args) -> SuperResolutionPipeline:
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    pipe = build_pipeline(parse_args(argv))
+    from .parallel.distributed import init_distributed
+    args = parse_args(argv)
+    init_distributed()  # joins the RSVLDM_* rendezvous when it is set
+    pipe = build_pipeline(args)
     pipe.process()
     return pipe
 

@@ -13,6 +13,12 @@ cpu, and raises without a card. --num_steps is the refinement's EDM steps;
 --debug_tiny runs the tiny geometries (infer.tiny_model_cfgs) with Stage
 2b at a 64-pixel minimum size and a 64-pixel bucket, and captions nothing.
 
+--mesh N runs on a mesh of N ranks (one process per card, started with
+RSVLDM_COORDINATOR=host:port RSVLDM_NUM_PROCESSES=N RSVLDM_PROCESS_ID=i;
+parallel/distributed.py): batched Stage 1 split over the ranks, the
+captioner tensor-parallel over them, the first rank writing the files. As
+in JAX, without --mesh a world of more than one rank takes every rank.
+
 `build_processor(args)` is the construction the CLI runs; `main(argv)`
 adds the run and prints "processed k/n images".
 """
@@ -52,10 +58,25 @@ def parse_args(argv=None):
                     help="caption decoder weights ('' = dense)")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="shard folder batches + tensor-shard the captioner "
+                         "over this many ranks (0 = all when >1 rank)")
     return ap.parse_args(argv)
 
 
-def build_processor(args) -> ImageBatchProcessor:
+def build_mesh(args):
+    """The mesh of --mesh (JAX infer_dir.py:44-50): None unless more than
+    one rank is asked for or running."""
+    from .parallel.distributed import world
+    n = world()[1]
+    want = args.mesh or (n if n > 1 else 0)
+    if want <= 1:
+        return None
+    from .parallel.mesh import make_mesh
+    return make_mesh(min(want, n), tile=1)
+
+
+def build_processor(args, mesh=None) -> ImageBatchProcessor:
     """The folder processor the CLI runs, from its parsed arguments."""
     cfg = PipelineConfig(image_dir=args.image_dir, output_dir=args.save_dir,
                          upscale=args.upscale, seed=args.seed,
@@ -72,13 +93,19 @@ def build_processor(args) -> ImageBatchProcessor:
         model_cfgs = tiny_model_cfgs()
         cfg.refine.min_size = 64
         cfg.refine.size_bucket = 64
-    return ImageBatchProcessor(cfg, device=args.device, model_cfgs=model_cfgs)
+    return ImageBatchProcessor(cfg, device=args.device, model_cfgs=model_cfgs,
+                               mesh=mesh)
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    proc = build_processor(parse_args(argv))
+    from .device import resolve_device
+    from .parallel.distributed import init_distributed
+    args = parse_args(argv)
+    resolve_device(args.device)  # raises without the card it names
+    init_distributed()  # joins the RSVLDM_* rendezvous when it is set
+    proc = build_processor(args, build_mesh(args))
     results = proc.run()
     ok = sum(1 for _, s in results if s in ("ok", "stage1"))
     print(f"processed {ok}/{len(results)} images", flush=True)

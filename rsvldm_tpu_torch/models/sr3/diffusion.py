@@ -225,6 +225,16 @@ def sr3_sample_ddim(diff: SR3Diffusion, model, cond: torch.Tensor,
                 diff, model, cond, noise, graphs, stats, graph_cache)
 
 
+def sr3_draws(diff: SR3Diffusion, shape: tuple, generator, device):
+    """sr3_loss's draws for a batch of `shape` [N, H, W, 3], in its order:
+    t [N] in 1..T, u [N] uniform, noise normal of `shape`."""
+    b = shape[0]
+    t = torch.randint(1, diff.buffers.num_timesteps + 1, (b,),
+                      generator=generator, device=device)
+    u = torch.rand((b,), generator=generator, device=device)
+    return t, u, torch.randn(shape, generator=generator, device=device)
+
+
 def sr3_loss(diff: SR3Diffusion, model, hr: torch.Tensor,
              sr_bicubic: torch.Tensor, t: torch.Tensor | None = None,
              u: torch.Tensor | None = None, noise: torch.Tensor | None = None,
@@ -239,13 +249,11 @@ def sr3_loss(diff: SR3Diffusion, model, hr: torch.Tensor,
     test feeds JAX's split(rng, 3) draws)."""
     buf = diff.buffers
     b, dev = hr.shape[0], hr.device
-    if t is None:
-        t = torch.randint(1, buf.num_timesteps + 1, (b,), generator=generator,
-                          device=dev)
-    if u is None:
-        u = torch.rand((b,), generator=generator, device=dev)
-    if noise is None:
-        noise = torch.randn(hr.shape, generator=generator, device=dev)
+    if t is None or u is None or noise is None:
+        dt, du, dn = sr3_draws(diff, tuple(hr.shape), generator, dev)
+        t = dt if t is None else t
+        u = du if u is None else u
+        noise = dn if noise is None else noise
     prev = buf.sqrt_alphas_cumprod_prev.to(dev, torch.float32)
     t = t.to(dev, torch.long)
     lo, hi = prev[t - 1], prev[t]

@@ -7,8 +7,15 @@ then pools its statistics over all tiles (ops/norm.py), as the JAX
 package's reduction over (tile, H, W) does. Each tile's core is cropped
 from the output and placed in order, a later tile overwriting the overlap
 of an earlier one. Halos: 32 px at the encoder's input, 11 latent px at
-the decoder's. The JAX package's mesh path (tiles sharded over devices)
-is not part of the port.
+the decoder's.
+
+With a mesh (`mesh=`, parallel/mesh.py), the tiles are split over the
+ranks of its 'tile' group, each rank running its contiguous share inside
+`tile_collective_gn(group)` (the statistics all-reduced, JAX's pmean
+formula), and the outputs are gathered on every rank before the stitch
+(parallel/mesh.shard_tiled_gn_apply). As in JAX, where the group does not
+divide the tile count the call runs on this rank alone; a group of one
+rank also runs so, which keeps a mesh of one bit-identical to no mesh.
 """
 
 from __future__ import annotations
@@ -69,14 +76,21 @@ def stitch_tiles(tiles: torch.Tensor, grid: list, out_hw: tuple[int, int],
 
 
 def tiled_apply(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
-                tile: int, pad: int, out_scale: tuple[int, int]) -> torch.Tensor:
+                tile: int, pad: int, out_scale: tuple[int, int], mesh=None
+                ) -> torch.Tensor:
     """fn over the halo-padded tiles of x ([1, C, H, W]) as one batch, with
     tile-collective GroupNorm, then stitched. out_scale = (num, den) is
-    fn's spatial scaling (encode (1, 8), decode (8, 1))."""
+    fn's spatial scaling (encode (1, 8), decode (8, 1)). mesh: split the
+    tiles over its 'tile' group (module docstring)."""
     _, _, h, w = x.shape
     tiles, grid = split_tiles(x, tile, pad)
-    with tile_collective_gn():
-        ytiles = fn(tiles)
+    n = 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index("tile"))
+    if n > 1 and tiles.shape[0] % n == 0:
+        from ...parallel.mesh import shard_tiled_gn_apply
+        ytiles = shard_tiled_gn_apply(fn, mesh)(tiles)
+    else:
+        with tile_collective_gn():
+            ytiles = fn(tiles)
     del tiles
     num, den = out_scale
     return stitch_tiles(ytiles, grid, (h * num // den, w * num // den), pad,
@@ -84,18 +98,18 @@ def tiled_apply(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
 
 
 def tiled_encode(apply_encode: Callable, x: torch.Tensor, tile: int = 512,
-                 pad: int = ENCODER_PAD) -> torch.Tensor:
+                 pad: int = ENCODER_PAD, mesh=None) -> torch.Tensor:
     """apply_encode: [T, 3, h, w] -> [T, z, h/8, w/8]. 512-px tiles by
     default (RefinementConfig.encoder_tile_size)."""
     assert tile % 8 == 0 and pad % 8 == 0
     # stitch floor-divides tile starts by 8; a non-multiple extent would
     # shift the last row or column of tiles off the stride-8 grid
     assert x.shape[2] % 8 == 0 and x.shape[3] % 8 == 0, x.shape
-    return tiled_apply(apply_encode, x, tile, pad, (1, 8))
+    return tiled_apply(apply_encode, x, tile, pad, (1, 8), mesh)
 
 
 def tiled_decode(apply_decode: Callable, z: torch.Tensor, tile: int = 64,
-                 pad: int = DECODER_PAD) -> torch.Tensor:
+                 pad: int = DECODER_PAD, mesh=None) -> torch.Tensor:
     """apply_decode: [T, z, hz, wz] -> [T, 3, 8 hz, 8 wz]. 64-latent tiles
     by default (RefinementConfig.decoder_tile_size)."""
-    return tiled_apply(apply_decode, z, tile, pad, (8, 1))
+    return tiled_apply(apply_decode, z, tile, pad, (8, 1), mesh)

@@ -37,6 +37,15 @@ directory that is missing or holds no weights. Without a draft,
 are the target's (greedy exactly, sampled in distribution), the speed is
 the draft's. `caption_batch` stays on the batched vanilla decode, as in
 JAX.
+
+Tensor parallelism (`mesh=` on `from_state_dict`, `seeded` and `load`;
+JAX captioner.py:103-220): the decoder is sharded over the mesh's 'data'
+group (parallel/llama_sharding.py), each rank building only its shard
+part by part (`build_sharded_llama`: one full block at a time, quantized,
+then cut), the tower and projector whole on every rank. Every rank runs
+the same caption; the ranks' ids are checked equal. As in JAX, a draft
+(checkpoint or self-draft) is not composed with TP: it is skipped with a
+warning. LoRA archives are refused on a sharded decoder.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ from ...training.vlm_trainer import (apply_lora, load_lora_npz,
                                      load_projector_npz, quant_mode,
                                      runtime_lora)
 from ...utils.checkpoint import load_checked, load_torch_state_dict
-from ...utils.weights import seeded_init_
+from ...utils.weights import init_params_, seeded_generator, seeded_init_
 from .generate import (GenerateConfig, caption_image, caption_images,
                        embed_multimodal_prompt)
 from .llama import LLAMA3_8B_CONFIG, LlamaConfig, LlamaModel, quantize_llama_
@@ -88,13 +97,16 @@ def split_llava_state_dict(sd: Dict[str, torch.Tensor]):
     return llama, vision, projector, sd[NEWLINE_KEY]
 
 
-def _empty_parts(llama_cfg, vision_cfg, device, dtype):
+def _empty_parts(llama_cfg, vision_cfg, device, dtype, llama: bool = True):
     """(decoder, tower, projector) on `device` in `dtype`, uninitialised,
-    built without allocating twice (meta first)."""
+    built without allocating twice (meta first); without the decoder
+    unless `llama`."""
     parts = []
     for module_cls, args in ((LlamaModel, (llama_cfg,)),
                              (CLIPVisionTower, (vision_cfg,)),
                              (MLPProjector, (vision_cfg.width, llama_cfg.dim))):
+        if module_cls is LlamaModel and not llama:
+            continue
         with torch.device("meta"):
             module = module_cls(*args)
         parts.append(module.to(dtype=dtype).to_empty(device=device))
@@ -169,6 +181,14 @@ def _llama_config_from_json(d: Path, base: LlamaConfig) -> LlamaConfig:
         tie_lm_head=raw.get("tie_word_embeddings", base.tie_lm_head))
 
 
+def _sharded_llama(cfg, fill, mesh, device, dtype, quant):
+    """This rank's shard of the decoder over the mesh's 'data' group (the
+    axis JAX shards the decoder over)."""
+    from ...parallel.llama_sharding import build_sharded_llama
+    return build_sharded_llama(cfg, fill, mesh.get_group("data"), device,
+                               dtype, quant=quant or None)
+
+
 def _placement(device, dtype):
     """(device, dtype): the card unless the caller names a device (raising
     when CUDA is asked for without a card), its compute dtype unless
@@ -216,21 +236,34 @@ class LlavaCaptioner:
                         vision_cfg: CLIPVisionConfig = CLIP_VIT_L_336_CONFIG,
                         tokenizer=None, quant: str | None = None,
                         device: str | torch.device | None = None,
-                        dtype: torch.dtype | None = None) -> "LlavaCaptioner":
+                        dtype: torch.dtype | None = None,
+                        mesh=None) -> "LlavaCaptioner":
         """Modules built on `device` in `dtype` and filled from `sd` tensor by
         tensor (missing names raise, extras are logged); with quant 'int8' /
         'int4' the decoder is then quantized module by module (its
         embedding table narrowed to bf16, as the JAX loader does). The
         device defaults to the card (device.resolve_device: raises without
         one), the dtype to its compute dtype (bf16 on the card, fp32 on the
-        CPU)."""
+        CPU). mesh: the decoder sharded over its 'data' group, built part
+        by part (module docstring)."""
         device, dtype = _placement(device, dtype)
         t0 = _now(device)
-        parts = _empty_parts(llama_cfg, vision_cfg, device, dtype)
-        for module, part_sd, what in zip(parts, split_llava_state_dict(sd),
-                                         ("llama", "vision tower", "projector")):
+        llama_sd, vision_sd, projector_sd, newline = split_llava_state_dict(sd)
+        if mesh is None:
+            parts = _empty_parts(llama_cfg, vision_cfg, device, dtype)
+            load_checked(parts[0], llama_sd, "llama")
+        else:
+            def fill(name, part):
+                pre = name + "."
+                load_checked(part, {k[len(pre):]: v for k, v in llama_sd.items()
+                                    if k.startswith(pre)}, f"llama {name}")
+            parts = [_sharded_llama(llama_cfg, fill, mesh, device, dtype, quant),
+                     *_empty_parts(llama_cfg, vision_cfg, device, dtype,
+                                   llama=False)]
+        for module, part_sd, what in zip(parts[1:], (vision_sd, projector_sd),
+                                         ("vision tower", "projector")):
             load_checked(module, part_sd, what)
-        newline = sd[NEWLINE_KEY].to(device=device, dtype=dtype)
+        newline = newline.to(device=device, dtype=dtype)
         read_s = _now(device) - t0
         cap = cls._finish(parts, newline, tokenizer, quant)
         cap.load_stats["read_s"] = read_s
@@ -242,14 +275,26 @@ class LlavaCaptioner:
                vision_cfg: CLIPVisionConfig = CLIP_VIT_L_336_CONFIG,
                tokenizer=None, quant: str | None = None,
                device: str | torch.device | None = None,
-               dtype: torch.dtype | None = None) -> "LlavaCaptioner":
+               dtype: torch.dtype | None = None,
+               mesh=None) -> "LlavaCaptioner":
         """Seeded random weights (utils/weights.seeded_init_, on the device)
         instead of a checkpoint: smoke mode, the captions mean nothing.
-        Device and dtype default as in `from_state_dict`."""
+        Device and dtype default as in `from_state_dict`; with `mesh`, each
+        rank draws the decoder part by part with seeded_init_'s generator
+        (the same numbers) and keeps its shard."""
         device, dtype = _placement(device, dtype)
-        parts = _empty_parts(llama_cfg, vision_cfg, device, dtype)
+        if mesh is None:
+            parts = _empty_parts(llama_cfg, vision_cfg, device, dtype)
+        else:
+            gen = seeded_generator("llama", torch.device(device))
+            parts = [_sharded_llama(llama_cfg,
+                                    lambda name, part: init_params_(part, gen),
+                                    mesh, device, dtype, quant),
+                     *_empty_parts(llama_cfg, vision_cfg, device, dtype,
+                                   llama=False)]
         for module, family in zip(parts, ("llama", "clip_vision", "projector")):
-            seeded_init_(module, family, torch.device(device))
+            if mesh is None or family != "llama":
+                seeded_init_(module, family, torch.device(device))
         gen = torch.Generator(device=device).manual_seed(
             zlib.crc32(b"image_newline"))
         newline = torch.randn(llama_cfg.dim, generator=gen, device=device,
@@ -263,7 +308,8 @@ class LlavaCaptioner:
                              "(LlavaCaptioner.load reads tokenizer.json)")
         llama, vision, projector = (m.eval().requires_grad_(False) for m in parts)
         t0 = _now(newline.device)
-        if quant:
+        # build_sharded_llama quantizes part by part (any mesh)
+        if quant and quant_mode(llama) is None:
             quantize_llama_(llama, quant)
         cap = cls(llama, vision, projector, newline, tokenizer)
         cap.load_stats["quantize_s"] = _now(newline.device) - t0
@@ -278,6 +324,9 @@ class LlavaCaptioner:
         projector archive replaces the projector's weights wholesale."""
         dev = self.image_newline.device
         t0 = _now(dev)
+        if lora_npz and self.llama.tp is not None:
+            raise NotImplementedError("LoRA archives on a tensor-parallel "
+                                      "decoder are not ported")
         if lora_npz:
             lora, lcfg = load_lora_npz(lora_npz, dev)
             quantized = quant_mode(self.llama) is not None
@@ -305,7 +354,7 @@ class LlavaCaptioner:
              lora_npz: str | Path | None = None,
              projector_npz: str | Path | None = None,
              draft_dir: str | Path | None | bool = None,
-             spec_k: int = 4, self_draft_layers: int = 0
+             spec_k: int = 4, self_draft_layers: int = 0, mesh=None
              ) -> Optional["LlavaCaptioner"]:
         """The captioner of <ckpt_dir>/llava (JAX LlavaCaptioner.load,
         captioner.py:122-278): the shards, the Llava-next PEFT adapter
@@ -313,7 +362,7 @@ class LlavaCaptioner:
         archives, the tokenizer (tokenizer.json unless one is given), and
         the speculative draft (`attach_draft`). None when <ckpt_dir>/llava
         is missing or holds no weights. Device and dtype default as in
-        `from_state_dict`."""
+        `from_state_dict`; `mesh` shards the decoder (module docstring)."""
         device, dtype = _placement(device, dtype)
         d = Path(ckpt_dir) / "llava"
         if not d.is_dir():
@@ -333,30 +382,40 @@ class LlavaCaptioner:
             merge_s = time.perf_counter() - t0
             files = files + [str(adapter)]
         cap = cls.from_state_dict(sd, llama_cfg, vision_cfg, tokenizer, quant,
-                                  device, dtype)
+                                  device, dtype, mesh)
         cap.attach_archives(lora_npz, projector_npz)
         cap.load_stats.update(files=files, open_s=open_s, merge_s=merge_s,
                               peft_merged=merged)
         dd = (None if draft_dir is False
               else Path(draft_dir) if draft_dir else Path(ckpt_dir) / "llava_draft")
         cap.attach_draft(dd, named=bool(draft_dir), spec_k=spec_k,
-                         self_draft_layers=self_draft_layers, quant=quant)
+                         self_draft_layers=self_draft_layers, quant=quant,
+                         mesh=mesh)
         return cap
 
     @torch.no_grad()
     def attach_draft(self, draft_dir: Path | None, named: bool = True,
                      spec_k: int = 4, self_draft_layers: int = 0,
-                     quant: str | None = None):
+                     quant: str | None = None, mesh=None):
         """The speculative draft (JAX captioner.py:226-278): the Llama
         checkpoint of `draft_dir` (sorted *.safetensors shards, else
         pytorch_model*.bin; config.json over the target's geometry) on the
         target's device and dtype, quantized with `quant`; else, with
         `self_draft_layers` N > 0, the target's first N blocks. A `named`
         directory that is missing or holds no weights raises
-        FileNotFoundError; another hidden size or vocabulary, ValueError."""
+        FileNotFoundError; another hidden size or vocabulary, ValueError.
+        Under a mesh (even of one rank, as in JAX) no draft is attached."""
         self.spec_k = spec_k
         self.decode_graphs.clear()
         draft = None
+        if mesh is not None or self.llama.tp is not None:
+            # JAX captioner.py:233-237, 268-270: the draft's caches are not
+            # sharded, so captions under a mesh decode vanilla
+            if (draft_dir is not None and draft_dir.is_dir()) or self_draft_layers:
+                log.warning("speculative draft skipped: the draft and mesh TP "
+                            "are not composed")
+            self.draft, self.self_draft_layers = None, 0
+            return
         if draft_dir is not None and draft_dir.is_dir():
             t0 = time.perf_counter()
             sd, files = load_sharded(draft_dir)

@@ -22,6 +22,15 @@ are the same. `lora` (adapters by module path, scale folded into
 b: training/vlm_trainer.runtime_lora) rides the runtime branch of an int8 /
 int4 decoder in the prefill and in every decode step.
 
+A tensor-parallel decoder (parallel/llama_sharding.py; JAX generate.py:
+144-240; sharded over more than one rank, since a group of one leaves the
+decoder whole) decodes with a cache of its local kv heads; every rank
+samples from the gathered logits with the same noise, so all ranks pick
+the same tokens, and the ids are compared across the group at the end of
+each call. Its steps hold collectives and run directly, never as a captured
+graph: gloo's collectives cannot be captured, and capture of NCCL's is
+not yet held on a card (a queued item).
+
 The prefill runs the lm_head on the last real position alone (the full
 logits would be [B, s_pad, vocab] in fp32). `generate_batch` (folder
 captions) decodes B prompts in one loop: one batched prefill of the
@@ -217,7 +226,7 @@ def _decode_state(model: LlamaModel, cfg: GenerateConfig, s_pad: int,
                   device: torch.device, rows: int = 1) -> DecodeState:
     long = dict(dtype=torch.long, device=device)
     return DecodeState(
-        cache=KVCache.init(model.cfg, rows, s_pad + cfg.max_new_tokens,
+        cache=KVCache.init(model.cache_cfg, rows, s_pad + cfg.max_new_tokens,
                            dtype=model.dtype, device=device),
         tok=torch.zeros((rows, 1), **long), pos=torch.zeros(rows, **long),
         idx=torch.zeros((), **long),
@@ -237,7 +246,8 @@ def _decode(model: LlamaModel, inputs: Sequence[torch.Tensor],
     each trimmed at its first eot."""
     b = len(inputs)
     device = inputs[0].device
-    graphs = use_graphs(device, graphs)
+    # a step that holds collectives runs directly (module docstring)
+    graphs = use_graphs(device, graphs) and model.tp is None
     lens = [int(e.shape[0]) for e in inputs]
     s_pad = -(-max(lens) // cfg.pad_to) * cfg.pad_to
     key = (s_pad, cfg.max_new_tokens, len(cfg.eot_ids), graphs,
@@ -288,6 +298,8 @@ def _decode(model: LlamaModel, inputs: Sequence[torch.Tensor],
             st.runner()
             steps += 1
         done = bool(st.done.all())
+    if model.tp is not None:
+        _check_ranks_agree(st.toks[:steps + 1], model.tp)
     ids = st.toks[:steps + 1].cpu().numpy().astype(np.int32)
     if stats is not None:
         stats.update(prompt_len=max(lens), prompt_lens=lens, rows=b,
@@ -300,6 +312,15 @@ def _decode(model: LlamaModel, inputs: Sequence[torch.Tensor],
         stops = np.isin(row, eot)
         outs.append(row[: int(np.argmax(stops))] if stops.any() else row)
     return outs
+
+
+def _check_ranks_agree(toks: torch.Tensor, tp):
+    """Raise unless every rank of tp's group holds the same ids."""
+    from ...parallel.distributed import all_gather
+    every = all_gather(toks[None], tp.group, dim=0)
+    if not bool((every == toks[None]).all()):
+        raise RuntimeError("tensor-parallel decode: the ranks sampled "
+                           "different tokens")
 
 
 @torch.inference_mode()

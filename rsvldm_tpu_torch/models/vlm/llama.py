@@ -56,6 +56,15 @@ and writes the reference's per-expert names: Mixtral's
 Qwen2-MoE's `mlp.{gate, experts.{e}.{gate,up,down}_proj, shared_expert.*,
 shared_expert_gate}` with one. Weight-only quantization refuses MoE, as
 JAX does: it would leave the expert stacks wide.
+
+Tensor parallelism (parallel/llama_sharding.py): a sharded decoder keeps
+its slices and a `TensorParallel` group on each sharded part. A block's
+attention then runs its local heads (its `cfg` holds the local counts)
+and sums o_proj's partial products over the group; the FFN sums
+down_proj's (`row_parallel`); an MoE block runs its experts and sums the
+routed mix; the embedding is a masked lookup of the local vocabulary rows
+summed over the group, and the logits of the local lm_head rows are
+gathered. LoRA adapters are not taken by a sharded decoder.
 """
 
 from __future__ import annotations
@@ -68,8 +77,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import attention
-from ...ops.quant import (Int4Linear, QuantizedLinear, int4_matmul_ste,
-                          int8_matmul_ste, quantize_weight, quantize_weight_int4)
+from ...ops.quant import (Int4Linear, QuantizedLinear, act_absmax, int4_matmul,
+                          int4_matmul_ste, int8_acc, int8_apply_scales,
+                          int8_matmul_ste, quantize_acts, quantize_weight,
+                          quantize_weight_int4)
+from ...parallel.distributed import ReduceOp, all_gather, all_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +156,14 @@ QWEN2_MOE_A2_7B_CONFIG = LlamaConfig(vocab_size=151936, dim=2048, layers=24,
                                      experts_per_tok=4, moe_ffn_dim=1408,
                                      norm_topk_prob=False,
                                      shared_expert_dim=5632)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The group a sharded part of the decoder reduces over."""
+    group: object
+    rank: int
+    size: int
 
 
 @dataclasses.dataclass
@@ -268,6 +288,34 @@ class Q4Dense(nn.Module):
         return _add_bias(self, _maybe_lora(x, y, lora))
 
 
+def row_parallel(mod: nn.Module, x, tp: TensorParallel):
+    """A row-parallel projection's full output on every rank of tp's group:
+    x holds this rank's slice of the inputs, `mod` the matching rows of the
+    weight. int8: the whole row's absmax (all-reduced MAX) quantizes the
+    slice and the exact int32 accumulators are summed, so the result is
+    the unsharded product bit for bit; int4: fp32 partials (K2's fp32
+    output) summed in fp32, then one cast; dense: partials summed in x's
+    dtype."""
+    if isinstance(mod, QDense):
+        xq, xs = quantize_acts(x, all_reduce(act_absmax(x), tp.group,
+                                             ReduceOp.MAX))
+        acc = all_reduce(int8_acc(xq, mod.kernel_q), tp.group)
+        y = int8_apply_scales(acc, xs, QuantizedLinear(mod.kernel_q, mod.scale),
+                              xq.shape[:-1], x.dtype)
+    elif isinstance(mod, Q4Dense):
+        y = all_reduce(int4_matmul(x, Int4Linear(mod.kernel_q4, mod.scale),
+                                   torch.float32), tp.group).to(x.dtype)
+    else:
+        y = all_reduce(F.linear(x, mod.weight), tp.group)
+    return y if mod.bias is None else y + mod.bias.to(y.dtype)
+
+
+def _no_tp_lora(tp, lora):
+    if tp is not None and lora:
+        raise NotImplementedError("LoRA adapters on a tensor-parallel "
+                                  "decoder are not ported")
+
+
 def project(mod: nn.Module, x, lora=None):
     """One projection with an optional adapter: the runtime branch for
     QDense / Q4Dense, the fold-in W + (a @ b)^T for a dense nn.Linear."""
@@ -302,11 +350,15 @@ class _MLP(nn.Module):
         self.gate_proj = nn.Linear(dim, ffn_dim, bias=False)
         self.up_proj = nn.Linear(dim, ffn_dim, bias=False)
         self.down_proj = nn.Linear(ffn_dim, dim, bias=False)
+        self.tp: TensorParallel | None = None
 
     def forward(self, h, lora=None):
+        _no_tp_lora(self.tp, lora)
         lora = lora or {}
         gate = project(self.gate_proj, h, lora.get("gate_proj"))
         up = project(self.up_proj, h, lora.get("up_proj"))
+        if self.tp is not None:
+            return row_parallel(self.down_proj, self.act(gate) * up, self.tp)
         return project(self.down_proj, self.act(gate) * up, lora.get("down_proj"))
 
 
@@ -339,6 +391,8 @@ class MoEFFN(nn.Module):
         if cfg.shared_expert_dim:
             self.shared_expert = _MLP(d, cfg.shared_expert_dim)
             self.shared_expert_gate = nn.Linear(d, 1, bias=False)
+        # expert parallelism: this rank's experts are the stacks' rows
+        self.tp: TensorParallel | None = None
         self._register_state_dict_hook(MoEFFN._per_expert_names)
         self._register_load_state_dict_pre_hook(MoEFFN._stack_experts)
 
@@ -372,12 +426,16 @@ class MoEFFN(nn.Module):
         if self.renorm:
             topv = topv / topv.sum(-1, keepdim=True)
         w = torch.zeros_like(probs).scatter(-1, topi, topv)  # [B, S, E]
+        if self.tp is not None:
+            w = w[..., self.tp.rank * e:(self.tp.rank + 1) * e]
         x = h.reshape(b * s, d)
         g = F.linear(x, self.experts_gate.reshape(e * f, d)).reshape(b * s, e, f)
         u = F.linear(x, self.experts_up.reshape(e * f, d)).reshape(b * s, e, f)
         a = (F.silu(g) * u).transpose(0, 1)                     # [E, BS, f]
         y = torch.bmm(a, self.experts_down.transpose(1, 2))     # [E, BS, d]
         out = (y * w.reshape(b * s, e).t()[..., None].to(y.dtype)).sum(0)
+        if self.tp is not None:
+            out = all_reduce(out, self.tp.group)
         out = out.reshape(b, s, d)
         if hasattr(self, "shared_expert"):
             out = out + (torch.sigmoid(self.shared_expert_gate(h))
@@ -418,6 +476,8 @@ class LlamaBlock(nn.Module):
                          else "mlp")
         setattr(self, self.ffn_name, MoEFFN(cfg) if cfg.num_experts
                 else _MLP(cfg.dim, cfg.ffn_dim, cfg.act))
+        # the group of a sharded attention (then cfg holds local heads)
+        self.tp_attn: TensorParallel | None = None
 
     def forward(self, x, cache_k, cache_v, start_pos, lora=None,
                 cache_ks=None, cache_vs=None):
@@ -436,6 +496,7 @@ class LlamaBlock(nn.Module):
         hd, kvh = cfg.head_dim, cfg.kv_heads
         rep = cfg.heads // kvh
         a = self.self_attn
+        _no_tp_lora(self.tp_attn, lora)
         lora = lora or {}
         prefill = s > 1 and isinstance(start_pos, int) and start_pos == 0
         if cache_k is None and not prefill:
@@ -503,8 +564,9 @@ class LlamaBlock(nn.Module):
                 k_eff, v_eff = cache_k, cache_v
             o = _grouped_attention(q, k_eff, v_eff, positions,
                                    cfg.sliding_window).to(x.dtype)
-        x = x + project(a.o_proj, o.reshape(b, s, cfg.heads * hd),
-                        lora.get("o_proj"))
+        o = o.reshape(b, s, cfg.heads * hd)
+        x = x + (project(a.o_proj, o, lora.get("o_proj")) if self.tp_attn is None
+                 else row_parallel(a.o_proj, o, self.tp_attn))
         ffn = getattr(self, self.ffn_name)
         return x + ffn(self.post_attention_layernorm(x), lora)
 
@@ -524,6 +586,17 @@ class LlamaModel(nn.Module):
         self.model = _Decoder(cfg)
         self.lm_head = (None if cfg.tie_lm_head
                         else nn.Linear(cfg.dim, cfg.vocab_size, bias=False))
+        # tensor parallelism (parallel/llama_sharding.py): the model's group,
+        # and the group of the vocab-sharded embedding and lm_head
+        self.tp: TensorParallel | None = None
+        self.tp_vocab: TensorParallel | None = None
+
+    @property
+    def cache_cfg(self) -> LlamaConfig:
+        """The config a KV cache of this rank is sized by: the blocks'
+        (local kv heads on a sharded attention)."""
+        layers = self.model.layers
+        return layers[0].cfg if len(layers) else self.cfg
 
     @property
     def dtype(self) -> torch.dtype:
@@ -534,7 +607,18 @@ class LlamaModel(nn.Module):
         """Token embeddings in the compute dtype; Gemma's scale by sqrt(dim)
         is taken in fp32 and rounded to that dtype first (JAX llama.py:
         497-501: in bf16, sqrt(3072) = 55.43 becomes 55.5)."""
-        e = self.model.embed_tokens(tokens).to(self.dtype)
+        tp = self.tp_vocab
+        if tp is None:
+            e = self.model.embed_tokens(tokens)
+        else:
+            # the local rows of the table, the other ranks' tokens zero
+            w = self.model.embed_tokens.weight
+            local = tokens - tp.rank * w.shape[0]
+            ok = (local >= 0) & (local < w.shape[0])
+            e = F.embedding(local.clamp(0, w.shape[0] - 1), w)
+            e = all_reduce(torch.where(ok[..., None], e, torch.zeros_like(e)),
+                           tp.group)
+        e = e.to(self.dtype)
         if self.cfg.scale_embeds:
             e = e * torch.sqrt(torch.tensor(float(self.cfg.dim))).to(e.dtype)
         return e
@@ -569,8 +653,12 @@ class LlamaModel(nn.Module):
             # tied: x @ embedding^T in the wider of the two dtypes (JAX attend)
             w = self.model.embed_tokens.weight
             dt = torch.promote_types(x.dtype, w.dtype)
-            return F.linear(x.to(dt), w.to(dt)).float(), cache
-        return self.lm_head(x).float(), cache
+            logits = F.linear(x.to(dt), w.to(dt)).float()
+        else:
+            logits = self.lm_head(x).float()
+        if self.tp_vocab is not None:
+            logits = all_gather(logits, self.tp_vocab.group, dim=-1)
+        return logits, cache
 
 
 def _layer_lora(lora: dict | None, i: int) -> dict | None:
@@ -604,9 +692,19 @@ def quantize_llama_(model: LlamaModel, mode: str = "int8", group: int = 128,
             "weight-only quantization does not cover MoE expert stacks (as "
             "in JAX): quantizing only the attention projections would leave "
             "most of the weights wide; load MoE families unquantized")
+    quantize_linears_(model, mode, group)
+    emb = model.model.embed_tokens
+    emb.weight = nn.Parameter(emb.weight.to(embed_dtype), requires_grad=False)
+    return model
+
+
+@torch.no_grad()
+def quantize_linears_(root: nn.Module, mode: str, group: int = 128) -> nn.Module:
+    """quantize_llama_'s module swap under `root` (a whole decoder or one
+    of its children), without the embedding's narrowing."""
     # (parent, name) pairs only: holding the Linear modules themselves would
     # keep every dense weight alive to the end
-    targets = [(parent, name) for parent in model.modules()
+    targets = [(parent, name) for parent in root.modules()
                for name, child in parent.named_children()
                if name in _QUANT_MODULES and isinstance(child, nn.Linear)]
     for parent, name in targets:
@@ -618,6 +716,4 @@ def quantize_llama_(model: LlamaModel, mode: str = "int8", group: int = 128,
                 Q4Dense(quantize_weight_int4(kernel, group), bias) if mode == "int4"
                 else QDense(quantize_weight(kernel), bias))
         del kernel
-    emb = model.model.embed_tokens
-    emb.weight = nn.Parameter(emb.weight.to(embed_dtype), requires_grad=False)
-    return model
+    return root

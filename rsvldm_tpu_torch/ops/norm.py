@@ -10,7 +10,12 @@ Tile-collective mode (the tiled VAE, models/vae/tiled.py): inside
 `tile_collective_gn()`, GroupNorm32's mean and variance also pool over the
 leading tile axis, in fp32 and in two passes, as JAX's reduction over
 (tile, H, W, channels of the group) does, so that every tile is normalised
-with the statistics of all of them, halos and overlaps included.
+with the statistics of all of them, halos and overlaps included. With a
+process group (`tile_collective_gn(group)`, the tiles split over the ranks
+of a mesh's 'tile' axis) each rank takes its local statistics and they are
+all-reduced as JAX's pmean does across the axis: mean_g = pmean(mean),
+var = pmean(var + mean^2) - mean_g^2, exact for equal tile counts per rank
+(parallel/mesh.shard_tiled_gn_apply splits them so).
 """
 
 from __future__ import annotations
@@ -23,15 +28,16 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-# per thread / task, so a tiled call does not switch another caller's norms
+# per thread / task, so a tiled call does not switch another caller's norms;
+# False, True (one process) or the process group the tiles are split over
 _TILE_COLLECTIVE = contextvars.ContextVar("tile_collective_gn", default=False)
 
 
 @contextlib.contextmanager
-def tile_collective_gn():
+def tile_collective_gn(group=None):
     """Within it, every GroupNorm32 pools its statistics over the leading
-    (tile) axis as well."""
-    token = _TILE_COLLECTIVE.set(True)
+    (tile) axis as well, and over the ranks of `group` when given."""
+    token = _TILE_COLLECTIVE.set(True if group is None else group)
     try:
         yield
     finally:
@@ -51,8 +57,11 @@ class GroupNorm32(nn.Module):
 
     def forward_fp32(self, x):
         """The normalised x in fp32 (flax nn.GroupNorm(dtype=float32))."""
-        if _TILE_COLLECTIVE.get():
+        mode = _TILE_COLLECTIVE.get()
+        if mode is True:
             return self._collective_fp32(x)
+        if mode is not False:
+            return self._group_fp32(x, mode)
         return F.group_norm(x.float(), self.num_groups, self.weight.float(),
                             self.bias.float(), self.eps)
 
@@ -68,6 +77,26 @@ class GroupNorm32(nn.Module):
         del xg
         var = d.square().mean(dim=dims, keepdim=True)
         y = d.mul_(torch.rsqrt(var + self.eps)).reshape(x.shape)
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        return y.mul_(self.weight.float().reshape(shape)).add_(
+            self.bias.float().reshape(shape))
+
+    def _group_fp32(self, x, group):
+        """`_collective_fp32` with the tiles split over the ranks of
+        `group`: local two-pass statistics, then JAX's pmean formula (one
+        all-reduce of both moments, divided by the rank count)."""
+        import torch.distributed as dist
+
+        from ..parallel.distributed import all_reduce
+        n, c = x.shape[:2]
+        xg = x.float().reshape(n, self.num_groups, c // self.num_groups, -1)
+        dims = (0, 2, 3)
+        mean = xg.mean(dim=dims, keepdim=True)
+        var = (xg - mean).square().mean(dim=dims, keepdim=True)
+        stats = all_reduce(torch.stack([mean, var + mean.square()]), group)
+        stats = stats / dist.get_world_size(group)
+        mean_g, var = stats[0], stats[1] - stats[0].square()
+        y = (xg - mean_g).mul_(torch.rsqrt(var + self.eps)).reshape(x.shape)
         shape = (1, c) + (1,) * (x.dim() - 2)
         return y.mul_(self.weight.float().reshape(shape)).add_(
             self.bias.float().reshape(shape))

@@ -78,27 +78,47 @@ def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
     return QuantizedLinear(q, scale.reshape(-1))
 
 
-def quantize_acts(x: torch.Tensor):
+def act_absmax(x: torch.Tensor) -> torch.Tensor:
+    """Per-token absmax of x's last axis, fp32 with a trailing 1."""
+    return x.float().abs().amax(dim=-1, keepdim=True)
+
+
+def quantize_acts(x: torch.Tensor, absmax: torch.Tensor | None = None):
     """Per-token (last axis) symmetric absmax int8 -> (xq int8, xs fp32
-    with a trailing 1)."""
+    with a trailing 1). `absmax` replaces x's own (`act_absmax`): a
+    row-parallel shard quantizes its slice of the input with the absmax of
+    the whole row, all-reduced over its group."""
     xf = x.float()
-    s = _div(xf.abs().amax(dim=-1, keepdim=True), 127.0).clamp_min(1e-12)
+    if absmax is None:
+        absmax = act_absmax(x)
+    s = _div(absmax, 127.0).clamp_min(1e-12)
     return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
+
+
+def int8_acc(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product [R, out] of int8 codes [..., in] and
+    weights [in, out]. CUDA's int8 GEMM wants more than 16 rows, so short
+    inputs are padded."""
+    a = xq.reshape(-1, xq.shape[-1])
+    r = a.shape[0]
+    if a.is_cuda and r <= 16:
+        a = F.pad(a, (0, 0, 0, 17 - r))
+    return torch._int_mm(a, q)[:r]
+
+
+def int8_apply_scales(acc: torch.Tensor, xs: torch.Tensor,
+                      w: QuantizedLinear, lead, out_dtype) -> torch.Tensor:
+    """Both scales on the int32 accumulator, in fp32, then the cast."""
+    y = acc.float() * xs.reshape(acc.shape[0], 1) * w.scale
+    return y.reshape(*lead, -1).to(out_dtype)
 
 
 def int8_matmul(x: torch.Tensor, w: QuantizedLinear,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
-    """y = x @ dequant(w): exact int32 product, scales on the accumulator.
-    CUDA's int8 GEMM wants more than 16 rows, so short inputs are padded."""
+    """y = x @ dequant(w): exact int32 product, scales on the accumulator."""
     xq, xs = quantize_acts(x)
-    lead, inf = xq.shape[:-1], xq.shape[-1]
-    a = xq.reshape(-1, inf)
-    r = a.shape[0]
-    if a.is_cuda and r <= 16:
-        a = F.pad(a, (0, 0, 0, 17 - r))
-    acc = torch._int_mm(a, w.q)[:r]
-    y = acc.float() * xs.reshape(r, 1) * w.scale
-    return y.reshape(*lead, -1).to(out_dtype)
+    return int8_apply_scales(int8_acc(xq, w.q), xs, w, xq.shape[:-1],
+                             out_dtype)
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,16 @@ the JAX stream. Draws, in the JAX layout: "stage1" [T+1, 1, H, W, 3]
 w, 4]; a batched Stage 1 draws one "stage1" [rows, N, H, W, 3] per group,
 a batched refinement each of the others with N images.
 
+A mesh (`mesh=`, parallel/mesh.py; JAX pipeline.py:87, 308, 339-398,
+620-680, 712-750): one process per device, every rank running the same
+program. The captioner's decoder is tensor-parallel over the mesh's 'data'
+group, the tiled VAE splits its tiles over the 'tile' group, and
+`run_stage1_batch(mesh=)` gives each rank a contiguous share of a group's
+rows (the "stage1" draw is made for the whole group and sliced, so a row's
+noise does not depend on the mesh), the outputs gathered in input order.
+Everything else runs on every rank alike; files are written by the mesh's
+first rank only.
+
 The tiled VAE (cfg.refine.use_tile_vae, JAX pipeline.py:607-678): when the
 image's shorter side exceeds encoder_tile_size, the VAE preparation and the
 final decode run over tiles (models/vae/tiled.py): the twin encoder and the
@@ -92,6 +102,7 @@ from .models.vae.model import SDXL_VAE_CONFIG, AutoencoderKL, DiagonalGaussian
 from .ops import colorfix
 from .ops.image import (array_to_pil, load_lr_conditioning, pil_to_array,
                         round_to_multiple, to_uint8)
+from .parallel.mesh import mesh_group, mesh_index, mesh_size
 from .utils.checkpoint import (load_checked, load_torch_state_dict, overlay,
                                strip_prefix)
 from .utils.tokenizer import CLIPTokenizer
@@ -179,13 +190,17 @@ class SuperResolutionPipeline:
                  state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                  noise: Optional[NoiseSource] = None,
                  captioner: Optional[LlavaCaptioner] = None,
-                 llava_load_kw: Optional[dict] = None):
+                 llava_load_kw: Optional[dict] = None, mesh=None):
         if cfg.stage1.sampler not in ("ddpm", "ddim"):
             raise ValueError(f"Stage1Config.sampler={cfg.stage1.sampler!r}: "
                              "expected 'ddpm' or 'ddim'")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = compute_dtype(self.device, cfg.params_dtype)
+        # TP-shards the captioner, splits tiled-VAE tiles and folder batches;
+        # the mesh's first rank writes the files
+        self.mesh = mesh
+        self.writer = mesh is None or mesh_index(mesh) == 0
         self.noise = noise or TorchNoise(cfg.seed, self.device)
         self.state_dicts = state_dicts or {}
         # overrides of LlavaCaptioner.load's keywords (llama_cfg,
@@ -306,7 +321,7 @@ class SuperResolutionPipeline:
               "dtype": self.dtype, "lora_npz": llava.lora_npz or None,
               "projector_npz": llava.projector_npz or None,
               "draft_dir": llava.draft_dir or None, "spec_k": llava.spec_k,
-              "self_draft_layers": llava.self_draft_layers,
+              "self_draft_layers": llava.self_draft_layers, "mesh": self.mesh,
               **self.llava_load_kw}
         try:
             self.llava = LlavaCaptioner.load(self.cfg.ckpt_dir, **kw)
@@ -331,14 +346,20 @@ class SuperResolutionPipeline:
         self.timings[name] = time.perf_counter() - t0
 
     # ------------------------------------------------------------ stage 1
-    def _stage1(self, conds: np.ndarray) -> list:
+    def _stage1(self, conds: np.ndarray, rows_of: slice | None = None) -> list:
         """conds [N, H, W, 3] -> N uint8 HWC images: one SR3 ancestral or
-        DDIM loop over the batch, kept per shape in `loop_graphs`."""
+        DDIM loop over the batch, kept per shape in `loop_graphs`. rows_of:
+        only those rows of the batch, their noise sliced from the draw of
+        all N."""
         cond = torch.from_numpy(conds)
         s1, T = self.cfg.stage1, self.sr3_diff.buffers.num_timesteps
         rows = (len(ddim_timesteps(T, s1.ddim_steps)) if s1.sampler == "ddim"
                 else T) + 1
         noise = self.noise("stage1", (rows, *cond.shape))
+        if rows_of is not None:
+            cond, noise = cond[rows_of], noise[:, rows_of]
+            if cond.shape[0] == 0:
+                return []
         stats: dict = {}
         kw = dict(stats=stats, graph_cache=self.loop_graphs)
         if s1.sampler == "ddim":
@@ -359,12 +380,14 @@ class SuperResolutionPipeline:
                                                  self.cfg.upscale)[None])[0]
 
     @torch.inference_mode()
-    def run_stage1_batch(self, image_paths) -> list:
-        """Folder Stage 1 (JAX run_stage1_batch, pipeline.py:339-398, on
-        one card): the images grouped by conditioning shape, in order of
-        first appearance, each group one batched loop and one "stage1"
-        draw. `stage1_groups` records each group's size, shape, seconds
-        and capture seconds. Returns uint8 HWC images in input order."""
+    def run_stage1_batch(self, image_paths, mesh=None) -> list:
+        """Folder Stage 1 (JAX run_stage1_batch, pipeline.py:339-398): the
+        images grouped by conditioning shape, in order of first appearance,
+        each group one batched loop and one "stage1" draw. With a mesh each
+        rank runs its contiguous share of a group's rows (`_mesh_rows`) and
+        the images are gathered on every rank. `stage1_groups` records each
+        group's size, shape, seconds and capture seconds. Returns uint8 HWC
+        images in input order."""
         conds = [load_lr_conditioning(str(p), self.cfg.upscale)
                  for p in image_paths]
         groups: dict = {}
@@ -375,12 +398,17 @@ class SuperResolutionPipeline:
         for shape, idxs in groups.items():
             self._sync()
             t0 = time.perf_counter()
-            for i, out in zip(idxs, self._stage1(np.stack([conds[i]
-                                                           for i in idxs]))):
+            batch = np.stack([conds[i] for i in idxs])
+            if mesh is None:
+                outs = self._stage1(batch)
+            else:
+                outs = _gather_rows(mesh, self._stage1(
+                    batch, _mesh_rows(mesh, len(idxs))))
+            for i, out in zip(idxs, outs):
                 results[i] = out
             self.stage1_groups.append(dict(
                 n=len(idxs), shape=list(shape), seconds=time.perf_counter() - t0,
-                capture_s=self.capture_s["stage1"]))
+                capture_s=self.capture_s.get("stage1", 0.0)))
         return results
 
     # ----------------------------------------------------------- stage 2a
@@ -463,11 +491,13 @@ class SuperResolutionPipeline:
             return z_lq, x_stage1, vae.encode(x_stage1,
                                               noise=_nchw(eps.to(self.device)))
         z_lq = tiled.tiled_encode(vae.encode_with_denoise, x,
-                                  tile=r.encoder_tile_size)
-        x_stage1 = tiled.tiled_decode(vae.decode, z_lq, tile=r.decoder_tile_size)
+                                  tile=r.encoder_tile_size, mesh=self.mesh)
+        x_stage1 = tiled.tiled_decode(vae.decode, z_lq, tile=r.decoder_tile_size,
+                                      mesh=self.mesh)
         # the moments tiled, the posterior sampled once on the stitched ones
         moments = tiled.tiled_encode(lambda t: vae.quant_conv(vae.encoder(t)),
-                                     x_stage1, tile=r.encoder_tile_size)
+                                     x_stage1, tile=r.encoder_tile_size,
+                                     mesh=self.mesh)
         eps = self.noise("vae_sample", tuple(_nhwc(z_lq).shape))
         post = DiagonalGaussian(moments.float())
         z_stage1 = vae.cfg.scale_factor * post.sample(_nchw(eps.to(self.device)))
@@ -477,7 +507,8 @@ class SuperResolutionPipeline:
         """The final decode, tiled when `_use_tiles` at 8x z's extent."""
         if self._use_tiles((8 * z.shape[2], 8 * z.shape[3])):
             return tiled.tiled_decode(self.vae.decode, z,
-                                      tile=self.cfg.refine.decoder_tile_size)
+                                      tile=self.cfg.refine.decoder_tile_size,
+                                      mesh=self.mesh)
         return self.vae.decode(z)
 
     def _refine_core(self, x: torch.Tensor, texts_c):
@@ -596,7 +627,8 @@ class SuperResolutionPipeline:
         with self._timed("stage1"):
             sr_np = self.run_stage1(str(path))
         sr_pil = Image.fromarray(sr_np)
-        sr_pil.save(out_dir / f"sr3_{path.stem}.png")
+        if self.writer:
+            sr_pil.save(out_dir / f"sr3_{path.stem}.png")
         if self.cfg.stage1_only:
             return sr_pil
         caption = self.run_caption(sr_pil)
@@ -605,8 +637,27 @@ class SuperResolutionPipeline:
         self.timings["stage2b"] = time.perf_counter() - t0
         finals = final if isinstance(final, list) else [final]
         for i, f in enumerate(finals):
-            f.save(out_dir / f"{path.stem}_final_{i}.png")
+            if self.writer:
+                f.save(out_dir / f"{path.stem}_final_{i}.png")
         return finals[0]
+
+
+def _mesh_rows(mesh, n: int) -> slice:
+    """This rank's contiguous share of n rows over the mesh's ranks in
+    (data, tile) order: even shares, the first n % size ranks one more."""
+    size, i = mesh_size(mesh), mesh_index(mesh)
+    per, extra = divmod(n, size)
+    start = i * per + min(i, extra)
+    return slice(start, start + per + (i < extra))
+
+
+def _gather_rows(mesh, outs: list) -> list:
+    """Every rank's host arrays concatenated in rank order, on every rank."""
+    import torch.distributed as dist
+    group = mesh_group(mesh)
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, outs, group=group)
+    return [o for part in every for o in part]
 
 
 IMAGE_EXTS = {".png", ".jpg", ".jpeg", ".tif", ".tiff", ".bmp"}
@@ -622,27 +673,45 @@ class ImageBatchProcessor:
 
     A batched stage that raises falls back to image-by-image work, as in
     JAX; each fallback taken is recorded in `fallbacks` as (stage, error).
+    Under a mesh of more than one rank a failure raises instead, as does
+    one image's: a rank that fell back or skipped an image alone would
+    leave the others waiting in a collective the ranks no longer share.
     `statuses` has each image's "ok", "stage1" (stage1_only) or "error:
     ...". `timings` has the seconds of each stage and of the whole run;
     `stage1_groups`, `caption_batches` and `refine_chunks` the figures of
     each batched call (sizes, seconds, capture seconds, DFB trace)."""
 
     def __init__(self, cfg: PipelineConfig, device: str | torch.device | None = None,
-                 caption_batch: int = 8, refine_batch: int = 4, **pipe_kw):
+                 caption_batch: int = 8, refine_batch: int = 4, mesh=None,
+                 **pipe_kw):
         self.cfg = cfg
+        self.mesh = mesh  # shards batched Stage 1 over the mesh's ranks
         self.caption_batch = max(int(caption_batch), 1)
         self.refine_batch = max(int(refine_batch), 1)
-        self.pipe = SuperResolutionPipeline(cfg, device=device, **pipe_kw)
+        self.pipe = SuperResolutionPipeline(cfg, device=device, mesh=mesh,
+                                            **pipe_kw)
         self.fallbacks: list = []
         self.statuses: dict = {}
         self.timings: Dict[str, float] = {}
         self.caption_batches: list = []
         self.refine_chunks: list = []
 
+    def _sharded(self) -> bool:
+        return self.mesh is not None and mesh_size(self.mesh) > 1
+
     def _fallback(self, stage: str, e: Exception):
+        if self._sharded():
+            raise e
         log.exception("batched %s failed (%s); falling back to per-image",
                       stage, e)
         self.fallbacks.append((stage, f"{type(e).__name__}: {e}"))
+
+    def _failed(self, p: Path, e: Exception):
+        """One image's failure: recorded, the others spared (class doc)."""
+        if self._sharded():
+            raise e
+        log.exception("failed on %s: %s", p, e)
+        self.statuses[p] = f"error: {e}"
 
     def _now(self) -> float:
         self.pipe._sync()
@@ -665,7 +734,8 @@ class ImageBatchProcessor:
         stage1_out: dict = {}
         if len(images) > 1:
             try:
-                stage1_out = dict(zip(images, pipe.run_stage1_batch(images)))
+                stage1_out = dict(zip(images, pipe.run_stage1_batch(
+                    images, mesh=self.mesh)))
             except Exception as e:
                 self._fallback("stage1", e)
         self.timings["stage1"] = self._now() - t0
@@ -701,7 +771,8 @@ class ImageBatchProcessor:
                 if sr_np is None:
                     sr_np = pipe.run_stage1(str(p))
                 sr_pil = Image.fromarray(sr_np)
-                sr_pil.save(sr3_dir / f"sr3_{p.stem}.png")
+                if pipe.writer:
+                    sr_pil.save(sr3_dir / f"sr3_{p.stem}.png")
                 if cfg.stage1_only:
                     self.statuses[p] = "stage1"
                     continue
@@ -709,9 +780,8 @@ class ImageBatchProcessor:
                 if caption is None:
                     caption = pipe.run_caption(sr_pil)
                 ready.append((p, sr_pil, caption))
-            except Exception as e:  # one image's failure spares the others
-                log.exception("failed on %s: %s", p, e)
-                self.statuses[p] = f"error: {e}"
+            except Exception as e:
+                self._failed(p, e)
         self.timings["per_image"] = self._now() - t0
 
         t0 = self._now()
@@ -723,7 +793,8 @@ class ImageBatchProcessor:
         def save_finals(p, final):
             finals = final if isinstance(final, list) else [final]
             for i, f in enumerate(finals):
-                f.save(final_dir / f"{p.stem}_final_{i}.png")
+                if pipe.writer:
+                    f.save(final_dir / f"{p.stem}_final_{i}.png")
 
         for key, members in groups.items():
             for i in range(0, len(members), self.refine_batch):
@@ -742,8 +813,7 @@ class ImageBatchProcessor:
                             save_finals(p, pipe.run_refinement(s, c))
                             self.statuses[p] = "ok"
                         except Exception as e2:
-                            log.exception("failed on %s: %s", p, e2)
-                            self.statuses[p] = f"error: {e2}"
+                            self._failed(p, e2)
                 dfb = pipe.last_dfb or {}
                 self.refine_chunks.append(dict(
                     n=len(chunk), shape=list(key),

@@ -15,6 +15,11 @@ The UNet is the pipeline's SR3 (64 channels, x(1, 2, 4, 8, 8)) at
 in the JAX CLI, the loss draws come from a generator seeded --seed + 1 at
 the start of each run and the loader restarts at its first epoch. It runs
 on CUDA unless given --device cpu, and raises without a card.
+
+On N ranks (one process per card; RSVLDM_COORDINATOR=host:port
+RSVLDM_NUM_PROCESSES=N RSVLDM_PROCESS_ID=i, parallel/distributed.py) the
+step is data-parallel over a mesh of them all: --batch_size is the global
+batch, each rank loads only its rows of it, and the first rank saves.
 """
 
 from __future__ import annotations
@@ -62,14 +67,16 @@ def model_config(args) -> SR3UNetConfig:
     return dataclasses.replace(cfg, **TINY_SR3) if args.debug_tiny else cfg
 
 
-def build_trainer(args, state_dict=None) -> SR3Trainer:
+def build_trainer(args, state_dict=None, mesh=None) -> SR3Trainer:
     """The trainer of `args`, resumed from --resume_iter when set.
-    `state_dict` gives the starting UNet (a test feeds JAX's init)."""
+    `state_dict` gives the starting UNet (a test feeds JAX's init); `mesh`
+    makes the step data-parallel."""
     device = resolve_device(args.device)
     trainer = SR3Trainer(model_config(args),
                          SR3TrainConfig(lr=args.lr),
                          device=device, state_dict=state_dict,
-                         generator=torch.Generator(device).manual_seed(args.seed))
+                         generator=torch.Generator(device).manual_seed(args.seed),
+                         mesh=mesh)
     if args.resume_iter:
         trainer.load(args.save_dir, args.resume_iter)
     return trainer
@@ -80,10 +87,13 @@ def run(args, trainer: SR3Trainer, draws=None, on_step=None) -> SR3Trainer:
     generator's draws of step i (a test feeds JAX's)."""
     from .data.datasets import LRHRDataset
     from .data.prefetch import make_loader
+    from .parallel.distributed import local_batch_range
     ds = LRHRDataset(args.data_root, args.l_res, args.r_res, split="train")
+    rows = (local_batch_range(args.batch_size) if trainer.mesh is not None
+            else None)
     it = make_loader(ds, args.batch_size, num_workers=args.num_workers,
                      prefetch=args.prefetch, device=trainer.device,
-                     seed=args.seed)
+                     seed=args.seed, rows=rows)
     try:
         gen = torch.Generator(trainer.device).manual_seed(args.seed + 1)
         trainer.fit(it, args.steps - trainer.step, gen,
@@ -96,9 +106,13 @@ def run(args, trainer: SR3Trainer, draws=None, on_step=None) -> SR3Trainer:
 
 
 def main(argv=None):
+    from .parallel.distributed import init_distributed, world
+    from .parallel.mesh import make_mesh
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    run(args, build_trainer(args))
+    init_distributed()
+    mesh = make_mesh(tile=1) if world()[1] > 1 else None
+    run(args, build_trainer(args, mesh=mesh))
 
 
 if __name__ == "__main__":

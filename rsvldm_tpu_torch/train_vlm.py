@@ -473,8 +473,10 @@ def train(args, cap, *, encode, preprocess_kw=None,
 
 
 def main(argv=None):
+    from .parallel.distributed import init_distributed
     args = parse_args(argv)
     tune = check_args(args)
+    init_distributed()  # joins the RSVLDM_* rendezvous when it is set
     from .models.vlm.captioner import LlavaCaptioner
     device = resolve_device(args.device)
     dtype = compute_dtype(device)

@@ -11,6 +11,15 @@ Checkpoints are the reference's save_network files: <dir>/I{step}_gen.pth,
 the UNet's state_dict under the reference names (what the pipeline's SR3
 loader reads), and I{step}_opt.pth with the iteration, the optimizer, the
 EMA parameters and the EMA's step. JAX's orbax checkpoints are not read.
+
+Data parallelism (`mesh=`, JAX sr3_trainer.py:47-93): the state is
+broadcast from the mesh's first rank; each rank takes its rows of the
+global batch (local_batch_range), draws the loss's t, u and noise for the
+whole global batch with the shared generator and keeps its rows, so a row
+gets the draws it would get in one process; the gradients are averaged
+over the mesh (one all-reduce of them all) before Adam, so the parameters
+and the EMA stay equal on every rank; the loss returned is the global
+batch's. The mesh's first rank writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -21,7 +30,7 @@ from typing import Callable, Iterator, Optional
 
 import torch
 
-from ..models.sr3.diffusion import SR3Diffusion, sr3_loss
+from ..models.sr3.diffusion import SR3Diffusion, sr3_draws, sr3_loss
 from ..models.sr3.unet import SR3UNet, SR3UNetConfig
 from ..utils.weights import init_params_
 from .ema import EmaState, ema_init, ema_update
@@ -47,8 +56,9 @@ class SR3Trainer:
     def __init__(self, model_cfg: SR3UNetConfig, train_cfg: SR3TrainConfig,
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None,
-                 state_dict: dict | None = None):
+                 state_dict: dict | None = None, mesh=None):
         self.model_cfg = model_cfg
+        self.mesh = mesh
         self.cfg = train_cfg
         self.device = torch.device(device)
         self.model = SR3UNet(model_cfg).to(self.device)
@@ -57,6 +67,10 @@ class SR3Trainer:
         else:
             init_params_(self.model, generator if generator is not None else
                          torch.Generator(self.device).manual_seed(0))
+        if mesh is not None:
+            from ..parallel.mesh import mesh_group, replicate_state
+            replicate_state(mesh, self.model)
+            self.group = mesh_group(mesh)
         self.diff = SR3Diffusion.from_schedule(
             train_cfg.schedule, train_cfg.n_timestep, train_cfg.linear_start,
             train_cfg.linear_end)
@@ -69,17 +83,44 @@ class SR3Trainer:
                    generator: torch.Generator | None = None) -> float:
         """hr / sr: [N, H, W, 3] in [-1, 1] (the HR target and the bicubic
         upsampled LR). t, u, noise: sr3_loss's draws, else from
-        `generator`."""
+        `generator`. With a mesh, hr / sr are this rank's rows and t, u,
+        noise (given or drawn) the whole global batch's."""
         as_dev = lambda x: torch.as_tensor(x).to(self.device, torch.float32)
-        loss = sr3_loss(self.diff, self.model, as_dev(hr), as_dev(sr), t, u,
+        hr, sr = as_dev(hr), as_dev(sr)
+        if self.mesh is not None:
+            return self._dp_step(hr, sr, t, u, noise, generator)
+        loss = sr3_loss(self.diff, self.model, hr, sr, t, u,
                         noise, generator, self.cfg.loss_type)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        self._update()
+        return float(loss.detach())
+
+    def _dp_step(self, hr, sr, t, u, noise, generator) -> float:
+        from ..parallel.distributed import all_reduce
+        from ..parallel.mesh import batch_sharding, mesh_size
+        n = mesh_size(self.mesh)
+        shape = (hr.shape[0] * n, *hr.shape[1:])
+        if t is None or u is None or noise is None:
+            t, u, noise = sr3_draws(self.diff, shape, generator, self.device)
+        rows = batch_sharding(self.mesh, shape[0])
+        loss = sr3_loss(self.diff, self.model, hr, sr, t[rows], u[rows],
+                        noise[rows], None, self.cfg.loss_type)
+        self.opt.zero_grad(set_to_none=True)
+        loss.backward()
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in params]),
+                          self.group).div_(n)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad.copy_(g.view_as(p.grad))
+        self._update()
+        return float(all_reduce(loss.detach().clone(), self.group) / n)
+
+    def _update(self):
         self.opt.step()
         ema_update(self.ema, dict(self.model.named_parameters()),
                    self.cfg.ema_decay)
         self.step += 1
-        return float(loss.detach())
 
     def fit(self, data_iter: Iterator, steps: int,
             generator: torch.Generator | None = None, log_every: int = 100,
@@ -102,6 +143,10 @@ class SR3Trainer:
         return self
 
     def save(self, directory: str | Path):
+        if self.mesh is not None:
+            from ..parallel.mesh import mesh_index
+            if mesh_index(self.mesh):
+                return
         d = Path(directory)
         d.mkdir(parents=True, exist_ok=True)
         torch.save(self.model.state_dict(), d / f"I{self.step}_gen.pth")

@@ -561,10 +561,15 @@ def seeded_init_(module: nn.Module, family: str, device: torch.device) -> nn.Mod
     weights (GroupNorm, LayerNorm, RMSNorm) 1, conv/linear weights
     N(0, 1/fan_in), embeddings N(0, 0.02^2).
     The seed is crc32 of the family name."""
+    return init_params_(module, seeded_generator(family, device))
+
+
+def seeded_generator(family: str, device: torch.device) -> torch.Generator:
+    """seeded_init_'s generator for `family` (logs the smoke-mode warning)."""
     log.warning("checkpoint for %s not found: using seeded random init "
                 "(smoke mode, outputs are not meaningful)", family)
-    return init_params_(module, torch.Generator(device=device).manual_seed(
-        zlib.crc32(family.encode()) % (2 ** 31)))
+    return torch.Generator(device=device).manual_seed(
+        zlib.crc32(family.encode()) % (2 ** 31))
 
 
 @torch.no_grad()

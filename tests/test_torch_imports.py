@@ -63,7 +63,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "models.vlm.mpt", "models.vlm.siglip", "models.vlm.eva_vit",
                  "models.vlm.towers", "models.vlm.projector",
                  "models.vlm.resampler", "models.text.t5",
-                 "models.text.embedders"):
+                 "models.text.embedders", "parallel", "parallel.distributed",
+                 "parallel.mesh", "parallel.llama_sharding"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
@@ -120,6 +121,21 @@ def test_cuda_entry_points_raise_without_a_card():
                        (cli.main, ["--image-file", "i.png", "--ckpt_dir", "c"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(argv)
+    # the mesh entry points, each before it joins a process group or
+    # builds anything
+    from rsvldm_tpu_torch import infer_dir
+    from rsvldm_tpu_torch.pipeline import ImageBatchProcessor
+    for build in (lambda: LlavaCaptioner.seeded(**tiny, tokenizer=object(),
+                                                mesh=object()),
+                  lambda: SuperResolutionPipeline(PipelineConfig(no_llava=True),
+                                                  device="cuda", mesh=object()),
+                  lambda: ImageBatchProcessor(PipelineConfig(no_llava=True),
+                                              device="cuda", mesh=object()),
+                  lambda: infer_dir.main(["--image_dir", "d", "--mesh", "2"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    import torch.distributed as dist
+    assert not dist.is_initialized()
     # quality evaluation, the Brownian tree's default draws, the face
     # helper: each before it reads or draws anything
     from rsvldm_tpu_torch.diffusion.brownian import (BrownianTreeNoiseSampler,
