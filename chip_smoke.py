@@ -24,14 +24,22 @@ Phases, each printed on its own line:
                prefill (causal, [1, 1280, 16, 256]) and MLCD-bigG-448's
                attention ([5, 1025, 16, 104], padded to 128 by the
                wrapper), each also at 1.1x its softmax scale, which must
-               fail the limits; D=256 at its tiles' edges and with zero
+               fail the limits; K1 at the Gemma-7B QLoRA step's
+               forward ([4, 1536, 16, 256] causal, with lse; the same
+               fault); D=256 at its tiles' edges and with zero
                rows, padded D=72; K2 at the int4 Gemma-7B and Qwen2-7B
                decode shapes and their sums per step (196 / 197 launches);
                the tensor-parallel caption's (phase parallel): K1 at one
                rank's heads at TP=4 ([1, 1280, 8, 128] causal; TP=2's is
                the Qwen2-MoE case), K2 at one rank's six shard shapes of
                the TP=2 decode step (q, k / v, gate / up, the lm_head's
-               vocab shard; o and down with fp32 partials) and their sum
+               vocab shard; o and down with fp32 partials) and their sum;
+               the D=256 backward (flash_bwd_d256_kernel): Gemma-7B's
+               training shape ([4, 1536, 16, 256] causal) and
+               [2, 1024, 8, 256], timed beside cuDNN's SDPA backward and
+               each at 1.1x its softmax scale, which must fail the
+               limits, the edges of its 64-key tiles, zero rows; D=192,
+               padded to 256, forward and backward
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
                noise, PNGs within a stated uint8 tolerance; then a
@@ -49,7 +57,9 @@ Phases, each printed on its own line:
                policy-minus-reference delta, the loss against the DPO
                formula on the card's own sums, planted faults that must
                fail, and the adapter gradients); loss and per-leaf
-               gradient cosine. In this phase too, the loops' step functions
+               gradient cosine; and the QLoRA loss of a small Gemma
+               (GEMMA_SMALL: heads of 256, so the D=256 backward runs).
+               In this phase too, the loops' step functions
                (utils/graphs.StepRunner) replayed as CUDA graphs against
                direct calls on the same inputs: SR3 and DDIM (8 steps),
                RestoreEDM on a 64^2 latent (a mixed run, all misses, all
@@ -147,7 +157,11 @@ Phases, each printed on its own line:
                pad-recipe image records padded to 1024 (train_mm_*); each
                step's K1 / backward launches as the recipe implies, the
                base's bytes unchanged, the projector moved exactly when it
-               trains; then train_sr3: SR3 training (the path's UNet, batch
+               trains; then train_gemma: 3 QLoRA steps of the full-width,
+               full-depth Gemma-7B decoder (int8, seeded, LoRA r=16 on the
+               seven projections, remat) through VLMTrainer on 4 x 1536
+               text records: K1 56 and the D=256 backward 28 a step,
+               step seconds, tokens/s, peak; then train_sr3: SR3 training (the path's UNet, batch
                8 at 224^2, fp32) through the CLI's construction, saved and
                resumed, the resumed step equal to the uninterrupted one.
                Each path's kernel launch counts are reset just before it
@@ -227,8 +241,13 @@ Phases, each printed on its own line:
                teacher-forced on the unsharded ids, cosine >=
                PAR_COS_MIN; K1 / K2 as reckoned), Stage 1 at data=2, the
                tiled VAE at tile=2 and DP SR3 training, each against the
-               unsharded run (limits at PAR_*); prefill ms, tok/s, peak
-               GiB per rank. --parallel-only runs the build and this
+               unsharded run (limits at PAR_*), Stage 1 also against its
+               one-process witness at the ranks' batch of 2 (bit for bit),
+               the TP=2 caption again with a seeded LoRA archive (32
+               tokens, against one process with it) and 3 VLMTrainer
+               steps at data=2 on the int8 Llama-3-8B (2 x 1536 tokens a
+               rank, against one process on all 4 rows); prefill ms,
+               tok/s, peak GiB per rank. --parallel-only runs the build and this
                phase alone; --parallel-ranks 4 --parallel-backend nccl one
                NCCL rank a card on a 4-card machine
   6. profile   (--profile) one int4 decode step, one SR3 step, one
@@ -236,6 +255,7 @@ Phases, each printed on its own line:
                from a CUDA graph, a decode step at 8 rows (folder), and the
                last training step, under torch.profiler: device time by
                kernel, the bf16 -> fp32 copies' share, idle share
+Before the kernel report, a `timing` line gives each phase's seconds.
 The line before the last is the kernel report as one JSON object; the last
 line is {"ok": true, "device": {...}}, printed only when every phase passed.
 Exits non-zero, with no result, when there is no CUDA card or the port's
@@ -850,10 +870,11 @@ def _sdpa_args(q, k, v, causal):
 
 
 def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
-                    main_path=False):
+                    main_path=False, scale_fault=False):
     """The fused backward (through flash_attention_bwd) against
     flash_attention_bwd_ref in fp32 on the same bf16 inputs, with a real
-    K1 forward's out and lse."""
+    K1 forward's out and lse. scale_fault: the kernel run at 1.1x the
+    softmax scale must fail the same limits."""
     import torch
     from rsvldm_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
@@ -861,10 +882,20 @@ def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
                                dtype=torch.bfloat16)
     q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
     out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
-    n_launch = fa.flash_attention_bwd.launches
+    counts = lambda: (fa.flash_attention_bwd.launches,
+                      fa.flash_attention_bwd.launches_d256)
+    n_launch, n_d256 = counts()
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
-    launched = fa.flash_attention_bwd.launches == n_launch + 1
+    # one launch, of the D=256 kernel where the wrapper pads D to 256
+    launched = counts() == (n_launch + 1,
+                            n_d256 + (fa.padded_head_dim(d) == 256))
+    after = counts()
+
+    def restore():
+        # comparison launches not counted
+        (fa.flash_attention_bwd.launches,
+         fa.flash_attention_bwd.launches_d256) = after
     ref = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                      out.float(), lse, do.float(),
                                      causal=causal)
@@ -885,6 +916,20 @@ def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
     if causal and sq > sk:
         rec["zero_rows_exact"] = bool((got[0][:, :sq - sk] == 0).all())
         ok = ok and rec["zero_rows_exact"]
+    if scale_fault:
+        bad = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                     scale=1.1 / math.sqrt(d))
+        restore()
+        passed = True
+        for x, r in zip(bad, ref):
+            e = (x.float() - r).abs()
+            passed = (passed and bool((e <= K34_ATOL * rms(r)
+                                       + K34_RTOL * r.abs()).all())
+                      and rms(e) <= K34_RMS_TOL * max(rms(r), 1e-30))
+        rec["fault_rel_rms_err"] = max(
+            rms(x.float() - r) / max(rms(r), 1e-30) for x, r in zip(bad, ref))
+        rec["fault_rejected"] = not passed
+        ok = ok and rec["fault_rejected"]
     rec["max_abs_err"] = max(rec[g]["max_abs_err"] for g in ("dq", "dk", "dv"))
     # the kernel's work: five products (S, dP, dV, dK, dQ) over the valid
     # pairs; q, do, k, v read and dk, dv written once in bf16, lse*log2e
@@ -902,17 +947,21 @@ def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
         # outputs (its dq adds pile up across replays, which costs the same),
         # and the whole backward (prologue, kernel, cast to bf16); the
         # wrapper with its host cost by events
+        # (a padded D: the kernel on the wrapper's zero-padded inputs)
         scale = 1.0 / d ** 0.5
-        aux, dq_acc = fa._bwd_prep(out, do, lse)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        dp = fa.padded_head_dim(d)
+        pad = ((lambda x: x) if dp == d else
+               (lambda x: torch.nn.functional.pad(x, (0, dp - d))))
+        qp, kp, vp, dop, outp = (pad(x) for x in (q, k, v, do, out))
+        aux, dq_acc = fa._bwd_prep(outp, dop, lse)
+        dk, dv = torch.empty_like(kp), torch.empty_like(vp)
         rec["ms"] = _graph_ms(lambda: fa._bwd_kernel(
-            q, k, v, do, aux, dq_acc, dk, dv, causal, scale))
+            qp, kp, vp, dop, aux, dq_acc, dk, dv, causal, scale))
         call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
                                               causal=causal)
         rec["whole_ms"] = _graph_ms(call)
         rec["wrapper_ms"] = _time_ms(call, 10)
-        # comparison launches not counted
-        fa.flash_attention_bwd.launches = n_launch
+        restore()
         rec["plain_ms"] = _time_ms(lambda: fa.flash_attention_bwd_ref(
             q, k, v, out, lse, do, causal=causal), 3, warmup=1)
         rec["tflops"] = flops / (rec["ms"] * 1e-3) / 1e12
@@ -1202,12 +1251,20 @@ def phase_kernels():
         # is the Qwen2-MoE case above, TP=4's is this one
         _flash_case("llama_tp4_prefill_s1280_h8", 1, 1280, 1280, 8, 128,
                     causal=True, timed=True, main_path=True),
+        # the Gemma-7B QLoRA step's forward and recompute (phase
+        # train_gemma): 4 records of 1536 tokens, 16 heads of 256, with lse
+        _flash_case("gemma_train_s1536_d256", 4, 1536, 1536, 16, 256,
+                    causal=True, lse=True, timed=True, main_path=True,
+                    scale_fault=True),
         # D=256 at the edges of its tiles and with zero rows; padded D=72
         _flash_case("d256_ragged_tiles", 1, 1153, 1217, 3, 256, lse=True),
         _flash_case("d256_causal_sq_gt_sk", 1, 700, 300, 4, 256, causal=True,
                     lse=True),
         _flash_case("d72_causal_padded", 2, 300, 300, 3, 72, causal=True,
                     lse=True),
+        # D=192, padded to 256 by the wrapper (the backward's case below)
+        _flash_case("d192_causal_padded", 1, 1100, 1100, 4, 192, causal=True,
+                    lse=True, timed=True, scale_fault=True),
     ]
     int4_matmul.launches = 0
     k2 = phase_k2()
@@ -1232,9 +1289,35 @@ def phase_kernels():
         # head dims the wrapper pads to 128 / 64 (MLCD's 104, and 40)
         _flash_bwd_case("d104_padded", 1, 1025, 1025, 4, 104),
         _flash_bwd_case("d40_causal_padded", 1, 300, 300, 3, 40, causal=True),
-    ]
+    ] + _bwd_d256_cases()
     _reset_counts()
     return cases, k2, bwd
+
+
+def _bwd_d256_cases():
+    """The D=256 backward (flash_bwd_d256_kernel, 64-key tiles): Gemma-7B's
+    training step (4 records of 1536 tokens, 16 heads of 256, causal) and
+    a non-causal [2, 1024, 8, 256], both timed and with a planted 10%
+    scale fault; the edges of its 64-key and 64-query tiles, causal
+    Sq < Sk and Sq > Sk (zero rows); D=192, which the wrapper pads to 256,
+    forward and backward."""
+    return [
+        _flash_bwd_case("gemma_train_s1536_d256", 4, 1536, 1536, 16, 256,
+                        causal=True, timed=True, main_path=True,
+                        scale_fault=True),
+        _flash_bwd_case("d256_noncausal", 2, 1024, 1024, 8, 256, timed=True,
+                        scale_fault=True),
+        _flash_bwd_case("d256_causal_s1153", 1, 1153, 1153, 3, 256,
+                        causal=True),
+        _flash_bwd_case("d256_sq130_sk1100", 1, 130, 1100, 3, 256),
+        _flash_bwd_case("d256_causal_sq_lt_sk", 1, 300, 700, 2, 256,
+                        causal=True),
+        _flash_bwd_case("d256_causal_sq_gt_sk", 1, 700, 300, 2, 256,
+                        causal=True),
+        _flash_bwd_case("d256_causal_s77", 2, 77, 77, 2, 256, causal=True),
+        _flash_bwd_case("d192_causal_padded", 1, 1100, 1100, 4, 192,
+                        causal=True, timed=True),
+    ]
 
 
 def phase_k2():
@@ -1282,15 +1365,18 @@ def _reset_counts():
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
     flash_attention.launches = int4_matmul.launches = 0
-    flash_attention_bwd.launches = 0
+    flash_attention_bwd.launches = flash_attention_bwd.launches_d256 = 0
 
 
 def _counts():
+    """The launch counters: K1, K2, the fused backward at every head dim
+    (`bwd`) and, of those, the D=256 kernel's (`bwd256`)."""
     from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
     return dict(k1=flash_attention.launches, k2=int4_matmul.launches,
-                bwd=flash_attention_bwd.launches)
+                bwd=flash_attention_bwd.launches,
+                bwd256=flash_attention_bwd.launches_d256)
 
 
 def _same(graph, direct) -> dict:
@@ -3434,7 +3520,17 @@ def phase_eval(seed: int, out_dir: Path):
 
 
 # --------------------------------------------------------- phase 4b, 5c
-def phase_train_reference(seed: int, quant: str, seq: int = 1024):
+# the small Gemma of phase_train_reference: Gemma-7B's knobs (heads of
+# 256 that are not dim // heads, (1 + w) norms, the embedding scale, the
+# tied head, tanh GELU) at 2 heads, so that K1 and the D=256 backward run
+GEMMA_SMALL = dict(vocab_size=1024, dim=256, layers=2, heads=2, kv_heads=2,
+                   ffn_dim=512, head_dim_cfg=256, norm_plus_one=True,
+                   scale_embeds=True, tie_lm_head=True, act="gelu_tanh",
+                   rms_eps=1e-6)
+
+
+def phase_train_reference(seed: int, quant: str, seq: int = 1024,
+                          family: str = "llama"):
     """The three training losses at a small width with 128-wide heads and
     {seq} tokens (so K1 and the backward run), on the card in bf16 with
     remat against the CPU in fp32 without: the same weights (rounded to
@@ -3444,7 +3540,8 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024):
     filling a zero span of each row, and the adapters' and the projector's
     gradients; `dpo`: dpo_loss over chosen / rejected rows and the adapters'
     gradients. Passes on each loss's relative error, every trainable
-    leaf's gradient cosine and the launches each loss implies."""
+    leaf's gradient cosine and the launches each loss implies.
+    family "gemma": `sft` alone on GEMMA_SMALL (the D=256 backward)."""
     import torch
     from rsvldm_tpu_torch.models.vlm.llama import (LlamaConfig, LlamaModel,
                                                    quantize_llama_)
@@ -3452,8 +3549,9 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024):
     from rsvldm_tpu_torch.training import vlm_trainer as vt
     from rsvldm_tpu_torch.utils.weights import seeded_init_
 
-    lcfg = LlamaConfig(vocab_size=1024, dim=256, layers=2, heads=2,
-                       kv_heads=1, ffn_dim=512)
+    lcfg = (LlamaConfig(**GEMMA_SMALL) if family == "gemma" else
+            LlamaConfig(vocab_size=1024, dim=256, layers=2, heads=2,
+                        kv_heads=1, ffn_dim=512))
     dense = seeded_init_(LlamaModel(lcfg), "llama", torch.device("cpu"))
     sd = {k: v.to(torch.bfloat16).float() for k, v in dense.state_dict().items()}
     gen = torch.Generator().manual_seed(seed + 5)
@@ -3498,6 +3596,8 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024):
             m, lora, cfg, emb.to(d, dt), labels.to(d), rejected.to(d, dt),
             rej_labels.to(d), beta=DPO_BETA), False, 6 * L, 2 * L),
     }
+    if family == "gemma":
+        cases = {"sft": cases["sft"]}
 
     @torch.no_grad()
     def logprobs(m, lora, dt, d):
@@ -3535,7 +3635,8 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024):
             grads["cpu"][k].flatten(), grads["cuda"][k].flatten(), dim=0))
             for k in grads["cpu"]}
         loss_rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-        rec = dict(loss=name, quant=quant, seq=seq, batch=b, layers=L,
+        rec = dict(loss=name, family=family, quant=quant, seq=seq, batch=b,
+                   layers=L,
                    head_dim=lcfg.head_dim, loss_cpu=losses["cpu"],
                    loss_card=losses["cuda"], loss_rel_err=loss_rel,
                    leaves=len(cos), grad_cos_min=min(cos.values()),
@@ -3554,7 +3655,9 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024):
         rec["ok"] = bool(same_bytes and loss_ok
                          and min(cos.values()) >= TRAIN_COS_MIN
                          and launches["k1"] == k1_want
-                         and launches["bwd"] == bwd_want)
+                         and launches["bwd"] == bwd_want
+                         and launches["bwd256"] == (
+                             bwd_want if lcfg.head_dim == 256 else 0))
         _say("train_reference", **rec)
         recs[name] = rec
     _reset_counts()
@@ -3893,6 +3996,98 @@ def phase_train_mm(seed: int, cap, tok, work: Path, tune: str,
                lrs=[g["lr"] for g in trainer.opt.param_groups])
     rec["ok"] = rec["ok"] and all(w == width for w in rec["widths"])
     del trainer
+    return rec
+
+
+def _text_batch(model, gen, batch: int, width: int):
+    """A batch of text records for a decoder's LoRA step: token ids drawn
+    from `gen` on its device, rows of width - w .. width - 1 tokens (w =
+    min(60, width / 4)) padded to `width` with token 0, supervised after a
+    prompt of min(256, width / 4) tokens and up to each row's end, so the
+    rows' supervised counts differ; (their embeddings through model.embed,
+    Gemma's scale included; labels)."""
+    import torch
+    from rsvldm_tpu_torch.training.vlm_trainer import IGNORE_INDEX
+    dev = gen.device
+    toks = torch.randint(1, model.cfg.vocab_size, (batch, width),
+                         generator=gen, device=dev)
+    labels = toks.clone()
+    labels[:, :min(256, width // 4)] = IGNORE_INDEX
+    w = min(60, width // 4)
+    for row in range(batch):
+        end = width - w + int(torch.randint(0, w, (1,), generator=gen,
+                                            device=dev))
+        toks[row, end:] = 0
+        labels[row, end:] = IGNORE_INDEX
+    with torch.no_grad():
+        return model.embed(toks), labels
+
+
+def phase_train_gemma(seed: int, steps: int = 3, batch: int = 4,
+                      width: int = 1536) -> dict:
+    """The Gemma-family QLoRA step at full width and depth, through JAX's
+    own API (neither package has a Gemma training CLI): VLMTrainer over the
+    seeded Gemma-7B decoder (28 layers, 16 heads of 256, dim 3072, the
+    256k vocabulary on the tied head) quantized to int8, LoRA r=16
+    alpha=16 on the seven projections, AdamW lr 2e-4, remat; text records,
+    batch 4 padded to 1536 tokens. Per step K1 56 (28 forward + 28
+    recompute) and the D=256 backward 28 (`bwd256`), K2 none; finite
+    losses, the base's bytes unchanged, every B moved."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import (GEMMA_7B_CONFIG,
+                                                   LlamaModel, quantize_llama_)
+    from rsvldm_tpu_torch.training import vlm_trainer as vt
+    _free_card()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(GEMMA_7B_CONFIG, remat=True)
+    model = quantize_llama_(_seeded_on_card(lambda: LlamaModel(cfg), "gemma"),
+                            "int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    digest = _sd_digest(model.state_dict())
+    tr = vt.VLMTrainer(model, vt.LoraConfig(r=16, alpha=16), lr=2e-4,
+                       generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    L = cfg.layers
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    per_step = []
+    for i in range(steps):
+        emb, labels = _text_batch(model, gen, batch, width)
+        torch.cuda.synchronize()
+        before, t1 = _counts(), time.perf_counter()
+        loss = tr.train_step(emb, labels)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        now = _counts()
+        per_step.append(dict(step=i, loss=loss, seconds=secs,
+                             tokens_per_s=batch * width / secs,
+                             launches={k: now[k] - before[k] for k in now}))
+        _say("train_gemma", **per_step[-1])
+    launches = _counts()
+    moved = all(float(ab["b"].detach().abs().max()) > 0
+                for ab in tr.lora.values())
+    unchanged = _sd_digest(model.state_dict()) == digest
+    want = {"k1": 2 * L, "k2": 0, "bwd": L, "bwd256": L}
+    rec = dict(config="GEMMA_7B_CONFIG int8, LoRA r=16 (7 projections), "
+                      "remat", seconds=time.perf_counter() - t0, layers=L, heads=cfg.heads,
+               head_dim=cfg.head_dim, vocab=cfg.vocab_size, batch=batch,
+               width=width, build_s=build_s,
+               losses=[r["loss"] for r in per_step],
+               step_s=[r["seconds"] for r in per_step],
+               tokens_per_s=[r["tokens_per_s"] for r in per_step],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches, want_per_step=want,
+               adapters=len(tr.lora), adapters_moved=moved,
+               base_unchanged=unchanged, base_digest=digest)
+    rec["ok"] = bool(
+        all(r["launches"] == want for r in per_step)
+        and all(launches[k] == v * steps for k, v in want.items())
+        and all(math.isfinite(x) for x in rec["losses"])
+        and len(tr.lora) == 7 * L and moved and unchanged)
+    _say("train_gemma", **rec)
+    del tr, model
+    _free_card()
     return rec
 
 
@@ -5197,8 +5392,25 @@ def _profile_steps(steps: dict, hand_of: dict, iters: int) -> dict:
 #   whole update), and every rank's parameters equal bit for bit;
 # - the world of one over NCCL: the caption's decoder stays whole (no tp,
 #   its steps captured) and its ids equal the unsharded run's; the
-#   collectives of parallel/distributed.py give their values on it.
+#   collectives of parallel/distributed.py give their values on it;
+# - Stage 1 at data=2 also against its one-process witness at the ranks'
+#   batch size (each rank's rows in a loop of their own, with their rows
+#   of the group's draw): uint8-equal, bit for bit;
+# - the TP=2 caption again with a LoRA archive attached (each rank its
+#   slices of the adapters, the int4 decoder's runtime branch), against
+#   one process with the same archive: logit cosine >= PAR_COS_MIN at
+#   every teacher-forced position, greedy ids equal, K1 and K2 as
+#   reckoned, over PAR_LORA_TOKENS tokens;
+# - VLMTrainer at data=2 (`mesh=`) on the int8 Llama-3-8B, LoRA r=16 on
+#   the seven projections, remat, 2 of PAR_VLM_ROWS text records of
+#   PAR_VLM_WIDTH tokens a rank, whose supervised counts differ: each
+#   step's loss within TRAIN_LOSS_RTOL of one process on all rows, K1 64
+#   and the backward 32 a step a rank, the ranks' adapters equal bit for
+#   bit.
 PAR_NEW_TOKENS = 64
+PAR_LORA_TOKENS = 32
+PAR_LORA_B_STD = 0.01  # the seeded archive's b ~ N(0, std^2)
+PAR_VLM_STEPS, PAR_VLM_ROWS, PAR_VLM_WIDTH = 3, 4, 1536
 PAR_COS_MIN = 0.999
 PAR_VAE_REL_RMS, PAR_VAE_MAX_LEVELS = 1e-3, 2
 PAR_LOSS_RTOL, PAR_UPDATE_RTOL = 1e-4, 1e-2
@@ -5217,7 +5429,8 @@ def _par_cfg(tiny: bool) -> dict:
         return dict(device="cuda", llama=LLAMA3_8B_CONFIG,
                     vision=CLIP_VIT_L_336_CONFIG, quant="int4", model_cfgs=None,
                     vae_side=2048, enc_tile=512, dec_tile=64, train_side=224,
-                    lr_sides=PAR_LR_SIDES, upscale=8, s1_steps=None)
+                    lr_sides=PAR_LR_SIDES, upscale=8, s1_steps=None,
+                    vlm_width=PAR_VLM_WIDTH)
     from rsvldm_tpu_torch.infer import tiny_model_cfgs
     # 128-wide heads and FFN, so the int4 shards keep whole 128-groups
     llama = LlamaConfig(vocab_size=128256, dim=512, layers=2, heads=4,
@@ -5226,7 +5439,7 @@ def _par_cfg(tiny: bool) -> dict:
     return dict(device="cpu", llama=llama, vision=vision, quant="int4",
                 model_cfgs=tiny_model_cfgs(), vae_side=128, enc_tile=64,
                 dec_tile=8, train_side=16, lr_sides=(4, 4, 4, 4), upscale=4,
-                s1_steps=4)
+                s1_steps=4, vlm_width=64)
 
 
 def _par_sync(dev):
@@ -5254,32 +5467,72 @@ def _par_prompt():
         DEFAULT_IMAGE_TOKEN="<image>"))
 
 
-def _par_gcfg():
+def _par_gcfg(tokens: int = PAR_NEW_TOKENS):
     from rsvldm_tpu_torch.models.vlm.generate import GenerateConfig
-    # eot never: every run makes exactly PAR_NEW_TOKENS tokens
-    return GenerateConfig(max_new_tokens=PAR_NEW_TOKENS, do_sample=False,
+    # eot never: every run makes exactly `tokens` tokens
+    return GenerateConfig(max_new_tokens=tokens, do_sample=False,
                           eot_ids=(-1,))
 
 
-def _tf_logits(model, spliced, ids):
+def _tf_logits(model, spliced, ids, lora=None):
     """fp32 logits [1 + len(ids) - 1, vocab] on the host: the prefill's at
     the prompt's last position, then one decode step per id of `ids`
-    (teacher-forced) but the last."""
+    (teacher-forced) but the last; `lora` as the forward takes it."""
     import torch
     from rsvldm_tpu_torch.models.vlm.llama import KVCache
     dev = spliced.device
     s = spliced.shape[0]
     with torch.inference_mode():
         cache = KVCache.init(model.cache_cfg, 1, s + len(ids), model.dtype, dev)
-        lg, _ = model(spliced[None], cache, 0,
+        lg, _ = model(spliced[None], cache, 0, lora=lora,
                       logits_at=torch.tensor([s - 1], device=dev))
         out = [lg[0, -1].float().cpu()]
         for i, t in enumerate(ids[:-1]):
             tok = torch.tensor([[int(t)]], device=dev)
             lg, _ = model(model.embed(tok), cache,
-                          torch.tensor(s + i, device=dev))
+                          torch.tensor(s + i, device=dev), lora=lora)
             out.append(lg[0, -1].float().cpu())
     return torch.stack(out)
+
+
+def _par_lora_archive(cfg: dict, path: Path, seed: int) -> int:
+    """A seeded LoRA archive (save_lora_npz, r=16 alpha=16) for the
+    decoder of `cfg`: a ~ U(+-1/sqrt(in)) as init_lora draws it, b ~
+    N(0, PAR_LORA_B_STD^2), on the host; its bytes."""
+    import torch
+    from rsvldm_tpu_torch.training.vlm_trainer import LoraConfig, save_lora_npz
+    from rsvldm_tpu_torch.utils.weights import lora_module_path
+    c, r = cfg["llama"], 16
+    q, kv = c.heads * c.head_dim, c.kv_heads * c.head_dim
+    dims = {"q_proj": (c.dim, q), "k_proj": (c.dim, kv), "v_proj": (c.dim, kv),
+            "o_proj": (q, c.dim), "gate_proj": (c.dim, c.ffn_dim),
+            "up_proj": (c.dim, c.ffn_dim), "down_proj": (c.ffn_dim, c.dim)}
+    gen = torch.Generator().manual_seed(seed + 22)
+    lora = {lora_module_path(i, proj): {
+        "a": (torch.rand((fin, r), generator=gen) * 2 - 1) / fin ** 0.5,
+        "b": torch.randn((r, fout), generator=gen) * PAR_LORA_B_STD}
+        for i in range(c.layers) for proj, (fin, fout) in dims.items()}
+    save_lora_npz(lora, LoraConfig(r=r, alpha=r), path)
+    return path.stat().st_size
+
+
+def _par_lora_ref(cap, spliced, work: Path) -> dict:
+    """The unsharded caption again with the archive <work>/lora.npz
+    attached (the int4 decoder's runtime branch): PAR_LORA_TOKENS greedy
+    ids and their teacher-forced logits, saved for the ranks."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.generate import generate
+    cap.attach_archives(lora_npz=work / "lora.npz")
+    gcfg, st = _par_gcfg(PAR_LORA_TOKENS), {}
+    generate(cap.llama, spliced, gcfg, lora=cap.lora)  # captures
+    _reset_counts()
+    ids = generate(cap.llama, spliced, gcfg, stats=st, lora=cap.lora)
+    n = _counts()
+    logits = _tf_logits(cap.llama, spliced, ids, cap.lora)
+    torch.save({"ids": torch.from_numpy(ids.astype("int64")),
+                "logits": logits}, work / "caption_lora_ref.pt")
+    return dict(tokens=len(ids), k1=n["k1"], k2=n["k2"],
+                decode_tok_s=st["decode_steps"] / max(st["decode_s"], 1e-9))
 
 
 def _par_caption_ref(seed: int, cfg: dict, work: Path) -> dict:
@@ -5331,6 +5584,8 @@ def _par_caption_ref(seed: int, cfg: dict, work: Path) -> dict:
             collectives_ok=_par_collectives_ok(mesh.get_group("data"), dev))
     finally:
         dist.destroy_process_group()
+    rec["archive_bytes"] = _par_lora_archive(cfg, work / "lora.npz", seed)
+    rec["lora"] = _par_lora_ref(cap, spliced, work)
     del cap
     if dev == "cuda":
         _free_card()
@@ -5584,6 +5839,13 @@ def _par_references(seed: int, cfg: dict, work: Path, ranks: int) -> dict:
     _par_sync(dev)
     rec["stage1"] = dict(seconds=time.perf_counter() - t0, n=len(outs))
     np.save(work / "stage1_ref.npy", np.stack(outs))
+    t0 = time.perf_counter()
+    wit = _par_stage1_witness(pipe, paths, ranks, cfg)
+    _par_sync(dev)
+    rec["stage1"].update(witness_s=time.perf_counter() - t0,
+                         witness_vs_whole=_uint8_diff(np.stack(wit),
+                                                      np.stack(outs)))
+    np.save(work / "stage1_witness.npy", np.stack(wit))
     vaes = _par_vaes(pipe)
     x = _par_vae_input(seed, cfg, pipe.dtype)
     rec["vae"], refs = {}, {}
@@ -5610,6 +5872,97 @@ def _par_references(seed: int, cfg: dict, work: Path, ranks: int) -> dict:
     torch.save({"params": p1, "moved": float((p1 - p0).norm()),
                 "losses": losses}, work / "train_ref.pt")
     del tr
+    if dev == "cuda":
+        _free_card()
+    rec["vlm_train"] = _par_vlm_train(seed, cfg, work)
+    torch.save(rec["vlm_train"], work / "vlm_train_ref.pt")
+    return rec
+
+
+def _par_stage1_witness(pipe, paths, ranks: int, cfg: dict) -> list:
+    """Folder Stage 1 as `ranks` ranks of data run it, in one process: the
+    group's batch cut into the ranks' rows (pipeline._mesh_rows), each part
+    one loop at that batch size with its rows of the whole batch's
+    "stage1" draw (the noise generator restarted for each part, as each
+    rank's fresh pipeline draws)."""
+    import numpy as np
+    import torch
+    from rsvldm_tpu_torch.ops.image import load_lr_conditioning
+    from rsvldm_tpu_torch.pipeline import TorchNoise
+    conds = [load_lr_conditioning(str(p), cfg["upscale"]) for p in paths]
+    if len({c.shape for c in conds}) != 1:
+        raise ValueError("the witness takes one Stage-1 group")
+    batch, n = np.stack(conds), len(conds)
+    per, extra = divmod(n, ranks)
+    outs = []
+    with torch.inference_mode():
+        for r in range(ranks):
+            start = r * per + min(r, extra)
+            pipe.noise = TorchNoise(pipe.cfg.seed, pipe.device)
+            outs += pipe._stage1(batch, slice(start, start + per + (r < extra)))
+    return outs
+
+
+def _par_vlm_train(seed: int, cfg: dict, work: Path, mesh=None) -> dict:
+    """VLMTrainer on the seeded int8 decoder of `cfg` (Llama-3-8B at full
+    width), remat, LoRA r=16 alpha=16 on the seven projections, AdamW lr
+    2e-4: PAR_VLM_STEPS steps of one global batch of PAR_VLM_ROWS text
+    records (`_text_batch`, cfg["vlm_width"] tokens). Without a mesh, all
+    rows in this process (the reference); with one, this rank's rows and
+    `mesh=` (the gradients summed over it). Launches per step, losses, the
+    adapters' digest."""
+    import hashlib
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import LlamaModel, quantize_llama_
+    from rsvldm_tpu_torch.parallel.mesh import batch_sharding
+    from rsvldm_tpu_torch.training import vlm_trainer as vt
+    from rsvldm_tpu_torch.utils.weights import seeded_init_
+    dev = cfg["device"]
+    if dev == "cuda":
+        _free_card()
+    t0 = time.perf_counter()
+    lcfg = dataclasses.replace(cfg["llama"], remat=True)
+    with torch.device("meta"):
+        model = LlamaModel(lcfg)
+    model = model.to(dtype=torch.bfloat16 if dev == "cuda" else
+                     torch.float32).to_empty(device=dev)
+    seeded_init_(model, "llama", torch.device(dev))
+    model = quantize_llama_(model.eval().requires_grad_(False), "int8")
+    _par_sync(dev)
+    build_s = time.perf_counter() - t0
+    tr = vt.VLMTrainer(model, vt.LoraConfig(r=16, alpha=16), lr=2e-4,
+                       generator=torch.Generator().manual_seed(seed + 23),
+                       mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(seed + 24)
+    emb, labels = _text_batch(model, gen, PAR_VLM_ROWS, cfg["vlm_width"])
+    if mesh is not None:
+        rows = batch_sharding(mesh, PAR_VLM_ROWS)
+        emb, labels = emb[rows], labels[rows]
+    supervised = int(vt.supervised_count(labels))
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, per_step = [], []
+    _par_sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(PAR_VLM_STEPS):
+        before = _counts()
+        losses.append(tr.train_step(emb, labels))
+        now = _counts()
+        per_step.append({k: now[k] - before[k] for k in now})
+    _par_sync(dev)
+    s_per_step = (time.perf_counter() - t0) / PAR_VLM_STEPS
+    flat = torch.cat([t.detach().float().reshape(-1).cpu()
+                      for ab in tr.lora.values() for t in ab.values()])
+    rec = dict(rows=int(emb.shape[0]), width=int(emb.shape[1]),
+               supervised=supervised, build_s=build_s, losses=losses,
+               s_per_step=s_per_step, launches_per_step=per_step,
+               k1=sum(c["k1"] for c in per_step),
+               k2=sum(c["k2"] for c in per_step),
+               bwd=sum(c["bwd"] for c in per_step),
+               bwd256=sum(c["bwd256"] for c in per_step),
+               lora_digest=hashlib.sha256(flat.numpy().tobytes()).hexdigest()[:16],
+               peak_gib=_par_peak_gib(dev))
+    del tr, model, emb, labels
     if dev == "cuda":
         _free_card()
     return rec
@@ -5669,9 +6022,71 @@ def _par_worker_caption(seed, cfg, mesh, work) -> dict:
                      and n["k1"] == rec["k1_reckoned"]
                      and n["k2"] == rec["k2_reckoned"]
                      and len(ids) == PAR_NEW_TOKENS)
+    rec["lora"] = _par_worker_caption_lora(cap, spliced, cfg, mesh, work)
+    rec["ok"] = rec["ok"] and rec["lora"]["ok"]
     del cap
     if dev == "cuda":
         _free_card()
+    return rec
+
+
+def _par_worker_caption_lora(cap, spliced, cfg, mesh, work) -> dict:
+    """This rank's TP caption with the archive attached (its slices of the
+    adapters) against the unsharded one with it (`_par_lora_ref`)."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.generate import generate
+    dev = cfg["device"]
+    t0 = time.perf_counter()
+    cap.attach_archives(lora_npz=work / "lora.npz")
+    _par_sync(dev)
+    attach_s = time.perf_counter() - t0
+    _reset_counts()
+    st = {}
+    ids = generate(cap.llama, spliced, _par_gcfg(PAR_LORA_TOKENS), stats=st,
+                   lora=cap.lora)
+    n = _counts()
+    ref = torch.load(work / "caption_lora_ref.pt")
+    rids = ref["ids"].numpy()
+    logits = _tf_logits(cap.llama, spliced, rids, cap.lora)
+    cos = [_cos(a, b) for a, b in zip(logits, ref["logits"])]
+    c, steps = cfg["llama"], st["decode_steps"]
+    b_cols = cap.lora["model.layers.0.self_attn.q_proj"]["b"].shape[1]
+    rec = dict(attach_s=attach_s, q_proj_b_cols=int(b_cols),
+               ids_equal=bool(len(ids) == len(rids) and (ids == rids).all()),
+               cos_min=min(cos), cos=cos, tokens=len(ids),
+               decode_tok_s=steps / max(st["decode_s"], 1e-9),
+               k1=n["k1"], k1_reckoned=c.layers if dev == "cuda" else 0,
+               k2=n["k2"], k2_reckoned=(steps * (7 * c.layers + 1) + 1
+                                        if dev == "cuda" else 0))
+    rec["ok"] = bool(rec["cos_min"] >= PAR_COS_MIN and rec["ids_equal"]
+                     and b_cols * mesh.size() == c.heads * c.head_dim
+                     and n["k1"] == rec["k1_reckoned"]
+                     and n["k2"] == rec["k2_reckoned"]
+                     and len(ids) == PAR_LORA_TOKENS)
+    return rec
+
+
+def _par_worker_vlm_train(seed, cfg, mesh, work) -> dict:
+    """This rank's VLMTrainer steps at data=n against the one process's."""
+    import torch
+    import torch.distributed as dist
+    rec = _par_vlm_train(seed, cfg, work, mesh)
+    ref = torch.load(work / "vlm_train_ref.pt")
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (rec["lora_digest"], rec["supervised"]))
+    L = cfg["llama"].layers
+    want = ({"k1": 2 * L, "k2": 0, "bwd": L, "bwd256": 0}
+            if cfg["device"] == "cuda" else
+            {"k1": 0, "k2": 0, "bwd": 0, "bwd256": 0})
+    rel = [abs(x - y) / abs(y) for x, y in zip(rec["losses"], ref["losses"])]
+    rec.update(ref_losses=ref["losses"], loss_rel_err=max(rel),
+               ranks_supervised=[s for _, s in every],
+               ranks_equal=len({d for d, _ in every}) == 1,
+               ref_s_per_step=ref["s_per_step"], want_per_step=want)
+    rec["ok"] = bool(max(rel) <= TRAIN_LOSS_RTOL and rec["ranks_equal"]
+                     and len(set(rec["ranks_supervised"])) > 1
+                     and all(c == want for c in rec["launches_per_step"])
+                     and all(math.isfinite(x) for x in rec["losses"]))
     return rec
 
 
@@ -5685,9 +6100,12 @@ def _par_worker_stage1(seed, cfg, mesh, work) -> dict:
     _par_sync(cfg["device"])
     secs = time.perf_counter() - t0
     d = _uint8_diff(np.stack(outs), np.load(work / "stage1_ref.npy"))
-    rec = dict(seconds=secs, n=len(outs), groups=pipe.stage1_groups, **d)
+    rec = dict(seconds=secs, n=len(outs), groups=pipe.stage1_groups, **d,
+               vs_witness=_uint8_diff(np.stack(outs),
+                                      np.load(work / "stage1_witness.npy")))
     rec["ok"] = bool(len(outs) == len(paths) and d["mean_abs"] <= REF_MEAN_TOL
-                     and d["max_abs"] <= REF_MAX_TOL)
+                     and d["max_abs"] <= REF_MAX_TOL
+                     and rec["vs_witness"]["bit_equal"])
     return rec, pipe
 
 
@@ -5767,8 +6185,9 @@ def parallel_worker(rank: int, work: str, seed: int, tiny: bool) -> int:
         rec["vae"] = _par_worker_vae(seed, cfg, pipe, make_mesh(n, tile=n), work)
         del pipe
         rec["train"] = _par_worker_train(seed, cfg, mesh, work)
+        rec["vlm_train"] = _par_worker_vlm_train(seed, cfg, mesh, work)
         rec["ok"] = all(rec[k]["ok"] for k in ("caption", "stage1", "vae",
-                                                 "train"))
+                                                 "train", "vlm_train"))
     except Exception as e:  # reported, and fails the phase
         import traceback
         rec["error"] = traceback.format_exc()[-3000:]
@@ -5827,10 +6246,13 @@ def phase_parallel(seed: int, tiny: bool = False, ranks: int = 2,
         shutil.rmtree(work, ignore_errors=True)
     rec["ranks"] = recs
     one = rec.get("unsharded", {}).get("caption", {}).get("world_of_one", {})
-    # the TP captions: every worker rank's and the world of one's
-    rec["launches"] = {k: sum(r.get("caption", {}).get(k, 0) for r in recs)
-                       + one.get(k, 0) for k in ("k1", "k2")}
-    rec["launches"]["bwd"] = 0
+    # every worker rank's TP captions (without and with the archive) and
+    # VLMTrainer steps, and the world of one's caption
+    rec["launches"] = {k: sum(r.get("caption", {}).get(k, 0)
+                              + r.get("caption", {}).get("lora", {}).get(k, 0)
+                              + r.get("vlm_train", {}).get(k, 0) for r in recs)
+                       + one.get(k, 0)
+                       for k in ("k1", "k2", "bwd", "bwd256")}
     rec["seconds"] = time.perf_counter() - t_phase
     rec["ok"] = bool(len(recs) == ranks and all(r["ok"] for r in recs)
                      and all(p.returncode == 0 for p in procs)
@@ -5898,10 +6320,11 @@ def main(argv=None) -> int:
     ok = sref["ok"] and ok
     for quant in ("int8", "int4"):
         ok = phase_train_reference(SEED, quant)["ok"] and ok
+    ok = phase_train_reference(SEED, "int8", family="gemma")["ok"] and ok
     fref = phase_families_reference(SEED)
     ok = fref["ok"] and ok
     path = folder = spec = tiled = sr3 = serve = samplers = ev = None
-    fam = tow = par = None
+    fam = tow = par = gem = None
     tr = {}
     if not args.skip_path:
         import shutil
@@ -5934,6 +6357,8 @@ def main(argv=None) -> int:
             ok = False
         tr = phase_train_all(SEED, profile=args.profile)
         ok = ok and tr["ok"]
+        gem = phase_train_gemma(SEED)
+        ok = ok and gem["ok"]
         sr3 = phase_train_sr3(SEED)
         ok = ok and sr3["ok"]
         fam = phase_families(SEED)
@@ -5953,6 +6378,7 @@ def main(argv=None) -> int:
                              for k in mm[0]["launches"]} if mm else {}),
                "train_dpo": tr["train_dpo"]["launches"] if tr else {},
                "train_video": tr["train_video"]["launches"] if tr else {},
+               "train_gemma": gem["launches"] if gem else {},
                "train_sr3": sr3["launches"] if sr3 else {},
                # the LLM worker over HTTP; its engine's options (prefix,
                # chunk, horizon, int8 KV); speculative rounds
@@ -5972,8 +6398,15 @@ def main(argv=None) -> int:
                "parallel": par["launches"] if par else {}}
 
     def launches(k):
-        # None where a path's run did not read this kernel's count
-        return {p: c.get(k) for p, c in by_path.items()}
+        # None where a path's run did not read this kernel's count; k a
+        # counter's name or a function of a path's counts
+        return {p: (k(c) if callable(k) else c.get(k))
+                for p, c in by_path.items()}
+
+    def bwd_d64_d128(c):
+        # the fused backward at D 64 / 128: every launch but the D=256
+        # kernel's (a path that read no D=256 count launched none)
+        return None if c.get("bwd") is None else c["bwd"] - c.get("bwd256", 0)
 
     def entry(name, source, replaces, k, rows, keys):
         head = rows[0]
@@ -5991,6 +6424,9 @@ def main(argv=None) -> int:
                            if "plain_ms" in c],
                 "card": smi}
 
+    bwd_keys = ("case", "shape", "causal", "ms", "whole_ms", "wrapper_ms",
+                "plain_ms", "bound_ms", "library_ms", "library_wrapper_ms",
+                "library_op", "tflops", "max_abs_err")
     report = {"kernels": [
         entry("flash_fwd", "rsvldm_tpu_torch/csrc/flash_fwd.cu",
               "rsvldm_tpu/ops/flash_attention.py:67", "k1", cases,
@@ -6001,13 +6437,17 @@ def main(argv=None) -> int:
               ("case", "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
                "library", "library_ms", "gbps", "max_abs_err",
                "max_err_over_tol")),
-        # one fused kernel for the TPU's dK/dV and dQ kernels
+        # one fused kernel for the TPU's dK/dV and dQ kernels, at D 64 /
+        # 128 (flash_bwd_kernel) and at D 256 and the D padded to it
+        # (flash_bwd_d256_kernel)
         entry("flash_bwd", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
               "rsvldm_tpu/ops/flash_attention.py:326 + "
-              "rsvldm_tpu/ops/flash_attention.py:376", "bwd", bwd,
-              ("case", "shape", "causal", "ms", "whole_ms", "wrapper_ms",
-               "plain_ms", "bound_ms", "library_ms", "library_wrapper_ms",
-               "library_op", "tflops", "max_abs_err"))]}
+              "rsvldm_tpu/ops/flash_attention.py:376", bwd_d64_d128,
+              [c for c in bwd if c["shape"][4] <= 128], bwd_keys),
+        entry("flash_bwd_d256", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
+              "rsvldm_tpu/ops/flash_attention.py:326 + "
+              "rsvldm_tpu/ops/flash_attention.py:376", "bwd256",
+              [c for c in bwd if c["shape"][4] > 128], bwd_keys)]}
     print(json.dumps(report), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -13,14 +13,16 @@
 // input dtype. Causal masking is suffix-aligned (q_offset = Sk - Sq);
 // queries with no valid key (causal, Sq > Sk) have p = 0 everywhere, so
 // their dq rows receive only zero adds and stay exact zeros; sequence
-// lengths need not be multiples of the tiles; D is 64 or 128.
+// lengths need not be multiples of the tiles; D is 64, 128 or 256 (the
+// D=256 kernel, flash_bwd_d256_kernel, is described where it is defined).
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): five products
 // (S, dP, dV, dK, dQ), each B*H*D multiply-adds per valid (query, key)
 // pair. At the training shape (B=4, S=1536, H=32, D=128, causal) that is
 // 5 x 38.7 = 193 GFLOP -> 0.196 ms, bound by operations; its bytes (q, k,
 // v, dO read, dK, dV written once in bf16, dQ in fp32: 404 MB) take
-// 0.12 ms.
+// 0.12 ms. Gemma-7B's training shape (B=4, S=1536, H=16, D=256, causal)
+// has the same H*D and so the same bound.
 //
 // Design (FlashAttention-3's backward layout, from csrc/hopper.cuh's
 // pieces). The TPU kernels carry fp32 accumulators in VMEM across a
@@ -169,7 +171,9 @@ __device__ __forceinline__ void st_shared_f2(uint32_t addr, float x, float y) {
 
 // acc[64 keys x 64 queries] = A B^T over D: A is this warpgroup's 64 rows
 // of K (or V), B the Q (or dO) tile, both K-major.
-template <int D>
+// A_HALF: the bytes from one 64-column half of A to the next (the key
+// tile's rows times 128).
+template <int D, int A_HALF = KV_HALF>
 __device__ __forceinline__ void issue_scores(float (&acc)[32], uint32_t a_addr,
                                              uint32_t b_addr) {
   wgmma_m64n64k16_ss_init<0, 0>(acc, desc_sw128(a_addr, 16, 1024),
@@ -177,7 +181,7 @@ __device__ __forceinline__ void issue_scores(float (&acc)[32], uint32_t a_addr,
 #pragma unroll
   for (int kk = 1; kk < D / 16; ++kk)
     wgmma_m64n64k16_ss<0, 0>(
-        acc, desc_sw128(a_addr + (kk / 4) * KV_HALF + (kk % 4) * 32, 16, 1024),
+        acc, desc_sw128(a_addr + (kk / 4) * A_HALF + (kk % 4) * 32, 16, 1024),
         desc_sw128(b_addr + (kk / 4) * Q_HALF + (kk % 4) * 32, 16, 1024), 1);
 }
 
@@ -505,6 +509,265 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ------------------------------------------------------------- D = 256
+// The layout above cannot be instantiated at D=256. K + V of a 128-key
+// tile alone take 128 KB, and two stages of Q + dO rows at 256 columns
+// another 128 KB: over the 227 KB a block can have. dK + dV of 64 keys x
+// 256 columns would take 256 fp32 registers a thread: over the 240 that
+// setmaxnreg grants. So at D=256 a block owns 64 keys and both consumer
+// warpgroups work on all of them:
+// - each computes the whole S^T and dP^T of the 64 keys against a q tile,
+//   contracting over all 256 columns (the two warpgroups compute the same
+//   scores: 2 of the 5 products are done twice);
+// - warpgroup w owns columns 128w..128w+127 of dK and dV (64 + 64
+//   registers a thread, as at D=128) and of the tile's dQ, which it
+//   computes from its own copy of dS^T in two 64-column passes and adds
+//   into the workspace as at D=128 (one 16 KB staging buffer, reused);
+// - one ring stage of Q + dO (64 KB): the producer refills it while the
+//   consumers compute dQ, which reads K and dS^T only.
+// Shared memory: K + V 64 KB, Q + dO 64 KB, two dS^T buffers 32 KB (rows
+// 64w.. are warpgroup w's copy), dQ staging 2 x 16 KB, lse / delta 0.5 KB,
+// barriers: 193.5 KB + the 1 KB alignment slack.
+constexpr int KV_TILE_256 = 64;                       // keys per block
+constexpr int KV_HALF_256 = KV_TILE_256 * ROW_BYTES;  // 64 columns of K or V
+
+struct Cfg256 {
+  static constexpr int KV_BYTES = 4 * KV_HALF_256;  // K or V tile
+  static constexpr int QT_BYTES = 4 * Q_HALF;       // Q or dO tile
+  static constexpr int DQ_STAGE = 2 * DQ_BOX_BYTES;  // 64 columns of dQ
+  static constexpr int BAR_BYTES = 8 * 3;
+  static constexpr int SMEM = 2 * KV_BYTES + 2 * QT_BYTES + 2 * DS_BYTES +
+                              2 * DQ_STAGE + 2 * VEC_BYTES + BAR_BYTES + 1024;
+};
+
+// The arguments as flash_bwd_kernel's; one block per (b*h, 64-key tile).
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_dq,
+                      const float* __restrict__ aux,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int BH, int H, int Sq,
+                      int Sk, int Sq_pad, int causal, int q_offset,
+                      float scale, float scale_log2e) {
+  using C = Cfg256;
+  constexpr int D = 256;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sV = sK + C::KV_BYTES;
+  const uint32_t sQ = sV + C::KV_BYTES;
+  const uint32_t sDO = sQ + C::QT_BYTES;
+  const uint32_t sDS = sDO + C::QT_BYTES;
+  const uint32_t sDQ = sDS + 2 * DS_BYTES;
+  const uint32_t sLSE = sDQ + 2 * C::DQ_STAGE;
+  const uint32_t sDELTA = sLSE + VEC_BYTES;
+  const uint32_t kv_full = sDELTA + VEC_BYTES;
+  const uint32_t full = kv_full + 8;
+  const uint32_t empty = full + 8;
+
+  // numbered head-major, as flash_bwd_kernel's blocks
+  const int n_kt = gridDim.x / BH;
+  const int bh = blockIdx.x / n_kt;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k_start = (blockIdx.x % n_kt) * KV_TILE_256;
+  int j0 = 0;
+  if (causal) {
+    const int first = k_start - q_offset;
+    j0 = first > 0 ? first / Q_TILE : 0;
+  }
+  const int n = max((Sq + Q_TILE - 1) / Q_TILE - j0, 0);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(full, 1);
+    mbar_init(empty, CONSUMER_WARPS);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 256 && n > 0) {
+      tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_do);
+      mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
+#pragma unroll
+      for (int half = 0; half < D / 64; ++half) {
+        tma_load_4d(sK + half * KV_HALF_256, &tm_k, kv_full, half * 64, h,
+                    k_start, b);
+        tma_load_4d(sV + half * KV_HALF_256, &tm_v, kv_full, half * 64, h,
+                    k_start, b);
+      }
+      const float* lse2 = aux + (long long)bh * Sq_pad;
+      const float* delta = aux + ((long long)BH + bh) * Sq_pad;
+      for (int j = 0; j < n; ++j) {
+        const int q0 = (j0 + j) * Q_TILE;
+        // the stage's previous fill was released (passes on the first)
+        mbar_wait_tight(empty, (j & 1) ^ 1);
+        mbar_arrive_expect_tx(full, 2 * C::QT_BYTES + 2 * VEC_BYTES);
+#pragma unroll
+        for (int half = 0; half < D / 64; ++half) {
+          tma_load_4d(sQ + half * Q_HALF, &tm_q, full, half * 64, h, q0, b);
+          tma_load_4d(sDO + half * Q_HALF, &tm_do, full, half * 64, h, q0, b);
+        }
+        bulk_load(sLSE, lse2 + q0, VEC_BYTES, full);
+        bulk_load(sDELTA, delta + q0, VEC_BYTES, full);
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    reg_alloc<CONSUMER_REGS>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
+    const int g = lane >> 2;
+    const int t2 = (lane & 3) * 2;
+    const int key0 = k_start + warp * 16 + g;  // this thread's keys: +0, +8
+    const int ds_row = wg * KV_TILE_256 + warp * 16 + g;  // and + 8
+    const int col0 = wg * 128;  // this warpgroup's columns of dK, dV, dQ
+    const float c = scale_log2e;
+
+    float dk_acc[2][32], dv_acc[2][32];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[hf][i] = dv_acc[hf][i] = 0.f;
+    if (n > 0) mbar_wait_tight(kv_full, 0);
+
+    for (int j = 0; j < n; ++j) {
+      const int q0 = (j0 + j) * Q_TILE;
+      const uint32_t ds_addr = sDS + (j & 1) * DS_BYTES;
+      mbar_wait_tight(full, j & 1);
+      const bool need_mask =
+          q0 + Q_TILE > Sq || k_start + KV_TILE_256 > Sk ||
+          (causal && k_start + KV_TILE_256 - 1 > q0 + q_offset);
+      // S^T and dP^T of all 64 keys over all 256 columns
+      float sacc[32], dpacc[32];
+      wgmma_fence();
+      issue_scores<D, KV_HALF_256>(sacc, sK, sQ);
+      wgmma_commit();
+      issue_scores<D, KV_HALF_256>(dpacc, sV, sDO);
+      wgmma_commit();
+      const uint32_t vec = t2 * 4;
+
+      // P^T, exact zeros where masked
+      wgmma_wait<1>();
+      fence_regs(sacc);
+      if (need_mask)
+        scores_to_p<true>(sacc, sLSE + vec, c, key0, q0, Sq, Sk, causal,
+                          q_offset);
+      else
+        scores_to_p<false>(sacc, sLSE + vec, c, key0, q0, Sq, Sk, causal,
+                           q_offset);
+      // dS^T = P^T (dP^T - delta) scale
+      wgmma_wait<0>();
+      fence_regs(dpacc);
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const float2 d2 = ld_shared_f2(sDELTA + vec + nb * 32);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * nb + e;
+          dpacc[i] = sacc[i] * (dpacc[i] - ((e & 1) ? d2.y : d2.x)) * scale;
+        }
+      }
+      uint32_t pa[16], da[16];  // wgmma reads them until retired
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        pa[i] = pack_bf16(sacc[2 * i], sacc[2 * i + 1]);
+        da[i] = pack_bf16(dpacc[2 * i], dpacc[2 * i + 1]);
+      }
+      // this warpgroup's copy of dS^T, swizzled as in flash_bwd_kernel
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          st_shared_u32(ds_addr + (ds_row + 8 * r) * ROW_BYTES +
+                            ((nb ^ g) << 4) + t2 * 2,
+                        da[2 * nb + r]);
+
+      // dV[:, col0..] += P^T dO[:, col0..], dK[:, col0..] += dS^T Q[:, col0..]
+      wgmma_fence();
+      fence_acc<128>(dk_acc);
+      fence_acc<128>(dv_acc);
+      fence_regs(pa);
+      fence_regs(da);
+      issue_grad<128>(dv_acc, pa, sDO + 2 * wg * Q_HALF);
+      issue_grad<128>(dk_acc, da, sQ + 2 * wg * Q_HALF);
+      wgmma_commit();
+      fence_proxy_async();
+      named_bar_sync(BAR_DS + 1 + wg, 128);
+      wgmma_wait<0>();
+      fence_acc<128>(dk_acc);
+      fence_acc<128>(dv_acc);
+      fence_regs(pa);
+      fence_regs(da);
+      // the stage's Q, dO, lse and delta are no longer read
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty);
+
+      // dQ[:, col0..col0+127] = dS K[:, col0..], 64 columns a pass
+      const uint32_t dq_stage = sDQ + wg * C::DQ_STAGE;
+      const bool leader = threadIdx.x % 128 == 0;
+#pragma unroll 1
+      for (int cc = 0; cc < 2; ++cc) {
+        const int chunk = 2 * wg + cc;
+        float dq[32];
+        wgmma_fence();
+        issue_dq<KV_TILE_256>(dq, ds_addr + wg * KV_TILE_256 * ROW_BYTES,
+                              sK + chunk * KV_HALF_256);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        if (leader) bulk_wait_read<0>();
+        named_bar_sync(BAR_DQ + wg, 128);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+          for (int nb = 0; nb < 8; ++nb)
+            st_shared_f2(dq_stage + (nb / 4) * DQ_BOX_BYTES + row * 128 +
+                             (((2 * (nb % 4) + (t2 >> 2)) ^ g) << 4) +
+                             (t2 & 2) * 4,
+                         dq[4 * nb + 2 * r], dq[4 * nb + 2 * r + 1]);
+        }
+        fence_proxy_async();
+        named_bar_sync(BAR_DQ + wg, 128);
+        if (leader) {
+          tma_reduce_add_4d(&tm_dq, dq_stage, chunk * 64, h, q0, b);
+          tma_reduce_add_4d(&tm_dq, dq_stage + DQ_BOX_BYTES, chunk * 64 + 32,
+                            h, q0, b);
+          bulk_commit();
+        }
+      }
+    }
+    if (threadIdx.x % 128 == 0) bulk_wait<0>();
+
+    // ---- this warpgroup's columns of dK, dV once, bf16
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key < Sk) {
+        const long long off =
+            (((long long)b * Sk + key) * H + h) * D + col0 + t2;
+#pragma unroll
+        for (int nb = 0; nb < 16; ++nb) {
+          const float* k2 = &dk_acc[nb / 8][4 * (nb % 8) + 2 * r];
+          const float* v2 = &dv_acc[nb / 8][4 * (nb % 8) + 2 * r];
+          *reinterpret_cast<uint32_t*>(dk + off + nb * 8) =
+              pack_bf16(k2[0], k2[1]);
+          *reinterpret_cast<uint32_t*>(dv + off + nb * 8) =
+              pack_bf16(v2[0], v2[1]);
+        }
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ float dot_bf16x2(uint32_t a, uint32_t b) {
   const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
   const float2 y = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&b));
@@ -531,7 +794,14 @@ flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
   const int bh = (int)(bq / Sq) * H + h;
   const long long off = r * D + lane * (D / 32);
   float acc;
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    const uint4 x = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 y = *reinterpret_cast<const uint4*>(dout + off);
+    acc = dot_bf16x2(x.x, y.x) + dot_bf16x2(x.y, y.y) +
+          dot_bf16x2(x.z, y.z) + dot_bf16x2(x.w, y.w);
+    float4* z = reinterpret_cast<float4*>(dq_acc + off);
+    z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else if constexpr (D == 128) {
     const uint2 x = *reinterpret_cast<const uint2*>(o + off);
     const uint2 y = *reinterpret_cast<const uint2*>(dout + off);
     acc = dot_bf16x2(x.x, y.x) + dot_bf16x2(x.y, y.y);
@@ -585,6 +855,35 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+int launch_d256(const void* q, const void* k, const void* v,
+                const void* dout, const void* aux, void* dq_acc, void* dk,
+                void* dv, int B, int H, int Sq, int Sk, int causal,
+                float scale, cudaStream_t stream) {
+  constexpr int D = 256;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
+  cudaError_t err = encode_bshd_map(&tm_q, q, B, Sq, H, D, Q_TILE);
+  if (err == cudaSuccess) err = encode_bshd_map(&tm_do, dout, B, Sq, H, D, Q_TILE);
+  if (err == cudaSuccess)
+    err = encode_bshd_map(&tm_k, k, B, Sk, H, D, KV_TILE_256);
+  if (err == cudaSuccess)
+    err = encode_bshd_map(&tm_v, v, B, Sk, H, D, KV_TILE_256);
+  if (err == cudaSuccess)
+    err = encode_bshd_map_f32(&tm_dq, dq_acc, B, Sq, H, D, Q_TILE);
+  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg256::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long blocks =
+      (long long)B * H * ((Sk + KV_TILE_256 - 1) / KV_TILE_256);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  flash_bwd_d256_kernel<<<(int)blocks, THREADS, Cfg256::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(aux),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      B * H, H, Sq, Sk, sq_pad(Sq), causal, Sk - Sq, scale, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_prep(const void* o, const void* dout, const void* lse, void* aux,
                 void* dq_acc, int B, int H, int Sq, cudaStream_t stream) {
@@ -613,6 +912,7 @@ extern "C" int rsv_flash_bwd_prep(const void* o, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_prep<64>(o, dout, lse, aux, dq_acc, B, H, Sq, st);
   if (D == 128) return launch_prep<128>(o, dout, lse, aux, dq_acc, B, H, Sq, st);
+  if (D == 256) return launch_prep<256>(o, dout, lse, aux, dq_acc, B, H, Sq, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -629,6 +929,9 @@ extern "C" int rsv_flash_bwd(const void* q, const void* k, const void* v,
                       scale, st);
   if (D == 128)
     return launch<128>(q, k, v, dout, aux, dq_acc, dk, dv, B, H, Sq, Sk,
+                       causal, scale, st);
+  if (D == 256)
+    return launch_d256(q, k, v, dout, aux, dq_acc, dk, dv, B, H, Sq, Sk,
                        causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

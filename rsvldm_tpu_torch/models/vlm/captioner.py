@@ -45,7 +45,8 @@ part by part (`build_sharded_llama`: one full block at a time, quantized,
 then cut), the tower and projector whole on every rank. Every rank runs
 the same caption; the ranks' ids are checked equal. As in JAX, a draft
 (checkpoint or self-draft) is not composed with TP: it is skipped with a
-warning. LoRA archives are refused on a sharded decoder.
+warning. A LoRA archive on a sharded decoder is cut per rank
+(`attach_archives`).
 """
 
 from __future__ import annotations
@@ -321,14 +322,23 @@ class LlavaCaptioner:
         """train_vlm's archives (JAX captioner.py:185-209): a LoRA archive
         (save_lora_npz, either package's) folds into an fp decoder's
         weights, or becomes the runtime branch of an int8 / int4 one; a
-        projector archive replaces the projector's weights wholesale."""
+        projector archive replaces the projector's weights wholesale.
+        On a tensor-parallel decoder the archive is read on the host and
+        only this rank's slices of it (`shard_lora`) reach the device,
+        where they fold into the rank's shards or ride its runtime
+        branch: JAX attaches the archive, then shards."""
         dev = self.image_newline.device
         t0 = _now(dev)
-        if lora_npz and self.llama.tp is not None:
-            raise NotImplementedError("LoRA archives on a tensor-parallel "
-                                      "decoder are not ported")
+        tp = self.llama.tp
         if lora_npz:
-            lora, lcfg = load_lora_npz(lora_npz, dev)
+            lora, lcfg = load_lora_npz(lora_npz, "cpu" if tp else dev)
+            if tp is not None:
+                from ...parallel.llama_sharding import (int4_group_of,
+                                                        shard_lora, shard_plan)
+                plan = shard_plan(self.llama.cfg, tp.size,
+                                  int4_group_of(self.llama))
+                lora = {p: {n: t.to(dev) for n, t in ab.items()} for p, ab in
+                        shard_lora(lora, plan, tp.rank).items()}
             quantized = quant_mode(self.llama) is not None
             self.decode_graphs.clear()
             if quantized:

@@ -64,7 +64,13 @@ and sums o_proj's partial products over the group; the FFN sums
 down_proj's (`row_parallel`); an MoE block runs its experts and sums the
 routed mix; the embedding is a masked lookup of the local vocabulary rows
 summed over the group, and the logits of the local lm_head rows are
-gathered. LoRA adapters are not taken by a sharded decoder.
+gathered. LoRA adapters on a sharded decoder are this rank's slices
+(`parallel/llama_sharding.py::shard_lora`): a column-parallel projection's
+whole `a` and its columns of `b`, so its branch needs no collective; a
+row-parallel projection's rows of `a` and the whole `b`, so its rank's
+[.., r] partial x @ a is all-reduced (one r-wide sum, kept apart from the
+int8 path's exact int32 sum) before the product with b. A dense shard
+folds its slices into its weight, as the unsharded one does.
 """
 
 from __future__ import annotations
@@ -288,14 +294,16 @@ class Q4Dense(nn.Module):
         return _add_bias(self, _maybe_lora(x, y, lora))
 
 
-def row_parallel(mod: nn.Module, x, tp: TensorParallel):
+def row_parallel(mod: nn.Module, x, tp: TensorParallel, lora=None):
     """A row-parallel projection's full output on every rank of tp's group:
     x holds this rank's slice of the inputs, `mod` the matching rows of the
     weight. int8: the whole row's absmax (all-reduced MAX) quantizes the
     slice and the exact int32 accumulators are summed, so the result is
     the unsharded product bit for bit; int4: fp32 partials (K2's fp32
     output) summed in fp32, then one cast; dense: partials summed in x's
-    dtype."""
+    dtype. lora: this rank's rows of `a` and the whole `b`; a quantized
+    shard all-reduces its fp32 partial x @ a and adds (x @ a) @ b as
+    `_maybe_lora` does, a dense shard folds (a @ b)^T into its rows."""
     if isinstance(mod, QDense):
         xq, xs = quantize_acts(x, all_reduce(act_absmax(x), tp.group,
                                              ReduceOp.MAX))
@@ -306,14 +314,15 @@ def row_parallel(mod: nn.Module, x, tp: TensorParallel):
         y = all_reduce(int4_matmul(x, Int4Linear(mod.kernel_q4, mod.scale),
                                    torch.float32), tp.group).to(x.dtype)
     else:
-        y = all_reduce(F.linear(x, mod.weight), tp.group)
+        w = mod.weight
+        if lora is not None:
+            w = w + (lora["a"] @ lora["b"]).t().to(w.dtype)
+            lora = None
+        y = all_reduce(F.linear(x, w), tp.group)
+    if lora is not None:
+        xa = all_reduce(x.float() @ lora["a"], tp.group)
+        y = y + (xa @ lora["b"]).to(y.dtype)
     return y if mod.bias is None else y + mod.bias.to(y.dtype)
-
-
-def _no_tp_lora(tp, lora):
-    if tp is not None and lora:
-        raise NotImplementedError("LoRA adapters on a tensor-parallel "
-                                  "decoder are not ported")
 
 
 def project(mod: nn.Module, x, lora=None):
@@ -353,12 +362,12 @@ class _MLP(nn.Module):
         self.tp: TensorParallel | None = None
 
     def forward(self, h, lora=None):
-        _no_tp_lora(self.tp, lora)
         lora = lora or {}
         gate = project(self.gate_proj, h, lora.get("gate_proj"))
         up = project(self.up_proj, h, lora.get("up_proj"))
         if self.tp is not None:
-            return row_parallel(self.down_proj, self.act(gate) * up, self.tp)
+            return row_parallel(self.down_proj, self.act(gate) * up, self.tp,
+                                lora.get("down_proj"))
         return project(self.down_proj, self.act(gate) * up, lora.get("down_proj"))
 
 
@@ -496,7 +505,6 @@ class LlamaBlock(nn.Module):
         hd, kvh = cfg.head_dim, cfg.kv_heads
         rep = cfg.heads // kvh
         a = self.self_attn
-        _no_tp_lora(self.tp_attn, lora)
         lora = lora or {}
         prefill = s > 1 and isinstance(start_pos, int) and start_pos == 0
         if cache_k is None and not prefill:
@@ -566,7 +574,8 @@ class LlamaBlock(nn.Module):
                                    cfg.sliding_window).to(x.dtype)
         o = o.reshape(b, s, cfg.heads * hd)
         x = x + (project(a.o_proj, o, lora.get("o_proj")) if self.tp_attn is None
-                 else row_parallel(a.o_proj, o, self.tp_attn))
+                 else row_parallel(a.o_proj, o, self.tp_attn,
+                                   lora.get("o_proj")))
         ffn = getattr(self, self.ffn_name)
         return x + ffn(self.post_attention_layernorm(x), lora)
 

@@ -16,13 +16,12 @@ A gradient through K1 goes through `ops/attention.py::FlashAttention`, whose
 backward is the fused kernel: `flash_attention` sends CUDA calls that need
 a gradient there, and raises for the calls it cannot differentiate.
 
-Head dims: K1 is built for 64, 128 and 256 (JAX's kernel takes any D). Any
-other D <= 128 (MLCD's 104) runs zero-padded along D to 64 or 128 with the
-scale of the true D, and its output is sliced back (`with_padded_head_dim`,
-exact: zero columns add 0 to every score and give 0 output columns). The
-fused backward takes the same padding; at D=256 it raises
-NotImplementedError (queued), and a D K1 cannot take raises ValueError:
-a CUDA call never falls back to the plain version.
+Head dims: K1 and the fused backward are built for 64, 128 and 256 (JAX's
+kernels take any D). Any other D <= 256 (MLCD's 104) runs zero-padded along
+D to the next of them with the scale of the true D, and its results are
+sliced back (`with_padded_head_dim`, exact: zero columns add 0 to every
+score and give 0 output and gradient columns). A D above 256 raises
+ValueError (queued): a CUDA call never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -40,8 +39,8 @@ BWD_SOURCE = "flash_bwd.cu"
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
-HEAD_DIMS = (64, 128, 256)  # K1's instantiations (csrc/flash_fwd.cu)
-BWD_HEAD_DIMS = (64, 128)   # the fused backward's (csrc/flash_bwd.cu)
+HEAD_DIMS = (64, 128, 256)      # K1's instantiations (csrc/flash_fwd.cu)
+BWD_HEAD_DIMS = (64, 128, 256)  # the fused backward's (csrc/flash_bwd.cu)
 BWD_Q_TILE = 64  # queries per tile of the backward kernel (csrc Q_TILE)
 
 
@@ -75,13 +74,11 @@ def flash_attention_ref(q, k, v, *, causal: bool = False,
 
 
 def padded_head_dim(d: int) -> int | None:
-    """The head dim K1 runs a true head dim `d` at: d itself when K1 is
-    built for it, else 64 or 128 for d <= 128 (zero padding), else None."""
-    if d in HEAD_DIMS:
-        return d
-    if 0 < d <= 128:
-        return 64 if d < 64 else 128
-    return None
+    """The head dim K1 and the fused backward run a true head dim `d` at:
+    the least of HEAD_DIMS that is >= d (zero padding), None past 256."""
+    if d <= 0:
+        return None
+    return next((dp for dp in HEAD_DIMS if dp >= d), None)
 
 
 def with_padded_head_dim(fn, q, k, v, *rest, scale: float | None = None,
@@ -95,8 +92,8 @@ def with_padded_head_dim(fn, q, k, v, *rest, scale: float | None = None,
     d = q.shape[-1]
     dp = padded_head_dim(d)
     if dp is None:
-        raise ValueError(f"flash_attention: head dim {d} is neither one of "
-                         f"K1's {HEAD_DIMS} nor <= 128 (padded)")
+        raise ValueError(f"flash_attention: head dim {d} is above the "
+                         f"largest of {HEAD_DIMS} (smaller ones are padded)")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if dp == d:
         return fn(q, k, v, *rest, scale=scale, **kw)
@@ -160,7 +157,6 @@ def flash_attention(q, k, v, *, causal: bool = False,
         if return_lse or kv_len not in (None, k.shape[1]):
             raise ValueError("flash_attention: return_lse and kv_len have no "
                              "backward; call with neither to differentiate")
-        _check_bwd_head_dim(q.shape[-1])
         from .attention import FlashAttention
         return FlashAttention.apply(q, k, v, causal, scale)
     if q.shape[-1] not in HEAD_DIMS:
@@ -195,13 +191,6 @@ def _valid_mask(sq, sk, causal, device):
     if not causal:
         return torch.ones((sq, sk), dtype=torch.bool, device=device)
     return torch.ones((sq, sk), dtype=torch.bool, device=device).tril(sk - sq)
-
-
-def _check_bwd_head_dim(d: int):
-    if d > 128 and d in HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention: the fused backward at head dim {d} is not "
-            "built yet (queued); no entry point trains at that width")
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal: bool = False,
@@ -245,11 +234,11 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     tensors. out and lse [B, H, Sq] come from K1 on the same inputs.
     dq is summed in an fp32 workspace by reduce-adds whose order changes
     from run to run, and so may its last bits.
-    `flash_attention_bwd.launches` counts launches."""
+    `flash_attention_bwd.launches` counts launches at every head dim,
+    `flash_attention_bwd.launches_d256` those of the D=256 kernel."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        scale=scale)
-    _check_bwd_head_dim(q.shape[-1])
     if q.shape[-1] not in BWD_HEAD_DIMS:
         return with_padded_head_dim(flash_attention_bwd, q, k, v, out, lse, do,
                                     causal=causal, scale=scale)
@@ -269,6 +258,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_kernel(q, k, v, do, aux, dq_acc, dk, dv, causal, scale)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_d256 += d == 256
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -308,3 +298,4 @@ def _launch_bwd(fn, name, device, *args):
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_d256 = 0

@@ -201,6 +201,16 @@ def all_reduce(t: torch.Tensor, group, op=ReduceOp.SUM) -> torch.Tensor:
     return t
 
 
+def all_reduce_grads(params: list, group, div: int = 1) -> None:
+    """The gradients of `params` summed over `group` and divided by `div`,
+    in place: one all-reduce of their concatenation."""
+    flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in params]), group)
+    if div != 1:
+        flat.div_(div)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p.grad))
+
+
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's `t` (equal shapes) concatenated along `dim` in group
     rank order."""

@@ -222,6 +222,31 @@ def shard_llama_(model: LlamaModel, group) -> LlamaModel:
     return set_tensor_parallel(model, plan, tp)
 
 
+def shard_lora(lora: dict, plan: ShardPlan, rank: int) -> dict:
+    """Rank `rank`'s slices of LoRA adapters {module path: {"a": [in, r],
+    "b": [r, out]}} on a decoder sharded by `plan`: a column-parallel
+    projection keeps the whole `a` and its columns of `b` (its outputs), a
+    row-parallel one its rows of `a` (its inputs) and the whole `b`; the
+    adapters of a part that is not sharded stay whole. Fresh contiguous
+    tensors: the full ones are not kept alive."""
+    out = {}
+    for path, ab in lora.items():
+        proj = path.rsplit(".", 1)[-1]
+        col, row = proj in _COL, proj in _ROW
+        if not (col or row) or not _part_on(path + ".weight", plan):
+            out[path] = dict(ab)
+            continue
+        name, dim = ("b", 1) if col else ("a", 0)
+        t = ab[name]
+        if t.shape[dim] % plan.n:
+            raise ValueError(f"shard_lora: {path}.{name} {tuple(t.shape)} "
+                             f"does not split over {plan.n}")
+        per = t.shape[dim] // plan.n
+        out[path] = {**ab, name: t.narrow(dim, rank * per, per).clone(
+            memory_format=torch.contiguous_format)}
+    return out
+
+
 def shard_kv_cache(cache: KVCache, n: int, rank: int) -> KVCache:
     """A KV cache [L, B, T, kvh, hd] (and the int8 cache's scale planes
     [L, B, T, kvh]) split over kv heads (axis 3); kv heads that do not

@@ -97,7 +97,7 @@ class SR3Trainer:
         return float(loss.detach())
 
     def _dp_step(self, hr, sr, t, u, noise, generator) -> float:
-        from ..parallel.distributed import all_reduce
+        from ..parallel.distributed import all_reduce, all_reduce_grads
         from ..parallel.mesh import batch_sharding, mesh_size
         n = mesh_size(self.mesh)
         shape = (hr.shape[0] * n, *hr.shape[1:])
@@ -108,11 +108,8 @@ class SR3Trainer:
                         noise[rows], None, self.cfg.loss_type)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
-        params = [p for p in self.model.parameters() if p.grad is not None]
-        flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in params]),
-                          self.group).div_(n)
-        for p, g in zip(params, flat.split([p.numel() for p in params])):
-            p.grad.copy_(g.view_as(p.grad))
+        all_reduce_grads([p for p in self.model.parameters()
+                          if p.grad is not None], self.group, n)
         self._update()
         return float(all_reduce(loss.detach().clone(), self.group) / n)
 

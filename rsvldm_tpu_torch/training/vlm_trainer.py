@@ -18,6 +18,20 @@ more.
 A trained projector is fp32 (MMTrainer widens it in place); the frozen
 base's reference policy in DPO is the same model run without adapters.
 
+Data parallelism (`mesh=` on the three trainers, JAX vlm_trainer.py:289-
+452), as SR3Trainer's: the adapters (and MMTrainer's trained projector)
+are broadcast from the mesh's first rank; `train_step` takes this rank's
+rows of the global batch, as JAX's multi-process put_batch does; one
+all-reduce sums every trainable gradient before AdamW, so the ranks stay
+equal. Each rank's loss is its share of the global batch's: the masked CE
+divides the rank's NLL sum by the supervised-token count of the global
+batch (all-reduced; JAX's masked_ce divides by that count, and a mean of
+the ranks' means would weigh their tokens unevenly), DPO's mean over the
+rank's pairs by its share of the global pair count (all-reduced, so the
+ranks may hold unequal numbers of pairs). The loss returned is the global
+batch's.
+A mesh of one gives the bits of no mesh.
+
 Archives (`save_lora_npz` / `load_lora_npz`) keep the JAX package's keys
 (`layer_i/q_proj/a`, `__meta__`), so either package reads the other's;
 `save_projector_npz` / `load_projector_npz` the JAX projector archives'
@@ -156,12 +170,20 @@ def preprocess_conversation(prompt_ids: np.ndarray, answer_ids: np.ndarray,
     return inp, labels
 
 
-def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Next-token cross entropy averaged over the supervised targets
-    (labels != IGNORE_INDEX); 0 when none is."""
+def supervised_count(labels: torch.Tensor) -> torch.Tensor:
+    """The number of supervised next-token targets (a 0-d long tensor)."""
+    return (labels[:, 1:] != IGNORE_INDEX).sum()
+
+
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
+              count: torch.Tensor | None = None) -> torch.Tensor:
+    """Next-token cross entropy summed over the supervised targets
+    (labels != IGNORE_INDEX) and divided by `count` (default: their
+    number; a data-parallel rank passes the global batch's); 0 when none
+    is."""
     logits = logits[:, :-1].float()
     targets = labels[:, 1:].long()
-    n = (targets != IGNORE_INDEX).sum().clamp_min(1)
+    n = (supervised_count(labels) if count is None else count).clamp_min(1)
     nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                           targets.reshape(-1), ignore_index=IGNORE_INDEX,
                           reduction="sum")
@@ -178,12 +200,44 @@ def _adamw(groups) -> torch.optim.AdamW:
                              weight_decay=0.0)
 
 
-def _descend(opt: torch.optim.Optimizer, loss: torch.Tensor) -> float:
-    """One optimizer step on `loss`; returns its value."""
+def _descend(opt: torch.optim.Optimizer, loss: torch.Tensor,
+             group=None) -> float:
+    """One optimizer step on `loss`; returns its value. With a data-parallel
+    `group`, `loss` is this rank's share of the global loss: the gradients
+    of every trainable tensor are summed over the group (one all-reduce)
+    before the step, and so is the loss returned."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    if group is None:
+        opt.step()
+        return float(loss.detach())
+    from ..parallel.distributed import all_reduce, all_reduce_grads
+    all_reduce_grads([p for g in opt.param_groups for p in g["params"]
+                      if p.grad is not None], group)
     opt.step()
-    return float(loss.detach())
+    return float(all_reduce(loss.detach().clone(), group))
+
+
+class _DataParallel:
+    """The trainers' mesh (JAX `mesh=`): None, or the mesh whose first rank
+    the trainable state is broadcast from and whose group sums the
+    gradients."""
+
+    def _set_mesh(self, mesh, trainable: list):
+        self.mesh = mesh
+        self.group = None
+        if mesh is not None:
+            from ..parallel.mesh import mesh_group, replicate_state
+            with torch.no_grad():
+                replicate_state(mesh, [t.detach() for t in trainable])
+            self.group = mesh_group(mesh)
+
+    def _count(self, labels: torch.Tensor) -> torch.Tensor | None:
+        """The global batch's supervised-target count over the mesh."""
+        if self.group is None:
+            return None
+        from ..parallel.distributed import all_reduce
+        return all_reduce(supervised_count(labels), self.group)
 
 
 def _trainable_lora(model: nn.Module, lora_cfg: LoraConfig,
@@ -199,12 +253,13 @@ def _trainable_lora(model: nn.Module, lora_cfg: LoraConfig,
 
 
 def vlm_loss(model: nn.Module, lora: Lora | None, lora_cfg: LoraConfig,
-             input_embeds: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+             input_embeds: torch.Tensor, labels: torch.Tensor,
+             count: torch.Tensor | None = None) -> torch.Tensor:
     """Masked next-token loss; input_embeds [B, S, D] already hold the
     spliced image features, labels [B, S] IGNORE_INDEX where unsupervised.
-    A prefill from 0 with no KV cache."""
+    A prefill from 0 with no KV cache. count: masked_ce's divisor."""
     logits, _ = apply_model(model, lora, lora_cfg, input_embeds)
-    return masked_ce(logits, labels)
+    return masked_ce(logits, labels, count)
 
 
 def splice_span(text_embeds: torch.Tensor, feats: torch.Tensor,
@@ -223,18 +278,19 @@ def splice_span(text_embeds: torch.Tensor, feats: torch.Tensor,
 
 def mm_loss(model: nn.Module, lora: Lora | None, lora_cfg: LoraConfig,
             projector: nn.Module, vis_feats: torch.Tensor,
-            text_embeds: torch.Tensor, img_pos, labels: torch.Tensor
-            ) -> torch.Tensor:
+            text_embeds: torch.Tensor, img_pos, labels: torch.Tensor,
+            count: torch.Tensor | None = None) -> torch.Tensor:
     """Masked next-token loss with the projector inside the differentiated
     graph. vis_feats [B, T, Dv] are tower features before the projector;
     text_embeds [B, S, D] hold a zero-filled span of T rows at img_pos[b]
     (labels IGNORE there), which the projected features fill, so the
-    projector's gradient flows back through every block."""
+    projector's gradient flows back through every block. count:
+    masked_ce's divisor."""
     w = next(projector.parameters())
     feats = projector(vis_feats.to(w.device, w.dtype))
     emb = splice_span(text_embeds, feats, img_pos)
     logits, _ = apply_model(model, lora, lora_cfg, emb)
-    return masked_ce(logits, labels)
+    return masked_ce(logits, labels, count)
 
 
 def sequence_logprob(model: nn.Module, embeds: torch.Tensor,
@@ -269,24 +325,29 @@ def dpo_loss(model: nn.Module, lora: Lora, lora_cfg: LoraConfig,
     return -F.logsigmoid(margin).mean()
 
 
-class VLMTrainer:
+class VLMTrainer(_DataParallel):
     """LoRA finetuning of the decoder: AdamW (optax's adamw with weight
-    decay 0) over the adapters only; the base is frozen in place."""
+    decay 0) over the adapters only; the base is frozen in place. mesh:
+    data parallelism (module docstring)."""
 
     def __init__(self, model: nn.Module, lora_cfg: LoraConfig = LoraConfig(),
                  lr: float = 2e-4, generator: torch.Generator | None = None,
-                 lora: Lora | None = None):
+                 lora: Lora | None = None, mesh=None):
         self.model = model.requires_grad_(False)
         self.lora_cfg = lora_cfg
         self.lora = _trainable_lora(model, lora_cfg, generator, lora)
+        self._set_mesh(mesh, _lora_leaves(self.lora))
         self.opt = _adamw([{"params": _lora_leaves(self.lora), "lr": lr}])
         self.step = 0
 
     def train_step(self, input_embeds: torch.Tensor,
                    labels: torch.Tensor) -> float:
+        """input_embeds [B, S, D], labels [B, S]: the batch, or with a mesh
+        this rank's rows of the global batch."""
         self.step += 1
-        return _descend(self.opt, vlm_loss(self.model, self.lora,
-                                           self.lora_cfg, input_embeds, labels))
+        return _descend(self.opt, vlm_loss(
+            self.model, self.lora, self.lora_cfg, input_embeds, labels,
+            self._count(labels)), self.group)
 
     def merged_state_dict(self) -> dict:
         return export_merged(self.model, self.lora, self.lora_cfg)
@@ -299,32 +360,42 @@ class DPOTrainer(VLMTrainer):
     def __init__(self, model: nn.Module, lora_cfg: LoraConfig = LoraConfig(),
                  lr: float = 5e-5, beta: float = 0.1,
                  generator: torch.Generator | None = None,
-                 lora: Lora | None = None):
-        super().__init__(model, lora_cfg, lr, generator, lora)
+                 lora: Lora | None = None, mesh=None):
+        super().__init__(model, lora_cfg, lr, generator, lora, mesh)
         self.beta = beta
 
     def train_step(self, chosen_embeds, chosen_labels, rejected_embeds,
                    rejected_labels) -> float:
+        """The pairs, or with a mesh this rank's pairs of the global batch
+        (any number of them): the rank's mean over them is weighted by its
+        share of the global batch's pairs, summed over the mesh."""
         self.step += 1
-        return _descend(self.opt, dpo_loss(
-            self.model, self.lora, self.lora_cfg, chosen_embeds,
-            chosen_labels, rejected_embeds, rejected_labels, self.beta))
+        loss = dpo_loss(self.model, self.lora, self.lora_cfg, chosen_embeds,
+                        chosen_labels, rejected_embeds, rejected_labels,
+                        self.beta)
+        if self.group is not None:
+            from ..parallel.distributed import all_reduce
+            pairs = torch.tensor(float(chosen_labels.shape[0]),
+                                 device=loss.device)
+            loss = loss * (pairs / all_reduce(pairs.clone(), self.group))
+        return _descend(self.opt, loss, self.group)
 
 
-class MMTrainer:
+class MMTrainer(_DataParallel):
     """Trains any non-empty subset of {lora, projector} with the projector
     inside the graph: ("projector",) is the pretrain stage (decoder and
     tower frozen), ("lora", "projector") the joint finetune, the projector
     in its own AdamW group at `mm_projector_lr` (default `lr`), as
     optax.multi_transform. A trained projector is widened to fp32 in place
-    and its parameters require grad; a frozen one is left as it is."""
+    and its parameters require grad; a frozen one is left as it is. mesh:
+    data parallelism (module docstring)."""
 
     def __init__(self, model: nn.Module, projector: nn.Module,
                  lora_cfg: LoraConfig = LoraConfig(),
                  tune: Sequence[str] = ("lora", "projector"),
                  lr: float = 2e-4, mm_projector_lr: float | None = None,
                  generator: torch.Generator | None = None,
-                 lora: Lora | None = None):
+                 lora: Lora | None = None, mesh=None):
         if not tune or not set(tune) <= {"lora", "projector"}:
             raise ValueError(f"tune {tuple(tune)}: a non-empty subset of "
                              "{lora, projector}")
@@ -344,17 +415,19 @@ class MMTrainer:
                            else mm_projector_lr})
         else:
             projector.requires_grad_(False)
+        self._set_mesh(mesh, [p for g in groups for p in g["params"]])
         self.opt = _adamw(groups)
         self.step = 0
 
     def train_step(self, vis_feats: torch.Tensor, text_embeds: torch.Tensor,
                    img_pos, labels: torch.Tensor) -> float:
         """vis_feats [B, T, Dv] tower features; text_embeds [B, S, D] with
-        a zero span of T rows at img_pos[b]; labels [B, S]."""
+        a zero span of T rows at img_pos[b]; labels [B, S]. With a mesh,
+        this rank's rows of each."""
         self.step += 1
         return _descend(self.opt, mm_loss(
             self.model, self.lora, self.lora_cfg, self.projector, vis_feats,
-            text_embeds, img_pos, labels))
+            text_embeds, img_pos, labels, self._count(labels)), self.group)
 
 
 # ------------------------------------------------------- adapter archives

@@ -104,15 +104,17 @@ def test_wrapper_raises_off_cpu_without_kernel():
 
 
 # ------------------------------------------------- head dims K1 pads or splits
-@pytest.mark.parametrize("d,causal", [(104, False), (72, True), (40, True)])
+@pytest.mark.parametrize("d,causal", [(104, False), (72, True), (40, True),
+                                      (192, True)])
 def test_padded_head_dim_equals_jax(d, causal):
-    """MLCD-bigG's 104 (and 72, 40): the padding the CUDA wrapper applies
-    (zeros along D to 128 or 64, the true D's scale, the output sliced
-    back), run here around the plain version, equals JAX's flash attention
-    at the true D (interpret mode)."""
+    """MLCD-bigG's 104 (and 72, 40, 192): the padding the CUDA wrapper
+    applies (zeros along D to 256, 128 or 64, the true D's scale, the
+    output sliced back), run here around the plain version, equals JAX's
+    flash attention at the true D (interpret mode)."""
     from rsvldm_tpu_torch.ops.flash_attention import (padded_head_dim,
                                                       with_padded_head_dim)
-    assert padded_head_dim(d) == (64 if d < 64 else 128)
+    assert padded_head_dim(d) == (64 if d <= 64 else 128 if d <= 128
+                                  else 256)
     q, k, v = _qkv(2, 100, 100, 3, d, d)
     out_j, lse_j = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                              causal=causal, block_q=64, block_k=64,
@@ -148,16 +150,22 @@ def test_d256_equals_jax(causal):
 
 
 def test_head_dims_k1_cannot_take_raise():
-    """Past 128 only 256 is built: another D raises (never the plain path
-    on a card), and so does the D=256 backward."""
+    """Past 256 nothing is built: such a D raises (never the plain path on
+    a card), forward and backward. D=256 and a padded 192 reach the
+    kernels' own checks, which refuse a tensor that is not on the card."""
     from rsvldm_tpu_torch.ops.flash_attention import flash_attention_bwd
-    q = torch.empty((1, 8, 1, 192), device="meta")
-    with pytest.raises(ValueError, match="head dim 192"):
-        flash_attention(q, q, q)
-    q = torch.empty((1, 8, 1, 256), device="meta")
+    q = torch.empty((1, 8, 1, 320), device="meta")
     lse = torch.empty((1, 1, 8), device="meta")
-    with pytest.raises(NotImplementedError, match="256"):
+    with pytest.raises(ValueError, match="head dim 320"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim 320"):
         flash_attention_bwd(q, q, q, q, lse, q)
-    r = torch.empty((1, 8, 1, 256), device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="256"):
+    r = torch.empty((1, 8, 1, 320), device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="head dim 320"):
         flash_attention(r, r, r)
+    for d in (256, 192):
+        q = torch.empty((1, 8, 1, d), device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention(q, q, q)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention_bwd(q, q, q, q, lse, q)

@@ -30,8 +30,9 @@ def _inputs(b, sq, sk, h, d, seed):
     return mk(sq), mk(sk), mk(sk), mk(sq)
 
 
-# head dims the CUDA wrapper zero-pads (to 128 / 64): MLCD-bigG's 104 and 40
-PADDED_DS = (104, 40)
+# head dims the CUDA wrapper zero-pads (to 256 / 128 / 64): 192, MLCD-bigG's
+# 104 and 40
+PADDED_DS = (192, 104, 40)
 
 
 def _port_bwd(q, k, v, g, causal):
@@ -49,7 +50,9 @@ def _port_bwd(q, k, v, g, causal):
 # lengths off the block; D=16 as there and D=128 as the Llama heads; then
 # the card's tile-edge cases scaled down (lengths off the kernel's 64-query
 # and 128-key tiles, causal Sq < Sk, D=64); then the padded dims, the port's
-# side through with_padded_head_dim and JAX's at the true D
+# side through with_padded_head_dim and JAX's at the true D; then Gemma's
+# D=256 (the D=256 kernel's 64-key tiles: lengths off them, causal Sq < Sk)
+# and D=192, padded to it
 @pytest.mark.parametrize("sq,sk,causal,d", [
     (96, 96, False, 16), (96, 96, True, 16), (64, 160, True, 16),
     (90, 150, False, 16), (90, 150, True, 16),
@@ -57,6 +60,8 @@ def _port_bwd(q, k, v, g, causal):
     (96, 96, True, 128), (90, 150, False, 128),
     (130, 130, True, 128), (70, 200, True, 128), (77, 77, False, 64),
     (70, 70, True, 104), (90, 150, False, 40),
+    (96, 96, True, 256), (70, 150, True, 256), (90, 150, False, 256),
+    (70, 70, True, 192), (90, 150, False, 192),
 ])
 def test_bwd_ref_matches_pallas_and_xla_vjp(sq, sk, causal, d):
     q, k, v, g = _inputs(2, sq, sk, 2, d, sq * 7 + sk + d)
@@ -121,3 +126,28 @@ def test_cuda_wrappers_raise_off_cpu():
         flash_attention(r, r, r, return_lse=True)
     with pytest.raises(ValueError, match="no backward"):
         flash_attention(r, r, r, kv_len=4)
+
+
+@pytest.mark.parametrize("d,causal", [(192, True), (104, False), (40, True)])
+def test_padded_bwd_equals_unpadded_plain(d, causal):
+    """The padding the CUDA wrapper applies is exact: the plain backward run
+    through with_padded_head_dim (zeros along D to 256 / 128 / 64, the true
+    D's scale, sliced back) equals the plain backward at the true D, and
+    the padded columns' gradients it slices off are exact zeros."""
+    q, k, v, g = (torch.from_numpy(x) for x in _inputs(2, 70, 90, 2, d, d))
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal)
+    seen = []
+
+    def plain(*xs, **kw):
+        res = flash_attention_bwd_ref(*xs, **kw)
+        seen.append(res)
+        return res
+
+    got = with_padded_head_dim(plain, q, k, v, out, lse, g, causal=causal)
+    dp = seen[0][0].shape[-1]
+    assert dp == {192: 256, 104: 128, 40: 64}[d]
+    for x, w, full in zip(got, want, seen[0]):
+        assert x.shape == w.shape
+        torch.testing.assert_close(x, w, atol=1e-6, rtol=1e-6)
+        assert (full[..., d:] == 0).all()

@@ -16,7 +16,16 @@ with JAX's own limits (atol 2e-4, rtol 1e-3, tests/test_llama_tp.py):
   int8, int4, MoE), in the port's layouts;
 - LlavaCaptioner.seeded / from_state_dict with a mesh, which build each
   rank's shard part by part, give exactly the whole captioner's decoder
-  cut by shard_llama_ (dense, int8, int4).
+  cut by shard_llama_ (dense, int8, int4);
+- LoRA adapters on the TP decoder (shard_lora: a column-parallel
+  projection's columns of b, a row-parallel one's rows of a, its r-wide
+  partial all-reduced): TP logits equal the unsharded logits with the
+  adapters and JAX's TP logits with them attached (folded into the
+  dense tree, the "lora" collection of a quantized one), within 1e-5 of
+  the logits' largest magnitude (fp32, summation order; measured below
+  1e-6); the int8 row-parallel product without adapters stays the
+  unsharded one bit for bit; a TP=2 captioner takes a LoRA archive
+  (no longer refused) and gives the whole captioner's logits with it.
 """
 
 import dataclasses
@@ -32,12 +41,14 @@ from rsvldm_tpu.parallel import make_mesh as jmake_mesh
 from rsvldm_tpu.parallel.llama_sharding import (llama_param_spec as jspec,
                                                 shard_kv_cache as jshard_cache,
                                                 shard_llama_params)
+from rsvldm_tpu.training import vlm_trainer as jt
+from rsvldm_tpu_torch.training import vlm_trainer as tt
 from rsvldm_tpu_torch.models.vlm.llama import KVCache, LlamaConfig, LlamaModel
 from rsvldm_tpu_torch.models.vlm.llama import quantize_llama_
 from rsvldm_tpu_torch.parallel.llama_sharding import (llama_param_spec,
                                                       shard_kv_cache)
-from rsvldm_tpu_torch.utils.weights import params_from_jax
-from torch_parallel_lib import launch
+from rsvldm_tpu_torch.utils.weights import lora_from_jax, params_from_jax
+from torch_parallel_lib import _tiny_captioner_kw, launch
 from torch_parity_lib import randomize, to_np
 
 RANKS = 4
@@ -49,6 +60,37 @@ GROUP = 8  # int4 group: whole groups on each of 4 row shards at toy dims
 TOKS = np.array([[3, 17, 99, 42, 7, 1, 0, 5]], np.int32)
 NOISE = np.random.default_rng(3).gumbel(size=(6, 128)).astype(np.float32)
 TOL = dict(atol=2e-4, rtol=1e-3)
+LCFG = jt.LoraConfig(r=4, alpha=16)  # scale 4
+LORA_CASES = ("fp32", "int8", "int4")
+
+
+def _jax_lora(tree, seed):
+    """JAX's adapters of a case with every leaf moved by U(-0.05, 0.05), so
+    that b is not zero."""
+    lora = to_np(jt.init_lora(tree, LCFG, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda x: (x + rng.uniform(-0.05, 0.05, x.shape)).astype(np.float32),
+        lora)
+
+
+def _with_lora(params, jl, mode):
+    """JAX's way of attaching adapters: folded into a dense tree, the
+    "lora" collection (scale in b) beside a quantized one."""
+    if mode is None:
+        return jt.apply_lora(params, jl, LCFG.scale)
+    return {**params, "lora": jt.runtime_lora(jl, LCFG.scale)}
+
+
+def _write_archive(path):
+    """A LoRA archive for the tiny captioner's decoder, every b nonzero."""
+    model = LlamaModel(_tiny_captioner_kw()["llama_cfg"])
+    cfg = tt.LoraConfig(r=4, alpha=8)
+    lora = tt.init_lora(model, cfg, torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(8)
+    for ab in lora.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.05
+    tt.save_lora_npz(lora, cfg, path)
 
 
 def _tree(kw, seed):
@@ -87,14 +129,19 @@ def _jax_logits(model, params, tp):
 def setup(tmp_path_factory):
     work = tmp_path_factory.mktemp("llama_tp")
     trees = {name: _tree(kw, 50 + i) for i, (name, (kw, _)) in enumerate(CASES.items())}
+    loras = {name: _jax_lora(trees[name], 70 + i)
+             for i, name in enumerate(LORA_CASES)}
     cases = {name: dict(cfg=kw, mode=mode, group=GROUP,
                         sd=params_from_jax("llama", trees[name],
-                                           LlamaConfig(**kw)))
+                                           LlamaConfig(**kw)),
+                        lora=(lora_from_jax(loras[name]) if name in loras
+                              else None), scale=LCFG.scale)
              for name, (kw, mode) in CASES.items()}
     torch.save({"cases": cases, "toks": torch.from_numpy(TOKS).long(),
                 "noise": torch.from_numpy(NOISE)}, work / "inputs.pt")
+    _write_archive(work / "lora.npz")
     ranks = launch("llama_tp", RANKS, work)
-    return ranks, trees
+    return ranks, trees, loras
 
 
 @pytest.mark.parametrize("tp", [2, 4])
@@ -108,7 +155,7 @@ def test_tp_logits_equal_unsharded(setup, name, tp):
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("name", list(CASES))
 def test_tp_logits_equal_jax_tp(setup, name, tp):
-    ranks, trees = setup
+    ranks, trees, _ = setup
     kw, mode = CASES[name]
     model, params = _jax_params(kw, mode, trees[name])
     want = _jax_logits(model, params, tp)
@@ -203,3 +250,55 @@ def test_captioner_lean_build_equals_whole_then_sharded(setup, quant):
     for res in setup[0]:
         assert res["lean_build_equal"][quant]["seeded"] is True
         assert res["lean_build_equal"][quant]["from_state_dict"] is True
+
+
+def _rel_close(got, want, rel=1e-5):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=rel * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("name", LORA_CASES)
+def test_tp_lora_logits_equal_unsharded(setup, name, tp):
+    for res in setup[0]:
+        got, want = res[name][tp]["lora_logits"], res[name]["unsharded_lora"]
+        _rel_close(got.numpy(), want.numpy())
+        # the adapters moved the logits
+        assert float((want - res[name]["unsharded"]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("name", LORA_CASES)
+def test_tp_lora_logits_equal_jax_tp(setup, name, tp):
+    ranks, trees, loras = setup
+    kw, mode = CASES[name]
+    model, params = _jax_params(kw, mode, trees[name])
+    want = _jax_logits(model, _with_lora(params, loras[name], mode), tp)
+    _rel_close(ranks[0][name][tp]["lora_logits"].numpy(), want)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_int8_row_parallel_stays_bit_equal_with_lora(setup, tp):
+    """The adapter's partial is summed apart from the int8 path's exact
+    int32 sum: the base product stays the unsharded one bit for bit, and
+    the adapted one is within 1e-5 of its magnitude."""
+    for res in setup[0]:
+        r = res["int8"][tp]["int8_row_parallel"]
+        assert r["base_equal"] is True
+        assert r["branch"] > 1e-3
+        assert r["lora_err"] <= 1e-5 * r["scale"]
+
+
+@pytest.mark.parametrize("quant", ["None", "int8", "int4"])
+def test_tp_captioner_takes_lora_archive(setup, quant):
+    """attach_archives on a TP=2 captioner (refused before): each rank keeps
+    its columns of q_proj's b (a quantized decoder's runtime branch) and
+    the logits equal the whole captioner's with the same archive."""
+    for res in setup[0]:
+        r = res["captioner_lora"][quant]
+        assert r["tp_set"] is True
+        if quant != "None":
+            assert r["b_cols"] * 2 == 256
+        _rel_close(r["tp"].numpy(), r["whole"].numpy())
+        assert float((r["whole"] - r["base"]).abs().max()) > 1e-3

@@ -16,11 +16,16 @@ Jobs:
             bit-identical to no mesh (tiled VAE, TP decoder logits, ids)
   llama_tp  (4 ranks) TP logits of the cases in <work>/inputs.pt at TP=2
             (the 'data' groups of a 2 x 2 mesh) and TP=4, each rank's
-            q_proj rows, generate's ids with and without a mesh
+            q_proj rows, generate's ids with and without a mesh; with
+            each case's LoRA adapters (this rank's slices), int8's
+            row-parallel product with and without them, and a TP=2
+            captioner with the archive <work>/lora.npz attached
   paths     (2 ranks) run_stage1_batch at data=2, DP SR3Trainer steps,
-            the SR3 CLI's run on a mesh (each rank loading its rows); then
-            on rank 0 the CLI's single-process run, and a world of one:
-            Stage 1 and the trainer bit-identical to no mesh
+            the SR3 CLI's run on a mesh (each rank loading its rows), DP
+            VLMTrainer / DPOTrainer / MMTrainer steps on the inputs of
+            <work>/vlm.pt; then on rank 0 the CLI's single-process run,
+            and a world of one: Stage 1 and the trainers bit-identical to
+            no mesh
 """
 
 from __future__ import annotations
@@ -122,12 +127,57 @@ def _tiny_llama(mode: str | None):
     return m
 
 
-def _logits(model, toks):
+def _logits(model, toks, lora=None):
     import torch
     from rsvldm_tpu_torch.models.vlm.llama import KVCache
     with torch.no_grad():
         cache = KVCache.init(model.cache_cfg, 1, 16, device="cpu")
-        return model(model.embed(toks), cache, 0)[0]
+        return model(model.embed(toks), cache, 0, lora=lora)[0]
+
+
+def _rank_lora(model, lora):
+    """This rank's slices of `lora` on a sharded decoder, else `lora`."""
+    from rsvldm_tpu_torch.parallel.llama_sharding import (int4_group_of,
+                                                          shard_lora,
+                                                          shard_plan)
+    if model.tp is None:
+        return lora
+    plan = shard_plan(model.cfg, model.tp.size, int4_group_of(model))
+    return shard_lora(lora, plan, model.tp.rank)
+
+
+def _lora_logits(model, toks, lora, scale):
+    """Logits with adapters passed to the forward (this rank's slices on a
+    sharded decoder): folded into a dense decoder's weights there, the
+    runtime branch of a quantized one."""
+    from rsvldm_tpu_torch.training.vlm_trainer import runtime_lora
+    return _logits(model, toks, runtime_lora(_rank_lora(model, lora), scale))
+
+
+def _int8_row_parallel(m, mt, lora, scale) -> dict:
+    """Layer 0's int8 o_proj, whole on one process against its TP shard
+    through row_parallel, on one seeded input: without adapters (bit for
+    bit, the exact int32 sum), and with them (the r-wide partial summed
+    apart)."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import row_parallel
+    from rsvldm_tpu_torch.training.vlm_trainer import runtime_lora
+    path = "model.layers.0.self_attn.o_proj"
+    whole, part = (x.model.layers[0].self_attn.o_proj for x in (m, mt))
+    tp = mt.model.layers[0].tp_attn
+    x = torch.randn((1, 8, whole.kernel_q.shape[0]),
+                    generator=torch.Generator().manual_seed(4))
+    per = x.shape[-1] // tp.size
+    xs = x[..., tp.rank * per:(tp.rank + 1) * per]
+    lw = runtime_lora(lora, scale)[path]
+    lt = runtime_lora(_rank_lora(mt, lora), scale)[path]
+    with torch.no_grad():
+        base, base_tp = whole(x), row_parallel(part, xs, tp)
+        with_l, with_l_tp = whole(x, lw), row_parallel(part, xs, tp, lt)
+    return dict(base_equal=torch.equal(base, base_tp),
+                lora_err=float((with_l - with_l_tp).abs().max()),
+                branch=float((with_l - base).abs().max()),
+                scale=float(with_l.abs().max()))
 
 
 def job_parallel(rank: int, n: int, work: Path) -> dict:
@@ -263,6 +313,9 @@ def job_llama_tp(rank: int, n: int, work: Path) -> dict:
         ref_ids = generate(m, e, greedy)
         ref_sampled = generate(m, e, sampled, noise=lambda i: noise[i])
         out = {"unsharded": _logits(m, toks), "q_rows_full": _q_rows(m)}
+        lora = case.get("lora")
+        if lora is not None:
+            out["unsharded_lora"] = _lora_logits(m, toks, lora, case["scale"])
         for tp, mesh in meshes.items():
             mt = shard_llama_(copy.deepcopy(m), mesh.get_group("data"))
             out[tp] = dict(
@@ -271,9 +324,40 @@ def job_llama_tp(rank: int, n: int, work: Path) -> dict:
                 sampled_equal=bool((generate(mt, e, sampled,
                                              noise=lambda i: noise[i])
                                     == ref_sampled).all()))
+            if lora is not None:
+                out[tp]["lora_logits"] = _lora_logits(mt, toks, lora,
+                                                      case["scale"])
+            if lora is not None and case["mode"] == "int8":
+                out[tp]["int8_row_parallel"] = _int8_row_parallel(
+                    m, mt, lora, case["scale"])
         res[name] = out
     res["lean_build_equal"] = _lean_build_equal(meshes[2])
+    res["captioner_lora"] = _captioner_lora(meshes[2], work / "lora.npz")
     return res
+
+
+def _captioner_lora(mesh, npz: Path) -> dict:
+    """LlavaCaptioner.seeded over the mesh's TP groups with the archive
+    `npz` attached (no longer refused) against the whole captioner with
+    it, per quant: the decoders' logits (the runtime branch or the fold),
+    and whether the rank holds slices of the adapters."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.captioner import LlavaCaptioner
+    kw = _tiny_captioner_kw()
+    toks = torch.tensor([[3, 17, 60, 42, 7, 1, 0, 5]])
+    out = {}
+    for quant in (None, "int8", "int4"):
+        caps = [LlavaCaptioner.seeded(**kw, quant=quant, mesh=m)
+                for m in (None, mesh)]
+        for cap in caps:
+            cap.attach_archives(lora_npz=npz)
+        whole, part = (_logits(c.llama, toks, c.lora) for c in caps)
+        base = _logits(LlavaCaptioner.seeded(**kw, quant=quant).llama, toks)
+        q = "model.layers.0.self_attn.q_proj"
+        out[str(quant)] = dict(
+            whole=whole, tp=part, base=base, tp_set=caps[1].llama.tp is not None,
+            b_cols=None if caps[1].lora is None else caps[1].lora[q]["b"].shape[1])
+    return out
 
 
 def _lean_build_equal(mesh) -> dict:
@@ -344,6 +428,84 @@ def _dp_train(work: Path, mesh, steps: int = 3) -> tuple:
     return losses, flat(), start
 
 
+def _vlm_dp(work: Path, mesh, rank: int, steps: int = 3) -> dict:
+    """`steps` steps each of VLMTrainer and MMTrainer (LoRA and the
+    projector) on the int8 base and DPOTrainer on the fp32 base of
+    <work>/vlm.pt, on its inputs at their global batch: this rank's rows
+    with a mesh, all of them without. A
+    rank other than the mesh's first starts from adapters and a projector
+    moved by +1, which the broadcast must replace. {trainer: (losses,
+    adapters after them, the projector's state dict or None)}; over a mesh
+    of 2, also `dpo_uneven`: DPOTrainer on the first 3 pairs on the first
+    rank and the last on the second."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import (LlamaConfig, LlamaModel,
+                                                   quantize_llama_)
+    from rsvldm_tpu_torch.models.vlm.projector import MLPProjector
+    from rsvldm_tpu_torch.parallel.mesh import batch_sharding, mesh_size
+    from rsvldm_tpu_torch.training import vlm_trainer as tt
+    inp = torch.load(work / "vlm.pt")
+    cfg = LlamaConfig(**inp["cfg"])
+    bump = 1.0 if mesh is not None and rank else 0.0
+
+    def model(quant: bool = True):
+        m = LlamaModel(cfg)
+        m.load_state_dict(inp["sd"])
+        m.requires_grad_(False)
+        return (quantize_llama_(m, "int8", embed_dtype=torch.float32)
+                if quant else m)
+
+    def lora(name):
+        return {p: {n: t.clone() + bump for n, t in ab.items()}
+                for p, ab in inp["lora"][name].items()}
+
+    def cut(*xs):
+        if mesh is None:
+            return xs
+        rows = batch_sharding(mesh, xs[0].shape[0])
+        return tuple(x[rows] for x in xs)
+
+    def state(tr):
+        return {p: {n: t.detach().clone() for n, t in ab.items()}
+                for p, ab in tr.lora.items()}
+
+    lcfg = tt.LoraConfig(**inp["lora_cfg"])
+    lr = inp["lr"]
+    out = {}
+    tr = tt.VLMTrainer(model(), lcfg, lr=lr, lora=lora("vlm"), mesh=mesh)
+    batch = cut(*inp["vlm"])
+    out["vlm"] = ([tr.train_step(*batch) for _ in range(steps)], state(tr),
+                  None)
+    tr = tt.DPOTrainer(model(False), lcfg, lr=lr, lora=lora("dpo"),
+                       mesh=mesh)
+    batch = cut(*inp["dpo"])
+    out["dpo"] = ([tr.train_step(*batch) for _ in range(steps)], state(tr),
+                  None)
+    proj = MLPProjector(*inp["proj_dims"])
+    proj.load_state_dict(inp["proj"])
+    with torch.no_grad():
+        for p in proj.parameters():
+            p.add_(bump)
+    if mesh is not None and mesh_size(mesh) == 2:
+        # the same pairs split 3 / 1 over the ranks
+        tr = tt.DPOTrainer(model(False), lcfg, lr=lr, lora=lora("dpo"),
+                           mesh=mesh)
+        rows = slice(0, 3) if rank == 0 else slice(3, 4)
+        batch = tuple(x[rows] for x in inp["dpo"])
+        out["dpo_uneven"] = ([tr.train_step(*batch) for _ in range(steps)],
+                             state(tr), None)
+    tr = tt.MMTrainer(model(), proj, lcfg, tune=("lora", "projector"), lr=lr,
+                      mm_projector_lr=inp["proj_lr"], lora=lora("mm"),
+                      mesh=mesh)
+    vis, emb, pos, labels = inp["mm"]
+    vis, emb, labels = cut(vis, emb, labels)
+    (pos,) = cut(pos)
+    out["mm"] = ([tr.train_step(vis, emb, pos.tolist(), labels)
+                  for _ in range(steps)], state(tr),
+                 {k: v.clone() for k, v in proj.state_dict().items()})
+    return out
+
+
 def _cli_train(work: Path, save: str, mesh) -> list:
     """The SR3 CLI's run (train_sr3.build_trainer + run) for 3 steps of
     global batch 4 over <work>/data (10 samples: an epoch of 2 batches);
@@ -397,6 +559,8 @@ def job_paths(rank: int, n: int, work: Path) -> dict:
     res["train_mesh"] = _dp_train(work, mesh)
     res["train_none"] = _dp_train(work, None)
     res["cli_dp_losses"] = _cli_train(work, "ck_dp", mesh)
+    res["vlm_mesh"] = _vlm_dp(work, mesh, rank)
+    res["vlm_none"] = _vlm_dp(work, None, rank)
     res["folder_raises_sharded"] = _folder_failure(work, mesh, rank)
     dist.destroy_process_group()
     if rank == 0:
@@ -407,6 +571,7 @@ def job_paths(rank: int, n: int, work: Path) -> dict:
         res["one_stage1"] = _tiny_pipe(work, one).run_stage1_batch(paths,
                                                                    mesh=one)
         res["one_train"] = _dp_train(work, one)
+        res["one_vlm"] = _vlm_dp(work, one, 0)
         dist.destroy_process_group()
     return res
 
