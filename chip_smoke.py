@@ -746,7 +746,8 @@ def phase_build():
         return source, log, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE, quant.SOURCE)
+    sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE,
+               flash_attention.WIDE_SOURCE, quant.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         done = list(pool.map(build, sources))
     for source, log, seconds in done:
@@ -848,6 +849,12 @@ def _flash_case(name, b, sq, sk, h, d, *, causal=False, kv_len=None,
                 qt, kt, vt, attn_mask=mask,
                 is_causal=causal and mask is None)
             rec["library_ms"] = _graph_ms(sdpa)
+            # the backend SDPA picked, by the autograd node it records
+            # (its flash and cuDNN backends stop at D = 256)
+            leaf = qt.detach().requires_grad_()
+            rec["library_op"] = F.scaled_dot_product_attention(
+                leaf, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None).grad_fn.name()
         else:
             rec["library_ms"] = None
     rec["ok"] = ok
@@ -882,20 +889,21 @@ def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
                                dtype=torch.bfloat16)
     q, k, v, do = mk(sq), mk(sk), mk(sk), mk(sq)
     out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
-    counts = lambda: (fa.flash_attention_bwd.launches,
-                      fa.flash_attention_bwd.launches_d256)
-    n_launch, n_d256 = counts()
+    bw = fa.flash_attention_bwd
+    counts = lambda: (bw.launches, bw.launches_d256, bw.launches_wide)
+    n_launch, n_d256, n_wide = counts()
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
-    # one launch, of the D=256 kernel where the wrapper pads D to 256
-    launched = counts() == (n_launch + 1,
-                            n_d256 + (fa.padded_head_dim(d) == 256))
+    # one launch, of the D=256 kernel where the wrapper pads D to 256, of
+    # the wide kernels past 256
+    dp = fa.padded_head_dim(d)
+    launched = counts() == (n_launch + 1, n_d256 + (dp == 256),
+                            n_wide + fa.is_wide(dp))
     after = counts()
 
     def restore():
         # comparison launches not counted
-        (fa.flash_attention_bwd.launches,
-         fa.flash_attention_bwd.launches_d256) = after
+        bw.launches, bw.launches_d256, bw.launches_wide = after
     ref = fa.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                      out.float(), lse, do.float(),
                                      causal=causal)
@@ -953,10 +961,15 @@ def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
         pad = ((lambda x: x) if dp == d else
                (lambda x: torch.nn.functional.pad(x, (0, dp - d))))
         qp, kp, vp, dop, outp = (pad(x) for x in (q, k, v, do, out))
-        aux, dq_acc = fa._bwd_prep(outp, dop, lse)
-        dk, dv = torch.empty_like(kp), torch.empty_like(vp)
-        rec["ms"] = _graph_ms(lambda: fa._bwd_kernel(
-            qp, kp, vp, dop, aux, dq_acc, dk, dv, causal, scale))
+        if fa.is_wide(dp):
+            # the wide route's kernels are one C call: prologue, dK/dV, dQ
+            rec["ms"] = _graph_ms(lambda: fa._bwd_wide(
+                qp, kp, vp, outp, lse, dop, causal, scale))
+        else:
+            aux, dq_acc = fa._bwd_prep(outp, dop, lse)
+            dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+            rec["ms"] = _graph_ms(lambda: fa._bwd_kernel(
+                qp, kp, vp, dop, aux, dq_acc, dk, dv, causal, scale))
         call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
                                               causal=causal)
         rec["whole_ms"] = _graph_ms(call)
@@ -1265,7 +1278,7 @@ def phase_kernels():
         # D=192, padded to 256 by the wrapper (the backward's case below)
         _flash_case("d192_causal_padded", 1, 1100, 1100, 4, 192, causal=True,
                     lse=True, timed=True, scale_fault=True),
-    ]
+    ] + _wide_cases()
     int4_matmul.launches = 0
     k2 = phase_k2()
     # the backward: the training step's attention (B=4 records of 1536
@@ -1289,9 +1302,50 @@ def phase_kernels():
         # head dims the wrapper pads to 128 / 64 (MLCD's 104, and 40)
         _flash_bwd_case("d104_padded", 1, 1025, 1025, 4, 104),
         _flash_bwd_case("d40_causal_padded", 1, 300, 300, 3, 40, causal=True),
-    ] + _bwd_d256_cases()
+    ] + _bwd_d256_cases() + _bwd_wide_cases()
     _reset_counts()
     return cases, k2, bwd
+
+
+def _wide_cases():
+    """K1 past D = 256 (csrc/flash_wide.cu): phase wide_head's train step
+    (4 records of 1536 tokens, 8 heads of 512, causal, with lse) and its
+    1280-token prefill, D=320 non-causal with kv_len padding, each timed
+    with a planted 10% scale fault; causal Sq > Sk (zero rows) at D=384,
+    D=288 padded to 320 across the 64-row tiles' edges."""
+    return [
+        _flash_case("wide_train_s1536_d512", 4, 1536, 1536, 8, 512,
+                    causal=True, lse=True, timed=True, main_path=True,
+                    scale_fault=True),
+        _flash_case("wide_prefill_s1280_d512", 1, 1280, 1280, 8, 512,
+                    causal=True, timed=True, main_path=True, scale_fault=True),
+        _flash_case("wide_d320_kv_len", 2, 1024, 1024, 4, 320, kv_len=1000,
+                    lse=True, timed=True, scale_fault=True),
+        _flash_case("wide_d384_causal_sq_gt_sk", 1, 700, 300, 2, 384,
+                    causal=True, lse=True),
+        _flash_case("wide_d288_padded", 1, 333, 517, 2, 288, causal=True,
+                    kv_len=500, lse=True),
+    ]
+
+
+def _bwd_wide_cases():
+    """The backward past D = 256 (csrc/flash_wide.cu: prologue, dK/dV,
+    dQ): phase wide_head's train step [4, 1536, 8, 512] causal and
+    [2, 1024, 4, 320], timed, each with a planted 10% scale fault; causal
+    Sq < Sk and Sq > Sk (zero rows), D=288 padded to 320."""
+    return [
+        _flash_bwd_case("wide_train_s1536_d512", 4, 1536, 1536, 8, 512,
+                        causal=True, timed=True, main_path=True,
+                        scale_fault=True),
+        _flash_bwd_case("wide_d320_noncausal", 2, 1024, 1024, 4, 320,
+                        timed=True, scale_fault=True),
+        _flash_bwd_case("wide_d384_causal_sq_lt_sk", 1, 300, 700, 2, 384,
+                        causal=True),
+        _flash_bwd_case("wide_d512_causal_sq_gt_sk", 1, 700, 300, 2, 512,
+                        causal=True),
+        _flash_bwd_case("wide_d288_padded", 1, 333, 333, 2, 288,
+                        causal=True),
+    ]
 
 
 def _bwd_d256_cases():
@@ -1365,18 +1419,24 @@ def _reset_counts():
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
     flash_attention.launches = int4_matmul.launches = 0
+    flash_attention.launches_wide = 0
     flash_attention_bwd.launches = flash_attention_bwd.launches_d256 = 0
+    flash_attention_bwd.launches_wide = 0
 
 
 def _counts():
-    """The launch counters: K1, K2, the fused backward at every head dim
-    (`bwd`) and, of those, the D=256 kernel's (`bwd256`)."""
+    """The launch counters: K1 at every head dim (`k1`) and, of those, the
+    wide kernel's (D > 256, `k1wide`), K2, the backward at every head dim
+    (`bwd`) and, of those, the D=256 kernel's (`bwd256`) and the wide
+    one's (`bwdwide`)."""
     from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
-    return dict(k1=flash_attention.launches, k2=int4_matmul.launches,
+    return dict(k1=flash_attention.launches,
+                k1wide=flash_attention.launches_wide, k2=int4_matmul.launches,
                 bwd=flash_attention_bwd.launches,
-                bwd256=flash_attention_bwd.launches_d256)
+                bwd256=flash_attention_bwd.launches_d256,
+                bwdwide=flash_attention_bwd.launches_wide)
 
 
 def _same(graph, direct) -> dict:
@@ -3527,6 +3587,10 @@ GEMMA_SMALL = dict(vocab_size=1024, dim=256, layers=2, heads=2, kv_heads=2,
                    ffn_dim=512, head_dim_cfg=256, norm_plus_one=True,
                    scale_embeds=True, tie_lm_head=True, act="gelu_tanh",
                    rms_eps=1e-6)
+# the small decoder of phase_train_reference's "wide" family: heads of 512
+# (q_proj 256 -> 2 x 512, GQA), so that the wide K1 and backward run
+WIDE_SMALL = dict(vocab_size=1024, dim=256, layers=2, heads=2, kv_heads=1,
+                  ffn_dim=512, head_dim_cfg=512)
 
 
 def phase_train_reference(seed: int, quant: str, seq: int = 1024,
@@ -3541,7 +3605,9 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024,
     gradients; `dpo`: dpo_loss over chosen / rejected rows and the adapters'
     gradients. Passes on each loss's relative error, every trainable
     leaf's gradient cosine and the launches each loss implies.
-    family "gemma": `sft` alone on GEMMA_SMALL (the D=256 backward)."""
+    family "gemma": `sft` alone on GEMMA_SMALL (the D=256 backward);
+    "wide": `sft` alone on WIDE_SMALL (the wide kernels), quant None for
+    the bf16 base phase wide_head trains."""
     import torch
     from rsvldm_tpu_torch.models.vlm.llama import (LlamaConfig, LlamaModel,
                                                    quantize_llama_)
@@ -3550,6 +3616,7 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024,
     from rsvldm_tpu_torch.utils.weights import seeded_init_
 
     lcfg = (LlamaConfig(**GEMMA_SMALL) if family == "gemma" else
+            LlamaConfig(**WIDE_SMALL) if family == "wide" else
             LlamaConfig(vocab_size=1024, dim=256, layers=2, heads=2,
                         kv_heads=1, ffn_dim=512))
     dense = seeded_init_(LlamaModel(lcfg), "llama", torch.device("cpu"))
@@ -3576,7 +3643,8 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024,
         m = LlamaModel(dataclasses.replace(lcfg, remat=dev == "cuda"))
         m.load_state_dict(sd)
         m = m.to(dev, torch.float32 if dev == "cpu" else torch.bfloat16)
-        models[dev] = quantize_llama_(m.requires_grad_(False), quant)
+        m.requires_grad_(False)
+        models[dev] = quantize_llama_(m, quant) if quant else m
     lora0 = vt.init_lora(models["cpu"], cfg, torch.Generator().manual_seed(seed))
     for ab in lora0.values():
         ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.01
@@ -3596,7 +3664,7 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024,
             m, lora, cfg, emb.to(d, dt), labels.to(d), rejected.to(d, dt),
             rej_labels.to(d), beta=DPO_BETA), False, 6 * L, 2 * L),
     }
-    if family == "gemma":
+    if family in ("gemma", "wide"):
         cases = {"sft": cases["sft"]}
 
     @torch.no_grad()
@@ -3657,7 +3725,11 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024,
                          and launches["k1"] == k1_want
                          and launches["bwd"] == bwd_want
                          and launches["bwd256"] == (
-                             bwd_want if lcfg.head_dim == 256 else 0))
+                             bwd_want if lcfg.head_dim == 256 else 0)
+                         and launches["k1wide"] == (
+                             k1_want if lcfg.head_dim > 256 else 0)
+                         and launches["bwdwide"] == (
+                             bwd_want if lcfg.head_dim > 256 else 0))
         _say("train_reference", **rec)
         recs[name] = rec
     _reset_counts()
@@ -4068,7 +4140,8 @@ def phase_train_gemma(seed: int, steps: int = 3, batch: int = 4,
     moved = all(float(ab["b"].detach().abs().max()) > 0
                 for ab in tr.lora.values())
     unchanged = _sd_digest(model.state_dict()) == digest
-    want = {"k1": 2 * L, "k2": 0, "bwd": L, "bwd256": L}
+    want = {"k1": 2 * L, "k1wide": 0, "k2": 0, "bwd": L, "bwd256": L,
+            "bwdwide": 0}
     rec = dict(config="GEMMA_7B_CONFIG int8, LoRA r=16 (7 projections), "
                       "remat", seconds=time.perf_counter() - t0, layers=L, heads=cfg.heads,
                head_dim=cfg.head_dim, vocab=cfg.vocab_size, batch=batch,
@@ -4086,6 +4159,104 @@ def phase_train_gemma(seed: int, steps: int = 3, batch: int = 4,
         and all(math.isfinite(x) for x in rec["losses"])
         and len(tr.lora) == 7 * L and moved and unchanged)
     _say("train_gemma", **rec)
+    del tr, model
+    _free_card()
+    return rec
+
+
+# phase wide_head: Llama-3-8B's widths (dim 4096, ffn 14336, vocab 128256)
+# regrouped into 8 query heads and 2 KV heads of 512, so that every
+# projection keeps Llama-3-8B's shape; in bf16, cut to 4 of its 32 layers
+WIDE_HEAD_LAYERS = 4
+
+
+def phase_wide_head(seed: int, steps: int = 3, batch: int = 4,
+                    width: int = 1536, prefill: int = 1280) -> dict:
+    """The wide-head decoder path (K1 and the backward past D = 256, the
+    kernels of csrc/flash_wide.cu), through the decoder-alone route of
+    phase_train_gemma: a {prefill}-token prefill into a KV cache (K1 wide
+    one a layer), then LoRA r=16 alpha=16 on the seven projections, AdamW
+    lr 2e-4, remat, over text records of batch 4 x 1536 (per step K1 wide
+    2 a layer: forward and recompute; the wide backward one a layer).
+    Passes on exact launch counts, finite logits and losses, the base's
+    bytes unchanged and every B moved."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import (LLAMA3_8B_CONFIG, KVCache,
+                                                   LlamaModel)
+    from rsvldm_tpu_torch.training import vlm_trainer as vt
+    _free_card()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LLAMA3_8B_CONFIG, heads=8, kv_heads=2,
+                              head_dim_cfg=512, layers=WIDE_HEAD_LAYERS,
+                              remat=True)
+    model = _seeded_on_card(lambda: LlamaModel(cfg), "llama")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    digest = _sd_digest(model.state_dict())
+    L = cfg.layers
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    toks = torch.randint(1, cfg.vocab_size, (1, prefill), generator=gen,
+                         device="cuda")
+    _reset_counts()
+    with torch.no_grad():
+        cache = KVCache.init(model.cache_cfg, 1, prefill + 64, model.dtype,
+                             "cuda")
+        emb = model.embed(toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, _ = model(emb, cache, 0,
+                          logits_at=torch.tensor([prefill - 1], device="cuda"))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+    pre = _counts()
+    pre_want = {"k1": L, "k1wide": L, "k2": 0, "bwd": 0, "bwd256": 0,
+                "bwdwide": 0}
+    prefill_finite = bool(torch.isfinite(logits).all())
+    del cache, emb, logits
+    tr = vt.VLMTrainer(model, vt.LoraConfig(r=16, alpha=16), lr=2e-4,
+                       generator=torch.Generator().manual_seed(seed))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    per_step = []
+    for i in range(steps):
+        emb, labels = _text_batch(model, gen, batch, width)
+        torch.cuda.synchronize()
+        before, t1 = _counts(), time.perf_counter()
+        loss = tr.train_step(emb, labels)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        now = _counts()
+        per_step.append(dict(step=i, loss=loss, seconds=secs,
+                             tokens_per_s=batch * width / secs,
+                             launches={k: now[k] - before[k] for k in now}))
+        _say("wide_head", **per_step[-1])
+    launches = _counts()
+    moved = all(float(ab["b"].detach().abs().max()) > 0
+                for ab in tr.lora.values())
+    unchanged = _sd_digest(model.state_dict()) == digest
+    want = {"k1": 2 * L, "k1wide": 2 * L, "k2": 0, "bwd": L, "bwd256": 0,
+            "bwdwide": L}
+    rec = dict(config=f"LLAMA3_8B_CONFIG widths, 8 q / 2 kv heads of 512, "
+                      f"bf16, {L} of 32 layers; LoRA r=16 (7 projections), "
+                      "remat", seconds=time.perf_counter() - t0, layers=L,
+               heads=cfg.heads, kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+               batch=batch, width=width, build_s=build_s, prefill=prefill,
+               prefill_s=prefill_s, prefill_launches=pre,
+               prefill_want=pre_want, prefill_finite=prefill_finite,
+               losses=[r["loss"] for r in per_step],
+               step_s=[r["seconds"] for r in per_step],
+               tokens_per_s=[r["tokens_per_s"] for r in per_step],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches={k: launches[k] + pre[k] for k in launches},
+               want_per_step=want, adapters=len(tr.lora),
+               adapters_moved=moved, base_unchanged=unchanged)
+    rec["ok"] = bool(
+        pre == pre_want and prefill_finite
+        and all(r["launches"] == want for r in per_step)
+        and all(launches[k] == v * steps for k, v in want.items())
+        and all(math.isfinite(x) for x in rec["losses"])
+        and len(tr.lora) == 7 * L and moved and unchanged)
+    _say("wide_head", **rec)
     del tr, model
     _free_card()
     return rec
@@ -5417,6 +5588,27 @@ PAR_LOSS_RTOL, PAR_UPDATE_RTOL = 1e-4, 1e-2
 PAR_LR_SIDES = (28, 28, 28, 28)
 PAR_TRAIN_STEPS, PAR_TRAIN_BATCH = 4, 8
 PAR_TIMEOUT_S = 600
+# the TP=2 DecodeEngine (int4 Llama-3-8B, 2 slots): the caption's image
+# prompt (padded to 1280: K1 at its admission) and three text prompts of
+# these lengths, 32 greedy tokens each; a speculative engine (draft ==
+# target, k = 2) on the second prompt; the teacher-forced positions whose
+# logits are held to the one process's (cosine >= PAR_COS_MIN)
+PAR_ENGINE_TOKENS, PAR_ENGINE_SHORT, PAR_ENGINE_TF = 32, (37, 150, 290), 16
+PAR_ENGINE_MAX_LEN, PAR_SPEC_K = 1408, 2
+# a rank's stream may leave the one process's only where the one process's
+# best logit and its logit of the rank's token tie within this many bf16
+# ulps of the best (both argmaxes are then right; the logits come out of
+# the lm_head in bf16, where random weights tie often)
+PAR_TIE_ULPS = 2
+# sequence-parallel attention against one process: fp32 max |err| (the
+# same fp32 products in another grouping) and bf16 relative rms (the
+# probabilities rounded to bf16 before the product, as JAX's einsum takes
+# them, against an fp32 reference)
+PAR_SP_ATOL_FP32, PAR_SP_REL_RMS_BF16 = 1e-5, 1e-2
+# GPipe against the sequential run: bit-equality expected (the same kernels
+# on the same inputs), else within this relative rms
+PAR_PP_REL_RMS = 1e-3
+PAR_PP_STAGES, PAR_PP_BLOCKS, PAR_PP_MICRO = 2, 4, 4
 
 
 def _par_cfg(tiny: bool) -> dict:
@@ -5430,7 +5622,8 @@ def _par_cfg(tiny: bool) -> dict:
                     vision=CLIP_VIT_L_336_CONFIG, quant="int4", model_cfgs=None,
                     vae_side=2048, enc_tile=512, dec_tile=64, train_side=224,
                     lr_sides=PAR_LR_SIDES, upscale=8, s1_steps=None,
-                    vlm_width=PAR_VLM_WIDTH)
+                    vlm_width=PAR_VLM_WIDTH, sp=(1, 4096, 32, 8, 128),
+                    pp_tokens=1024)
     from rsvldm_tpu_torch.infer import tiny_model_cfgs
     # 128-wide heads and FFN, so the int4 shards keep whole 128-groups
     llama = LlamaConfig(vocab_size=128256, dim=512, layers=2, heads=4,
@@ -5439,7 +5632,7 @@ def _par_cfg(tiny: bool) -> dict:
     return dict(device="cpu", llama=llama, vision=vision, quant="int4",
                 model_cfgs=tiny_model_cfgs(), vae_side=128, enc_tile=64,
                 dec_tile=8, train_side=16, lr_sides=(4, 4, 4, 4), upscale=4,
-                s1_steps=4, vlm_width=64)
+                s1_steps=4, vlm_width=64, sp=(1, 256, 4, 2, 32), pp_tokens=64)
 
 
 def _par_sync(dev):
@@ -5586,6 +5779,7 @@ def _par_caption_ref(seed: int, cfg: dict, work: Path) -> dict:
         dist.destroy_process_group()
     rec["archive_bytes"] = _par_lora_archive(cfg, work / "lora.npz", seed)
     rec["lora"] = _par_lora_ref(cap, spliced, work)
+    rec["engine"] = _par_engine_ref(cap, spliced, cfg, seed, work)
     del cap
     if dev == "cuda":
         _free_card()
@@ -5876,7 +6070,162 @@ def _par_references(seed: int, cfg: dict, work: Path, ranks: int) -> dict:
         _free_card()
     rec["vlm_train"] = _par_vlm_train(seed, cfg, work)
     torch.save(rec["vlm_train"], work / "vlm_train_ref.pt")
+    rec["sp"] = _par_sp_ref(seed, cfg, work)
+    rec["gpipe"] = _par_pp_ref(seed, cfg, work)
     return rec
+
+
+def _par_engine_prompts(cap, seed: int, spliced) -> list:
+    """The engine's four prompts [S, D]: the caption's spliced image prompt
+    and three text prompts of seeded token ids (PAR_ENGINE_SHORT)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed + 31)
+    vocab = cap.llama.cfg.vocab_size
+    out = [spliced]
+    with torch.inference_mode():
+        for n in PAR_ENGINE_SHORT:
+            ids = torch.randint(1, vocab, (1, n), generator=gen)
+            out.append(cap.llama.embed(ids.to(spliced.device))[0])
+    return out
+
+
+def _par_engine_run(eng, prompts, gcfg) -> list:
+    """Rank 0 (or a lone process) submits and drains, then stops the
+    followers; the other ranks follow. Every rank returns its streams."""
+    if eng._rank:
+        eng.follow()
+        return [eng.result(u) for u in sorted(eng._requests)]
+    ids = eng.generate_all(prompts, gcfg)
+    if eng._group is not None:
+        eng.stop_followers()
+    return ids
+
+
+def _par_engine_ref(cap, spliced, cfg: dict, seed: int, work: Path) -> dict:
+    """The one-process DecodeEngine on the unsharded int4 decoder (its steps
+    replayed as graphs): the four prompts' greedy ids, the speculative
+    engine's ids, the teacher-forced logits (saved for the ranks)."""
+    import torch
+    from rsvldm_tpu_torch.serving.engine import DecodeEngine
+    dev = cfg["device"]
+    prompts = _par_engine_prompts(cap, seed, spliced)
+    gcfg = _par_gcfg(PAR_ENGINE_TOKENS)
+    t0 = time.perf_counter()
+    eng = DecodeEngine(cap.llama, slots=2, max_len=PAR_ENGINE_MAX_LEN,
+                       pad_to=128)
+    ids = _par_engine_run(eng, prompts, gcfg)
+    _par_sync(dev)
+    greedy_s = time.perf_counter() - t0
+    spec = DecodeEngine(cap.llama, slots=2, max_len=PAR_ENGINE_MAX_LEN,
+                        pad_to=128, draft=cap.llama, spec_k=PAR_SPEC_K)
+    spec_ids = _par_engine_run(spec, prompts[1:2], gcfg)
+    logits = [_tf_logits(cap.llama, p, i) for p, i in zip(prompts, ids)]
+    spec_logits = [_tf_logits(cap.llama, prompts[1], spec_ids[0])]
+    torch.save({"ids": ids, "spec_ids": spec_ids, "logits": logits,
+                "spec_logits": spec_logits}, work / "engine_ref.pt")
+    rec = dict(prompt_lens=[int(p.shape[0]) for p in prompts],
+               tokens=[len(i) for i in ids], greedy_s=greedy_s,
+               steps=dict(eng.steps), spec_rounds=spec.steps["spec"],
+               spec_equals_greedy=bool((spec_ids[0] == ids[1]).all()))
+    del eng, spec
+    return rec
+
+
+def _par_sp_inputs(seed: int, cfg: dict, dtype):
+    """q [B, S, H, D] and k, v [B, S, kvh, D] for the SP attention, seeded
+    on the device in fp32, then in `dtype`."""
+    import torch
+    b, s, h, kvh, d = cfg["sp"]
+    gen = torch.Generator(device=cfg["device"]).manual_seed(seed + 41)
+    mk = lambda heads: torch.randn((b, s, heads, d), generator=gen,
+                                   device=cfg["device"]).to(dtype)
+    return mk(h), mk(kvh), mk(kvh)
+
+
+def _par_sp_ref(seed: int, cfg: dict, work: Path) -> dict:
+    """Causal GQA attention over the whole sequence in one process, in fp32
+    (K/V repeated, fp32 softmax and product: tests/test_parallel_spp.py's
+    reference), on the fp32 inputs and on the bf16 ones widened; saved for
+    the ranks."""
+    import torch
+    out = {}
+    t0 = time.perf_counter()
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = (x.float() for x in _par_sp_inputs(seed, cfg, dt))
+        rep = q.shape[2] // k.shape[2]
+        k, v = (x.repeat_interleave(rep, dim=2) for x in (k, v))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+        s = q.shape[1]
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        w = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+        del logits
+        out[name] = torch.einsum("bhqk,bkhd->bqhd", w, v).cpu()
+        del w
+    _par_sync(cfg["device"])
+    torch.save(out, work / "sp_ref.pt")
+    return dict(shape=list(cfg["sp"]), seconds=time.perf_counter() - t0)
+
+
+def _par_pp_blocks(seed: int, cfg: dict):
+    """PAR_PP_STAGES x PAR_PP_BLOCKS seeded decoder blocks of cfg's Llama
+    (full width: Llama-3-8B's), bf16 on the card (fp32 on the CPU), and
+    the microbatches [M, 1, T, dim]."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.llama import LlamaBlock
+    from rsvldm_tpu_torch.utils.weights import init_params_
+    dev = cfg["device"]
+    dt = torch.bfloat16 if dev == "cuda" else torch.float32
+    lcfg = cfg["llama"]
+    with torch.device("meta"):
+        blocks = torch.nn.ModuleList(
+            LlamaBlock(lcfg) for _ in range(PAR_PP_STAGES * PAR_PP_BLOCKS))
+    blocks = blocks.to(dtype=dt).to_empty(device=dev)
+    init_params_(blocks, torch.Generator(device=dev).manual_seed(seed + 51))
+    gen = torch.Generator(device=dev).manual_seed(seed + 52)
+    x = torch.randn((PAR_PP_MICRO, 1, cfg["pp_tokens"], lcfg.dim),
+                    generator=gen, device=dev).to(dt)
+    return blocks.eval().requires_grad_(False), x
+
+
+def _par_pp_stage(blocks):
+    """A module running `blocks` in order on x [1, T, dim] (a prefill from
+    0 without a cache): one pipeline stage, for functional_call."""
+    import torch
+
+    class Stage(torch.nn.Module):
+        def __init__(self, blocks):
+            super().__init__()
+            self.blocks = blocks
+
+        def forward(self, x):
+            for blk in self.blocks:
+                x = blk(x, None, None, 0)
+            return x
+
+    return Stage(blocks)
+
+
+def _par_pp_ref(seed: int, cfg: dict, work: Path) -> dict:
+    """The sequential run of the GPipe stages' blocks, one microbatch at a
+    time, in one process; saved for the ranks."""
+    import torch
+    dev = cfg["device"]
+    if dev == "cuda":
+        _free_card()
+    blocks, x = _par_pp_blocks(seed, cfg)
+    stage = _par_pp_stage(blocks)
+    _par_sync(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = torch.stack([stage(x[i]) for i in range(x.shape[0])])
+    _par_sync(dev)
+    secs = time.perf_counter() - t0
+    torch.save(y.cpu(), work / "pp_ref.pt")
+    del blocks, stage, x, y
+    if dev == "cuda":
+        _free_card()
+    return dict(seconds=secs, blocks=PAR_PP_STAGES * PAR_PP_BLOCKS,
+                microbatches=PAR_PP_MICRO, tokens=cfg["pp_tokens"])
 
 
 def _par_stage1_witness(pipe, paths, ranks: int, cfg: dict) -> list:
@@ -6023,7 +6372,8 @@ def _par_worker_caption(seed, cfg, mesh, work) -> dict:
                      and n["k2"] == rec["k2_reckoned"]
                      and len(ids) == PAR_NEW_TOKENS)
     rec["lora"] = _par_worker_caption_lora(cap, spliced, cfg, mesh, work)
-    rec["ok"] = rec["ok"] and rec["lora"]["ok"]
+    rec["engine"] = _par_worker_engine(cap, spliced, cfg, seed, mesh, work)
+    rec["ok"] = rec["ok"] and rec["lora"]["ok"] and rec["engine"]["ok"]
     del cap
     if dev == "cuda":
         _free_card()
@@ -6066,6 +6416,169 @@ def _par_worker_caption_lora(cap, spliced, cfg, mesh, work) -> dict:
     return rec
 
 
+def _par_worker_engine(cap, spliced, cfg, seed, mesh, work) -> dict:
+    """DecodeEngine(mesh=) on this rank's int4 shards (the TP captioner's
+    decoder, taken as it is): rank 0 submits the four prompts and steps,
+    the other rank follows; then the speculative engine (draft == target).
+    Against the one process: the same ids, teacher-forced logits within
+    PAR_COS_MIN; every rank's streams rank 0's, no rank's own tokens
+    different; K1 32 an admission of >= 1024 tokens, K2 225 a decode step
+    + 1 an admission (a round: k x 225 + 224 + 225), per rank."""
+    import torch
+    import torch.distributed as dist
+    from rsvldm_tpu_torch.serving.engine import DecodeEngine
+    dev = cfg["device"]
+    ref = torch.load(work / "engine_ref.pt", weights_only=False)
+    prompts = _par_engine_prompts(cap, seed, spliced)
+    gcfg = _par_gcfg(PAR_ENGINE_TOKENS)
+    L = cfg["llama"].layers
+    on_card = dev == "cuda"
+    rec: dict = {"prompt_lens": [int(p.shape[0]) for p in prompts]}
+    for name, kw, ps, want, lgs in (
+            ("greedy", {}, prompts, ref["ids"], ref["logits"]),
+            ("spec", dict(draft=cap.llama, spec_k=PAR_SPEC_K), prompts[1:2],
+             ref["spec_ids"], ref["spec_logits"])):
+        eng = DecodeEngine(cap.llama, slots=2, max_len=PAR_ENGINE_MAX_LEN,
+                           pad_to=128, mesh=mesh, **kw)
+        _reset_counts()
+        _par_sync(dev)
+        t0 = time.perf_counter()
+        ids = _par_engine_run(eng, ps, gcfg)
+        _par_sync(dev)
+        secs = time.perf_counter() - t0
+        n = _counts()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, [i.tolist() for i in ids])
+        long_ = sum(-(-p.shape[0] // 128) * 128 >= 1024 for p in ps)
+        rounds = eng.steps["spec"]
+        k2 = (eng.steps["decode"] * (7 * L + 1)
+              + rounds * k2_per_round(L, PAR_SPEC_K, L) + eng.admissions)
+        # where a stream leaves the one process's, if it does
+        first = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                      None if len(x) == len(y) else min(len(x), len(y)))
+                 for x, y in zip(ids, want)]
+        # there, the one process's best logit less its logit of this
+        # rank's token (teacher-forced on the same history)
+        gap = [float(lg[f].max() - lg[f][int(x[f])])
+               if f is not None and f < min(len(lg), len(x)) else None
+               for x, lg, f in zip(ids, lgs, first)]
+        r = dict(seconds=secs, tokens=sum(len(i) for i in ids),
+                 first_divergence=first, gap_at_divergence=gap,
+                 tok_s=sum(len(i) for i in ids) / secs,
+                 steps=dict(eng.steps), admissions=eng.admissions,
+                 ids_equal=len(ids) == len(want) and all(
+                     len(a) == len(b) and bool((a == b).all())
+                     for a, b in zip(ids, want)),
+                 ranks_equal=all(e == every[0] for e in every),
+                 disagreements=eng.disagreements, sharded=eng.model.tp is not None,
+                 k1=n["k1"], k1_reckoned=L * long_ * (2 if kw else 1)
+                 if on_card else 0,
+                 k2=n["k2"], k2_reckoned=k2 if on_card else 0)
+        best = [abs(float(lg[f].max())) if g is not None else None
+                for lg, f, g in zip(lgs, first, gap)]
+        r["ties_only"] = all(
+            f is None or (g is not None
+                          and g <= PAR_TIE_ULPS * 2.0 ** (math.floor(
+                              math.log2(max(b, 1e-30))) - 7))
+            for f, g, b in zip(first, gap, best))
+        r["ok"] = bool(r["ties_only"] and r["ranks_equal"] and r["sharded"]
+                       and r["disagreements"] == 0
+                       and n["k1"] == r["k1_reckoned"]
+                       and n["k2"] == r["k2_reckoned"])
+        rec[name] = r
+        del eng
+    cos = [_cos(a, b) for p, i, lg in zip(prompts, ref["ids"], ref["logits"])
+           for a, b in zip(_tf_logits(cap.llama, p, i[:PAR_ENGINE_TF]), lg)]
+    rec.update(cos_min=min(cos), k1=sum(rec[k]["k1"] for k in ("greedy", "spec")),
+               k2=sum(rec[k]["k2"] for k in ("greedy", "spec")))
+    rec["ok"] = bool(rec["greedy"]["ok"] and rec["spec"]["ok"]
+                     and rec["cos_min"] >= PAR_COS_MIN)
+    return rec
+
+
+def _par_worker_sp(seed, cfg, work) -> dict:
+    """sequence_parallel_attention over an ("sp",) mesh of the ranks, each
+    holding its S/n rows, causal, GQA, fp32 and bf16, against the one
+    process's attention on the whole sequence."""
+    import torch
+    import torch.distributed as dist
+    from rsvldm_tpu_torch.parallel import make_mesh, sequence_parallel_attention
+    n, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_mesh(n, axis="sp")
+    ref = torch.load(work / "sp_ref.pt")
+    rec = {"mesh": [list(mesh.mesh_dim_names), list(mesh.shape)]}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = _par_sp_inputs(seed, cfg, dt)
+        per = q.shape[1] // n
+        cut = lambda x: x[:, rank * per:(rank + 1) * per].contiguous()
+        q, k, v = cut(q), cut(k), cut(v)
+        _par_sync(cfg["device"])
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            o = sequence_parallel_attention(q, k, v, mesh, "sp", causal=True)
+        _par_sync(cfg["device"])
+        secs = time.perf_counter() - t0
+        want = ref[name][:, rank * per:(rank + 1) * per]
+        err = o.float().cpu() - want
+        rms = lambda x: float(x.square().mean().sqrt())
+        rec[name] = dict(seconds=secs, max_abs_err=float(err.abs().max()),
+                         rel_rms_err=rms(err) / rms(want),
+                         dtype=str(o.dtype).split(".")[-1])
+        del q, k, v, o
+    rec["ok"] = bool(rec["fp32"]["max_abs_err"] <= PAR_SP_ATOL_FP32
+                     and rec["bf16"]["rel_rms_err"] <= PAR_SP_REL_RMS_BF16
+                     and rec["bf16"]["dtype"] == "bfloat16")
+    return rec
+
+
+def _par_worker_gpipe(seed, cfg, work) -> dict:
+    """gpipe_apply over a ("stage",) mesh of the ranks: stage r runs blocks
+    [4r, 4r + 4) of the seeded decoder blocks (this rank's slice of the
+    stacked parameters), 4 microbatches, against the sequential run."""
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+    from rsvldm_tpu_torch.parallel import gpipe_apply, make_mesh
+    dev = cfg["device"]
+    if dev == "cuda":
+        _free_card()
+    n, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_mesh(n, axis="stage")
+    blocks, x = _par_pp_blocks(seed, cfg)
+    nb = PAR_PP_BLOCKS
+    stage = _par_pp_stage(blocks[:nb])
+    mine = {f"blocks.{k}": t[None] for k, t in
+            blocks[rank * nb:(rank + 1) * nb].state_dict().items()}
+    _reset_counts()
+    _par_sync(dev)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = gpipe_apply(lambda p, xi: functional_call(stage, p, (xi,)), mine,
+                        x, mesh, "stage")
+    _par_sync(dev)
+    secs = time.perf_counter() - t0
+    k1 = _counts()["k1"]
+    want = torch.load(work / "pp_ref.pt")
+    got = y.cpu()
+    err = got.float() - want.float()
+    rms = lambda t: float(t.square().mean().sqrt())
+    rec = dict(stages=n, blocks_per_stage=nb, microbatches=x.shape[0],
+               ticks=x.shape[0] + n - 1, seconds=secs,
+               bit_equal=bool(torch.equal(got, want)),
+               max_abs_err=float(err.abs().max()),
+               rel_rms_err=rms(err) / rms(want.float()), k1=k1,
+               k1_reckoned=(nb * (x.shape[0] + n - 1)
+                            if dev == "cuda" and cfg["pp_tokens"] >= 1024
+                            else 0),
+               peak_gib=_par_peak_gib(dev))
+    rec["ok"] = bool((rec["bit_equal"] or rec["rel_rms_err"] <= PAR_PP_REL_RMS)
+                     and got.shape == want.shape and k1 == rec["k1_reckoned"])
+    del blocks, stage, mine, x, y
+    if dev == "cuda":
+        _free_card()
+    return rec
+
+
 def _par_worker_vlm_train(seed, cfg, mesh, work) -> dict:
     """This rank's VLMTrainer steps at data=n against the one process's."""
     import torch
@@ -6078,6 +6591,7 @@ def _par_worker_vlm_train(seed, cfg, mesh, work) -> dict:
     want = ({"k1": 2 * L, "k2": 0, "bwd": L, "bwd256": 0}
             if cfg["device"] == "cuda" else
             {"k1": 0, "k2": 0, "bwd": 0, "bwd256": 0})
+    want.update(k1wide=0, bwdwide=0)
     rel = [abs(x - y) / abs(y) for x, y in zip(rec["losses"], ref["losses"])]
     rec.update(ref_losses=ref["losses"], loss_rel_err=max(rel),
                ranks_supervised=[s for _, s in every],
@@ -6186,8 +6700,11 @@ def parallel_worker(rank: int, work: str, seed: int, tiny: bool) -> int:
         del pipe
         rec["train"] = _par_worker_train(seed, cfg, mesh, work)
         rec["vlm_train"] = _par_worker_vlm_train(seed, cfg, mesh, work)
+        rec["sp"] = _par_worker_sp(seed, cfg, work)
+        rec["gpipe"] = _par_worker_gpipe(seed, cfg, work)
         rec["ok"] = all(rec[k]["ok"] for k in ("caption", "stage1", "vae",
-                                                 "train", "vlm_train"))
+                                                 "train", "vlm_train", "sp",
+                                                 "gpipe"))
     except Exception as e:  # reported, and fails the phase
         import traceback
         rec["error"] = traceback.format_exc()[-3000:]
@@ -6250,6 +6767,8 @@ def phase_parallel(seed: int, tiny: bool = False, ranks: int = 2,
     # VLMTrainer steps, and the world of one's caption
     rec["launches"] = {k: sum(r.get("caption", {}).get(k, 0)
                               + r.get("caption", {}).get("lora", {}).get(k, 0)
+                              + r.get("caption", {}).get("engine", {}).get(k, 0)
+                              + r.get("gpipe", {}).get(k, 0)
                               + r.get("vlm_train", {}).get(k, 0) for r in recs)
                        + one.get(k, 0)
                        for k in ("k1", "k2", "bwd", "bwd256")}
@@ -6321,10 +6840,11 @@ def main(argv=None) -> int:
     for quant in ("int8", "int4"):
         ok = phase_train_reference(SEED, quant)["ok"] and ok
     ok = phase_train_reference(SEED, "int8", family="gemma")["ok"] and ok
+    ok = phase_train_reference(SEED, None, family="wide")["ok"] and ok
     fref = phase_families_reference(SEED)
     ok = fref["ok"] and ok
     path = folder = spec = tiled = sr3 = serve = samplers = ev = None
-    fam = tow = par = gem = None
+    fam = tow = par = gem = wide = None
     tr = {}
     if not args.skip_path:
         import shutil
@@ -6359,6 +6879,8 @@ def main(argv=None) -> int:
         ok = ok and tr["ok"]
         gem = phase_train_gemma(SEED)
         ok = ok and gem["ok"]
+        wide = phase_wide_head(SEED)
+        ok = ok and wide["ok"]
         sr3 = phase_train_sr3(SEED)
         ok = ok and sr3["ok"]
         fam = phase_families(SEED)
@@ -6379,6 +6901,8 @@ def main(argv=None) -> int:
                "train_dpo": tr["train_dpo"]["launches"] if tr else {},
                "train_video": tr["train_video"]["launches"] if tr else {},
                "train_gemma": gem["launches"] if gem else {},
+               # the wide-head decoder's prefill and LoRA steps
+               "wide_head": wide["launches"] if wide else {},
                "train_sr3": sr3["launches"] if sr3 else {},
                # the LLM worker over HTTP; its engine's options (prefix,
                # chunk, horizon, int8 KV); speculative rounds
@@ -6403,10 +6927,16 @@ def main(argv=None) -> int:
         return {p: (k(c) if callable(k) else c.get(k))
                 for p, c in by_path.items()}
 
+    def k1_flash_fwd(c):
+        # K1 of flash_fwd.cu: every launch but the wide kernel's (a path
+        # that read no wide count launched none)
+        return None if c.get("k1") is None else c["k1"] - c.get("k1wide", 0)
+
     def bwd_d64_d128(c):
-        # the fused backward at D 64 / 128: every launch but the D=256
-        # kernel's (a path that read no D=256 count launched none)
-        return None if c.get("bwd") is None else c["bwd"] - c.get("bwd256", 0)
+        # the fused backward at D 64 / 128: every launch but the D=256 and
+        # the wide kernels' (a path that read no such count launched none)
+        return None if c.get("bwd") is None else (
+            c["bwd"] - c.get("bwd256", 0) - c.get("bwdwide", 0))
 
     def entry(name, source, replaces, k, rows, keys):
         head = rows[0]
@@ -6420,18 +6950,22 @@ def main(argv=None) -> int:
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"],
+                "library_op": head.get("library_op"),
                 "shapes": [{k: c.get(k) for k in keys} for c in rows
                            if "plain_ms" in c],
                 "card": smi}
 
+    fwd_keys = ("case", "shape", "causal", "ms", "wrapper_ms", "plain_ms",
+                "bound_ms", "library_ms", "library_op", "tflops",
+                "max_abs_err")
     bwd_keys = ("case", "shape", "causal", "ms", "whole_ms", "wrapper_ms",
                 "plain_ms", "bound_ms", "library_ms", "library_wrapper_ms",
                 "library_op", "tflops", "max_abs_err")
     report = {"kernels": [
         entry("flash_fwd", "rsvldm_tpu_torch/csrc/flash_fwd.cu",
-              "rsvldm_tpu/ops/flash_attention.py:67", "k1", cases,
-              ("case", "shape", "causal", "ms", "wrapper_ms", "plain_ms",
-               "bound_ms", "library_ms", "tflops", "max_abs_err")),
+              "rsvldm_tpu/ops/flash_attention.py:67", k1_flash_fwd,
+              [c for c in cases if c["shape"][4] <= 256],
+              fwd_keys),
         entry("int4_decode", "rsvldm_tpu_torch/csrc/int4_decode.cu",
               "rsvldm_tpu/ops/quant.py:185", "k2", k2,
               ("case", "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
@@ -6447,7 +6981,16 @@ def main(argv=None) -> int:
         entry("flash_bwd_d256", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
               "rsvldm_tpu/ops/flash_attention.py:326 + "
               "rsvldm_tpu/ops/flash_attention.py:376", "bwd256",
-              [c for c in bwd if c["shape"][4] > 128], bwd_keys)]}
+              [c for c in bwd if 128 < c["shape"][4] <= 256], bwd_keys),
+        # K1 and the backward past D = 256: csrc/flash_wide.cu's forward,
+        # and its prologue, dK/dV and dQ kernels (one call)
+        entry("flash_fwd_wide", "rsvldm_tpu_torch/csrc/flash_wide.cu",
+              "rsvldm_tpu/ops/flash_attention.py:67", "k1wide",
+              [c for c in cases if c["shape"][4] > 256], fwd_keys),
+        entry("flash_bwd_wide", "rsvldm_tpu_torch/csrc/flash_wide.cu",
+              "rsvldm_tpu/ops/flash_attention.py:326 + "
+              "rsvldm_tpu/ops/flash_attention.py:376", "bwdwide",
+              [c for c in bwd if c["shape"][4] > 256], bwd_keys)]}
     print(json.dumps(report), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -5,7 +5,8 @@ Counterpart of rsvldm_tpu/ops/flash_attention.py (`flash_attention`, the
 Pallas kernel `_flash_kernel`; `flash_attention_bwd`, the Pallas kernels
 `_flash_bwd_kv_kernel` and `_flash_bwd_q_kernel`, which one fused kernel
 replaces). The kernels are `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`,
-warp-specialised TMA + wgmma kernels built on `csrc/hopper.cuh`, built
+warp-specialised TMA + wgmma kernels built on `csrc/hopper.cuh`, and at
+D > 256 the mma.sync kernels of `csrc/flash_wide.cu`, built
 with nvcc at first use and bound with ctypes; their source notes give the
 design and the bound on an H100. `flash_attention_ref` and
 `flash_attention_bwd_ref` are plain PyTorch computing the same functions.
@@ -20,8 +21,15 @@ Head dims: K1 and the fused backward are built for 64, 128 and 256 (JAX's
 kernels take any D). Any other D <= 256 (MLCD's 104) runs zero-padded along
 D to the next of them with the scale of the true D, and its results are
 sliced back (`with_padded_head_dim`, exact: zero columns add 0 to every
-score and give 0 output and gradient columns). A D above 256 raises
-ValueError (queued): a CUDA call never falls back to the plain version.
+score and give 0 output and gradient columns). A D above 256 goes to the
+wide kernels of `csrc/flash_wide.cu` (a forward, and a backward of a
+prologue and two kernels, in one C call), built for any multiple of 64;
+other D above 256 are padded to the next multiple of 64 the same way. A
+D that nothing serves (D <= 0) raises ValueError: a CUDA call never falls
+back to the plain version. `launches` counts every launch at every D;
+`flash_attention.launches_wide` and `flash_attention_bwd.launches_wide`
+those of the wide kernels, `flash_attention_bwd.launches_d256` those of
+the D=256 backward.
 """
 
 from __future__ import annotations
@@ -36,12 +44,15 @@ from ..utils import cuda_build
 
 SOURCE = "flash_fwd.cu"
 BWD_SOURCE = "flash_bwd.cu"
+WIDE_SOURCE = "flash_wide.cu"
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
-HEAD_DIMS = (64, 128, 256)      # K1's instantiations (csrc/flash_fwd.cu)
-BWD_HEAD_DIMS = (64, 128, 256)  # the fused backward's (csrc/flash_bwd.cu)
+# K1's instantiations (csrc/flash_fwd.cu) and the fused backward's
+# (csrc/flash_bwd.cu)
+HEAD_DIMS = (64, 128, 256)
 BWD_Q_TILE = 64  # queries per tile of the backward kernel (csrc Q_TILE)
+WIDE_STEP = 64  # the wide kernels take D > 256 in multiples of this (csrc CHUNK)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = False,
@@ -75,10 +86,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = False,
 
 def padded_head_dim(d: int) -> int | None:
     """The head dim K1 and the fused backward run a true head dim `d` at:
-    the least of HEAD_DIMS that is >= d (zero padding), None past 256."""
+    the least of HEAD_DIMS that is >= d, past 256 the next multiple of
+    WIDE_STEP (the wide kernels), by zero padding; None for d <= 0."""
     if d <= 0:
         return None
-    return next((dp for dp in HEAD_DIMS if dp >= d), None)
+    return next((dp for dp in HEAD_DIMS if dp >= d),
+                -(-d // WIDE_STEP) * WIDE_STEP)
+
+
+def is_wide(d: int) -> bool:
+    """Whether a CUDA call at the (padded) head dim d runs the kernels of
+    csrc/flash_wide.cu rather than flash_fwd.cu / flash_bwd.cu."""
+    return d > HEAD_DIMS[-1]
 
 
 def with_padded_head_dim(fn, q, k, v, *rest, scale: float | None = None,
@@ -92,8 +111,7 @@ def with_padded_head_dim(fn, q, k, v, *rest, scale: float | None = None,
     d = q.shape[-1]
     dp = padded_head_dim(d)
     if dp is None:
-        raise ValueError(f"flash_attention: head dim {d} is above the "
-                         f"largest of {HEAD_DIMS} (smaller ones are padded)")
+        raise ValueError(f"flash_attention: head dim {d} cannot be served")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if dp == d:
         return fn(q, k, v, *rest, scale=scale, **kw)
@@ -115,6 +133,18 @@ def _bind():
     return fn
 
 
+def _bind_wide():
+    """(forward, backward) of csrc/flash_wide.cu."""
+    lib = cuda_build.load(WIDE_SOURCE)
+    fwd, bwd = lib.rsv_flash_wide_fwd, lib.rsv_flash_wide_bwd
+    if fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+        bwd.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_float, p]
+        fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
 def _check(q, k, v, kv_len):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
@@ -132,8 +162,10 @@ def _check(q, k, v, kv_len):
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if padded_head_dim(d) != d:
+        raise ValueError(f"flash_attention: head dim {d} is not one the "
+                         f"kernels are built for ({HEAD_DIMS}, multiples of "
+                         f"{WIDE_STEP} above 256)")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q/k/v on different devices")
     if sq == 0 or k.shape[1] == 0 or not 0 <= kv_len <= k.shape[1]:
@@ -145,7 +177,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     scale: float | None = None, kv_len: int | None = None,
                     return_lse: bool = False):
     """K1 on CUDA tensors, `flash_attention_ref` on CPU tensors (see there
-    for the semantics). `flash_attention.launches` counts kernel launches.
+    for the semantics). `flash_attention.launches` counts kernel launches,
+    `flash_attention.launches_wide` those at D > 256 (csrc/flash_wide.cu).
 
     A CUDA call that needs a gradient goes through the autograd Function
     whose backward is the fused backward kernel; one that asks for lse or
@@ -159,7 +192,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
                              "backward; call with neither to differentiate")
         from .attention import FlashAttention
         return FlashAttention.apply(q, k, v, causal, scale)
-    if q.shape[-1] not in HEAD_DIMS:
+    if padded_head_dim(q.shape[-1]) != q.shape[-1]:
         return with_padded_head_dim(flash_attention, q, k, v, causal=causal,
                                     scale=scale, kv_len=kv_len,
                                     return_lse=return_lse)
@@ -167,7 +200,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     _check(q, k, v, kv_len)
     b, sq, h, d = q.shape
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    fn = _bind()
+    wide = is_wide(d)
+    fn = _bind_wide()[0] if wide else _bind()
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -179,10 +213,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if rc != 0:
         raise RuntimeError(f"flash_attention: K1 launch failed, cudaError {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_wide += wide
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_wide = 0
 
 
 # ---------------------------------------------------------------- backward
@@ -234,12 +270,16 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     tensors. out and lse [B, H, Sq] come from K1 on the same inputs.
     dq is summed in an fp32 workspace by reduce-adds whose order changes
     from run to run, and so may its last bits.
-    `flash_attention_bwd.launches` counts launches at every head dim,
-    `flash_attention_bwd.launches_d256` those of the D=256 kernel."""
+    At D > 256 one call of csrc/flash_wide.cu runs its prologue, its
+    dK/dV kernel and its dQ kernel, which writes dq in bf16 itself (no
+    workspace, no atomics: deterministic).
+    `flash_attention_bwd.launches` counts calls at every head dim,
+    `flash_attention_bwd.launches_d256` those of the D=256 kernel and
+    `flash_attention_bwd.launches_wide` those at D > 256."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                        scale=scale)
-    if q.shape[-1] not in BWD_HEAD_DIMS:
+    if padded_head_dim(q.shape[-1]) != q.shape[-1]:
         return with_padded_head_dim(flash_attention_bwd, q, k, v, out, lse, do,
                                     causal=causal, scale=scale)
     _check(q, k, v, k.shape[1])
@@ -254,12 +294,28 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous fp32 "
                          f"{(b, h, sq)} on {q.device}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if is_wide(d):
+        return _bwd_wide(q, k, v, out, lse, do, causal, scale)
     aux, dq_acc = _bwd_prep(out, do, lse)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_kernel(q, k, v, do, aux, dq_acc, dk, dv, causal, scale)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_d256 += d == 256
     return dq_acc.to(q.dtype), dk, dv
+
+
+def _bwd_wide(q, k, v, out, lse, do, causal, scale):
+    """csrc/flash_wide.cu's backward on checked inputs: (dq, dk, dv)."""
+    b, sq, h, d = q.shape
+    aux = torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    _launch_bwd(_bind_wide()[1], "wide", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                aux.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                b, h, sq, k.shape[1], d, int(causal), float(scale))
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_wide += 1
+    return dq, dk, dv
 
 
 def _bwd_prep(out, do, lse):
@@ -299,3 +355,4 @@ def _launch_bwd(fn, name, device, *args):
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_d256 = 0
+flash_attention_bwd.launches_wide = 0

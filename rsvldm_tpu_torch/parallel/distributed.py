@@ -19,9 +19,9 @@ the groups of a `DeviceMesh` with dims ("data", "tile"):
 3. `local_batch_range` / `from_process_local`: each rank loads only its
    rows of the global batch; nothing is assembled.
 
-Collectives (`all_reduce`, `all_gather`, `broadcast`) take tensors on the
-rank's device. Over gloo, CUDA tensors are staged through host memory
-here, explicitly, and the result copied back to the device.
+Collectives (`all_reduce`, `all_gather`, `broadcast`, `ppermute`) take
+tensors on the rank's device. Over gloo, CUDA tensors are staged through
+host memory here, explicitly, and the result copied back to the device.
 """
 
 from __future__ import annotations
@@ -125,14 +125,19 @@ def _order_data_axis_by_process(arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def mesh_from_ranks(arr: np.ndarray, backend: str | None = None):
+def mesh_from_ranks(arr: np.ndarray, backend: str | None = None,
+                    axis: str | None = None):
     """A DeviceMesh ("data", "tile") over the ranks of `arr` (every rank
-    of the world, in process order). Device type cuda under NCCL, else
-    cpu: the port uses the mesh's process groups, not DTensor placements,
-    so a gloo mesh also carries CUDA tensors (through `all_reduce` & co)."""
+    of the world, in process order), or, with `axis`, a one-axis mesh of
+    that name over the 1-D `arr` (JAX's tests build ("sp",) and
+    ("stage",) meshes). Device type cuda under NCCL, else cpu: the port
+    uses the mesh's process groups, not DTensor placements, so a gloo mesh
+    also carries CUDA tensors (through `all_reduce` & co)."""
     from torch.distributed.device_mesh import DeviceMesh
     backend = backend or dist.get_backend()
     dev = "cuda" if backend == "nccl" else "cpu"
+    if axis is not None:
+        return DeviceMesh(dev, torch.as_tensor(arr), mesh_dim_names=(axis,))
     return DeviceMesh(dev, torch.as_tensor(_order_data_axis_by_process(arr)),
                       mesh_dim_names=("data", "tile"))
 
@@ -231,3 +236,28 @@ def broadcast(t: torch.Tensor, group, src_rank: int = 0) -> torch.Tensor:
         return t
     dist.broadcast(t, src, group=group)
     return t
+
+
+def ppermute(t: torch.Tensor, group, perm) -> torch.Tensor:
+    """JAX's ppermute over `group`: perm lists (source, destination) group
+    ranks; this rank sends t to its destination and returns what its
+    source sent (zeros where no pair names it as a destination). Sends
+    and receives are posted together (batch_isend_irecv), so a ring does
+    not deadlock."""
+    rank = dist.get_rank(group)
+    staged = t.is_cuda and _staged(group)
+    src = t.cpu() if staged else t.contiguous()
+    out = torch.zeros_like(src)
+    glob = lambda r: dist.get_global_rank(group, r) if group is not None else r
+    ops = []
+    for s, d in perm:
+        if s == rank and d == rank:
+            out.copy_(src)
+        elif s == rank:
+            ops.append(dist.P2POp(dist.isend, src, glob(d), group))
+        elif d == rank:
+            ops.append(dist.P2POp(dist.irecv, out, glob(s), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out.to(t.device) if staged else out

@@ -27,15 +27,23 @@ from .distributed import (all_gather, broadcast, init_world_of_one,
                           mesh_from_ranks, world)
 
 
-def make_mesh(n_devices: int | None = None, tile: int = 1):
+def make_mesh(n_devices: int | None = None, tile: int = 1, *,
+              axis: str | None = None):
     """Mesh of shape (data, tile) over the world's ranks; tile divides
-    them. The mesh spans every rank (n_devices, when given, must be the
-    world size); a world of one is made when no process group exists."""
+    them. With `axis`, a one-axis mesh of that name instead (the ("sp",)
+    and ("stage",) meshes of parallel/sequence.py; tile must be 1). The
+    mesh spans every rank (n_devices, when given, must be the world
+    size); a world of one is made when no process group exists."""
     init_world_of_one()
     n = world()[1]
     if n_devices is not None and n_devices != n:
         raise ValueError(f"make_mesh({n_devices}): a mesh spans every rank "
                          f"of the world ({n}); start {n_devices} ranks")
+    if axis is not None:
+        if tile != 1:
+            raise ValueError("make_mesh(axis=...): a one-axis mesh has no "
+                             "tile axis")
+        return mesh_from_ranks(np.arange(n), axis=axis)
     assert n % tile == 0, (n, tile)
     return mesh_from_ranks(np.arange(n).reshape(n // tile, tile))
 

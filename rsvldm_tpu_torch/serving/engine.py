@@ -53,6 +53,25 @@ device, so it replays inside a graph; the tests inject JAX's draws.
 The pools' format is one decision, `kv_8bit` (or the model's own
 cfg.kv_quant): int8 K/V with fp32 scale planes for the slot pool, the
 prefix blocks, the chunk rows and the draft's pool; else the model's dtype.
+
+Tensor parallelism (`mesh=`, JAX's `DecodeEngine(mesh=)`): the decoder,
+and the draft, are sharded over the mesh's 'data' group
+(parallel/llama_sharding.py::shard_llama_; a model built sharded, as
+`build_sharded_llama` builds it, is taken as it is), and every pool holds
+the rank's kv heads (shard_kv_cache's cut; kv heads that do not divide
+the group leave the attention and the pools whole). JAX runs one
+process; the port runs one a rank, in lockstep. Rank 0 owns the queue:
+`submit`, `step`, `generate_all`, `register_prefix` and a worker's HTTP
+threads run there. Each device operation it starts (an admission with its
+embeddings, a registered prefix, the chunked prefills' advance, a decode
+step, horizon or round) is first broadcast as a plan entry
+(parallel/distributed.py::broadcast) to the other ranks, which run
+`follow()`: the same bookkeeping and the same device work, until rank 0
+sends the stop (`stop_followers`). The tokens of every step are rank 0's,
+broadcast after it: each rank commits the same streams, and a rank whose
+own sampled tokens differ counts it in `disagreements`. Steps under TP
+run directly, without CUDA graphs (their collectives are not captured).
+A group of one leaves the model whole and the engine as without a mesh.
 """
 
 from __future__ import annotations
@@ -66,14 +85,22 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.vlm.generate import GenerateConfig
 from ..models.vlm.llama import KVCache, LlamaModel
 from ..models.vlm.speculative import (_feed, _sample_dist, _token_dist,
                                       accept_and_correct)
+from ..parallel.distributed import broadcast
+from ..parallel.llama_sharding import shard_llama_
 from ..utils.counter import M32, mix, unit
 from ..utils.graphs import StepRunner, use_graphs
+
+# plan entries rank 0 sends to the other ranks of a tensor-parallel engine
+(_STOP, _ADMIT, _CHUNKS, _STEP, _PREFIX, _DROP, _FAIL) = range(7)
+_DECODE, _HORIZON, _SPEC = range(3)  # a _STEP's kind
+_PLAN_LEN = 16
 
 
 @dataclasses.dataclass
@@ -173,12 +200,19 @@ class DecodeEngine:
         """draft/spec_k: speculative rounds; the draft must share the
         target's hidden size (its prefill takes the same spliced embeds).
         They compose with neither prefix caching nor chunked prefill nor
-        the decode horizon, as in JAX. mesh: the tensor-parallel engine is
-        not ported (ROADMAP item 7) and raises."""
+        the decode horizon, as in JAX. mesh: tensor parallelism over the
+        mesh's 'data' group (module docstring): every rank of the group
+        builds the engine, rank 0 serves and the others call follow()."""
+        self._group, self._rank = None, 0
+        self.disagreements = 0
         if mesh is not None:
-            raise NotImplementedError(
-                "DecodeEngine(mesh=): the tensor-parallel engine is not "
-                "ported yet (ROADMAP item 7, parallel)")
+            group = mesh.get_group("data")
+            if dist.get_world_size(group) > 1:
+                self._group, self._rank = group, dist.get_rank(group)
+                model = model if model.tp is not None else shard_llama_(
+                    model, group)
+                if draft is not None and draft.tp is None:
+                    draft = shard_llama_(draft, group)
         self.model = model
         self.slots = slots
         self.max_len = max_len
@@ -205,14 +239,16 @@ class DecodeEngine:
         self.spec_k = spec_k
         dev = model.model.norm.weight.device
         self.device = dev
-        self.graphs = use_graphs(dev, None)
+        # a step that holds collectives runs directly
+        self.graphs = use_graphs(dev, None) and self._group is None
         self.noise = noise or CounterNoise(model.cfg.vocab_size, dev)
         quant = lambda cfg: (dataclasses.replace(cfg, kv_quant=True)
                              if kv_8bit else cfg)
-        self._kv_cfg = quant(model.cfg)
+        # cache_cfg: the rank's kv heads on a sharded attention
+        self._kv_cfg = quant(model.cache_cfg)
         self.cache = self._new_cache(slots, max_len)
-        self.draft_cache = (KVCache.init(quant(draft.cfg), slots, max_len,
-                                         draft.dtype, dev)
+        self.draft_cache = (KVCache.init(quant(draft.cache_cfg), slots,
+                                         max_len, draft.dtype, dev)
                             if draft is not None else None)
         long = dict(dtype=torch.long, device=dev)
         # the scheduler's state a step reads: toks, pos, nonces, counts
@@ -346,7 +382,7 @@ class DecodeEngine:
         t = torch.full((1,), temp, dtype=torch.float32, device=dev)
         g = self.noise.gumbel(torch.full((1,), nonce, dtype=torch.long, device=dev),
                               torch.zeros(1, dtype=torch.long, device=dev))
-        return int(_sample(logits, t, g)[0])
+        return int(self._agree(_sample(logits, t, g))[0])
 
     def _fresh_row(self, cache: KVCache, slot: int) -> KVCache:
         row = cache.row(slot)
@@ -378,19 +414,27 @@ class DecodeEngine:
         """Prefill a shared prompt prefix [P, D] once and keep its KV block
         ([L, 1, P_pad, ...] per cache tensor: P_pad positions of memory,
         not a slot). Returns the id for submit(prefix_id=)."""
+        self._owner("register_prefix")
         emb = self._to_device(prefix_embeds)
+        with torch.inference_mode(), self._lock:
+            self._plan(_PREFIX, emb.shape[0], emb=emb)
+            return self._register(emb)
+
+    def _register(self, emb) -> int:
         p = emb.shape[0]
         p_pad = -(-p // self.pad_to) * self.pad_to
-        with torch.inference_mode(), self._lock:
-            kv = self._new_cache(1, p_pad)
-            _feed(self.model, _pad_rows(emb, p_pad)[None], kv, 0, None)
-            pid = next(self._prefix_uid)
-            self._prefixes[pid] = (kv, p)
+        kv = self._new_cache(1, p_pad)
+        _feed(self.model, _pad_rows(emb, p_pad)[None], kv, 0, None)
+        pid = next(self._prefix_uid)
+        self._prefixes[pid] = (kv, p)
         return pid
 
     def drop_prefix(self, prefix_id: int) -> None:
         """Release a registered prefix's KV block."""
-        self._prefixes.pop(prefix_id, None)
+        self._owner("drop_prefix")
+        with self._lock:
+            self._plan(_DROP, prefix_id)
+            self._prefixes.pop(prefix_id, None)
 
     def _to_device(self, embeds) -> torch.Tensor:
         if not isinstance(embeds, torch.Tensor):
@@ -402,6 +446,7 @@ class DecodeEngine:
         """Queue one spliced prompt [S, D]; returns a request uid. It starts
         decoding when a slot frees up. With prefix_id, input_embeds is the
         suffix after the registered prefix."""
+        self._owner("submit")
         cfg = cfg or GenerateConfig()
         s = input_embeds.shape[0]
         s_pad = -(-s // self.pad_to) * self.pad_to
@@ -446,29 +491,39 @@ class DecodeEngine:
         while self._free and self._waiting:
             req = self._waiting.pop(0)
             slot = self._free.pop(0)
-            self.admissions += 1
-            s = req.embeds.shape[0]
-            self.prefill_tokens += s
-            c = self.prefill_chunk
-            if c and s > c:
-                pkv, p = ((None, 0) if req.prefix_id is None
-                          else self._prefixes[req.prefix_id])
-                n = -(-s // c)
-                if p + n * c <= self.max_len:
-                    row = self._new_cache(1, self.max_len)
-                    if pkv is not None:
-                        for r, t in zip(row.leaves(), pkv.leaves()):
-                            r[:, :, :t.shape[2]].copy_(t)
-                    req.row = row
-                    req.chunk_emb = _pad_rows(req.embeds, n * c)
-                    req.base_off, req.chunk_i, req.n_chunks = p, 0, n
-                    req.slot = slot
-                    self._prefilling[slot] = req
-                    continue
-            tok = self._timed(self._prefill, req, slot)
-            req.slot = slot
-            self._active[slot] = req
-            self._record(req, tok)
+            self._plan(_ADMIT, req.uid, slot, req.nonce, req.temperature,
+                       req.embeds.shape[0],
+                       -1 if req.prefix_id is None else req.prefix_id,
+                       req.max_new_tokens, len(req.eot_ids), *req.eot_ids,
+                       emb=req.embeds)
+            self._admit_one(req, slot)
+
+    def _admit_one(self, req: _Request, slot: int):
+        """Prefill `req` into `slot` (whole, or set up its chunked
+        prefill) and record token 0."""
+        self.admissions += 1
+        s = req.embeds.shape[0]
+        self.prefill_tokens += s
+        c = self.prefill_chunk
+        if c and s > c:
+            pkv, p = ((None, 0) if req.prefix_id is None
+                      else self._prefixes[req.prefix_id])
+            n = -(-s // c)
+            if p + n * c <= self.max_len:
+                row = self._new_cache(1, self.max_len)
+                if pkv is not None:
+                    for r, t in zip(row.leaves(), pkv.leaves()):
+                        r[:, :, :t.shape[2]].copy_(t)
+                req.row = row
+                req.chunk_emb = _pad_rows(req.embeds, n * c)
+                req.base_off, req.chunk_i, req.n_chunks = p, 0, n
+                req.slot = slot
+                self._prefilling[slot] = req
+                return
+        tok = self._timed(self._prefill, req, slot)
+        req.slot = slot
+        self._active[slot] = req
+        self._record(req, tok)
 
     def _record(self, req: _Request, tok: int):
         # EOT is never appended (an append-then-pop would let a concurrent
@@ -535,41 +590,138 @@ class DecodeEngine:
         """Admit waiting requests, advance chunked prefills by one chunk,
         then advance every active slot (one token, a horizon, or a
         speculative round). Returns the number of unfinished requests."""
+        self._owner("step")
         with self._lock:
             self._admit()
             if self._prefilling:
+                self._plan(_CHUNKS)
                 self._timed(self._advance_prefills)
             if not self._active:
                 return len(self._prefilling) + len(self._waiting)
-            state = np.zeros((4, self.slots), np.int64)
-            temps = np.zeros((self.slots,), np.float32)
-            for slot, req in self._active.items():
-                # the incoming token out_ids[-1] goes at the position after
-                # the prompt and the previously written generations
-                state[:, slot] = (req.out_ids[-1],
-                                  req.prompt_len + len(req.out_ids) - 1,
-                                  req.nonce, len(req.out_ids))
-                temps[slot] = req.temperature
-            self._state.copy_(torch.from_numpy(state))
-            self._temps.copy_(torch.from_numpy(temps))
-            if self.draft is not None:
-                res = self._spec_round().cpu().numpy()
-                k = self.spec_k
-                for slot, req in list(self._active.items()):
-                    for t in res[slot, :int(res[slot, k + 1])]:
-                        self._record(req, int(t))
-                        if req.done:
-                            break   # drop the rest of the block
-            else:
-                burst = (self._decode_multi() if self._use_horizon()
-                         else self._decode()).cpu().numpy()
-                for slot, req in list(self._active.items()):
-                    for t in burst[slot]:
-                        self._record(req, int(t))
-                        if req.done:
-                            break   # trim the burst at the stop
+            kind = (_SPEC if self.draft is not None
+                    else _HORIZON if self._use_horizon() else _DECODE)
+            self._plan(_STEP, kind)
+            self._advance_active(kind)
             return (len(self._active) + len(self._prefilling)
                     + len(self._waiting))
+
+    def _advance_active(self, kind: int):
+        """One decode step, horizon or speculative round for the active
+        slots, and its tokens recorded."""
+        state = np.zeros((4, self.slots), np.int64)
+        temps = np.zeros((self.slots,), np.float32)
+        for slot, req in self._active.items():
+            # the incoming token out_ids[-1] goes at the position after
+            # the prompt and the previously written generations
+            state[:, slot] = (req.out_ids[-1],
+                              req.prompt_len + len(req.out_ids) - 1,
+                              req.nonce, len(req.out_ids))
+            temps[slot] = req.temperature
+        self._state.copy_(torch.from_numpy(state))
+        self._temps.copy_(torch.from_numpy(temps))
+        if kind == _SPEC:
+            res = self._agree(self._spec_round()).cpu().numpy()
+            k = self.spec_k
+            for slot, req in list(self._active.items()):
+                for t in res[slot, :int(res[slot, k + 1])]:
+                    self._record(req, int(t))
+                    if req.done:
+                        break   # drop the rest of the block
+            return
+        burst = self._agree(self._decode_multi() if kind == _HORIZON
+                            else self._decode()).cpu().numpy()
+        for slot, req in list(self._active.items()):
+            for t in burst[slot]:
+                self._record(req, int(t))
+                if req.done:
+                    break   # trim the burst at the stop
+
+    # -- tensor parallelism: rank 0 plans, the other ranks follow ---------
+    def _owner(self, what: str):
+        if self._rank:
+            raise RuntimeError(f"DecodeEngine.{what}: rank 0 of the mesh owns "
+                               "the queue; this rank runs follow()")
+
+    def _plan(self, op: int, *vals, emb=None):
+        """Rank 0: one plan entry (op and up to 15 numbers, then the
+        embeddings [S, D] of an admission or a prefix) to the other ranks
+        of the group; nothing without a group."""
+        if self._group is None:
+            return
+        if len(vals) >= _PLAN_LEN:
+            raise ValueError("DecodeEngine: a plan entry holds at most "
+                             f"{_PLAN_LEN - 1} numbers")
+        head = torch.zeros(_PLAN_LEN, dtype=torch.float64)
+        head[:len(vals) + 1] = torch.tensor([op, *vals], dtype=torch.float64)
+        broadcast(head.to(self.device), self._group, 0)
+        if emb is not None:
+            broadcast(emb.contiguous(), self._group, 0)
+
+    def _receive(self) -> list:
+        head = torch.zeros(_PLAN_LEN, dtype=torch.float64, device=self.device)
+        return broadcast(head, self._group, 0).cpu().tolist()
+
+    def _receive_embeds(self, s: int) -> torch.Tensor:
+        emb = torch.empty((s, self.model.cfg.dim), dtype=self.model.dtype,
+                          device=self.device)
+        return broadcast(emb, self._group, 0)
+
+    def _agree(self, toks: torch.Tensor) -> torch.Tensor:
+        """Rank 0's tokens on every rank of the group (in place); a rank
+        whose own differ adds one to `disagreements`."""
+        if self._group is None:
+            return toks
+        mine = toks.clone()
+        broadcast(toks, self._group, 0)
+        self.disagreements += int(bool((mine != toks).any()))
+        return toks
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the other ranks' follow() (call once, when done)."""
+        self._owner("stop_followers")
+        with self._lock:
+            self._plan(_STOP)
+
+    @torch.inference_mode()
+    def follow(self) -> None:
+        """The other ranks' side of a tensor-parallel engine: run rank 0's
+        plan entries (the same admissions, chunks, steps and prefixes, on
+        this rank's shards) until rank 0 calls stop_followers(). The
+        requests' streams are then rank 0's, by uid (`result`)."""
+        if self._group is None or self._rank == 0:
+            raise RuntimeError("DecodeEngine.follow: only the ranks other "
+                               "than 0 of a tensor-parallel engine follow")
+        while True:
+            head = self._receive()
+            op = int(head[0])
+            if op == _STOP:
+                return
+            with self._lock:
+                if op == _ADMIT:
+                    uid, slot, nonce, temp, s, pid, max_new, n_eot = head[1:9]
+                    eot = tuple(int(e) for e in head[9:9 + int(n_eot)])
+                    req = _Request(uid=int(uid),
+                                   embeds=self._receive_embeds(int(s)),
+                                   max_new_tokens=int(max_new),
+                                   temperature=temp, eot_ids=eot,
+                                   nonce=int(nonce),
+                                   prefix_id=None if pid < 0 else int(pid),
+                                   t_submit=time.perf_counter())
+                    self._requests[req.uid] = req
+                    self._free.remove(int(slot))
+                    self._admit_one(req, int(slot))
+                elif op == _CHUNKS:
+                    self._timed(self._advance_prefills)
+                elif op == _STEP:
+                    self._advance_active(int(head[1]))
+                elif op == _PREFIX:
+                    self._register(self._receive_embeds(int(head[1])))
+                elif op == _DROP:
+                    self._prefixes.pop(int(head[1]), None)
+                elif op == _FAIL:
+                    self._fail_local("failed on rank 0")
+                else:
+                    raise RuntimeError(f"DecodeEngine.follow: plan op {op}")
 
     # -- results -----------------------------------------------------------
     def result(self, uid: int) -> np.ndarray:
@@ -599,13 +751,17 @@ class DecodeEngine:
         all waiters with `msg`, free the slots, drop queued work. The pool
         stays as it is: a freed slot is zeroed on reuse."""
         with self._lock:
-            inflight = (list(self._active.values())
-                        + list(self._prefilling.values())
-                        + list(self._waiting))
-            self._active.clear()
-            self._prefilling.clear()
-            self._waiting.clear()
-            self._free = list(range(self.slots))
+            if not self._rank:
+                self._plan(_FAIL)
+            self._fail_local(msg)
+
+    def _fail_local(self, msg: str) -> None:
+        inflight = (list(self._active.values())
+                    + list(self._prefilling.values()) + list(self._waiting))
+        self._active.clear()
+        self._prefilling.clear()
+        self._waiting.clear()
+        self._free = list(range(self.slots))
         for req in inflight:
             req.error = msg
             req.done = True

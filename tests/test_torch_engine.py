@@ -7,7 +7,8 @@ sampled placement independence, the prefix cache, chunked prefill and its
 interleaving, the decode horizon (greedy, sampled, trimmed at a stop, the
 scheduler's policy), speculative rounds (draft == target greedy and
 sampled, a mismatched draft greedy), release, frames without the eot,
-fail_all and the guards; the tensor-parallel engine is refused. Each
+fail_all and the guards; a mesh of one runs the whole engine (the
+tensor-parallel engine itself: test_torch_engine_tp.py). Each
 request's ids equal JAX's engine's for the same prompt, config and nonce;
 the first token's logits equal JAX's within 1e-4. Then the step bodies have
 no host read (they are captured as CUDA graphs on the card) and the
@@ -334,9 +335,26 @@ def test_speculative_guards(pair):
         _engine(pair, slots=1, draft=wide.tmodel)
 
 
-def test_mesh_refused(pair):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        _engine(pair, slots=1, mesh=object())
+def test_mesh_refused(pair, ref):
+    """A mesh of one (a world of one over gloo) runs the whole engine: the
+    decoder stays unsharded and without `tp`, the steps keep their graph
+    path, the streams equal JAX's; follow(), the other ranks' side of a
+    tensor-parallel engine, is refused there."""
+    import torch.distributed as dist
+    from rsvldm_tpu_torch.parallel.mesh import make_mesh
+    created = not dist.is_initialized()
+    try:
+        mesh = make_mesh()
+        ps = prompts(pair, [9, 14], 71)
+        eng = _engine(pair, slots=2, mesh=mesh)
+        assert eng.model is pair.tmodel and eng.model.tp is None
+        assert eng._group is None
+        _check(ref, eng, _run(eng, ps, GREEDY), ps, [GREEDY] * 2)
+        with pytest.raises(RuntimeError, match="follow"):
+            eng.follow()
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_release_and_state_cleanup(pair):

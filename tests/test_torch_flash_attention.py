@@ -150,20 +150,22 @@ def test_d256_equals_jax(causal):
 
 
 def test_head_dims_k1_cannot_take_raise():
-    """Past 256 nothing is built: such a D raises (never the plain path on
-    a card), forward and backward. D=256 and a padded 192 reach the
-    kernels' own checks, which refuse a tensor that is not on the card."""
+    """A head dim nothing serves (D <= 0) raises, forward and backward,
+    with a gradient too: never the plain path on a card. Every D > 0
+    reaches a kernel's own checks (D=256 and a padded 192 flash_fwd.cu /
+    flash_bwd.cu's, D=320, 512 and a padded 288 the wide
+    kernels'), which refuse a tensor that is not on the card."""
     from rsvldm_tpu_torch.ops.flash_attention import flash_attention_bwd
-    q = torch.empty((1, 8, 1, 320), device="meta")
+    q = torch.empty((1, 8, 1, 0), device="meta")
     lse = torch.empty((1, 1, 8), device="meta")
-    with pytest.raises(ValueError, match="head dim 320"):
+    with pytest.raises(ValueError, match="head dim 0"):
         flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="head dim 320"):
+    with pytest.raises(ValueError, match="head dim 0"):
         flash_attention_bwd(q, q, q, q, lse, q)
-    r = torch.empty((1, 8, 1, 320), device="meta", requires_grad=True)
-    with pytest.raises(ValueError, match="head dim 320"):
+    r = torch.empty((1, 8, 1, 0), device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="head dim 0"):
         flash_attention(r, r, r)
-    for d in (256, 192):
+    for d in (256, 192, 320, 512, 288):
         q = torch.empty((1, 8, 1, d), device="meta")
         with pytest.raises(ValueError, match="CUDA"):
             flash_attention(q, q, q)

@@ -64,7 +64,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "models.vlm.towers", "models.vlm.projector",
                  "models.vlm.resampler", "models.text.t5",
                  "models.text.embedders", "parallel", "parallel.distributed",
-                 "parallel.mesh", "parallel.llama_sharding"):
+                 "parallel.mesh", "parallel.llama_sharding",
+                 "parallel.sequence"):
         assert f"rsvldm_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

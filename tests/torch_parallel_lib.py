@@ -26,6 +26,15 @@ Jobs:
             <work>/vlm.pt; then on rank 0 the CLI's single-process run,
             and a world of one: Stage 1 and the trainers bit-identical to
             no mesh
+  engine_tp (2 ranks) DecodeEngine(mesh=) at TP=2 on the tiny decoder
+            of <work>/inputs.pt: rank 0 submits and steps, rank 1
+            follows; greedy, a speculative round (draft == target),
+            prefix + chunked prefill + horizon, sampled with the table
+            of JAX's draws, int8 pools; then each case on one process
+  sequence  (4 ranks) sequence_parallel_attention over an ("sp",) mesh,
+            gpipe_apply over a ("stage",) mesh (a tanh stage, and the
+            tiny decoder's blocks one a stage) on the inputs of
+            <work>/inputs.pt
 """
 
 from __future__ import annotations
@@ -576,7 +585,151 @@ def job_paths(rank: int, n: int, work: Path) -> dict:
     return res
 
 
-JOBS = {"parallel": job_parallel, "llama_tp": job_llama_tp, "paths": job_paths}
+class TableNoise:
+    """Draws looked up in [nonce, count] tables (JAX's, computed in the
+    pytest process): gumbel [N, C, V], uniform [N, C], resample [N, C, V]."""
+
+    def __init__(self, tables: dict):
+        self.t = tables
+
+    def gumbel(self, nonces, counts):
+        return self.t["gumbel"][nonces, counts]
+
+    def uniform(self, nonces, counts):
+        return self.t["uniform"][nonces, counts]
+
+    def resample(self, nonces, counts):
+        return self.t["resample"][nonces, counts]
+
+
+def _engine_model(inp: dict, kv_quant: bool = False):
+    from rsvldm_tpu_torch.models.vlm.llama import LlamaConfig, LlamaModel
+    m = LlamaModel(LlamaConfig(**inp["geom"], kv_quant=kv_quant))
+    m.load_state_dict(inp["sd"])
+    return m.eval().requires_grad_(False)
+
+
+def _engine_case(name: str, inp: dict, mesh, rank: int) -> dict:
+    """One engine case; with a mesh rank 0 drives and the others follow.
+    Returns {uid: ids} (rank 0's streams on every rank), the nonces, and
+    what the case checks beside."""
+    import torch
+    from rsvldm_tpu_torch.serving.engine import DecodeEngine
+    cfgs = inp["cfgs"]
+    model = _engine_model(inp, kv_quant=False)
+    kw = dict(slots=2, max_len=64, pad_to=8)
+    ps = [torch.from_numpy(x) for x in inp["prompts"]]
+    if name == "spec":
+        kw.update(draft=model, spec_k=2)
+    elif name == "options":
+        kw.update(prefill_chunk=8, decode_horizon=3)
+    elif name == "sampled":
+        kw.update(noise=TableNoise(inp["noise"]))
+    elif name == "int8":
+        kw.update(kv_8bit=True)
+    eng = DecodeEngine(model, mesh=mesh, **kw)
+    out: dict = {"sharded": eng.model.tp is not None,
+                 "q_rows": eng.model.model.layers[0].self_attn.q_proj.weight.shape[0],
+                 "cache": {k: tuple(getattr(eng.cache, k).shape)
+                           for k in ("k", "v", "k_scale", "v_scale")
+                           if getattr(eng.cache, k) is not None}}
+    if rank == 0:
+        cfg = cfgs["sampled" if name == "sampled" else "greedy"]
+        if name == "options":
+            pid = eng.register_prefix(torch.from_numpy(inp["prefix"]))
+            for suf in inp["suffixes"]:
+                eng.submit(torch.from_numpy(suf), cfg, prefix_id=pid)
+            eng.submit(torch.from_numpy(inp["long"]), cfg)
+            eng.run_until_idle()
+            out["steps"] = dict(eng.steps)
+            eng.drop_prefix(pid)
+        else:
+            eng.generate_all(ps, cfg)
+        if mesh is not None:
+            eng.stop_followers()
+    else:
+        eng.follow()
+    out["ids"] = {uid: eng.result(uid) for uid in sorted(eng._requests)}
+    out["nonces"] = {uid: r.nonce for uid, r in eng._requests.items()}
+    out["disagreements"] = eng.disagreements
+    out["admissions"] = eng.admissions
+    out["prefixes_left"] = len(eng._prefixes)
+    return out
+
+
+ENGINE_CASES = ("greedy", "spec", "options", "sampled", "int8")
+
+
+def job_engine_tp(rank: int, n: int, work: Path) -> dict:
+    import torch
+    import torch.distributed as dist
+    from rsvldm_tpu_torch.models.vlm.llama import KVCache, LlamaConfig
+    from rsvldm_tpu_torch.parallel.llama_sharding import shard_kv_cache
+    from rsvldm_tpu_torch.parallel.mesh import make_mesh
+    _init(rank, n, work)
+    inp = torch.load(work / "inputs.pt", weights_only=False)
+    mesh = make_mesh(tile=1)
+    res = {"tp": {c: _engine_case(c, inp, mesh, rank) for c in ENGINE_CASES}}
+    # the int8 pool cut as shard_kv_cache cuts a whole one
+    full = KVCache.init(LlamaConfig(**inp["geom"], kv_quant=True), 2, 64)
+    res["int8_cut"] = {k: tuple(getattr(shard_kv_cache(full, n, rank), k).shape)
+                       for k in ("k", "v", "k_scale", "v_scale")}
+    if rank:
+        from rsvldm_tpu_torch.serving.engine import DecodeEngine
+        eng = DecodeEngine(_engine_model(inp), slots=1, max_len=64, pad_to=8,
+                           mesh=mesh)
+        try:
+            eng.submit(torch.from_numpy(inp["prompts"][0]),
+                       inp["cfgs"]["greedy"])
+        except RuntimeError as e:
+            res["follower_submit"] = str(e)
+    dist.destroy_process_group()
+    res["one"] = {c: _engine_case(c, inp, None, 0) for c in ENGINE_CASES}
+    return res
+
+
+def job_sequence(rank: int, n: int, work: Path) -> dict:
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+    from rsvldm_tpu_torch.models.vlm.llama import LlamaConfig, LlamaModel
+    from rsvldm_tpu_torch.parallel import (gpipe_apply, make_mesh,
+                                           sequence_parallel_attention,
+                                           stack_stage_params)
+    _init(rank, n, work)
+    inp = torch.load(work / "inputs.pt", weights_only=False)
+    res: dict = {"sp": {}}
+    sp = make_mesh(axis="sp")
+    res["sp_mesh"] = (tuple(sp.mesh_dim_names), tuple(sp.shape))
+    for key, (q, k, v) in inp["sp"].items():
+        per = q.shape[1] // n
+        cut = lambda x: x[:, rank * per:(rank + 1) * per].contiguous()
+        res["sp"][key] = sequence_parallel_attention(
+            cut(q), cut(k), cut(v), sp, "sp", causal=key[0])
+    stage = make_mesh(axis="stage")
+    g = inp["gpipe"]
+    stacked = stack_stage_params(g["stages"])
+    res["gpipe"] = gpipe_apply(lambda p, x: torch.tanh(x @ p["w"] + p["b"]),
+                               stacked, g["x"], stage, "stage")
+    # the decoder's blocks, one a stage; this rank passes its slice alone
+    lm = inp["llama"]
+    model = LlamaModel(LlamaConfig(**lm["geom"]))
+    model.load_state_dict(lm["sd"])
+    model.eval().requires_grad_(False)
+    blocks = list(model.model.layers)
+    stacked = stack_stage_params([dict(b.state_dict()) for b in blocks])
+    mine = {key: val[rank:rank + 1] for key, val in stacked.items()}
+    fn = lambda p, x: functional_call(blocks[0], p, (x, None, None, 0))
+    with torch.no_grad():
+        emb = model.embed(lm["toks"])
+        h = gpipe_apply(fn, mine, emb[None], stage, "stage")[0]
+        res["llama_logits"] = model.lm_head(model.model.norm(h))
+    dist.destroy_process_group()
+    return res
+
+
+JOBS = {"parallel": job_parallel, "llama_tp": job_llama_tp, "paths": job_paths,
+        "engine_tp": job_engine_tp, "sequence": job_sequence}
 
 
 if __name__ == "__main__":
