@@ -753,8 +753,58 @@ def phase_build():
     for source, log, seconds in done:
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
-        _say("build", source=source, ptxas=ptxas, seconds=round(seconds, 3))
+        PTXAS[source] = _ptxas_by_kernel(log)
+        # C7515: ptxas serialised a kernel's wgmma instructions
+        serialised = [ln.strip() for ln in log.splitlines() if "C7515" in ln]
+        _say("build", source=source, ptxas=ptxas,
+             by_kernel=PTXAS[source], serialised_wgmma=serialised,
+             seconds=round(seconds, 3))
     _say("build", all_seconds=round(time.perf_counter() - t0, 3))
+
+
+# ptxas's report of each kernel, by source, from phase_build (for the
+# kernel report's records)
+PTXAS: dict = {}
+
+
+def _unmangled(name: str) -> str:
+    """The innermost name of an Itanium-mangled function name (the length-
+    prefixed parts after _Z / _ZN), e.g. flash_wide_fwd_kernel."""
+    if not name.startswith("_Z"):
+        return name
+    i, parts = 3 if name.startswith("_ZN") else 2, []
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        parts.append(name[j:j + int(name[i:j])])
+        i = j + int(name[i:j])
+    return parts[-1] if parts else name
+
+
+def _ptxas_by_kernel(log: str) -> dict:
+    """{kernel name: {registers, spill_stores, spill_loads}} from the
+    `-Xptxas -v` lines of one build (mangled names shortened to the
+    `..._kernel` they hold)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = _unmangled(m.group(1))
+            if name in out:  # a template's instantiations share a name
+                name = f"{name}#{sum(k.split('#')[0] == name for k in out)}"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 # --------------------------------------------------------------- phase 3
@@ -962,7 +1012,8 @@ def _flash_bwd_case(name, b, sq, sk, h, d, *, causal=False, timed=False,
                (lambda x: torch.nn.functional.pad(x, (0, dp - d))))
         qp, kp, vp, dop, outp = (pad(x) for x in (q, k, v, do, out))
         if fa.is_wide(dp):
-            # the wide route's kernels are one C call: prologue, dK/dV, dQ
+            # the wide route's kernels are one C call (prologue, kernel),
+            # timed with the workspace's cast
             rec["ms"] = _graph_ms(lambda: fa._bwd_wide(
                 qp, kp, vp, outp, lse, dop, causal, scale))
         else:
@@ -1312,7 +1363,8 @@ def _wide_cases():
     (4 records of 1536 tokens, 8 heads of 512, causal, with lse) and its
     1280-token prefill, D=320 non-causal with kv_len padding, each timed
     with a planted 10% scale fault; causal Sq > Sk (zero rows) at D=384,
-    D=288 padded to 320 across the 64-row tiles' edges."""
+    D=288 padded to 320 across the 64-row tiles' edges, D=600 padded to
+    640 (O split over two items)."""
     return [
         _flash_case("wide_train_s1536_d512", 4, 1536, 1536, 8, 512,
                     causal=True, lse=True, timed=True, main_path=True,
@@ -1325,14 +1377,18 @@ def _wide_cases():
                     causal=True, lse=True),
         _flash_case("wide_d288_padded", 1, 333, 517, 2, 288, causal=True,
                     kv_len=500, lse=True),
+        # D=600 padded to 640: O's ten boxes split over two items
+        _flash_case("wide_d600_padded", 1, 300, 300, 2, 600, causal=True,
+                    lse=True),
     ]
 
 
 def _bwd_wide_cases():
-    """The backward past D = 256 (csrc/flash_wide.cu: prologue, dK/dV,
-    dQ): phase wide_head's train step [4, 1536, 8, 512] causal and
-    [2, 1024, 4, 320], timed, each with a planted 10% scale fault; causal
-    Sq < Sk and Sq > Sk (zero rows), D=288 padded to 320."""
+    """The backward past D = 256 (csrc/flash_wide.cu: prologue, then one
+    kernel adding dQ into an fp32 workspace): phase wide_head's train step
+    [4, 1536, 8, 512] causal and [2, 1024, 4, 320], timed, each with a
+    planted 10% scale fault; causal Sq < Sk and Sq > Sk (zero rows), D=288
+    padded to 320, D=600 padded to 640 (three items a key tile)."""
     return [
         _flash_bwd_case("wide_train_s1536_d512", 4, 1536, 1536, 8, 512,
                         causal=True, timed=True, main_path=True,
@@ -1344,6 +1400,10 @@ def _bwd_wide_cases():
         _flash_bwd_case("wide_d512_causal_sq_gt_sk", 1, 700, 300, 2, 512,
                         causal=True),
         _flash_bwd_case("wide_d288_padded", 1, 333, 333, 2, 288,
+                        causal=True),
+        # D=600 padded to 640: dK / dV / dQ's ten boxes split over three
+        # items a key tile (4 + 4 + 2)
+        _flash_bwd_case("wide_d600_padded", 1, 300, 300, 2, 600,
                         causal=True),
     ]
 
@@ -6938,9 +6998,13 @@ def main(argv=None) -> int:
         return None if c.get("bwd") is None else (
             c["bwd"] - c.get("bwd256", 0) - c.get("bwdwide", 0))
 
-    def entry(name, source, replaces, k, rows, keys):
+    def entry(name, source, replaces, k, rows, keys, kernels=None):
         head = rows[0]
         n = launches(k)
+        # ptxas's registers and spills of the entry's kernels, where given
+        built = PTXAS.get(Path(source).name, {})
+        extra = ({"ptxas": {kn: built.get(kn) for kn in kernels}}
+                 if kernels else {})
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": sum(v for v in n.values() if v is not None),
@@ -6953,7 +7017,7 @@ def main(argv=None) -> int:
                 "library_op": head.get("library_op"),
                 "shapes": [{k: c.get(k) for k in keys} for c in rows
                            if "plain_ms" in c],
-                "card": smi}
+                "card": smi, **extra}
 
     fwd_keys = ("case", "shape", "causal", "ms", "wrapper_ms", "plain_ms",
                 "bound_ms", "library_ms", "library_op", "tflops",
@@ -6983,14 +7047,16 @@ def main(argv=None) -> int:
               "rsvldm_tpu/ops/flash_attention.py:376", "bwd256",
               [c for c in bwd if 128 < c["shape"][4] <= 256], bwd_keys),
         # K1 and the backward past D = 256: csrc/flash_wide.cu's forward,
-        # and its prologue, dK/dV and dQ kernels (one call)
+        # and its prologue and backward kernel (one call)
         entry("flash_fwd_wide", "rsvldm_tpu_torch/csrc/flash_wide.cu",
               "rsvldm_tpu/ops/flash_attention.py:67", "k1wide",
-              [c for c in cases if c["shape"][4] > 256], fwd_keys),
+              [c for c in cases if c["shape"][4] > 256], fwd_keys,
+              kernels=("flash_wide_fwd_kernel",)),
         entry("flash_bwd_wide", "rsvldm_tpu_torch/csrc/flash_wide.cu",
               "rsvldm_tpu/ops/flash_attention.py:326 + "
               "rsvldm_tpu/ops/flash_attention.py:376", "bwdwide",
-              [c for c in bwd if c["shape"][4] > 256], bwd_keys)]}
+              [c for c in bwd if c["shape"][4] > 256], bwd_keys,
+              kernels=("flash_wide_bwd_kernel", "flash_wide_prep_kernel"))]}
     print(json.dumps(report), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

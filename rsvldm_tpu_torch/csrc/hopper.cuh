@@ -303,6 +303,24 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss_init(float (&d)[32],
       : "l"(a), "l"(b), "r"(0), "n"(TA), "n"(TB));
 }
 
+// D[64x32] (+)= A[64x16] · B[16x32], both K-major in shared memory (the
+// wide backward's S^T and dP^T against half a 64-query tile); scale_d = 0
+// overwrites D. Accumulator layout as above, 4 column blocks of 8.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a,
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // D[64x128] += A[64x16] · B[16x128], A from registers (a[0..3] in
 // mma.sync's m16n8k16 A-fragment layout per warp: rows g / g+8, columns
 // 2t.. / 2t+8..; which is the bf16-packed accumulator layout of two

@@ -5,10 +5,9 @@ Counterpart of rsvldm_tpu/ops/flash_attention.py (`flash_attention`, the
 Pallas kernel `_flash_kernel`; `flash_attention_bwd`, the Pallas kernels
 `_flash_bwd_kv_kernel` and `_flash_bwd_q_kernel`, which one fused kernel
 replaces). The kernels are `csrc/flash_fwd.cu` and `csrc/flash_bwd.cu`,
-warp-specialised TMA + wgmma kernels built on `csrc/hopper.cuh`, and at
-D > 256 the mma.sync kernels of `csrc/flash_wide.cu`, built
-with nvcc at first use and bound with ctypes; their source notes give the
-design and the bound on an H100. `flash_attention_ref` and
+and at D > 256 `csrc/flash_wide.cu`: warp-specialised TMA + wgmma kernels
+built on `csrc/hopper.cuh`, with nvcc at first use, and bound with ctypes;
+their source notes give the design and the bound on an H100. `flash_attention_ref` and
 `flash_attention_bwd_ref` are plain PyTorch computing the same functions.
 CPU tensors take them; CUDA tensors launch the kernels or raise. Layout
 [B, S, H, D] throughout.
@@ -23,7 +22,7 @@ D to the next of them with the scale of the true D, and its results are
 sliced back (`with_padded_head_dim`, exact: zero columns add 0 to every
 score and give 0 output and gradient columns). A D above 256 goes to the
 wide kernels of `csrc/flash_wide.cu` (a forward, and a backward of a
-prologue and two kernels, in one C call), built for any multiple of 64;
+prologue and one kernel, in one C call), built for any multiple of 64;
 other D above 256 are padded to the next multiple of 64 the same way. A
 D that nothing serves (D <= 0) raises ValueError: a CUDA call never falls
 back to the plain version. `launches` counts every launch at every D;
@@ -52,7 +51,7 @@ LN2 = math.log(2.0)
 # (csrc/flash_bwd.cu)
 HEAD_DIMS = (64, 128, 256)
 BWD_Q_TILE = 64  # queries per tile of the backward kernel (csrc Q_TILE)
-WIDE_STEP = 64  # the wide kernels take D > 256 in multiples of this (csrc CHUNK)
+WIDE_STEP = 64  # the wide kernels take D > 256 in multiples of this (csrc BOX_COLS)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = False,
@@ -269,10 +268,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     delta prologue) on CUDA tensors, `flash_attention_bwd_ref` on CPU
     tensors. out and lse [B, H, Sq] come from K1 on the same inputs.
     dq is summed in an fp32 workspace by reduce-adds whose order changes
-    from run to run, and so may its last bits.
-    At D > 256 one call of csrc/flash_wide.cu runs its prologue, its
-    dK/dV kernel and its dQ kernel, which writes dq in bf16 itself (no
-    workspace, no atomics: deterministic).
+    from run to run, and so may its last bits; at every head dim.
+    At D > 256 one call of csrc/flash_wide.cu runs its prologue and its
+    kernel, which adds dq into the workspace as the others do.
     `flash_attention_bwd.launches` counts calls at every head dim,
     `flash_attention_bwd.launches_d256` those of the D=256 kernel and
     `flash_attention_bwd.launches_wide` those at D > 256."""
@@ -308,14 +306,16 @@ def _bwd_wide(q, k, v, out, lse, do, causal, scale):
     """csrc/flash_wide.cu's backward on checked inputs: (dq, dk, dv)."""
     b, sq, h, d = q.shape
     aux = torch.empty((2, b * h, sq), dtype=torch.float32, device=q.device)
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd(_bind_wide()[1], "wide", q.device, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                aux.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, h, sq, k.shape[1], d, int(causal), float(scale))
+                aux.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), b, h, sq, k.shape[1], d, int(causal),
+                float(scale))
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_wide += 1
-    return dq, dk, dv
+    return dq_acc.to(q.dtype), dk, dv
 
 
 def _bwd_prep(out, do, lse):

@@ -13,6 +13,11 @@ fp32 on the same numpy inputs.
 - routing: the D each head dim runs at and whether it takes the wide
   kernels; CPU tensors at D = 512 take the plain versions and launch
   nothing;
+- the kernels' decomposition (`_model_fwd` / `_model_bwd`, test code in
+  fp32 torch walking the tiles as csrc/flash_wide.cu does) against the
+  plain versions at D = 320, 512 and 640 and against JAX's Pallas kernels
+  on two shapes: within 1e-5 (fp32 on every side, only the order of the
+  sums differs: per tile, per key half, per column box, per dQ partial);
 - a tiny decoder with head_dim_cfg=320 (q_proj 48 -> 2 x 320, GQA, remat):
   logits, the LoRA loss, its gradients and one VLMTrainer step against
   JAX: logits and loss within 1e-5, gradients 2e-5 + 1e-4 relative,
@@ -165,6 +170,185 @@ def test_cpu_tensors_take_the_plain_versions():
     for x, w in zip(leaves, grads):
         torch.testing.assert_close(x.grad, w, atol=1e-6, rtol=1e-6)
     assert counts() == before
+
+
+# ----------------------------------- the kernels' decomposition, modelled
+# csrc/flash_wide.cu's walk in fp32 torch. Forward: items of up to 8 of O's
+# 64-column boxes (4 a warpgroup), 64-query tiles against 128-key tiles,
+# the causal tiles past the tile's last row skipped; each tile's keys
+# split between the two warpgroups, which exchange their row maxima before
+# the exponentials and sum their row sums at the end. Backward: items of a
+# 64-key tile and up to 4 boxes of dK / dV / dQ (2 a warpgroup) against
+# 64-query tiles from the first one that sees a key; S^T and dP^T split by
+# queries between the warpgroups; dQ summed in fp32 from every key tile's
+# and item's partial, cast once.
+BOX_COLS, TILE, F_KEYS = 64, 64, 128
+
+
+def _items(d, most):
+    """The kernels' split of D's boxes: [(first, end)] per item."""
+    nb = d // BOX_COLS
+    per = -(-nb // -(-nb // most))
+    return [(b0, min(nb, b0 + per)) for b0 in range(0, nb, per)]
+
+
+def _wg_cols(b0, b1):
+    """The two warpgroups' column ranges of an item's boxes."""
+    n0 = (b1 - b0 + 1) // 2
+    return [slice(b0 * BOX_COLS, (b0 + n0) * BOX_COLS),
+            slice((b0 + n0) * BOX_COLS, b1 * BOX_COLS)]
+
+
+def _model_fwd(q, k, v, *, causal, kv_len=None):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    kv_len = sk if kv_len is None else kv_len
+    c = LOG2E_ / d ** 0.5
+    q_off = kv_len - sq
+    n_kt = -(-sk // F_KEYS)
+    # the TMA boxes zero-fill keys past Sk
+    kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, n_kt * F_KEYS - sk))
+              for x in (k, v))
+    out = torch.zeros_like(q)
+    lse = torch.zeros((b, h, sq))
+    for b0, b1 in _items(d, 8):
+        cols = _wg_cols(b0, b1)
+        for q_start in range(0, sq, TILE):
+            rows = torch.arange(q_start, min(q_start + TILE, sq))
+            n_keys = kv_len
+            if causal:
+                n_keys = min(kv_len, min(q_start + TILE, sq) + q_off)
+            m = torch.full((b, h, len(rows)), NEG_INF_)
+            l = [torch.zeros_like(m), torch.zeros_like(m)]
+            acc = [torch.zeros((b, h, len(rows), x.stop - x.start))
+                   for x in cols]
+            for j in range(-(-n_keys // F_KEYS) if n_keys > 0 else 0):
+                s = []
+                for w in range(2):
+                    key = torch.arange(j * F_KEYS + 64 * w,
+                                       j * F_KEYS + 64 * w + 64)
+                    sw = torch.einsum("bqhd,bkhd->bhqk", q[:, rows], kp[:, key])
+                    ok = (key < kv_len)[None, :]
+                    if causal:
+                        ok = ok & (key[None, :] <= rows[:, None] + q_off)
+                    s.append(sw.masked_fill(~ok, float("-inf")))
+                # the row maxima exchanged: both warpgroups hold the same m
+                mx = torch.maximum(m, torch.maximum(s[0].amax(-1),
+                                                    s[1].amax(-1)))
+                alpha = torch.exp2((m - mx) * c)
+                m = mx
+                p = [torch.exp2(sw * c - (mx * c)[..., None]) for sw in s]
+                l = [lw * alpha + pw.sum(-1) for lw, pw in zip(l, p)]
+                pt = torch.cat(p, -1)  # the shared P tile, 128 keys
+                vt = vp[:, j * F_KEYS:(j + 1) * F_KEYS]
+                acc = [a * alpha[..., None]
+                       + torch.einsum("bhqk,bkhd->bhqd", pt, vt[..., x])
+                       for a, x in zip(acc, cols)]
+            lsum = l[0] + l[1]
+            l_safe = lsum.clamp_min(1e-30)
+            for a, x in zip(acc, cols):
+                out[:, rows, :, x] = (a / l_safe[..., None]).permute(0, 2, 1, 3)
+            if b0 == 0:
+                m_scaled = torch.where(lsum > 0, m * c,
+                                       torch.full_like(m, NEG_INF_))
+                lse[:, :, rows] = m_scaled * LN2_ + torch.log(l_safe)
+    return out, lse
+
+
+def _model_bwd(q, k, v, out, lse, do, *, causal):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / d ** 0.5
+    c = scale * LOG2E_
+    q_off = sk - sq
+    lse2 = lse * LOG2E_
+    delta = (do * out).sum(-1).transpose(1, 2)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for b0, b1 in _items(d, 4):
+        cols = _wg_cols(b0, b1)
+        for k_start in range(0, sk, TILE):
+            key = torch.arange(k_start, min(k_start + TILE, sk))
+            j0 = max(k_start - q_off, 0) // TILE if causal else 0
+            dk_w = [torch.zeros((b, len(key), h, x.stop - x.start))
+                    for x in cols]
+            dv_w = [torch.zeros_like(x) for x in dk_w]
+            for q0 in range(j0 * TILE, sq, TILE):
+                p, ds = [], []
+                for w in range(2):  # warpgroup w's 32 queries
+                    qs = torch.arange(q0 + 32 * w,
+                                      max(min(q0 + 32 * w + 32, sq), q0 + 32 * w))
+                    st = torch.einsum("bkhd,bqhd->bhkq", k[:, key], q[:, qs])
+                    dpt = torch.einsum("bkhd,bqhd->bhkq", v[:, key], do[:, qs])
+                    pw = torch.exp2(st * c - lse2[:, :, None, qs])
+                    if causal:  # exact zeros, as the kernel selects
+                        pw = torch.where(key[:, None] <= qs[None, :] + q_off,
+                                         pw, 0.0)
+                    p.append(pw)
+                    ds.append(pw * (dpt - delta[:, :, None, qs]) * scale)
+                pt, dst = torch.cat(p, -1), torch.cat(ds, -1)
+                rows = slice(q0, min(q0 + TILE, sq))
+                for w, x in enumerate(cols):
+                    dv_w[w] += torch.einsum("bhkq,bqhd->bkhd", pt,
+                                            do[:, rows, :, x])
+                    dk_w[w] += torch.einsum("bhkq,bqhd->bkhd", dst,
+                                            q[:, rows, :, x])
+                    # this key tile's and item's partial, added in fp32
+                    dq_acc[:, rows, :, x] += torch.einsum(
+                        "bhkq,bkhd->bqhd", dst, k[:, key][..., x])
+            for w, x in enumerate(cols):
+                dk[:, key, :, x] = dk_w[w]
+                dv[:, key, :, x] = dv_w[w]
+    return dq_acc.to(q.dtype), dk, dv
+
+
+LOG2E_, LN2_, NEG_INF_ = fa.LOG2E, fa.LN2, fa.NEG_INF
+# (sq, sk, causal, kv_len): tiles cut at 64 queries and 64 / 128 keys
+MODEL_CASES = [(150, 200, True, None), (200, 150, True, None),
+               (130, 190, False, 140), (64, 257, False, None)]
+
+
+@pytest.mark.parametrize("d", [320, 512, 640])
+@pytest.mark.parametrize("sq,sk,causal,kv_len", MODEL_CASES)
+def test_tile_model_forward_equals_plain(sq, sk, causal, kv_len, d):
+    q, k, v, _ = (torch.from_numpy(x)
+                  for x in _inputs(1, sq, sk, 2, d, sq * 3 + sk + d))
+    out, lse = _model_fwd(q, k, v, causal=causal, kv_len=kv_len)
+    want, want_lse = fa.flash_attention_ref(q, k, v, causal=causal,
+                                            kv_len=kv_len, return_lse=True)
+    torch.testing.assert_close(out, want, **TOL)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+@pytest.mark.parametrize("d", [320, 512, 640])
+@pytest.mark.parametrize("sq,sk,causal", [x[:3] for x in MODEL_CASES])
+def test_tile_model_backward_equals_plain(sq, sk, causal, d):
+    q, k, v, g = (torch.from_numpy(x)
+                  for x in _inputs(1, sq, sk, 2, d, sq + 5 * sk + d))
+    out, lse = fa.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    got = _model_bwd(q, k, v, out, lse, g, causal=causal)
+    want = fa.flash_attention_bwd_ref(q, k, v, out, lse, g, causal=causal)
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x, w, **TOL)
+
+
+@pytest.mark.parametrize("d,sq,sk", [(320, 150, 200), (512, 200, 150)])
+def test_tile_model_equals_pallas(d, sq, sk):
+    """The model, forward and backward, causal, against JAX's Pallas
+    kernels in interpret mode on the same inputs."""
+    q, k, v, g = _inputs(1, sq, sk, 2, d, d + sq)
+    jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+    out_j, lse_j = jax_flash(jq, jk, jv, causal=True, block_q=64, block_k=64,
+                             interpret=True, return_lse=True)
+    want = jax_bwd(jq, jk, jv, out_j, lse_j, jg, causal=True, block_q=64,
+                   block_k=64, interpret=True)
+    t = [torch.from_numpy(x) for x in (q, k, v, g)]
+    out, lse = _model_fwd(*t[:3], causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), **TOL)
+    got = _model_bwd(*t[:3], out, lse, t[3], causal=True)
+    for x, w in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), **TOL)
 
 
 # ------------------------------------------------ a decoder with wide heads
