@@ -26,8 +26,10 @@ Phases, each printed on its own line:
                wrapper), each also at 1.1x its softmax scale, which must
                fail the limits; K1 at the Gemma-7B QLoRA step's
                forward ([4, 1536, 16, 256] causal, with lse; the same
-               fault); D=256 at its tiles' edges and with zero
-               rows, padded D=72; K2 at the int4 Gemma-7B and Qwen2-7B
+               fault), both through flash_fwd_d256_kernel, and with kv_len
+               1000 of 1024 keys ([2, 1024, 8, 256], timed, the fault);
+               D=256 at its tiles' edges and with zero rows, padded D=72;
+               K2 at the int4 Gemma-7B and Qwen2-7B
                decode shapes and their sums per step (196 / 197 launches);
                the tensor-parallel caption's (phase parallel): K1 at one
                rank's heads at TP=4 ([1, 1280, 8, 128] causal; TP=2's is
@@ -39,7 +41,9 @@ Phases, each printed on its own line:
                [2, 1024, 8, 256], timed beside cuDNN's SDPA backward and
                each at 1.1x its softmax scale, which must fail the
                limits, the edges of its 64-key tiles, zero rows; D=192,
-               padded to 256, forward and backward
+               padded to 256, forward and backward; the D=256 forward at
+               one item an SM against the Gemma-7B prefill's 160 items
+               (`d256_waves`: what its partial second wave costs)
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, same
                noise, PNGs within a stated uint8 tolerance; then a
@@ -230,9 +234,10 @@ Phases, each printed on its own line:
                EVAL_TOL of CPU per image and metric; TF32 on must move a
                metric beyond EVAL_TOL
      parallel  (last) the parallel layer: this process runs the int4
-               Llama-3-8B caption of one 224^2 tile (1280-token prefill, 64
-               greedy tokens), folder Stage 1 of four 28^2 tiles (500
-               steps), the tiled VAE at 2048^2 (bf16 and widened to fp32)
+               Llama-3-8B caption of one 224^2 tile (1280-token prefill,
+               PAR_NEW_TOKENS greedy tokens), folder Stage 1 of four 28^2
+               tiles (500 steps), the tiled VAE at 2048^2 (bf16 and widened
+               to fp32)
                and 4 SR3 training steps at global batch 8 without a mesh,
                then the same caption with its decoder sharded over a world
                of one on NCCL (the ids must be the same); two ranks of this
@@ -243,8 +248,9 @@ Phases, each printed on its own line:
                tiled VAE at tile=2 and DP SR3 training, each against the
                unsharded run (limits at PAR_*), Stage 1 also against its
                one-process witness at the ranks' batch of 2 (bit for bit),
-               the TP=2 caption again with a seeded LoRA archive (32
-               tokens, against one process with it) and 3 VLMTrainer
+               the TP=2 caption again with a seeded LoRA archive
+               (PAR_LORA_TOKENS, against one process with it), the TP=2
+               DecodeEngine (PAR_ENGINE_TOKENS a request) and 3 VLMTrainer
                steps at data=2 on the int8 Llama-3-8B (2 x 1536 tokens a
                rank, against one process on all 4 rows); prefill ms,
                tok/s, peak GiB per rank. --parallel-only runs the build and this
@@ -783,17 +789,20 @@ def _unmangled(name: str) -> str:
 
 
 def _ptxas_by_kernel(log: str) -> dict:
-    """{kernel name: {registers, spill_stores, spill_loads}} from the
-    `-Xptxas -v` lines of one build (mangled names shortened to the
-    `..._kernel` they hold)."""
-    out, name = {}, None
+    """{kernel name: {registers, spill_stores, spill_loads, warnings}} from
+    the `-Xptxas -v` lines of one build (mangled names shortened to the
+    `..._kernel` they hold); `warnings` lists the codes of ptxas's
+    performance notes on the kernel, e.g. C7515 (its wgmma serialised) or
+    C7519 (warpgroup fences inserted)."""
+    out, name, key_of = {}, None, {}
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             name = _unmangled(m.group(1))
             if name in out:  # a template's instantiations share a name
                 name = f"{name}#{sum(k.split('#')[0] == name for k in out)}"
-            out[name] = {}
+            out[name] = {"warnings": []}
+            key_of[m.group(1)] = name
             continue
         if name is None:
             continue
@@ -804,6 +813,13 @@ def _ptxas_by_kernel(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             out[name]["registers"] = int(m.group(1))
+    for ln in log.splitlines():
+        code = re.search(r"\((C75\d\d)\)", ln)
+        fn = re.search(r"function '([^']+)'", ln)
+        if code and fn:
+            key = key_of.get(fn.group(1), _unmangled(fn.group(1)))
+            out.setdefault(key, {"warnings": []})["warnings"].append(
+                code.group(1))
     return out
 
 
@@ -820,7 +836,8 @@ def _flash_case(name, b, sq, sk, h, d, *, causal=False, kv_len=None,
     import torch
     import torch.nn.functional as F
     from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
-                                                      flash_attention_ref)
+                                                      flash_attention_ref,
+                                                      padded_head_dim)
     gen = torch.Generator(device="cuda").manual_seed(
         sum(map(ord, name)) + sq * 7 + sk)
     mk = lambda s: torch.randn((b, s, h, d), generator=gen, device="cuda",
@@ -1295,12 +1312,9 @@ def phase_kernels():
         _flash_case("d128_causal_sq_gt_sk", 1, 700, 300, 4, 128, causal=True,
                     lse=True),
         _flash_case("d64_sq_lt_tile", 2, 77, 1024, 4, 64, lse=True),
-        # the other families (phases families / towers): Gemma-7B's caption
-        # prefill (causal, 16 heads of 256) and MLCD-bigG-448's attention
+        # the other families (phase towers): MLCD-bigG-448's attention
         # (non-causal, 5 tiles of 32^2 + 1 tokens, 1664 / 16 = 104 padded
-        # to 128 by the wrapper), each with a planted 10% scale fault
-        _flash_case("gemma_prefill_s1280_d256", 1, 1280, 1280, 16, 256,
-                    causal=True, timed=True, main_path=True, scale_fault=True),
+        # to 128 by the wrapper), with a planted 10% scale fault
         _flash_case("mlcd448_b5_s1025_d104", 5, 1025, 1025, 16, 104,
                     timed=True, main_path=True, scale_fault=True),
         # the families' other K1 prefills: Qwen2-7B (28 heads of 128 after
@@ -1315,21 +1329,13 @@ def phase_kernels():
         # is the Qwen2-MoE case above, TP=4's is this one
         _flash_case("llama_tp4_prefill_s1280_h8", 1, 1280, 1280, 8, 128,
                     causal=True, timed=True, main_path=True),
-        # the Gemma-7B QLoRA step's forward and recompute (phase
-        # train_gemma): 4 records of 1536 tokens, 16 heads of 256, with lse
-        _flash_case("gemma_train_s1536_d256", 4, 1536, 1536, 16, 256,
-                    causal=True, lse=True, timed=True, main_path=True,
-                    scale_fault=True),
-        # D=256 at the edges of its tiles and with zero rows; padded D=72
-        _flash_case("d256_ragged_tiles", 1, 1153, 1217, 3, 256, lse=True),
-        _flash_case("d256_causal_sq_gt_sk", 1, 700, 300, 4, 256, causal=True,
-                    lse=True),
+        # padded D=72
         _flash_case("d72_causal_padded", 2, 300, 300, 3, 72, causal=True,
                     lse=True),
-        # D=192, padded to 256 by the wrapper (the backward's case below)
-        _flash_case("d192_causal_padded", 1, 1100, 1100, 4, 192, causal=True,
-                    lse=True, timed=True, scale_fault=True),
-    ] + _wide_cases()
+    ] + _d256_cases() + _wide_cases()
+    # the prefill's partial second wave at D=256, on its record
+    prefill = next(c for c in cases if c["case"] == "gemma_prefill_s1280_d256")
+    prefill["waves"] = _d256_waves()
     int4_matmul.launches = 0
     k2 = phase_k2()
     # the backward: the training step's attention (B=4 records of 1536
@@ -1356,6 +1362,39 @@ def phase_kernels():
     ] + _bwd_d256_cases() + _bwd_wide_cases()
     _reset_counts()
     return cases, k2, bwd
+
+
+def _d256_cases():
+    """K1 at D = 256 (flash_fwd_d256_kernel): Gemma-7B's caption prefill
+    (phase families: causal, 16 heads of 256) and QLoRA step (phase
+    train_gemma: 4 records of 1536 tokens, with lse), each timed with a
+    planted 10% scale fault; kv_len inside one of its 64-key tiles (timed,
+    the fault); the edges of its 128-row and 64-key tiles, causal Sq > Sk
+    (zero rows); D=192, which the wrapper pads to 256 (timed, the fault).
+    The kernel splits O over two items where its items fill at most half
+    the SMs (on 132 SMs: 66 items or fewer), so the edge, zero-row and
+    kv_len cases come at both sizes."""
+    return [
+        _flash_case("gemma_prefill_s1280_d256", 1, 1280, 1280, 16, 256,
+                    causal=True, timed=True, main_path=True, scale_fault=True),
+        _flash_case("gemma_train_s1536_d256", 4, 1536, 1536, 16, 256,
+                    causal=True, lse=True, timed=True, main_path=True,
+                    scale_fault=True),
+        _flash_case("d256_kv_len", 2, 1024, 1024, 8, 256, kv_len=1000,
+                    lse=True, timed=True, scale_fault=True),
+        # 30, 24 and 32 items: O split
+        _flash_case("d256_ragged_tiles", 1, 1153, 1217, 3, 256, lse=True),
+        _flash_case("d256_causal_sq_gt_sk", 1, 700, 300, 4, 256, causal=True,
+                    lse=True),
+        _flash_case("d256_kv_len_few_items", 1, 1024, 1024, 4, 256,
+                    kv_len=1000, lse=True),
+        # 80 and 72 items: O whole
+        _flash_case("d256_ragged_tiles_h8", 1, 1153, 1217, 8, 256, lse=True),
+        _flash_case("d256_causal_sq_gt_sk_h12", 1, 700, 300, 12, 256,
+                    causal=True, lse=True),
+        _flash_case("d192_causal_padded", 1, 1100, 1100, 4, 192, causal=True,
+                    lse=True, timed=True, scale_fault=True),
+    ]
 
 
 def _wide_cases():
@@ -1406,6 +1445,46 @@ def _bwd_wide_cases():
         _flash_bwd_case("wide_d600_padded", 1, 300, 300, 2, 600,
                         causal=True),
     ]
+
+
+def _d256_waves() -> dict:
+    """What a partial last wave costs flash_fwd_d256_kernel, by graph
+    replay on the card: (1) items of equal work (one 128-row q tile against
+    1280 keys, non-causal, a head each) at one item an SM, at the Gemma-7B
+    prefill's 160 items and at two items an SM; (2) the prefill itself
+    (causal, 1280 tokens, 16 heads: 160 items) against the most of its heads
+    that fit in one wave (13 heads on 132 SMs: 130 items). If a partial wave
+    cost nothing, time would grow with the items (or heads); if it cost a
+    whole wave, with the waves. Launches made here are not counted."""
+    import torch
+    from rsvldm_tpu_torch.ops.flash_attention import flash_attention
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 256)
+    mk = lambda s, h: torch.randn((1, s, h, 256), generator=gen,
+                                  device="cuda", dtype=torch.bfloat16)
+    before = (flash_attention.launches, flash_attention.launches_d256)
+
+    def ms(sq, sk, h, causal):
+        q, k, v = mk(sq, h), mk(sk, h), mk(sk, h)
+        return _graph_ms(lambda: flash_attention(q, k, v, causal=causal))
+
+    equal = {n: ms(128, 1280, n, False) for n in (sms, 160, 2 * sms)}
+    one_wave_heads = sms // 10
+    prefill = {h: ms(1280, 1280, h, True) for h in (one_wave_heads, 16)}
+    flash_attention.launches, flash_attention.launches_d256 = before
+    rec = dict(
+        sms=sms, equal_items_ms={str(n): v for n, v in equal.items()},
+        # 160 items against 160 / sms of one full wave's time
+        equal_160_over_proportional=equal[160] / (equal[sms] * 160 / sms),
+        prefill_heads_ms={str(h): v for h, v in prefill.items()},
+        prefill_items={str(h): 10 * h for h in prefill},
+        # the prefill's 16 heads against 16 / 13 of the one-wave run
+        prefill_16_over_proportional=prefill[16] / (
+            prefill[one_wave_heads] * 16 / one_wave_heads))
+    rec["prefill_wave_cost_ms"] = prefill[16] - (
+        prefill[one_wave_heads] * 16 / one_wave_heads)
+    _say("kernels", d256_waves=rec)
+    return rec
 
 
 def _bwd_d256_cases():
@@ -1479,20 +1558,21 @@ def _reset_counts():
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
     flash_attention.launches = int4_matmul.launches = 0
-    flash_attention.launches_wide = 0
+    flash_attention.launches_wide = flash_attention.launches_d256 = 0
     flash_attention_bwd.launches = flash_attention_bwd.launches_d256 = 0
     flash_attention_bwd.launches_wide = 0
 
 
 def _counts():
     """The launch counters: K1 at every head dim (`k1`) and, of those, the
-    wide kernel's (D > 256, `k1wide`), K2, the backward at every head dim
-    (`bwd`) and, of those, the D=256 kernel's (`bwd256`) and the wide
-    one's (`bwdwide`)."""
+    D=256 kernel's (`k1d256`, padded D included) and the wide kernel's
+    (D > 256, `k1wide`), K2, the backward at every head dim (`bwd`) and, of
+    those, the D=256 kernel's (`bwd256`) and the wide one's (`bwdwide`)."""
     from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
     return dict(k1=flash_attention.launches,
+                k1d256=flash_attention.launches_d256,
                 k1wide=flash_attention.launches_wide, k2=int4_matmul.launches,
                 bwd=flash_attention_bwd.launches,
                 bwd256=flash_attention_bwd.launches_d256,
@@ -3784,6 +3864,8 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024,
                          and min(cos.values()) >= TRAIN_COS_MIN
                          and launches["k1"] == k1_want
                          and launches["bwd"] == bwd_want
+                         and launches["k1d256"] == (
+                             k1_want if lcfg.head_dim == 256 else 0)
                          and launches["bwd256"] == (
                              bwd_want if lcfg.head_dim == 256 else 0)
                          and launches["k1wide"] == (
@@ -4163,8 +4245,9 @@ def phase_train_gemma(seed: int, steps: int = 3, batch: int = 4,
     256k vocabulary on the tied head) quantized to int8, LoRA r=16
     alpha=16 on the seven projections, AdamW lr 2e-4, remat; text records,
     batch 4 padded to 1536 tokens. Per step K1 56 (28 forward + 28
-    recompute) and the D=256 backward 28 (`bwd256`), K2 none; finite
-    losses, the base's bytes unchanged, every B moved."""
+    recompute), all of them the D=256 kernel's (`k1d256`), and the D=256
+    backward 28 (`bwd256`), K2 none; finite losses, the base's bytes
+    unchanged, every B moved."""
     import torch
     from rsvldm_tpu_torch.models.vlm.llama import (GEMMA_7B_CONFIG,
                                                    LlamaModel, quantize_llama_)
@@ -4200,8 +4283,8 @@ def phase_train_gemma(seed: int, steps: int = 3, batch: int = 4,
     moved = all(float(ab["b"].detach().abs().max()) > 0
                 for ab in tr.lora.values())
     unchanged = _sd_digest(model.state_dict()) == digest
-    want = {"k1": 2 * L, "k1wide": 0, "k2": 0, "bwd": L, "bwd256": L,
-            "bwdwide": 0}
+    want = {"k1": 2 * L, "k1d256": 2 * L, "k1wide": 0, "k2": 0, "bwd": L,
+            "bwd256": L, "bwdwide": 0}
     rec = dict(config="GEMMA_7B_CONFIG int8, LoRA r=16 (7 projections), "
                       "remat", seconds=time.perf_counter() - t0, layers=L, heads=cfg.heads,
                head_dim=cfg.head_dim, vocab=cfg.vocab_size, batch=batch,
@@ -4269,8 +4352,8 @@ def phase_wide_head(seed: int, steps: int = 3, batch: int = 4,
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t1
     pre = _counts()
-    pre_want = {"k1": L, "k1wide": L, "k2": 0, "bwd": 0, "bwd256": 0,
-                "bwdwide": 0}
+    pre_want = {"k1": L, "k1d256": 0, "k1wide": L, "k2": 0, "bwd": 0,
+                "bwd256": 0, "bwdwide": 0}
     prefill_finite = bool(torch.isfinite(logits).all())
     del cache, emb, logits
     tr = vt.VLMTrainer(model, vt.LoraConfig(r=16, alpha=16), lr=2e-4,
@@ -4294,8 +4377,8 @@ def phase_wide_head(seed: int, steps: int = 3, batch: int = 4,
     moved = all(float(ab["b"].detach().abs().max()) > 0
                 for ab in tr.lora.values())
     unchanged = _sd_digest(model.state_dict()) == digest
-    want = {"k1": 2 * L, "k1wide": 2 * L, "k2": 0, "bwd": L, "bwd256": 0,
-            "bwdwide": L}
+    want = {"k1": 2 * L, "k1d256": 0, "k1wide": 2 * L, "k2": 0, "bwd": L,
+            "bwd256": 0, "bwdwide": L}
     rec = dict(config=f"LLAMA3_8B_CONFIG widths, 8 q / 2 kv heads of 512, "
                       f"bf16, {L} of 32 layers; LoRA r=16 (7 projections), "
                       "remat", seconds=time.perf_counter() - t0, layers=L,
@@ -5158,9 +5241,12 @@ def phase_families_reference(seed: int, prompt: int = 1100, steps: int = 8):
                    if quant == "int4" else 0)
         rec = dict(quant=quant, cos=[round(float(c), 6) for c in cos],
                    top1=int((a.argmax(-1) == b.argmax(-1)).sum()),
-                   k1=n["k1"], k1_reckoned=k1_want, k2=n["k2"],
-                   k2_reckoned=k2_want)
+                   k1=n["k1"], k1_reckoned=k1_want, k1d256=n["k1d256"],
+                   k2=n["k2"], k2_reckoned=k2_want)
+        # heads of 256 (Gemma) take K1's D=256 kernel, every launch
+        d256 = getattr(cfg, "head_dim", None) == 256
         rec["ok"] = bool(float(cos.min()) >= FAM_COS_MIN and n["k1"] == k1_want
+                         and n["k1d256"] == (n["k1"] if d256 else 0)
                          and n["k2"] == k2_want)
         ok = ok and rec["ok"]
         recs[family] = rec
@@ -5170,6 +5256,7 @@ def phase_families_reference(seed: int, prompt: int = 1100, steps: int = 8):
     ok = ok and towers["ok"]
     runs = list(recs.values()) + list(towers["modules"].values())
     launches = dict(k1=sum(r["k1"] for r in runs),
+                    k1d256=sum(r["k1d256"] for r in runs),
                     k2=sum(r.get("k2", 0) for r in runs), bwd=0)
     rec = dict(families=recs, towers=towers, ok=ok, launches=launches,
                tol=f"cos >= {FAM_COS_MIN} at every position; features "
@@ -5228,10 +5315,11 @@ def _towers_reference(seed: int):
             _reset_counts()
             b = card(xc).float().cpu()
             torch.cuda.synchronize()
-            k1 = _counts()["k1"]
+            n = _counts()
+            k1 = n["k1"]
         rel = rms(a - b) / max(rms(a), 1e-30)
         recs[name] = dict(shape=list(a.shape), rel_rms_err=rel, k1=k1,
-                          k1_reckoned=k1_want,
+                          k1_reckoned=k1_want, k1d256=n["k1d256"],
                           ok=bool(rel <= TOWER_REL_TOL and k1 == k1_want
                                   and bool(torch.isfinite(b).all())))
         ok = ok and recs[name]["ok"]
@@ -5295,10 +5383,13 @@ def _family_caption(cfg, quant: str, seed: int, name: str) -> dict:
                prefill_ms=st["prefill_s"] * 1e3, decode_steps=steps,
                decode_tok_s=steps / max(st["decode_s"], 1e-9),
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-               k1=n["k1"], k1_reckoned=cfg.layers, k2=n["k2"],
+               k1=n["k1"], k1_reckoned=cfg.layers, k1d256=n["k1d256"],
+               k2=n["k2"],
                k2_reckoned=steps * per_step + (0 if cfg.tie_lm_head else 1),
                caption_words=len(text.split()))
+    # heads of 256 (Gemma-7B) take K1's D=256 kernel, every launch
     rec["ok"] = bool(st["padded_len"] >= 1024 and n["k1"] == rec["k1_reckoned"]
+                     and n["k1d256"] == (n["k1"] if cfg.head_dim == 256 else 0)
                      and n["k2"] == rec["k2_reckoned"] and steps > 0)
     del cap
     _free_card()
@@ -5393,8 +5484,9 @@ def phase_families(seed: int) -> dict:
                                mpt.MPT_7B_CONFIG, seed, "mpt-7b"))
     for r in recs:
         _say("families", **r)
-    launches = dict(k1=sum(r["k1"] for r in recs), k2=sum(r["k2"] for r in recs),
-                    bwd=0)
+    launches = dict(k1=sum(r["k1"] for r in recs),
+                    k1d256=sum(r.get("k1d256", 0) for r in recs),
+                    k2=sum(r["k2"] for r in recs), bwd=0)
     rec = dict(ok=all(r["ok"] for r in recs), launches=launches)
     _say("families", **rec)
     _reset_counts()
@@ -5414,9 +5506,11 @@ def _tower_run(spec, x, name: str, k1_want: int, s2: bool = False) -> dict:
         y = fn(x)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-    k1 = _counts()["k1"]
+    n = _counts()
+    k1 = n["k1"]
     rec = dict(module=name, batch=int(x.shape[0]), ms=ms,
                feature_shape=list(y.shape), k1=k1, k1_reckoned=k1_want,
+               k1d256=n["k1d256"],
                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                ok=bool(torch.isfinite(y.float()).all() and k1 == k1_want))
     _say("towers", **rec)
@@ -5478,7 +5572,9 @@ def phase_towers(seed: int, batch: int = 5) -> dict:
         del module
         torch.cuda.empty_cache()
     rec = dict(ok=all(r["ok"] for r in recs),
-               launches=dict(k1=sum(r["k1"] for r in recs), k2=0, bwd=0))
+               launches=dict(k1=sum(r["k1"] for r in recs),
+                             k1d256=sum(r["k1d256"] for r in recs), k2=0,
+                             bwd=0))
     _say("towers", **rec)
     _reset_counts()
     return rec
@@ -5638,8 +5734,8 @@ def _profile_steps(steps: dict, hand_of: dict, iters: int) -> dict:
 #   step's loss within TRAIN_LOSS_RTOL of one process on all rows, K1 64
 #   and the backward 32 a step a rank, the ranks' adapters equal bit for
 #   bit.
-PAR_NEW_TOKENS = 64
-PAR_LORA_TOKENS = 32
+PAR_NEW_TOKENS = 32
+PAR_LORA_TOKENS = 16
 PAR_LORA_B_STD = 0.01  # the seeded archive's b ~ N(0, std^2)
 PAR_VLM_STEPS, PAR_VLM_ROWS, PAR_VLM_WIDTH = 3, 4, 1536
 PAR_COS_MIN = 0.999
@@ -5650,10 +5746,11 @@ PAR_TRAIN_STEPS, PAR_TRAIN_BATCH = 4, 8
 PAR_TIMEOUT_S = 600
 # the TP=2 DecodeEngine (int4 Llama-3-8B, 2 slots): the caption's image
 # prompt (padded to 1280: K1 at its admission) and three text prompts of
-# these lengths, 32 greedy tokens each; a speculative engine (draft ==
-# target, k = 2) on the second prompt; the teacher-forced positions whose
-# logits are held to the one process's (cosine >= PAR_COS_MIN)
-PAR_ENGINE_TOKENS, PAR_ENGINE_SHORT, PAR_ENGINE_TF = 32, (37, 150, 290), 16
+# these lengths, PAR_ENGINE_TOKENS greedy tokens each; a speculative
+# engine (draft == target, k = 2) on the second prompt; the teacher-forced
+# positions whose logits are held to the one process's (cosine >=
+# PAR_COS_MIN)
+PAR_ENGINE_TOKENS, PAR_ENGINE_SHORT, PAR_ENGINE_TF = 16, (37, 150, 290), 16
 PAR_ENGINE_MAX_LEN, PAR_SPEC_K = 1408, 2
 # a rank's stream may leave the one process's only where the one process's
 # best logit and its logit of the rank's token tie within this many bf16
@@ -6651,7 +6748,7 @@ def _par_worker_vlm_train(seed, cfg, mesh, work) -> dict:
     want = ({"k1": 2 * L, "k2": 0, "bwd": L, "bwd256": 0}
             if cfg["device"] == "cuda" else
             {"k1": 0, "k2": 0, "bwd": 0, "bwd256": 0})
-    want.update(k1wide=0, bwdwide=0)
+    want.update(k1d256=0, k1wide=0, bwdwide=0)
     rel = [abs(x - y) / abs(y) for x, y in zip(rec["losses"], ref["losses"])]
     rec.update(ref_losses=ref["losses"], loss_rel_err=max(rel),
                ranks_supervised=[s for _, s in every],
@@ -6878,8 +6975,18 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(REPO))
 
+    t_start = time.perf_counter()
+    phase_s, last = {}, [t_start]
+
+    def lap(name):
+        # this phase's seconds, since the last lap
+        now = time.perf_counter()
+        phase_s[name] = round(now - last[0], 3)
+        last[0] = now
+
     smi = phase_device()
     phase_build()
+    lap("build")
     if args.parallel_only:
         par = phase_parallel(SEED, ranks=args.parallel_ranks,
                              backend=args.parallel_backend)
@@ -6888,6 +6995,7 @@ def main(argv=None) -> int:
         return 0 if par["ok"] else 1
     cases, k2, bwd = phase_kernels()
     ok = all(c["ok"] for c in cases + k2 + bwd)
+    lap("kernels")
     ok = phase_reference(SEED)["ok"] and ok
     for quant in ("int4", "int8"):
         ok = phase_caption_reference(SEED, quant)["ok"] and ok
@@ -6903,6 +7011,7 @@ def main(argv=None) -> int:
     ok = phase_train_reference(SEED, None, family="wide")["ok"] and ok
     fref = phase_families_reference(SEED)
     ok = fref["ok"] and ok
+    lap("references")
     path = folder = spec = tiled = sr3 = serve = samplers = ev = None
     fam = tow = par = gem = wide = None
     tr = {}
@@ -6910,6 +7019,7 @@ def main(argv=None) -> int:
         import shutil
         path, pipe, cd = phase_path(SEED)
         ok = ok and path["ok"]
+        lap("path")
         if cd is not None:
             try:
                 if args.profile and pipe is not None:
@@ -6923,32 +7033,45 @@ def main(argv=None) -> int:
                     samplers = phase_samplers(SEED, pipe, path["sr3_path"],
                                               pipe.last_caption)
                     ok = samplers["ok"] and ok
+                    lap("spec_tiled_samplers")
                 del pipe  # its weights and kept graphs, before the folder's
                 folder = phase_folder(SEED, cd, path.get("process_s"),
                                       profile=args.profile)
                 ok = ok and folder["ok"]
+                lap("folder")
                 ev = phase_eval(SEED, Path(folder["out_dir"]))
                 ok = ok and ev["ok"]
+                lap("eval")
                 serve = phase_serve(SEED, cd)
                 ok = ok and serve["ok"]
+                lap("serve")
             finally:
                 shutil.rmtree(cd, ignore_errors=True)
         else:
             ok = False
         tr = phase_train_all(SEED, profile=args.profile)
         ok = ok and tr["ok"]
+        lap("train_all")
         gem = phase_train_gemma(SEED)
         ok = ok and gem["ok"]
+        lap("train_gemma")
         wide = phase_wide_head(SEED)
         ok = ok and wide["ok"]
+        lap("wide_head")
         sr3 = phase_train_sr3(SEED)
         ok = ok and sr3["ok"]
+        lap("train_sr3")
         fam = phase_families(SEED)
         ok = ok and fam["ok"]
+        lap("families")
         tow = phase_towers(SEED)
         ok = ok and tow["ok"]
+        lap("towers")
         par = phase_parallel(SEED)
         ok = ok and par["ok"]
+        lap("parallel")
+    _say("timing", phase_s=phase_s,
+         total_s=round(time.perf_counter() - t_start, 3))
     mm = tr.get("train_mm", [])
     by_path = {"process": path.get("launches", {}) if path else {},
                "spec": spec["launches"] if spec else {},
@@ -6988,9 +7111,12 @@ def main(argv=None) -> int:
                 for p, c in by_path.items()}
 
     def k1_flash_fwd(c):
-        # K1 of flash_fwd.cu: every launch but the wide kernel's (a path
-        # that read no wide count launched none)
-        return None if c.get("k1") is None else c["k1"] - c.get("k1wide", 0)
+        # K1 of flash_fwd_kernel (D 64 / 128): every launch but the D=256
+        # and the wide kernels'. Every path that runs a head dim above 128
+        # reads those counts; the paths that read none run heads of 64 and
+        # 128 only (SDXL's UNet, Llama-3-8B)
+        return None if c.get("k1") is None else (
+            c["k1"] - c.get("k1d256", 0) - c.get("k1wide", 0))
 
     def bwd_d64_d128(c):
         # the fused backward at D 64 / 128: every launch but the D=256 and
@@ -6998,7 +7124,8 @@ def main(argv=None) -> int:
         return None if c.get("bwd") is None else (
             c["bwd"] - c.get("bwd256", 0) - c.get("bwdwide", 0))
 
-    def entry(name, source, replaces, k, rows, keys, kernels=None):
+    def entry(name, source, replaces, k, rows, keys, kernels=None,
+              more=None):
         head = rows[0]
         n = launches(k)
         # ptxas's registers and spills of the entry's kernels, where given
@@ -7017,7 +7144,7 @@ def main(argv=None) -> int:
                 "library_op": head.get("library_op"),
                 "shapes": [{k: c.get(k) for k in keys} for c in rows
                            if "plain_ms" in c],
-                "card": smi, **extra}
+                "card": smi, **extra, **(more or {})}
 
     fwd_keys = ("case", "shape", "causal", "ms", "wrapper_ms", "plain_ms",
                 "bound_ms", "library_ms", "library_op", "tflops",
@@ -7025,11 +7152,23 @@ def main(argv=None) -> int:
     bwd_keys = ("case", "shape", "causal", "ms", "whole_ms", "wrapper_ms",
                 "plain_ms", "bound_ms", "library_ms", "library_wrapper_ms",
                 "library_op", "tflops", "max_abs_err")
+    from rsvldm_tpu_torch.ops.flash_attention import padded_head_dim
+    at = lambda rows, *dims: [c for c in rows
+                              if padded_head_dim(c["shape"][4]) in dims]
+    # the D=256 entries headed by the Gemma-7B QLoRA step's shape
+    gemma_first = lambda rows: sorted(
+        rows, key=lambda c: c["case"] != "gemma_train_s1536_d256")
     report = {"kernels": [
         entry("flash_fwd", "rsvldm_tpu_torch/csrc/flash_fwd.cu",
               "rsvldm_tpu/ops/flash_attention.py:67", k1_flash_fwd,
-              [c for c in cases if c["shape"][4] <= 256],
-              fwd_keys),
+              at(cases, 64, 128), fwd_keys,
+              kernels=("flash_fwd_kernel", "flash_fwd_kernel#1")),
+        entry("flash_fwd_d256", "rsvldm_tpu_torch/csrc/flash_fwd.cu",
+              "rsvldm_tpu/ops/flash_attention.py:67", "k1d256",
+              gemma_first(at(cases, 256)), fwd_keys,
+              kernels=("flash_fwd_d256_kernel", "flash_fwd_d256_kernel#1"),
+              more={"waves": next(c["waves"] for c in cases
+                                  if "waves" in c)}),
         entry("int4_decode", "rsvldm_tpu_torch/csrc/int4_decode.cu",
               "rsvldm_tpu/ops/quant.py:185", "k2", k2,
               ("case", "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms",
@@ -7041,11 +7180,15 @@ def main(argv=None) -> int:
         entry("flash_bwd", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
               "rsvldm_tpu/ops/flash_attention.py:326 + "
               "rsvldm_tpu/ops/flash_attention.py:376", bwd_d64_d128,
-              [c for c in bwd if c["shape"][4] <= 128], bwd_keys),
+              at(bwd, 64, 128), bwd_keys,
+              kernels=("flash_bwd_kernel", "flash_bwd_kernel#1",
+                       "flash_bwd_prep_kernel", "flash_bwd_prep_kernel#1",
+                       "flash_bwd_prep_kernel#2")),
         entry("flash_bwd_d256", "rsvldm_tpu_torch/csrc/flash_bwd.cu",
               "rsvldm_tpu/ops/flash_attention.py:326 + "
               "rsvldm_tpu/ops/flash_attention.py:376", "bwd256",
-              [c for c in bwd if 128 < c["shape"][4] <= 256], bwd_keys),
+              gemma_first(at(bwd, 256)), bwd_keys,
+              kernels=("flash_bwd_d256_kernel",)),
         # K1 and the backward past D = 256: csrc/flash_wide.cu's forward,
         # and its prologue and backward kernel (one call)
         entry("flash_fwd_wide", "rsvldm_tpu_torch/csrc/flash_wide.cu",

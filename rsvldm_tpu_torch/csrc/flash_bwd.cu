@@ -510,37 +510,169 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ------------------------------------------------------------- D = 256
-// The layout above cannot be instantiated at D=256. K + V of a 128-key
-// tile alone take 128 KB, and two stages of Q + dO rows at 256 columns
-// another 128 KB: over the 227 KB a block can have. dK + dV of 64 keys x
-// 256 columns would take 256 fp32 registers a thread: over the 240 that
-// setmaxnreg grants. So at D=256 a block owns 64 keys and both consumer
-// warpgroups work on all of them:
-// - each computes the whole S^T and dP^T of the 64 keys against a q tile,
-//   contracting over all 256 columns (the two warpgroups compute the same
-//   scores: 2 of the 5 products are done twice);
-// - warpgroup w owns columns 128w..128w+127 of dK and dV (64 + 64
-//   registers a thread, as at D=128) and of the tile's dQ, which it
-//   computes from its own copy of dS^T in two 64-column passes and adds
-//   into the workspace as at D=128 (one 16 KB staging buffer, reused);
-// - one ring stage of Q + dO (64 KB): the producer refills it while the
-//   consumers compute dQ, which reads K and dS^T only.
-// Shared memory: K + V 64 KB, Q + dO 64 KB, two dS^T buffers 32 KB (rows
-// 64w.. are warpgroup w's copy), dQ staging 2 x 16 KB, lse / delta 0.5 KB,
-// barriers: 193.5 KB + the 1 KB alignment slack.
-constexpr int KV_TILE_256 = 64;                       // keys per block
-constexpr int KV_HALF_256 = KV_TILE_256 * ROW_BYTES;  // 64 columns of K or V
+// flash_bwd_d256_kernel. The layout above cannot be instantiated at D=256:
+// K + V of a 128-key tile alone take 128 KB, and dK + dV of 64 keys x 256
+// columns 256 fp32 registers a thread, over the 240 that setmaxnreg
+// grants. So at D=256 an item is (b*h, 64-key tile), and the two consumer
+// warpgroups split the work so that no product is done twice:
+// - scores split by queries (as csrc/flash_wide.cu's backward): per 64-query
+//   tile warpgroup w computes S^T = K Q^T and dP^T = V dO^T of the item's
+//   64 keys against queries 32w..32w+31 (m64n32k16, K / V rows as A, Q /
+//   dO rows as B, both K-major, 16 k-steps over D), 16 + 16 registers a
+//   thread; it builds P^T and dS^T there and stores them, bf16 and
+//   swizzled, into its 32 query columns of one shared 64 x 64 P^T tile
+//   and one dS^T tile, then joins the other warpgroup at a named barrier;
+// - columns split: warpgroup w owns columns 128w..128w+127 of dK and dV
+//   (64 + 64 registers a thread) and of the tile's dQ, and runs
+//   dV += P^T dO[:, its columns] and dK += dS^T Q[:, its columns]
+//   (m64n128k16, P^T / dS^T K-major, dO / Q read MN-major) and
+//   dQ[:, its columns] = dS K[:, its columns] over all 64 queries
+//   (m64n64k16 per 64 columns, dS^T and K read MN-major), from shared
+//   memory: five products, each once;
+// - dQ is staged, fp32 and swizzled, in the stage's own boxes: once its
+//   dV and dK products have retired, warpgroup w no longer reads its four
+//   boxes of the stage (its 128 columns of Q and dO; the other warpgroup's
+//   scores read them before the P^T barrier), which hold exactly its
+//   64 x 128 fp32 dQ as four 32-column TMA boxes; its first thread adds
+//   each 64 columns into the workspace by two TMA reduce-adds as soon as
+//   they are staged, and releases the stage a tile later, once the adds
+//   have read it (so no staging buffer of its own, and no wait for one);
+// - the next tile's S^T and dP^T are issued (within an item) before this
+//   tile's last 64 columns of dQ are staged, so they run under it;
+// - a second Q + dO stage: the producer loads the next q tile while this
+//   one's products run;
+// - a persistent grid of one block per SM over the items, numbered
+//   head-major (so that the blocks in flight add into a few heads' dQ,
+//   which stays in L2; the key tiles that see the most causal queries
+//   first) and dealt in a snake as flash_fwd_d256_kernel's; the producer
+//   loads the next item's first q tile, then its K and V, as soon as the
+//   consumers release them, so the load runs under the last item's dK /
+//   dV stores.
+// Shared memory: K + V 64 KB, two stages of Q + dO 128 KB, P^T + dS^T
+// 16 KB, two stages of lse / delta 1 KB, barriers 48 bytes: 209.05 KB + the
+// 1 KB alignment slack = 215,088 of the 232,448 bytes a block can have.
+// What bounds it: registers cap an item at 64 keys (dK + dV in fp32), so
+// every 64 keys re-read each q tile's Q and dO (64 KB) and add a 64 x 256
+// fp32 dQ partial (64 KB) into L2; at Gemma's shape that is 1.26 GB of
+// loads and 1.26 GB of reduce-adds a call. Taken out one at a time
+// (chip_smoke.py --d256-ablate), the reduce-adds leave about 80% of the
+// time, all of dQ's work about 60%, the scores or the dV / dK products
+// about 93% each.
+// ptxas (sm_90a): 168 registers at launch (the consumers run at 240), 0
+// bytes spilled, no serialised wgmma (C7515); it injects one wgmma wait
+// (C7517) and one fence (C7519) where the scores issued a tile ahead meet
+// the loop's back edge. Times: PERF.md, from chip_smoke.py.
+constexpr int KT256 = 64;                       // keys per item
+constexpr int KV_BOX_256 = KT256 * ROW_BYTES;   // 64 columns of K or V: 8 KB
+constexpr int PDS_BYTES = KT256 * Q_TILE * 2;   // P^T or dS^T, bf16
 
 struct Cfg256 {
-  static constexpr int KV_BYTES = 4 * KV_HALF_256;  // K or V tile
-  static constexpr int QT_BYTES = 4 * Q_HALF;       // Q or dO tile
-  static constexpr int DQ_STAGE = 2 * DQ_BOX_BYTES;  // 64 columns of dQ
-  static constexpr int BAR_BYTES = 8 * 3;
-  static constexpr int SMEM = 2 * KV_BYTES + 2 * QT_BYTES + 2 * DS_BYTES +
-                              2 * DQ_STAGE + 2 * VEC_BYTES + BAR_BYTES + 1024;
+  static constexpr int STAGES = 2;
+  static constexpr int KV_BYTES = 4 * KV_BOX_256;  // K or V tile
+  static constexpr int QT_BYTES = 4 * Q_HALF;      // Q or dO tile
+  static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
+  static constexpr int SMEM = 2 * KV_BYTES + 2 * STAGES * QT_BYTES +
+                              2 * PDS_BYTES + 2 * STAGES * VEC_BYTES +
+                              BAR_BYTES + 1024;
+  static_assert(SMEM <= 232448, "more shared memory than a block can use");
+};
+// named barriers of flash_bwd_d256_kernel: both halves of P^T / dS^T
+// stored; both warpgroups' products of the last tile retired (the tiles
+// free); warpgroup w's dQ staged, BAR256_DQ + w
+constexpr int BAR256_PDS = 1;
+constexpr int BAR256_FREE = 2;
+constexpr int BAR256_DQ = 3;
+
+// Item i: (b*h, 64-key tile), and the q tiles j0 .. j0 + n - 1 that see a
+// key of it (causal: from the one that holds query k_start - q_offset).
+struct Item256 {
+  int bh, b, h, k_start, j0, n;
 };
 
-// The arguments as flash_bwd_kernel's; one block per (b*h, 64-key tile).
+__device__ __forceinline__ Item256 item_d256(int i, int n_kt, int H, int Sq,
+                                             int causal, int q_offset) {
+  Item256 it;
+  it.bh = i / n_kt;
+  it.b = it.bh / H;
+  it.h = it.bh - it.b * H;
+  it.k_start = (i % n_kt) * KT256;
+  it.j0 = 0;
+  if (causal) {
+    const int first = it.k_start - q_offset;
+    it.j0 = first > 0 ? first / Q_TILE : 0;
+  }
+  it.n = max((Sq + Q_TILE - 1) / Q_TILE - it.j0, 0);
+  return it;
+}
+
+// acc[64 keys x 32 queries] = A B^T over D=256: A the item's 64 rows of K
+// (or V), B 32 rows of the Q (or dO) tile, both K-major.
+__device__ __forceinline__ void issue_scores_d256(float (&acc)[16],
+                                                  uint32_t a_addr,
+                                                  uint32_t b_addr) {
+  wgmma_m64n32k16_ss_init(acc, desc_sw128(a_addr, 16, 1024),
+                          desc_sw128(b_addr, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < 256 / 16; ++kk)
+    wgmma_m64n32k16_ss(
+        acc, desc_sw128(a_addr + (kk / 4) * KV_BOX_256 + (kk % 4) * 32, 16,
+                        1024),
+        desc_sw128(b_addr + (kk / 4) * Q_HALF + (kk % 4) * 32, 16, 1024), 1);
+}
+
+// st (S^T) -> P^T = exp2(st * c - lse2), dpt (dP^T) -> dS^T =
+// P^T (dP^T - delta) scale, in place; this thread's keys key0, key0 + 8
+// against queries qb + 8n (+1), n = 0..3, whose lse2 / delta are
+// lq / dl[2n (+1)]. MASK: exact zeros at pairs past Sk or Sq or above the
+// causal diagonal (a separate instantiation, so that tiles that need no
+// mask run straight-line code).
+template <bool MASK>
+__device__ __forceinline__ void bwd_scores_d256(
+    float (&st)[16], float (&dpt)[16], const float (&lq)[8],
+    const float (&dl)[8], float c, float scale, int key0, int qb, int Sq,
+    int Sk, int causal, int q_offset) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int n = i >> 2, e = i & 3;
+    const int v = 2 * n + (e & 1);
+    float p = ex2(fmaf(st[i], c, -lq[v]));
+    if (MASK) {
+      const int key = key0 + (e >> 1) * 8;
+      const int qi = qb + 8 * n + (e & 1);
+      const bool ok = key < Sk && qi < Sq && (!causal || key <= qi + q_offset);
+      p = ok ? p : 0.f;
+    }
+    st[i] = p;
+    dpt[i] = p * (dpt[i] - dl[v]) * scale;
+  }
+}
+
+// dq (64 queries x 64 columns, fp32) into two 32-column fp32 boxes at
+// shared addresses box0 and box1 (128-byte rows, swizzled), as the TMA
+// reduce-add of tm_dq reads them.
+__device__ __forceinline__ void stage_dq_d256(const float (&dq)[32],
+                                              uint32_t box0, uint32_t box1) {
+  const int lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2;
+  const int t2 = (lane & 3) * 2;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+        st_shared_f2((hh ? box1 : box0) + row * 128 +
+                         (((2 * nb + (t2 >> 2)) ^ g) << 4) + (t2 & 2) * 4,
+                     dq[4 * (4 * hh + nb) + 2 * r],
+                     dq[4 * (4 * hh + nb) + 2 * r + 1]);
+    }
+}
+
+// The arguments as flash_bwd_kernel's (K / V maps with 64-row boxes). A
+// persistent grid of at most one block per SM walks the B*H*ceil(Sk / 64)
+// items.
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -554,37 +686,37 @@ flash_bwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
                       float scale, float scale_log2e) {
   using C = Cfg256;
   constexpr int D = 256;
+  constexpr int STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sK = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sV = sK + C::KV_BYTES;
   const uint32_t sQ = sV + C::KV_BYTES;
-  const uint32_t sDO = sQ + C::QT_BYTES;
-  const uint32_t sDS = sDO + C::QT_BYTES;
-  const uint32_t sDQ = sDS + 2 * DS_BYTES;
-  const uint32_t sLSE = sDQ + 2 * C::DQ_STAGE;
-  const uint32_t sDELTA = sLSE + VEC_BYTES;
-  const uint32_t kv_full = sDELTA + VEC_BYTES;
-  const uint32_t full = kv_full + 8;
-  const uint32_t empty = full + 8;
+  const uint32_t sDO = sQ + STAGES * C::QT_BYTES;
+  const uint32_t sPT = sDO + STAGES * C::QT_BYTES;
+  const uint32_t sDS = sPT + PDS_BYTES;
+  const uint32_t sLSE = sDS + PDS_BYTES;
+  const uint32_t sDELTA = sLSE + STAGES * VEC_BYTES;
+  const uint32_t kv_full = sDELTA + STAGES * VEC_BYTES;
+  const uint32_t kv_empty = kv_full + 8;
+  const uint32_t full = kv_empty + 8;
+  const uint32_t empty = full + 8 * STAGES;
 
-  // numbered head-major, as flash_bwd_kernel's blocks
-  const int n_kt = gridDim.x / BH;
-  const int bh = blockIdx.x / n_kt;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k_start = (blockIdx.x % n_kt) * KV_TILE_256;
-  int j0 = 0;
-  if (causal) {
-    const int first = k_start - q_offset;
-    j0 = first > 0 ? first / Q_TILE : 0;
-  }
-  const int n = max((Sq + Q_TILE - 1) / Q_TILE - j0, 0);
+  const int n_kt = (Sk + KT256 - 1) / KT256;
+  const int n_items = BH * n_kt;
+  // warp-uniform as far as the compiler can tell, so that the wgmma
+  // descriptors derived from it stay in uniform registers
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    mbar_init(full, 1);
-    mbar_init(empty, CONSUMER_WARPS);
+    mbar_init(kv_empty, CONSUMER_WARPS);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      // one arrive from each consumer warpgroup's leader, once its dQ
+      // reduce-adds have read their staging in the stage
+      mbar_init(empty + 8 * s, 2);
+    }
     mbar_init_fence();
   }
   __syncthreads();
@@ -592,31 +724,48 @@ flash_bwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 2) {
     // ---------------------------------------------------------- producer
     reg_dealloc<PRODUCER_REGS>();
-    if (threadIdx.x == 256 && n > 0) {
+    if (threadIdx.x == 256) {
       tma_prefetch_map(&tm_q);
+      tma_prefetch_map(&tm_k);
+      tma_prefetch_map(&tm_v);
       tma_prefetch_map(&tm_do);
-      mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
+      int pos = 0;       // q tiles loaded so far: the ring position
+      int kv_loads = 0;  // K / V tiles loaded so far
+      for (int r = 0;; ++r) {
+        const int i = snake_item(r);
+        if (i >= n_items) break;
+        const Item256 w = item_d256(i, n_kt, H, Sq, causal, q_offset);
+        const float* lse2 = aux + (long long)w.bh * Sq_pad;
+        const float* delta = aux + ((long long)BH + w.bh) * Sq_pad;
+        for (int j = 0; j < w.n; ++j, ++pos) {
+          const int s = pos % STAGES;
+          const int q0 = (w.j0 + j) * Q_TILE;
+          // the stage's previous fill was released (passes on the first)
+          mbar_wait_tight(empty + 8 * s, ((pos / STAGES) & 1) ^ 1);
+          const uint32_t bar = full + 8 * s;
+          mbar_arrive_expect_tx(bar, 2 * C::QT_BYTES + 2 * VEC_BYTES);
 #pragma unroll
-      for (int half = 0; half < D / 64; ++half) {
-        tma_load_4d(sK + half * KV_HALF_256, &tm_k, kv_full, half * 64, h,
-                    k_start, b);
-        tma_load_4d(sV + half * KV_HALF_256, &tm_v, kv_full, half * 64, h,
-                    k_start, b);
-      }
-      const float* lse2 = aux + (long long)bh * Sq_pad;
-      const float* delta = aux + ((long long)BH + bh) * Sq_pad;
-      for (int j = 0; j < n; ++j) {
-        const int q0 = (j0 + j) * Q_TILE;
-        // the stage's previous fill was released (passes on the first)
-        mbar_wait_tight(empty, (j & 1) ^ 1);
-        mbar_arrive_expect_tx(full, 2 * C::QT_BYTES + 2 * VEC_BYTES);
+          for (int box = 0; box < D / 64; ++box) {
+            tma_load_4d(sQ + s * C::QT_BYTES + box * Q_HALF, &tm_q, bar,
+                        box * 64, w.h, q0, w.b);
+            tma_load_4d(sDO + s * C::QT_BYTES + box * Q_HALF, &tm_do, bar,
+                        box * 64, w.h, q0, w.b);
+          }
+          bulk_load(sLSE + s * VEC_BYTES, lse2 + q0, VEC_BYTES, bar);
+          bulk_load(sDELTA + s * VEC_BYTES, delta + q0, VEC_BYTES, bar);
+          if (j == 0) {
+            // the consumers are done with the last item's K and V
+            mbar_wait_tight(kv_empty, (kv_loads++ & 1) ^ 1);
+            mbar_arrive_expect_tx(kv_full, 2 * C::KV_BYTES);
 #pragma unroll
-        for (int half = 0; half < D / 64; ++half) {
-          tma_load_4d(sQ + half * Q_HALF, &tm_q, full, half * 64, h, q0, b);
-          tma_load_4d(sDO + half * Q_HALF, &tm_do, full, half * 64, h, q0, b);
+            for (int box = 0; box < D / 64; ++box) {
+              tma_load_4d(sK + box * KV_BOX_256, &tm_k, kv_full, box * 64,
+                          w.h, w.k_start, w.b);
+              tma_load_4d(sV + box * KV_BOX_256, &tm_v, kv_full, box * 64,
+                          w.h, w.k_start, w.b);
+            }
+          }
         }
-        bulk_load(sLSE, lse2 + q0, VEC_BYTES, full);
-        bulk_load(sDELTA, delta + q0, VEC_BYTES, full);
       }
     }
   } else {
@@ -626,145 +775,181 @@ flash_bwd_d256_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int warp = (threadIdx.x >> 5) & 3;  // within the warpgroup
     const int g = lane >> 2;
     const int t2 = (lane & 3) * 2;
-    const int key0 = k_start + warp * 16 + g;  // this thread's keys: +0, +8
-    const int ds_row = wg * KV_TILE_256 + warp * 16 + g;  // and + 8
-    const int col0 = wg * 128;  // this warpgroup's columns of dK, dV, dQ
+    const int qw = wg * 32;     // this warpgroup's queries within a tile
+    const int col0 = wg * 128;  // and its columns of dK, dV and dQ
+    const bool leader = threadIdx.x % 128 == 0;
     const float c = scale_log2e;
+    int pos = 0;      // q tiles consumed so far: the ring position
+    int kv_uses = 0;  // K / V tiles consumed so far
 
-    float dk_acc[2][32], dv_acc[2][32];
+    float dk_acc[64], dv_acc[64];
+    // S^T and dP^T of the tile in hand: the 64 keys against this
+    // warpgroup's 32 queries; issued a tile ahead within an item
+    float st[16], dpt[16];
+    for (int r = 0;; ++r) {
+      const int i = snake_item(r);
+      if (i >= n_items) break;
+      const Item256 w = item_d256(i, n_kt, H, Sq, causal, q_offset);
+      const int key0 = w.k_start + warp * 16 + g;  // this thread's keys: +0, +8
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) dk_acc[hf][i] = dv_acc[hf][i] = 0.f;
-    if (n > 0) mbar_wait_tight(kv_full, 0);
+      for (int e = 0; e < 64; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+      if (w.n > 0) mbar_wait_tight(kv_full, kv_uses++ & 1);
 
-    for (int j = 0; j < n; ++j) {
-      const int q0 = (j0 + j) * Q_TILE;
-      const uint32_t ds_addr = sDS + (j & 1) * DS_BYTES;
-      mbar_wait_tight(full, j & 1);
-      const bool need_mask =
-          q0 + Q_TILE > Sq || k_start + KV_TILE_256 > Sk ||
-          (causal && k_start + KV_TILE_256 - 1 > q0 + q_offset);
-      // S^T and dP^T of all 64 keys over all 256 columns
-      float sacc[32], dpacc[32];
-      wgmma_fence();
-      issue_scores<D, KV_HALF_256>(sacc, sK, sQ);
-      wgmma_commit();
-      issue_scores<D, KV_HALF_256>(dpacc, sV, sDO);
-      wgmma_commit();
-      const uint32_t vec = t2 * 4;
-
-      // P^T, exact zeros where masked
-      wgmma_wait<1>();
-      fence_regs(sacc);
-      if (need_mask)
-        scores_to_p<true>(sacc, sLSE + vec, c, key0, q0, Sq, Sk, causal,
-                          q_offset);
-      else
-        scores_to_p<false>(sacc, sLSE + vec, c, key0, q0, Sq, Sk, causal,
-                           q_offset);
-      // dS^T = P^T (dP^T - delta) scale
-      wgmma_wait<0>();
-      fence_regs(dpacc);
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-        const float2 d2 = ld_shared_f2(sDELTA + vec + nb * 32);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = 4 * nb + e;
-          dpacc[i] = sacc[i] * (dpacc[i] - ((e & 1) ? d2.y : d2.x)) * scale;
+      for (int j = 0; j < w.n; ++j, ++pos) {
+        const int s = pos % STAGES;
+        const int q0 = (w.j0 + j) * Q_TILE;
+        const uint32_t q_addr = sQ + s * C::QT_BYTES;
+        const uint32_t do_addr = sDO + s * C::QT_BYTES;
+        if (j == 0) {
+          mbar_wait_tight(full + 8 * s, (pos / STAGES) & 1);
+          wgmma_fence();
+          issue_scores_d256(st, sK, q_addr + qw * ROW_BYTES);
+          issue_scores_d256(dpt, sV, do_addr + qw * ROW_BYTES);
+          wgmma_commit();
         }
-      }
-      uint32_t pa[16], da[16];  // wgmma reads them until retired
+        // the last tile's stage once this warpgroup's dQ adds have read it
+        if (leader && pos > 0) {
+          bulk_wait_read<0>();
+          mbar_arrive(empty + 8 * ((pos - 1) % STAGES));
+        }
+        // lse*log2e and delta of this thread's queries qw + t2 + 8n (+1)
+        float lq[8], dl[8];
+        const uint32_t vec = s * VEC_BYTES + (qw + t2) * 4;
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        pa[i] = pack_bf16(sacc[2 * i], sacc[2 * i + 1]);
-        da[i] = pack_bf16(dpacc[2 * i], dpacc[2 * i + 1]);
-      }
-      // this warpgroup's copy of dS^T, swizzled as in flash_bwd_kernel
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          st_shared_u32(ds_addr + (ds_row + 8 * r) * ROW_BYTES +
-                            ((nb ^ g) << 4) + t2 * 2,
-                        da[2 * nb + r]);
+        for (int n = 0; n < 4; ++n) {
+          const float2 l2 = ld_shared_f2(sLSE + vec + n * 32);
+          const float2 d2 = ld_shared_f2(sDELTA + vec + n * 32);
+          lq[2 * n] = l2.x;
+          lq[2 * n + 1] = l2.y;
+          dl[2 * n] = d2.x;
+          dl[2 * n + 1] = d2.y;
+        }
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
 
-      // dV[:, col0..] += P^T dO[:, col0..], dK[:, col0..] += dS^T Q[:, col0..]
-      wgmma_fence();
-      fence_acc<128>(dk_acc);
-      fence_acc<128>(dv_acc);
-      fence_regs(pa);
-      fence_regs(da);
-      issue_grad<128>(dv_acc, pa, sDO + 2 * wg * Q_HALF);
-      issue_grad<128>(dk_acc, da, sQ + 2 * wg * Q_HALF);
-      wgmma_commit();
-      fence_proxy_async();
-      named_bar_sync(BAR_DS + 1 + wg, 128);
-      wgmma_wait<0>();
-      fence_acc<128>(dk_acc);
-      fence_acc<128>(dv_acc);
-      fence_regs(pa);
-      fence_regs(da);
-      // the stage's Q, dO, lse and delta are no longer read
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty);
+        // P^T and dS^T; exact zeros where masked
+        const bool need_mask =
+            q0 + Q_TILE > Sq || w.k_start + KT256 > Sk ||
+            (causal && w.k_start + KT256 - 1 > q0 + q_offset);
+        if (need_mask)
+          bwd_scores_d256<true>(st, dpt, lq, dl, c, scale, key0, q0 + qw + t2,
+                                Sq, Sk, causal, q_offset);
+        else
+          bwd_scores_d256<false>(st, dpt, lq, dl, c, scale, key0,
+                                 q0 + qw + t2, Sq, Sk, causal, q_offset);
+        // both, bf16, into this warpgroup's 32 query columns of the shared
+        // [64 keys][64 queries] tiles (16-byte chunk 4w + n of a row at
+        // (4w + n) ^ (row % 8)), once both warpgroups' products of the
+        // last tile have retired
+        named_bar_sync(BAR256_FREE, 2 * 128);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const uint32_t off = (warp * 16 + g + 8 * rr) * ROW_BYTES +
+                                 (((4 * wg + n) ^ g) << 4) + t2 * 2;
+            st_shared_u32(sPT + off, pack_bf16(st[4 * n + 2 * rr],
+                                               st[4 * n + 2 * rr + 1]));
+            st_shared_u32(sDS + off, pack_bf16(dpt[4 * n + 2 * rr],
+                                               dpt[4 * n + 2 * rr + 1]));
+          }
+        fence_proxy_async();
+        named_bar_sync(BAR256_PDS, 2 * 128);
 
-      // dQ[:, col0..col0+127] = dS K[:, col0..], 64 columns a pass
-      const uint32_t dq_stage = sDQ + wg * C::DQ_STAGE;
-      const bool leader = threadIdx.x % 128 == 0;
-#pragma unroll 1
-      for (int cc = 0; cc < 2; ++cc) {
-        const int chunk = 2 * wg + cc;
+        // dV += P^T dO and dK += dS^T Q over this warpgroup's 128 columns,
+        // then dQ's first 64 of them = dS K
         float dq[32];
         wgmma_fence();
-        issue_dq<KV_TILE_256>(dq, ds_addr + wg * KV_TILE_256 * ROW_BYTES,
-                              sK + chunk * KV_HALF_256);
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+#pragma unroll
+        for (int kk = 0; kk < Q_TILE / 16; ++kk)
+          wgmma_m64n128k16_ss_t<0, 1>(
+              dv_acc, desc_sw128(sPT + kk * 32, 16, 1024),
+              desc_sw128(do_addr + 2 * wg * Q_HALF + kk * 16 * ROW_BYTES,
+                         Q_HALF, 1024),
+              1);
+#pragma unroll
+        for (int kk = 0; kk < Q_TILE / 16; ++kk)
+          wgmma_m64n128k16_ss_t<0, 1>(
+              dk_acc, desc_sw128(sDS + kk * 32, 16, 1024),
+              desc_sw128(q_addr + 2 * wg * Q_HALF + kk * 16 * ROW_BYTES,
+                         Q_HALF, 1024),
+              1);
         wgmma_commit();
+        issue_dq<KT256>(dq, sDS, sK + 2 * wg * KV_BOX_256);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        // this warpgroup's four boxes of the stage (its 128 columns of Q
+        // and dO) are no longer read: its dQ is staged there, 64 columns
+        // (two fp32 boxes of 32) in its Q boxes, then 64 in its dO boxes
+        const uint32_t q_own = q_addr + 2 * wg * Q_HALF;
+        const uint32_t do_own = do_addr + 2 * wg * Q_HALF;
+        // into the fp32 workspace by TMA reduce-add, two boxes a 64
+        // columns, issued by the warpgroup's first thread; the stage is
+        // released once they have read it (above, a tile later)
         wgmma_wait<0>();
         fence_regs(dq);
-        if (leader) bulk_wait_read<0>();
-        named_bar_sync(BAR_DQ + wg, 128);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = warp * 16 + g + 8 * r;
-#pragma unroll
-          for (int nb = 0; nb < 8; ++nb)
-            st_shared_f2(dq_stage + (nb / 4) * DQ_BOX_BYTES + row * 128 +
-                             (((2 * (nb % 4) + (t2 >> 2)) ^ g) << 4) +
-                             (t2 & 2) * 4,
-                         dq[4 * nb + 2 * r], dq[4 * nb + 2 * r + 1]);
-        }
+        stage_dq_d256(dq, q_own, q_own + Q_HALF);
         fence_proxy_async();
-        named_bar_sync(BAR_DQ + wg, 128);
+        named_bar_sync(BAR256_DQ + wg, 128);
         if (leader) {
-          tma_reduce_add_4d(&tm_dq, dq_stage, chunk * 64, h, q0, b);
-          tma_reduce_add_4d(&tm_dq, dq_stage + DQ_BOX_BYTES, chunk * 64 + 32,
-                            h, q0, b);
+          tma_reduce_add_4d(&tm_dq, q_own, col0, w.h, q0, w.b);
+          tma_reduce_add_4d(&tm_dq, q_own + Q_HALF, col0 + 32, w.h, q0, w.b);
+        }
+        wgmma_fence();
+        issue_dq<KT256>(dq, sDS, sK + (2 * wg + 1) * KV_BOX_256);
+        wgmma_commit();
+        // the next tile's scores run under this one's last dQ staging
+        if (j + 1 < w.n) {
+          const int s1 = (pos + 1) % STAGES;
+          mbar_wait_tight(full + 8 * s1, ((pos + 1) / STAGES) & 1);
+          issue_scores_d256(st, sK, sQ + s1 * C::QT_BYTES + qw * ROW_BYTES);
+          issue_scores_d256(dpt, sV, sDO + s1 * C::QT_BYTES + qw * ROW_BYTES);
+          wgmma_commit();
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_regs(dq);
+        stage_dq_d256(dq, do_own, do_own + Q_HALF);
+        fence_proxy_async();
+        named_bar_sync(BAR256_DQ + wg, 128);
+        if (leader) {
+          tma_reduce_add_4d(&tm_dq, do_own, col0 + 64, w.h, q0, w.b);
+          tma_reduce_add_4d(&tm_dq, do_own + Q_HALF, col0 + 96, w.h, q0,
+                            w.b);
           bulk_commit();
         }
       }
-    }
-    if (threadIdx.x % 128 == 0) bulk_wait<0>();
+      // K and V are no longer read: the producer may load the next item's
+      if (w.n > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(kv_empty);
+      }
 
-    // ---- this warpgroup's columns of dK, dV once, bf16
+      // ---- this warpgroup's columns of dK, dV once, bf16; keys no query
+      // sees get zeros
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (key < Sk) {
-        const long long off =
-            (((long long)b * Sk + key) * H + h) * D + col0 + t2;
+      for (int rr = 0; rr < 2; ++rr) {
+        const int key = key0 + 8 * rr;
+        if (key < Sk) {
+          const long long off =
+              (((long long)w.b * Sk + key) * H + w.h) * D + col0 + t2;
 #pragma unroll
-        for (int nb = 0; nb < 16; ++nb) {
-          const float* k2 = &dk_acc[nb / 8][4 * (nb % 8) + 2 * r];
-          const float* v2 = &dv_acc[nb / 8][4 * (nb % 8) + 2 * r];
-          *reinterpret_cast<uint32_t*>(dk + off + nb * 8) =
-              pack_bf16(k2[0], k2[1]);
-          *reinterpret_cast<uint32_t*>(dv + off + nb * 8) =
-              pack_bf16(v2[0], v2[1]);
+          for (int nb = 0; nb < 16; ++nb) {
+            *reinterpret_cast<uint32_t*>(dk + off + nb * 8) =
+                pack_bf16(dk_acc[4 * nb + 2 * rr], dk_acc[4 * nb + 2 * rr + 1]);
+            *reinterpret_cast<uint32_t*>(dv + off + nb * 8) =
+                pack_bf16(dv_acc[4 * nb + 2 * rr], dv_acc[4 * nb + 2 * rr + 1]);
+          }
         }
       }
     }
+    if (leader) bulk_wait<0>();
   }
 }
 
@@ -863,10 +1048,8 @@ int launch_d256(const void* q, const void* k, const void* v,
   CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq;
   cudaError_t err = encode_bshd_map(&tm_q, q, B, Sq, H, D, Q_TILE);
   if (err == cudaSuccess) err = encode_bshd_map(&tm_do, dout, B, Sq, H, D, Q_TILE);
-  if (err == cudaSuccess)
-    err = encode_bshd_map(&tm_k, k, B, Sk, H, D, KV_TILE_256);
-  if (err == cudaSuccess)
-    err = encode_bshd_map(&tm_v, v, B, Sk, H, D, KV_TILE_256);
+  if (err == cudaSuccess) err = encode_bshd_map(&tm_k, k, B, Sk, H, D, KT256);
+  if (err == cudaSuccess) err = encode_bshd_map(&tm_v, v, B, Sk, H, D, KT256);
   if (err == cudaSuccess)
     err = encode_bshd_map_f32(&tm_dq, dq_acc, B, Sq, H, D, Q_TILE);
   if (err != cudaSuccess) return (int)err;
@@ -874,10 +1057,12 @@ int launch_d256(const void* q, const void* k, const void* v,
       flash_bwd_d256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Cfg256::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const long long blocks =
-      (long long)B * H * ((Sk + KV_TILE_256 - 1) / KV_TILE_256);
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  flash_bwd_d256_kernel<<<(int)blocks, THREADS, Cfg256::SMEM, stream>>>(
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const long long items = (long long)B * H * ((Sk + KT256 - 1) / KT256);
+  if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);
+  flash_bwd_d256_kernel<<<grid, THREADS, Cfg256::SMEM, stream>>>(
       tm_q, tm_k, tm_v, tm_do, tm_dq, static_cast<const float*>(aux),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
       B * H, H, Sq, Sk, sq_pad(Sq), causal, Sk - Sq, scale, scale * LOG2E);

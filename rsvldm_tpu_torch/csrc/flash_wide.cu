@@ -894,16 +894,6 @@ void split_boxes(int NB, int most, int* split, int* per_item) {
   *split = (NB + *per_item - 1) / *per_item;
 }
 
-int sm_count() {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
-  return sms;
-}
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns a cudaError_t

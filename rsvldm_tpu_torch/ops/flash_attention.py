@@ -27,8 +27,10 @@ other D above 256 are padded to the next multiple of 64 the same way. A
 D that nothing serves (D <= 0) raises ValueError: a CUDA call never falls
 back to the plain version. `launches` counts every launch at every D;
 `flash_attention.launches_wide` and `flash_attention_bwd.launches_wide`
-those of the wide kernels, `flash_attention_bwd.launches_d256` those of
-the D=256 backward.
+those of the wide kernels, `flash_attention.launches_d256` and
+`flash_attention_bwd.launches_d256` those of the D=256 kernels
+(`flash_fwd_d256_kernel`, `flash_bwd_d256_kernel`, which D padded to 256
+runs too).
 """
 
 from __future__ import annotations
@@ -177,7 +179,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     return_lse: bool = False):
     """K1 on CUDA tensors, `flash_attention_ref` on CPU tensors (see there
     for the semantics). `flash_attention.launches` counts kernel launches,
-    `flash_attention.launches_wide` those at D > 256 (csrc/flash_wide.cu).
+    `flash_attention.launches_wide` those at D > 256 (csrc/flash_wide.cu),
+    `flash_attention.launches_d256` those at D = 256 (padded D included).
 
     A CUDA call that needs a gradient goes through the autograd Function
     whose backward is the fused backward kernel; one that asks for lse or
@@ -213,11 +216,13 @@ def flash_attention(q, k, v, *, causal: bool = False,
         raise RuntimeError(f"flash_attention: K1 launch failed, cudaError {rc}")
     flash_attention.launches += 1
     flash_attention.launches_wide += wide
+    flash_attention.launches_d256 += d == 256
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_wide = 0
+flash_attention.launches_d256 = 0
 
 
 # ---------------------------------------------------------------- backward
