@@ -207,7 +207,12 @@ Phases, each printed on its own line:
                call) as the sigma table implies, seconds a step, finite,
                peak; the single-window tiled DPM++(2M) against the untiled
                (SINGLE_TILE_TOL), beside the untiled run from noise one
-               fp32 ulp away (reported)
+               fp32 ulp away (reported). Before the samplers, the line
+               `components`: the conditioning saved by PreparedConditioner
+               and loaded on the card bit-equal to the live one, as is one
+               CFG denoiser call over each (106 K1 launches each); the v /
+               EDM scalings (SCALING_RTOL) and DiagonalGaussian.kl on
+               [1, 8, 128, 128] moments (KL_RTOL) against the CPU
      families  (after train_sr3) the other decoder families at their
                published widths, seeded bf16 weights, one at a time: Gemma-7B
                and Qwen2-7B int4 captions of one 224^2 tile through
@@ -3133,13 +3138,18 @@ class _RecordedDraws:
             (level, index, tuple(shape))].to(device)
 
 
-def _k1_per_call(fn, *args) -> int:
-    """K1 launches of one direct call of a denoiser closure."""
+def _counted_call(fn, *args):
+    """(output, K1 launches) of one direct call of a denoiser closure."""
     import torch
     before = _counts()["k1"]
     with torch.inference_mode():
-        fn(*args)
-    return _counts()["k1"] - before
+        out = fn(*args)
+    return out, _counts()["k1"] - before
+
+
+def _k1_per_call(fn, *args) -> int:
+    """K1 launches of one direct call of a denoiser closure."""
+    return _counted_call(fn, *args)[1]
 
 
 # The tiled samplers at small width, the same weights, noise and draws on
@@ -3384,14 +3394,87 @@ SAMPLER_STEPS, TILED_STEPS = 10, 20
 # `samplers_reference`; here the untiled run from noise one fp32 ulp away
 # shows what bf16 makes of such a rounding at full width (reported).
 SINGLE_TILE_TOL = 5e-2
+# The library pieces the pipeline does not call, on the card against the
+# CPU (phase samplers' `components` line): SCALINGS["v"] / ["edm"] on a
+# seeded fp32 sigma vector, max |card - cpu| / |cpu| <= SCALING_RTOL;
+# DiagonalGaussian.kl on seeded fp32 moments of the full-width VAE's latent
+# ([1, 8, 128, 128], logvar past the clamp on both sides) to KL_RTOL.
+SCALING_RTOL, KL_RTOL = 1e-6, 1e-5
+
+
+def _components(seed: int, den, cond, uc, noise, sigma):
+    """The prepared conditioning and the pieces the pipeline does not call,
+    on the card. `PreparedConditioner.save` of the live (cond, uc), loaded
+    on the card in crossattn's dtype: paired(control) bit-equal to the live
+    dicts, and one CFG denoiser call (`whole_fn` at `sigma`) over each
+    conditioning bit-equal, each launching K1 K1_PER_MISS times. Then the
+    v / EDM scalings and the KL against the CPU. Prints the `components`
+    line; raises if a check failed."""
+    import torch
+    from rsvldm_tpu_torch.diffusion.samplers import RestoreEDMConfig
+    from rsvldm_tpu_torch.diffusion.scalings import SCALINGS
+    from rsvldm_tpu_torch.models.text.conditioner import PreparedConditioner
+    from rsvldm_tpu_torch.models.vae.model import DiagonalGaussian
+
+    dev = noise.device
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "prepared.npz")
+        PreparedConditioner.save(path, cond, uc)
+        file_bytes = os.path.getsize(path)
+        prep = PreparedConditioner.load(path, device=dev,
+                                        dtype=cond["crossattn"].dtype)
+    pc, puc = prep.paired(cond["control"])
+    same = lambda a, b: (a.dtype == b.dtype and a.shape == b.shape
+                         and bool(torch.equal(a, b)))
+    cond_equal = {k: all(same(p[k], live[k]) for p, live in ((pc, cond), (puc, uc)))
+                  for k in ("crossattn", "vector", "control")}
+    outs, k1 = [], []
+    for c, u in ((cond, uc), (pc, puc)):
+        whole_fn = _cfg_denoisers(den, c, u, RestoreEDMConfig())[0]
+        out, n = _counted_call(whole_fn, noise, sigma)
+        outs.append(out)
+        k1.append(n)
+    den_equal = same(*outs)
+    rec = dict(file_bytes=file_bytes, dtype=str(cond["crossattn"].dtype),
+               cond_bit_equal=cond_equal, denoiser_bit_equal=den_equal,
+               denoiser_max_abs=float((outs[0] - outs[1]).abs().max()),
+               k1_per_call=k1)
+    ok = all(cond_equal.values()) and den_equal and k1 == [K1_PER_MISS] * 2
+
+    g = torch.Generator().manual_seed(seed + 41)
+    sig = torch.exp(torch.empty(4096).uniform_(math.log(0.03), math.log(14.61),
+                                               generator=g))
+    for name in ("v", "edm"):
+        cpu = SCALINGS[name](sig)
+        card = SCALINGS[name](sig.to(dev))
+        rel = max(float(((b.cpu() - a).abs() / a.abs()).max()) for a, b in zip(cpu, card))
+        rec[f"scaling_{name}"] = dict(max_rel=rel, tol=SCALING_RTOL,
+                                      dtypes=sorted({str(b.dtype) for b in card}))
+        ok = ok and rel <= SCALING_RTOL and all(b.dtype == torch.float32 for b in card)
+    m = torch.cat([torch.randn(1, 4, 128, 128, generator=g),
+                   torch.empty(1, 4, 128, 128).uniform_(-40.0, 25.0, generator=g)], 1)
+    lv = m[:, 4:]
+    cpu = DiagonalGaussian(m).kl()
+    card = DiagonalGaussian(m.to(dev)).kl()
+    rel = float(((card.cpu() - cpu).abs() / cpu.abs()).max())
+    rec["kl"] = dict(shape=list(m.shape), max_rel=rel, tol=KL_RTOL,
+                     value=float(cpu[0]), dtype=str(card.dtype),
+                     clamped_low=int((lv < -30).sum()), clamped_high=int((lv > 20).sum()))
+    ok = (ok and rel <= KL_RTOL and card.dtype == torch.float32
+          and tuple(card.shape) == (1,)
+          and rec["kl"]["clamped_low"] > 0 and rec["kl"]["clamped_high"] > 0)
+    rec["ok"] = bool(ok)
+    _say("components", **rec)
+    if not ok:
+        raise RuntimeError(f"chip_smoke: a components check failed: {rec}")
 
 
 def phase_samplers(seed: int, pipe, sr_path: str, caption: str):
     """The sgm sampler family at full width on the path's pipeline: the
     controlled XL-base denoiser with CFG over the path tile's conditioning
     (its caption and the negative prompt, the control latent of its 1024^2
-    Stage-1 image). On the 128^2 latent, SAMPLER_STEPS LegacyDDPM steps of
-    EDM (churn 5), Heun, Euler-ancestral, DPM++(2S)-ancestral, DPM++(2M),
+    Stage-1 image), first checked by `_components`. On the 128^2 latent,
+    SAMPLER_STEPS LegacyDDPM steps of EDM (churn 5), Heun, Euler-ancestral, DPM++(2S)-ancestral, DPM++(2M),
     linear multistep, RestoreDPMPP2M, and EDM over the 4-step substep
     sigmas; on a 192^2 latent (the control latent resized; a 1536^2 image:
     4 windows of 128 at stride 64), TILED_STEPS steps of both tiled
@@ -3462,6 +3545,8 @@ def phase_samplers(seed: int, pipe, sr_path: str, caption: str):
                      k1_per_call=_k1_per_call(whole_fn, noise,
                                               torch.tensor(float(sig[0]), device=dev)))
     ok = rec["windows"] == 4 and rec["k1_per_call"] == K1_PER_MISS
+    _components(seed, pipe.denoiser, cond, uc, noise,
+                torch.tensor(float(sig[0]), device=dev))
     launches, outs = 0, {}
     for name, (steps, want_calls, run) in cases.items():
         calls[0] = 0

@@ -201,6 +201,13 @@ class DiagonalGaussian:
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def kl(self) -> torch.Tensor:
+        """KL divergence from the unit normal, summed over every dim but
+        the batch's: fp32 [N]."""
+        mean, logvar = self.mean.float(), self.logvar.float()
+        return 0.5 * torch.sum(mean ** 2 + torch.exp(logvar) - 1.0 - logvar,
+                               dim=(1, 2, 3))
+
 
 class AutoencoderKL(nn.Module):
     """KL autoencoder with twin encoders sharing `quant_conv`:

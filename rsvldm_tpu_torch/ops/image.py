@@ -133,6 +133,15 @@ def to_uint8(x: np.ndarray, min_max=(-1.0, 1.0)) -> np.ndarray:
     return (x * 255.0).round().astype(np.uint8)
 
 
+def degrade_image(img, down_factor: float = 1.5):
+    """Bicubic down-up degradation of a PIL image for validation inputs:
+    PIL's bicubic to (int(w / f), int(h / f)) and back to (w, h)."""
+    w, h = img.size
+    small = img.resize((int(w / down_factor), int(h / down_factor)),
+                       Image.BICUBIC)
+    return small.resize((w, h), Image.BICUBIC)
+
+
 def load_lr_conditioning(path: str, upscale: int) -> np.ndarray:
     """Stage-1 input: bicubic upsample by `upscale` (short side to
     max(w, h) * upscale, long side truncated), centre crop, [-1, 1].
