@@ -6,8 +6,10 @@
 Phases, each printed on its own line:
   1. device    the card's name and power limit (nvidia-smi), torch and CUDA
   2. build     K1 (csrc/flash_fwd.cu), the fused backward and its prologue
-               (csrc/flash_bwd.cu) and K2 (csrc/int4_decode.cu) with nvcc
-               for sm_90a, one nvcc per source, started together
+               (csrc/flash_bwd.cu), K2 (csrc/int4_decode.cu), the wide
+               kernels (csrc/flash_wide.cu) and the threefry draws
+               (csrc/threefry.cu) with nvcc for sm_90a, one nvcc per
+               source, started together
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and a few edge cases (K2 also on
                rounding ties, zero rows, and one device kernel per call
@@ -43,12 +45,21 @@ Phases, each printed on its own line:
                limits, the edges of its 64-key tiles, zero rows; D=192,
                padded to 256, forward and backward; the D=256 forward at
                one item an SM against the Gemma-7B prefill's 160 items
-               (`d256_waves`: what its partial second wave costs)
+               (`d256_waves`: what its partial second wave costs); the
+               threefry kernel (JAX's jax.random draws) against its plain
+               version at the path's draws: Stage 1's normals
+               [501, 1, 224, 224, 3], the caption's Gumbels [256, 1, 128256],
+               the churn's normals [50, 1, 128, 128, 4] and a bf16
+               [1, 1, 128, 128, 4] normal: the 32-bit words equal, the draws
+               within THREEFRY_TOL; torch.randn at each shape as a cost
+               yardstick
   4. reference process() at a small width on the card (bf16, K1 in use)
-               against the same run in fp32 on the CPU: same weights, same
-               noise, PNGs within a stated uint8 tolerance; then a
+               against the same run in fp32 on the CPU: same weights, each
+               side's noise from the seed alone (the key chain, the
+               threefry kernel on the card: 4 launches), PNGs within a
+               stated uint8 tolerance; then a
                small-width caption, int4 and int8, card against CPU: same
-               quantized weights and prompt, prefill + 8 decode steps
+               quantized weights and prompt, prefill + 4 decode steps
                teacher-forced with the CPU's tokens, logit cosine and top-1
                agreement per step (K1 and K2 in use), and the activation
                quantizers' codes and scales card against CPU, bit for bit;
@@ -71,9 +82,9 @@ Phases, each printed on its own line:
                the same ids and K2 launches); and the batched caption
                (three images of different shapes, ragged prompts, one
                batched prefill with the lm_head on each row's last
-               position, 8 decode steps of all rows teacher-forced) card
+               position, 4 decode steps of all rows teacher-forced) card
                against CPU, per row; speculative decoding on the card
-               (int4, a one-layer self-draft, k = 4, 40 greedy tokens): the
+               (int4, a one-layer self-draft, k = 4, 24 greedy tokens): the
                ids of greedy `generate`, every round after the first
                replayed, K2 launches as the formula; and process() with
                the tiled VAE (three downsamples, 48-pixel encoder and
@@ -103,7 +114,7 @@ Phases, each printed on its own line:
                then the other families at a small width (families_reference,
                bf16-rounded weights on both sides): Qwen2 and Gemma on int4
                bases, Mistral with a 512 window, Mixtral, Qwen2-MoE and
-               MPT, a 1100-token prefill and 8 decode steps fed the CPU's
+               MPT, a 1100-token prefill and 4 decode steps fed the CPU's
                greedy tokens (logit cosine >= FAM_COS_MIN; K1 once a layer
                except Mistral and MPT, K2 7 a layer and step); MLCD at 448
                pixels (heads of 104: K1 padded), open_clip indexing, EVA02,
@@ -124,7 +135,9 @@ Phases, each printed on its own line:
                SuperResolutionPipeline.process() (256 new tokens sampled at
                T=0.2, a seeded 28x28 input: 224^2 Stage 1, 1024^2 (128^2
                latent) Stage 2b) with every loop replaying CUDA graphs
-               (each graph's capture seconds, peak memory); graph replay
+               and its noise JAX's from the seed (THREEFRY_PER_PROCESS
+               threefry launches) (each graph's capture seconds, peak
+               memory); graph replay
                against direct calls at full width (16 decode steps, 10 SR3
                steps, denoiser miss steps and hit steps); Stage 1 as DDIM
                in 50 steps, timed; the kernel launches of one decode step
@@ -132,7 +145,7 @@ Phases, each printed on its own line:
                load (per family, the LLaVA's split into read, PEFT merge and
                quantize) and read-rate figures;
      spec      on the path's int4 captioner and Stage-1 image: the
-               256-token caption at T=0.2 vanilla, with the self-draft of
+               128-token caption at T=0.2 vanilla, with the self-draft of
                4 layers (k = 4) and with a seeded 2-layer draft checkpoint
                (hidden 4096, vocab 128256) written to <dir>/llava_draft and
                read through infer.build_pipeline --draft_dir: seconds,
@@ -153,7 +166,7 @@ Phases, each printed on its own line:
                then the train_vlm loop at full width on one seeded
                captioner (int8 decoder, built once): LoRA r=16 on the
                seven projections, AdamW, gradient checkpointing, 16 anyres
-               224^2 records, 4 steps of batch 4 padded to 1536 tokens
+               224^2 records, 2 steps of batch 4 padded to 1536 tokens
                (train); video records of 8 frames from frame folders
                (train_video); DPO on preference pairs padded to 1024
                (train_dpo: K1 192, backward 64 a step); the projector
@@ -201,7 +214,7 @@ Phases, each printed on its own line:
                tile's conditioning: EDM (churn), Heun, Euler-ancestral,
                DPM++(2S)-ancestral, DPM++(2M), linear multistep, the substep
                sigmas and RestoreDPMPP2M (Brownian tree of counter-hash
-               draws), 10 steps on the 128^2 latent; both tiled samplers 20
+               draws), 6 steps on the 128^2 latent; both tiled samplers 12
                steps on a 192^2 latent (4 windows of 128 at stride 64, one
                denoiser call a step): denoiser calls and K1 launches (106 a
                call) as the sigma table implies, seconds a step, finite,
@@ -241,9 +254,9 @@ Phases, each printed on its own line:
      parallel  (last) the parallel layer: this process runs the int4
                Llama-3-8B caption of one 224^2 tile (1280-token prefill,
                PAR_NEW_TOKENS greedy tokens), folder Stage 1 of four 28^2
-               tiles (500 steps), the tiled VAE at 2048^2 (bf16 and widened
+               tiles (PAR_S1_STEPS DDIM steps), the tiled VAE at 2048^2 (bf16 and widened
                to fp32)
-               and 4 SR3 training steps at global batch 8 without a mesh,
+               and PAR_TRAIN_STEPS SR3 training steps at global batch 8 without a mesh,
                then the same caption with its decoder sharded over a world
                of one on NCCL (the ids must be the same); two ranks of this
                script (--parallel-worker) on the same card over gloo run
@@ -255,7 +268,7 @@ Phases, each printed on its own line:
                one-process witness at the ranks' batch of 2 (bit for bit),
                the TP=2 caption again with a seeded LoRA archive
                (PAR_LORA_TOKENS, against one process with it), the TP=2
-               DecodeEngine (PAR_ENGINE_TOKENS a request) and 3 VLMTrainer
+               DecodeEngine (PAR_ENGINE_TOKENS a request) and PAR_VLM_STEPS VLMTrainer
                steps at data=2 on the int8 Llama-3-8B (2 x 1536 tokens a
                rank, against one process on all 4 rows); prefill ms,
                tok/s, peak GiB per rank. --parallel-only runs the build and this
@@ -355,6 +368,25 @@ K2_FAMILY_STEP = {
 # lm_head each), the catch-up feed (7n, no lm_head), the verify forward
 # (225 at k + 1 rows)
 SPEC_K, SELF_DRAFT_LAYERS, DRAFT_LAYERS = 4, 4, 2
+# the caption tokens of phase spec's runs (the path's caption is 256)
+SPEC_TOKENS = 128
+# the threefry kernel (csrc/threefry.cu) against its plain version: bits
+# equal, normals and Gumbels within THREEFRY_TOL * max(1, |plain|) (the
+# kernel's fmaf steps of erf_inv against the plain version's fp64
+# multiply-adds may part in the last bit where the fp64 sum rounds twice)
+THREEFRY_TOL = 1e-6
+# 32-bit integer operations a draw: the hash's 20 rounds of add, rotate and
+# xor (60), its key injections (12), the counter's two words, the xor of
+# the outputs and the uniform's shift and or
+THREEFRY_INT_OPS = 78
+# the card's 32-bit integer rate: 64 INT32 lanes an SM (half its 128 fp32
+# lanes) x 132 SMs x 1.98 GHz, one operation a lane a cycle (the data
+# sheet's 67 TFLOP/s fp32 is 128 lanes x 2 FLOP a multiply-add at that
+# clock)
+H100_INT32_OPS = 132 * 64 * 1.98e9
+# process()'s draws, one launch each: "stage1", the caption's 256 Gumbel
+# rows, "vae_sample", "edm_init" and "churn"; without the caption, four
+THREEFRY_PER_PROCESS = 5
 
 
 def k2_per_round(n: int, k: int = SPEC_K, layers: int = 32) -> int:
@@ -749,7 +781,7 @@ def phase_device():
 # --------------------------------------------------------------- phase 2
 def phase_build():
     from rsvldm_tpu_torch.ops import flash_attention, quant
-    from rsvldm_tpu_torch.utils import cuda_build
+    from rsvldm_tpu_torch.utils import cuda_build, prng
 
     def build(source):
         t0 = time.perf_counter()
@@ -758,7 +790,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     sources = (flash_attention.SOURCE, flash_attention.BWD_SOURCE,
-               flash_attention.WIDE_SOURCE, quant.SOURCE)
+               flash_attention.WIDE_SOURCE, quant.SOURCE, prng.SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         done = list(pool.map(build, sources))
     for source, log, seconds in done:
@@ -1365,8 +1397,9 @@ def phase_kernels():
         _flash_bwd_case("d104_padded", 1, 1025, 1025, 4, 104),
         _flash_bwd_case("d40_causal_padded", 1, 300, 300, 3, 40, causal=True),
     ] + _bwd_d256_cases() + _bwd_wide_cases()
+    fry = phase_threefry()
     _reset_counts()
-    return cases, k2, bwd
+    return cases, k2, bwd, fry
 
 
 def _d256_cases():
@@ -1518,6 +1551,95 @@ def _bwd_d256_cases():
     ]
 
 
+def _fry_rows(which: str, seed: int = SEED) -> list:
+    """The rows (key, step) of a main-path draw, as the port's key chains
+    make them: "stage1" the pipeline's first Stage-1 draw (x_T from the
+    second half of split(split(PRNGKey(seed))[1]), step t from fold_in of
+    the first, t = 499..0), "caption" PRNGKey(0) then fold_in(., i) for
+    the 256 tokens, "vae_sample" / "churn" the first refinement's k_enc and
+    fold_in(k_loop, i) for its 50 steps."""
+    from rsvldm_tpu_torch.utils import prng
+    key = prng.key(seed)
+    if which == "stage1":
+        rng, init = prng.split(prng.split(key)[1])
+        return [(init, None)] + [(rng, t) for t in range(499, -1, -1)]
+    if which == "caption":
+        k0 = prng.key(0)
+        return [(k0, None)] + [(k0, i) for i in range(1, 256)]
+    _, k_enc, _, k_loop = prng.split(prng.split(key)[0], 4)
+    if which == "vae_sample":
+        return [(k_enc, None)]
+    return [(k_loop, i) for i in range(50)]
+
+
+def _threefry_case(name, which, shape, dist="normal", bf16=False):
+    """The threefry kernel (prng.launch, the wrapper's launch) against
+    prng.draw_plain on the card, on one main-path draw: the 32-bit words
+    equal, the draw within THREEFRY_TOL; device time by graph replay, the
+    plain version's, and torch.randn's at the same shape (a yardstick of
+    cost only: it draws Philox, another function)."""
+    import torch
+    from rsvldm_tpu_torch.utils import prng
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rows = _fry_rows(which)
+    n, r = math.prod(shape), len(rows)
+    table = prng.row_table(rows, "cuda")
+    out = torch.empty((r, *shape), dtype=dtype, device="cuda")
+    words = torch.empty((r, *shape), dtype=torch.int32, device="cuda")
+    prng.launch(table, n, dist, dtype, out)
+    prng.launch(table, n, "bits", torch.int64, words)
+    torch.cuda.synchronize()
+    plain_bits = prng.draw_plain(rows, shape, "bits", torch.int64, "cuda")
+    bits_equal = bool(torch.equal(words.to(torch.int64) & prng.M32, plain_bits))
+    del plain_bits, words
+    t0 = time.perf_counter()
+    plain = prng.draw_plain(rows, shape, dist, dtype, "cuda")
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (out.float() - plain.float()).abs()
+    scaled = float((err / plain.float().abs().clamp_min(1.0)).max())
+    rec = dict(case=name, shape=[r, *shape], dist=dist,
+               dtype=str(dtype).replace("torch.", ""), bits_equal=bits_equal,
+               max_abs_err=float(err.max()), max_scaled_err=scaled,
+               bit_equal=bool(torch.equal(out, plain)),
+               finite=bool(torch.isfinite(out).all()),
+               tol=f"bits equal; |err| <= {THREEFRY_TOL} * max(1, |plain|)")
+    del plain, err
+    nbytes = r * n * out.element_size() + table.numel() * 8
+    ops = float(r) * (n + 1) * THREEFRY_INT_OPS
+    rec["bound_ms"] = max(nbytes / H100_HBM_BYTES, ops / H100_INT32_OPS) * 1e3
+    rec["bound_by"] = ("bytes" if nbytes / H100_HBM_BYTES
+                       >= ops / H100_INT32_OPS else "operations")
+    rec["ms"] = _graph_ms(lambda: prng.launch(table, n, dist, dtype, out),
+                          iters=10)
+    rec["wrapper_ms"] = _time_ms(
+        lambda: prng.draw(rows, shape, dist, dtype, out=out), 5)
+    prng.draw.launches = 0  # comparison launches not counted
+    rec["plain_ms"] = plain_ms
+    rec["randn_ms"] = _time_ms(lambda: torch.randn(out.shape, dtype=dtype,
+                                                   device="cuda"), 10)
+    rec["library_ms"] = None  # no PyTorch call draws JAX's threefry numbers
+    rec["gdraws_s"] = r * n / (rec["ms"] * 1e-3) / 1e9
+    rec["ok"] = bool(bits_equal and scaled <= THREEFRY_TOL and rec["finite"])
+    rec["main_path"] = True
+    _say("kernels", **rec)
+    return rec
+
+
+def phase_threefry():
+    """The threefry kernel at the path's shapes: Stage 1's normals
+    [501, 1, 224, 224, 3], the caption's Gumbels [256, 1, 128256], the
+    churn's normals [50, 1, 128, 128, 4] and a bf16 [1, 1, 128, 128, 4]
+    posterior-sample draw (the port draws it in fp32, as the mean's dtype
+    is; bf16 is the path JAX takes for a bf16 VAE)."""
+    return [_threefry_case("stage1_normals", "stage1", (1, 224, 224, 3)),
+            _threefry_case("caption_gumbels", "caption", (1, 128256),
+                           "gumbel"),
+            _threefry_case("churn_normals", "churn", (1, 128, 128, 4)),
+            _threefry_case("vae_sample_bf16", "vae_sample", (1, 128, 128, 4),
+                           bf16=True)]
+
+
 def phase_k2():
     """K2's cases: one Llama-3-8B decode step's shapes (R = 1), rows 8 and
     32, ragged outs (out % 16 != 0 takes byte loads), ties, zero rows; the
@@ -1562,21 +1684,24 @@ def _reset_counts():
     from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
+    from rsvldm_tpu_torch.utils import prng
     flash_attention.launches = int4_matmul.launches = 0
     flash_attention.launches_wide = flash_attention.launches_d256 = 0
     flash_attention_bwd.launches = flash_attention_bwd.launches_d256 = 0
-    flash_attention_bwd.launches_wide = 0
+    flash_attention_bwd.launches_wide = prng.draw.launches = 0
 
 
 def _counts():
     """The launch counters: K1 at every head dim (`k1`) and, of those, the
     D=256 kernel's (`k1d256`, padded D included) and the wide kernel's
     (D > 256, `k1wide`), K2, the backward at every head dim (`bwd`) and, of
-    those, the D=256 kernel's (`bwd256`) and the wide one's (`bwdwide`)."""
+    those, the D=256 kernel's (`bwd256`) and the wide one's (`bwdwide`),
+    and the threefry kernel's draws (`threefry`)."""
     from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
-    return dict(k1=flash_attention.launches,
+    from rsvldm_tpu_torch.utils import prng
+    return dict(threefry=prng.draw.launches, k1=flash_attention.launches,
                 k1d256=flash_attention.launches_d256,
                 k1wide=flash_attention.launches_wide, k2=int4_matmul.launches,
                 bwd=flash_attention_bwd.launches,
@@ -1713,17 +1838,21 @@ def _small_cfgs(vae=None):
 def _card_vs_cpu(seed: int, small: dict, refine: dict, names, lr_side: int = 4):
     """process() of a seeded lr_side^2 tile (x4, 8 SR3 steps) at the `small`
     width on the CPU in fp32, then on the card in bf16 with the CPU's
-    weights and draws. (record with the uint8 differences of each PNG of
-    `names`, whether all are within REF_MEAN_TOL / REF_MAX_TOL, the card's
-    pipeline)."""
+    weights, each drawing its noise from the seed alone (the pipeline's
+    key chain: the plain version on the CPU, the threefry kernel on the
+    card; no draw is replayed: the one whose dtype follows the model's,
+    the VAE posterior sample, is fp32 on both, as the port takes the
+    moments in fp32). (record with the uint8 differences of each PNG of
+    `names`, whether all are within REF_MEAN_TOL / REF_MAX_TOL and the
+    card drew THREEFRY_PER_PROCESS - 1 times, the card's pipeline)."""
     import numpy as np
     import torch
     from PIL import Image
     from rsvldm_tpu_torch.config import (PipelineConfig, RefinementConfig,
                                          Stage1Config)
     from rsvldm_tpu_torch.ops.flash_attention import flash_attention
-    from rsvldm_tpu_torch.pipeline import (ReplayNoise, SuperResolutionPipeline,
-                                           TorchNoise)
+    from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
+    from rsvldm_tpu_torch.utils import prng
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_ref_"))
     rng = np.random.default_rng(seed + 1)
@@ -1738,24 +1867,20 @@ def _card_vs_cpu(seed: int, small: dict, refine: dict, names, lr_side: int = 4):
                               stage1=Stage1Config(steps=8),
                               refine=RefinementConfig(**refine))
 
-    draws: dict = {}
-    cpu_noise = TorchNoise(seed, torch.device("cpu"))
-
-    def recording(name, shape):
-        draws.setdefault(name, []).append(cpu_noise(name, shape).clone())
-        return draws[name][-1]
-
-    cpu = SuperResolutionPipeline(cfg("cpu"), device="cpu", model_cfgs=small,
-                                  noise=recording)
+    cpu = SuperResolutionPipeline(cfg("cpu"), device="cpu", model_cfgs=small)
     cpu.process()
     sds = {fam: getattr(cpu, fam).state_dict() for fam in
            ("sr3", "unet", "control", "vae", "clip_l", "big_g")}
     gpu = SuperResolutionPipeline(cfg("gpu"), device="cuda", model_cfgs=small,
-                                  state_dicts=sds, noise=ReplayNoise(draws))
-    flash_attention.launches = 0
+                                  state_dicts=sds)
+    flash_attention.launches = prng.draw.launches = 0
     gpu.process()
-    rec = dict(k1_launches=flash_attention.launches)
-    ok = True
+    rec = dict(k1_launches=flash_attention.launches,
+               threefry_launches=prng.draw.launches,
+               noise="each side's key chain from the seed", replayed_draws=[],
+               key_chains_equal=gpu.noise.key == cpu.noise.key)
+    ok = (rec["threefry_launches"] == THREEFRY_PER_PROCESS - 1
+          and rec["key_chains_equal"])
     for name in names:
         a = np.asarray(Image.open(work / "cpu" / name), np.int16)
         b = np.asarray(Image.open(work / "gpu" / name), np.int16)
@@ -1874,7 +1999,7 @@ def _small_captioners(quant: str):
     return caps, lcfg, vcfg, tok, same_bytes
 
 
-def phase_caption_reference(seed: int, quant: str, steps: int = 8):
+def phase_caption_reference(seed: int, quant: str, steps: int = 4):
     """A small-width caption on the card (bf16) against the same captioner
     on the CPU (fp32): dense weights rounded to bf16 so that both sides
     quantize the same values to the same bytes, the same 224^2 image and
@@ -1954,7 +2079,7 @@ def phase_caption_reference(seed: int, quant: str, steps: int = 8):
 
 
 def phase_batch_caption_reference(seed: int, quant: str = "int4",
-                                  steps: int = 8):
+                                  steps: int = 4):
     """The batched caption (folder mode) at the small width, card (bf16)
     against CPU (fp32): three images of different shapes spliced into the
     prompt (ragged lengths), one batched prefill from 0 with the lm_head
@@ -2087,7 +2212,7 @@ def _accept_card_vs_cpu(seed: int, vocab: int = 64, cases: int = 12) -> dict:
                 ok=bool(same and k + 1 in counts and 1 in counts))
 
 
-def phase_spec_reference(seed: int, new_tokens: int = 40):
+def phase_spec_reference(seed: int, new_tokens: int = 24):
     """Speculative decoding at the small width on the card (int4, k = 4):
     with the bf16 captioner and a 1280-token prompt, greedy ids with a
     one-layer self-draft, and with the target as its own draft (every
@@ -2105,6 +2230,7 @@ def phase_spec_reference(seed: int, new_tokens: int = 40):
     from rsvldm_tpu_torch.config import REFERENCE_IMG_PROMPT
     from rsvldm_tpu_torch.models.vlm import generate as gen
     from rsvldm_tpu_torch.models.vlm.speculative import (default_accept_noise,
+                                                         gumbel_noise,
                                                          self_draft,
                                                          speculative_generate)
 
@@ -2160,7 +2286,7 @@ def phase_spec_reference(seed: int, new_tokens: int = 40):
         emb32 = cap.llama.embed(toks)
         scfg = gen.GenerateConfig(max_new_tokens=new_tokens, temperature=0.8,
                                   do_sample=True)
-        rows = gen.gumbel_noise(vocab, g, new_tokens + SPEC_K)(0)
+        rows = gumbel_noise(vocab, g, new_tokens + SPEC_K)(0)
         noise = lambda j: rows[j]
         ids_v32 = gen.generate(cap.llama, emb32, scfg, noise=noise)
         r, ids_s32 = run(cap.llama, L, emb32, scfg, noise=noise,
@@ -2436,6 +2562,7 @@ def phase_path(seed: int):
         total_s = time.perf_counter() - t0
         counts = _counts()
         launches, k2_launches = counts["k1"], counts["k2"]
+        fry_launches = counts["threefry"]
         cs = pipe.caption_stats
         capture_s = dict(pipe.capture_s)
         process_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2512,7 +2639,8 @@ def phase_path(seed: int):
         dfb_steps=dfb["steps"],
         dfb_trace="".join("H" if x else "." for x in dfb["trace"]),
         flash_fwd_launches=launches, int4_decode_launches=k2_launches,
-        launches=counts,
+        threefry_launches=fry_launches,
+        expected_threefry_launches=THREEFRY_PER_PROCESS, launches=counts,
         caption_weights_gib=caption_bytes / 2**30,
         caption_s=pipe.timings.get("caption", 0.0),
         prompt_len=cs.get("prompt_len"), padded_len=cs.get("padded_len"),
@@ -2542,6 +2670,7 @@ def phase_path(seed: int):
               and llama_ids_equal and clip_ids_equal
               and launches == rec["expected_launches"] > 0
               and k2_launches == rec["expected_k2_launches"] > 0
+              and fry_launches == THREEFRY_PER_PROCESS
               and cs.get("padded_len", 0) >= 1024
               and sr.shape == (224, 224, 3)
               and fin.shape == (224, 224, 3)
@@ -2652,7 +2781,7 @@ def _greedy_gap(cap, emb, ids_v, ids_s) -> dict:
 
 def phase_spec(seed: int, pipe, cd: Path, sr_path: str):
     """Speculative caption decoding at full width, on the path's int4
-    captioner and its Stage-1 image: the 256-token caption at T = 0.2
+    captioner and its Stage-1 image: the SPEC_TOKENS-token caption at T = 0.2
     three ways (vanilla; the self-draft of the first SELF_DRAFT_LAYERS
     layers, k = SPEC_K; a seeded DRAFT_LAYERS-layer draft checkpoint of
     the target's width and vocabulary written to <cd>/llava_draft and read
@@ -2679,7 +2808,7 @@ def phase_spec(seed: int, pipe, cd: Path, sr_path: str):
     from rsvldm_tpu_torch.models.vlm.speculative import self_draft
 
     cap = pipe.llava
-    lcfg = pipe.cfg.llava
+    lcfg = dataclasses.replace(pipe.cfg.llava, max_new_tokens=SPEC_TOKENS)
     img = Image.open(sr_path).convert("RGB")
     prompt = gen.llama3_chat_prompt(lcfg.img_prompt.format(
         DEFAULT_IMAGE_TOKEN="<image>"))
@@ -2829,7 +2958,7 @@ def phase_tiled(seed: int, pipe, sr_path: str, caption: str):
     import numpy as np
     import torch
     from PIL import Image
-    from rsvldm_tpu_torch.pipeline import TorchNoise
+    from rsvldm_tpu_torch.pipeline import KeyChainNoise
 
     r = pipe.cfg.refine
     img = Image.open(sr_path).convert("RGB")
@@ -2840,7 +2969,7 @@ def phase_tiled(seed: int, pipe, sr_path: str, caption: str):
         for tiles in (False, True):
             name = "tiled" if tiles else "whole"
             r.use_tile_vae = tiles
-            pipe.noise = TorchNoise(seed, pipe.device)
+            pipe.noise = KeyChainNoise(seed, pipe.device)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
@@ -2913,6 +3042,7 @@ def _batched_graphs_vs_direct(pipe, llama, seed: int, rows: int = 8,
     from rsvldm_tpu_torch.models.sr3.diffusion import (SR3Diffusion,
                                                        sr3_sample)
     from rsvldm_tpu_torch.models.vlm import generate as gen
+    from rsvldm_tpu_torch.models.vlm.speculative import gumbel_noise
     from rsvldm_tpu_torch.ops.quant import int4_matmul
     from rsvldm_tpu_torch.utils.graphs import StepRunner
     dev = pipe.device
@@ -2923,7 +3053,7 @@ def _batched_graphs_vs_direct(pipe, llama, seed: int, rows: int = 8,
         t.copy_(torch.randn(t.shape, generator=g, device=dev))
     st0.pos.copy_(torch.arange(1300, 1300 + 12 * rows, 12, device=dev))
     st0.tok.copy_(torch.randint(0, 128000, (rows, 1), generator=g, device=dev))
-    st0.noise.copy_(gen.gumbel_noise(llama.cfg.vocab_size, g, rows)(0)
+    st0.noise.copy_(gumbel_noise(llama.cfg.vocab_size, g, rows)(0)
                     .expand_as(st0.noise))
     st0.noise.add_(torch.randn(st0.noise.shape, generator=g, device=dev))
     st0.temp.fill_(0.2)
@@ -3022,6 +3152,9 @@ def phase_folder(seed: int, cd: Path, process_s: float | None,
         for c in chunks)
     # the decode steps, and the prefill's lm_head on the rows' last positions
     k2_want = sum(K2_PER_STEP * c["decode_steps"] + 1 for c in caps)
+    # one threefry launch a Stage-1 group and a caption batch, three a
+    # refinement chunk (vae_sample, edm_init, churn)
+    fry_want = len(pipe.stage1_groups) + len(caps) + 3 * len(chunks)
     decode = [dict(rows=c["rows"], prompt_lens=c["prompt_lens"],
                    padded_len=c["padded_len"], prefill_s=c["prefill_s"],
                    decode_s=c["decode_s"], decode_steps=c["decode_steps"],
@@ -3040,7 +3173,7 @@ def phase_folder(seed: int, cd: Path, process_s: float | None,
         path_process_s=process_s,
         stage1_groups=pipe.stage1_groups, captions=decode,
         refine_chunks=chunks, launches=counts,
-        expected_launches=dict(k1=k1_want, k2=k2_want),
+        expected_launches=dict(k1=k1_want, k2=k2_want, threefry=fry_want),
         peak_mem_gib=peak, reserved_gib=reserved,
         held_before_gib=held_before,
         kept_loops=kept,
@@ -3056,7 +3189,8 @@ def phase_folder(seed: int, cd: Path, process_s: float | None,
               # the second chunk replays every graph the first captured
               and cap0.get("sampling_first", 0) > 0
               and all(cap1.get(k) == 0 for k, v in cap0.items() if v > 0)
-              and counts["k1"] == k1_want > 0 and counts["k2"] == k2_want > 0)
+              and counts["k1"] == k1_want > 0 and counts["k2"] == k2_want > 0
+              and counts["threefry"] == fry_want)
     if profile and pipe.llava is not None:
         from rsvldm_tpu_torch.models.vlm import generate as gen
         llama = pipe.llava.llama
@@ -3385,7 +3519,7 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
     return rec
 
 
-SAMPLER_STEPS, TILED_STEPS = 10, 20
+SAMPLER_STEPS, TILED_STEPS = 6, 12
 # The single-window tiled DPM++(2M) against the untiled one, both on the
 # card in bf16 with the same noise and Brownian draws: they differ only by
 # (v * w) / w in the stitch, within an ulp a step, which can move a bf16
@@ -4214,7 +4348,7 @@ def _video_data(work: Path, tok, seed: int, n: int, frames: int = 8,
     (work / "video.json").write_text(json.dumps(recs))
 
 
-def phase_train(seed: int, cap, tok, work: Path, steps: int = 4,
+def phase_train(seed: int, cap, tok, work: Path, steps: int = 2,
                 batch: int = 4, width: int = 1536, profile: bool = False):
     """The port's train_vlm loop at full width on the seeded LLaVA-NeXT-8B
     captioner (CLIP-L/336, mlp2x_gelu, Llama-3-8B, int8 decoder): LoRA
@@ -4235,7 +4369,7 @@ def phase_train(seed: int, cap, tok, work: Path, steps: int = 4,
     return rec
 
 
-def phase_train_video(seed: int, cap, tok, work: Path, steps: int = 3,
+def phase_train_video(seed: int, cap, tok, work: Path, steps: int = 2,
                       batch: int = 4):
     """--tune lora on frame-folder video records: 8 frames a record, each
     through the tower and projector in one batched call, pooled 2x2
@@ -4253,7 +4387,7 @@ def phase_train_video(seed: int, cap, tok, work: Path, steps: int = 3,
     return rec
 
 
-def phase_train_dpo(seed: int, cap, tok, work: Path, steps: int = 3,
+def phase_train_dpo(seed: int, cap, tok, work: Path, steps: int = 2,
                     batch: int = 4, width: int = 1024):
     """--dpo on text preference pairs padded to `width`: per step the
     policy's chosen and rejected forwards (K1 32 each), their recomputes
@@ -4272,7 +4406,7 @@ def phase_train_dpo(seed: int, cap, tok, work: Path, steps: int = 3,
 
 
 def phase_train_mm(seed: int, cap, tok, work: Path, tune: str,
-                   steps: int = 3, batch: int = 4, width: int = 1024):
+                   steps: int = 2, batch: int = 4, width: int = 1024):
     """--tune projector (the pretrain stage) or --tune lora,projector
     --mm_projector_lr 2e-5 on pad-recipe image records padded to `width`:
     the projector (fp32) inside the graph fills each row's 576-row span.
@@ -4369,7 +4503,7 @@ def phase_train_gemma(seed: int, steps: int = 3, batch: int = 4,
                 for ab in tr.lora.values())
     unchanged = _sd_digest(model.state_dict()) == digest
     want = {"k1": 2 * L, "k1d256": 2 * L, "k1wide": 0, "k2": 0, "bwd": L,
-            "bwd256": L, "bwdwide": 0}
+            "bwd256": L, "bwdwide": 0, "threefry": 0}
     rec = dict(config="GEMMA_7B_CONFIG int8, LoRA r=16 (7 projections), "
                       "remat", seconds=time.perf_counter() - t0, layers=L, heads=cfg.heads,
                head_dim=cfg.head_dim, vocab=cfg.vocab_size, batch=batch,
@@ -4438,7 +4572,7 @@ def phase_wide_head(seed: int, steps: int = 3, batch: int = 4,
         prefill_s = time.perf_counter() - t1
     pre = _counts()
     pre_want = {"k1": L, "k1d256": 0, "k1wide": L, "k2": 0, "bwd": 0,
-                "bwd256": 0, "bwdwide": 0}
+                "bwd256": 0, "bwdwide": 0, "threefry": 0}
     prefill_finite = bool(torch.isfinite(logits).all())
     del cache, emb, logits
     tr = vt.VLMTrainer(model, vt.LoraConfig(r=16, alpha=16), lr=2e-4,
@@ -4463,7 +4597,7 @@ def phase_wide_head(seed: int, steps: int = 3, batch: int = 4,
                 for ab in tr.lora.values())
     unchanged = _sd_digest(model.state_dict()) == digest
     want = {"k1": 2 * L, "k1d256": 0, "k1wide": 2 * L, "k2": 0, "bwd": L,
-            "bwd256": 0, "bwdwide": L}
+            "bwd256": 0, "bwdwide": L, "threefry": 0}
     rec = dict(config=f"LLAMA3_8B_CONFIG widths, 8 q / 2 kv heads of 512, "
                       f"bf16, {L} of 32 layers; LoRA r=16 (7 projections), "
                       "remat", seconds=time.perf_counter() - t0, layers=L,
@@ -5215,7 +5349,7 @@ def phase_serve(seed: int, cd: Path) -> dict:
 # ----------------------------------------------- the other model families
 # Card (bf16) against CPU (fp32) at a small width, on weights rounded to
 # bf16 (families_reference): per family, the cosine of the logits at the
-# prefill's last position and at 8 decode steps fed the CPU's greedy
+# prefill's last position and at 4 decode steps fed the CPU's greedy
 # tokens; per tower or text module, the relative rms error of the features.
 # An H100 gave cosines 0.99917-0.99999, the lowest 0.99752 at Mixtral's
 # prefill position (a bf16 router picks another expert for a few tokens),
@@ -5285,7 +5419,7 @@ def _teacher_forced_logits(model, toks, steps: int, cache, greedy=None):
     return torch.stack(rows).float().cpu(), fed
 
 
-def phase_families_reference(seed: int, prompt: int = 1100, steps: int = 8):
+def phase_families_reference(seed: int, prompt: int = 1100, steps: int = 4):
     """Each decoder family at a small width, card against CPU on the same
     bf16-rounded weights and tokens: Qwen2 and Gemma on int4 bases (K2),
     Mistral with a 512-token window (no K1: its prefill takes the windowed
@@ -5819,15 +5953,17 @@ def _profile_steps(steps: dict, hand_of: dict, iters: int) -> dict:
 #   step's loss within TRAIN_LOSS_RTOL of one process on all rows, K1 64
 #   and the backward 32 a step a rank, the ranks' adapters equal bit for
 #   bit.
-PAR_NEW_TOKENS = 32
-PAR_LORA_TOKENS = 16
+PAR_NEW_TOKENS = 16
+PAR_LORA_TOKENS = 8
 PAR_LORA_B_STD = 0.01  # the seeded archive's b ~ N(0, std^2)
-PAR_VLM_STEPS, PAR_VLM_ROWS, PAR_VLM_WIDTH = 3, 4, 1536
+PAR_VLM_STEPS, PAR_VLM_ROWS, PAR_VLM_WIDTH = 2, 4, 1536
 PAR_COS_MIN = 0.999
 PAR_VAE_REL_RMS, PAR_VAE_MAX_LEVELS = 1e-3, 2
 PAR_LOSS_RTOL, PAR_UPDATE_RTOL = 1e-4, 1e-2
 PAR_LR_SIDES = (28, 28, 28, 28)
-PAR_TRAIN_STEPS, PAR_TRAIN_BATCH = 4, 8
+PAR_TRAIN_STEPS, PAR_TRAIN_BATCH = 2, 8
+# folder Stage 1 in this phase: DDIM steps on the 500-step schedule
+PAR_S1_STEPS = 50
 PAR_TIMEOUT_S = 600
 # the TP=2 DecodeEngine (int4 Llama-3-8B, 2 slots): the caption's image
 # prompt (padded to 1280: K1 at its admission) and three text prompts of
@@ -5835,7 +5971,7 @@ PAR_TIMEOUT_S = 600
 # engine (draft == target, k = 2) on the second prompt; the teacher-forced
 # positions whose logits are held to the one process's (cosine >=
 # PAR_COS_MIN)
-PAR_ENGINE_TOKENS, PAR_ENGINE_SHORT, PAR_ENGINE_TF = 16, (37, 150, 290), 16
+PAR_ENGINE_TOKENS, PAR_ENGINE_SHORT, PAR_ENGINE_TF = 8, (37, 150, 290), 8
 PAR_ENGINE_MAX_LEN, PAR_SPEC_K = 1408, 2
 # a rank's stream may leave the one process's only where the one process's
 # best logit and its logit of the rank's token tie within this many bf16
@@ -5863,7 +5999,7 @@ def _par_cfg(tiny: bool) -> dict:
         return dict(device="cuda", llama=LLAMA3_8B_CONFIG,
                     vision=CLIP_VIT_L_336_CONFIG, quant="int4", model_cfgs=None,
                     vae_side=2048, enc_tile=512, dec_tile=64, train_side=224,
-                    lr_sides=PAR_LR_SIDES, upscale=8, s1_steps=None,
+                    lr_sides=PAR_LR_SIDES, upscale=8, s1_steps=PAR_S1_STEPS,
                     vlm_width=PAR_VLM_WIDTH, sp=(1, 4096, 32, 8, 128),
                     pp_tokens=1024)
     from rsvldm_tpu_torch.infer import tiny_model_cfgs
@@ -6474,12 +6610,12 @@ def _par_stage1_witness(pipe, paths, ranks: int, cfg: dict) -> list:
     """Folder Stage 1 as `ranks` ranks of data run it, in one process: the
     group's batch cut into the ranks' rows (pipeline._mesh_rows), each part
     one loop at that batch size with its rows of the whole batch's
-    "stage1" draw (the noise generator restarted for each part, as each
-    rank's fresh pipeline draws)."""
+    "stage1" draw (the key chain restarted for each part, as each rank's
+    fresh pipeline draws)."""
     import numpy as np
     import torch
     from rsvldm_tpu_torch.ops.image import load_lr_conditioning
-    from rsvldm_tpu_torch.pipeline import TorchNoise
+    from rsvldm_tpu_torch.pipeline import KeyChainNoise
     conds = [load_lr_conditioning(str(p), cfg["upscale"]) for p in paths]
     if len({c.shape for c in conds}) != 1:
         raise ValueError("the witness takes one Stage-1 group")
@@ -6489,7 +6625,7 @@ def _par_stage1_witness(pipe, paths, ranks: int, cfg: dict) -> list:
     with torch.inference_mode():
         for r in range(ranks):
             start = r * per + min(r, extra)
-            pipe.noise = TorchNoise(pipe.cfg.seed, pipe.device)
+            pipe.noise = KeyChainNoise(pipe.cfg.seed, pipe.device)
             outs += pipe._stage1(batch, slice(start, start + per + (r < extra)))
     return outs
 
@@ -6833,7 +6969,7 @@ def _par_worker_vlm_train(seed, cfg, mesh, work) -> dict:
     want = ({"k1": 2 * L, "k2": 0, "bwd": L, "bwd256": 0}
             if cfg["device"] == "cuda" else
             {"k1": 0, "k2": 0, "bwd": 0, "bwd256": 0})
-    want.update(k1d256=0, k1wide=0, bwdwide=0)
+    want.update(k1d256=0, k1wide=0, bwdwide=0, threefry=0)
     rel = [abs(x - y) / abs(y) for x, y in zip(rec["losses"], ref["losses"])]
     rec.update(ref_losses=ref["losses"], loss_rel_err=max(rel),
                ranks_supervised=[s for _, s in every],
@@ -7078,8 +7214,8 @@ def main(argv=None) -> int:
         print("chip_smoke: --parallel-only given, no result line",
               file=sys.stderr)
         return 0 if par["ok"] else 1
-    cases, k2, bwd = phase_kernels()
-    ok = all(c["ok"] for c in cases + k2 + bwd)
+    cases, k2, bwd, fry = phase_kernels()
+    ok = all(c["ok"] for c in cases + k2 + bwd + fry)
     lap("kernels")
     ok = phase_reference(SEED)["ok"] and ok
     for quant in ("int4", "int8"):
@@ -7284,7 +7420,18 @@ def main(argv=None) -> int:
               "rsvldm_tpu/ops/flash_attention.py:326 + "
               "rsvldm_tpu/ops/flash_attention.py:376", "bwdwide",
               [c for c in bwd if c["shape"][4] > 256], bwd_keys,
-              kernels=("flash_wide_bwd_kernel", "flash_wide_prep_kernel"))]}
+              kernels=("flash_wide_bwd_kernel", "flash_wide_prep_kernel")),
+        # no Pallas counterpart: JAX's jax.random threefry draws, which XLA
+        # compiles (the pipeline's key, its Stage-1 and refinement splits,
+        # the caption's categorical)
+        entry("threefry", "rsvldm_tpu_torch/csrc/threefry.cu",
+              "none (jax.random threefry: rsvldm_tpu/pipeline.py:95, 335, "
+              "456; rsvldm_tpu/models/vlm/generate.py:170-190)", "threefry",
+              fry, ("case", "shape", "dist", "dtype", "ms", "wrapper_ms",
+                    "plain_ms", "randn_ms", "bound_ms", "bound_by",
+                    "gdraws_s", "bits_equal", "max_abs_err",
+                    "max_scaled_err"),
+              kernels=tuple(PTXAS.get("threefry.cu", {})))]}
     print(json.dumps(report), flush=True)
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)

@@ -483,20 +483,21 @@ class LlavaCaptioner:
         return prompt, cfg, encode, decode
 
     @torch.inference_mode()
-    def caption(self, image, llava_cfg,
-                generator: torch.Generator | None = None,
-                noise=None, accept_noise=None) -> str:
+    def caption(self, image, llava_cfg, key=None, noise=None,
+                accept_noise=None) -> str:
         """Stage 2a on one PIL image; sampling adds `noise(i)` to token i's
-        logits, or Gumbel draws from `generator` (default: seeded with 0 on
-        the captioner's device); on the card the decode replays a CUDA
-        graph kept in `decode_graphs`; see `generate.generate`. With a
-        draft, speculative rounds decode (`_generate_fn`), `accept_noise`
-        giving their acceptance and resample draws."""
+        logits, or JAX's Gumbels of `key` (a utils/prng key, default
+        PRNGKey(0) as JAX's caption_image) and fold_in(key, i); on the
+        card the decode replays a CUDA graph kept in `decode_graphs`; see
+        `generate.generate`. With a draft, speculative rounds decode
+        (`_generate_fn`) with `generate`'s proposal Gumbels, `accept_noise`
+        giving their acceptance and resample draws, by default from a
+        torch.Generator seeded 0 (not yet JAX's)."""
         prompt, cfg, encode, decode = self._gen_setup(llava_cfg)
         self.last_stats = {}
         return caption_image(self.llama, self.vision, self.projector, image,
                              prompt, encode, decode, self.image_newline, cfg,
-                             generator, patch_size=self.vision.cfg.image_size,
+                             key, patch_size=self.vision.cfg.image_size,
                              stats=self.last_stats, noise=noise, lora=self.lora,
                              graph_cache=self.decode_graphs,
                              generate_fn=self._generate_fn(accept_noise))
@@ -509,8 +510,8 @@ class LlavaCaptioner:
         # a self-draft's blocks are the target's first ones, so the
         # target's adapters (looked up by block index) serve it as they are
         draft_lora = self.lora if self.self_draft_layers else None
-        return lambda model, spliced, cfg, generator, **kw: speculative_generate(
-            model, self.draft, spliced, cfg, self.spec_k, generator,
+        return lambda model, spliced, cfg, key, **kw: speculative_generate(
+            model, self.draft, spliced, cfg, self.spec_k, key=key,
             accept_noise=accept_noise, draft_lora=draft_lora, **kw)
 
     @torch.inference_mode()
@@ -526,19 +527,19 @@ class LlavaCaptioner:
             encode, self.image_newline, patch_size=self.vision.cfg.image_size)
 
     @torch.inference_mode()
-    def caption_batch(self, images, llava_cfg,
-                      generator: torch.Generator | None = None,
+    def caption_batch(self, images, llava_cfg, key=None,
                       noise=None) -> list:
         """Stage 2a on several PIL images in one batched decode (JAX
         captioner.py:361-372): one caption per image, in order. `noise(i)`
-        gives [B, vocab]; otherwise as `caption`. `last_stats` has the
+        gives [B, vocab]; otherwise JAX's [B, vocab] Gumbels of `key`, as
+        JAX's caption_images. `last_stats` has the
         prompt lengths, the padded length, prefill and decode seconds and
         the steps run."""
         prompt, cfg, encode, decode = self._gen_setup(llava_cfg)
         self.last_stats = {}
         return caption_images(self.llama, self.vision, self.projector,
                               list(images), prompt, encode, decode,
-                              self.image_newline, cfg, generator,
+                              self.image_newline, cfg, key,
                               patch_size=self.vision.cfg.image_size,
                               stats=self.last_stats, noise=noise,
                               lora=self.lora, graph_cache=self.decode_graphs)

@@ -5,10 +5,11 @@ image-feature splice, prefill and a decode loop.
 one prefill from position 0, then one decode step per new token, writing
 position s + i. Greedy when do_sample is false or the temperature is 0,
 else token i is argmax(logits / T + g_i), the Gumbel-max draw that
-`jax.random.categorical` makes, with g_i from `noise(i)`: by default
-Gumbel noise from a torch.Generator (its numbers are not JAX's), or any
-caller's stream, such as JAX's (`rng` for token 0, `fold_in(rng, i)` after
-it), which then gives JAX's ids.
+`jax.random.categorical` makes, with g_i JAX's: the Gumbels of `key`
+(default PRNGKey(0), as JAX's caption_image / caption_images) for token 0
+and of fold_in(key, i) for token i, all max_new_tokens rows drawn into the
+loop's noise tensor by one prng.draw (one threefry kernel launch on the
+card), or `noise(i)` from a caller.
 
 The decode loop is the JAX scan's shape (rsvldm_tpu/models/vlm/generate.py:
 180-195) on the device: token, position, done flag, the tokens so far and
@@ -50,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from . import anyres
+from ...utils import prng
 from ...utils.graphs import StepRunner, use_graphs
 from .llama import KVCache, LlamaModel
 from .vision import normalize_pixels
@@ -159,20 +161,6 @@ def _sync(device: torch.device):
 Noise = Callable[[int], torch.Tensor]
 
 
-def gumbel_noise(vocab: int, generator: torch.Generator,
-                 rows: int | None = None) -> Noise:
-    """Gumbel draws [vocab] (or [rows, vocab]) from `generator` on its
-    device, as `jax.random.gumbel` makes them: -log(-log(u)), u uniform in
-    [tiny, 1)."""
-    tiny = torch.finfo(torch.float32).tiny
-    shape = (vocab,) if rows is None else (rows, vocab)
-
-    def draw(step: int) -> torch.Tensor:
-        u = torch.rand(shape, generator=generator, device=generator.device)
-        return -torch.log(-torch.log(u.clamp_min(tiny)))
-    return draw
-
-
 @dataclasses.dataclass
 class DecodeState:
     """The tensors a decode loop of B rows owns, on the device. `tok`
@@ -239,7 +227,7 @@ def _decode_state(model: LlamaModel, cfg: GenerateConfig, s_pad: int,
 
 
 def _decode(model: LlamaModel, inputs: Sequence[torch.Tensor],
-            cfg: GenerateConfig, generator, stats, noise, lora, graphs,
+            cfg: GenerateConfig, key, stats, noise, lora, graphs,
             graph_cache) -> list:
     """The prefill and decode loop of `generate` (one prompt) and
     `generate_batch` (B prompts): a list of np.int32 ids, one per prompt,
@@ -250,14 +238,14 @@ def _decode(model: LlamaModel, inputs: Sequence[torch.Tensor],
     graphs = use_graphs(device, graphs) and model.tp is None
     lens = [int(e.shape[0]) for e in inputs]
     s_pad = -(-max(lens) // cfg.pad_to) * cfg.pad_to
-    key = (s_pad, cfg.max_new_tokens, len(cfg.eot_ids), graphs,
-           id(lora) if lora else None, b)
-    st = (graph_cache or {}).get(key)
+    kept = (s_pad, cfg.max_new_tokens, len(cfg.eot_ids), graphs,
+            id(lora) if lora else None, b)
+    st = (graph_cache or {}).get(kept)
     if st is None:
         st = _decode_state(model, cfg, s_pad, device, b)
         st.runner = StepRunner(lambda: decode_step(model, st, lora), graphs)
         if graph_cache is not None:
-            graph_cache[key] = st
+            graph_cache[kept] = st
     captured = st.runner.capture_s
     # right-padded rows: each row's pad positions hold garbage K/V after the
     # prefill; the causal mask hides them from its position lens[b]-1, and
@@ -267,12 +255,16 @@ def _decode(model: LlamaModel, inputs: Sequence[torch.Tensor],
     st.eot.copy_(torch.tensor([int(e) for e in cfg.eot_ids]))
     if cfg.do_sample and cfg.temperature > 0:
         if noise is None:
-            if generator is None:
-                generator = torch.Generator(device=device).manual_seed(0)
-            noise = gumbel_noise(model.cfg.vocab_size, generator,
-                                 None if b == 1 else b)
-        for i in range(cfg.max_new_tokens):
-            st.noise[i].copy_(noise(i).reshape(b, -1))
+            # JAX's categorical draws the Gumbels over the logits' shape:
+            # [vocab] for one prompt, [B, vocab] for B (the same numbers
+            # at B = 1); every rank of a TP group draws the same keys
+            k = prng.key(0) if key is None else key
+            prng.draw([(k, None)] + [(k, i) for i in range(
+                1, cfg.max_new_tokens)], (b, model.cfg.vocab_size), "gumbel",
+                out=st.noise)
+        else:
+            for i in range(cfg.max_new_tokens):
+                st.noise[i].copy_(noise(i).reshape(b, -1))
         st.temp.fill_(cfg.temperature)
     else:
         st.noise.zero_()
@@ -325,14 +317,15 @@ def _check_ranks_agree(toks: torch.Tensor, tp):
 
 @torch.inference_mode()
 def generate(model: LlamaModel, input_embeds: torch.Tensor,
-             cfg: GenerateConfig, generator: torch.Generator | None = None,
+             cfg: GenerateConfig, key: prng.Key | None = None,
              stats: dict | None = None, noise: Noise | None = None,
              lora: dict | None = None, graphs: bool | None = None,
              graph_cache: dict | None = None) -> np.ndarray:
     """input_embeds [S, D] -> np.int32 ids, trimmed at the first eot.
     Sampling adds `noise(i)` [vocab] to the logits of token i; without it,
-    Gumbel draws from `generator` (default: seeded with 0 on the
-    device); all max_new_tokens draws are made before the loop, in order.
+    JAX's Gumbels of `key` (default PRNGKey(0)) for token 0 and of
+    fold_in(key, i) for token i; all max_new_tokens draws are made before
+    the loop.
     The decode steps replay one CUDA graph on the card (`graphs`, default
     on CUDA: utils/graphs.py) and the host reads the done flag every
     DONE_EVERY steps. `graph_cache`, a dict the caller keeps, holds the
@@ -340,14 +333,13 @@ def generate(model: LlamaModel, input_embeds: torch.Tensor,
     the same bucket captures nothing. `stats`, when given, receives
     prompt_len, padded_len, prefill_s, decode_s, decode_steps (steps run)
     and capture_s (of this call)."""
-    return _decode(model, [input_embeds], cfg, generator, stats, noise, lora,
+    return _decode(model, [input_embeds], cfg, key, stats, noise, lora,
                    graphs, graph_cache)[0]
 
 
 @torch.inference_mode()
 def generate_batch(model: LlamaModel, input_embeds_list: Sequence[torch.Tensor],
-                   cfg: GenerateConfig,
-                   generator: torch.Generator | None = None,
+                   cfg: GenerateConfig, key: prng.Key | None = None,
                    stats: dict | None = None, noise: Noise | None = None,
                    lora: dict | None = None, graphs: bool | None = None,
                    graph_cache: dict | None = None) -> list:
@@ -359,13 +351,14 @@ def generate_batch(model: LlamaModel, input_embeds_list: Sequence[torch.Tensor],
     lens[b] + i. Each row has its own done flag; the host reads whether
     all are done every DONE_EVERY steps. `noise(i)` gives [B, vocab]
     (JAX's categorical over [B, vocab] draws one Gumbel row per prompt);
-    without it, Gumbel draws from `generator`. One prompt runs `generate`,
+    without it, JAX's [B, vocab] Gumbels of `key` and fold_in(key, i).
+    One prompt runs `generate`,
     as JAX does. Graphs, `graph_cache` and `stats` as in `generate`
     (stats also has prompt_lens and rows)."""
     if len(input_embeds_list) == 1:
-        return [generate(model, input_embeds_list[0], cfg, generator, stats,
+        return [generate(model, input_embeds_list[0], cfg, key, stats,
                          noise, lora, graphs, graph_cache)]
-    return _decode(model, list(input_embeds_list), cfg, generator, stats,
+    return _decode(model, list(input_embeds_list), cfg, key, stats,
                    noise, lora, graphs, graph_cache)
 
 
@@ -373,7 +366,7 @@ def caption_image(model: LlamaModel, vision_apply, projector_apply, image,
                   prompt_text: str, encode_fn, decode_fn,
                   image_newline: torch.Tensor,
                   cfg: GenerateConfig = GenerateConfig(),
-                  generator: torch.Generator | None = None,
+                  key: prng.Key | None = None,
                   patch_size: int = 336, stats: dict | None = None,
                   noise: Noise | None = None, lora: dict | None = None,
                   graph_cache: dict | None = None,
@@ -385,7 +378,7 @@ def caption_image(model: LlamaModel, vision_apply, projector_apply, image,
     spliced = embed_multimodal_prompt(
         model, vision_apply, projector_apply, llama3_chat_prompt(prompt_text),
         [image], encode_fn, image_newline, patch_size)
-    ids = (generate_fn or generate)(model, spliced, cfg, generator,
+    ids = (generate_fn or generate)(model, spliced, cfg, key,
                                     stats=stats, noise=noise, lora=lora,
                                     graph_cache=graph_cache)
     return decode_fn(ids.tolist()).lstrip()
@@ -395,7 +388,7 @@ def caption_images(model: LlamaModel, vision_apply, projector_apply, images,
                    prompt_text: str, encode_fn, decode_fn,
                    image_newline: torch.Tensor,
                    cfg: GenerateConfig = GenerateConfig(),
-                   generator: torch.Generator | None = None,
+                   key: prng.Key | None = None,
                    patch_size: int = 336, stats: dict | None = None,
                    noise: Noise | None = None, lora: dict | None = None,
                    graph_cache: dict | None = None) -> list:
@@ -409,6 +402,6 @@ def caption_images(model: LlamaModel, vision_apply, projector_apply, images,
     spliced = [splice_image_embeds(ids, text_embeds, anyres_image_features(
         vision_apply, projector_apply, image, image_newline,
         patch_size).to(text_embeds.dtype)) for image in images]
-    outs = generate_batch(model, spliced, cfg, generator, stats=stats,
+    outs = generate_batch(model, spliced, cfg, key, stats=stats,
                           noise=noise, lora=lora, graph_cache=graph_cache)
     return [decode_fn(o.tolist()).lstrip() for o in outs]

@@ -25,9 +25,11 @@ Noise per generated index j, in JAX's key schedule (key(0) = rng, key(j)
 = fold_in(rng, j)): the proposal Gumbel `noise(j)` (the draw `generate`
 makes for token j), and `accept_noise(j)` -> (the acceptance uniform of
 fold_in(key(j), 7), the resample Gumbel of fold_in(key(j), 13)). The
-round reads them from device tables indexed by j0. By default they come
-from a torch.Generator (its numbers are not JAX's). Tokens are drawn as
-JAX's `_sample_dist` does: argmax(log p + g) over p > 0.
+round reads them from device tables indexed by j0. By default the proposal
+Gumbels are `generate`'s, JAX's draws of `key` (utils/prng.py, one draw
+of every row), and the acceptance draws come from a torch.Generator (its
+numbers are not JAX's). Tokens are drawn as JAX's `_sample_dist` does:
+argmax(log p + g) over p > 0.
 
 `self_draft` builds a draft from the target's first N blocks, sharing its
 modules (no extra memory); the target's runtime LoRA dict serves it as it
@@ -44,11 +46,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils import prng
 from ...utils.graphs import StepRunner, use_graphs
-from .generate import GenerateConfig, Noise, _sync, gumbel_noise
+from .generate import GenerateConfig, Noise, _sync
 from .llama import KVCache, LlamaModel, _layer_lora
 
 AcceptNoise = Callable[[int], tuple]
+
+
+def gumbel_noise(vocab: int, generator: torch.Generator,
+                 rows: int | None = None) -> Noise:
+    """Gumbel draws [vocab] (or [rows, vocab]) from `generator` on its
+    device, as `jax.random.gumbel` makes them: -log(-log(u)), u uniform in
+    [tiny, 1)."""
+    tiny = torch.finfo(torch.float32).tiny
+    shape = (vocab,) if rows is None else (rows, vocab)
+
+    def draw(step: int) -> torch.Tensor:
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        return -torch.log(-torch.log(u.clamp_min(tiny)))
+    return draw
 
 
 def self_draft(model: LlamaModel, layers: int = 4) -> LlamaModel:
@@ -209,14 +226,16 @@ def speculative_generate(target: LlamaModel, draft: LlamaModel,
                          stats: dict | None = None, lora: dict | None = None,
                          draft_lora: dict | None = None,
                          graphs: bool | None = None,
-                         graph_cache: dict | None = None) -> np.ndarray:
+                         graph_cache: dict | None = None,
+                         key: prng.Key | None = None) -> np.ndarray:
     """`generate` with a draft: [S, D] spliced prompt -> np.int32 ids,
     trimmed at the first eot, at most max_new_tokens. draft_embeds: the
     prompt in the draft's embedding space (default input_embeds, as for a
     draft that shares the tokenizer and width). Sampling noise per index j:
     `noise(j)` and `accept_noise(j)` (module docstring); without them,
-    draws from `generator` (default: seeded with 0 on the device), all made
-    before the loop. `lora` rides the target, `draft_lora` the draft.
+    `generate`'s Gumbels of `key` (default PRNGKey(0)) and acceptance
+    draws from `generator` (default: seeded with 0 on the device), all
+    made before the loop. `lora` rides the target, `draft_lora` the draft.
     `graph_cache` keeps the loop's tensors and graph per (bucket, k,
     greedy, loras, draft). `stats`, when given, receives rounds, proposed,
     accepted (draft tokens kept), accept_rate, prompt_len, padded_len,
@@ -227,16 +246,16 @@ def speculative_generate(target: LlamaModel, draft: LlamaModel,
     greedy = not (cfg.do_sample and cfg.temperature > 0)
     s = int(input_embeds.shape[0])
     s_pad = -(-s // cfg.pad_to) * cfg.pad_to
-    key = ("spec", s_pad, cfg.max_new_tokens, k, greedy, graphs,
-           id(lora) if lora else None, id(draft_lora) if draft_lora else None,
-           id(draft))
-    st = (graph_cache or {}).get(key)
+    kept = ("spec", s_pad, cfg.max_new_tokens, k, greedy, graphs,
+            id(lora) if lora else None, id(draft_lora) if draft_lora else None,
+            id(draft))
+    st = (graph_cache or {}).get(kept)
     if st is None:
         st = _spec_state(target, draft, cfg, s_pad, k, device)
         st.runner = StepRunner(lambda: spec_round(target, draft, st, k, greedy,
                                                   lora, draft_lora), graphs)
         if graph_cache is not None:
-            graph_cache[key] = st
+            graph_cache[kept] = st
     captured, replayed = st.runner.capture_s, st.runner.replays
     if greedy:
         for t in (st.gumbel, st.uniform, st.resample):
@@ -244,13 +263,17 @@ def speculative_generate(target: LlamaModel, draft: LlamaModel,
         st.temp.fill_(1.0)
     else:
         vocab = target.cfg.vocab_size
-        if noise is None or accept_noise is None:
+        if noise is None:
+            k0 = prng.key(0) if key is None else key
+            prng.draw([(k0, None)] + [(k0, j) for j in range(
+                1, st.gumbel.shape[0])], (vocab,), "gumbel", out=st.gumbel)
+        else:
+            for j in range(st.gumbel.shape[0]):
+                st.gumbel[j].copy_(noise(j).reshape(-1))
+        if accept_noise is None:
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
-            noise = noise or gumbel_noise(vocab, generator)
-            accept_noise = accept_noise or default_accept_noise(vocab, generator)
-        for j in range(st.gumbel.shape[0]):
-            st.gumbel[j].copy_(noise(j).reshape(-1))
+            accept_noise = default_accept_noise(vocab, generator)
         for j in range(st.gumbel.shape[0]):
             u, r = accept_noise(j)
             st.uniform[j].copy_(torch.as_tensor(u))

@@ -44,13 +44,18 @@ images padded to a shared `size_bucket` multiple (`bucket_pad`), each
 cropped and colour-fixed on its own; `ImageBatchProcessor` drives them over
 a folder (python -m rsvldm_tpu_torch.infer_dir).
 
-Noise comes from a torch.Generator seeded with cfg.seed on the device, or
-from `noise`, a callable (name, shape) -> tensor that tests use to replay
-the JAX stream. Draws, in the JAX layout: "stage1" [T+1, 1, H, W, 3]
-(DDIM: [len(ts)+1, ...], models/sr3/diffusion.ddim_timesteps),
-"vae_sample" [N, h, w, 4], "edm_init" [N, h, w, 4], "churn" [steps, N, h,
-w, 4]; a batched Stage 1 draws one "stage1" [rows, N, H, W, 3] per group,
-a batched refinement each of the others with N images.
+Noise is JAX's: `KeyChainNoise` keeps the JAX pipeline's key,
+PRNGKey(cfg.seed), splits it where JAX does and draws JAX's numbers from
+the keys (utils/prng.py; on the card the threefry kernel), so the same seed
+gives the JAX package's images. `noise`, a callable (name, shape, dtype=,
+steps=) -> tensor, takes its place in tests (`ReplayNoise`). Draws, in the
+JAX layout: "stage1" [T+1, 1, H, W, 3] (DDIM: [len(ts)+1, ...],
+models/sr3/diffusion.ddim_timesteps; `steps` the loop's timesteps),
+"vae_sample" [N, h, w, 4] in the posterior mean's dtype (fp32: the port's
+VAE takes its moments in fp32, as JAX's default VAEConfig computes them),
+"edm_init" [N, h, w, 4], "churn" [steps, N, h, w, 4]; a batched Stage 1
+draws one "stage1" [rows, N, H, W, 3] per group, a batched refinement each
+of the others with N images.
 
 A mesh (`mesh=`, parallel/mesh.py; JAX pipeline.py:87, 308, 339-398,
 620-680, 712-750): one process per device, every rank running the same
@@ -105,12 +110,13 @@ from .ops.image import (array_to_pil, load_lr_conditioning, pil_to_array,
 from .parallel.mesh import mesh_group, mesh_index, mesh_size
 from .utils.checkpoint import (load_checked, load_torch_state_dict, overlay,
                                strip_prefix)
+from .utils import prng
 from .utils.tokenizer import CLIPTokenizer
 from .utils.weights import seeded_init_
 
 log = logging.getLogger("rsvldm_torch")
 
-NoiseSource = Callable[[str, tuple], torch.Tensor]
+NoiseSource = Callable[..., torch.Tensor]
 
 _STAGE2_FILES = ("juggernautXL_v8Rundiffusion.safetensors", "SR-v0Q.ckpt")
 # family: (files under ckpt_dir, later overlaid on earlier; prefix stripped)
@@ -124,15 +130,43 @@ CHECKPOINTS = {
 }
 
 
-class TorchNoise:
-    """Unit normals from one torch.Generator on the device."""
+class KeyChainNoise:
+    """The JAX pipeline's draws from its key chain (rsvldm_tpu/pipeline.py):
+    the key PRNGKey(seed), split once for each Stage-1 run or chunk
+    (:335, :378) and into (key, k_enc, k_noise, k_loop) for each
+    refinement (:456). Each "stage1" draw splits the key and draws x_T from
+    the second half and loop step t's noise from fold_in(first half, t), as
+    sr3_sample / sr3_sample_ddim do; "vae_sample", a refinement's first
+    draw, splits it in four and draws from k_enc; "edm_init" from k_noise;
+    "churn" row i from fold_in(k_loop, i). Each draw is one prng.draw: one
+    kernel launch on the card."""
 
     def __init__(self, seed: int, device: torch.device):
         self.device = device
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        self.key = prng.key(seed)
+        self.k_noise = self.k_loop = None
 
-    def __call__(self, name: str, shape: tuple) -> torch.Tensor:
-        return torch.randn(shape, generator=self.gen, device=self.device)
+    def __call__(self, name: str, shape: tuple, dtype=torch.float32,
+                 steps=None) -> torch.Tensor:
+        if name == "stage1":
+            self.key, sub = prng.split(self.key)
+            rng, init = prng.split(sub)
+            rows = [(init, None)] + [(rng, int(t)) for t in steps]
+        elif name == "vae_sample":
+            self.key, k_enc, self.k_noise, self.k_loop = prng.split(self.key, 4)
+            rows = [(k_enc, None)]
+        elif name == "edm_init":
+            rows = [(self.k_noise, None)]
+        elif name == "churn":
+            rows = [(self.k_loop, i) for i in range(shape[0])]
+        else:
+            raise KeyError(f"KeyChainNoise: no draw named {name!r}")
+        if name in ("stage1", "churn"):
+            if len(rows) != shape[0]:
+                raise ValueError(f"{name} draw of shape {shape} for "
+                                 f"{len(rows)} rows")
+            return prng.draw(rows, shape[1:], "normal", dtype, self.device)
+        return prng.draw(rows, shape, "normal", dtype, self.device)[0]
 
 
 class ReplayNoise:
@@ -141,12 +175,13 @@ class ReplayNoise:
     def __init__(self, draws: Dict[str, list]):
         self.draws = {k: list(v) for k, v in draws.items()}
 
-    def __call__(self, name: str, shape: tuple) -> torch.Tensor:
+    def __call__(self, name: str, shape: tuple, dtype=torch.float32,
+                 steps=None) -> torch.Tensor:
         arr = np.array(self.draws[name].pop(0), np.float32)
         if arr.shape != tuple(shape):
             raise ValueError(f"replayed {name} draw has shape {arr.shape}, "
                              f"expected {tuple(shape)}")
-        return torch.from_numpy(arr)
+        return torch.from_numpy(arr).to(dtype)
 
 
 def hash_tokens(texts, vocab: int) -> np.ndarray:
@@ -201,7 +236,7 @@ class SuperResolutionPipeline:
         # the mesh's first rank writes the files
         self.mesh = mesh
         self.writer = mesh is None or mesh_index(mesh) == 0
-        self.noise = noise or TorchNoise(cfg.seed, self.device)
+        self.noise = noise or KeyChainNoise(cfg.seed, self.device)
         self.state_dicts = state_dicts or {}
         # overrides of LlavaCaptioner.load's keywords (llama_cfg,
         # vision_cfg, tokenizer): tests run the real load at tiny width
@@ -353,9 +388,10 @@ class SuperResolutionPipeline:
         all N."""
         cond = torch.from_numpy(conds)
         s1, T = self.cfg.stage1, self.sr3_diff.buffers.num_timesteps
-        rows = (len(ddim_timesteps(T, s1.ddim_steps)) if s1.sampler == "ddim"
-                else T) + 1
-        noise = self.noise("stage1", (rows, *cond.shape))
+        ts = (ddim_timesteps(T, s1.ddim_steps) if s1.sampler == "ddim"
+              else range(T - 1, -1, -1))
+        noise = self.noise("stage1", (len(ts) + 1, *cond.shape),
+                           steps=[int(t) for t in ts])
         if rows_of is not None:
             cond, noise = cond[rows_of], noise[:, rows_of]
             if cond.shape[0] == 0:

@@ -21,6 +21,7 @@ from ..models.vlm.generate import (DEFAULT_IMAGE_TOKEN, GenerateConfig,
                                    IMAGE_TOKEN_INDEX, anyres_image_features,
                                    generate, render_llama3_chat,
                                    splice_image_embeds, tokenize_with_image)
+from ..utils import prng
 
 
 @dataclasses.dataclass
@@ -43,13 +44,12 @@ class ChatSession:
         return self._image_tokens
 
     @torch.inference_mode()
-    def ask(self, user_msg: str, generator: torch.Generator | None = None,
-            noise=None) -> str:
+    def ask(self, user_msg: str, key=None, noise=None) -> str:
         """One turn: the reply, appended to the conversation. Sampling
         draws come from `noise(i)` ([vocab] Gumbel rows, as
-        generate.generate takes them) or `generator` (default: seeded with
-        the turn count on the captioner's device, as JAX keys a turn with
-        PRNGKey(len(turns)))."""
+        generate.generate takes them) or JAX's Gumbels of `key` (a
+        utils/prng key, default PRNGKey(len(turns)), as JAX keys a
+        turn)."""
         cap = self.captioner
         if DEFAULT_IMAGE_TOKEN in user_msg:
             # splice_image_embeds fills one sentinel; a typed placeholder
@@ -71,9 +71,9 @@ class ChatSession:
                                          self._encode_image().to(text_embeds.dtype))
         else:
             embeds = text_embeds
-        if generator is None and noise is None:
-            generator = torch.Generator(device=dev).manual_seed(len(self.turns))
-        out_ids = generate(cap.llama, embeds, self.cfg, generator, noise=noise)
+        if key is None:
+            key = prng.key(len(self.turns))
+        out_ids = generate(cap.llama, embeds, self.cfg, key, noise=noise)
         reply = cap.tokenizer.decode(out_ids.tolist(),
                                      skip_special_tokens=True).strip()
         self.turns.append(("assistant", reply))

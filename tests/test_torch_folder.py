@@ -1,12 +1,13 @@
 """Folder mode: the JAX ImageBatchProcessor and the port's, tiny geometry,
 fp32 on the CPU, the same (randomized) weights, the tiny int4 captioner of
-tests/test_captioner.py (greedy, read from ckpt/llava), and the port fed
-the noise the JAX processor draws, rebuilt from its key chain. Five images
-(four 2x2 and one 3x3: Stage-1 groups of 4 and 1), caption batches of 4
-and 1, refinement chunks of 2, 2 and 1 (the last through
-run_refinement(use_bucket=True)): every PNG of sr3_output/ and output/
-within 1 uint8 level, the same captions, statuses and DFB traces per
-chunk, no fallback, the replayed noise fully used. Then `bucket_pad` and
+tests/test_captioner.py (read from ckpt/llava, sampling as LlavaConfig's
+defaults do), and the same seed: the port draws JAX's noise from its own
+key chain, nothing injected. Five images (four 2x2 and one 3x3: Stage-1
+groups of 4 and 1), caption batches of 4 and 1, refinement chunks of 2, 2
+and 1 (the last through run_refinement(use_bucket=True)): every PNG of
+sr3_output/ and output/ within 1 uint8 level, the same sampled captions,
+statuses and DFB traces per chunk, no fallback, both key chains ending at
+the same key. Then `bucket_pad` and
 `_refine_group_key` against JAX's; the loops kept across calls (a second
 Stage 1 or refinement of a kept shape reuses the loop, captures nothing
 and gives a fresh pipeline's PNGs); and refinement with a 128-pixel
@@ -17,7 +18,6 @@ import types
 from pathlib import Path
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -38,11 +38,10 @@ from rsvldm_tpu_torch.models.sr3 import diffusion as sr3_diffusion
 from rsvldm_tpu_torch.models.sr3.diffusion import ddim_timesteps
 from rsvldm_tpu_torch.models.vlm.llama import LlamaConfig
 from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig
-from rsvldm_tpu_torch.pipeline import (ImageBatchProcessor, ReplayNoise,
-                                       SuperResolutionPipeline)
+from rsvldm_tpu_torch.pipeline import (ImageBatchProcessor, KeyChainNoise,
+                                       ReplayNoise, SuperResolutionPipeline)
 from rsvldm_tpu_torch.utils.weights import params_from_jax
-from torch_parity_lib import (JAX_TINY, TORCH_TINY, randomize,
-                              sr3_noise_from_key, to_np)
+from torch_parity_lib import JAX_TINY, TORCH_TINY, randomize, to_np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import test_captioner as tc  # noqa: E402
@@ -58,7 +57,7 @@ SIDES = {"a": 2, "b": 2, "c": 3, "d": 2, "e": 2}
 _L = dict(vocab_size=256, dim=32, layers=2, heads=4, kv_heads=2, ffn_dim=64)
 _V = dict(image_size=28, patch_size=14, width=24, layers=2, heads=2,
           select_layer=-2)
-LLAVA = dict(quant="int4", max_new_tokens=4, temperature=0.0, do_sample=False)
+LLAVA = dict(quant="int4", max_new_tokens=4)  # do_sample at T 0.2
 
 
 def _cfg(mod, work, side, llava=True):
@@ -86,26 +85,6 @@ def _record(obj, method, out: list, pick=lambda res, self: res):
 
 def _dfb(_, pipe):
     return "".join("H" if h else "." for h in np.asarray(pipe.last_dfb["trace"]))
-
-
-def _jax_noise(groups, chunks):
-    """The draws of JAX's folder run: run_stage1_batch splits the pipeline
-    key once a group (pipeline.py:375) for its sr3_sample; every
-    _refine_core splits it into k_enc / k_noise / k_loop (:456)."""
-    rng = jax.random.PRNGKey(SEED)
-    draws = {"stage1": [], "vae_sample": [], "edm_init": [], "churn": []}
-    for n, side in groups:
-        rng, sub = jax.random.split(rng)
-        draws["stage1"].append(sr3_noise_from_key(sub, STEPS1, (n, side, side, 3)))
-    for n in chunks:
-        rng, k_enc, k_noise, k_loop = jax.random.split(rng, 4)
-        shape = (n, 32, 32, 4)
-        normal = lambda k: np.asarray(jax.random.normal(k, shape, jnp.float32))
-        draws["vae_sample"].append(normal(k_enc))
-        draws["edm_init"].append(normal(k_noise))
-        draws["churn"].append(np.stack([normal(jax.random.fold_in(k_loop, i))
-                                        for i in range(EDM_STEPS)]))
-    return draws
 
 
 @pytest.fixture(scope="module")
@@ -150,10 +129,9 @@ def folder_runs(tmp_path_factory):
     finally:
         mp.undo()
 
-    noise = ReplayNoise(_jax_noise(groups=((4, 16), (1, 24)), chunks=(2, 2, 1)))
     tproc = ImageBatchProcessor(
         _cfg(TMOD, work, "torch"), device="cpu", caption_batch=4,
-        refine_batch=2, model_cfgs=TORCH_TINY, noise=noise,
+        refine_batch=2, model_cfgs=TORCH_TINY,
         state_dicts={fam: params_from_jax(fam, tree, TORCH_CFGS[fam])
                      for fam, tree in trees.items()},
         llava_load_kw=dict(llama_cfg=LlamaConfig(**_L),
@@ -200,8 +178,11 @@ def test_folder_dfb_traces_equal(folder_runs):
 
 
 def test_folder_noise_fully_used(folder_runs):
-    tp = folder_runs[3].pipe
-    assert all(not v for v in tp.noise.draws.values())
+    """The port drew from its own key chain, split once a Stage-1 group and
+    four ways a refinement chunk as JAX's was: both end at the same key."""
+    jp, tp = folder_runs[1], folder_runs[3].pipe
+    assert isinstance(tp.noise, KeyChainNoise)
+    assert tp.noise.key == tuple(int(v) for v in np.asarray(jp.rng))
     assert all(tp.outputs_finite.values())
     # one kept loop per Stage-1 shape and per refinement batch size
     kinds = sorted(k[0] if isinstance(k[0], str) else "edm" for k in tp.loop_graphs)
@@ -335,22 +316,13 @@ def test_kept_loops_capture_once(tmp_path, monkeypatch):
 
 
 # ------------------------------------------- the bucket's padding and crop
-def _refine_noise(n, side):
-    """The draws of one JAX _refine_core on a fresh pipeline key."""
-    _, k_enc, k_noise, k_loop = jax.random.split(jax.random.PRNGKey(SEED), 4)
-    shape = (n, side // 2, side // 2, 4)
-    normal = lambda k: np.asarray(jax.random.normal(k, shape, jnp.float32))
-    return {"vae_sample": [normal(k_enc)], "edm_init": [normal(k_noise)],
-            "churn": [np.stack([normal(jax.random.fold_in(k_loop, i))
-                                for i in range(EDM_STEPS)])]}
-
-
 @pytest.mark.parametrize("batched", [True, False])
 def test_refinement_bucket_pad_and_crop_equal_jax(folder_runs, batched):
     """size_bucket 128: a 64x64 and a 64x128 Stage-1 image (one bucketed
     key) padded by edge to 128x128, refined, cropped back and colour-fixed
     one by one, in one batch or (the second alone) through
-    run_refinement(use_bucket=True): JAX's PNGs within 1 uint8 level."""
+    run_refinement(use_bucket=True), both from a fresh key of the same
+    seed: JAX's PNGs within 1 uint8 level."""
     _, jp, _, tproc, _ = folder_runs
     rng = np.random.default_rng(8)
     pils = [Image.fromarray((rng.random((64, w, 3)) * 255).astype("uint8"))
@@ -376,12 +348,11 @@ def test_refinement_bucket_pad_and_crop_equal_jax(folder_runs, batched):
     cfg.refine.size_bucket = 128
     tp = SuperResolutionPipeline(
         cfg, device="cpu", model_cfgs=TORCH_TINY,
-        noise=ReplayNoise(_refine_noise(len(items), 128)),
         state_dicts={fam: getattr(tproc.pipe, fam).state_dict()
                      for fam in FAMILIES})
     got = (tp.run_refinement_batch(items) if batched
            else [tp.run_refinement(*items[0])])
-    assert all(not v for v in tp.noise.draws.values())
+    assert tp.noise.key == tuple(int(v) for v in np.asarray(jp.rng))
     for (pil, _), a, b in zip(items, want, got):
         a, b = np.asarray(a, np.int16), np.asarray(b, np.int16)
         assert a.shape == b.shape == (pil.size[1], pil.size[0], 3)

@@ -113,7 +113,8 @@ def test_cli_stage1_ddim(tiny_ckpt, tmp_path):
     assert (pipe.cfg.stage1.sampler, pipe.cfg.stage1.ddim_steps) == ("ddim", 4)
     shapes = []
     draw = pipe.noise
-    pipe.noise = lambda name, shape: shapes.append(shape) or draw(name, shape)
+    pipe.noise = lambda name, shape, **kw: shapes.append(shape) or draw(
+        name, shape, **kw)
     pipe.process()
     assert shapes == [(5, 1, 16, 16, 3)]
     png = np.asarray(Image.open(tmp_path / "sr3_in.png"))

@@ -1,15 +1,18 @@
 """The whole slice: the JAX SuperResolutionPipeline.process() and the port's,
-tiny geometry, fp32 on the CPU, the same (randomized) weights, and the port
-fed the noise the JAX pipeline draws, rebuilt from its key chain. Without the
-caption stage (no_llava) and with it (the tiny int4 captioner of
-tests/test_captioner.py, greedy, both read from ckpt/llava): both PNGs agree
-within 1 uint8 level, the first-block cache decisions and the captions are
-identical. Then both read every family from the reference checkpoint layout
+tiny geometry, fp32 on the CPU, the same (randomized) weights, and the same
+seed: the port draws its noise from JAX's key chain itself (utils/prng.py),
+nothing injected. Without the caption stage (no_llava) and with it (the
+tiny int4 captioner of tests/test_captioner.py, sampling as the config's
+defaults do: do_sample at T 0.2, JAX's PRNGKey(0) Gumbels; both read from
+ckpt/llava): both PNGs agree within 1 uint8 level, the first-block cache
+decisions and the captions are identical, and both key chains end at the
+same key. Then both read every family from the reference checkpoint layout
 (written from the same randomized trees, fp16 and fp32, with an SR-v0Q
 override and a denoise_encoder) and a tiny clip_vocab: every family's
 weights equal JAX's loaded tree exactly, the CLIP tokens (both pads) are
-JAX's and the PNGs within 1 uint8 level. And both with Stage 1 as DDIM
-(eta 0.5, JAX's key chain replayed): PNGs within 1 uint8 level."""
+JAX's and the PNGs within 1 uint8 level. And both with Stage 1 as DDIM (eta
+0.5): PNGs within 1 uint8 level. The VAE posterior sample in bf16 equals
+JAX's DiagonalGaussian.sample in bf16."""
 
 import sys
 from pathlib import Path
@@ -25,6 +28,7 @@ from rsvldm_tpu.config import (LlavaConfig as JLlavaConfig,
                                PipelineConfig as JPipelineConfig,
                                RefinementConfig as JRefinementConfig,
                                Stage1Config as JStage1Config)
+from rsvldm_tpu.models.vae.model import DiagonalGaussian as JDiagonalGaussian
 from rsvldm_tpu.pipeline import SuperResolutionPipeline as JPipeline
 from rsvldm_tpu.models.vlm.llama import LlamaConfig as JLlamaConfig
 from rsvldm_tpu.models.vlm.vision import CLIPVisionConfig as JVisionConfig
@@ -32,15 +36,13 @@ from rsvldm_tpu_torch.config import (LlavaConfig, PipelineConfig,
                                      RefinementConfig, Stage1Config)
 from rsvldm_tpu_torch.models.vlm.llama import LlamaConfig
 from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig
-from rsvldm_tpu_torch.models.sr3.diffusion import ddim_timesteps
-from rsvldm_tpu_torch.pipeline import ReplayNoise, SuperResolutionPipeline
+from rsvldm_tpu_torch.models.vae.model import DiagonalGaussian
+from rsvldm_tpu_torch.pipeline import KeyChainNoise, SuperResolutionPipeline
 from rsvldm_tpu_torch.utils.weights import params_from_jax
-from torch_parity_lib import (JAX_TINY, TORCH_TINY, randomize,
-                              sr3_noise_from_key, to_np)
+from torch_parity_lib import JAX_TINY, TORCH_TINY, nchw, randomize, to_np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
-from test_torch_samplers import ddim_noise_from_key  # noqa: E402
 
 torch.set_num_threads(1)
 SEED, STEPS1, EDM_STEPS = 7, 8, 2
@@ -53,26 +55,6 @@ def _cfg(mod, ckpt, out, llava=None, stage1=None):
                   stage1=mod[1](steps=STEPS1, **(stage1 or {})),
                   refine=mod[2](min_size=64, edm_steps=EDM_STEPS, size_bucket=0),
                   **kw)
-
-
-def _jax_noise(seed, stage1_shape, latent_shape, edm_steps, ddim_steps=None):
-    """The draws of JAX process(): run_stage1 splits the pipeline key once
-    (pipeline.py:335) for sr3_sample (sr3/diffusion.py:74-89), or with
-    ddim_steps for sr3_sample_ddim (:101-156); _refine_core
-    splits it into k_enc / k_noise / k_loop (pipeline.py:456) for the VAE
-    posterior sample (vae/model.py:173-174), the initial EDM noise and the
-    per-step churn noise (samplers.py:158)."""
-    rng, sub = jax.random.split(jax.random.PRNGKey(seed))
-    if ddim_steps is None:
-        stage1 = sr3_noise_from_key(sub, STEPS1, stage1_shape)
-    else:
-        stage1 = ddim_noise_from_key(sub, ddim_timesteps(STEPS1, ddim_steps),
-                                     stage1_shape)
-    _, k_enc, k_noise, k_loop = jax.random.split(rng, 4)
-    normal = lambda k: np.asarray(jax.random.normal(k, latent_shape, jnp.float32))
-    churn = np.stack([normal(jax.random.fold_in(k_loop, i)) for i in range(edm_steps)])
-    return {"stage1": [stage1], "vae_sample": [normal(k_enc)],
-            "edm_init": [normal(k_noise)], "churn": [churn]}
 
 
 def _record_captions(pipe, captions: list):
@@ -98,9 +80,10 @@ def _record_tokens(pipe, method, out: list):
 
 def _run_both(work, ckpt, jax_kw=None, llava_kw=None, port_kw=None,
               from_files=False, stage1=None):
-    """process() of both pipelines on work/in.png -> (jax pipe, port pipe),
-    outputs in work/jax and work/torch. The port gets JAX's loaded trees as
-    state dicts, or with from_files reads ckpt itself."""
+    """process() of both pipelines on work/in.png from SEED -> (jax pipe,
+    port pipe), outputs in work/jax and work/torch. The port gets JAX's
+    loaded trees as state dicts, or with from_files reads ckpt itself; its
+    noise is its own default, JAX's key chain from the seed."""
     Image.fromarray((np.random.default_rng(3).random((2, 2, 3)) * 255)
                     .astype("uint8")).save(work / "in.png")
     families = FAMILIES
@@ -127,13 +110,10 @@ def _run_both(work, ckpt, jax_kw=None, llava_kw=None, port_kw=None,
     sds = None if from_files else {
         fam: params_from_jax(fam, tree, TORCH_CFGS[fam])
         for fam, tree in jp.trees.items()}
-    noise = _jax_noise(SEED, (1, 16, 16, 3), (1, 32, 32, 4), EDM_STEPS,
-                       (stage1 or {}).get("ddim_steps"))
     tp = SuperResolutionPipeline(
         _cfg((PipelineConfig, Stage1Config, RefinementConfig), ckpt,
              work / "torch", tllava, stage1), device="cpu",
-        model_cfgs=TORCH_TINY,
-        state_dicts=sds, noise=ReplayNoise(noise), **(port_kw or {}))
+        model_cfgs=TORCH_TINY, state_dicts=sds, **(port_kw or {}))
     tp.captions, tp.tokens = [], []
     _record_captions(tp, tp.captions)
     _record_tokens(tp, "_tokens", tp.tokens)
@@ -152,7 +132,8 @@ def runs(tmp_path_factory):
 def caption_runs(tmp_path_factory):
     """Both pipelines with the caption stage, both reading the tiny LLaVA
     state dict from ckpt/llava (tiny geometry and tokenizer through
-    llava_load_kw); int4 decoder, greedy, 4 new tokens."""
+    llava_load_kw); int4 decoder, 4 new tokens sampled as LlavaConfig's
+    defaults do (do_sample, T 0.2), from each package's default key."""
     from safetensors.torch import save_file
     sys.path.insert(0, "tests")
     import test_captioner as tc
@@ -170,8 +151,8 @@ def caption_runs(tmp_path_factory):
                                       vision_cfg=CLIPVisionConfig(**vcfg),
                                       tokenizer=tc.FakeTokenizer()))
     jp, tp = _run_both(work, work / "ckpt", jax_kw,
-                       dict(quant="int4", max_new_tokens=4, temperature=0.0,
-                            do_sample=False), port_kw)
+                       dict(quant="int4", max_new_tokens=4), port_kw)
+    assert tp.cfg.llava.do_sample and tp.cfg.llava.temperature == 0.2
     return work, jp, tp
 
 
@@ -192,16 +173,25 @@ def test_first_block_cache_decisions_equal(runs):
     assert tp.last_dfb["steps"] == jp.last_dfb["steps"] == EDM_STEPS
 
 
+def _key_chain_equal(jp, tp):
+    """The port drew from its own key chain, which ends where JAX's does:
+    one split for Stage 1, one four-way split for the refinement."""
+    assert isinstance(tp.noise, KeyChainNoise)
+    assert tp.noise.key == tuple(int(v) for v in np.asarray(jp.rng))
+
+
 def test_replayed_noise_fully_used(runs):
-    _, _, tp = runs
-    assert all(not v for v in tp.noise.draws.values())
+    """No noise replayed: the port's draws came from the seed's key chain,
+    which ends at JAX's key, and every output is finite."""
+    _, jp, tp = runs
+    _key_chain_equal(jp, tp)
     assert all(tp.outputs_finite.values())
 
 
 @pytest.fixture(scope="module")
 def ddim_runs(tmp_path_factory):
     """Both pipelines with Stage 1 as DDIM: 5 steps at eta 0.5 on the
-    8-step schedule, JAX's key chain replayed."""
+    8-step schedule, each drawing from its own key chain."""
     work = tmp_path_factory.mktemp("torch_slice_ddim")
     jp, tp = _run_both(work, work / "no_ckpt", stage1=dict(
         sampler="ddim", ddim_steps=5, ddim_eta=0.5))
@@ -210,14 +200,13 @@ def ddim_runs(tmp_path_factory):
 
 @pytest.mark.parametrize("name", ["sr3_in.png", "in_final_0.png"])
 def test_ddim_pngs_within_one_level(ddim_runs, name):
-    work, _, tp = ddim_runs
+    work, jp, tp = ddim_runs
     a = np.asarray(Image.open(work / "jax" / name), np.int16)
     b = np.asarray(Image.open(work / "torch" / name), np.int16)
     assert a.shape == b.shape
     assert np.abs(a - b).max() <= 1
-    # the replayed draws have the shapes the DDIM loop asked for, all used
     assert tp.cfg.stage1.sampler == "ddim"
-    assert all(not v for v in tp.noise.draws.values())
+    _key_chain_equal(jp, tp)
 
 
 @pytest.mark.parametrize("name", ["sr3_in.png", "in_final_0.png"])
@@ -230,6 +219,8 @@ def test_caption_slice_pngs_within_one_level(caption_runs, name):
 
 
 def test_caption_slice_captions_equal(caption_runs):
+    """The sampled captions are JAX's, token for token: the port drew
+    JAX's Gumbels from PRNGKey(0) itself."""
     _, jp, tp = caption_runs
     assert jp.llava is not None and tp.llava is not None
     assert tp.weight_sources["llava"][0].endswith("model.safetensors")
@@ -238,7 +229,26 @@ def test_caption_slice_captions_equal(caption_runs):
     assert tp.caption_stats["decode_steps"] == 3  # max_new_tokens - 1, no eot
     assert "caption" in tp.timings
     np.testing.assert_array_equal(tp.last_dfb["trace"], np.asarray(jp.last_dfb["trace"]))
+    _key_chain_equal(jp, tp)
 
+
+def test_vae_sample_bf16_equals_jax():
+    """The posterior sample with the mean in bf16: the key chain's
+    "vae_sample" draw in bf16 (k_enc of the refinement's four-way split)
+    through DiagonalGaussian.sample equals JAX's DiagonalGaussian.sample
+    in bf16 from the same k_enc, bit for bit (both round each bf16 step)."""
+    moments = np.random.default_rng(4).standard_normal((2, 8, 6, 8)).astype(np.float32)
+    _, k_enc, _, _ = jax.random.split(jax.random.PRNGKey(SEED), 4)
+    want = JDiagonalGaussian(jnp.asarray(moments, jnp.bfloat16)).sample(k_enc)
+    assert want.dtype == jnp.bfloat16
+    noise = KeyChainNoise(SEED, torch.device("cpu"))
+    eps = noise("vae_sample", (2, 8, 6, 4), dtype=torch.bfloat16)
+    assert eps.dtype == torch.bfloat16
+    post = DiagonalGaussian(nchw(moments).to(torch.bfloat16))
+    got = post.sample(eps.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
 
 
 # ------------------------------------------------- from the checkpoint files

@@ -38,6 +38,7 @@ from rsvldm_tpu_torch.models.vlm.llama import (KVCache, LlamaConfig,
                                                LlamaModel, quantize_llama_)
 from rsvldm_tpu_torch.models.vlm.projector import MLPProjector
 from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig, CLIPVisionTower
+from rsvldm_tpu_torch.utils import prng
 from rsvldm_tpu_torch.utils.weights import llava_from_jax, params_from_jax
 from torch_parity_lib import assert_close, japply, randomize, to_np
 
@@ -258,16 +259,18 @@ def test_sampled_generate_replays_jax_noise(llama_tree, mode):
 
 
 def test_sampled_generate_default_noise_is_seeded(llama_tree):
-    """Without a noise stream the draws come from a torch.Generator: the
-    same seed gives the same ids."""
-    _, _, tm = _models(llama_tree, None)
-    embeds = torch.from_numpy((RNG.standard_normal((5, 32)) * 0.5).astype(np.float32))
-    cfg = tgen.GenerateConfig(max_new_tokens=6, pad_to=8)
-    runs = [tgen.generate(tm, embeds, cfg, torch.Generator().manual_seed(9))
-            for _ in range(2)]
-    np.testing.assert_array_equal(*runs)
-    np.testing.assert_array_equal(tgen.generate(tm, embeds, cfg),
-                                  tgen.generate(tm, embeds, cfg))
+    """Without a noise stream the draws are JAX's from the key: a given
+    key, and the default PRNGKey(0), give JAX generate's ids."""
+    jm, jp, tm = _models(llama_tree, None)
+    embeds = (RNG.standard_normal((5, 32)) * 0.5).astype(np.float32)
+    kw = dict(max_new_tokens=6, pad_to=8)
+    for seed, key in ((9, prng.key(9)), (0, None)):
+        want = jgen.generate(jm, jp, jnp.asarray(embeds), jgen.GenerateConfig(**kw),
+                             jax.random.PRNGKey(seed))
+        runs = [tgen.generate(tm, torch.from_numpy(embeds),
+                              tgen.GenerateConfig(**kw), key) for _ in range(2)]
+        np.testing.assert_array_equal(*runs)
+        np.testing.assert_array_equal(runs[0], want)
 
 
 def test_generate_stops_at_eot(llama_tree):
