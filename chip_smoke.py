@@ -52,7 +52,12 @@ Phases, each printed on its own line:
                the churn's normals [50, 1, 128, 128, 4] and a bf16
                [1, 1, 128, 128, 4] normal: the 32-bit words equal, the draws
                within THREEFRY_TOL; torch.randn at each shape as a cost
-               yardstick
+               yardstick; and its device-keyed entry (rows keyed on the
+               card from fold words) at the serving engine's draws, each
+               captured in a CUDA graph and replayed after the counts
+               advance in place: a decode step's Gumbels [8, 128256] (two
+               words) and a round's acceptance uniforms [8 x 4] (three), the
+               plain version's rows for the new counts
   4. reference process() at a small width on the card (bf16, K1 in use)
                against the same run in fp32 on the CPU: same weights, each
                side's noise from the seed alone (the key chain, the
@@ -103,8 +108,9 @@ Phases, each printed on its own line:
                (samplers_reference: tiled RestoreEDM with restore_cfg and
                tiled RestoreDPMPP2M, 3 steps each on a 96^2 latent in 2 x 2
                windows of 64, over the controlled denoiser with CFG, the
-               CPU's weights rounded to bf16, conditioning, noise and
-               Brownian draws on both): the card in fp32 (plain attention)
+               CPU's weights rounded to bf16, conditioning and noise on
+               both, each side's Brownian tree from the seed): the card in
+               fp32 (plain attention)
                within SAMPLER_FP32_TOL of the CPU's latents; K1 against the
                plain attention in bf16 (SAMPLER_K1_TOL) and in the fp32
                modules on bf16-rounded q, k, v (SAMPLER_K1_FP32_TOL, which a
@@ -179,8 +185,9 @@ Phases, each printed on its own line:
                seven projections, remat) through VLMTrainer on 4 x 1536
                text records: K1 56 and the D=256 backward 28 a step,
                step seconds, tokens/s, peak; then train_sr3: SR3 training (the path's UNet, batch
-               8 at 224^2, fp32) through the CLI's construction, saved and
-               resumed, the resumed step equal to the uninterrupted one.
+               8 at 224^2, fp32) through the CLI's construction, its draws
+               JAX's of PRNGKey(seed + 1) (3 threefry launches a step), saved
+               and resumed, the resumed step equal to the uninterrupted one.
                Each path's kernel launch counts are reset just before it
                and read just after.
      folder    (before the directory is deleted, and after the path's
@@ -213,8 +220,9 @@ Phases, each printed on its own line:
                over the controlled XL-base denoiser with CFG and the path
                tile's conditioning: EDM (churn), Heun, Euler-ancestral,
                DPM++(2S)-ancestral, DPM++(2M), linear multistep, the substep
-               sigmas and RestoreDPMPP2M (Brownian tree of counter-hash
-               draws), 6 steps on the 128^2 latent; both tiled samplers 12
+               sigmas and RestoreDPMPP2M (JAX's Brownian tree from the
+               seed), 6 steps on the 128^2 latent, every draw JAX's from
+               PRNGKey(seed) (threefry launches as the sampler reckons); both tiled samplers 12
                steps on a 192^2 latent (4 windows of 128 at stride 64, one
                denoiser call a step): denoiser calls and K1 launches (106 a
                call) as the sigma table implies, seconds a step, finite,
@@ -1398,8 +1406,9 @@ def phase_kernels():
         _flash_bwd_case("d40_causal_padded", 1, 300, 300, 3, 40, causal=True),
     ] + _bwd_d256_cases() + _bwd_wide_cases()
     fry = phase_threefry()
+    fold = phase_threefry_folded()
     _reset_counts()
-    return cases, k2, bwd, fry
+    return cases, k2, bwd, fry, fold
 
 
 def _d256_cases():
@@ -1640,6 +1649,101 @@ def phase_threefry():
                            bf16=True)]
 
 
+def _threefry_folded_case(name, rows: int, ahead: int, fold, shape, dist):
+    """The threefry kernel's device-keyed entry (prng.draw_folded; the
+    launch with a base key) at an engine draw: the default FoldedNoise of the
+    serving engine on `rows` slots of nonces and counts on the card, `ahead`
+    indices from each count (fold 7 for the acceptance uniforms), captured
+    in a CUDA graph as the engine's step captures it; the counts then
+    advance in place and the graph is replayed: its rows must be the plain
+    version's for the new counts (uniforms and bits equal, Gumbels within
+    THREEFRY_TOL) and not the captured counts' rows. Device time of one
+    launch by graph replay, the wrapper's, the plain version's, and
+    torch.rand's at the same shape (a yardstick of cost only)."""
+    import torch
+    from rsvldm_tpu_torch.serving.engine import FoldedNoise
+    from rsvldm_tpu_torch.utils import prng
+    key = prng.key(SEED)
+    nz = FoldedNoise(shape[0] if shape else 1, key)
+    state = torch.stack([torch.arange(1, rows + 1) * 7 + 1,
+                         torch.arange(rows) * 3 + 5]).cuda()
+    draw = {None: nz.gumbel, 7: nz.uniform, 13: nz.resample}[fold]
+
+    def step():
+        steps = torch.arange(ahead, device="cuda")
+        return draw(state[0][:, None].expand(-1, ahead), state[1][:, None] + steps)
+
+    def words():
+        n, c = state[0][:, None].expand(-1, ahead), state[1][:, None] + torch.arange(
+            ahead, device="cuda")
+        cols = [n, c] + ([torch.full_like(n, fold)] if fold is not None else [])
+        return torch.stack(cols, -1).reshape(-1, len(cols)).contiguous()
+
+    step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    old = prng.draw_folded_plain(key, words(), shape, dist)
+    state[1] += 1  # the counts advance in place, as the scheduler's do
+    graph.replay()
+    torch.cuda.synchronize()
+    folds = words()
+    plain = prng.draw_folded_plain(key, folds, shape, dist).reshape(out.shape)
+    r, n = folds.shape[0], math.prod(shape)
+    bits = torch.empty((r, *shape), dtype=torch.int32, device="cuda")
+    prng.launch(folds, n, "bits", torch.int64, bits, base=key)
+    torch.cuda.synchronize()
+    bits_equal = bool(torch.equal(
+        bits.to(torch.int64) & prng.M32,
+        prng.draw_folded_plain(key, folds, shape, "bits", torch.int64)))
+    err = (out.float() - plain.float()).abs()
+    scaled = float((err / plain.float().abs().clamp_min(1.0)).max())
+    rec = dict(case=name, shape=[r, *shape], dist=dist, dtype="float32",
+               fold_words=folds.shape[1], bits_equal=bits_equal,
+               max_abs_err=float(err.max()), max_scaled_err=scaled,
+               bit_equal=bool(torch.equal(out, plain)),
+               new_rows_drawn=not bool(torch.equal(
+                   out, old.reshape(out.shape).to(out.device))),
+               finite=bool(torch.isfinite(out).all()),
+               tol=f"bits equal; |err| <= {THREEFRY_TOL} * max(1, |plain|)")
+    t0 = time.perf_counter()
+    prng.draw_folded_plain(key, folds, shape, dist)
+    torch.cuda.synchronize()
+    rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    flat = torch.empty((r, *shape), device="cuda")
+    nbytes = r * n * 4 + folds.numel() * 8
+    ops = float(r) * (n + folds.shape[1]) * THREEFRY_INT_OPS
+    rec["bound_ms"] = max(nbytes / H100_HBM_BYTES, ops / H100_INT32_OPS) * 1e3
+    rec["bound_by"] = ("bytes" if nbytes / H100_HBM_BYTES
+                       >= ops / H100_INT32_OPS else "operations")
+    rec["ms"] = _graph_ms(lambda: prng.launch(folds, n, dist, torch.float32,
+                                              flat, base=key), iters=10)
+    rec["wrapper_ms"] = _time_ms(lambda: prng.draw_folded(
+        key, folds, shape, dist, out=flat), 5)
+    prng.draw_folded.launches = 0  # comparison launches not counted
+    rec["randn_ms"] = _time_ms(lambda: torch.rand(flat.shape, device="cuda"), 10)
+    rec["library_ms"] = None  # no PyTorch call draws JAX's threefry numbers
+    rec["gdraws_s"] = r * n / (rec["ms"] * 1e-3) / 1e9
+    rec["ok"] = bool(bits_equal and scaled <= THREEFRY_TOL and rec["finite"]
+                     and rec["new_rows_drawn"]
+                     and (dist != "uniform" or rec["bit_equal"]))
+    rec["main_path"] = True
+    _say("kernels", **rec)
+    return rec
+
+
+def phase_threefry_folded():
+    """The device-keyed entry at the serving engine's shapes: one decode
+    step's Gumbels at SERVE_SLOTS slots (8 rows of 128256, two fold words:
+    nonce, count) and one round's acceptance uniforms at SPEC_K proposals
+    (8 x 4 scalars, three: nonce, count + i, 7)."""
+    return [_threefry_folded_case("engine_step_gumbels", SERVE_SLOTS, 1, None,
+                                  (128256,), "gumbel"),
+            _threefry_folded_case("engine_round_uniforms", SERVE_SLOTS,
+                                  SPEC_K, 7, (), "uniform")]
+
+
 def phase_k2():
     """K2's cases: one Llama-3-8B decode step's shapes (R = 1), rows 8 and
     32, ragged outs (out % 16 != 0 takes byte loads), ties, zero rows; the
@@ -1689,6 +1793,7 @@ def _reset_counts():
     flash_attention.launches_wide = flash_attention.launches_d256 = 0
     flash_attention_bwd.launches = flash_attention_bwd.launches_d256 = 0
     flash_attention_bwd.launches_wide = prng.draw.launches = 0
+    prng.draw_folded.launches = 0
 
 
 def _counts():
@@ -1696,12 +1801,15 @@ def _counts():
     D=256 kernel's (`k1d256`, padded D included) and the wide kernel's
     (D > 256, `k1wide`), K2, the backward at every head dim (`bwd`) and, of
     those, the D=256 kernel's (`bwd256`) and the wide one's (`bwdwide`),
-    and the threefry kernel's draws (`threefry`)."""
+    and the threefry kernel's draws, keyed on the host (`threefry`) and on
+    the device (`threefry_folded`)."""
     from rsvldm_tpu_torch.ops.flash_attention import (flash_attention,
                                                       flash_attention_bwd)
     from rsvldm_tpu_torch.ops.quant import int4_matmul
     from rsvldm_tpu_torch.utils import prng
-    return dict(threefry=prng.draw.launches, k1=flash_attention.launches,
+    return dict(threefry=prng.draw.launches,
+                threefry_folded=prng.draw_folded.launches,
+                k1=flash_attention.launches,
                 k1d256=flash_attention.launches_d256,
                 k1wide=flash_attention.launches_wide, k2=int4_matmul.launches,
                 bwd=flash_attention_bwd.launches,
@@ -2183,16 +2291,35 @@ def _spec_round_ms(cap, draft, prompt_len: int, rounds: int = 10) -> dict:
                 replayed=st.runner.graph is not None)
 
 
+def _accept_draws(key, k: int, vocab: int, dev: str) -> tuple:
+    """speculative_generate's acceptance draws of `key` for the round at
+    j0 = 1, drawn on `dev` (the device-keyed threefry entry on the card,
+    its plain version on the CPU): the uniforms and resample Gumbels of
+    indices 1..k, and the bonus' Gumbels of fold_in(key, k + 1)."""
+    import torch
+    from rsvldm_tpu_torch.models.vlm.speculative import default_accept_noise
+    from rsvldm_tpu_torch.utils import prng
+    u = torch.zeros(k + 1, device=dev)
+    res = torch.zeros((k + 1, vocab), device=dev)
+    default_accept_noise(key, u, res)
+    return u[1:], res[1:], prng.gumbel(prng.fold_in(key, k + 1), (vocab,),
+                                       device=dev)
+
+
 def _accept_card_vs_cpu(seed: int, vocab: int = 64, cases: int = 12) -> dict:
     """accept_and_correct on the card against the CPU on the same seeded
-    distributions (fp32, k = SPEC_K): in case c the draft's first c % (k+1)
-    distributions are the target's (kept whatever the uniform), so every
-    count of kept proposals 0..k occurs, the bonus token at k. The same
-    committed tokens and counts."""
+    distributions (fp32, k = SPEC_K), each side drawing its acceptance
+    uniforms, resample and bonus Gumbels from fold_in(PRNGKey(seed + 8), c)
+    itself (_accept_draws: the uniforms equal, the Gumbels within
+    THREEFRY_TOL): in case c the draft's first c % (k+1) distributions are
+    the target's (kept whatever the uniform), so every count of kept
+    proposals 0..k occurs, the bonus token at k. The same committed tokens
+    and counts."""
     import torch
     from rsvldm_tpu_torch.models.vlm.speculative import accept_and_correct
+    from rsvldm_tpu_torch.utils import prng
     g = torch.Generator().manual_seed(seed + 8)
-    k, same, counts = SPEC_K, True, []
+    k, same, counts, draws_alike = SPEC_K, True, [], True
     for c in range(cases):
         t = torch.softmax(torch.randn(k + 1, vocab, generator=g) * 2, -1)
         d = torch.softmax(torch.randn(k, vocab, generator=g) * 2, -1)
@@ -2200,16 +2327,18 @@ def _accept_card_vs_cpu(seed: int, vocab: int = 64, cases: int = 12) -> dict:
         d[:m] = t[:m]
         toks = torch.stack([torch.multinomial(d[i], 1, generator=g)[0]
                             for i in range(k)])
-        u = torch.rand(k, generator=g)
-        res = -torch.log(-torch.log(torch.rand(k, vocab, generator=g)))
-        bonus = -torch.log(-torch.log(torch.rand(vocab, generator=g)))
-        args = (toks, d, t, u, res, bonus)
-        want = accept_and_correct(*args)
-        got = accept_and_correct(*(a.cuda() for a in args))
+        key = prng.fold_in(prng.key(seed + 8), c)
+        cpu, card = (_accept_draws(key, k, vocab, dv) for dv in ("cpu", "cuda"))
+        draws_alike = draws_alike and bool(torch.equal(card[0].cpu(), cpu[0])) and all(
+            float((a.cpu() - b).abs().max()) <= THREEFRY_TOL * max(
+                1.0, float(b.abs().max())) for a, b in zip(card[1:], cpu[1:]))
+        want = accept_and_correct(toks, d, t, *cpu)
+        got = accept_and_correct(toks.cuda(), d.cuda(), t.cuda(), *card)
         same = same and all(torch.equal(x.cpu(), y) for x, y in zip(got, want))
         counts.append(int(want[1]))
     return dict(cases=cases, n_commit=counts, equal=bool(same),
-                ok=bool(same and k + 1 in counts and 1 in counts))
+                draws_alike=draws_alike,
+                ok=bool(same and draws_alike and k + 1 in counts and 1 in counts))
 
 
 def phase_spec_reference(seed: int, new_tokens: int = 24):
@@ -2221,18 +2350,20 @@ def phase_spec_reference(seed: int, new_tokens: int = 24):
     launches the target's layers plus the draft's (the prefills), K2
     k (7n + 1) + 7n + 7L + 1 a round plus the prefill's lm_head. Then
     sampled (T = 0.8) with the target as its own draft, in fp32 on a
-    96-token prompt and fed the Gumbel rows of the `generate` run: its ids,
-    and every proposal kept. And accept_and_correct on the card equals the
-    CPU's (_accept_card_vs_cpu)."""
+    96-token prompt, both runs drawing from PRNGKey(seed) alone (the
+    speculative acceptance's rows by the device-keyed threefry entry):
+    `generate`'s ids, every proposal kept, one threefry launch for the
+    Gumbel table and two device-keyed ones for the acceptance tables. And
+    accept_and_correct on the card equals the CPU's
+    (_accept_card_vs_cpu)."""
     import numpy as np
     import torch
     from PIL import Image
     from rsvldm_tpu_torch.config import REFERENCE_IMG_PROMPT
     from rsvldm_tpu_torch.models.vlm import generate as gen
-    from rsvldm_tpu_torch.models.vlm.speculative import (default_accept_noise,
-                                                         gumbel_noise,
-                                                         self_draft,
+    from rsvldm_tpu_torch.models.vlm.speculative import (self_draft,
                                                          speculative_generate)
+    from rsvldm_tpu_torch.utils import prng
 
     caps, lcfg, vcfg, tok, _ = _small_captioners("int4")
     cap = caps["cuda"]
@@ -2252,7 +2383,9 @@ def phase_spec_reference(seed: int, new_tokens: int = 24):
         _reset_counts()
         rec = dict(rounds=st["rounds"], replays=st["replays"],
                    accept_rate=st["accept_rate"], tokens=len(ids),
-                   k1_launches=c["k1"], k2_launches=c["k2"])
+                   k1_launches=c["k1"], k2_launches=c["k2"],
+                   threefry_launches=c["threefry"],
+                   threefry_folded_launches=c["threefry_folded"])
         rec["replayed"] = bool(st["rounds"] >= 2
                                and st["replays"] == st["rounds"] - 1)
         return rec, ids
@@ -2286,16 +2419,15 @@ def phase_spec_reference(seed: int, new_tokens: int = 24):
         emb32 = cap.llama.embed(toks)
         scfg = gen.GenerateConfig(max_new_tokens=new_tokens, temperature=0.8,
                                   do_sample=True)
-        rows = gumbel_noise(vocab, g, new_tokens + SPEC_K)(0)
-        noise = lambda j: rows[j]
-        ids_v32 = gen.generate(cap.llama, emb32, scfg, noise=noise)
-        r, ids_s32 = run(cap.llama, L, emb32, scfg, noise=noise,
-                         accept_noise=default_accept_noise(
-                             vocab, torch.Generator(device="cuda").manual_seed(seed + 6)))
+        key = prng.key(seed)
+        ids_v32 = gen.generate(cap.llama, emb32, scfg, key=key)
+        r, ids_s32 = run(cap.llama, L, emb32, scfg, key=key)
         r.update(ids=ids_s32[:8].tolist(), tokens_vanilla=len(ids_v32),
                  ids_equal=bool(np.array_equal(ids_v32, ids_s32)))
         r["ok"] = bool(r["ids_equal"] and r["replayed"]
-                       and r["accept_rate"] == 1.0 and r["k1_launches"] == 0)
+                       and r["accept_rate"] == 1.0 and r["k1_launches"] == 0
+                       and r["threefry_launches"] == 1
+                       and r["threefry_folded_launches"] == 2)
         rec["sampled_fp32_draft_is_target"] = r
     rec["accept_and_correct"] = _accept_card_vs_cpu(seed)
     rec["ok"] = bool(all(rec[k]["ok"] for k in (
@@ -2732,10 +2864,17 @@ def _spec_run(cap, emb, gcfg, draft=None, n_layers: int = 0) -> dict:
                                    stats=st, graph_cache=cap.decode_graphs)
     torch.cuda.synchronize()
     n = _counts()
+    sampled = gcfg.do_sample and gcfg.temperature > 0
     rec = dict(caption_s=time.perf_counter() - t0, tokens=len(ids),
                prefill_s=st["prefill_s"], decode_s=st["decode_s"],
                capture_s=st["capture_s"], k1_launches=n["k1"],
-               k2_launches=n["k2"], expected_k1=layers + n_layers)
+               k2_launches=n["k2"], expected_k1=layers + n_layers,
+               threefry_launches=n["threefry"],
+               threefry_folded_launches=n["threefry_folded"],
+               # sampled: the Gumbel table, and with a draft the acceptance
+               # uniforms and resample Gumbels (device-keyed)
+               expected_threefry=int(sampled),
+               expected_threefry_folded=2 * int(sampled and draft is not None))
     # tokens after the prefill's first one, over the decode's seconds
     rec["decode_tok_s"] = (len(ids) - 1) / st["decode_s"] if st["decode_s"] else None
     if draft is not None:
@@ -2750,7 +2889,10 @@ def _spec_run(cap, emb, gcfg, draft=None, n_layers: int = 0) -> dict:
                          == st["rounds"] * rec["k2_per_round_formula"])
     else:
         rec["ok"] = rec["k2_launches"] == K2_PER_STEP * st["decode_steps"] + 1
-    rec["ok"] = bool(rec["ok"] and rec["k1_launches"] == rec["expected_k1"])
+    rec["ok"] = bool(rec["ok"] and rec["k1_launches"] == rec["expected_k1"]
+                     and rec["threefry_launches"] == rec["expected_threefry"]
+                     and rec["threefry_folded_launches"]
+                     == rec["expected_threefry_folded"])
     _reset_counts()
     return rec, ids
 
@@ -2892,7 +3034,7 @@ def phase_spec(seed: int, pipe, cd: Path, sr_path: str):
         rec[name]["vanilla_decode_tok_s"] = rec["vanilla"]["decode_tok_s"]
     runs = [v for v in rec.values() if isinstance(v, dict) and "ok" in v]
     rec["launches"] = {c: sum(r[f"{c}_launches"] for r in runs)
-                       for c in ("k1", "k2")}
+                       for c in ("k1", "k2", "threefry", "threefry_folded")}
     rec["finite"] = bool(torch.isfinite(emb).all())
     rec["ok"] = bool(all(r["ok"] for r in runs) and len(runs) == 7
                      and rec["draft_loaded"] and rec["finite"]
@@ -3042,8 +3184,8 @@ def _batched_graphs_vs_direct(pipe, llama, seed: int, rows: int = 8,
     from rsvldm_tpu_torch.models.sr3.diffusion import (SR3Diffusion,
                                                        sr3_sample)
     from rsvldm_tpu_torch.models.vlm import generate as gen
-    from rsvldm_tpu_torch.models.vlm.speculative import gumbel_noise
     from rsvldm_tpu_torch.ops.quant import int4_matmul
+    from rsvldm_tpu_torch.utils import prng
     from rsvldm_tpu_torch.utils.graphs import StepRunner
     dev = pipe.device
     g = torch.Generator(device=dev).manual_seed(seed + 11)
@@ -3053,8 +3195,8 @@ def _batched_graphs_vs_direct(pipe, llama, seed: int, rows: int = 8,
         t.copy_(torch.randn(t.shape, generator=g, device=dev))
     st0.pos.copy_(torch.arange(1300, 1300 + 12 * rows, 12, device=dev))
     st0.tok.copy_(torch.randint(0, 128000, (rows, 1), generator=g, device=dev))
-    st0.noise.copy_(gumbel_noise(llama.cfg.vocab_size, g, rows)(0)
-                    .expand_as(st0.noise))
+    st0.noise.copy_(prng.gumbel(prng.key(seed + 11), (rows, llama.cfg.vocab_size),
+                                device=dev).expand_as(st0.noise))
     st0.noise.add_(torch.randn(st0.noise.shape, generator=g, device=dev))
     st0.temp.fill_(0.2)
     ids, k2 = {}, {}
@@ -3254,24 +3396,6 @@ def _paired_cond(pipe, z_lq, texts):
         tl_c, tg_c, tl_u, tg_u, z_lq.permute(0, 2, 3, 1))
 
 
-class _RecordedDraws:
-    """A Brownian-tree draw source that keeps what `src` drew, by key, so
-    another device can replay the same normals (`replay(device)`)."""
-
-    def __init__(self, src):
-        self.src, self.seen = src, {}
-
-    def __call__(self, level, index, shape):
-        key = (level, index, tuple(shape))
-        if key not in self.seen:
-            self.seen[key] = self.src(level, index, shape)
-        return self.seen[key]
-
-    def replay(self, device):
-        return lambda level, index, shape: self.seen[
-            (level, index, tuple(shape))].to(device)
-
-
 def _counted_call(fn, *args):
     """(output, K1 launches) of one direct call of a denoiser closure."""
     import torch
@@ -3319,8 +3443,9 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
     32): tiled_restore_edm_sample (restore_cfg 4) and
     tiled_restore_dpmpp2m_sample, `steps` steps each, over the controlled
     denoiser with CFG. The same weights (rounded to bf16 values, so the
-    card's bf16 modules hold the CPU's numbers), the CPU's conditioning,
-    initial noise and Brownian draws (replayed on the card). Seven runs:
+    card's bf16 modules hold the CPU's numbers), the CPU's conditioning and
+    initial noise; each run draws its Brownian tree from PRNGKey(seed)
+    itself (on the card, steps + 1 threefry launches a run). Seven runs:
     the CPU in fp32; the card in fp32 with plain attention, its latents
     within SAMPLER_FP32_TOL of the CPU's; the card in bf16 with K1 and
     with plain attention, within SAMPLER_K1_TOL of each other; the card's
@@ -3346,6 +3471,7 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
     from rsvldm_tpu_torch.ops import attention
     from rsvldm_tpu_torch.ops.image import pil_to_array, to_uint8
     from rsvldm_tpu_torch.pipeline import SuperResolutionPipeline
+    from rsvldm_tpu_torch.utils import prng
 
     small = _small_cfgs()
     fams = ("sr3", "unet", "control", "vae", "clip_l", "big_g")
@@ -3376,7 +3502,7 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
     noise = torch.from_numpy(rng.standard_normal((1, lat, lat, 4)).astype(np.float32))
     sigmas = legacy_ddpm_sigmas(steps)
     scfg = RestoreEDMConfig()
-    draws = _RecordedDraws(S.CounterDraws(seed, "cpu"))
+    key = prng.key(seed)
     wins = S.sliding_windows(lat, lat, tile, tile // 2)
     metas = [(x.shape[0], x.shape[1], h0, w0)]
     # run: (device, denoiser, VAE, attention): "k1" as the path routes it;
@@ -3427,13 +3553,13 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
                             stride=tile // 2, restore_cfg=4.0)
                     else:
                         z = S.tiled_restore_dpmpp2m_sample(
-                            tile_fn, noise.to(dev), sigmas, lq,
-                            draws if dev == "cpu" else draws.replay(dev),
+                            tile_fn, noise.to(dev), sigmas, lq, key,
                             tile=tile, stride=tile // 2)
                     samples = vae.decode(z.permute(0, 3, 1, 2).to(dt)).float()
                     samples = samples.permute(0, 2, 3, 1)
                     res[name] = dict(
                         z=z.float().cpu(), calls=calls[0], k1=_counts()["k1"],
+                        threefry=_counts()["threefry"],
                         seconds=time.perf_counter() - t0,
                         finite=bool(torch.isfinite(samples).all()),
                         raw=to_uint8(samples[0].cpu().numpy()),
@@ -3448,9 +3574,9 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
                     calls[0] = 0
                     _reset_counts()
                     untiled = S.restore_dpmpp2m_sample(
-                        whole_fn, noise.to(dev), sigmas, S.CounterDraws(seed, dev))
+                        whole_fn, noise.to(dev), sigmas, key)
                     one = S.tiled_restore_dpmpp2m_sample(
-                        tile_fn, noise.to(dev), sigmas, lq, S.CounterDraws(seed, dev),
+                        tile_fn, noise.to(dev), sigmas, lq, key,
                         tile=lat, stride=lat)
                     diff = (one - untiled).abs()
                     res["single_window"] = dict(
@@ -3486,6 +3612,8 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
         d = np.abs(a["png"].astype(np.int16) - b["png"].astype(np.int16))
         raw = np.abs(a["raw"].astype(np.int16) - b["raw"].astype(np.int16))
         want = steps * rec["k1_per_call"]
+        # one Brownian point a step and the first (no draw without churn)
+        fry_want = steps + 1 if name == "tiled_restore_dpmpp2m" else 0
         rec[name] = dict(
             fp32_latent_max_abs=zdiff, latent_max_abs_cpu=float(a["z"].abs().max()),
             fp32_latent_rel_rms=rel_rms(r["card_fp32"]["z"], a["z"]),
@@ -3499,7 +3627,8 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
             png_shape=list(b["png"].shape), mean_abs=float(d.mean()),
             max_abs=int(d.max()), raw_mean_abs=float(raw.mean()),
             raw_max_abs=int(raw.max()), calls=b["calls"], k1_launches=b["k1"],
-            k1_reckoned=want, card_s=b["seconds"], cpu_s=a["seconds"],
+            k1_reckoned=want, threefry_launches=b["threefry"],
+            threefry_reckoned=fry_want, card_s=b["seconds"], cpu_s=a["seconds"],
             finite=all(v["finite"] for v in r.values()),
             raw_std=float(b["raw"].std()))
         launches += b["k1"]
@@ -3512,8 +3641,11 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
                          and all(v["calls"] == steps for v in r.values())
                          and all(v["k1"] == (want if run in K1_RUNS else 0)
                                  for run, v in r.items())
+                         and all(v["threefry"] == fry_want
+                                 for run, v in r.items() if run != "cpu")
                          and m["finite"] and b["raw"].std() > 0)
     rec["launches"] = dict(k1=launches, k2=0, bwd=0)
+    rec["replayed_draws"] = []  # every run draws from the seed itself
     rec["ok"] = bool(ok)
     _say("reference", samplers_reference=rec)
     return rec
@@ -3627,6 +3759,7 @@ def phase_samplers(seed: int, pipe, sr_path: str, caption: str):
     from rsvldm_tpu_torch.diffusion.samplers import RestoreEDMConfig
     from rsvldm_tpu_torch.diffusion.schedules import legacy_ddpm_sigmas
     from rsvldm_tpu_torch.ops.image import pil_to_array
+    from rsvldm_tpu_torch.utils import prng
 
     dev = pipe.device
     r = pipe.cfg.refine
@@ -3641,7 +3774,8 @@ def phase_samplers(seed: int, pipe, sr_path: str, caption: str):
     lat = cond["control"].shape[1]
     g = torch.Generator(device=dev).manual_seed(seed + 31)
     rnd = lambda *s: torch.randn(s, generator=g, device=dev)
-    noise, eps = rnd(1, lat, lat, 4), rnd(SAMPLER_STEPS, 1, lat, lat, 4)
+    noise = rnd(1, lat, lat, 4)
+    key = prng.key(seed)
     big = 3 * lat // 2
     lq_big = F.interpolate(cond["control"].float().permute(0, 3, 1, 2), size=(big, big),
                            mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
@@ -3653,26 +3787,32 @@ def phase_samplers(seed: int, pipe, sr_path: str, caption: str):
     heun = n + int((host[1:] > 0).sum())
     dpm2s = n + sum(int(S.get_ancestral_step(a, b)[0] > 1e-14)
                     for a, b in zip(host[:-1], host[1:]))
+    # name: (steps, denoiser calls, threefry launches, run): the SDE and
+    # ancestral samplers draw all their steps' normals of fold_in(key, i)
+    # in one launch, a Brownian tree one launch a point (the first and one
+    # a step)
     cases = {
-        "edm": (n, n, lambda: S.edm_sample(whole_fn, noise, sig, eps, s_churn=5.0,
-                                           s_noise=1.003)),
-        "heun": (n, heun, lambda: S.edm_sample(whole_fn, noise, sig, heun=True)),
-        "euler_ancestral": (n, n, lambda: S.euler_ancestral_sample(
-            whole_fn, noise, sig, eps)),
-        "dpmpp2s_ancestral": (n, dpm2s, lambda: S.dpmpp2s_ancestral_sample(
-            whole_fn, noise, sig, eps)),
-        "dpmpp2m": (n, n, lambda: S.dpmpp2m_sample(whole_fn, noise, sig)),
-        "linear_multistep": (n, n, lambda: S.linear_multistep_sample(
+        "edm": (n, n, 1, lambda: S.edm_sample(whole_fn, noise, sig, key,
+                                              s_churn=5.0, s_noise=1.003)),
+        "heun": (n, heun, 0, lambda: S.edm_sample(whole_fn, noise, sig, heun=True)),
+        "euler_ancestral": (n, n, 1, lambda: S.euler_ancestral_sample(
+            whole_fn, noise, sig, key)),
+        "dpmpp2s_ancestral": (n, dpm2s, 1, lambda: S.dpmpp2s_ancestral_sample(
+            whole_fn, noise, sig, key)),
+        "dpmpp2m": (n, n, 0, lambda: S.dpmpp2m_sample(whole_fn, noise, sig)),
+        "linear_multistep": (n, n, 0, lambda: S.linear_multistep_sample(
             whole_fn, noise, sig)),
-        "substep": (4, 4, lambda: S.edm_sample(whole_fn, noise, S.substep_sigmas(4))),
-        "restore_dpmpp2m": (n, n, lambda: S.restore_dpmpp2m_sample(
-            whole_fn, noise, sig, S.CounterDraws(seed, dev))),
-        "tiled_restore_edm": (TILED_STEPS, TILED_STEPS, lambda: S.tiled_restore_edm_sample(
-            tile_fn, noise_big, sig_t, lq_big, lq_big, restore_cfg=4.0)),
-        "tiled_restore_dpmpp2m": (TILED_STEPS, TILED_STEPS,
+        "substep": (4, 4, 0, lambda: S.edm_sample(whole_fn, noise,
+                                                  S.substep_sigmas(4))),
+        "restore_dpmpp2m": (n, n, n + 1, lambda: S.restore_dpmpp2m_sample(
+            whole_fn, noise, sig, key)),
+        "tiled_restore_edm": (TILED_STEPS, TILED_STEPS, 0,
+                              lambda: S.tiled_restore_edm_sample(
+                                  tile_fn, noise_big, sig_t, lq_big, lq_big,
+                                  restore_cfg=4.0)),
+        "tiled_restore_dpmpp2m": (TILED_STEPS, TILED_STEPS, TILED_STEPS + 1,
                                   lambda: S.tiled_restore_dpmpp2m_sample(
-                                      tile_fn, noise_big, sig_t, lq_big,
-                                      S.CounterDraws(seed, dev))),
+                                      tile_fn, noise_big, sig_t, lq_big, key)),
     }
     rec: dict = dict(latent=lat, tiled_latent=big,
                      windows=len(S.sliding_windows(big, big, 128, 64)),
@@ -3681,8 +3821,8 @@ def phase_samplers(seed: int, pipe, sr_path: str, caption: str):
     ok = rec["windows"] == 4 and rec["k1_per_call"] == K1_PER_MISS
     _components(seed, pipe.denoiser, cond, uc, noise,
                 torch.tensor(float(sig[0]), device=dev))
-    launches, outs = 0, {}
-    for name, (steps, want_calls, run) in cases.items():
+    launches, fry, outs = 0, 0, {}
+    for name, (steps, want_calls, fry_want, run) in cases.items():
         calls[0] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3692,30 +3832,34 @@ def phase_samplers(seed: int, pipe, sr_path: str, caption: str):
             z = run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        k1 = _counts()["k1"]
+        k1, fry_n = _counts()["k1"], _counts()["threefry"]
         launches += k1
+        fry += fry_n
         outs[name] = z
         rec[name] = dict(steps=steps, calls=calls[0], calls_reckoned=want_calls,
                          k1_launches=k1, k1_reckoned=want_calls * K1_PER_MISS,
+                         threefry_launches=fry_n, threefry_reckoned=fry_want,
                          s_per_step=secs / steps, seconds=secs,
                          finite=bool(torch.isfinite(z).all()),
                          std=float(z.std()), shape=list(z.shape),
                          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         ok = ok and bool(calls[0] == want_calls and k1 == want_calls * K1_PER_MISS
+                         and fry_n == fry_want
                          and rec[name]["finite"] and rec[name]["std"] > 0)
     calls[0] = 0
     _reset_counts()
     with torch.inference_mode():
         one = S.tiled_restore_dpmpp2m_sample(tile_fn, noise, sig, cond["control"].float(),
-                                             S.CounterDraws(seed, dev), tile=lat,
-                                             stride=lat)
+                                             key, tile=lat, stride=lat)
     one_calls, one_k1 = calls[0], _counts()["k1"]
+    fry += _counts()["threefry"]
     calls[0] = 0
     _reset_counts()
     with torch.inference_mode():
         ulp = S.restore_dpmpp2m_sample(whole_fn, torch.nextafter(noise, noise + 1), sig,
-                                       S.CounterDraws(seed, dev))
+                                       key)
     ulp_calls, ulp_k1 = calls[0], _counts()["k1"]
+    fry += _counts()["threefry"]
     launches += one_k1 + ulp_k1
     ref = outs["restore_dpmpp2m"]
     diff, udiff = (one - ref).abs(), (ulp - ref).abs()
@@ -3729,7 +3873,7 @@ def phase_samplers(seed: int, pipe, sr_path: str, caption: str):
     ok = ok and bool(float(diff.max()) <= SINGLE_TILE_TOL * scale
                      and one_calls == ulp_calls == n
                      and one_k1 == ulp_k1 == n * K1_PER_MISS)
-    rec["launches"] = dict(k1=launches, k2=0, bwd=0)
+    rec["launches"] = dict(k1=launches, k2=0, bwd=0, threefry=fry)
     rec["ok"] = bool(ok)
     _say("samplers", **rec)
     del outs, one, ref, ulp
@@ -4004,9 +4148,19 @@ def phase_train_reference(seed: int, quant: str, seq: int = 1024,
         m = m.to(dev, torch.float32 if dev == "cpu" else torch.bfloat16)
         m.requires_grad_(False)
         models[dev] = quantize_llama_(m, quant) if quant else m
-    lora0 = vt.init_lora(models["cpu"], cfg, torch.Generator().manual_seed(seed))
-    for ab in lora0.values():
-        ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.01
+    # the adapters are inputs of both sides, drawn from a CPU generator
+    # seeded `seed` as init_lora drew them before it took JAX's key chain:
+    # with these the planted reference-with-adapters fault moves a DPO
+    # delta beyond the check's 2.5 nats (the adapters of PRNGKey(seed)
+    # move it 1.5, below that floor)
+    agen = torch.Generator().manual_seed(seed)
+    lora0 = {}
+    for path, mod in vt._targets(models["cpu"], cfg):
+        in_f, out_f = vt._dims(mod)
+        bound = 1.0 / float(in_f) ** 0.5
+        a = (torch.rand((in_f, cfg.r), generator=agen) * 2 - 1) * bound
+        lora0[path] = {"a": a, "b": torch.randn((cfg.r, out_f), generator=gen)
+                       * 0.01}
     same_bytes = all(torch.equal(v.cpu(), models["cpu"].state_dict()[k])
                      for k, v in models["cuda"].state_dict().items()
                      if v.dtype == torch.int8)
@@ -4198,8 +4352,9 @@ def _train_loop(name: str, cap, tok, argv, steps: int, k1_per_step: int,
     counts reset just before the loop and read just after (and per step in
     between). Fails unless every step launched k1_per_step K1 and
     bwd_per_step backward kernels, the losses are finite, the frozen base's
-    bytes did not move, and the projector moved exactly when it trains.
-    Returns (record, trainer)."""
+    bytes did not move, the projector moved exactly when it trains, and the
+    adapters were drawn from PRNGKey(--seed) by one threefry launch each
+    (none a step). Returns (record, trainer)."""
     import torch
     from rsvldm_tpu_torch import train_vlm
     args = train_vlm.parse_args(argv)
@@ -4270,6 +4425,8 @@ def _train_loop(name: str, cap, tok, argv, steps: int, k1_per_step: int,
         and launches["k1"] == k1_per_step * steps
         and launches["bwd"] == bwd_per_step * steps
         and launches["k2"] == 0
+        and launches["threefry"] == rec["adapters"]
+        and all(r["launches"]["threefry"] == 0 for r in per_step[1:])
         and all(math.isfinite(x) for x in rec["losses"])
         and moved and unchanged and proj_moved == projector_trains)
     _say(name, **{k: v for k, v in rec.items() if k != "losses"},
@@ -4467,6 +4624,7 @@ def phase_train_gemma(seed: int, steps: int = 3, batch: int = 4,
     recompute), all of them the D=256 kernel's (`k1d256`), and the D=256
     backward 28 (`bwd256`), K2 none; finite losses, the base's bytes
     unchanged, every B moved."""
+    from rsvldm_tpu_torch.utils import prng
     import torch
     from rsvldm_tpu_torch.models.vlm.llama import (GEMMA_7B_CONFIG,
                                                    LlamaModel, quantize_llama_)
@@ -4480,7 +4638,7 @@ def phase_train_gemma(seed: int, steps: int = 3, batch: int = 4,
     build_s = time.perf_counter() - t0
     digest = _sd_digest(model.state_dict())
     tr = vt.VLMTrainer(model, vt.LoraConfig(r=16, alpha=16), lr=2e-4,
-                       generator=torch.Generator().manual_seed(seed))
+                       key=prng.key(seed))
     gen = torch.Generator(device="cuda").manual_seed(seed + 21)
     L = cfg.layers
     torch.cuda.reset_peak_memory_stats()
@@ -4503,7 +4661,7 @@ def phase_train_gemma(seed: int, steps: int = 3, batch: int = 4,
                 for ab in tr.lora.values())
     unchanged = _sd_digest(model.state_dict()) == digest
     want = {"k1": 2 * L, "k1d256": 2 * L, "k1wide": 0, "k2": 0, "bwd": L,
-            "bwd256": L, "bwdwide": 0, "threefry": 0}
+            "bwd256": L, "bwdwide": 0, "threefry": 0, "threefry_folded": 0}
     rec = dict(config="GEMMA_7B_CONFIG int8, LoRA r=16 (7 projections), "
                       "remat", seconds=time.perf_counter() - t0, layers=L, heads=cfg.heads,
                head_dim=cfg.head_dim, vocab=cfg.vocab_size, batch=batch,
@@ -4542,6 +4700,7 @@ def phase_wide_head(seed: int, steps: int = 3, batch: int = 4,
     2 a layer: forward and recompute; the wide backward one a layer).
     Passes on exact launch counts, finite logits and losses, the base's
     bytes unchanged and every B moved."""
+    from rsvldm_tpu_torch.utils import prng
     import torch
     from rsvldm_tpu_torch.models.vlm.llama import (LLAMA3_8B_CONFIG, KVCache,
                                                    LlamaModel)
@@ -4572,11 +4731,11 @@ def phase_wide_head(seed: int, steps: int = 3, batch: int = 4,
         prefill_s = time.perf_counter() - t1
     pre = _counts()
     pre_want = {"k1": L, "k1d256": 0, "k1wide": L, "k2": 0, "bwd": 0,
-                "bwd256": 0, "bwdwide": 0, "threefry": 0}
+                "bwd256": 0, "bwdwide": 0, "threefry": 0, "threefry_folded": 0}
     prefill_finite = bool(torch.isfinite(logits).all())
     del cache, emb, logits
     tr = vt.VLMTrainer(model, vt.LoraConfig(r=16, alpha=16), lr=2e-4,
-                       generator=torch.Generator().manual_seed(seed))
+                       key=prng.key(seed))
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     per_step = []
@@ -4597,7 +4756,7 @@ def phase_wide_head(seed: int, steps: int = 3, batch: int = 4,
                 for ab in tr.lora.values())
     unchanged = _sd_digest(model.state_dict()) == digest
     want = {"k1": 2 * L, "k1d256": 0, "k1wide": 2 * L, "k2": 0, "bwd": L,
-            "bwd256": 0, "bwdwide": L, "threefry": 0}
+            "bwd256": 0, "bwdwide": L, "threefry": 0, "threefry_folded": 0}
     rec = dict(config=f"LLAMA3_8B_CONFIG widths, 8 q / 2 kv heads of 512, "
                       f"bf16, {L} of 32 layers; LoRA r=16 (7 projections), "
                       "remat", seconds=time.perf_counter() - t0, layers=L,
@@ -4664,13 +4823,16 @@ def phase_train_sr3(seed: int, steps: int = 4, images: int = 24):
     prefetcher), `steps` steps, saved as I{steps}_gen.pth / _opt.pth; then
     a second trainer resumes from those files (--resume_iter) and takes
     one more step beside the uninterrupted trainer on the same batch and
-    draws: the loss, every parameter and the EMA must be equal. No hand
-    kernel runs here: the launch counts read 0."""
+    draws (the key of PRNGKey(seed + 17)): the loss, every parameter and
+    the EMA must be equal. The loss draws are JAX's of PRNGKey(seed + 1),
+    split a step: three threefry launches a step (randint's bits, the
+    uniforms, the normals); no other hand kernel runs here."""
     import shutil
     import numpy as np
     import torch
     from PIL import Image
     from rsvldm_tpu_torch import train_sr3
+    from rsvldm_tpu_torch.utils import prng
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_sr3_"))
     det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     try:
@@ -4716,11 +4878,9 @@ def phase_train_sr3(seed: int, steps: int = 4, images: int = 24):
         gen = torch.Generator(device="cuda").manual_seed(seed + 17)
         hr = torch.rand((8, 224, 224, 3), generator=gen, device="cuda") * 2 - 1
         sr = torch.rand((8, 224, 224, 3), generator=gen, device="cuda") * 2 - 1
-        draws = (torch.randint(1, 2001, (8,), generator=gen, device="cuda"),
-                 torch.rand((8,), generator=gen, device="cuda"),
-                 torch.randn((8, 224, 224, 3), generator=gen, device="cuda"))
-        la = trainer.train_step(hr, sr, *draws)
-        lb = resumed.train_step(hr, sr, *draws)
+        key = prng.key(seed + 17)
+        la = trainer.train_step(hr, sr, key=key)
+        lb = resumed.train_step(hr, sr, key=key)
         param_err = max(float((a - b).abs().max()) for a, b in zip(
             trainer.model.state_dict().values(),
             resumed.model.state_dict().values()))
@@ -4737,7 +4897,8 @@ def phase_train_sr3(seed: int, steps: int = 4, images: int = 24):
         rec["ok"] = bool(
             len(per_step) == steps and trainer.step == resumed.step == steps + 1
             and all(math.isfinite(x) for x in rec["losses"])
-            and all(v == 0 for v in launches.values())
+            and all(v == (3 * steps if k == "threefry" else 0)
+                    for k, v in launches.items())
             and files == [f"I{steps}_gen.pth", f"I{steps}_opt.pth"]
             and la == lb and param_err == 0 and ema_err == 0)
         _say("train_sr3", **rec)
@@ -4765,6 +4926,10 @@ SERVE_NEW, SERVE_AGREE, SERVE_NEAR_TIE = 24, 16, 0.15
 # serve: the LLM worker's engine at full width; the registered system
 # prefix of its --prefix-file engine (padded past 1024: K1 at registration)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PREFIX_TOKENS = 8, 4096, 1100
+# serve's new tokens: an HTTP request's SERVE_TOKENS to twice that, an
+# option engine's SERVE_TOKENS (half that on the prefix engine); a depth
+# cut (it was 64) that keeps the script well inside its time
+SERVE_TOKENS = 32
 
 
 def _serve_k1_per_admission(s: int, whole: bool, layers: int) -> int:
@@ -4779,6 +4944,15 @@ def _serve_k2_expected(eng, k2_step: int, k2_round: int = 0) -> int:
     return (eng.admissions + k2_step * (eng.steps["decode"] + eng.decode_horizon
                                         * eng.steps["horizon"])
             + k2_round * eng.steps["spec"])
+
+
+def _serve_fry_expected(eng) -> int:
+    """Device-keyed threefry launches of an engine's run (its default
+    FoldedNoise): one table of Gumbels an admission's first token, a
+    decode step and a horizon, three a speculative round (the proposals'
+    and bonus' Gumbels, the acceptance uniforms, the resample Gumbels)."""
+    return (eng.admissions + eng.steps["decode"] + eng.steps["horizon"]
+            + 3 * eng.steps["spec"])
 
 
 def _teacher_forced(model, prompt, card_ids, cpu_ids, n: int,
@@ -4835,9 +5009,11 @@ def phase_serve_reference(seed: int):
     CPU's teacher-forced best (up to a near-tie, above) at every position,
     its first token's logit cosine
     >= CAP_COS_MIN, K1 / K2 launches equal to the count reckoned from the
-    admissions and steps. Then on the card a sampled request (T = 0.7,
-    the default counter draws) alone and among co-tenants in another slot:
-    the same first SERVE_AGREE ids."""
+    admissions and steps, and the device-keyed threefry launches of the
+    engine's draws (_serve_fry_expected; its default key, PRNGKey(0), on
+    both sides). Then on the card a sampled request (T = 0.7, the default
+    draws) alone and among co-tenants in another slot: the same first
+    SERVE_AGREE ids."""
     import numpy as np
     import torch
     from PIL import Image
@@ -4926,6 +5102,7 @@ def phase_serve_reference(seed: int):
                              for (k, _), w in zip(reqs, whole))
                 exp_k2 = _serve_k2_expected(
                     eng, k2_step, k2_per_round(n_draft, SPEC_K, L) if n_draft else 0)
+                exp_fry = _serve_fry_expected(eng)
                 replayed = all(got[dev]["replays"][k] == got[dev]["steps"][k]
                                for k in eng.runners)
             del eng
@@ -4939,9 +5116,12 @@ def phase_serve_reference(seed: int):
                  steps=got["cuda"]["steps"], admissions=got["cuda"]["admissions"],
                  tokens=[len(i) for i in got["cuda"]["ids"]],
                  k1=c["k1"], k2=c["k2"], expected_k1=exp_k1, expected_k2=exp_k2,
+                 threefry_folded=c["threefry_folded"],
+                 expected_threefry_folded=exp_fry,
                  replayed=replayed, ids=[i[:6].tolist() for i in got["cuda"]["ids"]])
         r["ok"] = bool(all(a["ok"] for a in agree) and min(cos) >= CAP_COS_MIN
                        and c["k1"] == exp_k1 and c["k2"] == exp_k2 and replayed
+                       and c["threefry_folded"] == exp_fry
                        and all(n == SERVE_NEW for n in r["tokens"]))
         rec[name] = r
         ok = ok and r["ok"]
@@ -5026,7 +5206,9 @@ def _serve_step_timing(eng, pos: int, iters: int = 20) -> dict:
     k2_ms = sum(t for k, t, _ in kernels if "int4_decode_kernel" in k)
     from rsvldm_tpu_torch.ops.flash_attention import flash_attention
     from rsvldm_tpu_torch.ops.quant import int4_matmul
+    from rsvldm_tpu_torch.utils import prng
     flash_attention.launches, int4_matmul.launches = before["k1"], before["k2"]
+    prng.draw_folded.launches = before["threefry_folded"]
     return dict(slots=eng.slots, pos=pos, step_wall_ms=round(wall, 3),
                 step_device_ms=round(dev_ms, 3),
                 profiled_device_ms=round(prof_ms, 3),
@@ -5042,7 +5224,8 @@ def _serve_step_timing(eng, pos: int, iters: int = 20) -> dict:
 def _serve_http(worker, server, tok, words, seed: int) -> dict:
     """SERVE traffic over HTTP: 16 requests from threads, 50 ms apart: 4
     multimodal (a base64 224^2 tile each) and 12 text prompts of 40-900
-    tokens, 64-128 new tokens each at T 0 / 0.2 / 0.7, one of them on
+    tokens, SERVE_TOKENS to twice that new tokens each at T 0 / 0.2 / 0.7,
+    one of them on
     /worker_generate_stream. Returns the per-request records and the
     wall seconds from the first send to the last reply."""
     import threading
@@ -5063,7 +5246,7 @@ def _serve_http(worker, server, tok, words, seed: int) -> dict:
     order = rng.permutation(len(reqs))
     temps = (0.0, 0.2, 0.7)
     for j, i in enumerate(order):
-        reqs[i].update(max_new_tokens=int(64 + 64 * (j % 5) / 4),
+        reqs[i].update(max_new_tokens=int(SERVE_TOKENS * (1 + (j % 5) / 4)),
                        temperature=temps[j % 3])
     stream_i = int(order[5])
     out = [None] * len(reqs)
@@ -5165,6 +5348,7 @@ def phase_serve(seed: int, cd: Path) -> dict:
     lens = [n for _, _, n in seen]
     exp_k1 = sum(_serve_k1_per_admission(n, True, 32) for n in lens)
     exp_k2 = _serve_k2_expected(eng, K2_PER_STEP)
+    exp_fry = _serve_fry_expected(eng)
     errors = [o.get("error") for o in http["out"] if "error" in o]
     tokens_expected = sum(r["max_new_tokens"] for r in http["reqs"])
     ttft = sorted(eng.first_token_s)
@@ -5190,16 +5374,19 @@ def phase_serve(seed: int, cd: Path) -> dict:
         embeds_on_card=all(d == "cuda" for d, _, _ in seen),
         embed_threads=len({t for _, t, _ in seen}),
         k1=c["k1"], k2=c["k2"], expected_k1=exp_k1, expected_k2=exp_k2,
+        threefry_folded=c["threefry_folded"], expected_threefry_folded=exp_fry,
         load_s=round(sum(v for k, v in cap.load_stats.items()
                          if k.endswith("_s")), 3),
         errors=errors[:3])
     rec["step"] = _serve_step_timing(eng, 1400)
     rec["peak_mem_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
-    rec["launches"] = dict(k1=c["k1"], k2=c["k2"], bwd=c["bwd"])
+    rec["launches"] = dict(k1=c["k1"], k2=c["k2"], bwd=c["bwd"],
+                           threefry_folded=c["threefry_folded"])
     ok = bool(not errors and len(seen) == 16 and rec["embeds_on_card"]
               and rec["embed_threads"] > 1 and graphs_kept
               and all(o.get("text") for o in http["out"])
               and c["k1"] == exp_k1 and c["k2"] == exp_k2 and exp_k1 > 0
+              and c["threefry_folded"] == exp_fry
               and eng.runners["decode"].replays >= eng.steps["decode"] > 0)
     worker.stop()
     server.shutdown()
@@ -5239,9 +5426,12 @@ def phase_serve(seed: int, cd: Path) -> dict:
                  admissions=e.admissions, admission_s=round(e.admission_s, 3),
                  prefill_tokens=e.prefill_tokens, k1=cc["k1"], k2=cc["k2"],
                  expected_k1=exp1, expected_k2=exp2,
+                 threefry_folded=cc["threefry_folded"],
+                 expected_threefry_folded=_serve_fry_expected(e),
                  capture_s=round(sum(x.capture_s for x in e.runners.values()), 3),
                  **info)
         r["ok"] = bool(cc["k1"] == exp1 and cc["k2"] == exp2
+                       and cc["threefry_folded"] == r["expected_threefry_folded"]
                        and r.pop("fine", True) and e.generated > 0)
         modes[name] = r
         by_mode[name] = cc
@@ -5260,8 +5450,9 @@ def phase_serve(seed: int, cd: Path) -> dict:
         w = llm_worker.LLMWorker(
             e, embed_prompt=lambda p: mm(p, []), decode_fn=tok.decode,
             worker_name="prefix", prefix_text=pf.read_text(encoding="utf-8"),
-            embed_mm=mm, base_cfg=GenerateConfig(max_new_tokens=32,
-                                                 temperature=0.0, do_sample=False))
+            embed_mm=mm, base_cfg=GenerateConfig(
+                max_new_tokens=SERVE_TOKENS // 2, temperature=0.0,
+                do_sample=False))
         p_len = len(tok.encode(pre, add_special_tokens=False))
         outs = [None] * 8
 
@@ -5283,7 +5474,7 @@ def phase_serve(seed: int, cd: Path) -> dict:
                                    fine=all(o for o in outs))
 
     def drive_chunk(e, args):
-        cfg = GenerateConfig(max_new_tokens=64, temperature=0.2)
+        cfg = GenerateConfig(max_new_tokens=SERVE_TOKENS, temperature=0.2)
         embs = [text(40 + 40 * i, i) for i in range(7)]
         for x in embs:
             e.submit(x, cfg)
@@ -5324,19 +5515,20 @@ def phase_serve(seed: int, cd: Path) -> dict:
     mode("prefix", ["--prefix-file", str(work / "prefix.txt")], drive_prefix)
     mode("chunk", ["--prefill-chunk", "512"], drive_chunk)
     mode("horizon", ["--decode-horizon", "8"],
-         drive_batch(0, 64, (40, 80, 120, 160, 200, 240, 280, 320)))
+         drive_batch(0, SERVE_TOKENS, (40, 80, 120, 160, 200, 240, 280, 320)))
     mode("kv8", ["--kv-8bit"], drive_batch(1, 32, (40, 90, 140, 190, 240, 290, 340)))
     cap.attach_draft(None, named=False, spec_k=SPEC_K,
                      self_draft_layers=SELF_DRAFT_LAYERS)
     mode("spec", ["--self-draft", str(SELF_DRAFT_LAYERS), "--spec-k", str(SPEC_K)],
-         drive_batch(1, 64, (60, 150, 300)), slots=4, n_draft=SELF_DRAFT_LAYERS)
+         drive_batch(1, SERVE_TOKENS, (60, 150, 300)), slots=4,
+         n_draft=SELF_DRAFT_LAYERS)
     cap.attach_draft(None, named=False)
     import shutil
     shutil.rmtree(work, ignore_errors=True)
     rec["modes"] = modes
     rec["ok"] = bool(ok and all(m["ok"] for m in modes.values()))
     rec["launches_modes"] = {k: sum(by_mode[m][k] for m in by_mode if m != "spec")
-                             for k in ("k1", "k2", "bwd")}
+                             for k in ("k1", "k2", "bwd", "threefry_folded")}
     rec["launches_spec"] = by_mode.get("spec", {})
     _say("serve", **rec)
     del cap
@@ -6387,8 +6579,7 @@ def _par_trainer(seed: int, cfg: dict, mesh=None):
         from rsvldm_tpu_torch.train_sr3 import TINY_SR3
         mc = dataclasses.replace(mc, **TINY_SR3)
     dev = cfg["device"]
-    return SR3Trainer(mc, SR3TrainConfig(), device=dev, mesh=mesh,
-                      generator=torch.Generator(dev).manual_seed(seed))
+    return SR3Trainer(mc, SR3TrainConfig(), device=dev, mesh=mesh, seed=seed)
 
 
 def _flat_params(model):
@@ -6400,6 +6591,7 @@ def _flat_params(model):
 def _par_references(seed: int, cfg: dict, work: Path, ranks: int) -> dict:
     """The unsharded runs in this process, their outputs saved in `work`;
     the tiled VAE's witnesses at the `ranks` ranks' split."""
+    from rsvldm_tpu_torch.utils import prng
     import numpy as np
     import torch
     dev = cfg["device"]
@@ -6432,11 +6624,10 @@ def _par_references(seed: int, cfg: dict, work: Path, ranks: int) -> dict:
     tr = _par_trainer(seed, cfg)
     p0 = _flat_params(tr.model)
     hr, sr = _par_train_data(seed, cfg)
-    gen = torch.Generator(dev).manual_seed(seed + 1)
+    keys = prng.split(prng.key(seed + 1), PAR_TRAIN_STEPS)
     _par_sync(dev)
     t0 = time.perf_counter()
-    losses = [tr.train_step(hr, sr, generator=gen)
-              for _ in range(PAR_TRAIN_STEPS)]
+    losses = [tr.train_step(hr, sr, key=k) for k in keys]
     _par_sync(dev)
     rec["train"] = dict(losses=losses,
                         s_per_step=(time.perf_counter() - t0) / PAR_TRAIN_STEPS)
@@ -6638,6 +6829,7 @@ def _par_vlm_train(seed: int, cfg: dict, work: Path, mesh=None) -> dict:
     rows in this process (the reference); with one, this rank's rows and
     `mesh=` (the gradients summed over it). Launches per step, losses, the
     adapters' digest."""
+    from rsvldm_tpu_torch.utils import prng
     import hashlib
     import torch
     from rsvldm_tpu_torch.models.vlm.llama import LlamaModel, quantize_llama_
@@ -6658,8 +6850,7 @@ def _par_vlm_train(seed: int, cfg: dict, work: Path, mesh=None) -> dict:
     _par_sync(dev)
     build_s = time.perf_counter() - t0
     tr = vt.VLMTrainer(model, vt.LoraConfig(r=16, alpha=16), lr=2e-4,
-                       generator=torch.Generator().manual_seed(seed + 23),
-                       mesh=mesh)
+                       key=prng.key(seed + 23), mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(seed + 24)
     emb, labels = _text_batch(model, gen, PAR_VLM_ROWS, cfg["vlm_width"])
     if mesh is not None:
@@ -6851,7 +7042,11 @@ def _par_worker_engine(cap, spliced, cfg, seed, mesh, work) -> dict:
                  disagreements=eng.disagreements, sharded=eng.model.tp is not None,
                  k1=n["k1"], k1_reckoned=L * long_ * (2 if kw else 1)
                  if on_card else 0,
-                 k2=n["k2"], k2_reckoned=k2 if on_card else 0)
+                 k2=n["k2"], k2_reckoned=k2 if on_card else 0,
+                 # every rank draws the rows of the same keys, on its card
+                 threefry_folded=n["threefry_folded"],
+                 threefry_folded_reckoned=(_serve_fry_expected(eng)
+                                           if on_card else 0))
         best = [abs(float(lg[f].max())) if g is not None else None
                 for lg, f, g in zip(lgs, first, gap)]
         r["ties_only"] = all(
@@ -6862,7 +7057,8 @@ def _par_worker_engine(cap, spliced, cfg, seed, mesh, work) -> dict:
         r["ok"] = bool(r["ties_only"] and r["ranks_equal"] and r["sharded"]
                        and r["disagreements"] == 0
                        and n["k1"] == r["k1_reckoned"]
-                       and n["k2"] == r["k2_reckoned"])
+                       and n["k2"] == r["k2_reckoned"]
+                       and n["threefry_folded"] == r["threefry_folded_reckoned"])
         rec[name] = r
         del eng
     cos = [_cos(a, b) for p, i, lg in zip(prompts, ref["ids"], ref["logits"])
@@ -6969,7 +7165,7 @@ def _par_worker_vlm_train(seed, cfg, mesh, work) -> dict:
     want = ({"k1": 2 * L, "k2": 0, "bwd": L, "bwd256": 0}
             if cfg["device"] == "cuda" else
             {"k1": 0, "k2": 0, "bwd": 0, "bwd256": 0})
-    want.update(k1d256=0, k1wide=0, bwdwide=0, threefry=0)
+    want.update(k1d256=0, k1wide=0, bwdwide=0, threefry=0, threefry_folded=0)
     rel = [abs(x - y) / abs(y) for x, y in zip(rec["losses"], ref["losses"])]
     rec.update(ref_losses=ref["losses"], loss_rel_err=max(rel),
                ranks_supervised=[s for _, s in every],
@@ -7023,6 +7219,7 @@ def _par_worker_vae(seed, cfg, pipe, mesh, work) -> dict:
 
 
 def _par_worker_train(seed, cfg, mesh, work) -> dict:
+    from rsvldm_tpu_torch.utils import prng
     import hashlib
     import torch
     import torch.distributed as dist
@@ -7031,11 +7228,10 @@ def _par_worker_train(seed, cfg, mesh, work) -> dict:
     tr = _par_trainer(seed, cfg, mesh)
     hr, sr = _par_train_data(seed, cfg)
     a, b = local_batch_range(PAR_TRAIN_BATCH)
-    gen = torch.Generator(dev).manual_seed(seed + 1)
+    keys = prng.split(prng.key(seed + 1), PAR_TRAIN_STEPS)
     _par_sync(dev)
     t0 = time.perf_counter()
-    losses = [tr.train_step(hr[a:b], sr[a:b], generator=gen)
-              for _ in range(PAR_TRAIN_STEPS)]
+    losses = [tr.train_step(hr[a:b], sr[a:b], key=k) for k in keys]
     _par_sync(dev)
     s_per_step = (time.perf_counter() - t0) / PAR_TRAIN_STEPS
     ref = torch.load(work / "train_ref.pt")
@@ -7214,8 +7410,8 @@ def main(argv=None) -> int:
         print("chip_smoke: --parallel-only given, no result line",
               file=sys.stderr)
         return 0 if par["ok"] else 1
-    cases, k2, bwd, fry = phase_kernels()
-    ok = all(c["ok"] for c in cases + k2 + bwd + fry)
+    cases, k2, bwd, fry, fold = phase_kernels()
+    ok = all(c["ok"] for c in cases + k2 + bwd + fry + fold)
     lap("kernels")
     ok = phase_reference(SEED)["ok"] and ok
     for quant in ("int4", "int8"):
@@ -7431,6 +7627,16 @@ def main(argv=None) -> int:
                     "plain_ms", "randn_ms", "bound_ms", "bound_by",
                     "gdraws_s", "bits_equal", "max_abs_err",
                     "max_scaled_err"),
+              kernels=tuple(PTXAS.get("threefry.cu", {}))),
+        # the same kernel's device-keyed entry: the serving engine's and the
+        # speculative acceptance's rows, keyed on the card from fold words
+        entry("threefry_folded", "rsvldm_tpu_torch/csrc/threefry.cu",
+              "none (jax.random threefry: rsvldm_tpu/serving/engine.py:"
+              "300-303, 322-326, 358-403; rsvldm_tpu/models/vlm/"
+              "speculative.py:99-124)", "threefry_folded", fold,
+              ("case", "shape", "dist", "dtype", "fold_words", "ms",
+               "wrapper_ms", "plain_ms", "randn_ms", "bound_ms", "bound_by",
+               "gdraws_s", "bits_equal", "max_abs_err", "max_scaled_err"),
               kernels=tuple(PTXAS.get("threefry.cu", {})))]}
     print(json.dumps(report), flush=True)
     if not ok:

@@ -10,7 +10,13 @@
 //
 // One launch fills out[R][n]. Row r's key is fold_in(key_r, step_r), the
 // threefry hash of the counters (0, step_r), or key_r itself where step_r is
-// -1. Element i of a row hashes the counters (i >> 32, i & 0xffffffff) under
+// -1 (rsv_threefry, the row table worked out on the host). The folded entry
+// (rsv_threefry_folded) takes one base key as two words and an [R][L] table
+// of fold words on the device instead: row r's key is fold_in(...fold_in(
+// base, w[r][0])..., w[r][L-1]), hashed on the device, so a CUDA graph that
+// captured the launch draws the rows of whatever words the table holds at
+// each replay (the serving engine's nonces and counts). Element i of a row
+// hashes the counters (i >> 32, i & 0xffffffff) under
 // the row's key, bits = y0 ^ y1, then:
 //   bits    the 32-bit word;
 //   uniform [mn, mn + span): the top 23 bits (bf16: bits 1-7 of the low
@@ -113,17 +119,30 @@ __device__ __forceinline__ float transform(uint32_t bits, float mn, float span) 
   return __fmul_rn(1.41421356237309505f, erf_inv(u));
 }
 
+// L == 0: rows is the host-keyed table [R][3] (k0, k1, step or -1);
+// L >= 1: rows is the fold-word table [R][L] under the base key (bk0, bk1)
 template <int DIST, bool BF16>
 __global__ void __launch_bounds__(kThreads)
-threefry_kernel(const long long* __restrict__ rows, int R, long long n,
-                float mn, float span, void* __restrict__ out) {
+threefry_kernel(const long long* __restrict__ rows, int R, int L, long long n,
+                uint32_t bk0, uint32_t bk1, float mn, float span,
+                void* __restrict__ out) {
   const long long stride = (long long)gridDim.x * kThreads;
   for (int r = blockIdx.y; r < R; r += gridDim.y) {
-    uint32_t k0 = (uint32_t)rows[3 * r], k1 = (uint32_t)rows[3 * r + 1];
-    const long long step = rows[3 * r + 2];
-    if (step >= 0) {
-      const uint2 k = threefry2x32(k0, k1, 0u, (uint32_t)step);
-      k0 = k.x; k1 = k.y;
+    uint32_t k0, k1;
+    if (L > 0) {
+      k0 = bk0; k1 = bk1;
+      for (int l = 0; l < L; ++l) {
+        const uint2 k =
+            threefry2x32(k0, k1, 0u, (uint32_t)rows[(long long)r * L + l]);
+        k0 = k.x; k1 = k.y;
+      }
+    } else {
+      k0 = (uint32_t)rows[3 * r]; k1 = (uint32_t)rows[3 * r + 1];
+      const long long step = rows[3 * r + 2];
+      if (step >= 0) {
+        const uint2 k = threefry2x32(k0, k1, 0u, (uint32_t)step);
+        k0 = k.x; k1 = k.y;
+      }
     }
     const long long base = (long long)r * n;
     for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
@@ -144,15 +163,40 @@ threefry_kernel(const long long* __restrict__ rows, int R, long long n,
 }
 
 template <int DIST, bool BF16>
-cudaError_t launch(const long long* rows, int R, long long n, float mn,
-                   float span, void* out, cudaStream_t st) {
+cudaError_t launch(const long long* rows, int R, int L, long long n,
+                   uint32_t bk0, uint32_t bk1, float mn, float span, void* out,
+                   cudaStream_t st) {
   long long bx = (n + (long long)kThreads * kPerThread - 1) /
                  ((long long)kThreads * kPerThread);
   if (bx > 65535) bx = 65535;  // the stride loop covers the rest
   const dim3 grid((unsigned)bx, (unsigned)(R < 65535 ? R : 65535));
-  threefry_kernel<DIST, BF16><<<grid, kThreads, 0, st>>>(rows, R, n, mn, span,
-                                                         out);
+  threefry_kernel<DIST, BF16><<<grid, kThreads, 0, st>>>(rows, R, L, n, bk0,
+                                                         bk1, mn, span, out);
   return cudaGetLastError();
+}
+
+int dispatch(const void* rows, int R, int L, long long n, uint32_t bk0,
+             uint32_t bk1, int dist, int bf16, float mn, float span, void* out,
+             void* stream) {
+  if (R <= 0 || n <= 0 || dist < kBits || dist > kGumbel ||
+      (bf16 && dist == kBits) || rows == nullptr || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long* rw = static_cast<const long long*>(rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+#define RSV_CASE(D, B) launch<D, B>(rw, R, L, n, bk0, bk1, mn, span, out, st)
+  switch (dist * 2 + (bf16 ? 1 : 0)) {
+    case kBits * 2: e = RSV_CASE(kBits, false); break;
+    case kUniform * 2: e = RSV_CASE(kUniform, false); break;
+    case kUniform * 2 + 1: e = RSV_CASE(kUniform, true); break;
+    case kNormal * 2: e = RSV_CASE(kNormal, false); break;
+    case kNormal * 2 + 1: e = RSV_CASE(kNormal, true); break;
+    case kGumbel * 2: e = RSV_CASE(kGumbel, false); break;
+    case kGumbel * 2 + 1: e = RSV_CASE(kGumbel, true); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RSV_CASE
+  return (int)e;
 }
 
 }  // namespace
@@ -163,21 +207,15 @@ cudaError_t launch(const long long* rows, int R, long long n, float mn,
 extern "C" int rsv_threefry(const void* rows, int R, long long n, int dist,
                             int bf16, float mn, float span, void* out,
                             void* stream) {
-  if (R <= 0 || n <= 0 || dist < kBits || dist > kGumbel ||
-      (bf16 && dist == kBits) || rows == nullptr || out == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const long long* rw = static_cast<const long long*>(rows);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (dist * 2 + (bf16 ? 1 : 0)) {
-    case kBits * 2: e = launch<kBits, false>(rw, R, n, mn, span, out, st); break;
-    case kUniform * 2: e = launch<kUniform, false>(rw, R, n, mn, span, out, st); break;
-    case kUniform * 2 + 1: e = launch<kUniform, true>(rw, R, n, mn, span, out, st); break;
-    case kNormal * 2: e = launch<kNormal, false>(rw, R, n, mn, span, out, st); break;
-    case kNormal * 2 + 1: e = launch<kNormal, true>(rw, R, n, mn, span, out, st); break;
-    case kGumbel * 2: e = launch<kGumbel, false>(rw, R, n, mn, span, out, st); break;
-    case kGumbel * 2 + 1: e = launch<kGumbel, true>(rw, R, n, mn, span, out, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)e;
+  return dispatch(rows, R, 0, n, 0u, 0u, dist, bf16, mn, span, out, stream);
+}
+
+// folds: [R, L] int64 fold words on the device (1 <= L <= 3, each taken as
+// uint32) under the base key (k0, k1); out, mn, span as rsv_threefry's.
+extern "C" int rsv_threefry_folded(const void* folds, int R, int L,
+                                   long long n, uint32_t k0, uint32_t k1,
+                                   int dist, int bf16, float mn, float span,
+                                   void* out, void* stream) {
+  if (L < 1 || L > 3) return (int)cudaErrorInvalidValue;
+  return dispatch(folds, R, L, n, k0, k1, dist, bf16, mn, span, out, stream);
 }

@@ -14,10 +14,12 @@ from fold_in(rng, i), and branches with lax.cond on sigma. Here the sigma
 table is known on the host, so each step's scalars are worked out there
 in float32 (as JAX's traced float32 arithmetic gives them) and each
 branch is decided there, with no device read; the steps run eagerly. The
-noise is an argument: `eps` [steps, *x.shape] for the samplers that draw
-one normal a step, a Brownian-tree draw source (`brownian.py`) for the
-RestoreDPMPP2M pair. The sampler arithmetic is fp32 whatever the
-denoiser's dtype.
+noise is JAX's, from `key` (a utils/prng key, default PRNGKey(0)): the
+samplers that draw one normal a step take step i's from fold_in(key, i),
+all the steps' rows in one draw before the loop over x's NHWC shape
+(`eps=` [steps, *x.shape] injects them instead); the RestoreDPMPP2M pair
+draws its Brownian tree's points from the key (`brownian.py`). The
+sampler arithmetic is fp32 whatever the denoiser's dtype.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .brownian import BrownianTreeNoiseSampler, CounterDraws
+from ..utils import prng
+from .brownian import BrownianTreeNoiseSampler
 from .samplers import init_noise_scaling, to_d
 from .schedules import karras_sigmas, legacy_ddpm_sigmas
 
@@ -47,10 +50,16 @@ def _call(fn, x: torch.Tensor, sigma, *extra) -> torch.Tensor:
     return fn(x, s, *extra).float()
 
 
-def _need(eps, what: str):
-    if eps is None:
-        raise ValueError(f"{what} draws noise: pass eps [steps, *x.shape]")
-    return eps
+def _step_normals(key: prng.Key | None, steps: int, x: torch.Tensor,
+                 eps: torch.Tensor | None = None) -> torch.Tensor:
+    """[steps, *x.shape] fp32 normals, row i JAX's normal(fold_in(key, i),
+    x.shape) (key default PRNGKey(0)), in one draw on x's device; `eps`
+    itself when given."""
+    if eps is not None:
+        return eps
+    k = prng.key(0) if key is None else key
+    return prng.draw([(k, i) for i in range(steps)], tuple(x.shape), "normal",
+                     torch.float32, x.device)
 
 
 def get_ancestral_step(sigma_from, sigma_to, eta: float = 1.0):
@@ -72,17 +81,19 @@ def sigma_of(t):
 
 
 def edm_sample(denoise_fn: Callable, noise: torch.Tensor, sigmas,
-               eps: torch.Tensor | None = None, s_churn: float = 0.0,
+               key: prng.Key | None = None, s_churn: float = 0.0,
                s_tmin: float = 0.0, s_tmax: float = float("inf"),
-               s_noise: float = 1.0, heun: bool = False) -> torch.Tensor:
-    """EDM sampler with churn (eps [steps, *x.shape] when s_churn > 0) and
-    the optional 2nd-order Heun correction, skipped at the last sigma."""
+               s_noise: float = 1.0, heun: bool = False,
+               eps: torch.Tensor | None = None) -> torch.Tensor:
+    """EDM sampler with churn (step i's normals from fold_in(key, i) when
+    s_churn > 0, or `eps`) and the optional 2nd-order Heun correction,
+    skipped at the last sigma."""
     sig = _host(sigmas)
     n = sig.shape[0]
     gamma_val = min(s_churn / (n - 1), 2 ** 0.5 - 1) if s_churn > 0 else 0.0
-    if gamma_val > 0:
-        _need(eps, "edm_sample with s_churn > 0")
     x = init_noise_scaling(noise.float(), sig[0])
+    if gamma_val > 0:
+        eps = _step_normals(key, n - 1, x, eps)
     for i in range(n - 1):
         sigma, nxt = sig[i], sig[i + 1]
         gamma = f32(gamma_val) if s_tmin <= sigma <= s_tmax else f32(0.0)
@@ -101,12 +112,15 @@ def edm_sample(denoise_fn: Callable, noise: torch.Tensor, sigmas,
     return x
 
 
-def euler_ancestral_sample(denoise_fn, noise, sigmas, eps, eta: float = 1.0,
-                           s_noise: float = 1.0) -> torch.Tensor:
-    """EulerAncestralSampler; eps [steps, *x.shape], step i's used where
-    the next sigma is above 0."""
+def euler_ancestral_sample(denoise_fn, noise, sigmas,
+                           key: prng.Key | None = None, eta: float = 1.0,
+                           s_noise: float = 1.0,
+                           eps: torch.Tensor | None = None) -> torch.Tensor:
+    """EulerAncestralSampler; step i's normals (fold_in(key, i), or eps[i])
+    added where the next sigma is above 0."""
     sig = _host(sigmas)
     x = init_noise_scaling(noise.float(), sig[0])
+    eps = _step_normals(key, sig.shape[0] - 1, x, eps)
     for i in range(sig.shape[0] - 1):
         sigma, nxt = sig[i], sig[i + 1]
         down, up = get_ancestral_step(sigma, nxt, eta)
@@ -117,15 +131,17 @@ def euler_ancestral_sample(denoise_fn, noise, sigmas, eps, eta: float = 1.0,
     return x
 
 
-def dpmpp2s_ancestral_sample(denoise_fn, noise, sigmas, eps,
-                             eta: float = 1.0,
-                             s_noise: float = 1.0) -> torch.Tensor:
+def dpmpp2s_ancestral_sample(denoise_fn, noise, sigmas,
+                             key: prng.Key | None = None, eta: float = 1.0,
+                             s_noise: float = 1.0,
+                             eps: torch.Tensor | None = None) -> torch.Tensor:
     """DPMPP2SAncestralSampler: the DPM-Solver++(2S) step to sigma_down
     (two denoiser calls) where sigma_down > 1e-14, else an Euler step;
-    then the ancestral noise (eps [steps, *x.shape]) where the next sigma
-    is above 0."""
+    then the ancestral noise (step i's normals from fold_in(key, i), or
+    eps[i]) where the next sigma is above 0."""
     sig = _host(sigmas)
     x = init_noise_scaling(noise.float(), sig[0])
+    eps = _step_normals(key, sig.shape[0] - 1, x, eps)
     for i in range(sig.shape[0] - 1):
         sigma, nxt = sig[i], sig[i + 1]
         down, up = get_ancestral_step(sigma, nxt, eta)
@@ -251,22 +267,22 @@ def substep_sigmas(n_sample_steps: int = 4,
     return full[idx].clone()
 
 
-def restore_dpmpp2m_sample(denoise_fn, noise, sigmas, draw=None,
+def restore_dpmpp2m_sample(denoise_fn, noise, sigmas,
+                           key: prng.Key | None = None,
                            eta: float = 1.0, s_noise: float = 1.0,
                            eps_override: torch.Tensor | None = None):
     """RestoreDPMPP2MSampler: the stochastic DPM++(2M) on a Karras ramp
     re-derived over [sigmas[-2], sigmas[0]]; on every non-first step to a
     sigma above 1e-14 it injects next_sigma * sqrt(-expm1(-2 eta h)) *
-    s_noise times the normalized Brownian increment over the step. draw:
-    the tree's node-draw source (default `CounterDraws(0)` on x's device);
+    s_noise times the normalized Brownian increment over the step, the
+    tree's path that of `key` (default PRNGKey(0)) on x's device;
     eps_override [steps, *x.shape] injects those normals instead."""
     sig = _host(sigmas)
     n = len(sig) - 1
     sig = _host(karras_sigmas(n, float(sig[-2]), float(sig[0])))
     x = init_noise_scaling(noise.float(), sig[0])
-    tree = BrownianTreeNoiseSampler(
-        float(sig[-2]), float(sig[0]), x.shape,
-        draw if draw is not None else CounterDraws(0, x.device))
+    tree = BrownianTreeNoiseSampler(float(sig[-2]), float(sig[0]), x.shape,
+                                    key, x.device)
     brownian = eta > 0 and eps_override is None
     w_cur = tree.w(sig[0]) if brownian else None
     old = None
@@ -346,17 +362,19 @@ def _tile_weights(tile: int, device) -> torch.Tensor:
 
 
 def tiled_restore_edm_sample(denoise_tile_fn, noise, sigmas, x_center,
-                             lq_latent, eps: torch.Tensor | None = None,
+                             lq_latent, key: prng.Key | None = None,
                              tile: int = 128, stride: int = 64,
                              restore_cfg: float = -1.0,
                              restore_cfg_s_tmin: float = 0.05,
                              s_noise: float = 1.003, s_churn: float = 0.0,
-                             sigma_max: float = 14.6146) -> torch.Tensor:
+                             sigma_max: float = 14.6146,
+                             eps: torch.Tensor | None = None) -> torch.Tensor:
     """TiledRestoreEDMSampler: each step denoises the gaussian-weighted
     sliding tiles in one call (each tile's control is the matching
     lq_latent crop), drifts them to x_center's tiles where restore_cfg > 0
     and the next sigma is above restore_cfg_s_tmin, takes the Euler step
-    per tile and stitches. eps [steps, *x.shape] when s_churn > 0."""
+    per tile and stitches. With s_churn > 0 step i's normals come from
+    fold_in(key, i) (default PRNGKey(0)) over the canvas, or from eps."""
     sig = _host(sigmas)
     n = sig.shape[0]
     wins = sliding_windows(noise.shape[1], noise.shape[2], tile, stride)
@@ -364,7 +382,7 @@ def tiled_restore_edm_sample(denoise_tile_fn, noise, sigmas, x_center,
     x = init_noise_scaling(noise.float(), sig[0])
     gamma_val = min(s_churn / (n - 1), 2 ** 0.5 - 1) if s_churn > 0 else 0.0
     if gamma_val > 0:
-        _need(eps, "tiled_restore_edm_sample with s_churn > 0")
+        eps = _step_normals(key, n - 1, x, eps)
     lq_tiles = tile_slices(lq_latent, wins)
     xc_tiles = tile_slices(x_center.float(), wins)
     cnt = tile_weight_canvas(wins, weights, x.shape, x.dtype)
@@ -386,14 +404,15 @@ def tiled_restore_edm_sample(denoise_tile_fn, noise, sigmas, x_center,
 
 
 def tiled_restore_dpmpp2m_sample(denoise_tile_fn, noise, sigmas, lq_latent,
-                                 draw=None, tile: int = 128, stride: int = 64,
+                                 key: prng.Key | None = None,
+                                 tile: int = 128, stride: int = 64,
                                  eta: float = 1.0,
                                  s_noise: float = 1.0) -> torch.Tensor:
     """TiledRestoreDPMPP2MSampler: the stochastic DPM++(2M) update per
     gaussian-weighted sliding tile, one denoiser call a step; the stepped
     tiles and the step's denoised tiles are both stitched back to canvases,
     and the next step re-slices the stitched old_denoised. The Brownian
-    increment is drawn on the whole canvas and sliced per tile (draw: as
+    increment is drawn on the whole canvas and sliced per tile (key: as
     `restore_dpmpp2m_sample`'s)."""
     sig = _host(sigmas)
     n = len(sig) - 1
@@ -402,9 +421,8 @@ def tiled_restore_dpmpp2m_sample(denoise_tile_fn, noise, sigmas, lq_latent,
     wins = sliding_windows(shape[1], shape[2], tile, stride)
     weights = _tile_weights(tile, noise.device)
     x = init_noise_scaling(noise.float(), sig[0])
-    tree = BrownianTreeNoiseSampler(
-        float(sig[-2]), float(sig[0]), shape,
-        draw if draw is not None else CounterDraws(0, x.device))
+    tree = BrownianTreeNoiseSampler(float(sig[-2]), float(sig[0]), shape,
+                                    key, x.device)
     lq_tiles = tile_slices(lq_latent, wins)
     cnt = tile_weight_canvas(wins, weights, shape, torch.float32)
     stitch = lambda t: tile_stitch(t, wins, weights, shape, t.dtype) / cnt

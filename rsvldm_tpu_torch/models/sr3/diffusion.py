@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ...diffusion.schedules import DDPMBuffers, ddpm_buffers, make_beta_schedule
+from ...utils import prng
 from ...utils.graphs import StepRunner, use_graphs
 
 
@@ -225,32 +226,34 @@ def sr3_sample_ddim(diff: SR3Diffusion, model, cond: torch.Tensor,
                 diff, model, cond, noise, graphs, stats, graph_cache)
 
 
-def sr3_draws(diff: SR3Diffusion, shape: tuple, generator, device):
-    """sr3_loss's draws for a batch of `shape` [N, H, W, 3], in its order:
-    t [N] in 1..T, u [N] uniform, noise normal of `shape`."""
+def sr3_draws(diff: SR3Diffusion, shape: tuple, key: prng.Key | None,
+              device):
+    """JAX sr3_loss's draws of `key` (default PRNGKey(0)) for a batch of
+    `shape` [N, H, W, 3]: split(key, 3), then t [N] = randint in 1..T, u
+    [N] uniform, noise normal of `shape`, fp32, on `device`."""
     b = shape[0]
-    t = torch.randint(1, diff.buffers.num_timesteps + 1, (b,),
-                      generator=generator, device=device)
-    u = torch.rand((b,), generator=generator, device=device)
-    return t, u, torch.randn(shape, generator=generator, device=device)
+    k_t, k_g, k_n = prng.split(prng.key(0) if key is None else key, 3)
+    t = prng.randint(k_t, (b,), 1, diff.buffers.num_timesteps + 1, device)
+    u = prng.uniform(k_g, (b,), device=device)
+    return t, u, prng.normal(k_n, tuple(shape), device=device)
 
 
 def sr3_loss(diff: SR3Diffusion, model, hr: torch.Tensor,
              sr_bicubic: torch.Tensor, t: torch.Tensor | None = None,
              u: torch.Tensor | None = None, noise: torch.Tensor | None = None,
-             generator: torch.Generator | None = None,
+             key: prng.Key | None = None,
              loss_type: str = "l1") -> torch.Tensor:
     """The continuous-noise-level training loss (JAX sr3_loss, the
     reference's p_losses): t ~ U{1..T}, gamma ~ U[sqrt_acp_prev[t-1],
     sqrt_acp_prev[t]] (gamma = lo + u * (hi - lo)), x_noisy = gamma * HR +
     sqrt(1 - gamma^2) * noise, and the L1 (or L2) sum of noise - eps_hat
     over hr.numel(). hr, sr_bicubic [N, H, W, 3] in [-1, 1]. t [N] long,
-    u [N] and noise (as hr) are drawn from `generator` unless given (a
-    test feeds JAX's split(rng, 3) draws)."""
+    u [N] and noise (as hr) are JAX's draws of `key` (sr3_draws) unless
+    given."""
     buf = diff.buffers
     b, dev = hr.shape[0], hr.device
     if t is None or u is None or noise is None:
-        dt, du, dn = sr3_draws(diff, tuple(hr.shape), generator, dev)
+        dt, du, dn = sr3_draws(diff, tuple(hr.shape), key, dev)
         t = dt if t is None else t
         u = du if u is None else u
         noise = dn if noise is None else noise

@@ -2,9 +2,10 @@
 ClassEmbedder, SpatialRescaler, LowScaleEncoder, gaussian_encode,
 ImageEmbedder and byt5_tokenize. Layouts are JAX's: images NHWC.
 
-Every draw is an argument, as in every sampler of the port: LowScaleEncoder
-takes its noise levels and normals, gaussian_encode its posterior normals
-(JAX draws them from a key; the tests inject JAX's). SpatialRescaler
+LowScaleEncoder and gaussian_encode draw JAX's numbers from a `key` (a
+utils/prng key, default PRNGKey(0)): the encoder's split, then randint
+noise levels and normals; the posterior's normals. Both also take the
+draws as arguments (`t`, `noise`). SpatialRescaler
 resizes as jax.image.resize does (linear and cubic antialiased when they
 shrink, nearest by JAX's index rule: `_jax_resize`).
 """
@@ -17,6 +18,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from ...utils import prng
 
 
 class ClassEmbedder(nn.Module):
@@ -115,9 +118,9 @@ class SpatialRescaler(nn.Module):
 
 @dataclasses.dataclass
 class LowScaleEncoder:
-    """Noise-augmented low-res conditioning: encode, scale, q_sample at the
-    given noise levels with the given normals, nearest resize to out_size
-    (JAX LowScaleEncoder, which draws t and the normals itself)."""
+    """Noise-augmented low-res conditioning (JAX LowScaleEncoder): encode,
+    scale, q_sample at random noise levels with random normals, nearest
+    resize to out_size."""
     encode_fn: Callable
     betas: torch.Tensor
     max_noise_level: int = 250
@@ -135,24 +138,43 @@ class LowScaleEncoder:
         return (self.sqrt_ac.to(dev)[t].reshape(shape) * z
                 + self.sqrt_1mac.to(dev)[t].reshape(shape) * noise)
 
-    def __call__(self, x: torch.Tensor, t: torch.Tensor, noise: torch.Tensor):
-        """x [N, H, W, C]; t [N] noise levels in [0, max_noise_level);
-        noise: unit normals of the latent's shape -> (z, t)."""
+    def __call__(self, x: torch.Tensor, t: torch.Tensor | None = None,
+                 noise: torch.Tensor | None = None,
+                 key: prng.Key | None = None):
+        """x [N, H, W, C] -> (z, t). t [N] noise levels in [0,
+        max_noise_level) and noise (unit normals of the latent's shape) are
+        JAX's draws of `key` (split: randint, then normal) unless given."""
         z = self.encode_fn(x) * self.scale_factor
+        k1, k2 = prng.split(prng.key(0) if key is None else key)
+        if t is None:
+            t = prng.randint(k1, (x.shape[0],), 0, self.max_noise_level,
+                             z.device)
+        if noise is None:
+            noise = prng.normal(k2, tuple(z.shape), _draw_dtype(z), z.device)
         z = self.q_sample(z, t.to(z.device), noise.to(z.device, z.dtype))
         if self.out_size is not None:
             z = _jax_resize(z, (self.out_size, self.out_size), "nearest")
         return z, t
 
 
+def _draw_dtype(t: torch.Tensor) -> torch.dtype:
+    ok = t.dtype in (torch.float32, torch.bfloat16)
+    return t.dtype if ok else torch.float32
+
+
 def gaussian_encode(encoder_apply: Callable, x: torch.Tensor,
-                    noise: torch.Tensor, flatten_output: bool = True):
+                    noise: torch.Tensor | None = None,
+                    flatten_output: bool = True, key: prng.Key | None = None):
     """GaussianEncoder: encoder moments [N, h, w, 2z] -> a posterior sample
-    mean + std * noise (noise: unit normals [N, h, w, z]) and the KL as the
-    regularizer's loss: ({"kl_loss", "loss"}, z [N, h*w, z] or NHWC)."""
+    mean + std * noise (noise: unit normals [N, h, w, z], JAX's normals of
+    `key` unless given) and the KL as the regularizer's loss:
+    ({"kl_loss", "loss"}, z [N, h*w, z] or NHWC)."""
     moments = encoder_apply(x)
     mean, logvar = moments.chunk(2, dim=-1)
     logvar = logvar.clamp(-30.0, 20.0)
+    if noise is None:
+        noise = prng.normal(prng.key(0) if key is None else key,
+                            tuple(mean.shape), _draw_dtype(mean), mean.device)
     z = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
     kl = 0.5 * (mean ** 2 + torch.exp(logvar) - 1.0 - logvar).sum(dim=(1, 2, 3))
     log = {"kl_loss": kl.mean(), "loss": kl.mean()}

@@ -491,8 +491,8 @@ class LlavaCaptioner:
         card the decode replays a CUDA graph kept in `decode_graphs`; see
         `generate.generate`. With a draft, speculative rounds decode
         (`_generate_fn`) with `generate`'s proposal Gumbels, `accept_noise`
-        giving their acceptance and resample draws, by default from a
-        torch.Generator seeded 0 (not yet JAX's)."""
+        giving their acceptance and resample draws, by default JAX's of
+        `key` (models/vlm/speculative.py)."""
         prompt, cfg, encode, decode = self._gen_setup(llava_cfg)
         self.last_stats = {}
         return caption_image(self.llama, self.vision, self.projector, image,

@@ -2,8 +2,8 @@
 `spatial_pool`, `masked_drop`, the BLIP-2 Q-Former and the Flamingo
 perceiver, and `build_resampler`'s dispatch.
 
-`masked_drop` takes its uniform draw as an argument (JAX draws it from a
-key), as every sampler of the port does. The two modules carry the
+`masked_drop` draws JAX's uniforms from a key (or takes them as an
+argument). The two modules carry the
 reference's parameter names, the ones convert_qformer / convert_perceiver
 read: `query_tokens` [1, L, H], `ln_vision`,
 `Qformer.bert.embeddings.LayerNorm`, `Qformer.bert.encoder.layer.{i}.
@@ -23,6 +23,8 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from ...utils import prng
 
 
 def identity_resampler(features: torch.Tensor, **_) -> torch.Tensor:
@@ -45,13 +47,18 @@ def spatial_pool(features: torch.Tensor, stride: int = 2,
 
 
 def masked_drop(features: torch.Tensor, noise: torch.Tensor | None = None,
-                ratio: float = 0.5, deterministic: bool = False) -> torch.Tensor:
+                ratio: float = 0.5, deterministic: bool = False,
+                key: prng.Key | None = None) -> torch.Tensor:
     """Keep the (1 - ratio) share of tokens with the smallest `noise`
-    ([N, T] uniform draws; identity when deterministic or ratio <= 0)."""
+    ([N, T] uniform draws, JAX's uniform(key, (N, T)) unless given, key
+    default PRNGKey(0); identity when deterministic or ratio <= 0)."""
     if deterministic or ratio <= 0:
         return features
     n, t, c = features.shape
     keep = max(int(t * (1.0 - ratio)), 1)
+    if noise is None:
+        noise = prng.uniform(prng.key(0) if key is None else key, (n, t),
+                             device=features.device)
     idx = torch.argsort(noise.to(features.device), dim=1, stable=True)[:, :keep]
     return torch.gather(features, 1, idx[:, :, None].expand(n, keep, c))
 

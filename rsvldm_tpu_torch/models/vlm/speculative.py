@@ -25,11 +25,13 @@ Noise per generated index j, in JAX's key schedule (key(0) = rng, key(j)
 = fold_in(rng, j)): the proposal Gumbel `noise(j)` (the draw `generate`
 makes for token j), and `accept_noise(j)` -> (the acceptance uniform of
 fold_in(key(j), 7), the resample Gumbel of fold_in(key(j), 13)). The
-round reads them from device tables indexed by j0. By default the proposal
-Gumbels are `generate`'s, JAX's draws of `key` (utils/prng.py, one draw
-of every row), and the acceptance draws come from a torch.Generator (its
-numbers are not JAX's). Tokens are drawn as JAX's `_sample_dist` does:
-argmax(log p + g) over p > 0.
+round reads them from device tables indexed by j0. By default each table
+is one draw of JAX's numbers from `key` (utils/prng.py): the proposal
+Gumbels are `generate`'s (key itself for j = 0, fold_in(key, j) after),
+the acceptance uniforms fold 7 and the resample Gumbels fold 13 onto
+fold_in(key, j), for j >= 1 as JAX's rounds use them; the bonus token
+takes the proposal Gumbels of its index, as JAX's key_for(k). Tokens are
+drawn as JAX's `_sample_dist` does: argmax(log p + g) over p > 0.
 
 `self_draft` builds a draft from the target's first N blocks, sharing its
 modules (no extra memory); the target's runtime LoRA dict serves it as it
@@ -52,20 +54,6 @@ from .generate import GenerateConfig, Noise, _sync
 from .llama import KVCache, LlamaModel, _layer_lora
 
 AcceptNoise = Callable[[int], tuple]
-
-
-def gumbel_noise(vocab: int, generator: torch.Generator,
-                 rows: int | None = None) -> Noise:
-    """Gumbel draws [vocab] (or [rows, vocab]) from `generator` on its
-    device, as `jax.random.gumbel` makes them: -log(-log(u)), u uniform in
-    [tiny, 1)."""
-    tiny = torch.finfo(torch.float32).tiny
-    shape = (vocab,) if rows is None else (rows, vocab)
-
-    def draw(step: int) -> torch.Tensor:
-        u = torch.rand(shape, generator=generator, device=generator.device)
-        return -torch.log(-torch.log(u.clamp_min(tiny)))
-    return draw
 
 
 def self_draft(model: LlamaModel, layers: int = 4) -> LlamaModel:
@@ -206,21 +194,23 @@ def _spec_state(target: LlamaModel, draft: LlamaModel, cfg: GenerateConfig,
         temp=torch.ones((), **f32), out=torch.zeros(k + 2, **long))
 
 
-def default_accept_noise(vocab: int, generator: torch.Generator) -> AcceptNoise:
-    """(uniform in [0, 1), Gumbel [vocab]) per index from `generator`."""
-    gumbel = gumbel_noise(vocab, generator)
-
-    def draw(j: int):
-        u = torch.rand((), generator=generator, device=generator.device)
-        return u, gumbel(j)
-    return draw
+def default_accept_noise(key: prng.Key, uniform: torch.Tensor,
+                         resample: torch.Tensor) -> None:
+    """JAX's acceptance draws of `key` into the tables by generated index
+    (rows j >= 1; row 0 is never read, since token 0 comes from the
+    prefill): uniform[j] of fold_in(fold_in(key, j), 7), resample[j] the
+    Gumbels of fold_in(fold_in(key, j), 13); one draw each."""
+    j = torch.arange(1, uniform.shape[0], device=uniform.device)
+    fold = lambda d: torch.stack([j, torch.full_like(j, d)], 1)
+    prng.draw_folded(key, fold(7), (), "uniform", out=uniform[1:])
+    prng.draw_folded(key, fold(13), tuple(resample.shape[1:]), "gumbel",
+                     out=resample[1:])
 
 
 @torch.inference_mode()
 def speculative_generate(target: LlamaModel, draft: LlamaModel,
                          input_embeds: torch.Tensor, cfg: GenerateConfig,
-                         k: int = 4, generator: torch.Generator | None = None,
-                         noise: Noise | None = None,
+                         k: int = 4, noise: Noise | None = None,
                          accept_noise: AcceptNoise | None = None,
                          draft_embeds: torch.Tensor | None = None,
                          stats: dict | None = None, lora: dict | None = None,
@@ -233,14 +223,13 @@ def speculative_generate(target: LlamaModel, draft: LlamaModel,
     prompt in the draft's embedding space (default input_embeds, as for a
     draft that shares the tokenizer and width). Sampling noise per index j:
     `noise(j)` and `accept_noise(j)` (module docstring); without them,
-    `generate`'s Gumbels of `key` (default PRNGKey(0)) and acceptance
-    draws from `generator` (default: seeded with 0 on the device), all
-    made before the loop. `lora` rides the target, `draft_lora` the draft.
-    `graph_cache` keeps the loop's tensors and graph per (bucket, k,
-    greedy, loras, draft). `stats`, when given, receives rounds, proposed,
-    accepted (draft tokens kept), accept_rate, prompt_len, padded_len,
-    prefill_s, decode_s, tokens, and capture_s and the rounds replayed
-    from the graph (`replays`) of this call."""
+    JAX's draws of `key` (default PRNGKey(0)), all made before the loop.
+    `lora` rides the target, `draft_lora` the draft. `graph_cache` keeps
+    the loop's tensors and graph per (bucket, k, greedy, loras, draft).
+    `stats`, when given, receives rounds, proposed, accepted (draft tokens
+    kept), accept_rate, spec_k, prompt_len, padded_len, prefill_s,
+    decode_s, tokens, and capture_s and the rounds replayed from the graph
+    (`replays`) of this call."""
     device = input_embeds.device
     graphs = use_graphs(device, graphs)
     greedy = not (cfg.do_sample and cfg.temperature > 0)
@@ -263,21 +252,20 @@ def speculative_generate(target: LlamaModel, draft: LlamaModel,
         st.temp.fill_(1.0)
     else:
         vocab = target.cfg.vocab_size
+        k0 = prng.key(0) if key is None else key
         if noise is None:
-            k0 = prng.key(0) if key is None else key
             prng.draw([(k0, None)] + [(k0, j) for j in range(
                 1, st.gumbel.shape[0])], (vocab,), "gumbel", out=st.gumbel)
         else:
             for j in range(st.gumbel.shape[0]):
                 st.gumbel[j].copy_(noise(j).reshape(-1))
         if accept_noise is None:
-            if generator is None:
-                generator = torch.Generator(device=device).manual_seed(0)
-            accept_noise = default_accept_noise(vocab, generator)
-        for j in range(st.gumbel.shape[0]):
-            u, r = accept_noise(j)
-            st.uniform[j].copy_(torch.as_tensor(u))
-            st.resample[j].copy_(r.reshape(-1))
+            default_accept_noise(k0, st.uniform, st.resample)
+        else:
+            for j in range(st.gumbel.shape[0]):
+                u, r = accept_noise(j)
+                st.uniform[j].copy_(torch.as_tensor(u))
+                st.resample[j].copy_(r.reshape(-1))
         st.temp.fill_(cfg.temperature)
 
     pad = lambda e: F.pad(e, (0, 0, 0, s_pad - s))[None]

@@ -46,9 +46,14 @@ not depend on its slot or its co-tenants. They come from a `noise` object:
 `gumbel(nonces, counts) -> [B, V]`, and for speculative rounds
 `uniform(nonces, counts) -> [B]` (the acceptance draw) and
 `resample(nonces, counts) -> [B, V]` (the correction's Gumbel), JAX's
-fold_in(key, 7) and fold_in(key, 13). The default, `CounterNoise`, hashes
-(stream, nonce, count, vocabulary index) with integer tensor ops on the
-device, so it replays inside a graph; the tests inject JAX's draws.
+fold_in(key, 7) and fold_in(key, 13). The default, `FoldedNoise`, draws
+JAX's numbers: the rows of fold_in(fold_in(key, nonce), count) with
+`key` the engine's (default PRNGKey(0), as JAX's `rng`), keyed on the
+device from the nonce and count tensors (utils/prng.py::draw_folded, one
+launch of the threefry kernel a table), so a replayed graph draws the rows
+of the counts it is given. A step draws its Gumbels in one table, a
+horizon all of its steps' in one, a round its proposals' and bonus'
+Gumbels, acceptance uniforms and resample Gumbels in three.
 
 The pools' format is one decision, `kv_8bit` (or the model's own
 cfg.kv_quant): int8 K/V with fp32 scale planes for the slot pool, the
@@ -94,7 +99,7 @@ from ..models.vlm.speculative import (_feed, _sample_dist, _token_dist,
                                       accept_and_correct)
 from ..parallel.distributed import broadcast
 from ..parallel.llama_sharding import shard_llama_
-from ..utils.counter import M32, mix, unit
+from ..utils import prng
 from ..utils.graphs import StepRunner, use_graphs
 
 # plan entries rank 0 sends to the other ranks of a tensor-parallel engine
@@ -130,36 +135,36 @@ class _Request:
         default_factory=threading.Event)
 
 
-class CounterNoise:
-    """Draws computed from (stream, nonce, count, vocabulary index) alone:
-    integer tensor ops on the device, no generator state, so the same
-    request gets the same draws in any slot, and a captured step replays
-    them. Uniforms have 24 bits, in (0, 1)."""
+class FoldedNoise:
+    """JAX's engine draws from `key`: nonces and counts are long tensors of
+    one shape on the device, and row (n, c) is drawn from fold_in(fold_in(
+    key, n), c) (the acceptance uniform and the resample Gumbels fold 7 and
+    13 onto it), so a request gets the same draws in any slot. Each call is
+    one draw over all the rows, with no host read."""
 
-    _SEED = 0x2545F491
-
-    def __init__(self, vocab: int, device):
+    def __init__(self, vocab: int, key: prng.Key | None = None):
         self.vocab = vocab
-        self._vhash = mix((torch.arange(vocab, dtype=torch.long, device=device)
-                            * 0x9E3779B1 + 0x632BE5AB) & M32)
+        self.key = prng.key(0) if key is None else key
 
-    def _key(self, stream: int, nonces, counts):
-        h = mix(torch.full_like(nonces, (self._SEED + stream * 0x9E3779B9) & M32))
-        h = mix(h ^ (nonces & M32))
-        return mix(h ^ (counts & M32))
-
-    def _gumbel(self, stream, nonces, counts):
-        x = mix(self._key(stream, nonces, counts)[:, None] ^ self._vhash)
-        return -torch.log(-torch.log(unit(x)))
+    def _draw(self, nonces, counts, fold, shape, dist) -> torch.Tensor:
+        words = [nonces, counts]
+        if fold is not None:
+            words.append(torch.full_like(nonces, fold))
+        folds = torch.stack(words, -1).reshape(-1, len(words))
+        out = prng.draw_folded(self.key, folds, shape, dist)
+        return out.reshape(*nonces.shape, *shape)
 
     def gumbel(self, nonces, counts) -> torch.Tensor:
-        return self._gumbel(0, nonces, counts)
+        """[*, V] Gumbels of fold_in(fold_in(key, nonce), count)."""
+        return self._draw(nonces, counts, None, (self.vocab,), "gumbel")
 
     def uniform(self, nonces, counts) -> torch.Tensor:
-        return unit(mix(self._key(7, nonces, counts) ^ 0x5BD1E995))
+        """[*] acceptance uniforms, fold 7."""
+        return self._draw(nonces, counts, 7, (), "uniform")
 
     def resample(self, nonces, counts) -> torch.Tensor:
-        return self._gumbel(13, nonces, counts)
+        """[*, V] resample Gumbels, fold 13."""
+        return self._draw(nonces, counts, 13, (self.vocab,), "gumbel")
 
 
 def _sample(lg: torch.Tensor, temps: torch.Tensor, g: torch.Tensor):
@@ -189,14 +194,15 @@ class DecodeEngine:
     concurrent sequences; max_len: each slot's cache length (prompt and
     generation). kv_8bit: int8 pools with scale planes (as the model's
     cfg.kv_quant gives), else pools in the model's dtype. noise: the draws
-    (module docstring; default CounterNoise). On the card the step, the
-    horizon and the round replay CUDA graphs."""
+    (module docstring; default FoldedNoise of `key`, a utils/prng key,
+    default PRNGKey(0) as JAX's `rng`; nonces start at 1 as JAX's). On the
+    card the step, the horizon and the round replay CUDA graphs."""
 
     def __init__(self, model: LlamaModel, slots: int = 4,
                  max_len: int = 4096, pad_to: int = 128, kv_8bit: bool = False,
                  noise=None, prefill_chunk: int | None = None,
                  draft: LlamaModel | None = None, spec_k: int = 4, mesh=None,
-                 decode_horizon: int = 1):
+                 decode_horizon: int = 1, key: prng.Key | None = None):
         """draft/spec_k: speculative rounds; the draft must share the
         target's hidden size (its prefill takes the same spliced embeds).
         They compose with neither prefix caching nor chunked prefill nor
@@ -241,7 +247,7 @@ class DecodeEngine:
         self.device = dev
         # a step that holds collectives runs directly
         self.graphs = use_graphs(dev, None) and self._group is None
-        self.noise = noise or CounterNoise(model.cfg.vocab_size, dev)
+        self.noise = noise or FoldedNoise(model.cfg.vocab_size, key)
         quant = lambda cfg: (dataclasses.replace(cfg, kv_quant=True)
                              if kv_8bit else cfg)
         # cache_cfg: the rank's kv heads on a sharded attention
@@ -307,18 +313,22 @@ class DecodeEngine:
         return out
 
     # -- device bodies (no host read: captured and replayed on the card) --
-    def _draws(self, lg, nonces, counts):
-        return _sample(lg, self._temps, self.noise.gumbel(nonces, counts))
+    def _ahead(self, nonces, counts, n: int):
+        """([B, n] nonces, [B, n] counts + 0..n-1): the keys of n steps."""
+        steps = torch.arange(n, device=counts.device)
+        return nonces[:, None].expand(-1, n), counts[:, None] + steps
 
     def _decode_body(self, h: int, out: torch.Tensor):
         """`h` decode steps for every slot (JAX `_decode` / `_decode_multi`):
         step i writes each row at pos + i and samples with key
-        (nonce, count + i); out [B, h] takes the tokens."""
+        (nonce, count + i), all h steps' Gumbels drawn first in one table;
+        out [B, h] takes the tokens."""
         toks, pos, nonces, counts = self._state
         tok, mdl = toks, self.model
+        g = self.noise.gumbel(*self._ahead(nonces, counts, h))    # [B, h, V]
         for i in range(h):
             logits, _ = mdl(mdl.embed(tok[:, None]), self.cache, pos + i)
-            tok = self._draws(logits[:, -1], nonces, counts + i)
+            tok = _sample(logits[:, -1], self._temps, g[:, i])
             out[:, i].copy_(tok)
 
     def _spec_body(self, out: torch.Tensor):
@@ -329,11 +339,17 @@ class DecodeEngine:
         toks, pos, nonces, counts = self._state
         tgt, drf, k = self.model, self.draft, self.spec_k
         temps, nz = self._temps, self.noise
+        # the proposals' Gumbels and the bonus' (key_for(k)), then the
+        # acceptance uniforms and resample Gumbels of indices counts + i
+        n_ahead, c_ahead = self._ahead(nonces, counts, k + 1)
+        g = nz.gumbel(n_ahead, c_ahead)                      # [B, k+1, V]
+        u = nz.uniform(n_ahead[:, :k], c_ahead[:, :k])       # [B, k]
+        res = nz.resample(n_ahead[:, :k], c_ahead[:, :k])    # [B, k, V]
         tok, d_toks, d_dists = toks, [], []
         for i in range(k):
             lg, _ = drf(drf.embed(tok[:, None]), self.draft_cache, pos + i)
             dist = _token_dists(lg[:, -1], temps)
-            tok = _sample_dist(dist, nz.gumbel(nonces, counts + i))
+            tok = _sample_dist(dist, g[:, i])
             d_toks.append(tok)
             d_dists.append(dist)
         # catch-up feed, so that the draft's cache covers the whole block
@@ -343,12 +359,9 @@ class DecodeEngine:
         block = torch.cat([toks[:, None], d_toks], 1)        # [B, k+1]
         t_lg, _ = tgt(tgt.embed(block), self.cache, pos)
         t_dists = _token_dists(t_lg, temps)                  # [B, k+1, V]
-        u = torch.stack([nz.uniform(nonces, counts + i) for i in range(k)], 1)
-        res = torch.stack([nz.resample(nonces, counts + i) for i in range(k)], 1)
-        bonus = nz.gumbel(nonces, counts + k)
         for b in range(self.slots):
             committed, n = accept_and_correct(d_toks[b], d_dists[b], t_dists[b],
-                                              u[b], res[b], bonus[b])
+                                              u[b], res[b], g[b, k])
             out[b, :k + 1].copy_(committed)
             out[b, k + 1].copy_(n)
 

@@ -12,8 +12,10 @@ ahead of the step, checkpoints I{step}_gen.pth / I{step}_opt.pth in
 
 The UNet is the pipeline's SR3 (64 channels, x(1, 2, 4, 8, 8)) at
 --r_res; --debug_tiny takes the JAX pipeline's tiny geometry instead. As
-in the JAX CLI, the loss draws come from a generator seeded --seed + 1 at
-the start of each run and the loader restarts at its first epoch. It runs
+in the JAX CLI, the loss draws are those of PRNGKey(--seed + 1), split
+once a step from the start of each run (so the same seed gives JAX's
+draws), and the loader restarts at its first epoch. The seeded initial
+weights are not JAX's. It runs
 on CUDA unless given --device cpu, and raises without a card.
 
 On N ranks (one process per card; RSVLDM_COORDINATOR=host:port
@@ -28,11 +30,10 @@ import argparse
 import dataclasses
 import logging
 
-import torch
-
 from .device import resolve_device
 from .models.sr3.unet import SR3UNetConfig
 from .training.sr3_trainer import SR3TrainConfig, SR3Trainer
+from .utils import prng
 
 # the JAX pipeline's _tiny_overrides SR3 geometry (image_size set from r_res)
 TINY_SR3 = dict(inner_channel=16, norm_groups=8, channel_mults=(1, 2),
@@ -75,16 +76,15 @@ def build_trainer(args, state_dict=None, mesh=None) -> SR3Trainer:
     trainer = SR3Trainer(model_config(args),
                          SR3TrainConfig(lr=args.lr),
                          device=device, state_dict=state_dict,
-                         generator=torch.Generator(device).manual_seed(args.seed),
+                         seed=args.seed,
                          mesh=mesh)
     if args.resume_iter:
         trainer.load(args.save_dir, args.resume_iter)
     return trainer
 
 
-def run(args, trainer: SR3Trainer, draws=None, on_step=None) -> SR3Trainer:
-    """Train to --steps and save. `draws(i) -> (t, u, noise)` replaces the
-    generator's draws of step i (a test feeds JAX's)."""
+def run(args, trainer: SR3Trainer, on_step=None) -> SR3Trainer:
+    """Train to --steps and save, the draws from PRNGKey(--seed + 1)."""
     from .data.datasets import LRHRDataset
     from .data.prefetch import make_loader
     from .parallel.distributed import local_batch_range
@@ -95,10 +95,9 @@ def run(args, trainer: SR3Trainer, draws=None, on_step=None) -> SR3Trainer:
                      prefetch=args.prefetch, device=trainer.device,
                      seed=args.seed, rows=rows)
     try:
-        gen = torch.Generator(trainer.device).manual_seed(args.seed + 1)
-        trainer.fit(it, args.steps - trainer.step, gen,
+        trainer.fit(it, args.steps - trainer.step, prng.key(args.seed + 1),
                     log_every=args.log_every, save_dir=args.save_dir,
-                    draws=draws, on_step=on_step)
+                    on_step=on_step)
     finally:
         it.close()
     trainer.save(args.save_dir)

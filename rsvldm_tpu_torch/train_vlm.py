@@ -58,6 +58,7 @@ from .training.vlm_data import (IGNORE_INDEX, ChatMLSpecial,
 from .training.vlm_trainer import (DPOTrainer, LoraConfig, MMTrainer,
                                    VLMTrainer, save_lora_npz,
                                    save_projector_npz)
+from .utils import prng
 
 # the JAX CLI's smoke decoder; the tower is only there to make a captioner
 SMOKE_LLAMA = LlamaConfig(vocab_size=512, dim=32, layers=2, heads=4,
@@ -343,16 +344,16 @@ def train(args, cap, *, encode, preprocess_kw=None,
                 force_sample=args.force_sample,
                 add_time_instruction=args.add_time_instruction)
     lcfg = LoraConfig(r=args.lora_r, alpha=args.lora_alpha)
-    gen = torch.Generator().manual_seed(args.seed)
+    key = prng.key(args.seed)
     if args.dpo:
         trainer = DPOTrainer(model, lcfg, lr=args.lr, beta=args.dpo_beta,
-                             generator=gen, lora=lora)
+                             key=key, lora=lora)
     elif tune == ("lora",):
-        trainer = VLMTrainer(model, lcfg, lr=args.lr, generator=gen, lora=lora)
+        trainer = VLMTrainer(model, lcfg, lr=args.lr, key=key, lora=lora)
     else:
         trainer = MMTrainer(model, cap.projector, lcfg, tune=tune, lr=args.lr,
                             mm_projector_lr=args.mm_projector_lr,
-                            generator=gen, lora=lora)
+                            key=key, lora=lora)
 
     def embed_fn(ids):
         return model.embed(torch.as_tensor(ids, dtype=torch.long,

@@ -2,8 +2,9 @@
 losses.py, the reference StandardDiffusionLoss): a sigma drawn per sample
 (EDM lognormal or a uniform index of the LegacyDDPM table), x0 noised by
 sigma * eps, the preconditioned denoiser's output weighted by w(sigma)
-(eps: sigma^-2, unit: 1) in an L2 or L1 mean. Draws come from a
-torch.Generator unless given."""
+(eps: sigma^-2, unit: 1) in an L2 or L1 mean. The draws are JAX's of a
+utils/prng key (default PRNGKey(0)), in JAX's order: split into the
+sigma's key and the noise's; they may also be given."""
 
 from __future__ import annotations
 
@@ -13,27 +14,33 @@ from typing import Callable
 import torch
 
 from ..diffusion.schedules import legacy_ddpm_sigmas
+from ..utils import prng
+
+
+def _key(key):
+    return prng.key(0) if key is None else key
 
 
 def edm_sigma_sampling(n: int, p_mean: float = -1.2, p_std: float = 1.2,
-                       generator: torch.Generator | None = None,
-                       device=None, normal: torch.Tensor | None = None):
-    """exp(p_mean + p_std * N(0, 1)), [n]."""
+                       key: prng.Key | None = None, device="cpu",
+                       normal: torch.Tensor | None = None):
+    """exp(p_mean + p_std * N(0, 1)), [n]: JAX's normal(key, (n,)) unless
+    `normal` is given."""
     if normal is None:
-        normal = torch.randn((n,), generator=generator, device=device)
+        normal = prng.normal(_key(key), (n,), device=device)
     return torch.exp(p_mean + p_std * normal)
 
 
 def discrete_sigma_sampling(n: int, num_idx: int = 1000,
                             sigmas: torch.Tensor | None = None,
-                            generator: torch.Generator | None = None,
-                            device=None, idx: torch.Tensor | None = None):
-    """sigmas[U{0..num_idx-1}] over the ascending LegacyDDPM table, [n]."""
+                            key: prng.Key | None = None, device="cpu",
+                            idx: torch.Tensor | None = None):
+    """sigmas[U{0..num_idx-1}] over the ascending LegacyDDPM table, [n]:
+    JAX's randint(key, (n,), 0, num_idx) unless `idx` is given."""
     if sigmas is None:
         sigmas = legacy_ddpm_sigmas(num_idx, do_append_zero=False, flip=True)
     if idx is None:
-        idx = torch.randint(0, num_idx, (n,), generator=generator,
-                            device=device)
+        idx = prng.randint(_key(key), (n,), 0, num_idx, device)
     return sigmas.to(idx.device)[idx.long()]
 
 
@@ -57,19 +64,19 @@ def standard_diffusion_loss(denoise_fn: Callable, x0: torch.Tensor,
                             StandardDiffusionLossConfig(),
                             sigma: torch.Tensor | None = None,
                             noise: torch.Tensor | None = None,
-                            generator: torch.Generator | None = None):
+                            key: prng.Key | None = None):
     """mean_b [w(sigma) * mean_pixels (D(x0 + sigma * eps, sigma) - x0)^2]
     (or |.| for l1). denoise_fn(x_noised, sigma [N]) -> denoised; sigma
-    [N] and noise (as x0) are drawn unless given."""
+    [N] and noise (x0's shape, JAX's NHWC, and dtype) are drawn from
+    split(key) unless given."""
     n, dev = x0.shape[0], x0.device
+    k_s, k_n = prng.split(_key(key))
     if sigma is None:
-        sigma = (edm_sigma_sampling(n, generator=generator, device=dev)
+        sigma = (edm_sigma_sampling(n, key=k_s, device=dev)
                  if cfg.sigma_sampler == "edm"
-                 else discrete_sigma_sampling(n, generator=generator,
-                                              device=dev))
+                 else discrete_sigma_sampling(n, key=k_s, device=dev))
     if noise is None:
-        noise = torch.randn(x0.shape, generator=generator, device=dev,
-                            dtype=x0.dtype)
+        noise = prng.normal(k_n, tuple(x0.shape), x0.dtype, dev)
     s4 = sigma.reshape(-1, 1, 1, 1)
     pred = denoise_fn(x0 + s4 * noise, sigma)
     w = eps_weighting(s4) if cfg.weighting == "eps" else unit_weighting(s4)

@@ -15,11 +15,11 @@ EMA parameters and the EMA's step. JAX's orbax checkpoints are not read.
 Data parallelism (`mesh=`, JAX sr3_trainer.py:47-93): the state is
 broadcast from the mesh's first rank; each rank takes its rows of the
 global batch (local_batch_range), draws the loss's t, u and noise for the
-whole global batch with the shared generator and keeps its rows, so a row
-gets the draws it would get in one process; the gradients are averaged
-over the mesh (one all-reduce of them all) before Adam, so the parameters
-and the EMA stay equal on every rank; the loss returned is the global
-batch's. The mesh's first rank writes the checkpoints.
+whole global batch from the step's key (the same on every rank) and keeps
+its rows, so a row gets the draws it would get in one process; the
+gradients are averaged over the mesh (one all-reduce of them all) before
+Adam, so the parameters and the EMA stay equal on every rank; the loss
+returned is the global batch's. The mesh's first rank writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 
 from ..models.sr3.diffusion import SR3Diffusion, sr3_draws, sr3_loss
 from ..models.sr3.unet import SR3UNet, SR3UNetConfig
+from ..utils import prng
 from ..utils.weights import init_params_
 from .ema import EmaState, ema_init, ema_update
 
@@ -51,12 +52,14 @@ class SR3TrainConfig:
 class SR3Trainer:
     """model_cfg / train_cfg as JAX's. The UNet starts from `state_dict`
     when given (a test feeds JAX's init through params_from_jax), else from
-    init_params_ with `generator` (default: seeded 0)."""
+    init_params_ seeded `seed` (seeded weights are not JAX's). The loss
+    draws are JAX's, from keys (utils/prng.py): `fit` splits its key once
+    a step, as JAX's fit."""
 
     def __init__(self, model_cfg: SR3UNetConfig, train_cfg: SR3TrainConfig,
                  device: str | torch.device = "cuda",
-                 generator: torch.Generator | None = None,
-                 state_dict: dict | None = None, mesh=None):
+                 seed: int = 0, state_dict: dict | None = None,
+                 mesh=None):
         self.model_cfg = model_cfg
         self.mesh = mesh
         self.cfg = train_cfg
@@ -65,8 +68,7 @@ class SR3Trainer:
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         else:
-            init_params_(self.model, generator if generator is not None else
-                         torch.Generator(self.device).manual_seed(0))
+            init_params_(self.model, seed)
         if mesh is not None:
             from ..parallel.mesh import mesh_group, replicate_state
             replicate_state(mesh, self.model)
@@ -80,29 +82,29 @@ class SR3Trainer:
         self.step = 0
 
     def train_step(self, hr, sr, t=None, u=None, noise=None,
-                   generator: torch.Generator | None = None) -> float:
+                   key: prng.Key | None = None) -> float:
         """hr / sr: [N, H, W, 3] in [-1, 1] (the HR target and the bicubic
-        upsampled LR). t, u, noise: sr3_loss's draws, else from
-        `generator`. With a mesh, hr / sr are this rank's rows and t, u,
+        upsampled LR). t, u, noise: sr3_loss's draws, else JAX's of `key`
+        (sr3_draws). With a mesh, hr / sr are this rank's rows and t, u,
         noise (given or drawn) the whole global batch's."""
         as_dev = lambda x: torch.as_tensor(x).to(self.device, torch.float32)
         hr, sr = as_dev(hr), as_dev(sr)
         if self.mesh is not None:
-            return self._dp_step(hr, sr, t, u, noise, generator)
+            return self._dp_step(hr, sr, t, u, noise, key)
         loss = sr3_loss(self.diff, self.model, hr, sr, t, u,
-                        noise, generator, self.cfg.loss_type)
+                        noise, key, self.cfg.loss_type)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self._update()
         return float(loss.detach())
 
-    def _dp_step(self, hr, sr, t, u, noise, generator) -> float:
+    def _dp_step(self, hr, sr, t, u, noise, key) -> float:
         from ..parallel.distributed import all_reduce, all_reduce_grads
         from ..parallel.mesh import batch_sharding, mesh_size
         n = mesh_size(self.mesh)
         shape = (hr.shape[0] * n, *hr.shape[1:])
         if t is None or u is None or noise is None:
-            t, u, noise = sr3_draws(self.diff, shape, generator, self.device)
+            t, u, noise = sr3_draws(self.diff, shape, key, self.device)
         rows = batch_sharding(self.mesh, shape[0])
         loss = sr3_loss(self.diff, self.model, hr, sr, t[rows], u[rows],
                         noise[rows], None, self.cfg.loss_type)
@@ -120,17 +122,18 @@ class SR3Trainer:
         self.step += 1
 
     def fit(self, data_iter: Iterator, steps: int,
-            generator: torch.Generator | None = None, log_every: int = 100,
+            key: prng.Key | None = None, log_every: int = 100,
             save_dir: str | None = None,
-            draws: Optional[Callable[[int], tuple]] = None,
             on_step: Optional[Callable[[dict], None]] = None):
-        """`steps` steps over (hr, sr) batches. The draws of step i come from
-        draws(i) -> (t, u, noise) when given, else from `generator`.
-        Prints 'step {n}: loss {x:.5f}' every log_every steps, as JAX's."""
+        """`steps` steps over (hr, sr) batches. Step i's draws are JAX's:
+        key, sub = split(key) (key default PRNGKey(0)), then sr3_loss's of
+        sub. Prints 'step {n}: loss {x:.5f}' every log_every steps, as
+        JAX's."""
+        key = prng.key(0) if key is None else key
         for i in range(steps):
             hr, sr = next(data_iter)
-            t, u, noise = draws(i) if draws is not None else (None,) * 3
-            loss = self.train_step(hr, sr, t, u, noise, generator)
+            key, sub = prng.split(key)
+            loss = self.train_step(hr, sr, key=sub)
             if on_step is not None:
                 on_step({"step": self.step, "loss": loss})
             if i % log_every == 0:

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import zlib
 from typing import Dict, Sequence
 
 import numpy as np
@@ -51,7 +52,9 @@ from torch import nn
 
 from ..models.vlm.llama import Q4Dense, QDense
 from ..ops.quant import QuantizedLinear, dequantize_int8, quantize_weight
-from ..utils.weights import lora_from_jax, lora_to_jax, params_from_jax
+from ..utils import prng
+from ..utils.weights import (jax_lora_path, lora_from_jax, lora_to_jax,
+                             params_from_jax)
 
 IGNORE_INDEX = -100  # llava/constants.py
 
@@ -86,19 +89,22 @@ def _targets(model: nn.Module, cfg: LoraConfig):
 
 
 def init_lora(model: nn.Module, cfg: LoraConfig,
-              generator: torch.Generator | None = None) -> Lora:
-    """A ~ U(-1/sqrt(in), 1/sqrt(in)) (PEFT's lora_A init), B = 0, for
-    every target projection, drawn in module order from `generator` (a CPU
-    generator, default seeded 0) and moved to the model's device. JAX's
-    stream cannot be replayed: tests carry its adapters across."""
-    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+              key: prng.Key | None = None) -> Lora:
+    """A ~ U[-1/sqrt(in), 1/sqrt(in)) (PEFT's lora_A init), B = 0, for
+    every target projection, on the projection's device: JAX's draws,
+    uniform(fold_in(key, crc32(path) % 2^31), (in, r), -bound, bound) with
+    `path` JAX's adapter path ("layer_i/proj", jax_lora_path) and key
+    default PRNGKey(0), so the same key gives JAX's adapters."""
+    key = prng.key(0) if key is None else key
     lora: Lora = {}
     for path, mod in _targets(model, cfg):
         in_f, out_f = _dims(mod)
         dev = next(mod.buffers(), next(mod.parameters(), None)).device
         bound = 1.0 / float(in_f) ** 0.5
-        a = (torch.rand((in_f, cfg.r), generator=gen) * 2 - 1) * bound
-        lora[path] = {"a": a.to(dev),
+        word = zlib.crc32(jax_lora_path(path).encode()) % 2 ** 31
+        k = prng.fold_in(key, word)
+        lora[path] = {"a": prng.uniform(k, (in_f, cfg.r), minval=-bound,
+                                        maxval=bound, device=dev),
                       "b": torch.zeros((cfg.r, out_f), device=dev)}
     return lora
 
@@ -241,12 +247,12 @@ class _DataParallel:
 
 
 def _trainable_lora(model: nn.Module, lora_cfg: LoraConfig,
-                    generator: torch.Generator | None,
+                    key: prng.Key | None,
                     lora: Lora | None) -> Lora:
     """Adapters as fp32 leaves that require grad on the model's device:
     `lora` when given (a test feeds JAX's), else init_lora's draw."""
     if lora is None:
-        lora = init_lora(model, lora_cfg, generator)
+        lora = init_lora(model, lora_cfg, key)
     dev = next(model.buffers(), next(model.parameters(), None)).device
     return {p: {n: t.detach().to(dev, torch.float32).requires_grad_()
                 for n, t in ab.items()} for p, ab in lora.items()}
@@ -331,11 +337,11 @@ class VLMTrainer(_DataParallel):
     data parallelism (module docstring)."""
 
     def __init__(self, model: nn.Module, lora_cfg: LoraConfig = LoraConfig(),
-                 lr: float = 2e-4, generator: torch.Generator | None = None,
+                 lr: float = 2e-4, key: prng.Key | None = None,
                  lora: Lora | None = None, mesh=None):
         self.model = model.requires_grad_(False)
         self.lora_cfg = lora_cfg
-        self.lora = _trainable_lora(model, lora_cfg, generator, lora)
+        self.lora = _trainable_lora(model, lora_cfg, key, lora)
         self._set_mesh(mesh, _lora_leaves(self.lora))
         self.opt = _adamw([{"params": _lora_leaves(self.lora), "lr": lr}])
         self.step = 0
@@ -359,9 +365,9 @@ class DPOTrainer(VLMTrainer):
 
     def __init__(self, model: nn.Module, lora_cfg: LoraConfig = LoraConfig(),
                  lr: float = 5e-5, beta: float = 0.1,
-                 generator: torch.Generator | None = None,
+                 key: prng.Key | None = None,
                  lora: Lora | None = None, mesh=None):
-        super().__init__(model, lora_cfg, lr, generator, lora, mesh)
+        super().__init__(model, lora_cfg, lr, key, lora, mesh)
         self.beta = beta
 
     def train_step(self, chosen_embeds, chosen_labels, rejected_embeds,
@@ -394,7 +400,7 @@ class MMTrainer(_DataParallel):
                  lora_cfg: LoraConfig = LoraConfig(),
                  tune: Sequence[str] = ("lora", "projector"),
                  lr: float = 2e-4, mm_projector_lr: float | None = None,
-                 generator: torch.Generator | None = None,
+                 key: prng.Key | None = None,
                  lora: Lora | None = None, mesh=None):
         if not tune or not set(tune) <= {"lora", "projector"}:
             raise ValueError(f"tune {tuple(tune)}: a non-empty subset of "
@@ -403,7 +409,7 @@ class MMTrainer(_DataParallel):
         self.lora_cfg = lora_cfg
         self.tune = tuple(tune)
         self.projector = projector
-        self.lora = (_trainable_lora(model, lora_cfg, generator, lora)
+        self.lora = (_trainable_lora(model, lora_cfg, key, lora)
                      if "lora" in tune else None)
         groups = []
         if self.lora is not None:

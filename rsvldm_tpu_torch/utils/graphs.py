@@ -12,8 +12,13 @@ the device, with no host read inside it. `StepRunner` drives it:
   later call replays it.
 So one body serves both ways, and the tests on the CPU reach the code the
 card replays. A failed capture raises; nothing falls back to direct calls.
+The garbage collector is held off during a capture: cyclic garbage often
+holds CUDA graphs of earlier loops (a loop's state and its runner refer
+to each other), and a collection that destroys one inside another
+graph's capture invalidates that capture.
 
-Launch counters (`flash_attention.launches`, `int4_matmul.launches`) are
+Launch counters (`flash_attention.launches`, `int4_matmul.launches`, the
+threefry draws' `prng.draw.launches` and `prng.draw_folded.launches`) are
 Python counters that the wrappers add to where they launch: during a
 capture they count the launches recorded, though none runs then. The
 runner takes that increase back after the capture and adds it again at
@@ -22,6 +27,7 @@ every replay, so a counter still counts the kernels that ran.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Sequence
 
@@ -32,7 +38,9 @@ def kernel_counters() -> tuple:
     """The hand kernels' wrappers, whose `launches` attribute counts."""
     from ..ops.flash_attention import flash_attention, flash_attention_bwd
     from ..ops.quant import int4_matmul
-    return (flash_attention, flash_attention_bwd, int4_matmul)
+    from . import prng
+    return (flash_attention, flash_attention_bwd, int4_matmul, prng.draw,
+            prng.draw_folded)
 
 
 def use_graphs(device: torch.device, graphs: bool | None) -> bool:
@@ -86,8 +94,14 @@ class StepRunner:
         t0 = time.perf_counter()
         before = [c.launches for c in self.counters]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = self.fn(*args)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                out = self.fn(*args)
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize()
         # the capture recorded these launches without running them
         self._per_replay = tuple(c.launches - b

@@ -27,6 +27,15 @@ them) and raises if the kernel cannot build or launch; `draw_plain` is the
 plain PyTorch version, the CPU's path and the kernel's reference on the
 card. Plain draws are computed with int64 tensor ops holding uint32
 values, a chunk of rows at a time.
+
+`draw_folded(base, folds, shape, dist)` is the device-keyed form: row r
+is drawn from fold_in(...fold_in(base, folds[r, 0])..., folds[r, L-1]),
+the fold words a [R, L] long tensor on the draw's device (L from 1 to 3),
+so each row's key is worked out on the device from words that may change
+in place between replays of a CUDA graph (the serving engine's nonces and
+counts). On the card it launches the kernel's folded entry
+(`draw_folded.launches`); `draw_folded_plain` is its plain version.
+`randint` is jax.random.randint for int32.
 """
 
 from __future__ import annotations
@@ -218,14 +227,55 @@ def draw_plain(rows: Sequence, shape: Sequence[int], dist: str = "normal",
     return out.reshape(keys.shape[0], *shape)
 
 
+def _fold_keys(base: Key, folds: torch.Tensor) -> torch.Tensor:
+    """[R, 2] int64 row keys on folds' device: fold_in(...fold_in(base,
+    folds[r, 0])..., folds[r, L-1]), the words taken as uint32."""
+    folds = _check_folds(folds)
+    k0 = torch.full((folds.shape[0], 1), base[0], dtype=torch.int64,
+                    device=folds.device)
+    k1 = torch.full_like(k0, base[1])
+    for col in range(folds.shape[1]):
+        k0, k1 = threefry2x32(k0, k1, 0, folds[:, col:col + 1] & M32)
+    return torch.cat([k0, k1], 1)
+
+
+def _check_folds(folds: torch.Tensor) -> torch.Tensor:
+    if (not isinstance(folds, torch.Tensor) or folds.dim() != 2
+            or not 1 <= folds.shape[1] <= 3 or folds.dtype != torch.int64):
+        raise ValueError("prng: folds must be a [R, L] int64 tensor with L "
+                         f"from 1 to 3, got {getattr(folds, 'dtype', folds)} "
+                         f"{tuple(getattr(folds, 'shape', ()))}")
+    return folds
+
+
+def draw_folded_plain(base: Key, folds: torch.Tensor, shape: Sequence[int],
+                      dist: str = "normal",
+                      dtype: torch.dtype = torch.float32, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """The plain PyTorch version of `draw_folded`, on folds' device."""
+    _check_dist(dist, dtype)
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    keys = _fold_keys(base, folds)
+    out = torch.empty((keys.shape[0], n), dtype=dtype, device=folds.device)
+    per = max(1, PLAIN_CHUNK // max(n, 1))
+    for r in range(0, keys.shape[0], per):
+        out[r:r + per] = _rows_plain(keys[r:r + per], n, dist, dtype,
+                                     minval, maxval)
+    return out.reshape(keys.shape[0], *shape)
+
+
 # --------------------------------------------------------------- kernel
-def _bind():
+def _bind(entry: str = "rsv_threefry"):
     lib = cuda_build.load(SOURCE)
-    fn = lib.rsv_threefry
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, ctypes.c_longlong, i, i, ctypes.c_float,
-                       ctypes.c_float, p, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if entry == "rsv_threefry":
+            fn.argtypes = [p, i, ctypes.c_longlong, i, i, f, f, p, p]
+        else:  # rsv_threefry_folded
+            u = ctypes.c_uint32
+            fn.argtypes = [p, i, i, ctypes.c_longlong, u, u, i, i, f, f, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -238,11 +288,14 @@ def row_table(rows, device) -> torch.Tensor:
 
 
 def launch(table: torch.Tensor, n: int, dist: str, dtype, out: torch.Tensor,
-           minval: float = 0.0, maxval: float = 1.0):
+           minval: float = 0.0, maxval: float = 1.0, base: Key | None = None):
     """One launch of csrc/threefry.cu: R = len(table) rows of n draws into
     `out` (contiguous, R * n elements of `dtype` on the card; bits as int32
-    words). Allocates nothing and does not synchronise, so a CUDA graph
-    can capture it."""
+    words). `table` is the row table [R, 3] (`row_table`), or with `base`
+    the [R, L] fold words of the device-keyed entry, each row keyed on the
+    device from `base` (a replay of a captured launch reads the words as
+    they are then). Allocates nothing and does not synchronise, so a CUDA
+    graph can capture it."""
     if table.device != out.device or out.device.type != "cuda":
         raise ValueError(f"prng: the threefry kernel takes CUDA tensors on "
                          f"one device, got {table.device} and {out.device}")
@@ -252,15 +305,45 @@ def launch(table: torch.Tensor, n: int, dist: str, dtype, out: torch.Tensor,
         raise ValueError(f"prng: out holds {out.numel()} elements, not "
                          f"{table.shape[0]} x {n}")
     mn, span = _span(dist, dtype, minval, maxval) if dist != "bits" else (0, 0)
-    fn = _bind()
+    tail = (DISTS[dist], int(dtype == torch.bfloat16), mn, span,
+            out.data_ptr())
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = fn(table.data_ptr(), table.shape[0], n, DISTS[dist],
-                int(dtype == torch.bfloat16), mn, span, out.data_ptr(),
-                stream)
+        if base is None:
+            rc = _bind()(table.data_ptr(), table.shape[0], n, *tail, stream)
+        else:
+            rc = _bind("rsv_threefry_folded")(
+                table.data_ptr(), table.shape[0], table.shape[1], n,
+                base[0] & M32, base[1] & M32, *tail, stream)
     if rc != 0:
-        raise RuntimeError(f"prng.draw: threefry kernel launch failed, "
+        raise RuntimeError(f"prng: threefry kernel launch failed, "
                            f"cudaError {rc}")
+
+
+def _fill(table: torch.Tensor, shape: tuple, dist: str, dtype, out, minval,
+          maxval, counter, base: Key | None = None) -> torch.Tensor:
+    """The card's side of `draw` / `draw_folded`: [R, *shape] from one
+    launch over `table` (into `out` when given: contiguous, [R, *shape],
+    `dtype`), counted on `counter.launches`."""
+    want = (table.shape[0], *shape)
+    odt = torch.int64 if dist == "bits" else dtype
+    if out is None:
+        out = torch.empty(want, device=table.device, dtype=odt)
+    elif (tuple(out.shape) != want or not out.is_contiguous()
+          or out.dtype != odt):
+        raise ValueError(f"prng: out must be a contiguous {odt} tensor of "
+                         f"shape {want}, got {out.dtype} {tuple(out.shape)}")
+    if out.numel() == 0:
+        return out
+    n = math.prod(shape)
+    if dist == "bits":  # the kernel writes uint32 words
+        words = torch.empty(want, dtype=torch.int32, device=table.device)
+        launch(table, n, dist, dtype, words, base=base)
+        out.copy_(words.to(torch.int64) & M32)
+    else:
+        launch(table, n, dist, dtype, out, minval, maxval, base)
+    counter.launches += 1
+    return out
 
 
 def draw(rows: Sequence, shape: Sequence[int], dist: str = "normal",
@@ -278,32 +361,35 @@ def draw(rows: Sequence, shape: Sequence[int], dist: str = "normal",
     device = torch.device(out.device if out is not None else device)
     if device.type != "cuda":
         res = draw_plain(rows, shape, dist, dtype, device, minval, maxval)
-        if out is None:
-            return res
-        return out.copy_(res)
-    want = (len(rows), *shape)
-    if out is None:
-        out = torch.empty(want, device=device,
-                          dtype=torch.int64 if dist == "bits" else dtype)
-    elif (tuple(out.shape) != want or not out.is_contiguous()
-          or out.dtype != dtype):
-        raise ValueError(f"prng.draw: out must be a contiguous {dtype} "
-                         f"tensor of shape {want}, got {out.dtype} "
-                         f"{tuple(out.shape)}")
-    if out.numel() == 0:
-        return out
-    table = row_table(rows, device)
-    if dist == "bits":  # the kernel writes uint32 words
-        words = torch.empty(want, dtype=torch.int32, device=device)
-        launch(table, math.prod(shape), dist, dtype, words)
-        out.copy_(words.to(torch.int64) & M32)
-    else:
-        launch(table, math.prod(shape), dist, dtype, out, minval, maxval)
-    draw.launches += 1
-    return out
+        return res if out is None else out.copy_(res)
+    return _fill(row_table(rows, device).reshape(-1, 3), shape, dist, dtype,
+                 out, minval, maxval, draw)
 
 
 draw.launches = 0
+
+
+def draw_folded(base: Key, folds: torch.Tensor, shape: Sequence[int] = (),
+                dist: str = "normal", dtype: torch.dtype = torch.float32,
+                minval: float = 0.0, maxval: float = 1.0,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """[R, *shape] draws on folds' device, row r from fold_in(...fold_in(
+    base, folds[r, 0])..., folds[r, L-1]); folds a [R, L] int64 tensor, L
+    from 1 to 3; `dist` and `dtype` as `draw`'s. On the card one launch of
+    the kernel's device-keyed entry, with no host read (a CUDA graph
+    captures it); on the CPU `draw_folded_plain`."""
+    _check_dist(dist, dtype)
+    folds = _check_folds(folds)
+    shape = tuple(int(s) for s in shape)
+    if folds.device.type != "cuda":
+        res = draw_folded_plain(base, folds, shape, dist, dtype, minval,
+                                maxval)
+        return res if out is None else out.copy_(res)
+    return _fill(folds.contiguous(), shape, dist, dtype, out, minval, maxval,
+                 draw_folded, base)
+
+
+draw_folded.launches = 0
 
 
 # ------------------------------------------------- jax.random's signatures
@@ -339,3 +425,32 @@ def categorical(k: Key, logits: torch.Tensor, axis: int = -1) -> torch.Tensor:
     the logits plus Gumbels drawn over the logits' shape in their dtype."""
     g = gumbel(k, tuple(logits.shape), logits.dtype, logits.device)
     return torch.argmax(g + logits, dim=axis)
+
+
+def _urem(x, span: int):
+    """XLA's unsigned remainder: x itself where the divisor is 0."""
+    return x if span == 0 else x % span
+
+
+def randint(k: Key, shape=(), minval: int = 0, maxval: int = 1,
+            device="cpu") -> torch.Tensor:
+    """jax.random.randint(k, shape, minval, maxval) for int32 (JAX 0.9's
+    _randint): bits of both halves of split(k), reduced modulo the span
+    with the uint32 wraps of JAX's arithmetic. minval / maxval are Python
+    ints, clipped to int32; maxval <= minval gives minval. Returns int64
+    values of the int32 results."""
+    lo32, hi32 = -(1 << 31), (1 << 31) - 1
+    out_of_range = maxval > hi32
+    clip = lambda v: min(max(int(v), lo32), hi32)
+    mn, mx = clip(minval), clip(maxval)
+    span = (mx - mn) & M32
+    if mx <= mn:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & M32
+    mult = _urem(1 << 16, span)
+    mult = _urem((mult * mult) & M32, span)
+    k1, k2 = split(k)
+    hi, lo = draw([(k1, None), (k2, None)], shape, "bits", torch.int64, device)
+    off = _urem((_urem(hi, span) * mult + _urem(lo, span)) & M32, span)
+    return ((mn + off - lo32) & M32) + lo32

@@ -573,9 +573,13 @@ def seeded_generator(family: str, device: torch.device) -> torch.Generator:
 
 
 @torch.no_grad()
-def init_params_(module: nn.Module, gen: torch.Generator) -> nn.Module:
-    """seeded_init_'s rule with draws from `gen` (on the module's device):
-    a fresh model to train."""
+def init_params_(module: nn.Module, gen: torch.Generator | int) -> nn.Module:
+    """seeded_init_'s rule with draws from `gen` (on the module's device;
+    an int seeds one there): a fresh model to train, its seeded weights not
+    JAX's."""
+    if isinstance(gen, int):
+        dev = next(module.parameters()).device
+        gen = torch.Generator(device=dev).manual_seed(gen)
     for name, prm in module.named_parameters():
         owner_name, _, leaf = name.rpartition(".")
         owner = module.get_submodule(owner_name) if owner_name else module
@@ -601,6 +605,17 @@ def lora_module_path(layer: int, proj: str) -> str:
     """The port's module path of decoder layer `layer`'s projection."""
     sub = "self_attn" if proj in _ATTN_PROJ else "mlp"
     return f"model.layers.{layer}.{sub}.{proj}"
+
+
+def jax_lora_path(path: str) -> str:
+    """The JAX adapter tree's path ("layer_i/proj", what JAX's init_lora
+    folds into its key) of the port's module path of a decoder projection
+    (lora_module_path); another path keeps its own parts, "/"-joined."""
+    parts = path.split(".")
+    if (len(parts) == 5 and parts[:2] == ["model", "layers"]
+            and parts[3] in ("self_attn", "mlp")):
+        return f"layer_{int(parts[2])}/{parts[4]}"
+    return "/".join(parts)
 
 
 def lora_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -1,10 +1,11 @@
 """The port's Brownian tree (rsvldm_tpu_torch/diffusion/brownian.py) held
-against the JAX package's: with JAX's node draws injected, W(t) equals
-JAX's (atol 1e-6); with the port's own counter-hash source, the
-properties JAX's tests pin (tests/test_brownian.py): exact increment
-additivity, query-order freedom, W(t0) = 0, N(0, dt) increments that are
-uncorrelated, the sampler call's sign convention and path consistency
-across grids."""
+against the JAX package's: from the same key, nothing injected, W(t)
+equals JAX's brownian_point within 1e-6 relative (its end point and node
+normals are JAX's, drawn by utils/prng.py), and so does the sampler call;
+then the properties JAX's tests pin (tests/test_brownian.py): exact
+increment additivity, query-order freedom, W(t0) = 0, N(0, dt)
+increments that are uncorrelated, the sampler call's sign convention and
+path consistency across grids."""
 
 import jax
 import numpy as np
@@ -14,24 +15,26 @@ import torch
 from rsvldm_tpu.diffusion.brownian import BrownianTreeNoiseSampler as JTree
 from rsvldm_tpu.diffusion.brownian import brownian_point as j_point
 from rsvldm_tpu_torch.diffusion.brownian import (BrownianTreeNoiseSampler,
-                                                 CounterDraws, brownian_point)
-from torch_parity_lib import jax_draws
+                                                 brownian_point)
+from rsvldm_tpu_torch.utils import prng
 
 torch.set_num_threads(1)
 KEY = jax.random.PRNGKey(7)
+PKEY = prng.key(7)
 SHAPE = (4096,)
 T0, T1 = 0.03, 14.6
 
 
 @pytest.mark.parametrize("t", [T0, 0.5, 1.0, 3.7, 7.31, 12.0, T1, 20.0, 0.0])
 def test_point_equals_jax_with_its_draws(t):
-    got = brownian_point(jax_draws(KEY), t, T0, T1, (64,)).numpy()
+    got = brownian_point(PKEY, t, T0, T1, (64,)).numpy()
     want = np.asarray(j_point(KEY, t, T0, T1, (64,)))
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    assert err.max() <= 1e-6
 
 
 def test_sampler_call_equals_jax_with_its_draws():
-    tree = BrownianTreeNoiseSampler(T0, T1, (2, 4, 4, 3), jax_draws(KEY))
+    tree = BrownianTreeNoiseSampler(T0, T1, (2, 4, 4, 3), PKEY, "cpu")
     jtree = JTree(KEY, T0, T1, (2, 4, 4, 3))
     for a, b in ((9.0, 4.0), (4.0, 9.0), (14.6, 0.03), (2.2, 2.25)):
         np.testing.assert_allclose(tree(a, b).numpy(), np.asarray(jtree(a, b)),
@@ -39,7 +42,7 @@ def test_sampler_call_equals_jax_with_its_draws():
 
 
 def w(t, seed=7, shape=SHAPE):
-    return brownian_point(CounterDraws(seed, "cpu"), t, T0, T1, shape).numpy()
+    return brownian_point(prng.key(seed), t, T0, T1, shape).numpy()
 
 
 def test_deterministic_and_query_order_free():
@@ -69,25 +72,41 @@ def test_marginals_and_independence():
         assert abs(np.corrcoef(incs[i], incs[i + 1])[0, 1]) < 0.08
 
 
-def test_counter_draws_are_unit_normals():
-    d = CounterDraws(3, "cpu")
-    z = d(5, 17, (64, 64)).numpy()
-    assert abs(z.mean()) < 0.05 and abs(z.std() - 1.0) < 0.05
-    # the key decides the draw: level and index each change it
-    assert not np.allclose(z, d(5, 16, (64, 64)).numpy())
-    assert not np.allclose(z, d(4, 17, (64, 64)).numpy())
-    np.testing.assert_array_equal(z, CounterDraws(3, "cpu")(5, 17, (64, 64)).numpy())
+@pytest.mark.parametrize("t", [0.5, 7.31])
+def test_point_draws_are_jax_end_and_node_normals(t, monkeypatch):
+    """A point is one draw of depth + 1 rows: JAX's normals of k_end, then
+    of fold_in(fold_in(k_tree, level), index) along the path to t."""
+    seen = []
+    draw = prng.draw
+    monkeypatch.setattr(prng, "draw", lambda rows, *a, **k: seen.append(
+        (rows, draw(rows, *a, **k))) or seen[-1][1])
+    brownian_point(PKEY, t, T0, T1, (64, 64), depth=6)
+    (rows, z), = seen
+    assert len(rows) == 7
+    k_end, k_tree = jax.random.split(KEY)
+    want = [jax.random.normal(k_end, (64, 64))]
+    idx, a, b = 0, np.float32(T0), np.float32(T1)
+    for level in range(6):
+        want.append(jax.random.normal(jax.random.fold_in(
+            jax.random.fold_in(k_tree, level), idx), (64, 64)))
+        m = np.float32(np.float32(0.5) * np.float32(a + b))
+        right = np.float32(t) >= m
+        a, b = (m, b) if right else (a, m)
+        idx = 2 * idx + int(right)
+    want = np.stack([np.asarray(w) for w in want])
+    assert np.abs(z.numpy() - want).max() <= 1e-6 * max(1.0, np.abs(want).max())
+    assert abs(z.numpy().mean()) < 0.05 and abs(z.numpy().std() - 1.0) < 0.05
 
 
 def test_normalized_sampler_call():
-    tree = BrownianTreeNoiseSampler(T0, T1, SHAPE, CounterDraws(7, "cpu"))
+    tree = BrownianTreeNoiseSampler(T0, T1, SHAPE, PKEY, "cpu")
     eps = tree(9.0, 4.0).numpy()
     assert abs(eps.std() - 1.0) < 0.08
     np.testing.assert_allclose(eps, -tree(4.0, 9.0).numpy(), rtol=1e-6)
 
 
 def test_path_consistency_across_grids():
-    tree = BrownianTreeNoiseSampler(T0, T1, SHAPE, CounterDraws(7, "cpu"))
+    tree = BrownianTreeNoiseSampler(T0, T1, SHAPE, PKEY, "cpu")
     coarse = (tree.w(10.0) - tree.w(2.0)).numpy()
     fine = sum((tree.w(a + 2.0) - tree.w(a)).numpy()
                for a in [2.0, 4.0, 6.0, 8.0])

@@ -12,6 +12,7 @@ flag once a step) stay outside. Then the runner's bookkeeping of the
 kernels' launch counters, with a stub graph and a stub counter."""
 
 import contextlib
+import gc
 
 import pytest
 import torch
@@ -245,6 +246,28 @@ def test_runner_refuses_other_args_and_does_not_fall_back(stub_cuda):
     assert runner.graph is None
 
 
+def test_capture_runs_without_the_garbage_collector(stub_cuda):
+    """The collector is held off during a capture (a CUDA graph destroyed
+    inside another's capture invalidates it), then restored, also after a
+    failed capture."""
+    seen = []
+
+    def step():
+        seen.append(gc.isenabled())
+        if len(seen) == 4:
+            raise RuntimeError("capture failed")
+
+    runner = graphs.StepRunner(step, True, counters=())
+    runner()
+    runner()
+    assert seen == [True, False] and gc.isenabled()
+    runner = graphs.StepRunner(step, True, counters=())
+    runner()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        runner()
+    assert seen[3] is False and gc.isenabled()
+
+
 def test_direct_runner_and_device_choice():
     counter = _Counter()
     runner = graphs.StepRunner(lambda: setattr(counter, "launches",
@@ -259,4 +282,5 @@ def test_direct_runner_and_device_choice():
     with pytest.raises(ValueError, match="need a CUDA device"):
         graphs.use_graphs(cpu, True)
     assert [c.__name__ for c in graphs.kernel_counters()] == [
-        "flash_attention", "flash_attention_bwd", "int4_matmul"]
+        "flash_attention", "flash_attention_bwd", "int4_matmul", "draw",
+        "draw_folded"]

@@ -55,7 +55,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "serving.controller", "serving.web", "serving.cli",
                  "serving.register_worker", "serving.test_message",
                  "diffusion.brownian", "diffusion.samplers_extra",
-                 "utils.counter", "utils.metrics", "utils.lpips",
+                 "utils.prng", "utils.metrics", "utils.lpips",
                  "utils.debug", "utils.file", "utils.moderation",
                  "utils.run_logger", "utils.face_restore", "data.prepare",
                  "eval", "eval.text_metrics", "eval.runner",
@@ -137,15 +137,13 @@ def test_cuda_entry_points_raise_without_a_card():
             build()
     import torch.distributed as dist
     assert not dist.is_initialized()
-    # quality evaluation, the Brownian tree's default draws, the face
+    # quality evaluation, the Brownian tree's default device, the face
     # helper: each before it reads or draws anything
-    from rsvldm_tpu_torch.diffusion.brownian import (BrownianTreeNoiseSampler,
-                                                     CounterDraws)
+    from rsvldm_tpu_torch.diffusion.brownian import BrownianTreeNoiseSampler
     from rsvldm_tpu_torch.eval import quality
     from rsvldm_tpu_torch.utils.face_restore import FaceRestoreHelper
     for build in (lambda: quality.main(["--sr_dir", "no_such_dir"]),
                   lambda: quality.evaluate_dir("no_such_dir"),
-                  lambda: CounterDraws(0),
                   lambda: BrownianTreeNoiseSampler(0.03, 14.6, (1, 4)),
                   lambda: FaceRestoreHelper(upscale_factor=2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

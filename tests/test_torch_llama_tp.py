@@ -47,6 +47,7 @@ from rsvldm_tpu_torch.models.vlm.llama import KVCache, LlamaConfig, LlamaModel
 from rsvldm_tpu_torch.models.vlm.llama import quantize_llama_
 from rsvldm_tpu_torch.parallel.llama_sharding import (llama_param_spec,
                                                       shard_kv_cache)
+from rsvldm_tpu_torch.utils import prng
 from rsvldm_tpu_torch.utils.weights import lora_from_jax, params_from_jax
 from torch_parallel_lib import _tiny_captioner_kw, launch
 from torch_parity_lib import randomize, to_np
@@ -86,7 +87,7 @@ def _write_archive(path):
     """A LoRA archive for the tiny captioner's decoder, every b nonzero."""
     model = LlamaModel(_tiny_captioner_kw()["llama_cfg"])
     cfg = tt.LoraConfig(r=4, alpha=8)
-    lora = tt.init_lora(model, cfg, torch.Generator().manual_seed(7))
+    lora = tt.init_lora(model, cfg, prng.key(7))
     gen = torch.Generator().manual_seed(8)
     for ab in lora.values():
         ab["b"] = torch.randn(ab["b"].shape, generator=gen) * 0.05

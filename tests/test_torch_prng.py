@@ -3,7 +3,9 @@ the CPU through the plain version: keys, split, fold_in, bits and uniforms
 bit-equal; normals and Gumbels within 1e-6 * max(1, |JAX|) (XLA's log1p and
 log are its own polynomials, torch's are the C library's: they differ in
 the last bit); categorical ids equal; a multi-row draw equal to the stacked
-single-key draws."""
+single-key draws; randint bit-equal (spans that are not powers of two,
+maxval <= minval, the whole int32 range); the device-keyed draw_folded at
+one, two and three fold words equal to nested jax.random.fold_in draws."""
 
 import jax
 import jax.numpy as jnp
@@ -158,3 +160,71 @@ def test_cuda_draw_takes_no_plain_path():
     with pytest.raises((RuntimeError, AssertionError)):
         prng.draw([(KEY, None)], (8,), "normal", device="cuda")
     assert prng.draw.launches == launches
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 10), (1, 2001), (0, 1000), (-100, 37),
+                                   (3, 1 << 16), (5, 5), (7, 3),
+                                   (0, 2 ** 31 - 1), (-2 ** 31, 2 ** 31 - 1)])
+def test_randint(lo, hi):
+    for shape in ((), (513,), (3, 7)):
+        want = np.asarray(jax.random.randint(JKEY, shape, lo, hi))
+        got = prng.randint(KEY, shape, lo, hi)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def _nested(words) -> jax.Array:
+    k = JKEY
+    for w in words:
+        k = jax.random.fold_in(k, w)
+    return k
+
+
+@pytest.mark.parametrize("L", [1, 2, 3])
+@pytest.mark.parametrize("dist", ["bits", "uniform", "normal", "gumbel"])
+def test_draw_folded_equals_nested_fold_in(L, dist):
+    """Row r of draw_folded is the draw of fold_in(...fold_in(key, w[r, 0])
+    ..., w[r, L-1]); its plain version equals draw_folded on the CPU."""
+    words = torch.tensor([[3, 5, 7], [0, 1, 13], [2 ** 31 - 1, 7, 0],
+                          [9, 2 ** 32 - 1, 7]])[:, :L]
+    dtype = torch.int64 if dist == "bits" else torch.float32
+    got = prng.draw_folded(KEY, words, (3, 5), dist, dtype)
+    assert got.shape == (4, 3, 5)
+    torch.testing.assert_close(
+        prng.draw_folded_plain(KEY, words, (3, 5), dist, dtype), got,
+        rtol=0, atol=0)
+    jfn = {"bits": lambda k: jax.random.bits(k, (3, 5)),
+           "uniform": lambda k: jax.random.uniform(k, (3, 5)),
+           "normal": lambda k: jax.random.normal(k, (3, 5)),
+           "gumbel": lambda k: jax.random.gumbel(k, (3, 5))}[dist]
+    want = np.stack([np.asarray(jfn(_nested(w))) for w in words.tolist()])
+    if dist in ("bits", "uniform"):
+        np.testing.assert_array_equal(got.numpy(), want.astype(got.numpy().dtype))
+    else:
+        _close(got, want)
+
+
+def test_draw_folded_scalar_rows_and_bf16():
+    """shape () gives one draw a row (the acceptance uniforms); bf16 rows
+    as JAX's bf16 draws."""
+    words = torch.tensor([[1, 2, 7], [4, 4, 7], [6, 0, 7]])
+    got = prng.draw_folded(KEY, words, (), "uniform")
+    assert got.shape == (3,)
+    want = [np.asarray(jax.random.uniform(_nested(w))) for w in words.tolist()]
+    np.testing.assert_array_equal(got.numpy(), np.stack(want))
+    g16 = prng.draw_folded(KEY, words[:, :2], (129,), "gumbel", torch.bfloat16)
+    _close(g16, np.stack([np.asarray(jax.random.gumbel(_nested(w), (129,),
+                                                       jnp.bfloat16))
+                          for w in words[:, :2].tolist()]))
+    with pytest.raises(ValueError, match="folds"):
+        prng.draw_folded(KEY, torch.zeros((2, 4), dtype=torch.int64), (2,))
+
+
+def test_cuda_draw_folded_takes_no_plain_path():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py holds the kernel")
+    launches = prng.draw_folded.launches
+    with pytest.raises((RuntimeError, AssertionError)):
+        prng.draw_folded(KEY, torch.zeros((2, 2), dtype=torch.int64,
+                                          device="cuda"), (8,), "normal")
+    assert prng.draw_folded.launches == launches

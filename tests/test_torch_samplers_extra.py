@@ -1,10 +1,11 @@
 """The port's sgm sampler family (rsvldm_tpu_torch/diffusion/samplers_extra.py)
 held against the JAX package's, fp32 on the CPU: every sampler and tile
-helper with one analytic denoiser written in both frameworks and JAX's
-draws injected (eps from fold_in(rng, i); the Brownian tree's node draws
-from rng), latents within 1e-5; and the tiled samplers over the
-small-width ControlDenoiser with CFG, loaded from a seeded Flax tree
-(2 x 2 tiles, 3 steps, 1e-4 relative)."""
+helper with one analytic denoiser written in both frameworks and the same
+key on both sides, nothing injected (the port draws JAX's eps of
+fold_in(rng, i) and JAX's Brownian tree from the key itself), latents
+within 1e-5; and the tiled samplers over the small-width ControlDenoiser
+with CFG, loaded from a seeded Flax tree (2 x 2 tiles, 3 steps, 1e-4
+relative)."""
 
 import jax
 import jax.numpy as jnp
@@ -25,9 +26,10 @@ from rsvldm_tpu_torch.diffusion.schedules import (karras_sigmas,
                                                   legacy_ddpm_sigmas)
 from rsvldm_tpu_torch.models.sdxl.control import ControlledUNet, GLVControl
 from rsvldm_tpu_torch.models.sdxl.denoiser import ControlDenoiser
+from rsvldm_tpu_torch.utils import prng
 from rsvldm_tpu_torch.utils.weights import params_from_jax
-from torch_parity_lib import (JAX_TINY, TORCH_TINY, assert_close, jax_draws,
-                              randomize, to_np)
+from torch_parity_lib import (JAX_TINY, TORCH_TINY, assert_close, randomize,
+                              to_np)
 
 torch.set_num_threads(1)
 SHAPE = (1, 8, 8, 2)
@@ -36,6 +38,7 @@ NOISE = RNG.standard_normal(SHAPE).astype(np.float32)
 TARGET = (0.37 + 0.1 * RNG.standard_normal(SHAPE)).astype(np.float32)
 LQ = RNG.standard_normal((1, 12, 12, 2)).astype(np.float32)
 KEY = jax.random.PRNGKey(3)
+PKEY = prng.key(3)
 
 
 def j_gauss(x, sigma):
@@ -47,7 +50,8 @@ def t_gauss(x, sigma):
 
 
 def fold_eps(key, steps, shape):
-    """The normals JAX's samplers draw in step i: normal(fold_in(key, i))."""
+    """The normals JAX's samplers draw in step i, normal(fold_in(key, i)),
+    computed by JAX (for the eps / eps_override arguments)."""
     return torch.from_numpy(np.stack([np.asarray(jax.random.normal(
         jax.random.fold_in(key, i), shape, jnp.float32)) for i in range(steps)]))
 
@@ -62,19 +66,16 @@ CASES = {
             lambda s: S.edm_sample(t_gauss, _t(NOISE), s)),
     "edm_churn": (lambda s: J.edm_sample(j_gauss, NOISE, s, KEY, s_churn=2.0,
                                          s_noise=1.003),
-                  lambda s: S.edm_sample(t_gauss, _t(NOISE), s,
-                                         fold_eps(KEY, len(s) - 1, SHAPE),
+                  lambda s: S.edm_sample(t_gauss, _t(NOISE), s, PKEY,
                                          s_churn=2.0, s_noise=1.003)),
     "heun": (lambda s: J.edm_sample(j_gauss, NOISE, s, KEY, heun=True),
              lambda s: S.edm_sample(t_gauss, _t(NOISE), s, heun=True)),
     "euler_ancestral": (
         lambda s: J.euler_ancestral_sample(j_gauss, NOISE, s, KEY),
-        lambda s: S.euler_ancestral_sample(t_gauss, _t(NOISE), s,
-                                           fold_eps(KEY, len(s) - 1, SHAPE))),
+        lambda s: S.euler_ancestral_sample(t_gauss, _t(NOISE), s, PKEY)),
     "dpmpp2s_ancestral": (
         lambda s: J.dpmpp2s_ancestral_sample(j_gauss, NOISE, s, KEY, eta=0.7),
-        lambda s: S.dpmpp2s_ancestral_sample(t_gauss, _t(NOISE), s,
-                                             fold_eps(KEY, len(s) - 1, SHAPE),
+        lambda s: S.dpmpp2s_ancestral_sample(t_gauss, _t(NOISE), s, PKEY,
                                              eta=0.7)),
     "dpmpp2m": (lambda s: J.dpmpp2m_sample(j_gauss, NOISE, s),
                 lambda s: S.dpmpp2m_sample(t_gauss, _t(NOISE), s)),
@@ -84,8 +85,7 @@ CASES = {
                 lambda s: S.edm_sample(t_gauss, _t(NOISE), S.substep_sigmas(4))),
     "restore_dpmpp2m": (
         lambda s: J.restore_dpmpp2m_sample(j_gauss, NOISE, s, KEY),
-        lambda s: S.restore_dpmpp2m_sample(t_gauss, _t(NOISE), s,
-                                           jax_draws(KEY))),
+        lambda s: S.restore_dpmpp2m_sample(t_gauss, _t(NOISE), s, PKEY)),
     "restore_dpmpp2m_eta0": (
         lambda s: J.restore_dpmpp2m_sample(j_gauss, NOISE, s, KEY, eta=0.0),
         lambda s: S.restore_dpmpp2m_sample(t_gauss, _t(NOISE), s, eta=0.0)),
@@ -184,15 +184,13 @@ def test_tiled_equals_jax(name):
     if name.startswith("edm"):
         want = J.tiled_restore_edm_sample(j_tile, noise, js, xc, LQ, KEY,
                                           tile=8, stride=4, **kw)
-        eps = fold_eps(KEY, 6, LQ.shape) if "s_churn" in kw else None
         got = S.tiled_restore_edm_sample(t_tile, _t(noise), ts, _t(xc), _t(LQ),
-                                         eps, tile=8, stride=4, **kw)
+                                         PKEY, tile=8, stride=4, **kw)
     else:
         want = J.tiled_restore_dpmpp2m_sample(j_tile, noise, js, LQ, KEY,
                                               tile=8, stride=4, **kw)
         got = S.tiled_restore_dpmpp2m_sample(t_tile, _t(noise), ts, _t(LQ),
-                                             jax_draws(KEY), tile=8, stride=4,
-                                             **kw)
+                                             PKEY, tile=8, stride=4, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
@@ -200,20 +198,31 @@ def test_single_window_tiled_dpmpp2m_equals_untiled():
     """One window over the whole canvas: the weights normalize out and the
     increment slice is the canvas, so the tiled sampler is the untiled one
     (the card's `samplers` phase holds the same at full width)."""
-    draw = S.CounterDraws(5, "cpu")
-    a = S.restore_dpmpp2m_sample(t_gauss, _t(NOISE), legacy_ddpm_sigmas(8), draw)
+    key = prng.key(5)
+    a = S.restore_dpmpp2m_sample(t_gauss, _t(NOISE), legacy_ddpm_sigmas(8), key)
     b = S.tiled_restore_dpmpp2m_sample(lambda t, s, _lq: t_gauss(t, s), _t(NOISE),
-                                       legacy_ddpm_sigmas(8), _t(NOISE), draw,
+                                       legacy_ddpm_sigmas(8), _t(NOISE), key,
                                        tile=8, stride=8)
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
 
 
 def test_eps_is_required_where_noise_is_drawn():
-    with pytest.raises(ValueError, match="eps"):
-        S.edm_sample(t_gauss, _t(NOISE), legacy_ddpm_sigmas(4), s_churn=1.0)
-    with pytest.raises(ValueError, match="eps"):
-        S.tiled_restore_edm_sample(t_tile, _t(LQ), legacy_ddpm_sigmas(4), _t(LQ),
-                                   _t(LQ), tile=8, stride=4, s_churn=1.0)
+    """Where a sampler draws noise and no eps is given, it draws JAX's from
+    the default key, PRNGKey(0) (JAX's samplers given PRNGKey(0)); an eps
+    given is used instead (JAX's normals of fold_in(key, i) passed in give
+    JAX's latents)."""
+    j0, s4 = jax.random.PRNGKey(0), legacy_ddpm_sigmas(4)
+    want = np.asarray(J.edm_sample(j_gauss, NOISE, j_legacy(4), j0, s_churn=1.0))
+    got = S.edm_sample(t_gauss, _t(NOISE), s4, s_churn=1.0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    got = S.edm_sample(t_gauss, _t(NOISE), s4, prng.key(9), s_churn=1.0,
+                       eps=fold_eps(j0, len(s4) - 1, SHAPE))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    want = np.asarray(J.tiled_restore_edm_sample(
+        j_tile, LQ, j_legacy(4), LQ, LQ, j0, tile=8, stride=4, s_churn=1.0))
+    got = S.tiled_restore_edm_sample(t_tile, _t(LQ), s4, _t(LQ), _t(LQ),
+                                     tile=8, stride=4, s_churn=1.0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
 # ------------------------------------------ the controlled SDXL denoiser
@@ -295,6 +304,6 @@ def test_tiled_control_denoiser_equals_jax(denoisers, sampler):
             want = J.tiled_restore_dpmpp2m_sample(j_fn, noise, js, lq, KEY,
                                                   tile=8, stride=4)
             got = S.tiled_restore_dpmpp2m_sample(t_fn, _t(noise), ts, _t(lq),
-                                                 jax_draws(KEY), tile=8, stride=4)
+                                                 PKEY, tile=8, stride=4)
     assert len(S.sliding_windows(12, 12, 8, 4)) == 4
     assert_close(got.numpy(), np.asarray(want), tol=1e-4)

@@ -1,8 +1,9 @@
 """Speculative caption decoding of the port (models/vlm/speculative.py) held
 against the JAX package's (rsvldm_tpu/models/vlm/speculative.py) at tiny
 geometry, fp32 on the CPU, with the same weights, and for sampling the
-same draws (JAX's Gumbel, acceptance uniform and resample Gumbel per
-generated index, rebuilt from its key schedule). The contracts of
+same key: the port draws JAX's Gumbel, acceptance uniform and resample
+Gumbel per generated index from the key itself (utils/prng.py), with
+nothing injected. The contracts of
 tests/test_speculative.py: greedy ids equal JAX's `generate` for a weak
 draft and for the self-draft; draft == target at T = 0.8 gives JAX's
 sampled ids; a weak draft at T = 0.8 gives JAX's speculative ids and
@@ -46,6 +47,7 @@ from rsvldm_tpu_torch.models.vlm import speculative as tspec
 from rsvldm_tpu_torch.models.vlm.llama import (LlamaConfig, LlamaModel,
                                                quantize_llama_)
 from rsvldm_tpu_torch.models.vlm.vision import CLIPVisionConfig
+from rsvldm_tpu_torch.utils import prng
 from rsvldm_tpu_torch.utils.weights import params_from_jax
 from torch_parity_lib import randomize, to_np
 
@@ -117,35 +119,17 @@ def _prompt(s, seed):
             ).astype(np.float32)
 
 
-def _key(rng, j):
-    return rng if j == 0 else jax.random.fold_in(rng, j)
-
-
-def jax_noise(rng, vocab):
-    """JAX's draws per generated index j (speculative.py `_key_for`): the
-    proposal Gumbel of key(j) (`generate`'s draw), and the acceptance
-    uniform of fold_in(key(j), 7) with the resample Gumbel of
-    fold_in(key(j), 13)."""
-    t = lambda a: torch.from_numpy(np.array(a))
-
-    def noise(j):
-        return t(jax.random.gumbel(_key(rng, j), (vocab,), jnp.float32))
-
-    def accept(j):
-        k = _key(rng, j)
-        return (t(jax.random.uniform(jax.random.fold_in(k, 7))),
-                t(jax.random.gumbel(jax.random.fold_in(k, 13), (vocab,),
-                                    jnp.float32)))
-    return noise, accept
+def _pkey(rng) -> tuple:
+    """The port's key (utils/prng.py) for a JAX PRNGKey."""
+    return tuple(int(v) for v in np.asarray(rng))
 
 
 def _run(t_model, d_model, emb, kw, rng=None, k=3, **extra):
-    noise, accept = jax_noise(rng, TL.vocab_size) if rng is not None else (None, None)
     stats = {}
     ids = tspec.speculative_generate(
         t_model, d_model, torch.from_numpy(np.asarray(emb)),
-        tgen.GenerateConfig(**kw), k=k, noise=noise, accept_noise=accept,
-        stats=stats, **extra)
+        tgen.GenerateConfig(**kw), k=k,
+        key=None if rng is None else _pkey(rng), stats=stats, **extra)
     return ids, stats
 
 
@@ -184,8 +168,8 @@ def test_self_draft_greedy_equals_jax(trees, mode):
 
 @pytest.mark.parametrize("mode", [None, "int4"])
 def test_draft_equals_target_reproduces_jax_sampled_ids(trees, mode):
-    """draft == target at T = 0.8, fed JAX's draws: every proposal is
-    kept, and the ids are JAX's speculative ids and JAX's `generate` ids."""
+    """draft == target at T = 0.8 from JAX's key: every proposal is kept,
+    and the ids are JAX's speculative ids and JAX's `generate` ids."""
     (jm, jp, tm), _ = _models(trees, mode)
     emb = _prompt(7, 21)
     rng = jax.random.PRNGKey(2)
@@ -200,9 +184,10 @@ def test_draft_equals_target_reproduces_jax_sampled_ids(trees, mode):
 
 @pytest.mark.parametrize("mode", [None, "int4"])
 def test_weak_draft_sampled_ids_and_stats_equal_jax(trees, mode):
-    """A weak draft at T = 0.8, fed JAX's draws: JAX's speculative ids and
-    its rounds, proposals, acceptances and rate (proposals rejected and
-    resampled on the way, which greedy never exercises)."""
+    """A weak draft at T = 0.8 from JAX's key, nothing injected: JAX's
+    speculative ids and its rounds, proposals, acceptances and rate
+    (proposals rejected and resampled on the way, which greedy never
+    exercises)."""
     (jm, jp, tm), (jdm, jdp, dm) = _models(trees, mode)
     for seed, rng in ((13, jax.random.PRNGKey(6)), (14, jax.random.PRNGKey(7))):
         emb = _prompt(8, seed)
@@ -218,14 +203,16 @@ def test_weak_draft_sampled_ids_and_stats_equal_jax(trees, mode):
 def test_accept_and_correct_equals_jax():
     """Seeded distributions (softmax of random logits at several spreads,
     and one draft equal to the target): committed tokens and their count
-    equal JAX's for k = 4, fed JAX's draws for j0 = 5."""
+    equal JAX's for k = 4 at j0 = 5, the port's tables drawn as
+    speculative_generate draws them from the same key (default_accept_noise
+    and the proposal Gumbel of fold_in(key, j0 + k) for the bonus)."""
     rng = np.random.default_rng(0)
     key = jax.random.PRNGKey(17)
     k, vocab, j0 = 4, 96, 5
-    noise, accept = jax_noise(key, vocab)
-    u = torch.stack([accept(j0 + i)[0] for i in range(k)])
-    resample = torch.stack([accept(j0 + i)[1] for i in range(k)])
-    bonus = noise(j0 + k)
+    u, resample = torch.zeros(j0 + k), torch.zeros((j0 + k, vocab))
+    tspec.default_accept_noise(_pkey(key), u, resample)
+    u, resample = u[j0:], resample[j0:]
+    bonus = prng.gumbel(prng.fold_in(_pkey(key), j0 + k), (vocab,))
     seen = set()
     for case in range(12):
         spread = (0.5, 2.0, 6.0)[case % 3]
@@ -467,7 +454,7 @@ def _write_tied_draft(root):
 def test_tied_lm_head_draft_equals_jax(tmp_path):
     """A draft whose config.json ties its lm_head to the embedding loads as
     JAX's does (logits x @ embedding^T): its prefill logits equal JAX's
-    draft's within 1e-5, and at T = 0.8, fed JAX's draws, the speculative
+    draft's within 1e-5, and at T = 0.8 from JAX's key, the speculative
     caption is JAX's (the proposals come from the tied head)."""
     root = _llava_dir(tmp_path)
     _write_tied_draft(root)
@@ -481,19 +468,17 @@ def test_tied_lm_head_draft_equals_jax(tmp_path):
         tlog, _ = tcap.draft(torch.from_numpy(emb)[None])
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=0, atol=1e-5)
     rng = jax.random.PRNGKey(12)
-    noise, accept = jax_noise(rng, CAP_L.vocab_size)
     img = _image(8)
     want = jcap.caption(img, JLlavaConfig(max_new_tokens=10, temperature=0.8,
                                           do_sample=True), rng)
     got = tcap.caption(img, TLlavaConfig(max_new_tokens=10, temperature=0.8,
-                                         do_sample=True),
-                       noise=noise, accept_noise=accept)
+                                         do_sample=True), key=_pkey(rng))
     assert got == want and tcap.last_stats["rounds"] > 0
 
 
 def test_lora_self_draft_sampled_caption_equal_jax(tmp_path, monkeypatch):
     """int4 target with a JAX-written LoRA archive and a one-layer
-    self-draft, at T = 0.8 fed JAX's draws: the caption is JAX's, whose
+    self-draft, at T = 0.8 from JAX's key: the caption is JAX's, whose
     self-draft keeps layer 0's adapters; a self-draft run without them
     gives another caption (the adapters reach the draft)."""
     from rsvldm_tpu.training.vlm_trainer import (LoraConfig as JLoraConfig,
@@ -512,14 +497,13 @@ def test_lora_self_draft_sampled_caption_equal_jax(tmp_path, monkeypatch):
                             self_draft_layers=1, spec_k=3)
     assert tcap.lora is not None and tcap.self_draft_layers == 1
     key = jax.random.PRNGKey(5)
-    noise, accept = jax_noise(key, CAP_L.vocab_size)
     img = _image(9)
     kw = dict(max_new_tokens=16, temperature=0.8, do_sample=True)
     want = jcap.caption(img, JLlavaConfig(**kw), key)
-    got = tcap.caption(img, TLlavaConfig(**kw), noise=noise, accept_noise=accept)
+    got = tcap.caption(img, TLlavaConfig(**kw), key=_pkey(key))
     assert got == want and 0.0 < tcap.last_stats["accept_rate"] < 1.0
     spec = tcm.speculative_generate
     monkeypatch.setattr(tcm, "speculative_generate",
                         lambda *a, draft_lora=None, **k: spec(*a, **k))
-    bare = tcap.caption(img, TLlavaConfig(**kw), noise=noise, accept_noise=accept)
+    bare = tcap.caption(img, TLlavaConfig(**kw), key=_pkey(key))
     assert bare != got

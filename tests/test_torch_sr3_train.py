@@ -1,9 +1,11 @@
 """The port's SR3 training held against the JAX package at the tiny SR3
-geometry, fp32 on the CPU: sr3_loss with JAX's split(rng, 3) draws, the EMA,
+geometry, fp32 on the CPU: sr3_loss drawing JAX's split(rng, 3) draws from
+the same key (t and u bit-equal, the normals within 1e-6), the EMA,
 the lr schedules, the SDXL diffusion loss, the LRHR datasets, augmentation
 and the loader (equal arrays), save / load / resume against an
 uninterrupted run, and the train_sr3 CLI against the root JAX CLI's printed
-losses and saved parameters after three steps. Tolerances as
+losses and saved parameters after three steps, both drawing from the seed
+alone. Tolerances as
 tests/test_torch_training.py: loss atol 1e-5, parameters after three steps
 atol 1e-4."""
 
@@ -35,12 +37,14 @@ from rsvldm_tpu.utils.checkpoint import load_orbax
 from rsvldm_tpu_torch import train_sr3
 from rsvldm_tpu_torch.data import datasets as tds
 from rsvldm_tpu_torch.data import prefetch as tprefetch
-from rsvldm_tpu_torch.models.sr3.diffusion import SR3Diffusion, sr3_loss
+from rsvldm_tpu_torch.models.sr3.diffusion import (SR3Diffusion, sr3_draws,
+                                                   sr3_loss)
 from rsvldm_tpu_torch.models.sr3.unet import SR3UNet
 from rsvldm_tpu_torch.training import ema as tema
 from rsvldm_tpu_torch.training import losses as tlosses
 from rsvldm_tpu_torch.training import lr_schedule as tlr
 from rsvldm_tpu_torch.training.sr3_trainer import SR3TrainConfig, SR3Trainer
+from rsvldm_tpu_torch.utils import prng
 from rsvldm_tpu_torch.utils.weights import params_from_jax
 from torch_parity_lib import JAX_TINY, TORCH_TINY, randomize, to_np
 
@@ -66,14 +70,8 @@ def jax_draws(key, b, shape, T):
             torch.from_numpy(np.asarray(noise)))
 
 
-def _jax_fit_draws(seed, steps, T, b):
-    """fit's draws: rng = PRNGKey(seed), each step split(rng) -> (rng, sub),
-    then sr3_loss's split(sub, 3)."""
-    rng, subs = jax.random.PRNGKey(seed), []
-    for _ in range(steps):
-        rng, sub = jax.random.split(rng)
-        subs.append(sub)
-    return lambda i: jax_draws(subs[i], b, (b, R, R, 3), T)
+def _pkey(key) -> tuple:
+    return tuple(int(v) for v in np.asarray(key))
 
 
 @pytest.fixture(scope="module")
@@ -86,8 +84,10 @@ def sr3_tree():
 
 @pytest.mark.parametrize("loss_type", ["l1", "l2"])
 def test_sr3_loss_equal_jax(sr3_tree, loss_type):
-    """The loss and a gradient with JAX's draws (T = 2000, the train
-    schedule): loss atol 1e-5, gradient atol 2e-5 + rtol 1e-4."""
+    """The loss and a gradient from JAX's key (T = 2000, the train
+    schedule), nothing injected: loss atol 1e-5, gradient atol 2e-5 + rtol
+    1e-4; the draws themselves: t and u bit-equal, the normals within
+    1e-6 relative."""
     rng = np.random.default_rng(1)
     hr = rng.uniform(-1, 1, (N, R, R, 3)).astype(np.float32)
     sr = rng.uniform(-1, 1, (N, R, R, 3)).astype(np.float32)
@@ -100,9 +100,8 @@ def test_sr3_loss_equal_jax(sr3_tree, loss_type):
     model = SR3UNet(TORCH_TINY["sr3"])
     model.load_state_dict(params_from_jax("sr3", sr3_tree, TORCH_TINY["sr3"]))
     diff = SR3Diffusion.from_schedule("linear", 2000, 1e-6, 1e-2)
-    t, u, noise = jax_draws(key, N, hr.shape, 2000)
     loss = sr3_loss(diff, model, torch.from_numpy(hr), torch.from_numpy(sr),
-                    t, u, noise, loss_type=loss_type)
+                    key=_pkey(key), loss_type=loss_type)
     _close(float(loss), float(want), atol=1e-5)
     loss.backward()
     gw = params_from_jax("sr3", to_np(gwant), TORCH_TINY["sr3"])
@@ -110,10 +109,10 @@ def test_sr3_loss_equal_jax(sr3_tree, loss_type):
                  "downs.0.weight"):
         _close(dict(model.named_parameters())[name].grad, gw[name],
                atol=2e-5, rtol=1e-4)
-    # the generator's draws: t in 1..T, finite
-    g = torch.Generator().manual_seed(0)
-    assert torch.isfinite(sr3_loss(diff, model, torch.from_numpy(hr),
-                                   torch.from_numpy(sr), generator=g))
+    t, u, noise = sr3_draws(diff, hr.shape, _pkey(key), "cpu")
+    jt, ju, jn = jax_draws(key, N, hr.shape, 2000)
+    assert torch.equal(t, jt) and torch.equal(u, ju)
+    _close(noise, jn, atol=1e-6, rtol=1e-6)
 
 
 def test_ema_update_equal_jax():
@@ -152,7 +151,9 @@ def test_lr_schedules_equal_jax():
 @pytest.mark.parametrize("sampler,weighting,loss_type", [
     ("discrete", "eps", "l2"), ("edm", "unit", "l1"), ("edm", "eps", "l2")])
 def test_standard_diffusion_loss_equal_jax(sampler, weighting, loss_type):
-    """JAX's sigma and noise draws fed to the port; a fixed denoiser."""
+    """The loss from JAX's key, nothing injected, within 1e-5, and its
+    draws (split, then the sigma's normal or randint index and the noise)
+    within 1e-6 relative; then the same with the draws given."""
     x0 = np.random.default_rng(3).standard_normal((3, 4, 4, 2)).astype(
         np.float32)
     cfg_kw = dict(sigma_sampler=sampler, weighting=weighting,
@@ -161,17 +162,18 @@ def test_standard_diffusion_loss_equal_jax(sampler, weighting, loss_type):
     den = lambda x, s: 0.8 * x + 0.05 * s.reshape(-1, 1, 1, 1)
     want = jlosses.standard_diffusion_loss(
         den, jnp.asarray(x0), key, jlosses.StandardDiffusionLossConfig(**cfg_kw))
+    got = tlosses.standard_diffusion_loss(
+        den, torch.from_numpy(x0), tlosses.StandardDiffusionLossConfig(**cfg_kw),
+        key=_pkey(key))
+    _close(float(got), float(want), atol=1e-5, rtol=1e-5)
     k_s, k_n = jax.random.split(key)
-    if sampler == "edm":
-        normal = torch.from_numpy(np.asarray(jax.random.normal(k_s, (3,))))
-        sigma = tlosses.edm_sigma_sampling(3, normal=normal)
-    else:
-        idx = torch.from_numpy(np.asarray(jax.random.randint(k_s, (3,), 0,
-                                                             1000)))
-        sigma = tlosses.discrete_sigma_sampling(3, idx=idx)
+    pk_s, pk_n = prng.split(_pkey(key))
+    sigma = (tlosses.edm_sigma_sampling(3, key=pk_s) if sampler == "edm"
+             else tlosses.discrete_sigma_sampling(3, key=pk_s))
     _close(sigma, jlosses.edm_sigma_sampling(k_s, 3) if sampler == "edm"
-           else jlosses.discrete_sigma_sampling(k_s, 3), atol=1e-6, rtol=1e-6)
-    noise = torch.from_numpy(np.asarray(jax.random.normal(k_n, x0.shape)))
+           else jlosses.discrete_sigma_sampling(k_s, 3), atol=0, rtol=1e-6)
+    noise = prng.normal(pk_n, x0.shape)
+    _close(noise, jax.random.normal(k_n, x0.shape), atol=1e-6, rtol=1e-6)
     got = tlosses.standard_diffusion_loss(
         den, torch.from_numpy(x0), tlosses.StandardDiffusionLossConfig(**cfg_kw),
         sigma=sigma, noise=noise)
@@ -290,8 +292,7 @@ def test_prefetch_raises_the_workers_error():
 # ------------------------------------------------------------- trainer
 def _tiny_trainer(seed=0):
     cfg = TORCH_TINY["sr3"]
-    return SR3Trainer(cfg, SR3TrainConfig(lr=1e-3), device="cpu",
-                      generator=torch.Generator().manual_seed(seed))
+    return SR3Trainer(cfg, SR3TrainConfig(lr=1e-3), device="cpu", seed=seed)
 
 
 def test_resume_equals_uninterrupted(tmp_path):
@@ -303,18 +304,16 @@ def test_resume_equals_uninterrupted(tmp_path):
                 rng.uniform(-1, 1, (N, R, R, 3)).astype(np.float32))
                for _ in range(4)]
     a = _tiny_trainer()
-    g = torch.Generator().manual_seed(1)
-    for hr, sr in batches[:3]:
-        a.train_step(hr, sr, generator=g)
+    keys = prng.split(prng.key(1), 4)
+    for (hr, sr), k in zip(batches[:3], keys):
+        a.train_step(hr, sr, key=k)
     a.save(tmp_path)
     assert {p.name for p in tmp_path.iterdir()} == {"I3_gen.pth",
                                                     "I3_opt.pth"}
     b = _tiny_trainer(seed=9).load(tmp_path, 3)
     assert b.step == 3 and b.ema.step == 3
-    state = g.get_state()
-    la = a.train_step(*batches[3], generator=g)
-    g.set_state(state)
-    lb = b.train_step(*batches[3], generator=g)
+    la = a.train_step(*batches[3], key=keys[3])
+    lb = b.train_step(*batches[3], key=keys[3])
     assert la == lb
     for (k, va), vb in zip(a.model.state_dict().items(),
                            b.model.state_dict().values()):
@@ -331,7 +330,8 @@ def test_resume_equals_uninterrupted(tmp_path):
 def test_cli_three_steps_equal_jax(tmp_path, monkeypatch, capsys):
     """The root train_sr3.py (tiny SR3 config patched in, its loader, its
     PRNGKey(seed + 1) draws) and `python -m rsvldm_tpu_torch.train_sr3
-    --debug_tiny` from JAX's initial weights with JAX's draws fed: the same
+    --debug_tiny` from JAX's initial weights, its draws from the seed alone
+    (PRNGKey(seed + 1) split a step): the same
     printed losses (within 1e-5 plus the 5-decimal rounding) and, from the
     files each wrote, the same UNet and EMA after three steps (atol 1e-4);
     then --resume_iter 3 takes a fourth step and writes I4. The batch is
@@ -368,8 +368,7 @@ def test_cli_three_steps_equal_jax(tmp_path, monkeypatch, capsys):
         args, state_dict=params_from_jax("sr3", to_np(j_init),
                                          TORCH_TINY["sr3"]))
     got = []
-    train_sr3.run(args, trainer, draws=_jax_fit_draws(3, 3, 2000, b),
-                  on_step=lambda r: got.append(r["loss"]))
+    train_sr3.run(args, trainer, on_step=lambda r: got.append(r["loss"]))
     printed = capsys.readouterr().out
     assert re.findall(r"step (\d+): loss", printed) == ["1", "2", "3"]
     for g, w in zip(got, want):

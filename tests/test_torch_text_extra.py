@@ -24,6 +24,7 @@ from rsvldm_tpu.models.vlm import resampler as jres
 from rsvldm_tpu_torch.models.text import embedders as temb
 from rsvldm_tpu_torch.models.text import t5 as tt5
 from rsvldm_tpu_torch.models.vlm import resampler as tres
+from rsvldm_tpu_torch.utils import prng
 from rsvldm_tpu_torch.utils.weights import params_from_jax
 from torch_parity_lib import assert_close, japply, randomize, to_np
 
@@ -80,6 +81,9 @@ def test_masked_drop_with_jax_draws(ratio):
     want = jres.masked_drop(jnp.asarray(x), key, ratio=ratio)
     draws = torch.from_numpy(np.array(jax.random.uniform(key, (3, 20))))
     got = tres.masked_drop(torch.from_numpy(x), draws, ratio=ratio)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the same from the key alone
+    got = tres.masked_drop(torch.from_numpy(x), ratio=ratio, key=prng.key(7))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert tres.masked_drop(torch.from_numpy(x), None, deterministic=True) \
         .shape == x.shape
@@ -189,6 +193,10 @@ def test_lowscale_encoder_with_jax_draws():
     zt, tt = tenc(torch.from_numpy(x), t.long(), noise)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
     assert_close(zt.numpy(), zj, 1e-6)
+    # the same from the key alone
+    zt, tt = tenc(torch.from_numpy(x), key=prng.key(5))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+    assert_close(zt.numpy(), zj, 1e-6)
 
 
 def test_gaussian_encode_with_jax_draws():
@@ -201,6 +209,8 @@ def test_gaussian_encode_with_jax_draws():
     noise = torch.from_numpy(np.array(jax.random.normal(key, (2, 4, 4, 2))))
     tlog, zt = temb.gaussian_encode(enc, torch.from_numpy(x), noise)
     assert_close(zt.numpy(), zj, 1e-6)
+    _, zk = temb.gaussian_encode(enc, torch.from_numpy(x), key=prng.key(2))
+    assert_close(zk.numpy(), zj, 1e-6)
     np.testing.assert_allclose(float(tlog["kl_loss"]), float(jlog["kl_loss"]),
                                rtol=1e-6)
 

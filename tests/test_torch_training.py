@@ -2,8 +2,10 @@
 fp32 on the CPU: the straight-through products, the runtime LoRA branch and
 the fp fold-in, the adapter gradients of one loss, three VLMTrainer steps
 (AdamW), remat, the int8 merge and the adapter archives. The same weights
-(a numpy-randomized Flax tree through params_from_jax), embeddings, labels
-and adapters (JAX's, carried across with lora_from_jax) go to both."""
+(a numpy-randomized Flax tree through params_from_jax), embeddings and
+labels go to both; the adapters are JAX's, carried across with
+lora_from_jax, or drawn by the port's init_lora from the same key (bit-equal
+to JAX's init_lora)."""
 
 import dataclasses
 
@@ -23,6 +25,7 @@ from rsvldm_tpu_torch.models.vlm.llama import (LlamaConfig, LlamaModel, Q4Dense,
                                                QDense, quantize_llama_)
 from rsvldm_tpu_torch.ops.quant import Int4Linear, QuantizedLinear
 from rsvldm_tpu_torch.training import vlm_trainer as tt
+from rsvldm_tpu_torch.utils import prng
 from rsvldm_tpu_torch.utils.weights import (lora_from_jax, lora_module_path,
                                             lora_to_jax, params_from_jax)
 from torch_parity_lib import randomize, to_np
@@ -111,9 +114,14 @@ def test_ste_gradient_equals_jax(mode):
 @pytest.mark.parametrize("mode", ["int8", "int4"])
 def test_zero_b_adapters_leave_the_forward_unchanged(tree, batch, mode):
     """Exactly the base forward, which is JAX's within 1e-4 (measured
-    6e-8)."""
+    6e-8); the port's init_lora from PRNGKey(1) is JAX's, bit for bit."""
     jm, jp, tm = _pair(tree, mode)
-    lora = lora_from_jax(to_np(jt.init_lora(jp, LCFG, jax.random.PRNGKey(1))))
+    lora = tt.init_lora(tm, TCFG, prng.key(1))
+    want = lora_from_jax(to_np(jt.init_lora(jp, LCFG, jax.random.PRNGKey(1))))
+    assert lora.keys() == want.keys()
+    for path, ab in want.items():
+        assert torch.equal(lora[path]["a"], ab["a"]) and not ab["b"].any()
+        assert torch.equal(lora[path]["b"], ab["b"])
     emb = torch.from_numpy(batch[0])
     with torch.no_grad():
         base, _ = tm(emb)
@@ -152,15 +160,16 @@ def test_lora_gradients_equal_jax(tree, batch, mode):
 
 @pytest.mark.parametrize("mode", [None, "int8", "int4"])
 def test_three_trainer_steps_equal_jax(tree, batch, mode):
-    """VLMTrainer (AdamW over the adapters) from JAX's initial adapters:
-    the same three losses (atol 1e-5) and the same adapters after them
+    """VLMTrainer (AdamW over the adapters) from the same key as JAX's
+    (its adapters drawn by the port, nothing injected): the same three
+    losses (atol 1e-5) and the same adapters after them
     (atol 1e-4, 1% of one step at lr 1e-2: Adam's normalized step turns
     fp32 rounding of the smallest gradients into larger moves; measured
     max |err| 1.0e-6 fp, 3.2e-5 int8, 1.3e-6 int4); the base's bytes do
     not move."""
     jm, jp, tm = _pair(tree, mode)
     jtr = jt.VLMTrainer(jm, jp, LCFG, lr=1e-2, rng=jax.random.PRNGKey(5))
-    ttr = tt.VLMTrainer(tm, TCFG, lr=1e-2, lora=lora_from_jax(to_np(jtr.lora)))
+    ttr = tt.VLMTrainer(tm, TCFG, lr=1e-2, key=prng.key(5))
     before = {k: v.clone() for k, v in tm.state_dict().items()}
     emb, labels = batch
     cache = JKVCache.init(dataclasses.replace(JL, quant=mode), B, S)

@@ -1,7 +1,7 @@
 """Shared pieces of the serving parity tests (test_torch_engine.py,
 test_torch_kv_quant.py, test_torch_serving.py): the JAX package's tiny
-decoder and the port's with the same weights, JAX's sampling draws for the
-port's engine, and reference ids from JAX's DecodeEngine."""
+decoder and the port's with the same weights, and reference ids from JAX's
+DecodeEngine (the port's engine draws JAX's numbers from its own key)."""
 
 import dataclasses
 import itertools
@@ -74,37 +74,6 @@ def prompts(pair: Pair, lengths, seed=7) -> list:
 
 def tt(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32))
-
-
-class JaxNoise:
-    """The JAX engine's draws for the port's engine: Gumbel rows of
-    key(n, c) = fold_in(fold_in(rng, n), c), the acceptance uniform of
-    fold_in(key, 7), the resample Gumbel of fold_in(key, 13)."""
-
-    def __init__(self, vocab: int, rng=None):
-        rng = jax.random.PRNGKey(0) if rng is None else rng
-        key = lambda n, c: jax.random.fold_in(jax.random.fold_in(rng, n), c)
-        self._g = jax.jit(jax.vmap(lambda n, c: jax.random.gumbel(
-            key(n, c), (vocab,), jnp.float32)))
-        self._u = jax.jit(jax.vmap(lambda n, c: jax.random.uniform(
-            jax.random.fold_in(key(n, c), 7))))
-        self._r = jax.jit(jax.vmap(lambda n, c: jax.random.gumbel(
-            jax.random.fold_in(key(n, c), 13), (vocab,), jnp.float32)))
-
-    @staticmethod
-    def _call(f, nonces, counts):
-        out = f(jnp.asarray(nonces.cpu().numpy(), jnp.int32),
-                jnp.asarray(counts.cpu().numpy(), jnp.int32))
-        return torch.from_numpy(np.array(out)).to(nonces.device)
-
-    def gumbel(self, nonces, counts):
-        return self._call(self._g, nonces, counts)
-
-    def uniform(self, nonces, counts):
-        return self._call(self._u, nonces, counts)
-
-    def resample(self, nonces, counts):
-        return self._call(self._r, nonces, counts)
 
 
 def jcfg_of(cfg: GenerateConfig) -> JGenerateConfig:

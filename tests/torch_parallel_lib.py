@@ -29,8 +29,8 @@ Jobs:
   engine_tp (2 ranks) DecodeEngine(mesh=) at TP=2 on the tiny decoder
             of <work>/inputs.pt: rank 0 submits and steps, rank 1
             follows; greedy, a speculative round (draft == target),
-            prefix + chunked prefill + horizon, sampled with the table
-            of JAX's draws, int8 pools; then each case on one process
+            prefix + chunked prefill + horizon, sampled from the
+            engine's default key, int8 pools; then each case on one process
   sequence  (4 ranks) sequence_parallel_attention over an ("sp",) mesh,
             gpipe_apply over a ("stage",) mesh (a tanh stage, and the
             tiny decoder's blocks one a stage) on the inputs of
@@ -422,7 +422,7 @@ def _dp_train(work: Path, mesh, steps: int = 3) -> tuple:
     from rsvldm_tpu_torch.training.sr3_trainer import SR3TrainConfig, SR3Trainer
     mc = dataclasses.replace(SR3UNetConfig(image_size=16), **TINY_SR3)
     tr = SR3Trainer(mc, SR3TrainConfig(lr=1e-3), device="cpu", mesh=mesh,
-                    generator=torch.Generator().manual_seed(0))
+                    seed=0)
     rng = np.random.default_rng(5)
     hr, sr = (torch.from_numpy(rng.uniform(-1, 1, (4, 16, 16, 3))
                                .astype(np.float32)) for _ in range(2))
@@ -432,8 +432,9 @@ def _dp_train(work: Path, mesh, steps: int = 3) -> tuple:
     flat = lambda: torch.cat([p.detach().reshape(-1).clone()
                               for p in tr.model.parameters()])
     start = flat()
-    gen = torch.Generator().manual_seed(1)
-    losses = [tr.train_step(hr, sr, generator=gen) for _ in range(steps)]
+    from rsvldm_tpu_torch.utils import prng
+    keys = prng.split(prng.key(1), steps)
+    losses = [tr.train_step(hr, sr, key=k) for k in keys]
     return losses, flat(), start
 
 
@@ -585,23 +586,6 @@ def job_paths(rank: int, n: int, work: Path) -> dict:
     return res
 
 
-class TableNoise:
-    """Draws looked up in [nonce, count] tables (JAX's, computed in the
-    pytest process): gumbel [N, C, V], uniform [N, C], resample [N, C, V]."""
-
-    def __init__(self, tables: dict):
-        self.t = tables
-
-    def gumbel(self, nonces, counts):
-        return self.t["gumbel"][nonces, counts]
-
-    def uniform(self, nonces, counts):
-        return self.t["uniform"][nonces, counts]
-
-    def resample(self, nonces, counts):
-        return self.t["resample"][nonces, counts]
-
-
 def _engine_model(inp: dict, kv_quant: bool = False):
     from rsvldm_tpu_torch.models.vlm.llama import LlamaConfig, LlamaModel
     m = LlamaModel(LlamaConfig(**inp["geom"], kv_quant=kv_quant))
@@ -623,8 +607,6 @@ def _engine_case(name: str, inp: dict, mesh, rank: int) -> dict:
         kw.update(draft=model, spec_k=2)
     elif name == "options":
         kw.update(prefill_chunk=8, decode_horizon=3)
-    elif name == "sampled":
-        kw.update(noise=TableNoise(inp["noise"]))
     elif name == "int8":
         kw.update(kv_8bit=True)
     eng = DecodeEngine(model, mesh=mesh, **kw)

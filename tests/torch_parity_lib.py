@@ -92,21 +92,3 @@ def assert_close(got, want, tol: float = 1e-4):
     scale = max(1.0, float(np.abs(want).max()))
     err = float(np.abs(got - want).max())
     assert err <= tol * scale, f"max abs err {err} > {tol} * {scale}"
-
-
-def jax_draws(key):
-    """The node draws JAX's brownian_point takes from `key`: level -1 is the
-    end point's normal (the first half of split(key)), level l index i the
-    normal of fold_in(fold_in(k_tree, l), i)."""
-    k_end, k_tree = jax.random.split(key)
-    cache = {}
-
-    def draw(level, index, shape):
-        k = (level, index, tuple(shape))
-        if k not in cache:
-            key_ = (k_end if level < 0 else jax.random.fold_in(
-                jax.random.fold_in(k_tree, level), index))
-            cache[k] = torch.from_numpy(np.array(
-                jax.random.normal(key_, shape, jnp.float32)))
-        return cache[k]
-    return draw
