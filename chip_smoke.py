@@ -57,9 +57,17 @@ Phases, each printed on its own line:
                captured in a CUDA graph and replayed after the counts
                advance in place: a decode step's Gumbels [8, 128256] (two
                words) and a round's acceptance uniforms [8 x 4] (three), the
-               plain version's rows for the new counts
+               plain version's rows for the new counts; and its truncated
+               normals on (-2, 2) (Flax's lecun_normal) at train_sr3's init,
+               fp32 and bf16: the SR3 UNet's largest conv kernel and its
+               largest draw (33 M elements), each with two planted faults
+               that must be rejected (the kernel's clamp at +-1.5, the plain
+               version's bounds not erf'd)
   4. reference process() at a small width on the card (bf16, K1 in use)
-               against the same run in fp32 on the CPU: same weights, each
+               against the same run in fp32 on the CPU: same weights (the
+               JAX pipeline's bf16 rule, drawn on the card: Flax's init,
+               which an fp32 pipeline without files takes, zeroes the
+               denoiser's output), each
                side's noise from the seed alone (the key chain, the
                threefry kernel on the card: 4 launches), PNGs within a
                stated uint8 tolerance; then a
@@ -129,7 +137,11 @@ Phases, each printed on its own line:
   5. path      the full-width modules (SR3 64-ch; SDXL XL-base + GLVControl,
                the SDXL VAE with its twin encoder, CLIP-L, bigG; LLaVA-NeXT-8B:
                CLIP-L/336 + mlp2x_gelu + Llama-3-8B, dense) with seeded bf16
-               weights, written as the reference checkpoint directory (SR3's
+               weights (the pipeline's six families by the JAX pipeline's
+               bf16 rule, utils/jax_init.smoke_init: one threefry launch a
+               draw group, each family's check group bit-equal to the CPU's
+               plain draws; the LLaVA by torch generators), written as the reference checkpoint
+               directory (SR3's
                .pth, the juggernaut safetensors, SR-v0Q.ckpt, four LLaVA
                safetensors shards with a Llama-3-style tokenizer.json, a
                Llava-next PEFT adapter, clip_vocab) in a temporary directory
@@ -187,7 +199,9 @@ Phases, each printed on its own line:
                step seconds, tokens/s, peak; then train_sr3: SR3 training (the path's UNet, batch
                8 at 224^2, fp32) through the CLI's construction, its draws
                JAX's of PRNGKey(seed + 1) (3 threefry launches a step), saved
-               and resumed, the resumed step equal to the uninterrupted one.
+               and resumed, the resumed step equal to the uninterrupted one;
+               its start Flax's init of PRNGKey(seed) (35 threefry launches),
+               its check group held to the CPU's.
                Each path's kernel launch counts are reset just before it
                and read just after.
      folder    (before the directory is deleted, and after the path's
@@ -383,6 +397,8 @@ SPEC_TOKENS = 128
 # kernel's fmaf steps of erf_inv against the plain version's fp64
 # multiply-adds may part in the last bit where the fp64 sum rounds twice)
 THREEFRY_TOL = 1e-6
+# a truncated-normal case's planted fault: the kernel's clamp at +-1.5
+TN_FAULT_CLAMP = 1.5
 # 32-bit integer operations a draw: the hash's 20 rounds of add, rotate and
 # xor (60), its key injections (12), the counter's two words, the xor of
 # the outputs and the uniform's shift and or
@@ -1581,28 +1597,65 @@ def _fry_rows(which: str, seed: int = SEED) -> list:
     return [(k_loop, i) for i in range(50)]
 
 
-def _threefry_case(name, which, shape, dist="normal", bf16=False):
+def _scaled_err(got, want) -> float:
+    """max |got - want| / max(1, |want|), NaN counted as infinite."""
+    import torch
+    err = (got.float() - want.float()).abs() / want.float().abs().clamp_min(1.0)
+    return float(torch.nan_to_num(err, nan=math.inf).max())
+
+
+def _tn_faults(table, rows, shape, dtype, out, plain, bounds) -> dict:
+    """Two planted faults a truncated-normal comparison must reject: the
+    kernel with its clamp at +-TN_FAULT_CLAMP instead of the bounds'
+    neighbours, and a plain version whose uniform runs over the bounds
+    themselves, not erf'd (erf_inv then leaves (-1, 1): NaN)."""
+    import torch
+    from rsvldm_tpu_torch.utils import prng
+    real, n = prng._tn_bounds, math.prod(shape)
+    res = {}
+    try:
+        prng._tn_bounds = lambda dt, lo, hi: (real(dt, lo, hi)[:2]
+                                              + (-TN_FAULT_CLAMP, TN_FAULT_CLAMP))
+        bad = torch.empty_like(out)
+        prng.launch(table, n, "truncated_normal", dtype, bad, *bounds)
+        torch.cuda.synchronize()
+        res["kernel_clamp_at_1.5"] = _scaled_err(bad, plain)
+        del bad
+        prng._tn_bounds = lambda dt, lo, hi: (lo, hi) + real(dt, lo, hi)[2:]
+        res["plain_bounds_not_erfd"] = _scaled_err(out, prng.draw_plain(
+            rows, shape, "truncated_normal", dtype, "cuda", *bounds))
+    finally:
+        prng._tn_bounds = real
+    return {k: dict(max_scaled_err=v, rejected=bool(v > THREEFRY_TOL))
+            for k, v in res.items()}
+
+
+def _threefry_case(name, which, shape, dist="normal", bf16=False,
+                   bounds=(0.0, 1.0)):
     """The threefry kernel (prng.launch, the wrapper's launch) against
-    prng.draw_plain on the card, on one main-path draw: the 32-bit words
-    equal, the draw within THREEFRY_TOL; device time by graph replay, the
-    plain version's, and torch.randn's at the same shape (a yardstick of
-    cost only: it draws Philox, another function)."""
+    prng.draw_plain on the card, on one main-path draw (`which`: a name of
+    `_fry_rows`, or the rows themselves; `bounds` a truncated normal's):
+    the 32-bit words equal, the draw within THREEFRY_TOL; device time by
+    graph replay, the plain version's, and torch.randn's at the same shape
+    (a yardstick of cost only: it draws Philox, another function). A
+    truncated normal also carries `_tn_faults`, each of which must be
+    rejected."""
     import torch
     from rsvldm_tpu_torch.utils import prng
     dtype = torch.bfloat16 if bf16 else torch.float32
-    rows = _fry_rows(which)
+    rows = which if isinstance(which, list) else _fry_rows(which)
     n, r = math.prod(shape), len(rows)
     table = prng.row_table(rows, "cuda")
     out = torch.empty((r, *shape), dtype=dtype, device="cuda")
     words = torch.empty((r, *shape), dtype=torch.int32, device="cuda")
-    prng.launch(table, n, dist, dtype, out)
+    prng.launch(table, n, dist, dtype, out, *bounds)
     prng.launch(table, n, "bits", torch.int64, words)
     torch.cuda.synchronize()
     plain_bits = prng.draw_plain(rows, shape, "bits", torch.int64, "cuda")
     bits_equal = bool(torch.equal(words.to(torch.int64) & prng.M32, plain_bits))
     del plain_bits, words
     t0 = time.perf_counter()
-    plain = prng.draw_plain(rows, shape, dist, dtype, "cuda")
+    plain = prng.draw_plain(rows, shape, dist, dtype, "cuda", *bounds)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = (out.float() - plain.float()).abs()
@@ -1613,26 +1666,51 @@ def _threefry_case(name, which, shape, dist="normal", bf16=False):
                bit_equal=bool(torch.equal(out, plain)),
                finite=bool(torch.isfinite(out).all()),
                tol=f"bits equal; |err| <= {THREEFRY_TOL} * max(1, |plain|)")
+    if dist == "truncated_normal":
+        rec["bounds"] = list(bounds)
+        rec["inside_bounds"] = bool((out.float() > bounds[0]).all()
+                                    and (out.float() < bounds[1]).all())
+        rec["faults"] = _tn_faults(table, rows, shape, dtype, out, plain,
+                                   bounds)
     del plain, err
     nbytes = r * n * out.element_size() + table.numel() * 8
     ops = float(r) * (n + 1) * THREEFRY_INT_OPS
     rec["bound_ms"] = max(nbytes / H100_HBM_BYTES, ops / H100_INT32_OPS) * 1e3
     rec["bound_by"] = ("bytes" if nbytes / H100_HBM_BYTES
                        >= ops / H100_INT32_OPS else "operations")
-    rec["ms"] = _graph_ms(lambda: prng.launch(table, n, dist, dtype, out),
-                          iters=10)
+    rec["ms"] = _graph_ms(lambda: prng.launch(table, n, dist, dtype, out,
+                                              *bounds), iters=10)
     rec["wrapper_ms"] = _time_ms(
-        lambda: prng.draw(rows, shape, dist, dtype, out=out), 5)
+        lambda: prng.draw(rows, shape, dist, dtype, out=out, minval=bounds[0],
+                          maxval=bounds[1]), 5)
     prng.draw.launches = 0  # comparison launches not counted
     rec["plain_ms"] = plain_ms
     rec["randn_ms"] = _time_ms(lambda: torch.randn(out.shape, dtype=dtype,
                                                    device="cuda"), 10)
     rec["library_ms"] = None  # no PyTorch call draws JAX's threefry numbers
     rec["gdraws_s"] = r * n / (rec["ms"] * 1e-3) / 1e9
-    rec["ok"] = bool(bits_equal and scaled <= THREEFRY_TOL and rec["finite"])
+    rec["ok"] = bool(bits_equal and scaled <= THREEFRY_TOL and rec["finite"]
+                     and rec.get("inside_bounds", True)
+                     and all(f["rejected"]
+                             for f in rec.get("faults", {}).values()))
     rec["main_path"] = True
     _say("kernels", **rec)
     return rec
+
+
+def _sr3_tn_groups() -> tuple:
+    """Flax's init of the path's SR3 UNet from PRNGKey(SEED) (what
+    train_sr3 --seed SEED starts from, utils/jax_init.flax_init): the rows
+    and shape of its largest conv kernel's draw, and of its largest draw
+    (the most elements in one launch)."""
+    from rsvldm_tpu_torch.models.sr3.unet import SR3UNetConfig
+    from rsvldm_tpu_torch.utils import prng
+    from rsvldm_tpu_torch.utils.jax_init import flax_groups
+    tn = [(s, [row for _, row in m]) for (d, s, _), m in
+          flax_groups("sr3", SR3UNetConfig(), prng.key(SEED)).items()
+          if d == "truncated_normal"]
+    return (max(tn, key=lambda g: math.prod(g[0])),
+            max(tn, key=lambda g: len(g[1]) * math.prod(g[0])))
 
 
 def phase_threefry():
@@ -1640,13 +1718,22 @@ def phase_threefry():
     [501, 1, 224, 224, 3], the caption's Gumbels [256, 1, 128256], the
     churn's normals [50, 1, 128, 128, 4] and a bf16 [1, 1, 128, 128, 4]
     posterior-sample draw (the port draws it in fp32, as the mean's dtype
-    is; bf16 is the path JAX takes for a bf16 VAE)."""
+    is; bf16 is the path JAX takes for a bf16 VAE); then Flax's
+    lecun_normal truncated normals on (-2, 2) of train_sr3's init, in fp32
+    and bf16: the SR3 UNet's largest conv kernel ([3, 3, 3, 1024, 512])
+    and its largest draw ([14, 3, 3, 512, 512], 33 M elements)."""
+    (ks, krows), (gs, grows) = _sr3_tn_groups()
+    tn = dict(dist="truncated_normal", bounds=(-2.0, 2.0))
     return [_threefry_case("stage1_normals", "stage1", (1, 224, 224, 3)),
             _threefry_case("caption_gumbels", "caption", (1, 128256),
                            "gumbel"),
             _threefry_case("churn_normals", "churn", (1, 128, 128, 4)),
             _threefry_case("vae_sample_bf16", "vae_sample", (1, 128, 128, 4),
-                           bf16=True)]
+                           bf16=True),
+            _threefry_case("sr3_kernel_tn", krows, ks, **tn),
+            _threefry_case("sr3_kernel_tn_bf16", krows, ks, bf16=True, **tn),
+            _threefry_case("sr3_group_tn", grows, gs, **tn),
+            _threefry_case("sr3_group_tn_bf16", grows, gs, bf16=True, **tn)]
 
 
 def _threefry_folded_case(name, rows: int, ahead: int, fold, shape, dist):
@@ -1782,6 +1869,59 @@ def phase_k2():
                for name, inf, out, _ in shapes]
         _k2_step(k2, steps=shapes, suffix="", label=family)
     return k2
+
+
+# the seeded weights the card's are held to, drawn by the plain version on
+# the CPU in this process: phase path's check group of each pipeline family
+# and phase train_sr3's of its trainer's Flax init (the largest draw group
+# of at most PATH_CHECK_ELEMS elements)
+PATH_CHECK_ELEMS = 1 << 21
+PIPE_FAMILIES = ("sr3", "unet", "control", "vae", "clip_l", "big_g")
+
+
+def _path_cfgs() -> dict:
+    """The full-width pipeline's model configs, by family, as
+    SuperResolutionPipeline builds them from PipelineConfig()."""
+    from rsvldm_tpu_torch.config import PipelineConfig
+    from rsvldm_tpu_torch.models.sdxl.unet import SDXLUNetConfig
+    from rsvldm_tpu_torch.models.sr3.unet import SR3UNetConfig
+    from rsvldm_tpu_torch.models.text.clip import (CLIP_L_CONFIG,
+                                                   OPENCLIP_BIGG_CONFIG)
+    from rsvldm_tpu_torch.models.vae.model import SDXL_VAE_CONFIG
+    s1 = PipelineConfig().stage1
+    return dict(sr3=SR3UNetConfig(
+        inner_channel=s1.inner_channel, channel_mults=tuple(s1.channel_mults),
+        attn_res=tuple(s1.attn_res), res_blocks=s1.res_blocks,
+        image_size=s1.image_size), unet=SDXLUNetConfig(),
+        control=SDXLUNetConfig(), vae=SDXL_VAE_CONFIG, clip_l=CLIP_L_CONFIG,
+        big_g=OPENCLIP_BIGG_CONFIG)
+
+
+def _check_group(groups: dict):
+    """The draw group (a key of jax_init's smoke_groups or flax_groups) a
+    phase holds to the CPU: the one with the most elements, at most
+    PATH_CHECK_ELEMS."""
+    # smoke_groups' keys are (shape, scale), flax_groups' (dist, shape, factor)
+    sizes = {g: len(m) * math.prod(g[0] if len(g) == 2 else g[1])
+             for g, m in groups.items()}
+    return max((g for g, n in sizes.items() if n <= PATH_CHECK_ELEMS),
+               key=lambda g: sizes[g])
+
+
+def _rule_state_dicts(small: dict) -> dict:
+    """The small-width families' weights by the JAX pipeline's bf16 rule
+    (utils/jax_init.smoke_init), drawn on the card (the threefry kernel
+    equals its plain version bit for bit: phase kernels) and widened to
+    fp32 for the CPU's fp32 pipeline. Without them that pipeline would take
+    Flax's init, whose zero output convs (the UNet's out_conv and every
+    ZeroSFT) make the denoiser's output zero, and the card-vs-CPU checks
+    would compare zeros."""
+    from rsvldm_tpu_torch.utils.jax_init import smoke_init
+    cfg_of = dict(sr3=small["sr3"], unet=small["sdxl"], control=small["sdxl"],
+                  vae=small["vae"], clip_l=small["clip_l"],
+                  big_g=small["big_g"])
+    return {f: {k: v.float().cpu() for k, v in
+                smoke_init(f, c, "cuda").items()} for f, c in cfg_of.items()}
 
 
 def _reset_counts():
@@ -1975,7 +2115,8 @@ def _card_vs_cpu(seed: int, small: dict, refine: dict, names, lr_side: int = 4):
                               stage1=Stage1Config(steps=8),
                               refine=RefinementConfig(**refine))
 
-    cpu = SuperResolutionPipeline(cfg("cpu"), device="cpu", model_cfgs=small)
+    cpu = SuperResolutionPipeline(cfg("cpu"), device="cpu", model_cfgs=small,
+                                  state_dicts=_rule_state_dicts(small))
     cpu.process()
     sds = {fam: getattr(cpu, fam).state_dict() for fam in
            ("sr3", "unet", "control", "vae", "clip_l", "big_g")}
@@ -2586,13 +2727,43 @@ def _decode_launches(llama, lora=None, pos: int = 1300):
                if e.self_device_time_total > 0 and e.device_type == DeviceType.CUDA)
 
 
+def _seeding(pipe0) -> dict:
+    """The JAX rule's seeded weights of the full-width pipeline (a
+    directory with no files at params_dtype bf16: utils/jax_init.smoke_init
+    on the card): each family's check group held bit for bit to the CPU's
+    plain draws of the same rows."""
+    import torch
+    from rsvldm_tpu_torch.utils.jax_init import smoke_groups, smoke_init
+    cfgs = _path_cfgs()
+    cfg_of = dict(sr3=pipe0.sr3_cfg, unet=pipe0.sdxl_cfg,
+                  control=pipe0.sdxl_cfg, vae=pipe0.vae_cfg,
+                  clip_l=pipe0.clip_l_cfg, big_g=pipe0.big_g_cfg)
+    leaves, cpu_s = {}, time.perf_counter()
+    for f in PIPE_FAMILIES:
+        groups = smoke_groups(f, cfgs[f])
+        g = _check_group(groups)
+        ref = smoke_init(f, cfgs[f], "cpu", only=g)
+        sd = getattr(pipe0, f).state_dict()
+        leaves[f] = dict(shape=list(g[0]), rows=len(groups[g]),
+                         tensors=len(ref), bit_equal=bool(ref and all(
+                             torch.equal(sd[k].cpu(), v)
+                             for k, v in ref.items())))
+    return dict(cfgs_as_checked=all(cfg_of[f] == cfgs[f] for f in cfg_of),
+                groups={f: len(smoke_groups(f, cfg_of[f]))
+                        for f in PIPE_FAMILIES},
+                leaves_equal=leaves, cpu_check_s=time.perf_counter() - cpu_s)
+
+
 def phase_path(seed: int):
     """Full-width seeded modules written as the reference checkpoint
     directory, then the pipeline built from that directory alone through
     the CLI's own construction (infer.build_pipeline --quant int4), its
     weights and tokens checked against what was written, then process().
-    Returns (record, pipeline, the directory): the caller deletes the
-    directory after phase `folder` has read it."""
+    The pipeline families' seeded weights are the JAX pipeline's bf16
+    rule (`_seeding`): one threefry launch a draw group of a family, each
+    family's check group bit-equal to the CPU's plain draws. Returns
+    (record, pipeline, the directory): the caller deletes the directory
+    after phase `folder` has read it."""
     import shutil
     import numpy as np
     import torch
@@ -2617,14 +2788,34 @@ def phase_path(seed: int):
         DEFAULT_IMAGE_TOKEN="<image>"))
     # the modules to write: the full-width geometries with seeded bf16
     # weights (a directory with no files), LLaVA-NeXT-8B dense
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
     t0 = time.perf_counter()
     pipe0 = SuperResolutionPipeline(PipelineConfig(ckpt_dir=str(work / "none"),
                                                    no_llava=True), device="cuda")
     pipe0.ensure_stage2()
+    torch.cuda.synchronize()
+    seed_pipe_s = time.perf_counter() - t0
+    seed_launches = _counts()["threefry"]
+    seed_peak = torch.cuda.max_memory_allocated() / 2**30
     cap0 = LlavaCaptioner.seeded(tokenizer=StandInTokenizer(), device="cuda",
                                  dtype=torch.bfloat16)
     torch.cuda.synchronize()
     seed_s = time.perf_counter() - t0
+    seeding = _seeding(pipe0)
+    seeding.update(
+        sources={f: pipe0.weight_sources[f] for f in PIPE_FAMILIES},
+        rule="the JAX pipeline's bf16 per-leaf rule (utils/jax_init.smoke_init)",
+        seconds=seed_pipe_s, seconds_by_family={f: pipe0.load_s[f]
+                                                for f in PIPE_FAMILIES},
+        peak_mem_gib=seed_peak, threefry_launches=seed_launches,
+        threefry_reckoned=sum(seeding["groups"].values()))
+    seeding["ok"] = bool(
+        seeding["cfgs_as_checked"]
+        and all(v == "seeded" for v in seeding["sources"].values())
+        and seed_launches == seeding["threefry_reckoned"]
+        and all(v["bit_equal"] for v in seeding["leaves_equal"].values()))
     mods = [getattr(pipe0, f) for f in ("sr3", "unet", "control", "vae", "clip_l",
                                         "big_g")] + [cap0.llama, cap0.vision, cap0.projector]
     need = sum(t.numel() * t.element_size() for m in mods
@@ -2633,7 +2824,8 @@ def phase_path(seed: int):
     lc = cap0.llama.cfg
     need += lc.layers * 8 * (3 * lc.dim + lc.kv_heads * lc.head_dim) * 2
     cd, free = _pick_dir(int(need * CKPT_MARGIN))
-    rec = dict(ckpt_bytes_reckoned=need, free_bytes=free, seed_s=seed_s)
+    rec = dict(ckpt_bytes_reckoned=need, free_bytes=free, seed_s=seed_s,
+               seeding=seeding)
     if cd is None:
         rec.update(ok=False, error=f"no directory with {need * CKPT_MARGIN / 1e9:.1f} "
                    "GB free for the checkpoint directory")
@@ -2795,7 +2987,7 @@ def phase_path(seed: int):
                                 + K1_PER_CAPTION)
     # the decode steps, and the prefill's lm_head on the last position
     rec["expected_k2_launches"] = K2_PER_STEP * (cs.get("decode_steps") or 0) + 1
-    ok = bool(from_files and cap is not None
+    ok = bool(from_files and cap is not None and seeding["ok"]
               and isinstance(sources.get("llava"), list)
               and all(digests_equal.values()) and len(peft) == 6
               and all(peft.values()) and ls.get("peft_merged") == 64
@@ -3477,7 +3669,8 @@ def phase_samplers_reference(seed: int, steps: int = 3, tile: int = 64):
     fams = ("sr3", "unet", "control", "vae", "clip_l", "big_g")
     mk = lambda dt: PipelineConfig(no_llava=True, params_dtype=dt, seed=seed,
                                    ckpt_dir=str(REPO / "no_checkpoint_here"))
-    cpu = SuperResolutionPipeline(mk("fp32"), device="cpu", model_cfgs=small)
+    cpu = SuperResolutionPipeline(mk("fp32"), device="cpu", model_cfgs=small,
+                                  state_dicts=_rule_state_dicts(small))
     cpu.ensure_stage2()
     with torch.no_grad():
         for f in fams:
@@ -4826,13 +5019,17 @@ def phase_train_sr3(seed: int, steps: int = 4, images: int = 24):
     draws (the key of PRNGKey(seed + 17)): the loss, every parameter and
     the EMA must be equal. The loss draws are JAX's of PRNGKey(seed + 1),
     split a step: three threefry launches a step (randint's bits, the
-    uniforms, the normals); no other hand kernel runs here."""
+    uniforms, the normals); no other hand kernel runs here. The trainer
+    starts from Flax's init of PRNGKey(seed) (utils/jax_init.flax_init:
+    one threefry launch a draw group), its check group held to the CPU's
+    plain draws of the same rows."""
     import shutil
     import numpy as np
     import torch
     from PIL import Image
     from rsvldm_tpu_torch import train_sr3
     from rsvldm_tpu_torch.utils import prng
+    from rsvldm_tpu_torch.utils.jax_init import flax_groups, flax_init
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_sr3_"))
     det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     try:
@@ -4853,7 +5050,30 @@ def phase_train_sr3(seed: int, steps: int = 4, images: int = 24):
                 str(work / "ckpt"), "--steps", str(steps), "--log_every", "1",
                 "--seed", str(seed), "--num_workers", "2"]
         args = train_sr3.parse_args(argv)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         trainer = train_sr3.build_trainer(args)
+        torch.cuda.synchronize()
+        init = dict(seconds=time.perf_counter() - t0,
+                    threefry_launches=_counts()["threefry"])
+        cfg, key = train_sr3.model_config(args), prng.key(args.seed)
+        groups = flax_groups("sr3", cfg, key)
+        g = _check_group(groups)
+        ref = flax_init("sr3", cfg, key, "cpu", only=g)
+        sd = trainer.model.state_dict()
+        init.update(threefry_reckoned=len(groups), check_group=dict(
+            dist=g[0], shape=list(g[1]), rows=len(groups[g])),
+            tensors=len(ref), bit_equal=all(
+                torch.equal(sd[k].cpu(), v) for k, v in ref.items()),
+            max_scaled_err=max(_scaled_err(sd[k].cpu(), v)
+                               for k, v in ref.items()),
+            tol=f"|err| <= {THREEFRY_TOL} * max(1, |cpu|)")
+        init["ok"] = bool(ref and set(ref) <= set(sd)
+                          and init["max_scaled_err"] <= THREEFRY_TOL
+                          and init["threefry_launches"]
+                          == init["threefry_reckoned"])
+        del ref, sd
         per_step = []
         clock = [time.perf_counter()]
 
@@ -4893,9 +5113,10 @@ def phase_train_sr3(seed: int, steps: int = 4, images: int = 24):
                    peak_mem_gib=peak, launches=launches, files=files,
                    resumed_step=resumed.step, resumed_loss=lb,
                    uninterrupted_loss=la, resumed_param_max_err=param_err,
-                   resumed_ema_max_err=ema_err)
+                   resumed_ema_max_err=ema_err, init=init)
         rec["ok"] = bool(
-            len(per_step) == steps and trainer.step == resumed.step == steps + 1
+            init["ok"] and len(per_step) == steps
+            and trainer.step == resumed.step == steps + 1
             and all(math.isfinite(x) for x in rec["losses"])
             and all(v == (3 * steps if k == "threefry" else 0)
                     for k, v in launches.items())
@@ -7491,6 +7712,9 @@ def main(argv=None) -> int:
          total_s=round(time.perf_counter() - t_start, 3))
     mm = tr.get("train_mm", [])
     by_path = {"process": path.get("launches", {}) if path else {},
+               # the pipeline families' seeded weights (one a draw group)
+               "path_seeding": ({"threefry": path["seeding"]["threefry_launches"]}
+                                if path and "seeding" in path else {}),
                "spec": spec["launches"] if spec else {},
                "tiled": tiled["launches"] if tiled else {},
                "folder": folder["launches"] if folder else {},
@@ -7504,6 +7728,9 @@ def main(argv=None) -> int:
                # the wide-head decoder's prefill and LoRA steps
                "wide_head": wide["launches"] if wide else {},
                "train_sr3": sr3["launches"] if sr3 else {},
+               # its trainer's Flax init (one a draw group)
+               "train_sr3_init": ({"threefry": sr3["init"]["threefry_launches"]}
+                                  if sr3 and "init" in sr3 else {}),
                # the LLM worker over HTTP; its engine's options (prefix,
                # chunk, horizon, int8 KV); speculative rounds
                "serve": serve["launches"] if serve else {},
@@ -7619,10 +7846,12 @@ def main(argv=None) -> int:
               kernels=("flash_wide_bwd_kernel", "flash_wide_prep_kernel")),
         # no Pallas counterpart: JAX's jax.random threefry draws, which XLA
         # compiles (the pipeline's key, its Stage-1 and refinement splits,
-        # the caption's categorical)
+        # the caption's categorical; the seeded weights: the pipeline's
+        # bf16 rule and Flax's init)
         entry("threefry", "rsvldm_tpu_torch/csrc/threefry.cu",
-              "none (jax.random threefry: rsvldm_tpu/pipeline.py:95, 335, "
-              "456; rsvldm_tpu/models/vlm/generate.py:170-190)", "threefry",
+              "none (jax.random threefry: rsvldm_tpu/pipeline.py:95, 173-205, "
+              "335, 456; rsvldm_tpu/models/vlm/generate.py:170-190; Flax's "
+              "Module.init)", "threefry",
               fry, ("case", "shape", "dist", "dtype", "ms", "wrapper_ms",
                     "plain_ms", "randn_ms", "bound_ms", "bound_by",
                     "gdraws_s", "bits_equal", "max_abs_err",

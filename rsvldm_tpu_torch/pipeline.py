@@ -15,8 +15,10 @@ Weights, family by family (rsvldm_tpu/pipeline.py:210-305): from
 utils/weights.params_from_jax), else from the reference files in
 cfg.ckpt_dir (`CHECKPOINTS`: later files overlaid on earlier ones, the
 family's prefix stripped; the port's parameter names are the reference
-names, so no converter runs), else seeded random init on the device with a
-loud warning. Loading fills modules built on the device in the compute
+names, so no converter runs), else the JAX pipeline's seeded weights
+(utils/jax_init.py: the bf16 per-leaf rule at params_dtype bf16, Flax's
+init at fp32, from the same crc32 keys) drawn on the device, with a loud
+warning. Loading fills modules built on the device in the compute
 dtype, tensor by tensor (utils/checkpoint.load_checked: missing names and
 other shapes raise, extra names are logged). `weight_sources` records each
 family's source and `load_s` its seconds. The LLaVA captioner is `captioner`
@@ -112,7 +114,7 @@ from .utils.checkpoint import (load_checked, load_torch_state_dict, overlay,
                                strip_prefix)
 from .utils import prng
 from .utils.tokenizer import CLIPTokenizer
-from .utils.weights import seeded_init_
+from .utils.jax_init import flax_init, smoke_init
 
 log = logging.getLogger("rsvldm_torch")
 
@@ -298,10 +300,23 @@ class SuperResolutionPipeline:
                        for k, v in sd.items() if k.startswith("encoder.")})
         return sd, paths
 
+    def _seeded(self, family: str, mcfg) -> Dict[str, torch.Tensor]:
+        """The JAX pipeline's seeded weights of a family without files
+        (rsvldm_tpu/pipeline.py:151-205), drawn on the device from
+        PRNGKey(crc32(family) % 2^31): the bf16 per-leaf rule at
+        params_dtype bf16, else Flax's init (fp32)."""
+        log.warning("checkpoint for %s not found under %s: seeded random "
+                    "init (smoke mode, outputs are not meaningful)", family,
+                    self.cfg.ckpt_dir)
+        if self.cfg.params_dtype == "bf16":
+            return smoke_init(family, mcfg, self.device)
+        return flax_init(family, mcfg, device=self.device)
+
     def _build(self, family: str, cls, mcfg):
         """The family's module on the device in the compute dtype: built
         without allocating (meta), then filled from `state_dicts`, else from
-        its files, else by seeded random init."""
+        its files, else from JAX's seeded weights (`_seeded`), drawn in
+        JAX's storage dtype and cast to the compute dtype as they load."""
         self._sync()
         t0 = time.perf_counter()
         with torch.device("meta"):
@@ -317,7 +332,7 @@ class SuperResolutionPipeline:
                 load_checked(module, sd, f"{family} ({', '.join(paths)})")
                 self.weight_sources[family] = paths
             else:
-                seeded_init_(module, family, self.device)
+                load_checked(module, self._seeded(family, mcfg), family)
                 self.weight_sources[family] = "seeded"
         self._sync()
         self.load_s[family] = time.perf_counter() - t0

@@ -14,9 +14,9 @@ The UNet is the pipeline's SR3 (64 channels, x(1, 2, 4, 8, 8)) at
 --r_res; --debug_tiny takes the JAX pipeline's tiny geometry instead. As
 in the JAX CLI, the loss draws are those of PRNGKey(--seed + 1), split
 once a step from the start of each run (so the same seed gives JAX's
-draws), and the loader restarts at its first epoch. The seeded initial
-weights are not JAX's. It runs
-on CUDA unless given --device cpu, and raises without a card.
+draws), and the loader restarts at its first epoch. The initial weights
+are Flax's init of PRNGKey(--seed), as the JAX CLI's. It runs on CUDA
+unless given --device cpu, and raises without a card.
 
 On N ranks (one process per card; RSVLDM_COORDINATOR=host:port
 RSVLDM_NUM_PROCESSES=N RSVLDM_PROCESS_ID=i, parallel/distributed.py) the

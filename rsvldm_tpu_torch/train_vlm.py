@@ -18,9 +18,10 @@ length-grouped batches padded to a multiple of --pad_to. Recipes:
 - `--dpo`: preference pairs {prompt, chosen, rejected}, LoRA only, the
   frozen base as the reference policy (`--dpo_beta`).
 
-Smoke (no checkpoint: a tiny seeded decoder and a crc32 word tokenizer;
-image records are read as text, as the JAX CLI does; projector tuning
-and video records get seeded stand-in features):
+Smoke (no checkpoint: the JAX CLI's tiny decoder, Flax's init of
+PRNGKey(0), and a crc32 word tokenizer; image records are read as text,
+as the JAX CLI does; projector tuning and video records get the JAX CLI's
+stand-in features and projector, from its keys):
   python -m rsvldm_tpu_torch.train_vlm --smoke --data_path train.json \\
       --output_dir out --steps 20 --device cpu
 
@@ -273,26 +274,45 @@ def captioner_features(args, cap, tune) -> Features:
                     img_tokens=(size // cap.vision.cfg.patch_size) ** 2)
 
 
+def smoke_captioner(quant, device, dtype):
+    """The JAX CLI's smoke decoder: Flax's init of SMOKE_LLAMA from
+    PRNGKey(0) (utils/jax_init.py), quantized to `quant` with the embedding
+    left in the decoder's dtype, as the JAX CLI keeps it; the vision tower
+    (which the smoke recipes never run) is seeded."""
+    from .models.vlm.captioner import LlavaCaptioner
+    from .models.vlm.llama import quantize_llama_
+    from .utils.jax_init import flax_init
+    cap = LlavaCaptioner.seeded(SMOKE_LLAMA, SMOKE_VISION, HashTokenizer(),
+                                device=device, dtype=dtype)
+    cap.llama.load_state_dict(flax_init("llama", SMOKE_LLAMA, prng.key(0),
+                                        device))
+    if quant:
+        quantize_llama_(cap.llama, quant,
+                        embed_dtype=cap.llama.model.embed_tokens.weight.dtype)
+    return cap
+
+
 def smoke_features(cap, tune) -> Features:
-    """The JAX CLI's smoke stand-ins, drawn with numpy from its seeds: tower
-    features N(0, 1) [4, 8] (seed 11) for every image when the projector
-    trains (then cap's projector becomes a seeded 8 -> D one), and N(0, 1)
-    [4 per frame, D] (seed 13) for every video."""
+    """The JAX CLI's smoke stand-ins, drawn from its keys: tower features
+    normal(PRNGKey(11), [4, 8]) for every image when the projector trains
+    (then cap's projector becomes Flax's init of an 8 -> D MLPProjector
+    from PRNGKey(7)), and normal(PRNGKey(13), [4 per frame, D]) for every
+    video."""
     from .models.vlm.projector import MLPProjector
-    from .utils.weights import seeded_init_
+    from .utils.jax_init import flax_init
     dev = cap.image_newline.device
     dim = cap.llama.cfg.dim
-    vis = torch.from_numpy(np.random.default_rng(11).standard_normal(
-        (SMOKE_IMG_TOKENS, SMOKE_VIS_DIM)).astype(np.float32)).to(dev)
+    vis = prng.normal(prng.key(11), (SMOKE_IMG_TOKENS, SMOKE_VIS_DIM),
+                      device=dev)
 
     def video(frames):
-        return torch.from_numpy(np.random.default_rng(13).standard_normal(
-            (len(frames) * 4, dim)).astype(np.float32)).to(dev)
+        return prng.normal(prng.key(13), (len(frames) * 4, dim), device=dev)
 
     if "projector" not in tune:
         return Features(video=video)
-    cap.projector = seeded_init_(MLPProjector(SMOKE_VIS_DIM, dim).to(dev),
-                                 "projector", dev)
+    cap.projector = MLPProjector(SMOKE_VIS_DIM, dim).to(dev)
+    cap.projector.load_state_dict(flax_init(
+        "projector", (SMOKE_VIS_DIM, dim), prng.key(7), dev))
     return Features(process_image=lambda path: path,
                     image_raw=lambda _: vis, video=video,
                     img_tokens=SMOKE_IMG_TOKENS)
@@ -483,8 +503,7 @@ def main(argv=None):
     dtype = compute_dtype(device)
     quant = {16: None, 8: "int8", 4: "int4"}[args.bits]
     if args.smoke:
-        cap = LlavaCaptioner.seeded(SMOKE_LLAMA, SMOKE_VISION, HashTokenizer(),
-                                    quant=quant, device=device, dtype=dtype)
+        cap = smoke_captioner(quant, device, dtype)
         encode = _hash_encode
         pre_kw = smoke_preprocess_kw(args.template)
         features = smoke_features(cap, tune)

@@ -33,7 +33,7 @@ import torch
 from ..models.sr3.diffusion import SR3Diffusion, sr3_draws, sr3_loss
 from ..models.sr3.unet import SR3UNet, SR3UNetConfig
 from ..utils import prng
-from ..utils.weights import init_params_
+from ..utils.jax_init import flax_init
 from .ema import EmaState, ema_init, ema_update
 
 
@@ -51,8 +51,8 @@ class SR3TrainConfig:
 
 class SR3Trainer:
     """model_cfg / train_cfg as JAX's. The UNet starts from `state_dict`
-    when given (a test feeds JAX's init through params_from_jax), else from
-    init_params_ seeded `seed` (seeded weights are not JAX's). The loss
+    when given, else from Flax's init of PRNGKey(seed) (utils/jax_init.py),
+    the weights JAX's SR3Trainer(rng=PRNGKey(seed)) starts from. The loss
     draws are JAX's, from keys (utils/prng.py): `fit` splits its key once
     a step, as JAX's fit."""
 
@@ -65,10 +65,10 @@ class SR3Trainer:
         self.cfg = train_cfg
         self.device = torch.device(device)
         self.model = SR3UNet(model_cfg).to(self.device)
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict)
-        else:
-            init_params_(self.model, seed)
+        if state_dict is None:
+            state_dict = flax_init("sr3", model_cfg, prng.key(seed),
+                                   self.device)
+        self.model.load_state_dict(state_dict)
         if mesh is not None:
             from ..parallel.mesh import mesh_group, replicate_state
             replicate_state(mesh, self.model)

@@ -14,8 +14,13 @@ the top mantissa bits of 1.0 from the bits, subtracts 1, scales into
 [minval, maxval) and takes max(minval, .); a normal is sqrt(2) erf_inv of
 a uniform on (nextafter(-1, 0), 1), with erf_inv the fp32 polynomial XLA
 lowers chlo.erf_inv to (Giles' single-precision approximation, the
-branches at w = -log1p(-x^2) < 5); a Gumbel is -log(-log(u)) of a uniform
-on [tiny, 1) (JAX's default "low" mode); categorical is the argmax of
+branches at w = -log1p(-x^2) < 5; log1p and log are XLA's CPU
+polynomials: the Cephes rational below sqrt(2) - 1, Cephes' logf); a
+truncated normal on (lower, upper) is sqrt(2) erf_inv of a uniform on
+[erf(lower / sqrt2), erf(upper / sqrt2)) (XLA's fp32 erf), clamped to
+(nextafter(lower, +inf), nextafter(upper, -inf)), as Flax's lecun_normal
+draws it; a Gumbel is -log(-log(u)) of a uniform on [tiny, 1) (JAX's
+default "low" mode); categorical is the argmax of
 logits plus Gumbels drawn in the logits' dtype. bf16 draws take 8 random
 bits and round to bf16 after every step, as XLA computes bf16 on the
 host.
@@ -61,8 +66,30 @@ _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                -0.00367342844, 0.00573950773, -0.0076224613,
                0.00943887047, 1.00167406, 2.83297682)
+# XLA's f32 erf on the CPU (its elemental emitter): an odd numerator over
+# an even denominator in x^2, Horner steps as fused multiply-adds, the input
+# clamped to +-3.8325; equal to jax.lax.erf for |x| < 3
+_ERF_NUM = (0.00022905065861350646, 0.0034082910107109506,
+            0.050955695062380861, 0.18520832239976145, 1.128379143519084)
+_ERF_DEN = (-1.1791602954361697e-7, 0.000023547966471313185,
+            0.0010179625278914885, 0.014070470171167667,
+            0.11098505178285362, 0.49746925110067538, 1.0)
+_ERF_CLAMP = 3.832506856900711
+# XLA's f32 log1p / log on the CPU: the Cephes rational below sqrt(2) - 1
+# (numerator and denominator, Horner order) and Cephes' logf polynomial
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
 # the kernel's distribution codes (csrc/threefry.cu)
-DISTS = {"bits": 0, "uniform": 1, "normal": 2, "gumbel": 3}
+DISTS = {"bits": 0, "uniform": 1, "normal": 2, "gumbel": 3,
+         "truncated_normal": 4}
 # elements a plain draw computes at once (int64 temporaries of 128 MB)
 PLAIN_CHUNK = 1 << 24
 
@@ -145,10 +172,52 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.double() * b + c).float()
 
 
+def _f32(v: float) -> float:
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+def _log_f32(y: torch.Tensor) -> torch.Tensor:
+    """XLA's fp32 log on the CPU (Cephes' logf as Eigen evaluates it): the
+    mantissa m in [0.5, 1) and exponent e of y, m < sqrt(1/2) shifted up an
+    octave, t = m - 1, a degree-8 polynomial in three parts, every step a
+    fused multiply-add."""
+    m, e = torch.frexp(y.clamp_min(torch.finfo(torch.float32).tiny))
+    e = e.float()
+    low = m < _f32(0.707106781186547524)
+    t = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = e - low.float()
+    t2 = t * t
+    t3 = t2 * t
+    p = [_f32(c) for c in _LOG_P]
+    a = _fma(_fma(torch.full_like(t, p[0]), t, p[1]), t, p[2])
+    b = _fma(_fma(torch.full_like(t, p[3]), t, p[4]), t, p[5])
+    c = _fma(_fma(torch.full_like(t, p[6]), t, p[7]), t, p[8])
+    r = _fma(_fma(a, t3, b), t3, c) * t3
+    r = _fma(e, _f32(-2.12194440e-4), r)
+    t = _fma(t2, -0.5, t) + r
+    return _fma(e, _f32(0.693359375), t)
+
+
+def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's fp32 log1p on the CPU: below sqrt(2) - 1 in magnitude the
+    Cephes rational x - x^2 / 2 + x^3 P(x) / Q(x) (Horner steps as fused
+    multiply-adds), else log(1 + x)."""
+    num = torch.zeros_like(x)
+    for c in _LOG1P_NUM:
+        num = _fma(num, x, _f32(c))
+    den = torch.zeros_like(x)
+    for c in _LOG1P_DEN:
+        den = _fma(den, x, _f32(c))
+    x2 = x * x
+    small = x + (-0.5 * x2 + x * x2 * (num / den))
+    return torch.where(x.abs() < _f32(0.41421356237309504880), small,
+                       _log_f32(x + 1.0))
+
+
 def _erf_inv(x: torch.Tensor) -> torch.Tensor:
     """XLA's fp32 erf_inv: Horner steps as fused multiply-adds, +-inf at
     |x| = 1."""
-    w = -torch.log1p(x * -x)
+    w = -_log1p_f32(x * -x)
     lt = w < 5.0
     ws = torch.where(lt, w + -2.5, torch.sqrt(w) + -3.0).double()
     coef = lambda i: torch.where(lt, _ERFINV_LT5[i], _ERFINV_GE5[i])
@@ -158,15 +227,45 @@ def _erf_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
+def _erf(x: torch.Tensor) -> torch.Tensor:
+    """XLA's fp32 erf (the CPU's): p(x^2) x / q(x^2), Horner steps as
+    fused multiply-adds."""
+    x = x.clamp(-_f32(_ERF_CLAMP), _f32(_ERF_CLAMP))
+    x2 = x * x
+    p = torch.full_like(x2, _f32(_ERF_NUM[0]))
+    for c in _ERF_NUM[1:]:
+        p = _fma(x2, p, _f32(c))
+    q = torch.full_like(x2, _f32(_ERF_DEN[0]))
+    for c in _ERF_DEN[1:]:
+        q = _fma(x2, q, _f32(c))
+    return x * p / q
+
+
 def _bf16_const(v: float) -> float:
     return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+def _tn_bounds(dtype, lower: float, upper: float) -> tuple:
+    """JAX's truncated_normal constants in `dtype`, as Python floats: the
+    uniform's ends (erf(lower / sqrt2), erf(upper / sqrt2)) and the clamp
+    (nextafter(lower, +inf), nextafter(upper, -inf)); bf16 steps computed
+    in fp32 and rounded, as XLA computes bf16 on the host."""
+    ends = torch.tensor([lower, upper], dtype=torch.float32).to(dtype)
+    sqrt2 = torch.tensor(math.sqrt(2), dtype=torch.float32).to(dtype)
+    a, b = _erf((ends.float() / sqrt2.float()).to(dtype).float()).to(dtype)
+    lo = torch.nextafter(ends[0], torch.tensor(math.inf, dtype=dtype))
+    hi = torch.nextafter(ends[1], torch.tensor(-math.inf, dtype=dtype))
+    return float(a), float(b), float(lo), float(hi)
 
 
 def _span(dist: str, dtype, minval: float, maxval: float) -> tuple:
     """(lower end, maxval - minval) of the uniform a draw starts from, as
     Python floats of `dtype`'s values: [minval, maxval) for uniform,
-    (nextafter(-1, 0), 1) for normal, [tiny, 1) for gumbel."""
-    if dist == "gumbel":
+    (nextafter(-1, 0), 1) for normal, [tiny, 1) for gumbel, [erf(minval /
+    sqrt2), erf(maxval / sqrt2)) for truncated_normal."""
+    if dist == "truncated_normal":
+        minval, maxval = _tn_bounds(dtype, minval, maxval)[:2]
+    elif dist == "gumbel":
         minval, maxval = torch.finfo(dtype).tiny, 1.0
     elif dist == "normal":
         minval, maxval = float(torch.nextafter(
@@ -202,9 +301,12 @@ def _rows_plain(keys: torch.Tensor, n: int, dist: str, dtype,
     if dist == "uniform":
         v = u
     elif dist == "gumbel":
-        v = -rnd(torch.log(-rnd(torch.log(u))))
+        v = -rnd(_log_f32(-rnd(_log_f32(u))))
     else:
         v = float(torch.tensor(math.sqrt(2), dtype=dtype)) * rnd(_erf_inv(u))
+        if dist == "truncated_normal":
+            lo, hi = _tn_bounds(dtype, minval, maxval)[2:]
+            v = rnd(v).clamp(lo, hi)
     return v.to(dtype)
 
 
@@ -213,7 +315,8 @@ def draw_plain(rows: Sequence, shape: Sequence[int], dist: str = "normal",
                minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """The plain PyTorch version of `draw`: [R, *shape] on `device`, row r
     of `rows` = (key, step) drawn from row_key(key, step). `bits` are the
-    32-bit values as int64; `uniform` takes [minval, maxval)."""
+    32-bit values as int64; `uniform` takes [minval, maxval),
+    `truncated_normal` the bounds (minval, maxval)."""
     _check_dist(dist, dtype)
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
@@ -272,10 +375,11 @@ def _bind(entry: str = "rsv_threefry"):
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if entry == "rsv_threefry":
-            fn.argtypes = [p, i, ctypes.c_longlong, i, i, f, f, p, p]
+            fn.argtypes = [p, i, ctypes.c_longlong, i, i, f, f, f, f, p, p]
         else:  # rsv_threefry_folded
             u = ctypes.c_uint32
-            fn.argtypes = [p, i, i, ctypes.c_longlong, u, u, i, i, f, f, p, p]
+            fn.argtypes = [p, i, i, ctypes.c_longlong, u, u, i, i, f, f, f,
+                           f, p, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -305,7 +409,9 @@ def launch(table: torch.Tensor, n: int, dist: str, dtype, out: torch.Tensor,
         raise ValueError(f"prng: out holds {out.numel()} elements, not "
                          f"{table.shape[0]} x {n}")
     mn, span = _span(dist, dtype, minval, maxval) if dist != "bits" else (0, 0)
-    tail = (DISTS[dist], int(dtype == torch.bfloat16), mn, span,
+    lo, hi = (_tn_bounds(dtype, minval, maxval)[2:]
+              if dist == "truncated_normal" else (0.0, 0.0))
+    tail = (DISTS[dist], int(dtype == torch.bfloat16), mn, span, lo, hi,
             out.data_ptr())
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
@@ -352,10 +458,11 @@ def draw(rows: Sequence, shape: Sequence[int], dist: str = "normal",
          out: torch.Tensor | None = None) -> torch.Tensor:
     """[R, *shape] draws, row r of `rows` = (key, step) from
     fold_in(key, step), or from key itself when step is None; `dist` one of
-    bits (int64 values of uint32), uniform (on [minval, maxval)), normal
-    or gumbel, each fp32 or bf16. On the card, one launch of the threefry
-    kernel writes them (into `out` when given: contiguous, [R, *shape],
-    `dtype`); on the CPU, `draw_plain`."""
+    bits (int64 values of uint32), uniform (on [minval, maxval)), normal,
+    gumbel or truncated_normal (on (minval, maxval)), each fp32 or bf16.
+    On the card, one launch of the threefry kernel writes them (into `out`
+    when given: contiguous, [R, *shape], `dtype`); on the CPU,
+    `draw_plain`."""
     _check_dist(dist, dtype)
     shape = tuple(int(s) for s in shape)
     device = torch.device(out.device if out is not None else device)
@@ -413,6 +520,16 @@ def uniform(k: Key, shape=(), dtype=torch.float32, minval: float = 0.0,
 def normal(k: Key, shape=(), dtype=torch.float32, device="cpu") -> torch.Tensor:
     """jax.random.normal(k, shape, dtype)."""
     return draw([(k, None)], shape, "normal", dtype, device)[0]
+
+
+def truncated_normal(k: Key, lower: float, upper: float, shape=(),
+                     dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """jax.random.truncated_normal(k, lower, upper, shape, dtype): sqrt(2)
+    erf_inv of a uniform on [erf(lower / sqrt2), erf(upper / sqrt2)),
+    clamped to the open interval (lower, upper); XLA's erf, so the bounds
+    equal JAX's for |bound| < 4.2."""
+    return draw([(k, None)], shape, "truncated_normal", dtype, device, lower,
+                upper)[0]
 
 
 def gumbel(k: Key, shape=(), dtype=torch.float32, device="cpu") -> torch.Tensor:

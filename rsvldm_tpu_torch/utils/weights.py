@@ -1,5 +1,5 @@
 """Weights: JAX parameter trees to the port's state dicts, and seeded random
-init for missing checkpoints.
+init for the modules the JAX package never seeds.
 
 The port's parameter names are the reference torch checkpoints' names, the
 ones rsvldm_tpu/utils/convert.py (SR3, VAE, GLVControl, SDXL UNet) and
@@ -11,6 +11,13 @@ rsvldm_tpu/models/vlm/siglip.py (SigLIP) read. `params_from_jax` is the inverse 
 tree (numpy leaves) becomes a state dict that the port's module loads with
 strict=True. Layouts: Flax conv [kh, kw, in, out] -> torch [out, in, kh, kw];
 dense [in, out] -> [out, in]; norm scale -> weight.
+
+Where the JAX package seeds weights itself (the pipeline's six families,
+the SR3 trainer, train_vlm --smoke's decoder and projector) the port draws
+JAX's from its keys (utils/jax_init.py). `seeded_init_` / `init_params_`
+(torch generators) stay for the seeded modules with no JAX counterpart:
+`LlavaCaptioner.seeded`, the vision towers (`towers.build_vision_tower`)
+and chip_smoke.py's drafts, families and test modules.
 """
 
 from __future__ import annotations
@@ -34,19 +41,38 @@ FAMILIES = ("sr3", "vae", "control", "unet", "clip_l", "big_g", "llama",
 
 
 def _arr(x) -> torch.Tensor:
+    """A leaf as a tensor: a torch tensor as it is (device and dtype kept),
+    anything else as an fp32 copy on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _a(x):
+    """A leaf for a layout move: a torch tensor as it is, else numpy."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _perm(x, *dims):
+    x = _a(x)
+    return x.permute(*dims) if isinstance(x, torch.Tensor) else x.transpose(dims)
+
+
+def _cat(xs):
+    xs = [_a(x) for x in xs]
+    return torch.cat(xs) if isinstance(xs[0], torch.Tensor) else np.concatenate(xs)
 
 
 class _SD(dict):
     """State dict under construction, with the Flax -> torch layout rules."""
 
     def conv(self, prefix, p):
-        self[f"{prefix}.weight"] = _arr(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        self[f"{prefix}.weight"] = _arr(_perm(p["kernel"], 3, 2, 0, 1))
         if "bias" in p:
             self[f"{prefix}.bias"] = _arr(p["bias"])
 
     def dense(self, prefix, p):
-        self[f"{prefix}.weight"] = _arr(np.asarray(p["kernel"]).T)
+        self[f"{prefix}.weight"] = _arr(_a(p["kernel"]).T)
         if "bias" in p:
             self[f"{prefix}.bias"] = _arr(p["bias"])
 
@@ -256,7 +282,7 @@ def _clip_l(p, cfg) -> _SD:
         sd.dense(f"{lp}.mlp.fc1", b["mlp_fc"])
         sd.dense(f"{lp}.mlp.fc2", b["mlp_proj"])
     if cfg.use_text_projection:
-        sd["text_projection.weight"] = _arr(np.asarray(p["text_projection"]).T)
+        sd["text_projection.weight"] = _arr(_a(p["text_projection"]).T)
     return sd
 
 
@@ -270,10 +296,10 @@ def _big_g(p, cfg) -> _SD:
     for i in range(cfg.layers):
         lp, b = f"transformer.resblocks.{i}", p[f"block_{i}"]
         a = b["attn"]
-        sd[f"{lp}.attn.in_proj_weight"] = _arr(np.concatenate(
-            [np.asarray(a[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")]))
-        sd[f"{lp}.attn.in_proj_bias"] = _arr(np.concatenate(
-            [np.asarray(a[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")]))
+        sd[f"{lp}.attn.in_proj_weight"] = _arr(_cat(
+            [_a(a[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")]))
+        sd[f"{lp}.attn.in_proj_bias"] = _arr(_cat(
+            [_a(a[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")]))
         sd.dense(f"{lp}.attn.out_proj", a["out_proj"])
         sd.norm(f"{lp}.ln_1", b["ln_1"])
         sd.norm(f"{lp}.ln_2", b["ln_2"])
@@ -317,7 +343,7 @@ def _moe(sd, lp, m, cfg):
         mp, names = f"{lp}.mlp", ("gate_proj", "up_proj", "down_proj")
     sd.dense(f"{mp}.gate", m["router"])
     for stack, name in zip(("experts_gate", "experts_up", "experts_down"), names):
-        w = np.asarray(m[stack])
+        w = _a(m[stack])
         for e in range(w.shape[0]):
             sd[f"{mp}.experts.{e}.{name}.weight"] = _arr(w[e].T)
     if "shared_gate_proj" in m:
@@ -359,7 +385,7 @@ def _projector(p, cfg) -> _SD:
     sd = _SD()
     n = len([k for k in p if k.startswith("fc")])
     if n == 1:
-        sd["weight"] = _arr(np.asarray(p["fc0"]["kernel"]).T)
+        sd["weight"] = _arr(_a(p["fc0"]["kernel"]).T)
         sd["bias"] = _arr(p["fc0"]["bias"])
         return sd
     for i in range(n):
@@ -409,10 +435,10 @@ def _openclip_vision(p, cfg) -> _SD:
     for i in range(cfg.layers):
         lp, b = f"transformer.resblocks.{i}", p[f"block_{i}"]
         qkv = [b[n] for n in ("q_proj", "k_proj", "v_proj")]
-        sd[f"{lp}.attn.in_proj_weight"] = _arr(np.concatenate(
-            [np.asarray(x["kernel"]).T for x in qkv]))
-        sd[f"{lp}.attn.in_proj_bias"] = _arr(np.concatenate(
-            [np.asarray(x["bias"]) for x in qkv]))
+        sd[f"{lp}.attn.in_proj_weight"] = _arr(_cat(
+            [_a(x["kernel"]).T for x in qkv]))
+        sd[f"{lp}.attn.in_proj_bias"] = _arr(_cat(
+            [_a(x["bias"]) for x in qkv]))
         sd.dense(f"{lp}.attn.out_proj", b["out_proj"])
         sd.norm(f"{lp}.ln_1", b["ln_1"])
         sd.norm(f"{lp}.ln_2", b["ln_2"])
@@ -434,8 +460,8 @@ def _eva(p, cfg) -> _SD:
     """The vendored EVA tree's names (convert_eva_vision), its last block
     absent as in the tower."""
     sd = _SD()
-    sd["cls_token"] = _arr(np.asarray(p["cls_token"]).reshape(1, 1, -1))
-    sd["pos_embed"] = _arr(np.asarray(p["pos_embed"])[None])
+    sd["cls_token"] = _arr(_a(p["cls_token"]).reshape(1, 1, -1))
+    sd["pos_embed"] = _arr(_a(p["pos_embed"])[None])
     sd.conv("patch_embed.proj", p["patch_embed"])
     for i in range(cfg.layers - 1):
         lp, b = f"blocks.{i}", p[f"block_{i}"]
@@ -444,13 +470,13 @@ def _eva(p, cfg) -> _SD:
         sd.dense(f"{lp}.attn.proj", b["proj"])
         if cfg.subln:
             for n in ("q_proj", "k_proj", "v_proj"):
-                sd[f"{lp}.attn.{n}.weight"] = _arr(np.asarray(b[n]["kernel"]).T)
+                sd[f"{lp}.attn.{n}.weight"] = _arr(_a(b[n]["kernel"]).T)
             if cfg.qkv_bias:
                 sd[f"{lp}.attn.q_bias"] = _arr(b["q_proj"]["bias"])
                 sd[f"{lp}.attn.v_bias"] = _arr(b["v_proj"]["bias"])
             sd.norm(f"{lp}.attn.inner_attn_ln", b["inner_attn_ln"])
         else:
-            sd[f"{lp}.attn.qkv.weight"] = _arr(np.asarray(b["qkv"]["kernel"]).T)
+            sd[f"{lp}.attn.qkv.weight"] = _arr(_a(b["qkv"]["kernel"]).T)
             if cfg.qkv_bias:
                 sd[f"{lp}.attn.q_bias"] = _arr(b["q_bias"])
                 sd[f"{lp}.attn.v_bias"] = _arr(b["v_bias"])
@@ -486,7 +512,7 @@ def _t5(p, cfg) -> _SD:
 def _qformer(p, cfg) -> _SD:
     """The BLIP-2 Q-Former resampler's names (convert_qformer)."""
     sd = _SD()
-    sd["query_tokens"] = _arr(np.asarray(p["query_tokens"])[None])
+    sd["query_tokens"] = _arr(_a(p["query_tokens"])[None])
     sd.norm("ln_vision", p["ln_vision"])
     sd.norm("Qformer.bert.embeddings.LayerNorm", p["emb_ln"])
     for i in range(cfg.layers):
@@ -532,8 +558,10 @@ _FROM_JAX = {"sr3": _sr3, "vae": _vae, "control": _control, "unet": _unet,
 
 
 def params_from_jax(family: str, tree: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """The JAX package's Flax tree of `family` (numpy leaves, with or
-    without the top-level "params") -> the port's state dict (fp32 CPU)."""
+    """The JAX package's Flax tree of `family` (with or without the
+    top-level "params") -> the port's state dict: numpy (or JAX) leaves
+    give fp32 CPU tensors; torch leaves keep their device and dtype, and
+    their layout moves are views (permutes), concatenations aside."""
     if family not in _FROM_JAX:
         raise ValueError(f"unknown family {family!r}, expected one of {FAMILIES}")
     p = tree.get("params", tree)
@@ -556,11 +584,12 @@ def llava_from_jax(llama_tree, vision_tree, projector_tree, image_newline,
 # ---------------------------------------------------------- random init
 @torch.no_grad()
 def seeded_init_(module: nn.Module, family: str, device: torch.device) -> nn.Module:
-    """Seeded random init for a missing checkpoint, in place, on `device`,
-    with the magnitudes of the JAX pipeline's smoke init: biases 0, norm
-    weights (GroupNorm, LayerNorm, RMSNorm) 1, conv/linear weights
-    N(0, 1/fan_in), embeddings N(0, 0.02^2).
-    The seed is crc32 of the family name."""
+    """Seeded random init of a module the JAX package never seeds (the
+    captioner's seeded parts, the towers), in place, on `device`, with the
+    magnitudes of the JAX pipeline's smoke init: biases 0, norm weights
+    (GroupNorm, LayerNorm, RMSNorm) 1, conv/linear weights N(0, 1/fan_in),
+    embeddings N(0, 0.02^2); a torch generator seeded with crc32 of the
+    family name. The families JAX seeds take utils/jax_init.py."""
     return init_params_(module, seeded_generator(family, device))
 
 
@@ -575,8 +604,7 @@ def seeded_generator(family: str, device: torch.device) -> torch.Generator:
 @torch.no_grad()
 def init_params_(module: nn.Module, gen: torch.Generator | int) -> nn.Module:
     """seeded_init_'s rule with draws from `gen` (on the module's device;
-    an int seeds one there): a fresh model to train, its seeded weights not
-    JAX's."""
+    an int seeds one there), for modules the JAX package never seeds."""
     if isinstance(gen, int):
         dev = next(module.parameters()).device
         gen = torch.Generator(device=dev).manual_seed(gen)

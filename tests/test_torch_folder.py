@@ -218,8 +218,11 @@ def test_refine_group_key_equals_jax(size, min_size, bucket):
 
 # ------------------------------------------------ loops kept across calls
 def _port(work, draws, stage1=None, **refine):
+    # params_dtype bf16: the JAX pipeline's bf16 rule seeds the weights
+    # (fp32 on the CPU all the same); Flax's init, which fp32 would take,
+    # zeroes the denoiser's output and would hide a stale kept loop
     cfg = PipelineConfig(ckpt_dir=str(work / "none"), output_dir=str(work),
-                         seed=1, no_llava=True, params_dtype="fp32",
+                         seed=1, no_llava=True, params_dtype="bf16",
                          stage1=Stage1Config(steps=STEPS1, **(stage1 or {})),
                          refine=RefinementConfig(min_size=64, **refine))
     return SuperResolutionPipeline(cfg, device="cpu", model_cfgs=TORCH_TINY,
